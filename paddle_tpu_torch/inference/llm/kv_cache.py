@@ -1,0 +1,363 @@
+"""Paged KV cache for the serving engine.
+
+Counterpart of ``paddle_tpu/inference/llm/kv_cache.py`` (single device,
+float pools). Sequences of different lengths share ONE preallocated
+pool of fixed-size pages ``[L, P, page, H, D]`` on the device,
+addressed through a per-slot page table. The host side is pure Python
+ints: a free list, reserve-ahead ``allocate`` (every page a sequence
+can touch is reserved at admission, so a running sequence never runs
+out of pages), and a refcounted prefix cache over FULL prompt pages,
+keyed by the same rolling SHA-256 block digests as the JAX cache, so
+both caches agree on what a prefix hit is.
+
+Page 0 is the reserved *garbage page*: page-table entries of unmapped
+positions point at it, and padding tokens scatter their K/V into it,
+which keeps every scatter and gather shape static.
+
+The page table is a flat ``[max_slots, pages_per_seq]`` int32 array
+the engine uploads whenever ``page_table_version`` moves. The JAX
+cache's two-level table, host swap tier and cold-prefix demotion come
+with later slices; this ``CacheConfig`` rejects settings that need them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ...device import resolve_device
+from ...kernels.paged_attention import ragged_rows
+
+__all__ = ["GARBAGE_PAGE", "CacheConfig", "PagedKVCache",
+           "ragged_page_indices"]
+
+GARBAGE_PAGE = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    """Geometry of the paged pool (float32 pools); the fields and
+    defaults of the JAX ``CacheConfig`` that a single-device float
+    cache reads.
+
+    ``num_pages`` includes the reserved garbage page, so the usable pool
+    is ``num_pages - 1`` pages of ``page_size`` tokens each.
+    ``swap_pages`` and ``demote_cold_prefix`` exist so that configs can
+    be written alike on both sides; the host swap tier they drive comes
+    with the preemption slice, so only 0 / False are accepted here."""
+
+    num_layers: int
+    num_heads: int
+    head_dim: int
+    num_pages: int = 128
+    page_size: int = 16
+    max_slots: int = 8
+    max_seq_len: int = 512
+    prefix_cache: bool = True
+    swap_pages: int = 0
+    demote_cold_prefix: bool = False
+
+    def __post_init__(self):
+        if self.swap_pages != 0 or self.demote_cold_prefix:
+            raise NotImplementedError(
+                "the host swap tier and cold-prefix demotion come with the "
+                "preemption slice of the port; use swap_pages=0, "
+                "demote_cold_prefix=False")
+
+    @property
+    def pages_per_seq(self) -> int:
+        return -(-self.max_seq_len // self.page_size)
+
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-max(n_tokens, 1) // self.page_size)
+
+
+class PagedKVCache:
+    """Preallocated K/V pools + page table + a host-side free list.
+
+    Allocation is *reserve-ahead*: ``allocate(slot, n)`` reserves every
+    page the sequence can ever touch (prompt + max new tokens), so
+    backpressure happens in exactly one place, the scheduler's
+    admission check."""
+
+    def __init__(self, config: CacheConfig, device=None):
+        c = config
+        if c.num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
+        self.config = c
+        self.device = resolve_device(device)
+        shape = (c.num_layers, c.num_pages, c.page_size, c.num_heads,
+                 c.head_dim)
+        self.k_pool = torch.zeros(shape, dtype=torch.float32,
+                                  device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=torch.float32,
+                                  device=self.device)
+        self._page_table = np.full((c.max_slots, c.pages_per_seq),
+                                   GARBAGE_PAGE, dtype=np.int32)
+        # every mutation of the page table bumps this, so the engine
+        # re-uploads the device copy only after allocate/release
+        self.page_table_version = 0
+        self.seq_lens = np.zeros((c.max_slots,), dtype=np.int32)
+        self._free: List[int] = list(range(c.num_pages - 1, GARBAGE_PAGE, -1))
+        self._allocated_pages: Dict[int, List[int]] = {
+            s: [] for s in range(c.max_slots)}
+        # prefix cache: refcount[p] = slots whose page table maps p; a
+        # cached page at refcount 0 parks on the _evictable LRU (front =
+        # least recently released) instead of returning to the free list
+        self._refcount = np.zeros((c.num_pages,), dtype=np.int64)
+        self._prefix_map: Dict[bytes, int] = {}    # rolling digest -> page
+        self._page_key: Dict[int, bytes] = {}      # page -> rolling digest
+        self._evictable: "OrderedDict[int, None]" = OrderedDict()
+        self._prefix_lens = {s: 0 for s in range(c.max_slots)}
+        self._n_shared = 0           # pages mapped by >= 2 slots
+        self.prefix_hits = 0         # pages served from the cache
+        self.prefix_evictions = 0
+
+    # -------------------------------------------------------- page table --
+    @property
+    def page_table(self) -> np.ndarray:
+        """Flat ``[max_slots, pages_per_seq]`` page table, read-only (a
+        write would bypass ``page_table_version``)."""
+        view = self._page_table.view()
+        view.setflags(write=False)
+        return view
+
+    def _set_slot_pages(self, slot: int, pages: List[int]) -> None:
+        self._page_table[slot, :] = GARBAGE_PAGE
+        self._page_table[slot, :len(pages)] = pages
+        self.page_table_version += 1
+
+    # ---------------------------------------------------------- allocator --
+    @property
+    def num_free_pages(self) -> int:
+        """Pages a fresh allocation can claim: the free list plus cached
+        pages no live slot maps (evictable on demand)."""
+        return len(self._free) + len(self._evictable)
+
+    @property
+    def num_cached_pages(self) -> int:
+        return len(self._evictable)
+
+    @property
+    def pages_in_use(self) -> int:
+        """Distinct pages mapped by at least one live slot."""
+        return self.config.num_pages - 1 - self.num_free_pages
+
+    @property
+    def slot_page_capacity(self) -> int:
+        """Pages one slot can ever map: its page-table row, capped by
+        the usable pool."""
+        return min(self.config.pages_per_seq, self.config.num_pages - 1)
+
+    def prefix_len(self, slot: int) -> int:
+        """Tokens of ``slot``'s prompt served from the prefix cache by
+        its ``allocate`` (KV already resident — prefill starts there)."""
+        return self._prefix_lens[slot]
+
+    def _block_hashes(self, prompt: Sequence[int]) -> List[bytes]:
+        """Rolling SHA-256 digest per FULL page of ``prompt``: block i's
+        key folds in every token of blocks 0..i (as int64 bytes), so
+        equal keys mean equal prefixes. The JAX cache salts the chain
+        with its quant config; with quantization off (the only mode
+        here) its salt is empty, as here, so the digests are equal."""
+        ps = self.config.page_size
+        keys: List[bytes] = []
+        digest = b""
+        for i in range(len(prompt) // ps):
+            block = np.asarray(prompt[i * ps:(i + 1) * ps],
+                               dtype=np.int64).tobytes()
+            digest = hashlib.sha256(digest + block).digest()
+            keys.append(digest)
+        return keys
+
+    def _match_prefix(self, prompt: Optional[Sequence[int]],
+                      hashes: Optional[List[bytes]] = None) -> List[int]:
+        """Longest run of cached pages covering ``prompt``'s head. Always
+        leaves >= 1 prompt token uncovered: prefill must still run the
+        tail to produce the last-position logits the sampler needs."""
+        if not self.config.prefix_cache or not prompt:
+            return []
+        pages = []
+        for key in (hashes if hashes is not None
+                    else self._block_hashes(prompt)):
+            page = self._prefix_map.get(key)
+            if page is None:
+                break
+            pages.append(page)
+        if pages and len(pages) * self.config.page_size >= len(prompt):
+            pages.pop()
+        return pages
+
+    def _avail_for(self, matched: List[int]) -> int:
+        """Pages a fresh allocation can still claim given that
+        ``matched`` cached pages will be mapped (not evicted)."""
+        return (len(self._free) + len(self._evictable)
+                - sum(1 for p in matched if self._refcount[p] == 0))
+
+    def can_allocate(self, n_tokens: int,
+                     prompt: Optional[Sequence[int]] = None,
+                     hashes: Optional[List[bytes]] = None) -> bool:
+        need = self.config.pages_for(n_tokens)
+        if need > self.config.pages_per_seq:
+            return False
+        matched = self._match_prefix(prompt, hashes)
+        return need - len(matched) <= self._avail_for(matched)
+
+    def _evict_one(self) -> int:
+        """Reclaim the least-recently-released cached page (refcount 0
+        by construction — a mapped page is never on the LRU)."""
+        page, _ = self._evictable.popitem(last=False)
+        key = self._page_key.pop(page)
+        del self._prefix_map[key]
+        self.prefix_evictions += 1
+        return page
+
+    def allocate(self, slot: int, n_tokens: int,
+                 prompt: Optional[Sequence[int]] = None,
+                 hashes: Optional[List[bytes]] = None) -> bool:
+        """Reserve pages for a sequence of up to ``n_tokens`` in ``slot``.
+
+        With ``prompt`` given (and prefix caching on), full prompt pages
+        already in the cache are mapped read-only into the slot's page
+        table (refcount++) and only the remainder takes fresh pages;
+        ``prefix_len(slot)`` reports the covered token count. Returns
+        False (mutating nothing) when the pool cannot satisfy it."""
+        if self._allocated_pages[slot]:
+            raise RuntimeError(f"slot {slot} already holds an allocation")
+        need = self.config.pages_for(n_tokens)
+        if need > self.config.pages_per_seq:
+            return False
+        matched = self._match_prefix(prompt, hashes)
+        if need - len(matched) > self._avail_for(matched):
+            return False
+        pages: List[int] = []
+        for page in matched:
+            if self._refcount[page] == 0:      # cached -> mapped again
+                del self._evictable[page]
+            self._refcount[page] += 1
+            if self._refcount[page] == 2:
+                self._n_shared += 1
+            pages.append(page)
+        for _ in range(need - len(matched)):
+            page = self._free.pop() if self._free else self._evict_one()
+            self._refcount[page] = 1
+            pages.append(page)
+        self._allocated_pages[slot] = pages
+        self._set_slot_pages(slot, pages)
+        self.seq_lens[slot] = 0
+        self._prefix_lens[slot] = len(matched) * self.config.page_size
+        self.prefix_hits += len(matched)
+        return True
+
+    def commit_prefix(self, slot: int, prompt: Sequence[int],
+                      hashes: Optional[List[bytes]] = None) -> int:
+        """Register ``slot``'s now-prefilled FULL prompt pages in the
+        prefix map (idempotent; pages already cached or keys already
+        owned by another page are skipped). Call once the prompt's KV
+        is resident, i.e. after prefill. Returns pages registered."""
+        if not self.config.prefix_cache or not prompt:
+            return 0
+        pages = self._allocated_pages[slot]
+        keys = hashes if hashes is not None else self._block_hashes(prompt)
+        n_new = 0
+        for i, key in enumerate(keys[:len(pages)]):
+            page = pages[i]
+            if page in self._page_key or key in self._prefix_map:
+                continue
+            self._prefix_map[key] = page
+            self._page_key[page] = key
+            n_new += 1
+        return n_new
+
+    def release(self, slot: int) -> None:
+        """Drop ``slot``'s mapping: refcount-- on every page; uncached
+        pages at refcount 0 return to the free list, cached ones park on
+        the eviction LRU. Raises instead of corrupting the pool on a
+        double free or a garbage-page free."""
+        pages = self._allocated_pages[slot]
+        if not pages:
+            raise RuntimeError(f"double free: slot {slot} holds no allocation")
+        for page in pages:
+            if page == GARBAGE_PAGE:
+                raise RuntimeError(
+                    f"slot {slot} maps the reserved garbage page — "
+                    "pool metadata corrupted")
+            if self._refcount[page] <= 0:
+                raise RuntimeError(
+                    f"free of unallocated page {page} (slot {slot}) — "
+                    "refcount underflow")
+        freed: List[int] = []
+        for page in pages:
+            self._refcount[page] -= 1
+            if self._refcount[page] == 1:
+                self._n_shared -= 1
+            elif self._refcount[page] == 0:
+                if page in self._page_key:
+                    self._evictable[page] = None    # MRU end of the LRU
+                else:
+                    freed.append(page)
+        self._free.extend(reversed(freed))
+        self._allocated_pages[slot] = []
+        self._set_slot_pages(slot, [])
+        self.seq_lens[slot] = 0
+        self._prefix_lens[slot] = 0
+
+    def check_invariants(self) -> None:
+        """Accounting and refcount invariants; raises ``AssertionError``
+        naming the first one broken."""
+        c = self.config
+        mapped: Dict[int, int] = {}
+        for ps in self._allocated_pages.values():
+            for p in ps:
+                mapped[p] = mapped.get(p, 0) + 1
+        _check(GARBAGE_PAGE not in mapped, "garbage page handed out")
+        for p, n in mapped.items():
+            _check(self._refcount[p] == n,
+                   f"page {p} refcount {self._refcount[p]} != {n} mappings")
+        _check(not set(self._evictable) & set(mapped),
+               "cached page still mapped by a live slot")
+        for p in self._evictable:
+            _check(self._refcount[p] == 0, "evictable page has references")
+        _check(sorted(list(self._free) + list(self._evictable)
+                      + list(mapped)) == list(range(1, c.num_pages)),
+               "free list + cached pages + allocations must partition the "
+               "pool")
+        for page, key in self._page_key.items():
+            _check(self._prefix_map.get(key) == page,
+                   "prefix map / page key desynchronized")
+        _check(self._n_shared == sum(1 for n in mapped.values() if n >= 2),
+               "shared-page count desynchronized")
+        for s, ps in self._allocated_pages.items():
+            _check(self.seq_lens[s] <= len(ps) * c.page_size,
+                   f"slot {s} overflowed its reservation")
+            row = self._page_table[s]
+            _check(list(row[:len(ps)]) == ps
+                   and bool((row[len(ps):] == GARBAGE_PAGE).all()),
+                   f"slot {s} page table desynchronized from its pages")
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def ragged_page_indices(page_table, q_starts, q_lens, kv_lens, width: int,
+                        page_size: int):
+    """Per-FLAT-token (pages [N], offs [N], pos [N], valid [N]) for the
+    unified ragged step: token i of the flat block belongs to the row b
+    with ``q_starts[b] <= i < q_starts[b] + q_lens[b]`` and its K/V
+    scatters to that row's page for global position
+    ``kv_lens[b] - q_lens[b] + (i - q_starts[b])`` — the addressing rule
+    the attention masks (``ragged_rows``) share. Tokens covered by no
+    row are padding: routed to the garbage page at a clamped
+    position."""
+    row, _, pos, valid = ragged_rows(q_starts, q_lens, kv_lens, width)
+    n_pages = page_table.shape[1]
+    cpos = torch.clamp(pos, max=n_pages * page_size - 1)
+    pages = torch.where(valid, page_table[row.long(), (cpos // page_size).long()],
+                        torch.full_like(cpos, GARBAGE_PAGE))
+    return pages, cpos % page_size, cpos, valid

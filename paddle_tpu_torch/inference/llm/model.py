@@ -1,0 +1,191 @@
+"""Decoder-only LM forward for the serving engine.
+
+Counterpart of ``paddle_tpu/inference/llm/model.py``: a standard
+pre-LN GPT block stack (learned positional embeddings, tied output
+head) over a parameter dict with the JAX package's names and layouts,
+including the head-major packed ``wqkv [d, 3, H*D]``. The serving path
+is :func:`lm_ragged_step` — one mixed step over a flat ragged token
+block, single device, float32 — which writes each layer's new K/V into
+the paged pools IN PLACE (JAX returns new pools; here the step owns the
+engine's pools and updates them where they lie).
+
+Numerics follow the reference: LayerNorm with population variance and
+eps 1e-5, the tanh-approximate GELU (``jax.nn.gelu``'s default),
+positions clamped to ``max_seq_len - 1``, logits through the tied
+embedding.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...device import resolve_device
+from ...kernels.paged_attention import ragged_attention
+from .kv_cache import ragged_page_indices
+
+__all__ = ["ModelSpec", "TorchLM", "init_lm_params", "params_from_jax",
+           "lm_ragged_step", "resolve_carry_tokens", "step_carry"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    vocab: int
+    d_model: int
+    num_layers: int
+    num_heads: int
+    head_dim: int
+    max_seq_len: int
+
+
+def _param_shapes(spec: ModelSpec) -> Dict[str, tuple]:
+    hd = spec.num_heads * spec.head_dim
+    shapes = {"embed": (spec.vocab, spec.d_model),
+              "pos": (spec.max_seq_len, spec.d_model)}
+    for l in range(spec.num_layers):
+        shapes.update({
+            f"l{l}.ln1_g": (spec.d_model,), f"l{l}.ln1_b": (spec.d_model,),
+            f"l{l}.wqkv": (spec.d_model, 3, hd),
+            f"l{l}.wo": (hd, spec.d_model),
+            f"l{l}.ln2_g": (spec.d_model,), f"l{l}.ln2_b": (spec.d_model,),
+            f"l{l}.wfc": (spec.d_model, 4 * spec.d_model),
+            f"l{l}.wproj": (4 * spec.d_model, spec.d_model),
+        })
+    shapes.update({"lnf_g": (spec.d_model,), "lnf_b": (spec.d_model,)})
+    return shapes
+
+
+def init_lm_params(spec: ModelSpec, seed: int = 0,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """Seeded random float32 parameters with the reference's names,
+    shapes and scales (LayerNorm gains 1, biases 0, weights N(0, 0.02)),
+    drawn from a ``torch.Generator`` on ``device``. The values differ
+    from ``JaxLM``'s (threefry); to serve the reference's exact weights
+    carry them across with :func:`params_from_jax`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {}
+    for name, shape in sorted(_param_shapes(spec).items()):
+        if name.endswith("_g"):
+            params[name] = torch.ones(shape, device=dev)
+        elif name.endswith("_b"):
+            params[name] = torch.zeros(shape, device=dev)
+        else:
+            params[name] = 0.02 * torch.randn(shape, generator=gen,
+                                              device=dev)
+    return params
+
+
+def params_from_jax(np_params: Mapping[str, np.ndarray],
+                    device=None) -> Dict[str, torch.Tensor]:
+    """The reference's parameters (``JaxLM.params`` as numpy arrays,
+    same names and layouts) as float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(np.array(arr, dtype=np.float32)).to(dev)
+            for name, arr in np_params.items()}
+
+
+def _ln(x, g, b):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * g + b
+
+
+def _qkv(p, l, h):
+    """``h [..., d] -> (q, k, v)`` each ``[..., H*D]`` through the
+    head-major packed ``wqkv [d, 3, H*D]``: one contraction over
+    ``d_model``."""
+    qkv = torch.einsum("...d,dch->...ch", h, p[f"l{l}.wqkv"])
+    return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+
+
+def _mlp(p, l, x):
+    h = F.gelu(x @ p[f"l{l}.wfc"], approximate="tanh")
+    return h @ p[f"l{l}.wproj"]
+
+
+def resolve_carry_tokens(tokens, tok_src, carry):
+    """The step's input tokens against the device-resident carry: flat
+    positions with ``tok_src[i] >= 0`` take ``carry[tok_src[i]]`` (the
+    slot's last sampled token, never round-tripped through the host)
+    instead of ``tokens[i]``. ``tok_src == -1`` everywhere (the serial
+    engine) returns ``tokens``."""
+    src = torch.clamp(tok_src, 0, carry.shape[0] - 1).long()
+    return torch.where(tok_src >= 0, carry[src], tokens)
+
+
+def step_carry(toks, q_starts, q_lens, carry_in):
+    """The next step's carry: slots that sampled this step (``q_lens >
+    0``) take their row's LAST sampled token (``toks[q_starts + q_lens
+    - 1]``); idle slots keep their previous entry."""
+    last = torch.clamp(q_starts + q_lens - 1, 0, toks.shape[0] - 1).long()
+    return torch.where(q_lens > 0, toks[last], carry_in).to(torch.int32)
+
+
+def lm_ragged_step(params, spec: ModelSpec, tokens, q_starts, q_lens,
+                   kv_lens, k_pool, v_pool, page_table, attn_tier="auto",
+                   max_q_len: Optional[int] = None):
+    """ONE mixed step for the whole engine, single device, float32.
+
+    tokens [N]: a flat ragged token block — row b (slot b of
+    ``page_table``) owns flat positions ``q_starts[b] .. q_starts[b] +
+    q_lens[b])``: a prefill-chunk row carries its chunk, a decode row
+    its one pending token, an idle slot has ``q_lens[b] == 0``.
+    ``kv_lens [B]`` are POST-step resident lengths. Each layer scatters
+    every valid token's K/V into its row's pages of ``k_pool``/
+    ``v_pool`` ``[L, P, page, H, D]`` IN PLACE (padding tokens route to
+    the garbage page) BEFORE attending the whole flat block through the
+    page table in one :func:`ragged_attention` dispatch. ``max_q_len``
+    (the largest ``q_lens`` entry, known on the host) only sizes the
+    kernel's grid. Returns logits ``[N, V]``: row t's logits are the
+    distribution of the token after global position ``kv_lens[b] -
+    q_lens[b] + t``; padding rows carry no meaning."""
+    N = tokens.shape[0]
+    H, D = spec.num_heads, spec.head_dim
+    pages, offs, pos, _ = ragged_page_indices(
+        page_table, q_starts, q_lens, kv_lens, N, k_pool.shape[2])
+    pages, offs = pages.long(), offs.long()
+    emb_pos = torch.clamp(pos, max=spec.max_seq_len - 1).long()
+    x = params["embed"][tokens.long()] + params["pos"][emb_pos]
+    for l in range(spec.num_layers):
+        h = _ln(x, params[f"l{l}.ln1_g"], params[f"l{l}.ln1_b"])
+        q, k, v = _qkv(params, l, h)
+        q = q.reshape(N, H, D).contiguous()
+        # every padding token writes the garbage page: duplicate indices
+        # keep an arbitrary one of their values, which is harmless
+        # because page 0 is never inside any row's kv_len
+        k_pool[l].index_put_((pages, offs), k.reshape(N, H, D))
+        v_pool[l].index_put_((pages, offs), v.reshape(N, H, D))
+        attn = ragged_attention(q, k_pool[l], v_pool[l], page_table,
+                                kv_lens, q_starts, q_lens, tier=attn_tier,
+                                max_q_len=max_q_len)
+        x = x + attn.reshape(N, H * D) @ params[f"l{l}.wo"]
+        x = x + _mlp(params, l, _ln(x, params[f"l{l}.ln2_g"],
+                                    params[f"l{l}.ln2_b"]))
+    x = _ln(x, params["lnf_g"], params["lnf_b"])
+    return x @ params["embed"].T
+
+
+class TorchLM:
+    """Bundle of (spec, params, device) the engine serves; the
+    counterpart of ``JaxLM``."""
+
+    def __init__(self, spec: ModelSpec, params: Dict[str, torch.Tensor],
+                 device=None):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.params = {name: t.to(self.device) for name, t in params.items()}
+
+    @classmethod
+    def tiny(cls, vocab=128, d_model=32, num_layers=2, num_heads=2,
+             head_dim=16, max_seq_len=256, seed=0, device=None) -> "TorchLM":
+        """``JaxLM.tiny``'s signature, plus ``device``; the weights are
+        seeded from a ``torch.Generator`` (see :func:`init_lm_params`)."""
+        spec = ModelSpec(vocab=vocab, d_model=d_model, num_layers=num_layers,
+                         num_heads=num_heads, head_dim=head_dim,
+                         max_seq_len=max_seq_len)
+        return cls(spec, init_lm_params(spec, seed=seed, device=device),
+                   device=device)

@@ -1,0 +1,18 @@
+"""Serving policy defaults the port's engine reads.
+
+The JAX package parses these from its native host's header; the port
+keeps its own copy of the values instead, so that it reads nothing of
+that package. ``tests/test_torch_isolation.py`` pins every constant here
+against the JAX package's ``shared_policy()`` (with no ``PD_*``
+environment set), so a drifted copy fails there.
+"""
+from __future__ import annotations
+
+__all__ = ["MAX_QUEUE", "DEFAULT_CHUNK_TOKENS", "STEP_TOKEN_BUDGET",
+           "DEFAULT_SPEC_TOKENS", "ASYNC_DEPTH"]
+
+MAX_QUEUE = 1024             # admission ceiling (waiting-queue depth)
+DEFAULT_CHUNK_TOKENS = 0     # chunked-prefill token budget (0 = off)
+STEP_TOKEN_BUDGET = 0        # ragged tokens packed per mixed step (0 = off)
+DEFAULT_SPEC_TOKENS = 0      # speculative-decode draft budget (0 = off)
+ASYNC_DEPTH = 0              # dispatched-ahead steps (0 = serial commit)
