@@ -4,23 +4,34 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-(``--profile`` adds one more engine run under ``torch.profiler`` and
-prints where the device time goes.)
+(``--profile`` adds one more run of the main engine path under
+``torch.profiler`` and prints where the device time goes.)
 
 It builds every CUDA kernel of the serving path from the sources in
-``paddle_tpu_torch/kernels/csrc`` (into ``paddle_tpu_torch/kernels/build``),
-holds each kernel against its plain PyTorch version at the main path's
-shapes, drives the serving engine (``GenerationEngine`` over a
-GPT-2-small-width ``TorchLM`` with seeded random weights) through a few
-requests, checks that the path went through the kernels, and times each
-kernel beside its bound, its plain version and a library call. The last
-two lines of its output are a JSON object of per-kernel numbers and the
-JSON result line. Any failed phase raises; there is no CPU fallback:
-without CUDA it exits non-zero and prints no result.
+``paddle_tpu_torch/kernels/csrc`` (into ``paddle_tpu_torch/kernels/build``,
+one ``nvcc`` per source, all at once), holds each kernel against its
+plain PyTorch version at the main paths' shapes, and drives the serving
+engine through each path with the launch counts reset just before and
+read just after:
+
+- the float path: ``GenerationEngine`` over a GPT-2-small-width
+  ``TorchLM`` (float32 pages), unsplit and with the KV split;
+- the main path of quantized long-context serving: GPT-3 XL widths at
+  full depth, 2048-token context, int8 KV pages, int8 weights and the
+  KV split (16-page chunks), then the same traffic unsplit;
+- fp8 KV pages at GPT-3 XL widths, four layers, split and unsplit.
+
+It checks that each path went through its kernel and no other, times
+every kernel beside its bound, its plain version and a library call,
+and prints a JSON object of per-kernel numbers and the JSON result
+line last. The weights are random, from a seed. Any failed phase
+raises; there is no CPU fallback: without CUDA it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -34,31 +45,56 @@ from paddle_tpu_torch.inference.llm import (CacheConfig, GenerationEngine,
                                             SchedulerConfig, TorchLM)
 from paddle_tpu_torch.inference.llm.model import (init_lm_params,
                                                   lm_ragged_step)
+from paddle_tpu_torch.inference.llm.quant import QuantConfig, quantize_kv
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import paged_attention as pa
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and dense
-# float32 outside the tensor cores, the unit the kernel's arithmetic uses
+# float32 outside the tensor cores, the unit the kernels' arithmetic uses
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
-# the main path's attention shapes: GPT-2-small heads, the engine's
-# default page size, 8 slots over a 1024-token context
-H, D, PAGE, B, PAGES_PER_SEQ = 12, 64, 16, 8, 64
 # the JAX package's own tolerance for its Pallas tier against the lax
 # tier (tests/test_ragged_attention.py), float32 against float32
 ATTN_TOL = 2e-5
-# the step with the kernel against the step with the plain attention:
-# every matmul is shared, the two attentions sum in different orders
-# (~1e-6 apart), and that difference compounds through 12 layers; the
-# CPU parity tests hold the port's step to the JAX step at the same 1e-4
+# the float step with the kernel against the step with the plain
+# attention: every matmul is shared, the two attentions sum in
+# different orders (~1e-6 apart), and that difference compounds through
+# the layers; the CPU parity tests hold the port's step to the JAX step
+# at the same 1e-4
 STEP_TOL = 1e-4
+# the quantized step, kernel against plain attention: the two sides'
+# attention outputs differ by float32 summation order (~1e-7), the next
+# layer's K/V then differ by as much, and where such a value straddles
+# a rounding boundary its stored code moves by one step (~1 % of the
+# position's absmax); that is a real difference in the cache, not a
+# kernel fault, and it reaches the logits through the later layers.
+# Codes must agree to within one step, with flips a small share of the
+# codes written; the logits are held to STEP_TOL all the same
+MAX_FLIP_SHARE = 1e-3
 
-# GPT-2-small widths (paddle_tpu/text/gpt.py GPTConfig.gpt2_small),
-# full depth, seeded random float32 weights
+# the float path: GPT-2-small heads, 8 slots over a 1024-token
+# context (paddle_tpu/text/gpt.py GPTConfig.gpt2_small)
 GPT2_SMALL = ModelSpec(vocab=50304, d_model=768, num_layers=12,
                        num_heads=12, head_dim=64, max_seq_len=1024)
+# this slice's configuration: GPTConfig.gpt3_1p3b (GPT-3 XL) widths at
+# full depth and the longest context any preset defines
+GPT3_XL = ModelSpec(vocab=50304, d_model=2048, num_layers=24, num_heads=32,
+                    head_dim=64, max_seq_len=2048)
+GPT3_XL_4L = ModelSpec(vocab=50304, d_model=2048, num_layers=4,
+                       num_heads=32, head_dim=64, max_seq_len=2048)
+PAGE, SLOTS = 16, 8
+SPLIT = 16             # kv_split_pages of the main path
+CHUNK = 512            # chunk_tokens of the main path
 NEW_TOKENS = 32
+MODES = ("f32", "int8", "fp8")
+SOURCES = {"f32": "paddle_tpu_torch/kernels/csrc/ragged_attention.cu",
+           "int8": "paddle_tpu_torch/kernels/csrc/ragged_attention_int8.cu",
+           "fp8": "paddle_tpu_torch/kernels/csrc/ragged_attention_fp8.cu"}
+DTYPES = {"f32": torch.float32, "int8": torch.int8,
+          "fp8": torch.float8_e4m3fn}
+REPLACES = {False: "paddle_tpu/kernels/paged_attention.py:465",
+            True: "paddle_tpu/kernels/paged_attention.py:539"}
 
 
 def log(msg: str) -> None:
@@ -76,58 +112,102 @@ def card_identity() -> str:
 # ------------------------------------------------------------ ragged mixes
 
 
-def ragged_mix(kind: str, seed: int, device):
-    """A ragged attention input at the main path's shapes.
+def _geometry(spec):
+    return spec.num_heads, spec.head_dim, -(-spec.max_seq_len // PAGE)
 
-    ``mix``: a whole-prompt row of 600 tokens, a prefix-cache-hit row
-    (100 new tokens over 256 cached ones), five decode rows at contexts
-    near 1000, an idle slot, and bucket padding up to 1024 flat tokens.
-    ``decode``: eight decode rows at contexts near 1000."""
+
+def ragged_mix(kind: str, seed: int, device, spec=GPT3_XL, mode="f32"):
+    """A ragged attention input at a main path's shapes, with pools of
+    ``mode`` pages (float32, or int8/fp8 codes quantized from the same
+    float values, with their scale pools).
+
+    At GPT-3 XL geometry (H 32, D 64, page 16, 128 pages per row):
+    ``decode`` is eight decode rows at contexts 1900-2047; ``mix`` a
+    512-token chunk row at context 1536, a prefix-cache-hit row (100 new
+    tokens over 512 cached ones), five decode rows near 2000, an idle
+    slot, and bucket padding to 640 flat tokens. At GPT-2-small geometry
+    (the float path's shapes: H 12, 64 pages per row): ``decode`` eight
+    decode rows near 1000; ``mix`` a 600-token whole-prompt row, a
+    100-over-256
+    prefix-hit row, five decode rows near 1000, an idle slot and padding
+    to 1024. Returns (args, scale kwargs, max q_len, tokens used)."""
+    H, D, pps = _geometry(spec)
     g = torch.Generator().manual_seed(seed)
-    if kind == "mix":
+    long_ctx = spec.max_seq_len == 2048
+    if kind == "mix" and long_ctx:
+        q_lens = [512, 100, 1, 1, 1, 1, 1, 0]
+        kv_lens = [1536, 612, 2000, 1990, 2047, 2013, 1999, 0]
+        width = 640
+    elif kind == "mix":
         q_lens = [600, 100, 1, 1, 1, 1, 1, 0]
         kv_lens = [600, 356, 1000, 997, 1010, 990, 1023, 0]
         width = 1024
+    elif long_ctx:
+        q_lens = [1] * SLOTS
+        kv_lens = [1900, 2047, 1950, 2000, 1999, 2010, 1923, 2040]
+        width = SLOTS
     else:
-        q_lens = [1] * B
+        q_lens = [1] * SLOTS
         kv_lens = [1000, 997, 1010, 990, 1023, 1001, 1005, 999]
-        width = B
-    n_pages = B * PAGES_PER_SEQ + 1          # page 0 is the garbage page
+        width = SLOTS
+    n_pages = SLOTS * pps + 1                # page 0 is the garbage page
     perm = torch.randperm(n_pages - 1, generator=g) + 1
-    page_table = perm.reshape(B, PAGES_PER_SEQ).to(torch.int32)
-    k_pool = torch.randn(n_pages, PAGE, H, D, generator=g)
-    v_pool = torch.randn(n_pages, PAGE, H, D, generator=g)
+    page_table = perm.reshape(SLOTS, pps).to(torch.int32)
+    gd = torch.Generator(device=device).manual_seed(seed)
+    k_pool = torch.randn(n_pages, PAGE, H, D, generator=gd, device=device)
+    v_pool = torch.randn(n_pages, PAGE, H, D, generator=gd, device=device)
     q = torch.randn(width, H, D, generator=g)
+    scales = {}
+    if mode != "f32":
+        k_pool, k_s = quantize_kv(k_pool, mode)
+        v_pool, v_s = quantize_kv(v_pool, mode)
+        scales = dict(k_scale=k_s, v_scale=v_s)
     q_starts, start = [], 0
     for ql in q_lens:
         q_starts.append(start)
         start += ql
     i32 = dict(dtype=torch.int32, device=device)
-    return dict(q=q.to(device), k_pool=k_pool.to(device),
-                v_pool=v_pool.to(device), page_table=page_table.to(device),
+    args = dict(q=q.to(device), k_pool=k_pool, v_pool=v_pool,
+                page_table=page_table.to(device),
                 kv_lens=torch.tensor(kv_lens, **i32),
                 q_starts=torch.tensor(q_starts, **i32),
-                q_lens=torch.tensor(q_lens, **i32)), max(q_lens), start
+                q_lens=torch.tensor(q_lens, **i32))
+    return args, scales, max(q_lens), start
 
 
-def attention_work(q_lens, kv_lens):
+def attention_work(args, quant: bool):
     """Bytes the function must move (q read, out written, every K and V
-    position a row can see read once) and the float32 operations it
-    does (QK and PV: 4 * D per visible (query, key) pair per head)."""
+    position a row can see read once: float32 values, or 1-byte codes
+    plus a 4-byte scale per position and head) and the float32
+    operations it does (QK and PV: 4 * D per visible (query, key) pair
+    per head; dequantization: one multiply per K and V element of each
+    visible position)."""
+    _, H, D = args["q"].shape
+    q_lens = args["q_lens"].tolist()
+    kv_lens = args["kv_lens"].tolist()
     n_tok = sum(q_lens)
-    kv_bytes = sum(kv for ql, kv in zip(q_lens, kv_lens) if ql > 0) \
-        * H * D * 4 * 2
-    qo_bytes = n_tok * H * D * 4 * 2
+    positions = sum(kv for ql, kv in zip(q_lens, kv_lens) if ql > 0)
+    per_pos = H * (D + 4) if quant else H * D * 4
+    nbytes = positions * per_pos * 2 + n_tok * H * D * 4 * 2
     pairs = sum((kv - ql + t + 1) for ql, kv in zip(q_lens, kv_lens)
                 for t in range(ql))
-    return kv_bytes + qo_bytes, pairs * H * 4 * D
+    flops = pairs * H * 4 * D + (positions * H * D * 2 if quant else 0)
+    return nbytes, flops
 
 
-def bound(q_lens, kv_lens):
-    nbytes, flops = attention_work(q_lens, kv_lens)
+def bound(args, quant: bool):
+    nbytes, flops = attention_work(args, quant)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def plain(args, scales, split: int):
+    """The kernel's plain PyTorch version on the same inputs."""
+    if split:
+        return pa.ragged_attention_ref_split(**args, split_pages=split,
+                                             **scales)
+    return pa.ragged_attention(**args, tier="ref", **scales)
 
 
 # ---------------------------------------------------------------- phases
@@ -135,42 +215,94 @@ def bound(q_lens, kv_lens):
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    logs = _build.build(_build.KERNELS)
-    log(f"[build] {len(logs)} kernel(s) compiled in "
-        f"{time.perf_counter() - t0:.1f}s")
-    for name, text in logs.items():
+    built = _build.build(_build.KERNELS)
+    log(f"[build] {len(built)} kernel librar(y/ies) compiled in "
+        f"{time.perf_counter() - t0:.1f}s (one nvcc per source, in "
+        "parallel); each nvcc's seconds: "
+        + ", ".join(f"{name} {sec:.1f}" for name, (_, sec) in built.items())
+        + f"; their sum {sum(sec for _, sec in built.values()):.1f}")
+    for name, (text, _) in built.items():
+        entry = None
+        spill = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line and entry:
+                regs = re.search(r"Used (\d+) registers", line)
+                log(f"[build] {name}: {entry}: "
+                    f"{regs.group(1) if regs else '?'} registers; {spill}")
+                entry = None
 
 
-def phase_kernel_vs_plain(device) -> float:
-    worst = 0.0
-    for kind, seed in (("mix", 0), ("decode", 1)):
-        args, max_q, n_used = ragged_mix(kind, seed, device)
-        out = pa.ragged_attention(**args, tier="kernel", max_q_len=max_q)
-        torch.cuda.synchronize()
-        ref = pa.ragged_attention(**args, tier="ref")
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        torch.testing.assert_close(out, ref, rtol=ATTN_TOL, atol=ATTN_TOL)
-        if n_used < out.shape[0] and out[n_used:].abs().max().item() != 0.0:
-            raise AssertionError("bucket padding tokens are not exact 0")
-        log(f"[kernel] {kind}: max_abs_err={err:.3e} (tol {ATTN_TOL}), "
-            f"padding exact 0")
-        worst = max(worst, err)
+def phase_kernels(device) -> dict:
+    """Every kernel against its plain version at the main path's
+    shapes: {f32, int8, fp8} x {unsplit, split 16} x {decode, mix} at
+    GPT-3 XL geometry, and the float kernel at GPT-2-small geometry.
+    Also: bucket padding exactly 0, the split kernel against the unsplit
+    kernel, and the split kernel twice giving identical bits. Returns
+    the worst error against the plain version per kernel."""
+    worst: dict = {}
+    cases = [(GPT3_XL, mode, kind) for mode in MODES
+             for kind in ("decode", "mix")]
+    cases += [(GPT2_SMALL, "f32", kind) for kind in ("decode", "mix")]
+    for seed, (spec, mode, kind) in enumerate(cases):
+        args, scales, max_q, n_used = ragged_mix(kind, seed, device, spec,
+                                                 mode)
+        splits = (0, SPLIT) if spec is GPT3_XL else (0,)
+        outs = {}
+        for split in splits:
+            name = pa.kernel_name(DTYPES[mode], split > 0)
+            out = pa.ragged_attention(**args, tier="kernel", max_q_len=max_q,
+                                      split_pages=split, **scales)
+            torch.cuda.synchronize()
+            ref = plain(args, scales, split)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            torch.testing.assert_close(out, ref, rtol=ATTN_TOL, atol=ATTN_TOL)
+            if n_used < out.shape[0] and out[n_used:].abs().max().item() != 0:
+                raise AssertionError(f"{name}: bucket padding is not exact 0")
+            worst[name] = max(worst.get(name, 0.0), err)
+            outs[split] = out
+            note = ""
+            if split:
+                again = pa.ragged_attention(**args, tier="kernel",
+                                            max_q_len=max_q,
+                                            split_pages=split, **scales)
+                if not torch.equal(again, out):
+                    raise AssertionError(f"{name}: two runs differ")
+                torch.testing.assert_close(out, outs[0], rtol=ATTN_TOL,
+                                           atol=ATTN_TOL)
+                vs_unsplit = (out - outs[0]).abs().max().item()
+                note = (f"; vs unsplit kernel {vs_unsplit:.3e}; a second "
+                        "run bit-identical")
+            log(f"[kernel] {name} {kind} (H {spec.num_heads}): max_abs_err "
+                f"vs plain {err:.3e} (tol {ATTN_TOL}), padding exact 0{note}")
     return worst
 
 
-def phase_step_vs_plain(device, params) -> None:
-    """``lm_ragged_step`` at full GPT-2-small width on the mix layout,
-    once through the kernel and once through the plain attention, from
-    identical pools."""
+def _code_steps(a, b):
+    """Per-element distance in code steps of two code pools: int8 by
+    value, e4m3 along the number line (sign-magnitude bytes)."""
+    if a.dtype == torch.int8:
+        return (a.to(torch.int32) - b.to(torch.int32)).abs()
+    a = a.view(torch.uint8).to(torch.int32)
+    b = b.view(torch.uint8).to(torch.int32)
+    same = (a >> 7) == (b >> 7)
+    return torch.where(same, ((a & 0x7F) - (b & 0x7F)).abs(),
+                       (a & 0x7F) + (b & 0x7F))
+
+
+def phase_step_float(device, params) -> None:
+    """The float step: ``lm_ragged_step`` at full GPT-2-small width on the
+    mix layout, through the kernel and through the plain attention, from
+    identical float pools."""
     spec = GPT2_SMALL
-    args, max_q, n_used = ragged_mix("mix", 2, device)
+    args, _, max_q, n_used = ragged_mix("mix", 2, device, spec)
     g = torch.Generator(device=device).manual_seed(3)
-    n_pages = args["k_pool"].shape[0]
-    shape = (spec.num_layers, n_pages, PAGE, H, D)
+    shape = (spec.num_layers,) + tuple(args["k_pool"].shape)
     k_pool = torch.randn(shape, generator=g, device=device)
     v_pool = torch.randn(shape, generator=g, device=device)
     tokens = torch.randint(0, spec.vocab, (args["q"].shape[0],),
@@ -195,38 +327,119 @@ def phase_step_vs_plain(device, params) -> None:
                                atol=STEP_TOL)
     torch.testing.assert_close(vk[:, 1:], vr[:, 1:], rtol=STEP_TOL,
                                atol=STEP_TOL)
-    log(f"[step] lm_ragged_step kernel vs plain: logits max_abs_err="
-        f"{(lk - lr).abs().max().item():.3e} over {n_used} tokens x "
-        f"{spec.vocab} (tol {STEP_TOL}), pools agree")
+    log(f"[step] GPT-2-small float lm_ragged_step kernel vs plain: logits "
+        f"max_abs_err={(lk - lr).abs().max().item():.3e} over {n_used} "
+        f"tokens x {spec.vocab} (tol {STEP_TOL}), pools agree")
 
 
-def engine_requests(seed: int):
-    """Eight requests, prompts from 17 to 900 tokens; the second and
-    third share a 256-token prefix (a prefix-cache hit); six greedy and
-    two sampled with fixed seeds."""
+def phase_step_quant(device, params) -> dict:
+    """``lm_ragged_step`` at GPT-3 XL widths, all 24 layers, int8 KV,
+    int8 weights, split 16, on the mix layout over a pool already
+    holding random int8 pages: once through the split-int8 kernel and
+    once through the plain attention, from identical pools. Codes are
+    held to one step with the flips counted, scales and logits to the
+    stated tolerances."""
+    spec = GPT3_XL
+    quant = QuantConfig(kv="int8", weights="int8")
+    args, _, max_q, n_used = ragged_mix("mix", 4, device, spec)
+    g = torch.Generator(device=device).manual_seed(5)
+    shape = (spec.num_layers,) + tuple(args["k_pool"].shape)
+    k_pool, k_scale = quantize_kv(torch.randn(shape, generator=g,
+                                              device=device), "int8")
+    v_pool, v_scale = quantize_kv(torch.randn(shape, generator=g,
+                                              device=device), "int8")
+    tokens = torch.randint(0, spec.vocab, (args["q"].shape[0],),
+                           generator=g, device=device, dtype=torch.int32)
+    outs = {}
+    for tier in ("kernel", "ref"):
+        pools = [t.clone() for t in (k_pool, v_pool, k_scale, v_scale)]
+        logits = lm_ragged_step(params, spec, tokens, args["q_starts"],
+                                args["q_lens"], args["kv_lens"], pools[0],
+                                pools[1], args["page_table"], attn_tier=tier,
+                                max_q_len=max_q, k_scale=pools[2],
+                                v_scale=pools[3], quant=quant,
+                                kv_split_pages=SPLIT)
+        torch.cuda.synchronize()
+        outs[tier] = (logits[:n_used], pools)
+    (lk, pk), (lr, pr) = outs["kernel"], outs["ref"]
+    if not torch.isfinite(lk).all():
+        raise AssertionError("non-finite logits from the kernel step")
+    err = (lk - lr).abs().max().item()
+    flips, scale_err = 0, 0.0
+    written = 2 * n_used * spec.num_layers * spec.num_heads * spec.head_dim
+    for i in (0, 1):       # real pages only (page 0 takes padding)
+        steps = _code_steps(pk[i][:, 1:], pr[i][:, 1:])
+        if steps.max().item() > 1:
+            raise AssertionError("kernel and plain steps stored codes more "
+                                 "than one step apart")
+        flips += int((steps == 1).sum().item())
+    for i in (2, 3):
+        scale_err = max(scale_err,
+                        (pk[i][:, 1:] - pr[i][:, 1:]).abs().max().item())
+    log(f"[step] GPT-3 XL int8-KV int8-weight split-{SPLIT} lm_ragged_step, "
+        f"{spec.num_layers} layers, kernel vs plain: logits max_abs_err="
+        f"{err:.3e} over {n_used} tokens x {spec.vocab} (tol "
+        f"{STEP_TOL}); codes within one step, {flips} of {written} "
+        f"written codes one step apart; scales max_abs_err {scale_err:.3e}")
+    if flips > MAX_FLIP_SHARE * written:
+        raise AssertionError(f"{flips} code flips exceed "
+                             f"{MAX_FLIP_SHARE:.0e} of {written}")
+    torch.testing.assert_close(lk, lr, rtol=STEP_TOL, atol=STEP_TOL)
+    torch.testing.assert_close(pk[2][:, 1:], pr[2][:, 1:], rtol=STEP_TOL,
+                               atol=STEP_TOL)
+    torch.testing.assert_close(pk[3][:, 1:], pr[3][:, 1:], rtol=STEP_TOL,
+                               atol=STEP_TOL)
+    return {"logits_max_abs_err": err, "code_flips": flips,
+            "codes_written": written}
+
+
+def requests_gpt2(seed: int):
+    """The float path's traffic: eight requests, prompts from 17 to 900 tokens;
+    the second and third share a 256-token prefix; six greedy and two
+    sampled with fixed seeds."""
     g = torch.Generator().manual_seed(seed)
     rand = lambda n: torch.randint(0, GPT2_SMALL.vocab, (n,),  # noqa: E731
                                    generator=g).tolist()
     shared = rand(256)
     prompts = [rand(900), shared + rand(44), shared + rand(131), rand(17),
                rand(600), rand(333), rand(64), rand(750)]
-    sampled = {4: SamplingParams(temperature=0.8, top_k=50, top_p=0.9,
-                                 seed=1234),
-               6: SamplingParams(temperature=0.8, top_k=50, top_p=0.9,
-                                 seed=5678)}
+    return _with_sampling(prompts, (4, 6))
+
+
+def requests_long(seed: int, vocab: int):
+    """This slice's traffic: eight requests with prompts of 1000-1990
+    tokens; the second and third share a 512-token prefix; six greedy
+    and two sampled with fixed seeds."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda n: torch.randint(0, vocab, (n,),  # noqa: E731
+                                   generator=g).tolist()
+    shared = rand(512)
+    prompts = [rand(1990), shared + rand(700), shared + rand(1100),
+               rand(1000), rand(1500), rand(1234), rand(1750), rand(1024)]
+    return _with_sampling(prompts, (3, 6))
+
+
+def _with_sampling(prompts, sampled_idx):
+    seeds = (1234, 5678)
+    sampled = {i: SamplingParams(temperature=0.8, top_k=50, top_p=0.9,
+                                 seed=s) for i, s in zip(sampled_idx, seeds)}
     return [(p, sampled.get(i)) for i, p in enumerate(prompts)]
 
 
-def run_engine(model, requests):
+def run_engine(model, requests, quant=None, split=0, chunk=0):
     spec = model.spec
+    pps = -(-spec.max_seq_len // PAGE)
     engine = GenerationEngine(
         model,
         cache_config=CacheConfig(
             num_layers=spec.num_layers, num_heads=spec.num_heads,
-            head_dim=spec.head_dim, num_pages=B * PAGES_PER_SEQ + 1,
-            page_size=PAGE, max_slots=B, max_seq_len=spec.max_seq_len),
-        scheduler_config=SchedulerConfig(max_slots=B,
-                                         max_seq_len=spec.max_seq_len))
+            head_dim=spec.head_dim, num_pages=SLOTS * pps + 1,
+            page_size=PAGE, max_slots=SLOTS, max_seq_len=spec.max_seq_len),
+        scheduler_config=SchedulerConfig(max_slots=SLOTS,
+                                         max_seq_len=spec.max_seq_len,
+                                         chunk_tokens=chunk,
+                                         kv_split_pages=split),
+        quant=quant, device=model.device)
     rids = [engine.submit(p, NEW_TOKENS, sp) for p, sp in requests]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -236,51 +449,60 @@ def run_engine(model, requests):
     return engine, [engine.output_of(r) for r in rids], wall
 
 
-def phase_engine(model) -> dict:
-    """The main path: the serving engine over the GPT-2-small-width
-    model. Returns the kernel launch counts of this run."""
-    requests = engine_requests(7)
+def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
+               min_prefix_pages=0, rerun=False):
+    """One engine path: launch counts reset just before the run and read
+    just after. Every request must deliver NEW_TOKENS tokens, ``kernel``
+    must have launched exactly layers x steps times and no other
+    attention kernel at all, and the prefix cache must have served the
+    shared prefix. ``rerun`` runs the same traffic again and requires
+    identical tokens. Returns (launches, ms per step)."""
     pa.LAUNCHES.clear()
-    engine, outputs, wall = run_engine(model, requests)
+    engine, outputs, wall = run_engine(model, requests, quant, split, chunk)
     launches = dict(pa.LAUNCHES)
     steps = engine.steps_dispatched
     for (prompt, _), out in zip(requests, outputs):
         if len(out) != NEW_TOKENS:
-            raise AssertionError(f"request with a {len(prompt)}-token "
-                                 f"prompt finished with {len(out)} tokens")
-    want = GPT2_SMALL.num_layers * steps
-    if launches.get("ragged_attention", 0) != want:
-        raise AssertionError(f"ragged attention kernel launched "
-                             f"{launches.get('ragged_attention', 0)} times, "
-                             f"expected layers x steps = {want}")
-    if engine.cache.prefix_hits < 256 // PAGE:
-        raise AssertionError(f"prefix cache served {engine.cache.prefix_hits}"
-                             " pages; the shared 256-token prefix was missed")
+            raise AssertionError(f"{label}: a {len(prompt)}-token prompt "
+                                 f"finished with {len(out)} tokens")
+    want = {kernel: model.spec.num_layers * steps}
+    if launches != want:
+        raise AssertionError(f"{label}: attention launches {launches}, "
+                             f"expected {want} (layers x steps)")
+    if engine.cache.prefix_hits < min_prefix_pages:
+        raise AssertionError(f"{label}: the prefix cache served "
+                             f"{engine.cache.prefix_hits} pages, fewer than "
+                             f"the {min_prefix_pages} of the shared prefix")
     n_tok = sum(len(o) for o in outputs)
-    log(f"[engine] {len(outputs)} requests x {NEW_TOKENS} tokens in {steps} "
-        f"steps, {wall:.3f}s: {n_tok / wall:.1f} tokens/s, "
-        f"{1e3 * wall / steps:.2f} ms/step (first run, cold); kernel "
-        f"launches {launches.get('ragged_attention', 0)} = layers x steps; "
-        f"prefix-cache hits {engine.cache.prefix_hits} pages")
-    _, again, wall2 = run_engine(model, requests)
-    if again != outputs:
-        raise AssertionError("a second identical run gave other tokens")
-    log(f"[engine] rerun identical; {n_tok / wall2:.1f} tokens/s, "
-        f"{1e3 * wall2 / steps:.2f} ms/step (warm)")
-    return launches
+    ms_step = 1e3 * wall / steps
+    log(f"[engine] {label}: {len(outputs)} requests x {NEW_TOKENS} tokens in "
+        f"{steps} steps, {wall:.3f}s: {n_tok / wall:.1f} tokens/s, "
+        f"{ms_step:.2f} ms/step; {kernel} launches {want[kernel]} = "
+        f"layers x steps, no other attention kernel; prefix-cache hits "
+        f"{engine.cache.prefix_hits} pages")
+    if rerun:
+        _, again, wall2 = run_engine(model, requests, quant, split, chunk)
+        if again != outputs:
+            raise AssertionError(f"{label}: a second identical run gave "
+                                 "other tokens")
+        ms_step = 1e3 * wall2 / steps
+        log(f"[engine] {label}: rerun identical; {n_tok / wall2:.1f} "
+            f"tokens/s, {ms_step:.2f} ms/step (warm)")
+    return launches, ms_step
 
 
-def phase_profile(model) -> None:
-    """``--profile`` only: one more warm engine run under
+def phase_profile(model, requests) -> None:
+    """``--profile`` only: one more warm run of the main path under
     ``torch.profiler``; prints device time per step by kernel and the
     device's busy share of the run's wall time (profiler on)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    requests = engine_requests(7)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        engine, _, wall = run_engine(model, requests)
+        engine, _, wall = run_engine(model, requests,
+                                     QuantConfig(kv="int8", weights="int8"),
+                                     SPLIT, CHUNK)
     steps = engine.steps_dispatched
 
     def dev_us(e):
@@ -296,10 +518,11 @@ def phase_profile(model) -> None:
         log("[profile] the profiler recorded no device time: device busy "
             "share not measured")
         return
-    log(f"[profile] {steps} steps, wall {wall:.3f}s with the profiler on; "
-        f"device busy {total / 1e6:.3f}s = {100 * total / 1e6 / wall:.1f}% "
-        f"of wall; {total / 1e3 / steps:.3f} ms device per step")
-    for e in sorted(events, key=dev_us, reverse=True)[:12]:
+    log(f"[profile] main path, {steps} steps, wall {wall:.3f}s with the "
+        f"profiler on; device busy {total / 1e6:.3f}s = "
+        f"{100 * total / 1e6 / wall:.1f}% of wall; "
+        f"{total / 1e3 / steps:.3f} ms device per step")
+    for e in sorted(events, key=dev_us, reverse=True)[:14]:
         log(f"[profile]   {dev_us(e) / 1e3 / steps:8.4f} ms/step "
             f"{100 * dev_us(e) / total:5.1f}%  x{e.count:<6d} {e.key[:90]}")
 
@@ -324,61 +547,88 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def sdpa_inputs(args):
+def sdpa_inputs(args, scales):
     """Dense per-row layout for the library yardstick: each row's
-    context gathered to ``[B, H, S, D]`` and its tokens padded to
-    ``[B, H, T, D]``, with a boolean mask of the same visibility."""
-    q, kp, vp = args["q"], args["k_pool"], args["v_pool"]
+    context gathered and dequantized to ``[B, H, S, D]`` float32 and its
+    tokens padded to ``[B, H, T, D]``, with a boolean mask of the same
+    visibility."""
+    q = args["q"]
+    _, H, D = q.shape
     pt = args["page_table"].long()
+    B, pps = pt.shape
     q_lens = args["q_lens"].tolist()
     kv_lens = args["kv_lens"].tolist()
     q_starts = args["q_starts"].tolist()
-    S = PAGES_PER_SEQ * PAGE
+    S = pps * PAGE
     T = max(max(q_lens), 1)
-    k = kp[pt].reshape(B, S, H, D).transpose(1, 2).contiguous()
-    v = vp[pt].reshape(B, S, H, D).transpose(1, 2).contiguous()
+    kv = []
+    for pool, scale in ((args["k_pool"], scales.get("k_scale")),
+                        (args["v_pool"], scales.get("v_scale"))):
+        dense = pa._pages_f32(pool, scale, pt.reshape(-1))
+        kv.append(dense.reshape(B, S, H, D).transpose(1, 2).contiguous())
     qd = torch.zeros(B, H, T, D, device=q.device)
     mask = torch.zeros(B, 1, T, S, dtype=torch.bool, device=q.device)
     pos = torch.arange(S, device=q.device)
     for b in range(B):
-        ql, kv, qs = q_lens[b], kv_lens[b], q_starts[b]
+        ql, kvl, qs = q_lens[b], kv_lens[b], q_starts[b]
         if ql == 0:
             mask[b, 0, :, 0] = True        # keep padded rows finite
             continue
         qd[b, :, :ql] = q[qs:qs + ql].transpose(0, 1)
-        qpos = kv - ql + torch.arange(T, device=q.device)
-        mask[b, 0] = (pos[None, :] < kv) & (pos[None, :] <= qpos[:, None])
+        qpos = kvl - ql + torch.arange(T, device=q.device)
+        mask[b, 0] = (pos[None, :] < kvl) & (pos[None, :] <= qpos[:, None])
         mask[b, 0, ql:, 0] = True
-    return qd, k, v, mask
+    return qd, kv[0], kv[1], mask
 
 
-def phase_times(device, launches: dict, max_abs_err: float):
-    """Kernel, plain version and library yardstick at the decode shape
-    (the engine's steady state, reported first) and the mix shape. The
-    yardstick times ``F.scaled_dot_product_attention`` alone on the
-    already-gathered dense K/V; the port never calls it."""
-    shapes = {}
-    for kind, seed in (("decode", 1), ("mix", 0)):
-        args, max_q, _ = ragged_mix(kind, seed, device)
-        ms = time_cuda(lambda: pa.ragged_attention(
-            **args, tier="kernel", max_q_len=max_q))
-        plain_ms = time_cuda(lambda: pa.ragged_attention(**args, tier="ref"),
-                             reps=5, warmup=1)
-        qd, k, v, mask = sdpa_inputs(args)
-        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            qd, k, v, attn_mask=mask))
-        bms, by = bound(args["q_lens"].tolist(), args["kv_lens"].tolist())
-        log(f"[times] ragged_attention {kind}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by})")
-        shapes[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                        "bound_by": by, "library_ms": lib_ms}
-    return [{"name": "ragged_attention", "route": "cuda",
-             "source": "paddle_tpu_torch/kernels/csrc/ragged_attention.cu",
-             "replaces": "paddle_tpu/kernels/paged_attention.py:465",
-             "launches": launches.get("ragged_attention", 0),
-             "max_abs_err": max_abs_err, **shapes["decode"],
-             "shapes": shapes}]
+def time_shape(args, scales, max_q, split, quant):
+    ms = time_cuda(lambda: pa.ragged_attention(
+        **args, tier="kernel", max_q_len=max_q, split_pages=split, **scales))
+    plain_ms = time_cuda(lambda: plain(args, scales, split), reps=5,
+                         warmup=1)
+    qd, k, v, mask = sdpa_inputs(args, scales)
+    lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        qd, k, v, attn_mask=mask))
+    del qd, k, v, mask
+    bms, by = bound(args, quant)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def phase_times(device, launches: dict, errors: dict):
+    """Each kernel, its plain version and the library yardstick at the
+    decode shape (the engine's steady state, reported first) and the mix
+    shape of GPT-3 XL geometry; the float kernel also at its own
+    GPT-2-small shapes. The yardstick times
+    ``F.scaled_dot_product_attention`` alone on K/V already gathered and
+    dequantized dense; the port never calls it."""
+    rows = []
+    for split in (0, SPLIT):
+        for mode in MODES:
+            name = pa.kernel_name(DTYPES[mode], split > 0)
+            shapes = {}
+            geoms = [(GPT3_XL, "")]
+            if name == "ragged_attention":
+                geoms.append((GPT2_SMALL, "_gpt2_small"))
+            for spec, suffix in geoms:
+                for kind, seed in (("decode", 1), ("mix", 0)):
+                    args, scales, max_q, _ = ragged_mix(kind, seed, device,
+                                                        spec, mode)
+                    shapes[kind + suffix] = time_shape(args, scales, max_q,
+                                                       split, mode != "f32")
+                    del args, scales
+                    t = shapes[kind + suffix]
+                    log(f"[times] {name} {kind}{suffix}: kernel "
+                        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                        f"sdpa {t['library_ms']:.4f} ms, bound "
+                        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            rows.append({"name": name, "route": "cuda",
+                         "source": SOURCES[mode],
+                         "replaces": REPLACES[split > 0],
+                         "launches": launches.get(name, 0),
+                         "max_abs_err": errors[name], **shapes["decode"],
+                         "shapes": shapes})
+    return rows
 
 
 def main() -> int:
@@ -389,16 +639,65 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     phase_build()
     log(f"[card] {card_identity()}")
-    max_abs_err = phase_kernel_vs_plain(device)
-    model = TorchLM(GPT2_SMALL, init_lm_params(GPT2_SMALL, seed=0,
-                                               device=device), device=device)
-    phase_step_vs_plain(device, model.params)
-    launches = phase_engine(model)
-    rows = phase_times(device, launches, max_abs_err)
+    errors = phase_kernels(device)
+    launches: dict = {}
+
+    # the float path at GPT-2-small width, unsplit and split
+    gpt2 = TorchLM(GPT2_SMALL, init_lm_params(GPT2_SMALL, seed=0,
+                                              device=device), device=device)
+    phase_step_float(device, gpt2.params)
+    reqs = requests_gpt2(7)
+    for split in (0, SPLIT):
+        got, _ = drive_path(f"GPT-2-small float split {split}", gpt2, reqs,
+                            pa.kernel_name(torch.float32, split > 0),
+                            split=split, min_prefix_pages=256 // PAGE,
+                            rerun=split == 0)
+        launches.update(got)
+    del gpt2
+
+    # the main path: GPT-3 XL widths, full depth, int8 KV + int8 weights
+    xl = TorchLM(GPT3_XL, init_lm_params(GPT3_XL, seed=0, device=device),
+                 device=device).quantize_weights()
+    torch.cuda.empty_cache()
+    phase_step_quant(device, xl.params)
+    reqs = requests_long(11, GPT3_XL.vocab)
+    int8 = QuantConfig(kv="int8", weights="int8")
+    got, ms_split = drive_path(
+        "GPT-3 XL int8 KV + int8 weights, split 16 (main path)", xl, reqs,
+        pa.kernel_name(torch.int8, True), int8, SPLIT, CHUNK,
+        min_prefix_pages=512 // PAGE, rerun=True)
+    launches.update(got)
+    got, ms_unsplit = drive_path(
+        "GPT-3 XL int8 KV + int8 weights, unsplit", xl, reqs,
+        pa.kernel_name(torch.int8, False), int8, 0, CHUNK,
+        min_prefix_pages=512 // PAGE)
+    launches.update(got)
+    log(f"[engine] main path ms/step: split {SPLIT} {ms_split:.2f}, "
+        f"unsplit {ms_unsplit:.2f} (warm split run vs the unsplit run "
+        "that followed it)")
     if "--profile" in sys.argv[1:]:
-        phase_profile(model)
+        phase_profile(xl, reqs)
+    del xl
+    torch.cuda.empty_cache()
+
+    # fp8 pages on the engine path: GPT-3 XL widths, four layers
+    xl4 = TorchLM(GPT3_XL_4L, init_lm_params(GPT3_XL_4L, seed=1,
+                                             device=device), device=device)
+    fp8 = QuantConfig(kv="fp8", weights="int8")
+    for split in (SPLIT, 0):
+        got, _ = drive_path(f"GPT-3 XL widths, 4 layers, fp8 KV, split "
+                            f"{split}", xl4, reqs,
+                            pa.kernel_name(torch.float8_e4m3fn, split > 0),
+                            fp8, split, CHUNK, min_prefix_pages=512 // PAGE)
+        launches.update(got)
+    del xl4
+    torch.cuda.empty_cache()
+
+    rows = phase_times(device, launches, errors)
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     # the card's name and power limit, exactly as nvidia-smi prints them
     log(card_identity())
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,10 @@
 """``GenerationEngine``: continuous-batching autoregressive decoding.
 
 Counterpart of ``paddle_tpu/inference/llm/engine.py``'s paged path,
-serial (async depth 0), single device, float32. Every engine step is a
+serial (async depth 0), single device, float32 activations with
+optional int8/fp8 KV pages and weight-only int8 (``quant``), and the
+attention kernels' flash-decode KV split
+(``SchedulerConfig.kv_split_pages``). Every engine step is a
 MIXED step: the scheduler's plan packs a prefill-chunk row (a whole
 prompt when chunking is off; a prefix-cache hit packs only the tail)
 and one decode row per running slot into a flat ragged token block,
@@ -26,8 +29,9 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
-from .kv_cache import CacheConfig, PagedKVCache
+from .kv_cache import CacheConfig, PagedKVCache, flatten_page_levels
 from .model import TorchLM, lm_ragged_step, resolve_carry_tokens, step_carry
+from .quant import QuantConfig
 from .scheduler import (ContinuousBatchingScheduler, Plan, QueueFull,
                         RowPlan, SchedulerConfig)
 from .threefry import categorical, fold_in, prng_key
@@ -94,10 +98,14 @@ def _sample_traced(logits, seeds, positions, temperature, top_k, top_p):
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
 
 
-def _step(model: TorchLM, cache: PagedKVCache, page_table, row_meta,
-          tok_meta, samp_meta, carry_in, attn_tier: str, max_q_len: int):
+def _step(model: TorchLM, cache: PagedKVCache, page_levels, row_meta,
+          tok_meta, samp_meta, carry_in, attn_tier: str, max_q_len: int,
+          quant: Optional[QuantConfig], kv_split_pages: int):
     """One unified step (the JAX engine's ``_step_jit_for`` body).
 
+    ``page_levels``: the two-level table ``(slot_dir, index_pool)`` on
+    the device, flattened here to the ``[max_slots, pages_per_seq]``
+    page table the step consumes.
     ``row_meta [3, max_slots]``: q_starts / q_lens / kv_lens;
     ``tok_meta [5, bucket]``: tokens / tok_src / seeds / sample_pos /
     top_k; ``samp_meta [2, bucket]``: temperature / top_p. Updates the
@@ -111,10 +119,14 @@ def _step(model: TorchLM, cache: PagedKVCache, page_table, row_meta,
     sample_pos, top_k = tok_meta[3], tok_meta[4]
     temp, top_p = samp_meta[0], samp_meta[1]
     toks_in = resolve_carry_tokens(tokens, tok_src, carry_in)
+    page_table = flatten_page_levels(page_levels[0], page_levels[1],
+                                     cache.config.pages_per_seq)
     logits = lm_ragged_step(model.params, model.spec, toks_in, q_starts,
                             q_lens, kv_lens, cache.k_pool, cache.v_pool,
                             page_table, attn_tier=attn_tier,
-                            max_q_len=max_q_len)
+                            max_q_len=max_q_len, k_scale=cache.k_scale,
+                            v_scale=cache.v_scale, quant=quant,
+                            kv_split_pages=kv_split_pages)
     # idle rows clamp to position 0 and recompute that position's
     # sample from the same inputs: the duplicate writes are identical
     last = torch.clamp(q_starts + q_lens - 1, min=0).long()
@@ -131,13 +143,16 @@ class GenerationEngine:
     ``device`` (default ``cuda``; pass ``"cpu"`` for the plain PyTorch
     path) must be where ``model`` lives. ``attn_tier``: ``"auto"`` (the
     CUDA kernel on the card, the plain version on the CPU), ``"kernel"``
-    or ``"ref"``."""
+    or ``"ref"``. ``quant`` (a :class:`QuantConfig`; ``None`` reads
+    ``SchedulerConfig.kv_quant``/``weight_quant``) turns on quantized
+    KV pages and weight-only int8; an explicit all-off config forces
+    the float engine."""
 
     def __init__(self, model: TorchLM,
                  cache_config: Optional[CacheConfig] = None,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  eos_id: Optional[int] = None, attn_tier: str = "auto",
-                 device=None):
+                 quant: Optional[QuantConfig] = None, device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device} but the "
@@ -151,6 +166,16 @@ class GenerationEngine:
         self.eos_id = eos_id
         self._attn_tier = attn_tier
         scheduler_config = scheduler_config or SchedulerConfig()
+        if quant is None:
+            quant = QuantConfig(kv=scheduler_config.kv_quant,
+                                weights=scheduler_config.weight_quant)
+        if not quant.active:
+            quant = None
+        self.quant = quant
+        if quant is not None and quant.weights == "int8":
+            self.model = model.quantize_weights()
+        # the kernels' KV-split schedule: engine-constant, 0 = unsplit
+        self._kv_split_pages = max(int(scheduler_config.kv_split_pages), 0)
         if cache_config is None:
             s = model.spec
             cache_config = CacheConfig(
@@ -160,6 +185,16 @@ class GenerationEngine:
         if scheduler_config.max_seq_len > cache_config.max_seq_len:
             scheduler_config = dataclasses.replace(
                 scheduler_config, max_seq_len=cache_config.max_seq_len)
+        # the engine's quant config decides the page encoding: a
+        # caller's cache config is aligned to it (a float pool under a
+        # quantized step would scatter the wrong dtype)
+        want = dict(
+            kv_quant=quant.kv if quant is not None else "off",
+            scale_dtype=(quant.scale_dtype if quant is not None
+                         else cache_config.scale_dtype),
+            weight_quant=quant.weights if quant is not None else "off")
+        if any(getattr(cache_config, k) != v for k, v in want.items()):
+            cache_config = dataclasses.replace(cache_config, **want)
         self.cache = PagedKVCache(cache_config, device=self.device)
         self.scheduler = ContinuousBatchingScheduler(self.cache,
                                                      scheduler_config)
@@ -172,10 +207,10 @@ class GenerationEngine:
         self._row_len = np.zeros((ms,), dtype=np.int64)
         self._carry_d = torch.zeros((ms,), dtype=torch.int32,
                                     device=self.device)
-        # device copy of the page table, re-uploaded only when the host
-        # table changed (allocate / release)
-        self._pt_dev = None
-        self._pt_version = -1
+        # device copy of the two-level page table, re-uploaded only when
+        # the host table changed (allocate / release)
+        self._levels_dev = None
+        self._levels_version = -1
         self.steps_dispatched = 0
 
     # ------------------------------------------------------------ surface --
@@ -297,10 +332,11 @@ class GenerationEngine:
         samp_meta[0, :n] = temps
         samp_meta[1, :n] = top_ps
         toks_d, ok_d, self._carry_d = _step(
-            self.model, self.cache, self._device_page_table(),
+            self.model, self.cache, self._device_page_levels(),
             self._stage(row_meta), self._stage(tok_meta),
             self._stage(samp_meta), self._carry_d, self._attn_tier,
-            max_q_len=int(q_lens.max()))
+            max_q_len=int(q_lens.max()), quant=self.quant,
+            kv_split_pages=self._kv_split_pages)
         self.steps_dispatched += 1
         return dict(chunk_rows=chunk_rows, decode_rows=decode_rows,
                     q_starts=q_starts, q_lens=q_lens, pre_lens=pre_lens,
@@ -356,8 +392,8 @@ class GenerationEngine:
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
-    def _device_page_table(self) -> torch.Tensor:
-        if self._pt_version != self.cache.page_table_version:
-            self._pt_dev = self._stage(np.array(self.cache.page_table))
-            self._pt_version = self.cache.page_table_version
-        return self._pt_dev
+    def _device_page_levels(self):
+        if self._levels_version != self.cache.page_table_version:
+            self._levels_dev = self.cache.device_page_levels()
+            self._levels_version = self.cache.page_table_version
+        return self._levels_dev

@@ -1,23 +1,34 @@
 """Paged KV cache for the serving engine.
 
-Counterpart of ``paddle_tpu/inference/llm/kv_cache.py`` (single device,
-float pools). Sequences of different lengths share ONE preallocated
-pool of fixed-size pages ``[L, P, page, H, D]`` on the device,
-addressed through a per-slot page table. The host side is pure Python
-ints: a free list, reserve-ahead ``allocate`` (every page a sequence
-can touch is reserved at admission, so a running sequence never runs
-out of pages), and a refcounted prefix cache over FULL prompt pages,
-keyed by the same rolling SHA-256 block digests as the JAX cache, so
-both caches agree on what a prefix hit is.
+Counterpart of ``paddle_tpu/inference/llm/kv_cache.py`` (single
+device). Sequences of different lengths share ONE preallocated pool of
+fixed-size pages ``[L, P, page, H, D]`` on the device, addressed
+through a per-slot page table. The host side is pure Python ints: a
+free list, reserve-ahead ``allocate`` (every page a sequence can touch
+is reserved at admission, so a running sequence never runs out of
+pages), and a refcounted prefix cache over FULL prompt pages, keyed by
+the same rolling SHA-256 block digests as the JAX cache (salted alike
+by the quant config), so both caches agree on what a prefix hit is.
+
+Quantized pages (``CacheConfig.kv_quant`` int8 or fp8): the pools hold
+1-byte codes, and float32 scale pools ``k_scale``/``v_scale`` ``[L, P,
+page, H]`` hold one scale per page position per head beside them.
 
 Page 0 is the reserved *garbage page*: page-table entries of unmapped
 positions point at it, and padding tokens scatter their K/V into it,
 which keeps every scatter and gather shape static.
 
-The page table is a flat ``[max_slots, pages_per_seq]`` int32 array
-the engine uploads whenever ``page_table_version`` moves. The JAX
-cache's two-level table, host swap tier and cold-prefix demotion come
-with later slices; this ``CacheConfig`` rejects settings that need them.
+The page table is TWO-LEVEL, as in the JAX cache: a per-slot directory
+of index-row ids (``slot_dir [max_slots, dir_entries]``) into a shared
+pool of page-index rows (``index_pool [dir_capacity, dir_fanout]``, row
+0 reserved all-garbage). The engine uploads those two small arrays when
+``page_table_version`` moves and rebuilds the flat ``[max_slots,
+pages_per_seq]`` view on the device (:func:`flatten_page_levels`);
+``page_table`` is the same flat view on the host. Heavy prefix sharing
+can exhaust the index rows before the pages: ``allocate`` then refuses,
+exactly as the JAX cache does. The JAX cache's host swap tier and
+cold-prefix demotion come with later slices; this ``CacheConfig``
+rejects settings that need them.
 """
 from __future__ import annotations
 
@@ -31,24 +42,28 @@ import torch
 
 from ...device import resolve_device
 from ...kernels.paged_attention import ragged_rows
+from .quant import QuantConfig, kv_pool_dtype, kv_scale_shape
 
 __all__ = ["GARBAGE_PAGE", "CacheConfig", "PagedKVCache",
-           "ragged_page_indices"]
+           "ragged_page_indices", "flatten_page_levels"]
 
 GARBAGE_PAGE = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
-    """Geometry of the paged pool (float32 pools); the fields and
-    defaults of the JAX ``CacheConfig`` that a single-device float
-    cache reads.
+    """Geometry and page encoding of the paged pool; the fields and
+    defaults of the JAX ``CacheConfig`` that a single-device cache reads.
 
     ``num_pages`` includes the reserved garbage page, so the usable pool
     is ``num_pages - 1`` pages of ``page_size`` tokens each.
-    ``swap_pages`` and ``demote_cold_prefix`` exist so that configs can
-    be written alike on both sides; the host swap tier they drive comes
-    with the preemption slice, so only 0 / False are accepted here."""
+    ``kv_quant`` (off | int8 | fp8) picks the page encoding;
+    ``scale_dtype`` and ``weight_quant`` never change the pool layout
+    beyond that but enter the content-hash salt, as on the JAX side.
+    ``swap_pages``, ``demote_cold_prefix``, ``coll_quant``,
+    ``coll_block`` and ``weight_matmul`` exist so that configs can be
+    written alike on both sides; the slices that drive them are not
+    ported, so only their defaults are accepted here."""
 
     num_layers: int
     num_heads: int
@@ -60,6 +75,12 @@ class CacheConfig:
     prefix_cache: bool = True
     swap_pages: int = 0
     demote_cold_prefix: bool = False
+    kv_quant: str = "off"
+    scale_dtype: str = "float32"
+    weight_quant: str = "off"
+    coll_quant: str = "off"
+    coll_block: int = 32
+    weight_matmul: str = "off"
 
     def __post_init__(self):
         if self.swap_pages != 0 or self.demote_cold_prefix:
@@ -67,6 +88,16 @@ class CacheConfig:
                 "the host swap tier and cold-prefix demotion come with the "
                 "preemption slice of the port; use swap_pages=0, "
                 "demote_cold_prefix=False")
+        if (self.coll_quant, self.coll_block) != ("off", 32):
+            raise NotImplementedError(
+                "quantized collectives come with the tensor-parallel mesh "
+                "slice of the port; use coll_quant='off', coll_block=32")
+        # the page encoding and the weight mode are validated exactly as
+        # QuantConfig validates them (int8-matmul and narrow scales raise
+        # NotImplementedError there)
+        QuantConfig(kv=self.kv_quant, weights=self.weight_quant,
+                    scale_dtype=self.scale_dtype,
+                    weight_matmul=self.weight_matmul)
 
     @property
     def pages_per_seq(self) -> int:
@@ -74,6 +105,55 @@ class CacheConfig:
 
     def pages_for(self, n_tokens: int) -> int:
         return -(-max(n_tokens, 1) // self.page_size)
+
+    # ---- two-level page-table geometry (all derived) ----
+    @property
+    def dir_fanout(self) -> int:
+        """Page indices per index row: the smallest power of two >= 8
+        whose square covers ``pages_per_seq``."""
+        f = 8
+        while f * f < self.pages_per_seq:
+            f *= 2
+        return f
+
+    @property
+    def dir_entries(self) -> int:
+        """Index rows a maximally long slot needs (directory width)."""
+        return -(-self.pages_per_seq // self.dir_fanout)
+
+    @property
+    def dir_capacity(self) -> int:
+        """Index-pool rows: the reserved all-garbage row 0, enough full
+        rows for every usable page mapped once, and one partial row of
+        slack per slot. Heavy page sharing can need more; ``allocate``
+        then refuses like page exhaustion."""
+        return (1 + -(-(self.num_pages - 1) // self.dir_fanout)
+                + self.max_slots)
+
+    @property
+    def kv_quant_active(self) -> bool:
+        return self.kv_quant != "off"
+
+    @property
+    def quant_config_active(self) -> bool:
+        """Any quantization in play (KV pages or weights): gates the
+        content-hash salt, empty when everything is off."""
+        return self.kv_quant_active or self.weight_quant != "off"
+
+    def page_bytes(self) -> int:
+        """Bytes ONE page costs across all layers, K+V, scale rows
+        included."""
+        elems = self.num_layers * self.page_size * self.num_heads
+        if self.kv_quant_active:
+            kv_item = torch.empty((), dtype=kv_pool_dtype(
+                self.kv_quant)).element_size()
+            return 2 * elems * (self.head_dim * kv_item + 4)
+        return 2 * elems * self.head_dim * 4
+
+    def pages_for_budget(self, pool_bytes: int) -> int:
+        """Usable pages a byte budget buys at this config's per-page
+        cost (the garbage page excluded)."""
+        return max(int(pool_bytes) // max(self.page_bytes(), 1) - 1, 1)
 
 
 class PagedKVCache:
@@ -90,15 +170,40 @@ class PagedKVCache:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         self.config = c
         self.device = resolve_device(device)
+        # content-hash salt, byte for byte the JAX cache's: with any
+        # quantization on, the rolling digests fold in the quant config
+        # first, so pages of different encodings never share a key;
+        # all-off keeps the salt empty
+        self._hash_salt = (hashlib.sha256(
+            f"kvq:{c.kv_quant}:{c.scale_dtype}:w:{c.weight_quant}"
+            f":coll:{c.coll_quant}:{c.coll_block}:wm:{c.weight_matmul}"
+            .encode()).digest() if c.quant_config_active else b"")
         shape = (c.num_layers, c.num_pages, c.page_size, c.num_heads,
                  c.head_dim)
-        self.k_pool = torch.zeros(shape, dtype=torch.float32,
-                                  device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=torch.float32,
-                                  device=self.device)
-        self._page_table = np.full((c.max_slots, c.pages_per_seq),
-                                   GARBAGE_PAGE, dtype=np.int32)
-        # every mutation of the page table bumps this, so the engine
+        dtype = (kv_pool_dtype(c.kv_quant) if c.kv_quant_active
+                 else torch.float32)
+        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.k_scale = self.v_scale = None
+        if c.kv_quant_active:
+            self.k_scale = torch.zeros(kv_scale_shape(shape),
+                                       dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
+        # two-level table: slot_dir[slot] holds index-row ids, index_pool
+        # rows hold page indices (row 0 reserved all-garbage, the
+        # directory analogue of page 0)
+        self._dir_fanout = c.dir_fanout
+        self._dir_entries = c.dir_entries
+        self._dir_capacity = c.dir_capacity
+        self.index_pool = np.full((self._dir_capacity, self._dir_fanout),
+                                  GARBAGE_PAGE, dtype=np.int32)
+        self.slot_dir = np.zeros((c.max_slots, self._dir_entries),
+                                 dtype=np.int32)
+        self._dir_free: List[int] = list(range(self._dir_capacity - 1, 0, -1))
+        self._slot_rows: Dict[int, List[int]] = {
+            s: [] for s in range(c.max_slots)}
+        # every mutation of the table bumps this, so the engine
         # re-uploads the device copy only after allocate/release
         self.page_table_version = 0
         self.seq_lens = np.zeros((c.max_slots,), dtype=np.int32)
@@ -117,18 +222,58 @@ class PagedKVCache:
         self.prefix_hits = 0         # pages served from the cache
         self.prefix_evictions = 0
 
-    # -------------------------------------------------------- page table --
+    # ------------------------------------------------ two-level page table --
     @property
     def page_table(self) -> np.ndarray:
-        """Flat ``[max_slots, pages_per_seq]`` page table, read-only (a
-        write would bypass ``page_table_version``)."""
-        view = self._page_table.view()
-        view.setflags(write=False)
-        return view
+        """Flat ``[max_slots, pages_per_seq]`` view, materialized from
+        the two-level table; read-only (a write would mutate a
+        temporary)."""
+        flat = self.index_pool[self.slot_dir].reshape(
+            self.config.max_slots, -1)[:, :self.config.pages_per_seq]
+        flat.setflags(write=False)
+        return flat
+
+    def device_page_levels(self):
+        """``(slot_dir, index_pool)`` as int32 tensors on the cache's
+        device: what the engine's mirror uploads
+        (:func:`flatten_page_levels` rebuilds the flat view there)."""
+        return (torch.from_numpy(self.slot_dir.copy()).to(self.device),
+                torch.from_numpy(self.index_pool.copy()).to(self.device))
+
+    @property
+    def slot_page_capacity(self) -> int:
+        """Pages one slot can ever map through the two-level table,
+        capped by the flat view and the usable pool."""
+        return min(self.config.pages_per_seq,
+                   self._dir_entries * self._dir_fanout,
+                   self.config.num_pages - 1)
+
+    def _dir_rows_for(self, n_pages: int) -> int:
+        return -(-n_pages // self._dir_fanout) if n_pages > 0 else 0
 
     def _set_slot_pages(self, slot: int, pages: List[int]) -> None:
-        self._page_table[slot, :] = GARBAGE_PAGE
-        self._page_table[slot, :len(pages)] = pages
+        """Point ``slot``'s directory at ``pages``. Index rows come off
+        the row free list, where rows are always all-garbage, so only
+        the mapped prefix is written."""
+        f = self._dir_fanout
+        rows = [self._dir_free.pop()
+                for _ in range(self._dir_rows_for(len(pages)))]
+        for j, r in enumerate(rows):
+            chunk = pages[j * f:(j + 1) * f]
+            self.index_pool[r, :len(chunk)] = chunk
+        self.slot_dir[slot, :] = 0
+        self.slot_dir[slot, :len(rows)] = rows
+        self._slot_rows[slot] = rows
+        self.page_table_version += 1
+
+    def _clear_slot_pages(self, slot: int) -> None:
+        """Return all of ``slot``'s index rows, reset to garbage, to the
+        row free list."""
+        for r in self._slot_rows[slot]:
+            self.index_pool[r, :] = GARBAGE_PAGE
+            self._dir_free.append(r)
+        self._slot_rows[slot] = []
+        self.slot_dir[slot, :] = 0
         self.page_table_version += 1
 
     # ---------------------------------------------------------- allocator --
@@ -147,12 +292,6 @@ class PagedKVCache:
         """Distinct pages mapped by at least one live slot."""
         return self.config.num_pages - 1 - self.num_free_pages
 
-    @property
-    def slot_page_capacity(self) -> int:
-        """Pages one slot can ever map: its page-table row, capped by
-        the usable pool."""
-        return min(self.config.pages_per_seq, self.config.num_pages - 1)
-
     def prefix_len(self, slot: int) -> int:
         """Tokens of ``slot``'s prompt served from the prefix cache by
         its ``allocate`` (KV already resident — prefill starts there)."""
@@ -161,12 +300,12 @@ class PagedKVCache:
     def _block_hashes(self, prompt: Sequence[int]) -> List[bytes]:
         """Rolling SHA-256 digest per FULL page of ``prompt``: block i's
         key folds in every token of blocks 0..i (as int64 bytes), so
-        equal keys mean equal prefixes. The JAX cache salts the chain
-        with its quant config; with quantization off (the only mode
-        here) its salt is empty, as here, so the digests are equal."""
+        equal keys mean equal prefixes. The chain starts from the
+        quant-config salt, so the digests equal the JAX cache's under
+        every quant config."""
         ps = self.config.page_size
         keys: List[bytes] = []
-        digest = b""
+        digest = self._hash_salt
         for i in range(len(prompt) // ps):
             block = np.asarray(prompt[i * ps:(i + 1) * ps],
                                dtype=np.int64).tobytes()
@@ -204,6 +343,8 @@ class PagedKVCache:
         need = self.config.pages_for(n_tokens)
         if need > self.config.pages_per_seq:
             return False
+        if self._dir_rows_for(need) > len(self._dir_free):
+            return False                        # index rows exhausted
         matched = self._match_prefix(prompt, hashes)
         return need - len(matched) <= self._avail_for(matched)
 
@@ -225,12 +366,15 @@ class PagedKVCache:
         already in the cache are mapped read-only into the slot's page
         table (refcount++) and only the remainder takes fresh pages;
         ``prefix_len(slot)`` reports the covered token count. Returns
-        False (mutating nothing) when the pool cannot satisfy it."""
+        False (mutating nothing) when the pool, or the index rows of the
+        two-level table, cannot satisfy it."""
         if self._allocated_pages[slot]:
             raise RuntimeError(f"slot {slot} already holds an allocation")
         need = self.config.pages_for(n_tokens)
         if need > self.config.pages_per_seq:
             return False
+        if self._dir_rows_for(need) > len(self._dir_free):
+            return False                        # index rows exhausted
         matched = self._match_prefix(prompt, hashes)
         if need - len(matched) > self._avail_for(matched):
             return False
@@ -302,7 +446,7 @@ class PagedKVCache:
                     freed.append(page)
         self._free.extend(reversed(freed))
         self._allocated_pages[slot] = []
-        self._set_slot_pages(slot, [])
+        self._clear_slot_pages(slot)
         self.seq_lens[slot] = 0
         self._prefix_lens[slot] = 0
 
@@ -334,10 +478,29 @@ class PagedKVCache:
         for s, ps in self._allocated_pages.items():
             _check(self.seq_lens[s] <= len(ps) * c.page_size,
                    f"slot {s} overflowed its reservation")
-            row = self._page_table[s]
-            _check(list(row[:len(ps)]) == ps
-                   and bool((row[len(ps):] == GARBAGE_PAGE).all()),
-                   f"slot {s} page table desynchronized from its pages")
+        # ---- two-level table ----
+        _check(bool((self.index_pool[0] == GARBAGE_PAGE).all()),
+               "reserved garbage index row 0 was written")
+        used_rows: List[int] = []
+        for s, rows in self._slot_rows.items():
+            pages = self._allocated_pages[s]
+            _check(len(rows) == self._dir_rows_for(len(pages)),
+                   f"slot {s} holds {len(rows)} index rows for "
+                   f"{len(pages)} pages")
+            used_rows.extend(rows)
+            flat = [int(x) for r in rows for x in self.index_pool[r]]
+            _check(flat[:len(pages)] == list(pages),
+                   f"slot {s} index rows desynchronized from its pages")
+            _check(all(x == GARBAGE_PAGE for x in flat[len(pages):]),
+                   f"slot {s} slack index entries must stay garbage")
+            _check(list(self.slot_dir[s, :len(rows)]) == rows
+                   and bool((self.slot_dir[s, len(rows):] == 0).all()),
+                   f"slot {s} directory desynchronized from its rows")
+        _check(len(set(used_rows)) == len(used_rows),
+               "index row mapped by two slots")
+        _check(sorted(self._dir_free + used_rows)
+               == list(range(1, self._dir_capacity)),
+               "row free list + slot rows must partition the index pool")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -361,3 +524,14 @@ def ragged_page_indices(page_table, q_starts, q_lens, kv_lens, width: int,
     pages = torch.where(valid, page_table[row.long(), (cpos // page_size).long()],
                         torch.full_like(cpos, GARBAGE_PAGE))
     return pages, cpos % page_size, cpos, valid
+
+
+def flatten_page_levels(slot_dir, index_pool, pages_per_seq: int):
+    """The flat ``[max_slots, pages_per_seq]`` page table from the
+    two-level pair, on whatever device they lie: one int32 gather.
+    Inactive directory entries point at row 0 (all garbage). The result
+    is contiguous (the kernels take no strided table): where the
+    directory spans more than ``pages_per_seq`` columns the slice is
+    copied."""
+    flat = index_pool[slot_dir.long()].reshape(slot_dir.shape[0], -1)
+    return flat[:, :pages_per_seq].contiguous()

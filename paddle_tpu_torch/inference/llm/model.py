@@ -5,9 +5,12 @@ pre-LN GPT block stack (learned positional embeddings, tied output
 head) over a parameter dict with the JAX package's names and layouts,
 including the head-major packed ``wqkv [d, 3, H*D]``. The serving path
 is :func:`lm_ragged_step` — one mixed step over a flat ragged token
-block, single device, float32 — which writes each layer's new K/V into
-the paged pools IN PLACE (JAX returns new pools; here the step owns the
-engine's pools and updates them where they lie).
+block, single device, float32 activations — which writes each layer's
+new K/V into the paged pools IN PLACE (JAX returns new pools; here the
+step owns the engine's pools and updates them where they lie). With
+quantized KV pages the codes and their scales are written in place the
+same way; with weight-only int8 every serving matmul weight is an
+``@q``/``@s`` pair dequantized in front of its matmul (:func:`_w`).
 
 Numerics follow the reference: LayerNorm with population variance and
 eps 1e-5, the tanh-approximate GELU (``jax.nn.gelu``'s default),
@@ -24,8 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device
+from ...kernels.int8 import dequantize
 from ...kernels.paged_attention import ragged_attention
 from .kv_cache import ragged_page_indices
+from .quant import QuantConfig, quantize_kv, quantize_lm_weights, \
+    quantized_weight_names
 
 __all__ = ["ModelSpec", "TorchLM", "init_lm_params", "params_from_jax",
            "lm_ragged_step", "resolve_carry_tokens", "step_carry"]
@@ -82,9 +88,12 @@ def init_lm_params(spec: ModelSpec, seed: int = 0,
 def params_from_jax(np_params: Mapping[str, np.ndarray],
                     device=None) -> Dict[str, torch.Tensor]:
     """The reference's parameters (``JaxLM.params`` as numpy arrays,
-    same names and layouts) as float32 tensors on ``device``."""
+    same names and layouts) as tensors on ``device``, each in its own
+    dtype: float32 weights stay float32, and the int8 ``@q`` codes and
+    float32 ``@s`` scales of ``JaxLM.quantize_weights()`` stay int8 and
+    float32."""
     dev = resolve_device(device)
-    return {name: torch.from_numpy(np.array(arr, dtype=np.float32)).to(dev)
+    return {name: torch.from_numpy(np.array(arr)).to(dev)
             for name, arr in np_params.items()}
 
 
@@ -94,17 +103,35 @@ def _ln(x, g, b):
     return (x - mu) * torch.rsqrt(var + 1e-5) * g + b
 
 
+def _w(p, name):
+    """A matmul weight from either parameter layout: the float
+    ``name`` entry, or the weight-only int8 pair ``name@q``/``name@s``
+    (per-output-channel codes and scales) dequantized here, in front of
+    the matmul."""
+    if name in p:
+        return p[name]
+    return dequantize(p[name + "@q"], p[name + "@s"])
+
+
 def _qkv(p, l, h):
     """``h [..., d] -> (q, k, v)`` each ``[..., H*D]`` through the
     head-major packed ``wqkv [d, 3, H*D]``: one contraction over
     ``d_model``."""
-    qkv = torch.einsum("...d,dch->...ch", h, p[f"l{l}.wqkv"])
+    qkv = torch.einsum("...d,dch->...ch", h, _w(p, f"l{l}.wqkv"))
     return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
 
 def _mlp(p, l, x):
-    h = F.gelu(x @ p[f"l{l}.wfc"], approximate="tanh")
-    return h @ p[f"l{l}.wproj"]
+    h = F.gelu(x @ _w(p, f"l{l}.wfc"), approximate="tanh")
+    return h @ _w(p, f"l{l}.wproj")
+
+
+def _scatter(pool, pages, offs, values):
+    """``pool[pages, offs] = values`` in place; 1-byte float8 pools are
+    written through a byte view."""
+    if pool.dtype == torch.float8_e4m3fn:
+        pool, values = pool.view(torch.uint8), values.view(torch.uint8)
+    pool.index_put_((pages, offs), values)
 
 
 def resolve_carry_tokens(tokens, tok_src, carry):
@@ -127,8 +154,11 @@ def step_carry(toks, q_starts, q_lens, carry_in):
 
 def lm_ragged_step(params, spec: ModelSpec, tokens, q_starts, q_lens,
                    kv_lens, k_pool, v_pool, page_table, attn_tier="auto",
-                   max_q_len: Optional[int] = None):
-    """ONE mixed step for the whole engine, single device, float32.
+                   max_q_len: Optional[int] = None, k_scale=None,
+                   v_scale=None, quant: Optional[QuantConfig] = None,
+                   kv_split_pages: int = 0):
+    """ONE mixed step for the whole engine, single device, float32
+    activations.
 
     tokens [N]: a flat ragged token block — row b (slot b of
     ``page_table``) owns flat positions ``q_starts[b] .. q_starts[b] +
@@ -142,9 +172,22 @@ def lm_ragged_step(params, spec: ModelSpec, tokens, q_starts, q_lens,
     (the largest ``q_lens`` entry, known on the host) only sizes the
     kernel's grid. Returns logits ``[N, V]``: row t's logits are the
     distribution of the token after global position ``kv_lens[b] -
-    q_lens[b] + t``; padding rows carry no meaning."""
+    q_lens[b] + t``; padding rows carry no meaning.
+
+    ``quant`` with ``kv_active`` (and the scale pools ``k_scale``/
+    ``v_scale`` ``[L, P, page, H]`` beside 1-byte code pools) quantizes
+    every token's K/V at write time — per-(position, head) codes into
+    the pools, scales into the scale pools, both in place — and the
+    attention dequantizes inside the kernel. ``kv_split_pages`` is the
+    kernels' KV-split schedule (see :func:`ragged_attention`); it does
+    not change what the step computes."""
     N = tokens.shape[0]
     H, D = spec.num_heads, spec.head_dim
+    kv_quant = (quant.kv if quant is not None and quant.kv_active
+                else None)
+    if (kv_quant is None) != (k_scale is None):
+        raise ValueError("scale pools go with a quant config whose kv mode "
+                         "is on, and only with one")
     pages, offs, pos, _ = ragged_page_indices(
         page_table, q_starts, q_lens, kv_lens, N, k_pool.shape[2])
     pages, offs = pages.long(), offs.long()
@@ -154,15 +197,25 @@ def lm_ragged_step(params, spec: ModelSpec, tokens, q_starts, q_lens,
         h = _ln(x, params[f"l{l}.ln1_g"], params[f"l{l}.ln1_b"])
         q, k, v = _qkv(params, l, h)
         q = q.reshape(N, H, D).contiguous()
+        k = k.reshape(N, H, D)
+        v = v.reshape(N, H, D)
         # every padding token writes the garbage page: duplicate indices
         # keep an arbitrary one of their values, which is harmless
         # because page 0 is never inside any row's kv_len
-        k_pool[l].index_put_((pages, offs), k.reshape(N, H, D))
-        v_pool[l].index_put_((pages, offs), v.reshape(N, H, D))
+        scales = {}
+        if kv_quant is not None:
+            k, k_s = quantize_kv(k, kv_quant, quant.scale_dtype)
+            v, v_s = quantize_kv(v, kv_quant, quant.scale_dtype)
+            k_scale[l].index_put_((pages, offs), k_s)
+            v_scale[l].index_put_((pages, offs), v_s)
+            scales = dict(k_scale=k_scale[l], v_scale=v_scale[l])
+        _scatter(k_pool[l], pages, offs, k)
+        _scatter(v_pool[l], pages, offs, v)
         attn = ragged_attention(q, k_pool[l], v_pool[l], page_table,
                                 kv_lens, q_starts, q_lens, tier=attn_tier,
-                                max_q_len=max_q_len)
-        x = x + attn.reshape(N, H * D) @ params[f"l{l}.wo"]
+                                max_q_len=max_q_len,
+                                split_pages=kv_split_pages, **scales)
+        x = x + attn.reshape(N, H * D) @ _w(params, f"l{l}.wo")
         x = x + _mlp(params, l, _ln(x, params[f"l{l}.ln2_g"],
                                     params[f"l{l}.ln2_b"]))
     x = _ln(x, params["lnf_g"], params["lnf_b"])
@@ -178,6 +231,18 @@ class TorchLM:
         self.spec = spec
         self.device = resolve_device(device)
         self.params = {name: t.to(self.device) for name, t in params.items()}
+
+    def quantize_weights(self) -> "TorchLM":
+        """Weight-only int8 (a new ``TorchLM``; this one untouched):
+        every serving matmul weight re-stored as per-output-channel int8
+        codes and float32 scales (:func:`quant.quantize_lm_weights`).
+        Idempotent."""
+        if any(n + "@q" in self.params
+               for n in quantized_weight_names(self.spec)):
+            return self
+        return TorchLM(self.spec, quantize_lm_weights(self.params,
+                                                      self.spec),
+                       device=self.device)
 
     @classmethod
     def tiny(cls, vocab=128, d_model=32, num_layers=2, num_heads=2,

@@ -9,10 +9,16 @@ environment set), so a drifted copy fails there.
 from __future__ import annotations
 
 __all__ = ["MAX_QUEUE", "DEFAULT_CHUNK_TOKENS", "STEP_TOKEN_BUDGET",
-           "DEFAULT_SPEC_TOKENS", "ASYNC_DEPTH"]
+           "DEFAULT_SPEC_TOKENS", "ASYNC_DEPTH", "KV_QUANT", "WEIGHT_QUANT",
+           "KV_QUANT_MODES", "WEIGHT_QUANT_MODES", "KV_SPLIT_PAGES"]
 
 MAX_QUEUE = 1024             # admission ceiling (waiting-queue depth)
 DEFAULT_CHUNK_TOKENS = 0     # chunked-prefill token budget (0 = off)
 STEP_TOKEN_BUDGET = 0        # ragged tokens packed per mixed step (0 = off)
 DEFAULT_SPEC_TOKENS = 0      # speculative-decode draft budget (0 = off)
 ASYNC_DEPTH = 0              # dispatched-ahead steps (0 = serial commit)
+KV_QUANT = "off"             # KV-page storage mode
+WEIGHT_QUANT = "off"         # serving weight storage mode
+KV_QUANT_MODES = ("off", "int8", "fp8")
+WEIGHT_QUANT_MODES = ("off", "int8")
+KV_SPLIT_PAGES = 0           # flash-decode KV-split chunk width (0 = off)

@@ -21,9 +21,10 @@ unified mixed-step plan. The scheduler owns WHAT runs each step; the
   returns its pages.
 
 Priority classes, tenant quotas, deadlines, preemption, brownout
-shedding, speculative drafts and async pipelining are later slices of
-the port: their knobs exist so a config reads like the JAX one, and a
-non-default value raises ``NotImplementedError`` naming the slice.
+shedding, speculative drafts, async pipelining, quantized collectives
+and the int8 matmul are later slices of the port: their knobs exist so
+a config reads like the JAX one, and a non-default value raises
+``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
@@ -87,6 +88,20 @@ class SchedulerConfig:
     tenant_max_pages: int = 0
     tenant_max_slots: int = 0
     brownout_levels: int = 0
+    # quantized serving: KV-page storage mode (off | int8 | fp8) and
+    # weight storage mode (off | int8). The scheduler never reads them
+    # (page accounting is encoding-agnostic); an engine built without an
+    # explicit QuantConfig does.
+    kv_quant: str = policy.KV_QUANT
+    weight_quant: str = policy.WEIGHT_QUANT
+    # later slices (quantized mesh collectives, the int8 x int8 matmul):
+    # only "off" is accepted
+    coll_quant: str = "off"
+    weight_matmul: str = "off"
+    # flash-decode KV split: chunk width in pages of the attention
+    # kernels' split page walk (0 = off). A kernel schedule knob the
+    # engine reads; the scheduler never does.
+    kv_split_pages: int = policy.KV_SPLIT_PAGES
 
     def __post_init__(self):
         later = (("spec_tokens", "speculative decoding"),
@@ -97,6 +112,12 @@ class SchedulerConfig:
         for knob, slice_name in later:
             if getattr(self, knob) != 0:
                 raise _later_slice(knob, getattr(self, knob), slice_name)
+        if self.coll_quant != "off":
+            raise _later_slice("coll_quant", self.coll_quant,
+                               "tensor-parallel mesh")
+        if self.weight_matmul != "off":
+            raise _later_slice("weight_matmul", self.weight_matmul,
+                               "int8-matmul")
 
     def max_step_tokens(self) -> int:
         """Most ragged tokens one mixed step can pack: the chunk row's

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled
-for ``sm_90a`` into a shared library under ``kernels/build/`` (listed in
+Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
+(it may include the shared ``csrc/*.cuh`` headers), compiled for
+``sm_90a`` into a shared library under ``kernels/build/`` (listed in
 ``.gitignore``) at first use. The library's file name carries a digest
-of its source and flags, so an edited source is rebuilt and never
-shadowed by a stale library. Nothing is built when a module is
-imported: CPU-only machines import every module and never call here.
+of its source, the headers and the flags, so an edited source or
+header is rebuilt and never shadowed by a stale library. Nothing is
+built when a module is imported: CPU-only machines import every module
+and never call here.
 """
 from __future__ import annotations
 
@@ -15,14 +17,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "library_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("ragged_attention",)
+KERNELS = ("ragged_attention", "ragged_attention_int8",
+           "ragged_attention_fp8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,17 +41,20 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+def build(names: Iterable[str] = KERNELS) -> Dict[str, Tuple[str, float]]:
     """Compile every named kernel not built yet, one ``nvcc`` per source,
-    all started together. Returns each compiled kernel's compiler log
-    (``-Xptxas -v``: registers, shared memory, spills); raises with the
-    log when a compile fails."""
+    all started together. Returns, for each compiled kernel, its
+    compiler log (``-Xptxas -v``: registers, shared memory, spills) and
+    the seconds from the common start until its ``nvcc`` exited; raises
+    with the log when a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -57,18 +64,24 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
-    logs: Dict[str, str] = {}
+    done: Dict[str, Tuple[str, float]] = {}
     failed = []
-    for name, (proc, tmp, out) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            failed.append(f"nvcc failed for {name}:\n{log}")
-            continue
-        os.replace(tmp, out)
-        logs[name] = log
+    pending = dict(jobs)
+    while pending:
+        for name, (proc, tmp, out) in list(pending.items()):
+            try:
+                log, _ = proc.communicate(timeout=0.05)
+            except subprocess.TimeoutExpired:
+                continue
+            del pending[name]
+            if proc.returncode:
+                failed.append(f"nvcc failed for {name}:\n{log}")
+                continue
+            os.replace(tmp, out)
+            done[name] = (log, time.perf_counter() - t0)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return logs
+    return done
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,8 +18,11 @@ from paddle_tpu.inference.llm import (  # noqa: E402
     CacheConfig as JaxCacheConfig, GenerationEngine as JaxEngine, JaxLM,
     SamplingParams as JaxSP, SchedulerConfig as JaxSchedulerConfig)
 from paddle_tpu.inference.llm import model as jmodel  # noqa: E402
+from paddle_tpu.inference.llm.quant import (  # noqa: E402
+    QuantConfig as JaxQuantConfig)
 from paddle_tpu_torch.inference.llm import (  # noqa: E402
     CacheConfig, GenerationEngine, SamplingParams, SchedulerConfig, TorchLM)
+from paddle_tpu_torch.inference.llm.quant import QuantConfig  # noqa: E402
 from paddle_tpu_torch.inference.llm import engine as tengine  # noqa: E402
 from paddle_tpu_torch.inference.llm.model import params_from_jax  # noqa: E402
 
@@ -137,3 +140,69 @@ def test_default_device_engine_without_cuda_raises(models):
     _, tm = models
     with pytest.raises(RuntimeError, match="CUDA"):
         GenerationEngine(tm)
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("sampling", ["greedy", "sampled"])
+def test_quantized_split_engine_tokens_equal(models, kv, sampling):
+    """Quantized KV pages, int8 weights and the KV split (2-page
+    chunks) with chunked prefill and a shared prefix: tokens equal the
+    JAX engine's, and both caches hold the same prefix keys on the same
+    pages (the content-hash salt is the same)."""
+    jm, tm = models
+    sched = dict(max_slots=4, max_seq_len=128, chunk_tokens=8,
+                 kv_split_pages=2)
+    je = JaxEngine(jm, cache_config=JaxCacheConfig(**GEOM),
+                   scheduler_config=JaxSchedulerConfig(**sched),
+                   quant=JaxQuantConfig(kv=kv, weights="int8"))
+    te = GenerationEngine(tm, cache_config=CacheConfig(**GEOM),
+                          scheduler_config=SchedulerConfig(**sched),
+                          quant=QuantConfig(kv=kv, weights="int8"),
+                          device="cpu")
+    sp = SAMPLING[sampling]
+    want = je.generate(_prompts(3), NEW, None if sp is None else JaxSP(*sp))
+    got = te.generate(_prompts(3), NEW,
+                      None if sp is None else SamplingParams(*sp))
+    assert got == want
+    assert te.cache.prefix_hits == je.cache.prefix_hits > 0
+    assert te.cache._prefix_map == je.cache._prefix_map
+    assert te.cache.k_pool.element_size() == 1
+    assert te.model.params["l0.wqkv@q"].dtype == torch.int8
+    te.cache.check_invariants()
+    assert te.cache.pages_in_use == 0
+
+
+def test_split_on_and_off_bit_exact_on_cpu(models):
+    """The KV split is a schedule of the kernels: on the CPU's plain
+    path an engine with it on gives the same tokens and the same pool
+    bytes as one with it off."""
+    _, tm = models
+    runs = []
+    for split in (0, 3):
+        eng = GenerationEngine(
+            tm, cache_config=CacheConfig(**GEOM),
+            scheduler_config=SchedulerConfig(max_slots=4, max_seq_len=128,
+                                             chunk_tokens=8,
+                                             kv_split_pages=split,
+                                             kv_quant="int8"),
+            device="cpu")
+        assert eng.quant == QuantConfig(kv="int8")
+        runs.append((eng.generate(_prompts(4), NEW,
+                                  SamplingParams(0.7, 10, 0.95, 5)),
+                     eng.cache.k_pool.clone(), eng.cache.k_scale.clone()))
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][2], runs[1][2])
+
+
+def test_explicit_off_quant_forces_the_float_engine(models):
+    _, tm = models
+    eng = GenerationEngine(
+        tm, cache_config=CacheConfig(**GEOM),
+        scheduler_config=SchedulerConfig(max_slots=4, max_seq_len=128,
+                                         kv_quant="int8"),
+        quant=QuantConfig(), device="cpu")
+    assert eng.quant is None
+    assert eng.cache.k_pool.dtype == torch.float32
+    assert eng.cache.k_scale is None
+    assert eng.model is tm

@@ -77,6 +77,16 @@ def test_policy_copy_matches_the_reference(monkeypatch):
     assert policy.STEP_TOKEN_BUDGET == ref["step_token_budget"]
     assert policy.DEFAULT_SPEC_TOKENS == ref["spec_tokens"]
     assert policy.ASYNC_DEPTH == ref["async_depth"]
+    assert policy.KV_QUANT == ref["kv_quant"]
+    assert policy.WEIGHT_QUANT == ref["weight_quant"]
+    assert policy.KV_SPLIT_PAGES == ref["kv_split_pages"]
+
+
+def test_policy_mode_sets_match_the_reference():
+    from paddle_tpu.inference.llm import policy as jpolicy
+
+    assert policy.KV_QUANT_MODES == jpolicy.KV_QUANT_MODES
+    assert policy.WEIGHT_QUANT_MODES == jpolicy.WEIGHT_QUANT_MODES
 
 
 def _run_smoke(cwd):

@@ -168,3 +168,90 @@ def test_default_device_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchLM.tiny()
+
+
+def _code_steps(a, b):
+    """Per-element distance in code steps between two code arrays of
+    raw bytes: int8 codes by value, e4m3 codes along the number line
+    (sign-magnitude bytes)."""
+    if a.dtype == np.int8:
+        return np.abs(a.astype(np.int32) - b.astype(np.int32))
+    a, b = a.astype(np.int32), b.astype(np.int32)
+    same = (a >> 7) == (b >> 7)
+    return np.where(same, np.abs((a & 0x7F) - (b & 0x7F)),
+                    (a & 0x7F) + (b & 0x7F))
+
+
+def _pool_bytes(pool):
+    if isinstance(pool, torch.Tensor):
+        return (pool.view(torch.uint8) if pool.dtype == torch.float8_e4m3fn
+                else pool).numpy()
+    arr = np.asarray(pool)
+    return arr if arr.dtype == np.int8 else arr.view(np.uint8)
+
+
+@pytest.mark.parametrize("kv_mode", ["int8", "fp8"])
+def test_quantized_ragged_step_matches_jax(kv_mode):
+    """int8 weights and int8/fp8 KV pages over the threaded steps: the
+    port's step (codes and scales written in place) against the JAX
+    step (new pools returned) on the same carried-across int8 params.
+    Logits agree at 1e-4; codes are equal except where the two
+    backends' float32 K/V (matmul sums in different orders) straddle a
+    rounding boundary, which moves a code by exactly one step — those
+    are counted and must stay rare; scales agree at 1e-4."""
+    from paddle_tpu.inference.llm.quant import QuantConfig as JaxQuantConfig
+    from paddle_tpu_torch.inference.llm.quant import (QuantConfig,
+                                                      kv_pool_dtype)
+
+    jm = JaxLM.tiny(num_layers=2).quantize_weights()
+    spec = jm.spec
+    tparams = params_from_jax({k: np.asarray(v) for k, v in
+                               jm.params.items()}, "cpu")
+    jq = JaxQuantConfig(kv=kv_mode, weights="int8")
+    tq = QuantConfig(kv=kv_mode, weights="int8")
+    rng = np.random.default_rng(3)
+    pt = _page_table()
+    shape = (spec.num_layers, pt.size + 1, PAGE, spec.num_heads,
+             spec.head_dim)
+    from paddle_tpu.inference.llm.quant import kv_pool_dtype as jdtype
+    kj = jnp.zeros(shape, jdtype(kv_mode))
+    vj = jnp.zeros(shape, jdtype(kv_mode))
+    ksj = jnp.zeros(shape[:-1], jnp.float32)
+    vsj = jnp.zeros(shape[:-1], jnp.float32)
+    kt = torch.zeros(shape, dtype=kv_pool_dtype(kv_mode))
+    vt = torch.zeros(shape, dtype=kv_pool_dtype(kv_mode))
+    kst = torch.zeros(shape[:-1])
+    vst = torch.zeros(shape[:-1])
+    flips = written = 0
+    for q_lens, pre, width in _steps():
+        q_lens = np.asarray(q_lens, np.int32)
+        kv_lens = np.asarray(pre, np.int32) + q_lens
+        q_starts = np.cumsum([0] + list(q_lens[:-1])).astype(np.int32)
+        tokens = rng.integers(0, spec.vocab, size=width).astype(np.int32)
+        kj, vj, ksj, vsj, lj = jmodel.lm_ragged_step(
+            jm.params, spec, jnp.asarray(tokens), jnp.asarray(q_starts),
+            jnp.asarray(q_lens), jnp.asarray(kv_lens), kj, vj,
+            jnp.asarray(pt), attn_tier="lax", k_scale=ksj, v_scale=vsj,
+            quant=jq, kv_split_pages=2)
+        lt = tmodel.lm_ragged_step(
+            tparams, spec, torch.from_numpy(tokens),
+            torch.from_numpy(q_starts), torch.from_numpy(q_lens),
+            torch.from_numpy(kv_lens), kt, vt, torch.from_numpy(pt),
+            max_q_len=int(q_lens.max()), k_scale=kst, v_scale=vst,
+            quant=tq, kv_split_pages=2)
+        n = int(q_lens.sum())
+        np.testing.assert_allclose(lt[:n].numpy(), np.asarray(lj)[:n],
+                                   rtol=TOL, atol=TOL)
+        # page 0 takes the padding tokens' K/V (duplicate scatter
+        # indices keep an arbitrary one); only real pages are compared
+        for t_pool, j_pool in ((kt, kj), (vt, vj)):
+            steps = _code_steps(_pool_bytes(t_pool)[:, 1:],
+                                _pool_bytes(j_pool)[:, 1:])
+            assert steps.max() <= 1
+            flips += int((steps == 1).sum())
+        for t_s, j_s in ((kst, ksj), (vst, vsj)):
+            np.testing.assert_allclose(t_s[:, 1:].numpy(),
+                                       np.asarray(j_s)[:, 1:], rtol=TOL,
+                                       atol=TOL)
+        written += 2 * n * spec.num_layers * spec.num_heads * spec.head_dim
+    assert flips <= written // 1000, (flips, written)
