@@ -4,24 +4,29 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-(``--profile`` adds one more run of the main engine path under
-``torch.profiler`` and prints where the device time goes.)
+(``--profile`` adds one more run of the quantized serving path and one
+more training call under ``torch.profiler`` and prints where the device
+time goes.)
 
-It builds every CUDA kernel of the serving path from the sources in
+It builds every CUDA kernel of the port from the sources in
 ``paddle_tpu_torch/kernels/csrc`` (into ``paddle_tpu_torch/kernels/build``,
 one ``nvcc`` per source, all at once), holds each kernel against its
-plain PyTorch version at the main paths' shapes, and drives the serving
-engine through each path with the launch counts reset just before and
-read just after:
+plain PyTorch version at the paths' shapes, and drives each path with
+the launch counts reset just before and read just after:
 
-- the float path: ``GenerationEngine`` over a GPT-2-small-width
+- the float serving path: ``GenerationEngine`` over a GPT-2-small-width
   ``TorchLM`` (float32 pages), unsplit and with the KV split;
-- the main path of quantized long-context serving: GPT-3 XL widths at
-  full depth, 2048-token context, int8 KV pages, int8 weights and the
-  KV split (16-page chunks), then the same traffic unsplit;
-- fp8 KV pages at GPT-3 XL widths, four layers, split and unsplit.
+- quantized long-context serving: GPT-3 XL widths at full depth,
+  2048-token context, int8 KV pages, int8 weights and the KV split
+  (16-page chunks), then the same traffic unsplit;
+- fp8 KV pages at GPT-3 XL widths, four layers, split and unsplit;
+- training, the main path of the third slice: ``bench.py``'s
+  configuration (GPT-2-small, batch 16 x 1024 tokens, AdamW under AMP
+  O2 bf16, ``TrainStep`` of 8 steps per call) through the flash
+  attention kernels, after a 2-layer float32 parity run of the kernel
+  route against the plain attention route.
 
-It checks that each path went through its kernel and no other, times
+It checks that each path went through its kernels and no other, times
 every kernel beside its bound, its plain version and a library call,
 and prints a JSON object of per-kernel numbers and the JSON result
 line last. The weights are random, from a seed. Any failed phase
@@ -31,6 +36,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -46,13 +52,22 @@ from paddle_tpu_torch.inference.llm import (CacheConfig, GenerationEngine,
 from paddle_tpu_torch.inference.llm.model import (init_lm_params,
                                                   lm_ragged_step)
 from paddle_tpu_torch.inference.llm.quant import QuantConfig, quantize_kv
+from paddle_tpu_torch.amp import decorate
+from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import attention as attn
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.text.gpt import GPTConfig, GPTForCausalLM
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and dense
 # float32 outside the tensor cores, the unit the kernels' arithmetic uses
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# and dense bf16 on the tensor cores, the peak for the training path's
+# bf16 inputs (the flash kernels themselves compute in float32 FMAs)
+BF16_FLOPS_PER_S = 989e12
 
 # the JAX package's own tolerance for its Pallas tier against the lax
 # tier (tests/test_ragged_attention.py), float32 against float32
@@ -95,6 +110,43 @@ DTYPES = {"f32": torch.float32, "int8": torch.int8,
           "fp8": torch.float8_e4m3fn}
 REPLACES = {False: "paddle_tpu/kernels/paged_attention.py:465",
             True: "paddle_tpu/kernels/paged_attention.py:539"}
+
+# the training path: bench.py's configuration (bench.py:33-55, 66-87)
+TRAIN_CFG = dict(vocab_size=50304, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=1024, hidden_dropout_prob=0.0,
+                 attention_probs_dropout_prob=0.0, use_recompute=False,
+                 loss_chunks=8)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_K = 16, 1024, 8
+TRAIN_LR = 1e-4
+TRAIN_CALLS = 3             # timed calls, after one warm call
+PARITY_LAYERS, PARITY_BATCH, PARITY_STEPS = 2, 4, 3
+# the flash kernels' shapes: the training path's attention [B, H, S, D]
+# and a GPT-3 XL head layout at its 2048-token context
+FLASH_TRAIN = (16, 12, 1024, 1024, 64)
+FLASH_XL = (2, 32, 2048, 2048, 64)
+FLASH_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:61",
+    "flash_attention_bwd_dkdv": "paddle_tpu/kernels/flash_attention.py:167",
+    "flash_attention_bwd_dq": "paddle_tpu/kernels/flash_attention.py:227"}
+# flash kernel against its plain version: float32 o and lse at the JAX
+# package's Pallas-tier 2e-5, gradients (sums of up to S such terms) at
+# 1e-4. bf16: both sides round p and dS to bf16 before their products (a
+# step of 2^-8 = 3.9e-3 relative), the kernel against the running row
+# max and the plain version against the final one, and round the output
+# to bf16 once more, so outputs and gradients are held at 2e-2; lse is
+# float32 from the same float32 products in both: 2e-5
+FLASH_TOL = {torch.float32: {"o": 2e-5, "lse": 2e-5, "grad": 1e-4},
+             torch.bfloat16: {"o": 2e-2, "lse": 2e-5, "grad": 2e-2}}
+# training, kernel route against plain route (float32, 2 layers): the
+# losses at 1e-4 relative; AdamW moves each parameter by about lr a step
+# whatever its gradient's size, so where a gradient lies within float32
+# noise of 0 the two routes may move it lr apart in either direction:
+# every parameter within 2 lr per step, and at most 1e-4 of them more
+# than 1e-6 apart
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_CLOSE, TRAIN_MAX_FAR_SHARE = 1e-6, 1e-4
 
 
 def log(msg: str) -> None:
@@ -631,6 +683,341 @@ def phase_times(device, launches: dict, errors: dict):
     return rows
 
 
+# ------------------------------------------------------------ training
+
+
+def flash_inputs(shape, dtype, seed, device):
+    """q, k, v and an output gradient for ``shape`` (B, H, Sq, Sk, D)."""
+    B, H, Sq, Sk, D = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, H, S, D, generator=g, device=device).to(dtype)
+            for S in (Sq, Sk, Sk, Sq)]
+
+
+def phase_flash(device) -> dict:
+    """Each flash kernel against its plain version, float32 and bf16,
+    causal and not, at the training shape and a GPT-3 XL head layout,
+    plus Sq < Sk causal; every kernel run twice for identical bits.
+    Returns the worst error per kernel and dtype."""
+    worst: dict = {}
+    cases = [(shape, dtype, causal) for shape in (FLASH_TRAIN, FLASH_XL)
+             for dtype in (torch.float32, torch.bfloat16)
+             for causal in (True, False)]
+    cases += [((4, 12, 512, 1024, 64), dtype, True)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for seed, (shape, dtype, causal) in enumerate(cases):
+        q, k, v, do = flash_inputs(shape, dtype, seed, device)
+        scale = shape[-1] ** -0.5
+        tol = FLASH_TOL[dtype]
+        o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+        delta = fa.bwd_delta(o, do)
+        dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale,
+                                        causal)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+        rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta, scale,
+                                         causal)
+        rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal)
+        errs = {}
+        for name, got, want, t in (("o", o, ro, tol["o"]),
+                                   ("lse", lse, rlse, tol["lse"]),
+                                   ("dq", dq, rdq, tol["grad"]),
+                                   ("dk", dk, rdk, tol["grad"]),
+                                   ("dv", dv, rdv, tol["grad"])):
+            errs[name] = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), rtol=t,
+                                       atol=t, msg=f"{name} {shape} {dtype}")
+        del ro, rlse, rdk, rdv, rdq
+        again = fa.flash_fwd_cuda(q, k, v, scale, causal)
+        same = (torch.equal(again[0], o) and torch.equal(again[1], lse)
+                and all(torch.equal(a, b) for a, b in zip(
+                    fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale,
+                                           causal), (dk, dv)))
+                and torch.equal(fa.flash_bwd_dq_cuda(
+                    q, k, v, do, lse, delta, scale, causal), dq))
+        if not same:
+            raise AssertionError(f"flash kernels {shape} {dtype}: two runs "
+                                 "differ")
+        dt = str(dtype).split(".")[-1]
+        for name, keys in (("flash_attention_fwd", ("o", "lse")),
+                           ("flash_attention_bwd_dkdv", ("dk", "dv")),
+                           ("flash_attention_bwd_dq", ("dq",))):
+            key = (name, dt)
+            worst[key] = max(worst.get(key, 0.0), *(errs[k] for k in keys))
+        log(f"[flash] {dt} {'causal' if causal else 'full'} [B,H,Sq,Sk,D]="
+            f"{list(shape)} vs plain: "
+            + ", ".join(f"{n} {e:.3e} (tol {tol['grad' if n[0] == 'd' else n]})"
+                        for n, e in errs.items())
+            + "; a second run bit-identical")
+        del q, k, v, do, o, lse, delta, dk, dv, dq, again
+        torch.cuda.empty_cache()
+    return worst
+
+
+def train_model(device, layers, tier="auto", seed=0):
+    cfg = GPTConfig(**{**TRAIN_CFG, "num_hidden_layers": layers},
+                    attn_tier=tier)
+    return GPTForCausalLM(cfg, device=device, seed=seed)
+
+
+def loss_fn(net, x, y):
+    return net.loss(x, y)
+
+
+def phase_train_parity(device) -> None:
+    """GPT-2-small widths at 2 layers, float32, three ``TrainStep``
+    steps with the flash kernels against the same steps with the plain
+    attention (the kernels' plain versions), from the same weights and
+    tokens."""
+    g = torch.Generator(device=device).manual_seed(21)
+    ids = torch.randint(0, TRAIN_CFG["vocab_size"],
+                        (PARITY_STEPS, PARITY_BATCH, TRAIN_SEQ),
+                        generator=g, device=device)
+    runs = {}
+    for tier in ("kernel", "ref"):
+        model = train_model(device, PARITY_LAYERS, tier)
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+        step = TrainStep(model, loss_fn, opt)
+        fa.LAUNCHES.clear()
+        losses = torch.stack([step(x, x) for x in ids])
+        torch.cuda.synchronize()
+        runs[tier] = (losses, dict(model.named_parameters()),
+                      dict(fa.LAUNCHES))
+    (lk, pk, nk), (lr, pr, nr) = runs["kernel"], runs["ref"]
+    want = {n: PARITY_LAYERS * PARITY_STEPS for n in fa.KERNEL_NAMES}
+    if nk != want or nr:
+        raise AssertionError(f"parity launches: kernel route {nk}, plain "
+                             f"route {nr}; expected {want} and none")
+    if not torch.isfinite(lk).all():
+        raise AssertionError("non-finite loss on the kernel route")
+    torch.testing.assert_close(lk, lr, rtol=TRAIN_LOSS_RTOL, atol=0)
+    max_diff, far, total = 0.0, 0, 0
+    for name, p in pk.items():
+        d = (p.detach() - pr[name].detach()).abs()
+        max_diff = max(max_diff, d.max().item())
+        far += int((d > TRAIN_PARAM_CLOSE).sum().item())
+        total += d.numel()
+    bound = 2 * TRAIN_LR * PARITY_STEPS
+    log(f"[train] parity, GPT-2-small widths x {PARITY_LAYERS} layers, "
+        f"float32, {PARITY_STEPS} TrainStep steps of {PARITY_BATCH} x "
+        f"{TRAIN_SEQ}: losses kernel {[round(x, 6) for x in lk.tolist()]} vs "
+        f"plain {[round(x, 6) for x in lr.tolist()]}, max rel err "
+        f"{((lk - lr).abs() / lr.abs()).max().item():.3e} (tol "
+        f"{TRAIN_LOSS_RTOL}); params max_abs_diff {max_diff:.3e} (bound "
+        f"{bound:.1e}), {far} of {total} over {TRAIN_PARAM_CLOSE} (limit "
+        f"{TRAIN_MAX_FAR_SHARE} of them)")
+    if max_diff > bound or far > TRAIN_MAX_FAR_SHARE * total:
+        raise AssertionError("kernel and plain training routes drifted apart")
+
+
+def _stub(name):
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"the training path reached the plain {name}")
+    return refuse
+
+
+PLAIN_ATTENTION = ((fa, "flash_fwd_ref"), (fa, "flash_bwd_ref"),
+                   (attn, "sdpa_reference"), (attn, "causal_sdpa_chunked"))
+
+
+def phase_train(device, profile: bool) -> dict:
+    """The main path: bench.py's configuration and protocol. AdamW at lr
+    1e-4 under AMP O2 bf16, ``TrainStep`` of 8 steps per call on 16 x
+    1024 token ids (labels = ids, as bench.py), one warm call then
+    TRAIN_CALLS timed calls, each call's losses read on the host after
+    the next call is queued. The plain attention functions are replaced
+    by ones that raise for the run, and every flash kernel must launch
+    once per layer per step."""
+    cfg_layers = TRAIN_CFG["num_hidden_layers"]
+    model = train_model(device, cfg_layers)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, loss_fn, opt, steps_per_call=TRAIN_K)
+    g = torch.Generator(device=device).manual_seed(7)
+    ids = torch.randint(0, TRAIN_CFG["vocab_size"],
+                        (TRAIN_K, TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                        device=device)
+    saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN_ATTENTION]
+    losses = []
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, _stub(name))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES.clear()
+        pa.LAUNCHES.clear()
+        t_warm = time.perf_counter()
+        losses.append(step(ids, ids).tolist())            # warm call
+        warm = time.perf_counter() - t_warm
+        t0 = time.perf_counter()
+        prev = None
+        for _ in range(TRAIN_CALLS):
+            cur = step(ids, ids)
+            if prev is not None:
+                losses.append(prev.tolist())
+            prev = cur
+        losses.append(prev.tolist())
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        other = dict(pa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if profile:
+            phase_profile_train(step, ids)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    steps = TRAIN_K * (1 + TRAIN_CALLS)
+    want = {n: cfg_layers * steps for n in fa.KERNEL_NAMES}
+    if launches != want or other:
+        raise AssertionError(f"training launches {launches} (and {other}), "
+                             f"expected {want} = layers x steps")
+    flat = [x for call in losses for x in call]
+    if len(flat) != steps or not all(math.isfinite(x) for x in flat):
+        raise AssertionError(f"training losses not all finite: {flat}")
+    timed = TRAIN_K * TRAIN_CALLS
+    tokens = TRAIN_BATCH * TRAIN_SEQ * timed
+    ms_step = 1e3 * wall / timed
+    log(f"[train] main path: bench.py config (GPT-2-small, 12 layers, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW lr {TRAIN_LR}, AMP O2 "
+        f"bf16, {TRAIN_K} steps per call): warm call {warm:.3f}s; "
+        f"{TRAIN_CALLS} timed calls {wall:.3f}s = {tokens / wall:.1f} "
+        f"tokens/s, {ms_step:.2f} ms/step; peak memory "
+        f"{peak / 2**30:.2f} GiB; loss first {flat[0]:.4f} last "
+        f"{flat[-1]:.4f}, all {steps} finite; flash launches "
+        f"{launches} = {cfg_layers} layers x {steps} steps, no plain attention, no "
+        "other attention kernel")
+    return {"tokens_per_s": tokens / wall, "ms_per_step": ms_step,
+            "launches": launches}
+
+
+def phase_profile_train(step, ids) -> None:
+    """``--profile`` only: one more training call under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ids, ids).tolist()
+    wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in events)
+    if total == 0:
+        log("[profile] the profiler recorded no device time: device busy "
+            "share not measured")
+        return
+    log(f"[profile] training call, {TRAIN_K} steps, wall {wall:.3f}s with "
+        f"the profiler on; device busy {total / 1e6:.3f}s = "
+        f"{100 * total / 1e6 / wall:.1f}% of wall; "
+        f"{total / 1e3 / TRAIN_K:.3f} ms device per step")
+    for e in sorted(events, key=dev_us, reverse=True)[:16]:
+        log(f"[profile]   {dev_us(e) / 1e3 / TRAIN_K:8.4f} ms/step "
+            f"{100 * dev_us(e) / total:5.1f}%  x{e.count:<6d} {e.key[:90]}")
+
+
+def flash_work(shape, dtype, causal=True):
+    """Per kernel: (bytes, operations). Bytes: each input read once and
+    each output written once (q, k, v, dO and o in the input dtype,
+    lse and delta float32). Operations: 2 * D per visible (query, key)
+    pair and head for each product the kernel forms: QK^T and PV in the
+    forward (4 D), QK^T, dO V^T, P^T dO and dS^T Q in dK/dV (8 D),
+    QK^T, dO V^T and dS K in dQ (6 D)."""
+    B, H, Sq, Sk, D = shape
+    it = torch.tensor([], dtype=dtype).element_size()
+    pairs = B * H * (sum(min(Sk, max(0, i + Sk - Sq + 1)) for i in range(Sq))
+                     if causal else Sq * Sk)
+    q_b, kv_b, row_b = B * H * Sq * D * it, B * H * Sk * D * it, B * H * Sq * 4
+    return {"flash_attention_fwd": (2 * q_b + 2 * kv_b + row_b, 4 * D * pairs),
+            "flash_attention_bwd_dkdv": (2 * q_b + 4 * kv_b + 2 * row_b,
+                                         8 * D * pairs),
+            "flash_attention_bwd_dq": (3 * q_b + 2 * kv_b + 2 * row_b,
+                                       6 * D * pairs)}
+
+
+def flash_bound(nbytes, flops, dtype):
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_times(device, dtype) -> dict:
+    """Each flash kernel, its plain version and the library call at the
+    training shape (causal), CUDA-event medians with L2 flushed. The
+    library call is ``F.scaled_dot_product_attention(is_causal=True)``
+    forward, and forward+backward on the same tensors: timed only, the
+    port never calls it."""
+    q, k, v, do = flash_inputs(FLASH_TRAIN, dtype, 99, device)
+    scale = FLASH_TRAIN[-1] ** -0.5
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, True)
+    delta = fa.bwd_delta(o, do)
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_fwd_cuda(q, k, v, scale, True),
+            lambda: fa.flash_fwd_ref(q, k, v, scale, True)),
+        "flash_attention_bwd_dkdv": (
+            lambda: fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale,
+                                           True),
+            lambda: fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta, scale,
+                                          True)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale,
+                                         True),
+            lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale,
+                                        True))}
+    lib_fwd = time_cuda(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(
+            do)
+
+    lib_fwd_bwd = time_cuda(sdpa_fwd_bwd)
+    work = flash_work(FLASH_TRAIN, dtype)
+    out = {}
+    for name, (kernel, plain_fn) in calls.items():
+        bms, by = flash_bound(*work[name], dtype)
+        out[name] = {"ms": time_cuda(kernel),
+                     "plain_ms": time_cuda(plain_fn, reps=5, warmup=1),
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_fwd if name.endswith("fwd") else None,
+                     "library_fwd_bwd_ms": lib_fwd_bwd}
+        t = out[name]
+        log(f"[times] {name} {str(dtype).split('.')[-1]} "
+            f"{list(FLASH_TRAIN)} causal: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}); sdpa "
+            f"fwd {lib_fwd:.4f} ms, fwd+bwd {lib_fwd_bwd:.4f} ms")
+    return out
+
+
+def flash_rows(device, launches: dict, errors: dict):
+    """The kernels line's rows for the flash kernels: numbers at the
+    main path's dtype (bf16), float32's beside them."""
+    times = {dt: flash_times(device, dt)
+             for dt in (torch.bfloat16, torch.float32)}
+    rows = []
+    for name in fa.KERNEL_NAMES:
+        rows.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                     "replaces": FLASH_REPLACES[name],
+                     "launches": launches.get(name, 0),
+                     "max_abs_err": max(errors[(name, "bfloat16")],
+                                        errors[(name, "float32")]),
+                     **times[torch.bfloat16][name],
+                     "dtype": "bfloat16", "shape": list(FLASH_TRAIN),
+                     "max_abs_err_f32": errors[(name, "float32")],
+                     "f32": times[torch.float32][name]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -643,6 +1030,7 @@ def main() -> int:
     phase_build()
     log(f"[card] {card_identity()}")
     errors = phase_kernels(device)
+    flash_errors = phase_flash(device)
     launches: dict = {}
 
     # the float path at GPT-2-small width, unsplit and split
@@ -696,7 +1084,16 @@ def main() -> int:
     del xl4
     torch.cuda.empty_cache()
 
+    # training, the main path of this slice: parity at 2 layers in
+    # float32, then bench.py's configuration
+    phase_train_parity(device)
+    torch.cuda.empty_cache()
+    launches.update(phase_train(device, "--profile" in sys.argv[1:])
+                    ["launches"])
+    torch.cuda.empty_cache()
+
     rows = phase_times(device, launches, errors)
+    rows += flash_rows(device, launches, flash_errors)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     # the card's name and power limit, exactly as nvidia-smi prints them
     log(card_identity())

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
-(it may include the shared ``csrc/*.cuh`` headers), compiled for
-``sm_90a`` into a shared library under ``kernels/build/`` (listed in
+(it may include headers of ``csrc/`` with ``#include "..."``), compiled
+for ``sm_90a`` into a shared library under ``kernels/build/`` (listed in
 ``.gitignore``) at first use. The library's file name carries a digest
-of its source, the headers and the flags, so an edited source or
-header is rebuilt and never shadowed by a stale library. Nothing is
+of its source, the headers it includes and the flags, so an edited
+source or header is rebuilt and never shadowed by a stale library, and
+an edit to one library's header rebuilds only the libraries that
+include it. Nothing is
 built when a module is imported: CPU-only machines import every module
 and never call here.
 """
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,7 +29,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "library_path"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("ragged_attention", "ragged_attention_int8",
-           "ragged_attention_fp8")
+           "ragged_attention_fp8", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,9 +42,23 @@ def _nvcc() -> str:
     return path
 
 
+def _local_headers(path: Path, seen=None) -> list:
+    """The ``csrc/`` headers ``path`` includes with ``#include "..."``,
+    directly or through another such header, in first-include order."""
+    seen = [] if seen is None else seen
+    for name in re.findall(r'^\s*#include\s+"([^"]+)"', path.read_text(),
+                           flags=re.M):
+        header = CSRC / name
+        if header not in seen:
+            seen.append(header)
+            _local_headers(header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    source = CSRC / f"{name}.cu"
+    src = source.read_bytes()
+    src += b"".join(h.read_bytes() for h in _local_headers(source))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,0 +1,34 @@
+"""The kernel build's cache key: a library's file name carries a digest
+of its source, the ``csrc/`` headers it includes (directly or through
+another header) and the flags, so an edit rebuilds exactly the
+libraries it touches. Runs on the CPU: nothing is compiled."""
+import pytest
+
+pytest.importorskip("torch")
+
+from paddle_tpu_torch.kernels import _build  # noqa: E402
+
+
+def test_digest_covers_the_included_headers_only(tmp_path, monkeypatch):
+    (tmp_path / "a.cuh").write_text("// a\n")
+    (tmp_path / "b.cuh").write_text('#include "a.cuh"\n')
+    (tmp_path / "x.cu").write_text('#include "b.cuh"\n'
+                                   "#include <cuda_runtime.h>\n")
+    (tmp_path / "y.cu").write_text("#include <cuda_runtime.h>\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._local_headers(tmp_path / "x.cu") == [tmp_path / "b.cuh",
+                                                        tmp_path / "a.cuh"]
+    x0, y0 = _build.library_path("x"), _build.library_path("y")
+    (tmp_path / "a.cuh").write_text("// a, edited\n")
+    assert _build.library_path("x") != x0
+    assert _build.library_path("y") == y0
+    (tmp_path / "y.cu").write_text("// edited\n")
+    assert _build.library_path("y") != y0
+
+
+def test_the_port_libraries_and_their_headers():
+    assert "flash_attention" in _build.KERNELS
+    header = _build.CSRC / "ragged_attention.cuh"
+    for name in _build.KERNELS:
+        headers = _build._local_headers(_build.CSRC / f"{name}.cu")
+        assert headers == ([] if name == "flash_attention" else [header])

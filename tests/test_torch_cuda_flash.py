@@ -1,0 +1,172 @@
+"""The flash attention kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips (with the reason) where no CUDA device
+is present, and runs on a machine with the card::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_flash.py -q
+
+Tolerances, kernel against plain version on the same inputs: float32
+``o`` and ``lse`` at rtol = atol = 2e-5 (the JAX package's Pallas-tier
+tolerance), ``dq``/``dk``/``dv`` at 1e-4 (sums of up to S products of
+those); bf16 outputs and gradients at 2e-2 (both sides round p and dS to
+bf16, a step of 3.9e-3 relative, the kernel against a running max and
+the plain version against the row's final max), bf16 ``lse`` at 2e-5
+(it is formed in float32 from the same float32 products). Two runs of a
+kernel give identical bits (no atomics).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from paddle_tpu_torch.jit import TrainStep  # noqa: E402
+from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.optimizer import AdamW  # noqa: E402
+from paddle_tpu_torch.text.gpt import GPTConfig, GPTForCausalLM  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+LSE_TOL = 2e-5
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(device, B, H, Sq, Sk, D, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, H, S, D, generator=g, device=device).to(dtype)
+            for S in (Sq, Sk, Sk, Sq)]
+
+
+# (B, H, Sq, Sk, D, causal): whole tiles, a partial tile (S 96), Sq < Sk,
+# Sq > Sk (leading rows see no key), head_dim 128
+CASES = [(2, 3, 256, 256, 64, True), (2, 3, 256, 256, 64, False),
+         (1, 2, 96, 96, 64, True), (1, 2, 128, 256, 64, True),
+         (1, 2, 384, 256, 64, True), (2, 2, 256, 256, 128, True),
+         (1, 2, 192, 320, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", CASES)
+def test_kernels_match_plain_versions(device, dtype, B, H, Sq, Sk, D, causal):
+    q, k, v, do = _inputs(device, B, H, Sq, Sk, D, dtype, seed=Sq + D)
+    scale = D ** -0.5
+    fwd_tol, grad_tol = TOL[dtype]
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=fwd_tol,
+                               atol=fwd_tol)
+    torch.testing.assert_close(lse, rlse, rtol=LSE_TOL, atol=LSE_TOL)
+    delta = fa.bwd_delta(o, do)
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal)
+    for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=grad_tol,
+                                   atol=grad_tol, msg=name)
+    again = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    assert torch.equal(fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale,
+                                              causal)[0], dk)
+    assert torch.equal(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale,
+                                            causal), dq)
+    if causal and Sq > Sk:
+        dead = Sq - Sk
+        assert o[:, :, :dead].abs().max().item() == 0.0
+        assert dq[:, :, :dead].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_not_16_byte_aligned(device, dtype):
+    """Rows whose stride is not a multiple of 16 bytes take the kernels'
+    plain loads: the same bits as the 16-byte loads of the same values."""
+    B, H, S, D = 1, 2, 192, 64
+    g = torch.Generator(device=device).manual_seed(3)
+    wide = [torch.randn(B, H, S, D + 1, generator=g, device=device).to(dtype)
+            for _ in range(4)]
+    odd = [t[..., :D] for t in wide]                 # row stride D + 1
+    even = [t.contiguous() for t in odd]
+    for causal in (True, False):
+        outs = []
+        for q, k, v, do in (odd, even):
+            o, lse = fa.flash_fwd_cuda(q, k, v, 0.125, causal)
+            delta = fa.bwd_delta(o, do)
+            outs.append((o, lse) + fa.flash_bwd_dkdv_cuda(
+                q, k, v, do, lse, delta, 0.125, causal) + (
+                fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, 0.125,
+                                     causal),))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+
+
+def test_autograd_on_strided_bshd_views(device):
+    """The bshd entry on q, k, v sliced out of one packed projection (as
+    the GPT attention does): the kernels read the strided views in
+    place; values and grads equal the plain route's within tolerance."""
+    B, S, H, D = 2, 256, 4, 64
+    g = torch.Generator(device=device).manual_seed(0)
+    qkv = torch.randn(B, S, 3, H, D, generator=g, device=device)
+    outs = {}
+    for tier in ("kernel", "ref"):
+        x = qkv.clone().requires_grad_(True)
+        q, k, v = x.unbind(dim=2)
+        before = dict(fa.LAUNCHES)
+        o = fa.flash_attention_bshd(q, k, v, causal=True, tier=tier)
+        (o * torch.cos(o)).sum().backward()
+        launched = {n: fa.LAUNCHES[n] - before.get(n, 0)
+                    for n in fa.KERNEL_NAMES}
+        outs[tier] = (o.detach(), x.grad, launched)
+    assert outs["kernel"][2] == {n: 1 for n in fa.KERNEL_NAMES}
+    assert outs["ref"][2] == {n: 0 for n in fa.KERNEL_NAMES}
+    assert outs["kernel"][0].is_contiguous()
+    torch.testing.assert_close(outs["kernel"][0], outs["ref"][0], rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(outs["kernel"][1], outs["ref"][1], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_kernels_refuse_what_they_do_not_take(device):
+    q = torch.zeros(1, 2, 128, 32, device=device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd_cuda(q, q, q, 1.0, True)
+    h = torch.zeros(1, 2, 128, 64, device=device, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_cuda(h, h, h, 1.0, True)
+    q = torch.zeros(1, 2, 128, 64, device=device)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_fwd_cuda(q, q.cpu(), q, 1.0, True)
+
+
+def test_gpt_train_step_on_card(device):
+    """A small GPT trains two TrainStep calls of two steps on the card:
+    each flash kernel launches once per layer per step, the losses are
+    finite and equal the plain attention route's at 1e-4 relative."""
+    cfg = dict(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+               num_attention_heads=4, intermediate_size=512,
+               max_position_embeddings=256, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0, loss_chunks=4)
+    ids = torch.randint(0, 512, (2, 2, 4, 256), device=device,
+                        generator=torch.Generator(device=device).manual_seed(1))
+    losses = {}
+    for tier in ("auto", "ref"):
+        model = GPTForCausalLM(GPTConfig(**cfg, attn_tier=tier), device=device)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        step = TrainStep(model, lambda n, x, y: n.loss(x, y), opt,
+                         steps_per_call=2)
+        fa.LAUNCHES.clear()
+        losses[tier] = torch.cat([step(x, x) for x in ids])
+        torch.cuda.synchronize()
+        want = cfg["num_hidden_layers"] * 4 if tier == "auto" else 0
+        assert dict(fa.LAUNCHES) == ({n: want for n in fa.KERNEL_NAMES}
+                                     if want else {})
+    assert torch.isfinite(losses["auto"]).all()
+    torch.testing.assert_close(losses["auto"], losses["ref"], rtol=1e-4,
+                               atol=0)
