@@ -16,6 +16,14 @@ the launch counts reset just before and read just after:
 
 - the float serving path: ``GenerationEngine`` over a GPT-2-small-width
   ``TorchLM`` (float32 pages), unsplit and with the KV split;
+- speculative decoding, the main path of the fourth slice: the same
+  engine and model with ``spec_tokens`` 4 and then 0 on the float
+  path's traffic plus four prompts that repeat a motif (tokens equal
+  with speculation on and off), and the per-tier graphs
+  (``lm_chunk_prefill`` in 512-token chunks, then ``lm_verify`` or
+  ``lm_decode``) through the decode and mixed kernels, request by
+  request, teacher-forced on the engine's tokens against the same loop
+  on the plain attention;
 - quantized long-context serving: GPT-3 XL widths at full depth,
   2048-token context, int8 KV pages, int8 weights and the KV split
   (16-page chunks), then the same traffic unsplit;
@@ -46,11 +54,16 @@ import time
 import torch
 import torch.nn.functional as F
 
+import numpy as np
+
 from paddle_tpu_torch.inference.llm import (CacheConfig, GenerationEngine,
-                                            ModelSpec, SamplingParams,
-                                            SchedulerConfig, TorchLM)
+                                            ModelSpec, PagedKVCache,
+                                            SamplingParams, SchedulerConfig,
+                                            TorchLM, ngram_draft)
 from paddle_tpu_torch.inference.llm.model import (init_lm_params,
-                                                  lm_ragged_step)
+                                                  lm_chunk_prefill, lm_decode,
+                                                  lm_ragged_step, lm_verify)
+from paddle_tpu_torch.inference.llm.threefry import fold_in, gumbel, prng_key
 from paddle_tpu_torch.inference.llm.quant import QuantConfig, quantize_kv
 from paddle_tpu_torch.amp import decorate
 from paddle_tpu_torch.jit import TrainStep
@@ -110,6 +123,18 @@ DTYPES = {"f32": torch.float32, "int8": torch.int8,
           "fp8": torch.float8_e4m3fn}
 REPLACES = {False: "paddle_tpu/kernels/paged_attention.py:465",
             True: "paddle_tpu/kernels/paged_attention.py:539"}
+# the per-tier graphs' kernels (the fourth slice)
+SPEC_TOKENS = 4        # spec_tokens of the speculative path
+PER_TIER = {
+    pa.PAGED_KERNEL: ("paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+                      "paddle_tpu/kernels/paged_attention.py:102"),
+    pa.MIXED_KERNEL: ("paddle_tpu_torch/kernels/csrc/mixed_attention.cu",
+                      "paddle_tpu/kernels/paged_attention.py:219")}
+# a token decision closer than this (the two best candidates' scores)
+# may fall either way between two float32 computations that agree to
+# ~1e-5 (GEMMs of other shapes, attention summed in another order): such
+# a near-tie is counted and ends the comparison of that request
+NEAR_TIE = 1e-4
 
 # the training path: bench.py's configuration (bench.py:33-55, 66-87)
 TRAIN_CFG = dict(vocab_size=50304, hidden_size=768, num_hidden_layers=12,
@@ -335,6 +360,78 @@ def phase_kernels(device) -> dict:
     return worst
 
 
+def per_tier_mix(kind: str, seed: int, device):
+    """A decode or mixed attention input at the per-tier path's shapes,
+    GPT-2-small geometry (H 12, D 64, 16-token pages, 64 per row):
+    ``decode`` eight slots at 900-1023 tokens and one at 0 (exact zeros);
+    ``chunk`` one slot, 512 queries after 512 resident tokens;
+    ``verify`` eight slots of 1 + 4 query rows near 1000 tokens, with
+    q_lens 0 to 5 (padding rows included)."""
+    H, D, pps = _geometry(GPT2_SMALL)
+    if kind == "decode":
+        seq, q_lens, T = [900, 1023, 950, 1000, 999, 1010, 923, 1015, 0], \
+            None, 1
+    elif kind == "chunk":
+        seq, q_lens, T = [1024], [512], 512
+    else:
+        seq, q_lens, T = [1000, 990, 950, 1023, 1001, 977, 1012, 960], \
+            [5, 1, 0, 3, 5, 2, 4, 5], 1 + SPEC_TOKENS
+    B = len(seq)
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_pages = B * pps + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(seed)) + 1
+    i32 = dict(dtype=torch.int32, device=device)
+    args = dict(q=torch.randn((B, T, H, D) if q_lens else (B, H, D),
+                              generator=g, device=device),
+                k_pool=torch.randn(n_pages, PAGE, H, D, generator=g,
+                                   device=device),
+                v_pool=torch.randn(n_pages, PAGE, H, D, generator=g,
+                                   device=device),
+                page_table=perm.reshape(B, pps).to(**i32),
+                seq_lens=torch.tensor(seq, **i32))
+    if q_lens:
+        args["q_lens"] = torch.tensor(q_lens, **i32)
+    return args
+
+
+def per_tier_call(args, tier):
+    if "q_lens" in args:
+        return pa.mixed_attention(**args, tier=tier)
+    return pa.paged_attention(**args, tier=tier)
+
+
+PER_TIER_SHAPES = (("decode", pa.PAGED_KERNEL), ("chunk", pa.MIXED_KERNEL),
+                   ("verify", pa.MIXED_KERNEL))
+
+
+def phase_per_tier_kernels(device) -> dict:
+    """The decode and mixed kernels against their plain versions at the
+    three per-tier shapes, rtol = atol = ATTN_TOL, every row (padding
+    rows of the mixed shape included); a zero-length slot exact 0; a
+    second run bit-identical. Returns the worst error per kernel."""
+    worst: dict = {}
+    for seed, (kind, name) in enumerate(PER_TIER_SHAPES):
+        args = per_tier_mix(kind, 40 + seed, device)
+        out = per_tier_call(args, "kernel")
+        torch.cuda.synchronize()
+        ref = per_tier_call(args, "ref")
+        torch.testing.assert_close(out, ref, rtol=ATTN_TOL, atol=ATTN_TOL)
+        err = (out - ref).abs().max().item()
+        worst[name] = max(worst.get(name, 0.0), err)
+        zero = ((args["seq_lens"] == 0).nonzero().flatten().tolist())
+        if zero and out[zero].abs().max().item() != 0:
+            raise AssertionError(f"{name} {kind}: a slot at seq_len 0 is "
+                                 "not exact 0")
+        if not torch.equal(per_tier_call(args, "kernel"), out):
+            raise AssertionError(f"{name} {kind}: two runs differ")
+        log(f"[kernel] {name} {kind} {list(args['q'].shape)}: max_abs_err "
+            f"vs plain {err:.3e} (tol {ATTN_TOL}), every row"
+            + (", the seq_len-0 slot exact 0" if zero else "")
+            + "; a second run bit-identical")
+    return worst
+
+
 def _code_steps(a, b):
     """Per-element distance in code steps of two code pools: int8 by
     value, e4m3 along the number line (sign-magnitude bytes)."""
@@ -478,7 +575,7 @@ def _with_sampling(prompts, sampled_idx):
     return [(p, sampled.get(i)) for i, p in enumerate(prompts)]
 
 
-def run_engine(model, requests, quant=None, split=0, chunk=0):
+def run_engine(model, requests, quant=None, split=0, chunk=0, spec_tokens=0):
     spec = model.spec
     pps = -(-spec.max_seq_len // PAGE)
     engine = GenerationEngine(
@@ -490,7 +587,8 @@ def run_engine(model, requests, quant=None, split=0, chunk=0):
         scheduler_config=SchedulerConfig(max_slots=SLOTS,
                                          max_seq_len=spec.max_seq_len,
                                          chunk_tokens=chunk,
-                                         kv_split_pages=split),
+                                         kv_split_pages=split,
+                                         spec_tokens=spec_tokens),
         quant=quant, device=model.device)
     rids = [engine.submit(p, NEW_TOKENS, sp) for p, sp in requests]
     torch.cuda.synchronize()
@@ -502,15 +600,18 @@ def run_engine(model, requests, quant=None, split=0, chunk=0):
 
 
 def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
-               min_prefix_pages=0, rerun=False):
+               min_prefix_pages=0, rerun=False, spec_tokens=0):
     """One engine path: launch counts reset just before the run and read
     just after. Every request must deliver NEW_TOKENS tokens, ``kernel``
     must have launched exactly layers x steps times and no other
-    attention kernel at all, and the prefix cache must have served the
-    shared prefix. ``rerun`` runs the same traffic again and requires
-    identical tokens. Returns (launches, ms per step)."""
+    attention kernel at all, the prefix cache must have served the
+    shared prefix, and the cache must end with its invariants holding
+    and every page free. ``rerun`` runs the same traffic again and
+    requires identical tokens. Returns (launches, ms per step, the
+    engine, the outputs)."""
     pa.LAUNCHES.clear()
-    engine, outputs, wall = run_engine(model, requests, quant, split, chunk)
+    engine, outputs, wall = run_engine(model, requests, quant, split, chunk,
+                                       spec_tokens)
     launches = dict(pa.LAUNCHES)
     steps = engine.steps_dispatched
     for (prompt, _), out in zip(requests, outputs):
@@ -525,6 +626,10 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
         raise AssertionError(f"{label}: the prefix cache served "
                              f"{engine.cache.prefix_hits} pages, fewer than "
                              f"the {min_prefix_pages} of the shared prefix")
+    engine.cache.check_invariants()
+    if engine.cache.pages_in_use:
+        raise AssertionError(f"{label}: {engine.cache.pages_in_use} pages "
+                             "still mapped after every request finished")
     n_tok = sum(len(o) for o in outputs)
     ms_step = 1e3 * wall / steps
     log(f"[engine] {label}: {len(outputs)} requests x {NEW_TOKENS} tokens in "
@@ -533,14 +638,232 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
         f"layers x steps, no other attention kernel; prefix-cache hits "
         f"{engine.cache.prefix_hits} pages")
     if rerun:
-        _, again, wall2 = run_engine(model, requests, quant, split, chunk)
+        _, again, wall2 = run_engine(model, requests, quant, split, chunk,
+                                     spec_tokens)
         if again != outputs:
             raise AssertionError(f"{label}: a second identical run gave "
                                  "other tokens")
         ms_step = 1e3 * wall2 / steps
         log(f"[engine] {label}: rerun identical; {n_tok / wall2:.1f} "
             f"tokens/s, {ms_step:.2f} ms/step (warm)")
-    return launches, ms_step
+    return launches, ms_step, engine, outputs
+
+
+def requests_spec():
+    """The speculative path's traffic: the float path's eight requests
+    plus four prompts that repeat a 24-token motif (96 to 588 tokens,
+    one over a chunk), greedy, so that n-gram drafts are proposed and
+    accepted."""
+    g = torch.Generator().manual_seed(99)
+    rand = lambda n: torch.randint(0, GPT2_SMALL.vocab, (n,),  # noqa: E731
+                                   generator=g).tolist()
+    motif = rand(24)
+    prompts = [motif * 4, rand(40) + motif * 6, motif * 10,
+               rand(300) + motif * 12]
+    return requests_gpt2(7) + [(p, None) for p in prompts]
+
+
+def decision_gap(logits, sp, index: int) -> float:
+    """The margin of the sampler's decision for output token ``index``
+    from one row of logits: the gap between the two best candidates'
+    scores. Greedy: the two largest logits. Sampled: the scores the
+    engine's sampler takes the argmax of — temperature-scaled logits in
+    descending order, top-k / top-p masked, plus the Gumbel noise of the
+    key fold_in(PRNGKey(seed), index)."""
+    if sp is None or sp.temperature <= 0:
+        top = logits.float().topk(2).values
+        return (top[0] - top[1]).item()
+    scaled = logits.float() / max(sp.temperature, 1e-6)
+    s = torch.sort(scaled, descending=True, stable=True).values
+    V = s.shape[0]
+    rank = torch.arange(V, device=s.device)
+    keep = rank < (V if sp.top_k <= 0 else sp.top_k)
+    p = torch.softmax(s, dim=-1)
+    keep &= (torch.cumsum(p, dim=-1) - p) < sp.top_p
+    keep[0] = True
+    masked = torch.where(keep, s, torch.full_like(s, -torch.inf))
+    key = fold_in(prng_key(torch.tensor([sp.seed or 0], dtype=torch.int32,
+                                        device=s.device)),
+                  torch.tensor([index], dtype=torch.int32, device=s.device))
+    top = (masked + gumbel(key, V)[0]).topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def phase_spec_engine(model, requests):
+    """The engine with speculative decoding on (spec_tokens 4) and off,
+    same traffic: ragged launches layers x steps in each run, drafts
+    proposed and accepted with it on, every request 32 tokens, no page
+    left mapped; each run is repeated (identical tokens) and its warm
+    rerun timed. Returns (launches of the spec-on run, its outputs, the
+    first index where each request's spec-on and spec-off tokens differ
+    (None where equal))."""
+    name = pa.kernel_name(torch.float32, False)
+    runs = {}
+    for spec_tokens in (SPEC_TOKENS, 0):
+        runs[spec_tokens] = drive_path(
+            f"GPT-2-small float, spec_tokens {spec_tokens}", model, requests,
+            name, chunk=CHUNK, min_prefix_pages=256 // PAGE,
+            spec_tokens=spec_tokens, rerun=True)
+    launches, ms_on, engine, on = runs[SPEC_TOKENS]
+    _, ms_off, engine_off, off = runs[0]
+    st = engine.scheduler.stats
+    if not st["n_spec_drafted"] or not st["n_spec_accepted"]:
+        raise AssertionError(f"speculative run drafted "
+                             f"{st['n_spec_drafted']} and accepted "
+                             f"{st['n_spec_accepted']} tokens: not driven")
+    diverge = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                    None) for x, y in zip(on, off)]
+    log(f"[spec] engine spec_tokens {SPEC_TOKENS}: {st['n_spec_steps']} "
+        f"verify steps, {st['n_spec_slot_steps']} slot-steps, drafted "
+        f"{st['n_spec_drafted']}, accepted {st['n_spec_accepted']} "
+        f"({st['n_spec_accepted'] / st['n_spec_drafted']:.3f}), emitted "
+        f"{st['n_spec_emitted']}; warm ms/step on {ms_on:.2f} over "
+        f"{engine.steps_dispatched} steps, off {ms_off:.2f} over "
+        f"{engine_off.steps_dispatched}; requests whose tokens differ with "
+        f"it off: "
+        f"{sum(d is not None for d in diverge)} (checked for near-ties in "
+        "the per-tier phase)")
+    return launches, on, diverge
+
+
+def _single_slot_cache(spec, n_tokens, device):
+    pps = -(-spec.max_seq_len // PAGE)
+    cache = PagedKVCache(CacheConfig(
+        num_layers=spec.num_layers, num_heads=spec.num_heads,
+        head_dim=spec.head_dim, num_pages=pps + 1, page_size=PAGE,
+        max_slots=1, max_seq_len=spec.max_seq_len), device=device)
+    if not cache.allocate(0, n_tokens):
+        raise AssertionError("a single-slot cache refused its request")
+    return cache
+
+
+def per_tier_request(model, prompt, teacher, sp, counts, gap_at):
+    """One request through the per-tier graphs, teacher-forced on the
+    engine's tokens ``teacher``, in lockstep on two single-slot caches:
+    the kernels (``attn_tier="kernel"``) and the plain attention
+    (``"ref"``). The prompt goes in 512-token ``lm_chunk_prefill``
+    chunks; then each step runs ``lm_verify`` on the pending token and
+    its n-gram drafts when there are any, else ``lm_decode``, and
+    advances by the drafts the teacher agrees with plus one. Every valid
+    logits row of the two routes must agree within STEP_TOL. For a
+    greedy request each row's argmax must be the teacher's token (the
+    loop running free would emit the same tokens) unless the decision is
+    a near-tie, which is counted and ends the token comparison. Returns
+    the worst logits difference, the near-tie count and the decision
+    gap of output index ``gap_at`` (None when not asked)."""
+    spec, dev = model.spec, model.device
+    caches = {t: _single_slot_cache(spec, len(prompt) + len(teacher), dev)
+              for t in ("kernel", "ref")}
+    row = torch.from_numpy(caches["kernel"].page_table[0].copy()).to(dev)
+    table = row[None]
+    state = {"err": 0.0, "ties": 0, "stop": sp is not None, "gap": None}
+
+    def check(lk, lr, rows, first_index):
+        """Logits of both routes on every row; then rows ``rows`` of the
+        kernel route predict output tokens ``first_index``, ..."""
+        if not torch.isfinite(lk).all():
+            raise AssertionError("non-finite per-tier logits")
+        torch.testing.assert_close(lk, lr, rtol=STEP_TOL, atol=STEP_TOL)
+        state["err"] = max(state["err"], (lk - lr).abs().max().item())
+        for index, i in enumerate(rows, first_index):
+            if index == gap_at:
+                state["gap"] = decision_gap(lk[i], sp, index)
+            if state["stop"]:
+                continue
+            if int(lk[i].argmax()) != teacher[index]:
+                gap = decision_gap(lk[i], sp, index)
+                if gap >= NEAR_TIE:
+                    raise AssertionError(
+                        f"per-tier greedy token {index} differs from the "
+                        f"engine's with a decision gap {gap:.3e}")
+                state["ties"] += 1
+                state["stop"] = True
+
+    P = len(prompt)
+    i32 = dict(dtype=torch.int32, device=dev)
+    for start in range(0, P, CHUNK):
+        n = min(CHUNK, P - start)
+        toks = torch.zeros(CHUNK, **i32)
+        toks[:n] = torch.tensor(prompt[start:start + n], **i32)
+        lk, lr = [lm_chunk_prefill(model.params, spec, toks, start, n,
+                                   caches[t].k_pool, caches[t].v_pool, row,
+                                   attn_tier=t) for t in ("kernel", "ref")]
+        counts["chunks"] += 1
+        check(lk[:n], lr[:n], [n - 1] if start + n == P else [], 0)
+    out, seq = [teacher[0]], P
+    while len(out) < len(teacher):
+        draft = ngram_draft(np.asarray(prompt + out, np.int32),
+                            min(SPEC_TOKENS, len(teacher) - len(out) - 1))
+        if draft:
+            T = 1 + len(draft)
+            tokens = torch.tensor([[out[-1]] + draft], **i32)
+            lk, lr = [lm_verify(model.params, spec, tokens,
+                                torch.tensor([seq], **i32),
+                                torch.tensor([T], **i32), caches[t].k_pool,
+                                caches[t].v_pool, table, attn_tier=t)[0]
+                      for t in ("kernel", "ref")]
+            acc = 0
+            while acc < len(draft) and draft[acc] == teacher[len(out) + acc]:
+                acc += 1
+            check(lk, lr, range(acc + 1), len(out))
+            counts["verify"] += 1
+        else:
+            acc = 0
+            lk, lr = [lm_decode(model.params, spec,
+                                torch.tensor([out[-1]], **i32),
+                                torch.tensor([seq], **i32), caches[t].k_pool,
+                                caches[t].v_pool, table, attn_tier=t)
+                      for t in ("kernel", "ref")]
+            check(lk, lr, [0], len(out))
+            counts["decode"] += 1
+        seq += acc + 1
+        out += teacher[len(out):len(out) + acc + 1]
+    return state["err"], state["ties"], state["gap"]
+
+
+def phase_per_tier(model, requests, teacher, diverge) -> dict:
+    """The per-tier path: every request of the speculative traffic
+    through :func:`per_tier_request`, launch counts reset just before
+    and read just after: the mixed kernel must have launched layers x
+    (chunks + verify steps), the decode kernel layers x decode steps,
+    and no other attention kernel. Then each request whose tokens
+    differed between the spec-on and spec-off engine runs must differ at
+    a near-tie. Returns the launches."""
+    counts = {"chunks": 0, "verify": 0, "decode": 0}
+    err, ties, gaps = 0.0, 0, []
+    pa.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for (prompt, sp), out, j in zip(requests, teacher, diverge):
+        e, t, gap = per_tier_request(model, prompt, out, sp, counts, j)
+        err, ties = max(err, e), ties + t
+        if j is not None:
+            gaps.append(gap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pa.LAUNCHES)
+    L = model.spec.num_layers
+    want = {pa.MIXED_KERNEL: L * (counts["chunks"] + counts["verify"]),
+            pa.PAGED_KERNEL: L * counts["decode"]}
+    if launches != want:
+        raise AssertionError(f"per-tier launches {launches}, expected "
+                             f"{want} = layers x (chunks + verify steps) "
+                             "and layers x decode steps")
+    log(f"[per-tier] {len(requests)} requests teacher-forced on the spec "
+        f"engine's tokens: {counts['chunks']} chunks, {counts['verify']} "
+        f"verify steps, {counts['decode']} decode steps in {wall:.3f}s "
+        f"(kernel and plain routes in lockstep); logits kernel vs plain "
+        f"max_abs_err {err:.3e} (tol {STEP_TOL}); greedy tokens equal the "
+        f"engine's, near-ties (gap < {NEAR_TIE}) {ties}; launches "
+        f"{launches} = layers x (chunks + verify), layers x decode, no "
+        "other attention kernel")
+    far = [g for g in gaps if g >= NEAR_TIE]
+    log(f"[spec] spec on vs off: {len(gaps)} requests differ, each at a "
+        f"decision gap of {[round(g, 7) for g in gaps]} (near-tie below "
+        f"{NEAR_TIE}); the other {len(requests) - len(gaps)} equal")
+    if far:
+        raise AssertionError("spec on and off tokens differ beyond a "
+                             f"near-tie: gaps {far}")
+    return launches
 
 
 def phase_profile(model, requests) -> None:
@@ -645,6 +968,80 @@ def time_shape(args, scales, max_q, split, quant):
     bms, by = bound(args, quant)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms}
+
+
+def per_tier_work(args):
+    """Bytes (K and V of every position below each slot's seq_len read
+    once, q read, out written, float32) and float32 operations (4 * D
+    per visible (query, key) pair and head; a padding row of the mixed
+    shape sees its slot's whole context, and is computed)."""
+    q, seq = args["q"], args["seq_lens"].tolist()
+    H, D = q.shape[-2:]
+    T = q.shape[1] if q.dim() == 4 else 1
+    q_lens = args["q_lens"].tolist() if "q_lens" in args else [1] * len(seq)
+    pairs = sum(min(s, max(0, s - ql + t + 1))
+                for s, ql in zip(seq, q_lens) for t in range(T))
+    return sum(seq) * H * D * 4 * 2 + q.numel() * 4 * 2, pairs * H * 4 * D
+
+
+def per_tier_sdpa_inputs(args):
+    """The library yardstick's inputs: each slot's table gathered dense
+    to ``[B, H, S, D]``, the queries as ``[B, H, T, D]``, and a boolean
+    mask of the same visibility (a row that sees nothing keeps key 0 so
+    the library stays finite)."""
+    q = args["q"] if args["q"].dim() == 4 else args["q"][:, None]
+    B, T, H, D = q.shape
+    pt = args["page_table"].long()
+    S = pt.shape[1] * PAGE
+    k, v = (pool[pt].reshape(B, S, H, D).transpose(1, 2).contiguous()
+            for pool in (args["k_pool"], args["v_pool"]))
+    seq = args["seq_lens"].long()
+    q_lens = args["q_lens"].long() if "q_lens" in args else torch.ones_like(
+        seq)
+    pos = torch.arange(S, device=q.device)
+    q_pos = (seq - q_lens)[:, None] + torch.arange(T, device=q.device)
+    mask = ((pos[None, None, :] <= q_pos[:, :, None])
+            & (pos[None, None, :] < seq[:, None, None]))[:, None]
+    mask[..., 0] |= ~mask.any(dim=-1)
+    return q.transpose(1, 2).contiguous(), k, v, mask
+
+
+def per_tier_rows(device, launches: dict, errors: dict):
+    """The kernels line's rows for the decode and mixed kernels: kernel,
+    plain and library times and the bound at each per-tier shape (the
+    mixed kernel's headline at the chunk shape, verify beside it)."""
+    shapes = {name: {} for name in PER_TIER}
+    for seed, (kind, name) in enumerate(PER_TIER_SHAPES):
+        args = per_tier_mix(kind, 40 + seed, device)
+        ms = time_cuda(lambda: per_tier_call(args, "kernel"))
+        plain_ms = time_cuda(lambda: per_tier_call(args, "ref"), reps=5,
+                             warmup=1)
+        qd, k, v, mask = per_tier_sdpa_inputs(args)
+        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            qd, k, v, attn_mask=mask))
+        del qd, k, v, mask
+        nbytes, flops = per_tier_work(args)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+        t = {"ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
+        shapes[name][kind] = t
+        log(f"[times] {name} {kind} {list(args['q'].shape)}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} bytes, "
+            f"{flops} float32 operations)")
+    rows = []
+    for name, (source, replaces) in PER_TIER.items():
+        head = shapes[name]["decode" if name == pa.PAGED_KERNEL else "chunk"]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": launches.get(name, 0),
+                     "max_abs_err": errors[name],
+                     **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+                     "shapes": shapes[name]})
+    return rows
 
 
 def phase_times(device, launches: dict, errors: dict):
@@ -1030,6 +1427,7 @@ def main() -> int:
     phase_build()
     log(f"[card] {card_identity()}")
     errors = phase_kernels(device)
+    per_tier_errors = phase_per_tier_kernels(device)
     flash_errors = phase_flash(device)
     launches: dict = {}
 
@@ -1039,11 +1437,18 @@ def main() -> int:
     phase_step_float(device, gpt2.params)
     reqs = requests_gpt2(7)
     for split in (0, SPLIT):
-        got, _ = drive_path(f"GPT-2-small float split {split}", gpt2, reqs,
+        got, *_ = drive_path(f"GPT-2-small float split {split}", gpt2, reqs,
                             pa.kernel_name(torch.float32, split > 0),
                             split=split, min_prefix_pages=256 // PAGE,
                             rerun=split == 0)
         launches.update(got)
+
+    # the fourth slice's main path: speculative decoding on the engine,
+    # then the per-tier graphs through the decode and mixed kernels
+    spec_reqs = requests_spec()
+    got, teacher, diverge = phase_spec_engine(gpt2, spec_reqs)
+    launches.update(got)
+    launches.update(phase_per_tier(gpt2, spec_reqs, teacher, diverge))
     del gpt2
 
     # the main path: GPT-3 XL widths, full depth, int8 KV + int8 weights
@@ -1053,17 +1458,17 @@ def main() -> int:
     phase_step_quant(device, xl.params)
     reqs = requests_long(11, GPT3_XL.vocab)
     int8 = QuantConfig(kv="int8", weights="int8")
-    got, ms_split = drive_path(
-        "GPT-3 XL int8 KV + int8 weights, split 16 (main path)", xl, reqs,
+    got, ms_split, *_ = drive_path(
+        "GPT-3 XL int8 KV + int8 weights, split 16", xl, reqs,
         pa.kernel_name(torch.int8, True), int8, SPLIT, CHUNK,
         min_prefix_pages=512 // PAGE, rerun=True)
     launches.update(got)
-    got, ms_unsplit = drive_path(
+    got, ms_unsplit, *_ = drive_path(
         "GPT-3 XL int8 KV + int8 weights, unsplit", xl, reqs,
         pa.kernel_name(torch.int8, False), int8, 0, CHUNK,
         min_prefix_pages=512 // PAGE)
     launches.update(got)
-    log(f"[engine] main path ms/step: split {SPLIT} {ms_split:.2f}, "
+    log(f"[engine] GPT-3 XL int8 ms/step: split {SPLIT} {ms_split:.2f}, "
         f"unsplit {ms_unsplit:.2f} (warm split run vs the unsplit run "
         "that followed it)")
     if "--profile" in sys.argv[1:]:
@@ -1076,7 +1481,7 @@ def main() -> int:
                                              device=device), device=device)
     fp8 = QuantConfig(kv="fp8", weights="int8")
     for split in (SPLIT, 0):
-        got, _ = drive_path(f"GPT-3 XL widths, 4 layers, fp8 KV, split "
+        got, *_ = drive_path(f"GPT-3 XL widths, 4 layers, fp8 KV, split "
                             f"{split}", xl4, reqs,
                             pa.kernel_name(torch.float8_e4m3fn, split > 0),
                             fp8, split, CHUNK, min_prefix_pages=512 // PAGE)
@@ -1093,6 +1498,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows = phase_times(device, launches, errors)
+    rows += per_tier_rows(device, launches, per_tier_errors)
     rows += flash_rows(device, launches, flash_errors)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     # the card's name and power limit, exactly as nvidia-smi prints them

@@ -3,9 +3,10 @@
 Mirrors ``paddle_tpu.inference.llm``: ``GenerationEngine(TorchLM)`` ->
 ``submit`` / ``step`` / ``run`` / ``generate`` / ``output_of``, over a
 ``ContinuousBatchingScheduler`` and a ``PagedKVCache``, with one unified
-ragged step per engine step.
+ragged step per engine step and n-gram speculative decoding
+(``ngram_draft``).
 """
-from .engine import GREEDY, GenerationEngine, SamplingParams
+from .engine import GREEDY, GenerationEngine, SamplingParams, ngram_draft
 from .kv_cache import CacheConfig, PagedKVCache
 from .model import ModelSpec, TorchLM
 from .scheduler import (ContinuousBatchingScheduler, InvalidRequest,
@@ -14,4 +15,4 @@ from .scheduler import (ContinuousBatchingScheduler, InvalidRequest,
 __all__ = ["GenerationEngine", "SamplingParams", "GREEDY", "CacheConfig",
            "PagedKVCache", "ModelSpec", "TorchLM",
            "ContinuousBatchingScheduler", "SchedulerConfig", "QueueFull",
-           "InvalidRequest"]
+           "InvalidRequest", "ngram_draft"]

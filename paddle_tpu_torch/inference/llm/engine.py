@@ -16,9 +16,19 @@ samples with per-(request seed, token index) threefry keys — so sampled
 outputs equal the JAX engine's and do not depend on batching or
 scheduling order.
 
-Speculative drafts, async pipelining, the request journal, fault
-injection and the NaN quarantine, the tensor-parallel mesh and the
-observability hooks are later slices of the port.
+Speculative decoding (``SchedulerConfig.spec_tokens > 0``): before a
+step the engine proposes n-gram drafts from each decoding slot's own
+context (:func:`ngram_draft`, no draft model) and widens that slot's
+decode row into a verify row (the pending token plus its drafts). The
+step samples every position of such a row with its own key; landing
+accepts the longest draft prefix the target agrees with, emits the
+accepted tokens plus one, and rolls the rejected tail's K/V back with
+``PagedKVCache.truncate``. Sampling keys depend only on (seed, token
+index), so tokens with speculation on equal tokens with it off.
+
+Async pipelining, the request journal, fault injection and the NaN
+quarantine, the tensor-parallel mesh and the observability hooks are
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -31,12 +41,14 @@ import torch
 from ...device import resolve_device
 from .kv_cache import CacheConfig, PagedKVCache, flatten_page_levels
 from .model import TorchLM, lm_ragged_step, resolve_carry_tokens, step_carry
+from .policy import (SPEC_DECAY_BELOW, SPEC_GROW_ABOVE, SPEC_NGRAM_MAX,
+                     SPEC_NGRAM_MIN, SPEC_PROBE_EVERY, SPEC_WINDOW)
 from .quant import QuantConfig
 from .scheduler import (ContinuousBatchingScheduler, Plan, QueueFull,
                         RowPlan, SchedulerConfig)
 from .threefry import categorical, fold_in, prng_key
 
-__all__ = ["SamplingParams", "GREEDY", "resolve_sampling",
+__all__ = ["SamplingParams", "GREEDY", "resolve_sampling", "ngram_draft",
            "GenerationEngine"]
 
 
@@ -98,9 +110,36 @@ def _sample_traced(logits, seeds, positions, temperature, top_k, top_p):
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
 
 
+def ngram_draft(context: np.ndarray, max_tokens: int,
+                max_ngram: int = SPEC_NGRAM_MAX,
+                min_ngram: int = SPEC_NGRAM_MIN) -> List[int]:
+    """Prompt-lookup drafting: match the tail n-gram of ``context``
+    (prompt + output so far) against the rest of the context and propose
+    the tokens that followed an earlier occurrence, up to ``max_tokens``
+    of them: the latest occurrence whose continuation fills the budget,
+    else the earliest (its continuation is the longest). Longer n-grams
+    are tried first; ``[]`` when nothing matches."""
+    L = len(context)
+    if max_tokens <= 0 or L < min_ngram + 1:
+        return []
+    for n in range(min(max_ngram, L - 1), min_ngram - 1, -1):
+        suffix = context[L - n:]
+        # windows over context[:-1]: the suffix's own window needs the
+        # final token, so it is excluded by construction
+        windows = np.lib.stride_tricks.sliding_window_view(
+            context[:L - 1], n)
+        hits = np.nonzero((windows == suffix).all(axis=1))[0]
+        if len(hits):
+            full = hits[hits + n + max_tokens <= L]
+            start = int(full[-1] if len(full) else hits[0]) + n
+            return context[start:start + max_tokens].tolist()
+    return []
+
+
 def _step(model: TorchLM, cache: PagedKVCache, page_levels, row_meta,
-          tok_meta, samp_meta, carry_in, attn_tier: str, max_q_len: int,
-          quant: Optional[QuantConfig], kv_split_pages: int):
+          tok_meta, samp_meta, sample_idx, carry_in, attn_tier: str,
+          max_q_len: int, quant: Optional[QuantConfig],
+          kv_split_pages: int):
     """One unified step (the JAX engine's ``_step_jit_for`` body).
 
     ``page_levels``: the two-level table ``(slot_dir, index_pool)`` on
@@ -108,12 +147,13 @@ def _step(model: TorchLM, cache: PagedKVCache, page_levels, row_meta,
     page table the step consumes.
     ``row_meta [3, max_slots]``: q_starts / q_lens / kv_lens;
     ``tok_meta [5, bucket]``: tokens / tok_src / seeds / sample_pos /
-    top_k; ``samp_meta [2, bucket]``: temperature / top_p. Updates the
-    cache's pools in place and returns ``(toks [bucket], ok [bucket],
-    carry_out [max_slots])``. Without speculative drafts only each
-    row's LAST flat position is ever read (a chunk-final or decode
-    token), so only those positions are sampled; the others stay 0.
-    ``ok`` flags the flat positions whose logits are all finite."""
+    top_k; ``samp_meta [2, bucket]``: temperature / top_p;
+    ``sample_idx``: the flat positions whose tokens landing reads —
+    each chunk row's last one and every position of a decode or verify
+    row — each sampled with its own (seed, token index) key; the other
+    positions stay 0. Updates the cache's pools in place and returns
+    ``(toks [bucket], ok [bucket], carry_out [max_slots])``. ``ok``
+    flags the flat positions whose logits are all finite."""
     q_starts, q_lens, kv_lens = row_meta[0], row_meta[1], row_meta[2]
     tokens, tok_src, seeds = tok_meta[0], tok_meta[1], tok_meta[2]
     sample_pos, top_k = tok_meta[3], tok_meta[4]
@@ -127,12 +167,10 @@ def _step(model: TorchLM, cache: PagedKVCache, page_levels, row_meta,
                             max_q_len=max_q_len, k_scale=cache.k_scale,
                             v_scale=cache.v_scale, quant=quant,
                             kv_split_pages=kv_split_pages)
-    # idle rows clamp to position 0 and recompute that position's
-    # sample from the same inputs: the duplicate writes are identical
-    last = torch.clamp(q_starts + q_lens - 1, min=0).long()
+    idx = sample_idx.long()
     toks = torch.zeros_like(tokens)
-    toks[last] = _sample_traced(logits[last], seeds[last], sample_pos[last],
-                                temp[last], top_k[last], top_p[last])
+    toks[idx] = _sample_traced(logits[idx], seeds[idx], sample_pos[idx],
+                               temp[idx], top_k[idx], top_p[idx])
     ok = torch.isfinite(logits).all(dim=-1)
     return toks, ok, step_carry(toks, q_starts, q_lens, carry_in)
 
@@ -280,6 +318,18 @@ class GenerationEngine:
                 self._tok_matrix[req.slot, :] = 0
                 self._tok_matrix[req.slot, :len(ctx)] = ctx
                 self._row_len[req.slot] = len(ctx)
+        drafts: Dict[int, List[int]] = {}
+        if (decode_rows and sch.config.spec_tokens > 0
+                and not sch.spec_suspended):
+            budget = None
+            if sch.config.step_token_budget > 0:
+                # the budget bounds the step's total ragged tokens; the
+                # chunk slice and one pending token per slot are packed
+                # already, so drafts get what remains
+                packed = (sum(r.chunk_len for r in chunk_rows)
+                          + len(decode_rows))
+                budget = max(sch.config.step_token_budget - packed, 0)
+            drafts = self._collect_drafts(budget)
         ms = sch.config.max_slots
         q_starts = np.zeros((ms,), np.int32)
         q_lens = np.zeros((ms,), np.int32)
@@ -290,6 +340,7 @@ class GenerationEngine:
         temps: List[float] = []
         top_ks: List[int] = []
         top_ps: List[float] = []
+        sample_idx: List[int] = []
         pre_lens: Dict[int, int] = {}    # decode rows: pre-step resident
         for r in plan.rows:
             req = r.request
@@ -302,13 +353,20 @@ class GenerationEngine:
                 # only the final position's sample is kept: output index
                 # len(output) (0 for a fresh request)
                 base = len(req.output) - (ql - 1)
+                sample_idx.append(len(flat_tokens) + ql - 1)
             else:
-                toks = [int(self._tok_matrix[slot, self._row_len[slot] - 1])]
-                ql = 1
+                d = drafts.get(slot, [])
+                toks = [int(self._tok_matrix[slot, self._row_len[slot] - 1])
+                        ] + d
+                ql = 1 + len(d)
                 n0 = int(self.cache.seq_lens[slot])
                 pre_lens[slot] = n0
                 kv = n0 + ql
+                # position t samples output index len(output) + t: the
+                # keys of ql successive plain decode steps
                 base = len(req.output)
+                sample_idx.extend(range(len(flat_tokens),
+                                        len(flat_tokens) + ql))
             q_starts[slot] = len(flat_tokens)
             q_lens[slot] = ql
             kv_lens[slot] = kv
@@ -334,13 +392,16 @@ class GenerationEngine:
         toks_d, ok_d, self._carry_d = _step(
             self.model, self.cache, self._device_page_levels(),
             self._stage(row_meta), self._stage(tok_meta),
-            self._stage(samp_meta), self._carry_d, self._attn_tier,
+            self._stage(samp_meta),
+            self._stage(np.asarray(sample_idx, np.int32)), self._carry_d,
+            self._attn_tier,
             max_q_len=int(q_lens.max()), quant=self.quant,
             kv_split_pages=self._kv_split_pages)
         self.steps_dispatched += 1
         return dict(chunk_rows=chunk_rows, decode_rows=decode_rows,
-                    q_starts=q_starts, q_lens=q_lens, pre_lens=pre_lens,
-                    toks=toks_d.cpu().numpy(), ok=ok_d.cpu().numpy())
+                    drafts=drafts, q_starts=q_starts, q_lens=q_lens,
+                    pre_lens=pre_lens, toks=toks_d.cpu().numpy(),
+                    ok=ok_d.cpu().numpy())
 
     def _commit_step(self, stp: dict) -> None:
         """Check the landed rows' logits, then land them. The JAX engine
@@ -357,7 +418,7 @@ class GenerationEngine:
 
     def _land_step(self, stp: dict) -> None:
         """Land every row: chunk cursor advances, prefill completions
-        (first tokens) and decode tokens."""
+        (first tokens), decode and verify tokens."""
         sch = self.scheduler
         toks, q_starts, q_lens = stp["toks"], stp["q_starts"], stp["q_lens"]
         for r in stp["chunk_rows"]:
@@ -371,22 +432,126 @@ class GenerationEngine:
             if req.state != "finished":
                 self._tok_matrix[slot, self._row_len[slot]] = first
                 self._row_len[slot] += 1
-        decode_rows: List[RowPlan] = stp["decode_rows"]
-        if not decode_rows:
-            return
-        emitted = {}
-        for r in decode_rows:
-            slot = r.request.slot
+        self._land_verify_rows(stp)
+
+    def _land_verify_rows(self, stp: dict) -> None:
+        """Land the decode and verify rows: per slot, accept the longest
+        draft prefix that matches the target's samples and emit the
+        accepted drafts plus one more token (the bonus on full
+        acceptance, the corrected target on a mismatch; a draftless row
+        emits its one token). The rejected tail's K/V is rolled back
+        with ``cache.truncate`` under the request's reserve floor. An
+        EOS inside a block stops delivery at the EOS. A step in which
+        any slot drafted counts in the ``n_spec_*`` stats."""
+        sch = self.scheduler
+        toks, q_starts = stp["toks"], stp["q_starts"]
+        drafts, pre_lens = stp["drafts"], stp["pre_lens"]
+        emitted: Dict[int, List[int]] = {}
+        n_active = n_drafted = n_accepted = 0
+        for r in stp["decode_rows"]:
+            req = r.request
+            slot = req.slot
+            n_active += 1
+            draft = drafts.get(slot, [])
+            k = len(draft)
+            qs = int(q_starts[slot])
+            out: List[int] = []
+            acc = 0
+            for i in range(k):
+                t = int(toks[qs + i])
+                out.append(t)          # the target's token, always kept
+                if t != draft[i]:
+                    break
+                acc += 1
+            if acc == k:               # full acceptance: the bonus token
+                out.append(int(toks[qs + k]))
+            # positions n0 .. n0 + k were written; those past 1 + acc
+            # hold rejected drafts
+            n0 = pre_lens[slot]
             self.cache.seq_lens[slot] = max(int(self.cache.seq_lens[slot]),
-                                            stp["pre_lens"][slot] + 1)
-            emitted[slot] = int(toks[q_starts[slot]])
-        sch.on_decode_done(emitted, self.eos_id)
-        for r in decode_rows:
+                                            n0 + 1 + k)
+            if k - acc:
+                self.cache.truncate(
+                    slot, k - acc,
+                    reserve_tokens=len(req.prompt) + req.max_new_tokens)
+            emitted[slot] = out
+            if k:
+                n_drafted += k
+                n_accepted += acc
+                self._adapt_spec_len(req, k, acc)
+        delivered = sch.on_verify_done(emitted, self.eos_id)
+        if drafts:
+            sch.stats["n_spec_steps"] += 1
+            sch.stats["n_spec_slot_steps"] += n_active
+            sch.stats["n_spec_drafted"] += n_drafted
+            sch.stats["n_spec_accepted"] += n_accepted
+            sch.stats["n_spec_emitted"] += sum(delivered.values())
+        # each still-running slot's landed tokens join its host context
+        # (the next pending token and the drafter's input)
+        for r in stp["decode_rows"]:
             req = r.request
             if req.state == "running":
-                slot = req.slot
-                self._tok_matrix[slot, self._row_len[slot]] = emitted[slot]
-                self._row_len[slot] += 1
+                out = emitted[req.slot]
+                rl = self._row_len[req.slot]
+                self._tok_matrix[req.slot, rl:rl + len(out)] = out
+                self._row_len[req.slot] += len(out)
+
+    # ----------------------------------------------- speculative drafting --
+    def _collect_drafts(self, budget: Optional[int] = None
+                        ) -> Dict[int, List[int]]:
+        """n-gram drafts for every decoding slot that has budget and a
+        match (slot -> draft tokens). A draft is capped at ``remaining -
+        1`` tokens, so the verify row (drafts plus the bonus or corrected
+        token) never overruns ``max_new_tokens`` or the reserved pages,
+        and at the step budget's remainder when one is given."""
+        cfg = self.scheduler.config
+        drafts: Dict[int, List[int]] = {}
+        left = budget
+        for slot, req in sorted(self.scheduler.running.items()):
+            if req.state != "running":
+                continue
+            if req.spec_len <= 0:
+                # speculation turned itself off for this request; probe
+                # again after a quiet stretch
+                req.spec_idle += 1
+                if req.spec_idle >= SPEC_PROBE_EVERY:
+                    req.spec_idle = 0
+                    req.spec_len = 1
+                    req.spec_window.clear()
+                continue
+            remaining = req.max_new_tokens - len(req.output)
+            cap = min(req.spec_len, cfg.spec_tokens, remaining - 1)
+            if left is not None:
+                cap = min(cap, left)
+            if cap <= 0:
+                continue
+            draft = ngram_draft(self._tok_matrix[slot, :self._row_len[slot]],
+                                cap)
+            if draft:
+                drafts[slot] = draft
+                if left is not None:
+                    left -= len(draft)
+        return drafts
+
+    def _adapt_spec_len(self, req, drafted: int, accepted: int) -> None:
+        """Windowed acceptance controller: a window acceptance below
+        ``SPEC_DECAY_BELOW`` shrinks the request's draft budget (down to
+        0, plain decode), one at or above ``SPEC_GROW_ABOVE`` grows it
+        back toward ``spec_tokens``."""
+        req.spec_drafted += drafted
+        req.spec_accepted += accepted
+        req.spec_window.append((drafted, accepted))
+        if len(req.spec_window) > SPEC_WINDOW:
+            del req.spec_window[0]
+        d = sum(w[0] for w in req.spec_window)
+        a = sum(w[1] for w in req.spec_window)
+        ratio = a / d if d else 0.0
+        if ratio < SPEC_DECAY_BELOW:
+            req.spec_len = max(req.spec_len - 1, 0)
+            req.spec_idle = 0
+        elif ratio >= SPEC_GROW_ABOVE:
+            req.spec_len = min(req.spec_len + 1,
+                               self.scheduler.config.spec_tokens)
 
     # --------------------------------------------------- device mirrors --
     def _stage(self, arr: np.ndarray) -> torch.Tensor:

@@ -29,6 +29,12 @@ can exhaust the index rows before the pages: ``allocate`` then refuses,
 exactly as the JAX cache does. The JAX cache's host swap tier and
 cold-prefix demotion come with later slices; this ``CacheConfig``
 rejects settings that need them.
+
+``truncate`` rolls back the tail of a slot (speculative decoding's
+rejected drafts) under the request's reserve floor. The module-level
+scatter helpers (``append_kv``, ``write_prefill_kv``,
+``write_chunk_kv``) write the pools IN PLACE and return them, where the
+JAX helpers return new pools.
 """
 from __future__ import annotations
 
@@ -45,7 +51,9 @@ from ...kernels.paged_attention import ragged_rows
 from .quant import QuantConfig, kv_pool_dtype, kv_scale_shape
 
 __all__ = ["GARBAGE_PAGE", "CacheConfig", "PagedKVCache",
-           "ragged_page_indices", "flatten_page_levels"]
+           "ragged_page_indices", "flatten_page_levels", "page_offsets",
+           "append_kv", "write_prefill_kv", "chunk_page_indices",
+           "block_page_indices", "write_chunk_kv"]
 
 GARBAGE_PAGE = 0
 
@@ -266,14 +274,22 @@ class PagedKVCache:
         self._slot_rows[slot] = rows
         self.page_table_version += 1
 
-    def _clear_slot_pages(self, slot: int) -> None:
-        """Return all of ``slot``'s index rows, reset to garbage, to the
-        row free list."""
-        for r in self._slot_rows[slot]:
+    def _truncate_slot_pages(self, slot: int, keep: int) -> None:
+        """Shrink ``slot``'s directory to its first ``keep`` pages: whole
+        tail rows reset to garbage and return to the row free list; the
+        kept tail row's now-slack entries reset in place (``keep == 0``
+        clears the slot)."""
+        f = self._dir_fanout
+        rows = self._slot_rows[slot]
+        n_keep = self._dir_rows_for(keep)
+        for r in rows[n_keep:]:
             self.index_pool[r, :] = GARBAGE_PAGE
             self._dir_free.append(r)
-        self._slot_rows[slot] = []
-        self.slot_dir[slot, :] = 0
+        if n_keep:
+            self.index_pool[rows[n_keep - 1], keep - (n_keep - 1) * f:] = \
+                GARBAGE_PAGE
+        self._slot_rows[slot] = rows[:n_keep]
+        self.slot_dir[slot, n_keep:] = 0
         self.page_table_version += 1
 
     # ---------------------------------------------------------- allocator --
@@ -397,6 +413,57 @@ class PagedKVCache:
         self.prefix_hits += len(matched)
         return True
 
+    def truncate(self, slot: int, n_tokens: int,
+                 reserve_tokens: int = 0) -> int:
+        """Roll back the last ``n_tokens`` KV entries of ``slot`` (the
+        speculative-decoding rejection path: draft K/V was written, the
+        target disagreed). Decrements ``seq_lens[slot]`` and returns
+        now-empty tail pages to the free list, EXCEPT pages within
+        ``pages_for(max(new_len, reserve_tokens))``: under the request's
+        reserve-ahead floor a rollback is pure ``seq_lens`` accounting.
+        Returns the number of pages freed. Refuses (raises, mutating
+        nothing) an underflow past zero or past the prefix-cache
+        boundary, and freeing a page that another slot maps or that the
+        prefix cache holds."""
+        pages = self._allocated_pages[slot]
+        if not pages:
+            raise RuntimeError(
+                f"truncate of slot {slot} which holds no allocation")
+        if n_tokens < 0:
+            raise ValueError(f"n_tokens must be >= 0, got {n_tokens}")
+        new_len = int(self.seq_lens[slot]) - n_tokens
+        if new_len < 0:
+            raise RuntimeError(
+                f"truncate underflow: slot {slot} holds "
+                f"{int(self.seq_lens[slot])} tokens, asked to drop "
+                f"{n_tokens}")
+        if new_len < self._prefix_lens[slot]:
+            raise RuntimeError(
+                f"truncate past the prefix-cache boundary: slot {slot} "
+                f"maps {self._prefix_lens[slot]} cached prefix tokens, "
+                f"truncate would leave {new_len}")
+        keep = self.config.pages_for(max(new_len, reserve_tokens))
+        doomed = pages[keep:]
+        for page in doomed:
+            if self._refcount[page] != 1:
+                raise RuntimeError(
+                    f"truncate would free page {page} (slot {slot}) "
+                    f"with refcount {int(self._refcount[page])} — "
+                    "shared pages are never truncated")
+            if page in self._page_key:
+                raise RuntimeError(
+                    f"truncate would free page {page} (slot {slot}) "
+                    "which is registered in the prefix cache")
+        self.seq_lens[slot] = new_len
+        if doomed:
+            for page in doomed:
+                self._refcount[page] = 0
+            self._free.extend(reversed(doomed))
+            self._zero_scale_rows(doomed)
+            self._allocated_pages[slot] = pages[:keep]
+            self._truncate_slot_pages(slot, keep)
+        return len(doomed)
+
     def commit_prefix(self, slot: int, prompt: Sequence[int],
                       hashes: Optional[List[bytes]] = None) -> int:
         """Register ``slot``'s now-prefilled FULL prompt pages in the
@@ -445,10 +512,33 @@ class PagedKVCache:
                 else:
                     freed.append(page)
         self._free.extend(reversed(freed))
+        self._zero_scale_rows(freed)
         self._allocated_pages[slot] = []
-        self._clear_slot_pages(slot)
+        self._truncate_slot_pages(slot, 0)
         self.seq_lens[slot] = 0
         self._prefix_lens[slot] = 0
+
+    def _zero_scale_rows(self, pages: List[int]) -> None:
+        """Quantized pools: zero the scale rows of pages returning to the
+        free list (truncate's rolled-back tail, release's uncached
+        pages), in place. Stale scales of a free page are never read (a
+        reallocated page is rewritten per position and attention masks
+        past the length); the zeroing keeps :meth:`scale_pool_clean`
+        exact, as the JAX cache does under its audit switch."""
+        if self.k_scale is None or not pages:
+            return
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        self.k_scale[:, idx] = 0
+        self.v_scale[:, idx] = 0
+
+    def scale_pool_clean(self) -> bool:
+        """True when every free-list page's scale rows are exactly zero
+        (trivially true for float pools)."""
+        if self.k_scale is None or not self._free:
+            return True
+        idx = torch.tensor(self._free, dtype=torch.long, device=self.device)
+        return bool((self.k_scale[:, idx] == 0).all()
+                    and (self.v_scale[:, idx] == 0).all())
 
     def check_invariants(self) -> None:
         """Accounting and refcount invariants; raises ``AssertionError``
@@ -535,3 +625,81 @@ def flatten_page_levels(slot_dir, index_pool, pages_per_seq: int):
     copied."""
     flat = index_pool[slot_dir.long()].reshape(slot_dir.shape[0], -1)
     return flat[:, :pages_per_seq].contiguous()
+
+
+def page_offsets(page_table, positions, page_size: int):
+    """Per-slot (page, offset) of ``positions`` through ``page_table``:
+    the addressing rule of every decode-path scatter (``lm_decode``'s
+    per-layer appends)."""
+    b = torch.arange(page_table.shape[0], device=page_table.device)
+    positions = positions.long()
+    return page_table[b, positions // page_size], positions % page_size
+
+
+def append_kv(k_pool, v_pool, k_new, v_new, page_table, positions):
+    """Scatter one new token's K/V per slot into the pools, in place.
+    k_new/v_new ``[L, B, H, D]``; positions ``[B]`` (each token's
+    position, the pre-append length). Returns the pools."""
+    pages, offs = page_offsets(page_table, positions, k_pool.shape[2])
+    pages = pages.long()
+    k_pool[:, pages, offs] = k_new
+    v_pool[:, pages, offs] = v_new
+    return k_pool, v_pool
+
+
+def write_prefill_kv(k_pool, v_pool, k, v, page_row, prompt_len: int):
+    """Scatter a whole prompt's K/V ``[L, S, H, D]`` (S bucket-padded)
+    into one sequence's pages, in place; positions ``>= prompt_len`` go
+    to the garbage page (their page-row lookup clamped to the row, as a
+    JAX gather clamps). Returns the pools."""
+    page_size = k_pool.shape[2]
+    pos = torch.arange(k.shape[1], device=page_row.device)
+    col = torch.clamp(pos // page_size, max=page_row.shape[0] - 1)
+    pages = torch.where(pos < prompt_len, page_row[col],
+                        torch.full_like(pos, GARBAGE_PAGE)).long()
+    k_pool[:, pages, pos % page_size] = k
+    v_pool[:, pages, pos % page_size] = v
+    return k_pool, v_pool
+
+
+def chunk_page_indices(page_row, start, chunk_len, width: int,
+                       page_size: int):
+    """(pages, offs) ``[width]`` for scattering a ``width``-wide chunk
+    starting at position ``start`` through ``page_row``. Rows ``>=
+    chunk_len`` are padding: their position is clamped to the table's
+    reach (``n_pages * page_size - 1``) and they go to the garbage
+    page."""
+    i = torch.arange(width, device=page_row.device)
+    pos = torch.clamp(start + i, max=page_row.shape[0] * page_size - 1)
+    pages = torch.where(i < chunk_len, page_row[pos // page_size],
+                        torch.full_like(pos, GARBAGE_PAGE))
+    return pages, pos % page_size
+
+
+def block_page_indices(page_table, starts, q_lens, width: int,
+                       page_size: int):
+    """Per-slot (pages, offs) ``[B, width]`` for scattering a
+    ``width``-wide token block per slot starting at ``starts[b]`` (the
+    verify shape: the pending token and its drafts, ragged through
+    ``q_lens``). Rows ``t >= q_lens[b]`` are padding: clamped positions,
+    routed to the garbage page."""
+    n_pages = page_table.shape[1]
+    i = torch.arange(width, device=page_table.device)[None, :]
+    pos = torch.clamp(starts.long()[:, None] + i,
+                      max=n_pages * page_size - 1)
+    b = torch.arange(page_table.shape[0], device=page_table.device)[:, None]
+    pages = torch.where(i < q_lens[:, None], page_table[b, pos // page_size],
+                        torch.full_like(pos, GARBAGE_PAGE))
+    return pages, pos % page_size
+
+
+def write_chunk_kv(k_pool, v_pool, k, v, page_row, start, chunk_len):
+    """Scatter one prefill chunk's K/V ``[L, C, H, D]`` into a
+    sequence's pages, in place (rows ``>= chunk_len`` to the garbage
+    page). Returns the pools."""
+    pages, offs = chunk_page_indices(page_row, start, chunk_len, k.shape[1],
+                                     k_pool.shape[2])
+    pages = pages.long()
+    k_pool[:, pages, offs] = k
+    v_pool[:, pages, offs] = v
+    return k_pool, v_pool

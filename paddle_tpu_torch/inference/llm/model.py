@@ -12,6 +12,16 @@ quantized KV pages the codes and their scales are written in place the
 same way; with weight-only int8 every serving matmul weight is an
 ``@q``/``@s`` pair dequantized in front of its matmul (:func:`_w`).
 
+The per-tier graphs the unified step replaced, and which remain the
+reference for it: :func:`lm_prefill` (dense causal prefill,
+``sdpa_reference``), :func:`lm_chunk_prefill` (one chunk of one
+sequence through the mixed attention kernel), :func:`lm_decode` (one
+token per slot through the decode kernel) and :func:`lm_verify` (the
+pending token plus drafts per slot through the mixed kernel). They
+take the JAX functions' arguments, write the pools in place and return
+the logits alone; like the JAX graphs they serve float32 pools only
+(weight-only int8 works through :func:`_w`).
+
 Numerics follow the reference: LayerNorm with population variance and
 eps 1e-5, the tanh-approximate GELU (``jax.nn.gelu``'s default),
 positions clamped to ``max_seq_len - 1``, logits through the tied
@@ -27,13 +37,17 @@ import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device
+from ...kernels.attention import sdpa_reference
 from ...kernels.int8 import dequantize
-from ...kernels.paged_attention import ragged_attention
-from .kv_cache import ragged_page_indices
+from ...kernels.paged_attention import (mixed_attention, paged_attention,
+                                        ragged_attention, verify_attention)
+from .kv_cache import (block_page_indices, chunk_page_indices, page_offsets,
+                       ragged_page_indices)
 from .quant import QuantConfig, quantize_kv, quantize_lm_weights, \
     quantized_weight_names
 
 __all__ = ["ModelSpec", "TorchLM", "init_lm_params", "params_from_jax",
+           "lm_prefill", "lm_chunk_prefill", "lm_decode", "lm_verify",
            "lm_ragged_step", "resolve_carry_tokens", "step_carry"]
 
 
@@ -134,6 +148,153 @@ def _scatter(pool, pages, offs, values):
     pool.index_put_((pages, offs), values)
 
 
+def _block(p, l, x, attend):
+    """One pre-LN block: ``attend(q, k, v)`` (each ``[..., H*D]``)
+    scatters this layer's K/V and returns the attention ``[..., H*D]``."""
+    h = _ln(x, p[f"l{l}.ln1_g"], p[f"l{l}.ln1_b"])
+    x = x + attend(*_qkv(p, l, h)) @ _w(p, f"l{l}.wo")
+    return x + _mlp(p, l, _ln(x, p[f"l{l}.ln2_g"], p[f"l{l}.ln2_b"]))
+
+
+def _logits(p, x):
+    return _ln(x, p["lnf_g"], p["lnf_b"]) @ p["embed"].T
+
+
+def _float_pools(k_pool, v_pool) -> None:
+    if k_pool.dtype != torch.float32 or v_pool.dtype != torch.float32:
+        raise ValueError(f"the per-tier graphs serve float32 pools (the JAX "
+                         f"ones have no KV quantization); got "
+                         f"{k_pool.dtype}/{v_pool.dtype}")
+
+
+def lm_prefill(params, spec: ModelSpec, tokens):
+    """Dense prefill. tokens ``[B, S]`` -> (logits ``[B, S, V]``, k
+    ``[L, B, S, H, D]``, v ``[L, B, S, H, D]``), causal attention through
+    ``sdpa_reference`` as in the JAX graph."""
+    B, S = tokens.shape
+    H, D = spec.num_heads, spec.head_dim
+    x = (params["embed"][tokens.long()]
+         + params["pos"][torch.arange(S, device=tokens.device)][None])
+    ks, vs = [], []
+
+    def attend(q, k, v):
+        k, v = k.reshape(B, S, H, D), v.reshape(B, S, H, D)
+        ks.append(k)
+        vs.append(v)
+        return sdpa_reference(q.reshape(B, S, H, D), k, v,
+                              is_causal=True).reshape(B, S, H * D)
+
+    for l in range(spec.num_layers):
+        x = _block(params, l, x, attend)
+    return _logits(params, x), torch.stack(ks), torch.stack(vs)
+
+
+def lm_chunk_prefill(params, spec: ModelSpec, tokens, start, chunk_len,
+                     k_pool, v_pool, page_row, attn_tier="auto"):
+    """Prefill one CHUNK of one sequence through the paged pools.
+
+    tokens ``[C]`` (zero-padded chunk), ``start`` (the chunk's first
+    position == tokens already resident), ``chunk_len`` (valid tokens),
+    ``page_row [pages_per_seq]``. Each layer writes the chunk's K/V into
+    ``k_pool``/``v_pool`` ``[L, P, page, H, D]`` IN PLACE (padding rows
+    to the garbage page, positions clamped) and attends the chunk's
+    queries causally over all ``start + chunk_len`` resident tokens with
+    :func:`mixed_attention`. Returns logits ``[C, V]``; rows ``>=
+    chunk_len`` carry no meaning."""
+    _float_pools(k_pool, v_pool)
+    C = tokens.shape[0]
+    H, D = spec.num_heads, spec.head_dim
+    dev = tokens.device
+    pos = torch.clamp(start + torch.arange(C, device=dev),
+                      max=spec.max_seq_len - 1)
+    pages, offs = chunk_page_indices(page_row, start, chunk_len, C,
+                                     k_pool.shape[2])
+    pages = pages.long()
+    seq_lens = torch.as_tensor(start + chunk_len, device=dev).reshape(1).to(
+        torch.int32)
+    q_lens = torch.as_tensor(chunk_len, device=dev).reshape(1).to(
+        torch.int32)
+    table = page_row[None].contiguous()
+    x = params["embed"][tokens.long()] + params["pos"][pos]
+    for l in range(spec.num_layers):
+        def attend(q, k, v):
+            k_pool[l].index_put_((pages, offs), k.reshape(C, H, D))
+            v_pool[l].index_put_((pages, offs), v.reshape(C, H, D))
+            return mixed_attention(q.reshape(1, C, H, D).contiguous(),
+                                   k_pool[l], v_pool[l], table, seq_lens,
+                                   q_lens, tier=attn_tier).reshape(C, H * D)
+        x = _block(params, l, x, attend)
+    return _logits(params, x)
+
+
+def lm_decode(params, spec: ModelSpec, tokens, positions, k_pool, v_pool,
+              page_table, attn_tier="auto"):
+    """One decode step for all slots.
+
+    tokens ``[B]`` (each slot's last sampled token), positions ``[B]``
+    (its position == the resident length), pools ``[L, P, page, H, D]``.
+    Each layer writes the new K/V IN PLACE at ``page_offsets`` (no
+    garbage routing, as in the JAX graph) and attends through the page
+    table over ``positions + 1`` tokens with :func:`paged_attention`.
+    Returns logits ``[B, V]``."""
+    _float_pools(k_pool, v_pool)
+    B = tokens.shape[0]
+    H, D = spec.num_heads, spec.head_dim
+    pages, offs = page_offsets(page_table, positions, k_pool.shape[2])
+    pages = pages.long()
+    seq_incl = (positions + 1).to(torch.int32)
+    x = params["embed"][tokens.long()] + params["pos"][positions.long()]
+    for l in range(spec.num_layers):
+        def attend(q, k, v):
+            k_pool[l].index_put_((pages, offs), k.reshape(B, H, D))
+            v_pool[l].index_put_((pages, offs), v.reshape(B, H, D))
+            return paged_attention(q.reshape(B, H, D).contiguous(),
+                                   k_pool[l], v_pool[l], page_table,
+                                   seq_incl, tier=attn_tier).reshape(
+                                       B, H * D)
+        x = _block(params, l, x, attend)
+    return _logits(params, x)
+
+
+def lm_verify(params, spec: ModelSpec, tokens, starts, q_lens, k_pool,
+              v_pool, page_table, attn_tier="auto"):
+    """Multi-token VERIFY step for speculative decoding.
+
+    tokens ``[B, T]``: per slot the pending token then up to T-1 drafts
+    (rows ``>= q_lens[b]`` are padding); starts ``[B]``: the position of
+    row 0 (the resident length, ``lm_decode``'s positions); q_lens
+    ``[B]``: 1 + drafts (0 masks the slot's writes). Each layer writes
+    every valid row's K/V IN PLACE at ``starts[b] + t`` (speculatively:
+    the engine rolls rejected tails back with ``PagedKVCache.truncate``;
+    padding to the garbage page) and attends the block through the page
+    table with :func:`verify_attention`. Returns logits ``[B, T, V]``:
+    row t of slot b is the distribution of the token at position
+    ``starts[b] + t + 1``."""
+    _float_pools(k_pool, v_pool)
+    B, T = tokens.shape
+    H, D = spec.num_heads, spec.head_dim
+    pages, offs = block_page_indices(page_table, starts, q_lens, T,
+                                     k_pool.shape[2])
+    pages = pages.long()
+    dev = tokens.device
+    pos = torch.clamp(starts.long()[:, None]
+                      + torch.arange(T, device=dev)[None, :],
+                      max=spec.max_seq_len - 1)
+    seq_incl = (starts + q_lens).to(torch.int32)
+    q_lens = q_lens.to(torch.int32)
+    x = params["embed"][tokens.long()] + params["pos"][pos]
+    for l in range(spec.num_layers):
+        def attend(q, k, v):
+            k_pool[l].index_put_((pages, offs), k.reshape(B, T, H, D))
+            v_pool[l].index_put_((pages, offs), v.reshape(B, T, H, D))
+            return verify_attention(q.reshape(B, T, H, D).contiguous(),
+                                    k_pool[l], v_pool[l], page_table,
+                                    seq_incl, q_lens,
+                                    tier=attn_tier).reshape(B, T, H * D)
+        x = _block(params, l, x, attend)
+    return _logits(params, x)
+
+
 def resolve_carry_tokens(tokens, tok_src, carry):
     """The step's input tokens against the device-resident carry: flat
     positions with ``tok_src[i] >= 0`` take ``carry[tok_src[i]]`` (the
@@ -194,32 +355,27 @@ def lm_ragged_step(params, spec: ModelSpec, tokens, q_starts, q_lens,
     emb_pos = torch.clamp(pos, max=spec.max_seq_len - 1).long()
     x = params["embed"][tokens.long()] + params["pos"][emb_pos]
     for l in range(spec.num_layers):
-        h = _ln(x, params[f"l{l}.ln1_g"], params[f"l{l}.ln1_b"])
-        q, k, v = _qkv(params, l, h)
-        q = q.reshape(N, H, D).contiguous()
-        k = k.reshape(N, H, D)
-        v = v.reshape(N, H, D)
-        # every padding token writes the garbage page: duplicate indices
-        # keep an arbitrary one of their values, which is harmless
-        # because page 0 is never inside any row's kv_len
-        scales = {}
-        if kv_quant is not None:
-            k, k_s = quantize_kv(k, kv_quant, quant.scale_dtype)
-            v, v_s = quantize_kv(v, kv_quant, quant.scale_dtype)
-            k_scale[l].index_put_((pages, offs), k_s)
-            v_scale[l].index_put_((pages, offs), v_s)
-            scales = dict(k_scale=k_scale[l], v_scale=v_scale[l])
-        _scatter(k_pool[l], pages, offs, k)
-        _scatter(v_pool[l], pages, offs, v)
-        attn = ragged_attention(q, k_pool[l], v_pool[l], page_table,
-                                kv_lens, q_starts, q_lens, tier=attn_tier,
-                                max_q_len=max_q_len,
-                                split_pages=kv_split_pages, **scales)
-        x = x + attn.reshape(N, H * D) @ _w(params, f"l{l}.wo")
-        x = x + _mlp(params, l, _ln(x, params[f"l{l}.ln2_g"],
-                                    params[f"l{l}.ln2_b"]))
-    x = _ln(x, params["lnf_g"], params["lnf_b"])
-    return x @ params["embed"].T
+        def attend(q, k, v):
+            k, v = k.reshape(N, H, D), v.reshape(N, H, D)
+            # every padding token writes the garbage page: duplicate
+            # indices keep an arbitrary one of their values, which is
+            # harmless because page 0 is never inside any row's kv_len
+            scales = {}
+            if kv_quant is not None:
+                k, k_s = quantize_kv(k, kv_quant, quant.scale_dtype)
+                v, v_s = quantize_kv(v, kv_quant, quant.scale_dtype)
+                k_scale[l].index_put_((pages, offs), k_s)
+                v_scale[l].index_put_((pages, offs), v_s)
+                scales = dict(k_scale=k_scale[l], v_scale=v_scale[l])
+            _scatter(k_pool[l], pages, offs, k)
+            _scatter(v_pool[l], pages, offs, v)
+            return ragged_attention(
+                q.reshape(N, H, D).contiguous(), k_pool[l], v_pool[l],
+                page_table, kv_lens, q_starts, q_lens, tier=attn_tier,
+                max_q_len=max_q_len, split_pages=kv_split_pages,
+                **scales).reshape(N, H * D)
+        x = _block(params, l, x, attend)
+    return _logits(params, x)
 
 
 class TorchLM:

@@ -1,16 +1,20 @@
 """Serving policy defaults the port's engine reads.
 
-The JAX package parses these from its native host's header; the port
+The JAX package parses most of these from its native host's header and
+keeps the speculative-drafting knobs in its engine module; the port
 keeps its own copy of the values instead, so that it reads nothing of
 that package. ``tests/test_torch_isolation.py`` pins every constant here
 against the JAX package's ``shared_policy()`` (with no ``PD_*``
-environment set), so a drifted copy fails there.
+environment set), and ``tests/test_torch_spec_decode.py`` the drafting
+knobs against the JAX engine's, so a drifted copy fails there.
 """
 from __future__ import annotations
 
 __all__ = ["MAX_QUEUE", "DEFAULT_CHUNK_TOKENS", "STEP_TOKEN_BUDGET",
            "DEFAULT_SPEC_TOKENS", "ASYNC_DEPTH", "KV_QUANT", "WEIGHT_QUANT",
-           "KV_QUANT_MODES", "WEIGHT_QUANT_MODES", "KV_SPLIT_PAGES"]
+           "KV_QUANT_MODES", "WEIGHT_QUANT_MODES", "KV_SPLIT_PAGES",
+           "SPEC_NGRAM_MAX", "SPEC_NGRAM_MIN", "SPEC_WINDOW",
+           "SPEC_PROBE_EVERY", "SPEC_DECAY_BELOW", "SPEC_GROW_ABOVE"]
 
 MAX_QUEUE = 1024             # admission ceiling (waiting-queue depth)
 DEFAULT_CHUNK_TOKENS = 0     # chunked-prefill token budget (0 = off)
@@ -22,3 +26,13 @@ WEIGHT_QUANT = "off"         # serving weight storage mode
 KV_QUANT_MODES = ("off", "int8", "fp8")
 WEIGHT_QUANT_MODES = ("off", "int8")
 KV_SPLIT_PAGES = 0           # flash-decode KV-split chunk width (0 = off)
+
+# n-gram (prompt-lookup) drafting. Any draft is safe (verification emits
+# exactly the target-sampled tokens), so these only tune how often
+# speculation pays.
+SPEC_NGRAM_MAX = 3           # longest context suffix the drafter matches
+SPEC_NGRAM_MIN = 2           # shortest suffix worth trusting
+SPEC_WINDOW = 8              # verify events in the acceptance window
+SPEC_PROBE_EVERY = 16        # draftless steps before a spec_len 0 re-probe
+SPEC_DECAY_BELOW = 0.3       # window acceptance below -> shrink spec_len
+SPEC_GROW_ABOVE = 0.7        # window acceptance at or above -> grow it

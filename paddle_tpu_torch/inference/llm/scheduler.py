@@ -19,12 +19,17 @@ unified mixed-step plan. The scheduler owns WHAT runs each step; the
   layout equals the JAX engine's.
 - **Slot recycling**: EOS or ``max_new_tokens`` retires the slot and
   returns its pages.
+- **Speculative decoding** (``spec_tokens > 0``): a decode row may carry
+  the engine's n-gram drafts, a wider row of the same step;
+  ``on_verify_done`` lands a variable number of tokens per slot. The
+  adaptive draft state lives on the ``Request`` (``spec_len``,
+  ``spec_window``, ``spec_idle``) and the totals in ``stats``.
 
 Priority classes, tenant quotas, deadlines, preemption, brownout
-shedding, speculative drafts, async pipelining, quantized collectives
-and the int8 matmul are later slices of the port: their knobs exist so
-a config reads like the JAX one, and a non-default value raises
-``NotImplementedError`` naming the slice.
+shedding (so ``spec_suspended`` stays False), async pipelining,
+quantized collectives and the int8 matmul are later slices of the port:
+their knobs exist so a config reads like the JAX one, and a non-default
+value raises ``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
@@ -82,8 +87,9 @@ class SchedulerConfig:
     chunk_tokens: int = policy.DEFAULT_CHUNK_TOKENS
     # ragged tokens packed per mixed step (0 = unbounded)
     step_token_budget: int = policy.STEP_TOKEN_BUDGET
-    # later slices: only the defaults are accepted (see __post_init__)
+    # speculative decoding: most draft tokens per decode row (0 = off)
     spec_tokens: int = policy.DEFAULT_SPEC_TOKENS
+    # later slices: only the defaults are accepted (see __post_init__)
     async_depth: int = policy.ASYNC_DEPTH
     tenant_max_pages: int = 0
     tenant_max_slots: int = 0
@@ -104,8 +110,7 @@ class SchedulerConfig:
     kv_split_pages: int = policy.KV_SPLIT_PAGES
 
     def __post_init__(self):
-        later = (("spec_tokens", "speculative decoding"),
-                 ("async_depth", "async pipelining"),
+        later = (("async_depth", "async pipelining"),
                  ("tenant_max_pages", "multi-tenant admission"),
                  ("tenant_max_slots", "multi-tenant admission"),
                  ("brownout_levels", "overload brownout"))
@@ -122,12 +127,12 @@ class SchedulerConfig:
     def max_step_tokens(self) -> int:
         """Most ragged tokens one mixed step can pack: the chunk row's
         cap (chunk budget, else a whole max_seq_len context; the step
-        budget caps either) plus one decode row per slot."""
+        budget caps either) plus one 1 + drafts row per slot."""
         chunk_cap = (self.chunk_tokens if self.chunk_tokens > 0
                      else self.max_seq_len)
         if self.step_token_budget > 0:
             chunk_cap = min(chunk_cap, self.step_token_budget)
-        return chunk_cap + self.max_slots
+        return chunk_cap + self.max_slots * (1 + max(self.spec_tokens, 0))
 
     def step_buckets(self) -> List[int]:
         return ragged_buckets(self.min_bucket, self.max_step_tokens())
@@ -147,6 +152,15 @@ class Request:
     prefill_chunks: int = 0        # chunk rows issued for this request
     # memoized full-page rolling digests of the prompt
     block_hashes: Optional[List[bytes]] = None
+    # speculative decoding (engine-maintained): the current adaptive
+    # draft budget (starts at spec_tokens, decays to 0 = plain decode
+    # and probes back), lifetime drafted/accepted tokens, the recent
+    # (drafted, accepted) window and draftless steps toward a probe
+    spec_len: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_window: List = dataclasses.field(default_factory=list)
+    spec_idle: int = 0
 
     def kv_tokens(self) -> List[int]:
         """prompt + generated output — every token whose KV must be
@@ -193,6 +207,13 @@ class ContinuousBatchingScheduler:
         self._free_slots = list(range(config.max_slots - 1, -1, -1))
         self._chunking: Optional[Request] = None   # owner of the prefill lane
         self._next_rid = 0
+        # speculative-decoding totals (engine-updated): verify steps,
+        # slot participations in them, drafted / accepted / emitted tokens
+        self.stats = {"n_spec_steps": 0, "n_spec_slot_steps": 0,
+                      "n_spec_drafted": 0, "n_spec_accepted": 0,
+                      "n_spec_emitted": 0}
+        # brownout turns drafting off; the port has no brownout yet
+        self.spec_suspended = False
 
     # -------------------------------------------------------------- views --
     @property
@@ -235,7 +256,8 @@ class ContinuousBatchingScheduler:
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=list(prompt),
-                      max_new_tokens=max_new_tokens, sampling=sampling)
+                      max_new_tokens=max_new_tokens, sampling=sampling,
+                      spec_len=self.config.spec_tokens)
         self._queue.append(req)
         self.requests[rid] = req
         return rid
@@ -384,15 +406,27 @@ class ContinuousBatchingScheduler:
         req.state = RUNNING
         self._emit(req, first_token, eos_id)
 
-    def on_decode_done(self, emitted: Dict[int, int],
-                       eos_id: Optional[int]) -> None:
-        """``emitted``: slot -> the token its decode row sampled. The
-        engine has already advanced ``cache.seq_lens`` by the one KV
-        entry each row wrote."""
-        for slot, token in emitted.items():
+    def on_verify_done(self, emitted: Dict[int, List[int]],
+                       eos_id: Optional[int]) -> Dict[int, int]:
+        """``emitted``: slot -> the tokens its decode or verify row
+        landed, in order (one for a plain decode row; accepted drafts
+        plus the bonus or corrected token for a verify row). The engine
+        has already set ``cache.seq_lens`` and rolled rejected draft
+        K/V back. An EOS inside the block retires the slot at once and
+        drops the tokens after it. Returns slot -> tokens delivered."""
+        delivered: Dict[int, int] = {}
+        for slot, tokens in emitted.items():
             req = self.running.get(slot)
-            if req is not None and req.state == RUNNING:
+            if req is None or req.state != RUNNING:
+                continue
+            n = 0
+            for token in tokens:
                 self._emit(req, int(token), eos_id)
+                n += 1
+                if req.state != RUNNING:
+                    break
+            delivered[slot] = n
+        return delivered
 
     def _emit(self, req: Request, token: int, eos_id: Optional[int]) -> None:
         req.output.append(token)

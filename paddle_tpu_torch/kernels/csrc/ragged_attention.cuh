@@ -37,7 +37,8 @@
 // w, w + kWarps, ...); each warp stages its page's K and V for head h in
 // its own shared-memory slice and keeps a float32 online-softmax state
 // (m, l, acc) per query in registers. The warps' states merge once at
-// the end in fixed warp order.
+// the end in fixed warp order. The staging, the walk and the merge are
+// paged_walk.cuh's, shared with the decode and mixed kernels.
 //
 // The KV split. A long row's walk is still one block per (tile, head);
 // at decode that is few blocks for 132 SMs. With split_pages = sp the
@@ -52,117 +53,35 @@
 // a deeper copy pipeline are later work.
 #pragma once
 
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_walk.cuh"
 
 namespace ragged {
 
+using paged::Code;
+using paged::kNegInf;
+
 constexpr int kTQ = 16;        // query tokens of one row per block
 constexpr int kWarps = 4;      // warps per block, striding the page walk
-constexpr float kNegInf = -1e30f;   // NEG_INF of the JAX kernels (finite)
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCombineThreads = 128;
-
-// page element -> float32: plain for float pools, code * scale for
-// 1-byte code pools (from the code's raw byte)
-template <typename T> struct Code;
-template <> struct Code<float> {
-  static constexpr bool kQuant = false;
-};
-template <> struct Code<int8_t> {
-  static constexpr bool kQuant = true;
-  __device__ static float to_float(uint32_t bits) {
-    return (float)(int8_t)(uint8_t)(bits & 0xffu);
-  }
-};
-template <> struct Code<__nv_fp8_e4m3> {
-  static constexpr bool kQuant = true;
-  __device__ static float to_float(uint32_t bits) {
-    __nv_fp8_e4m3 v;
-    v.__x = (__nv_fp8_storage_t)(bits & 0xffu);
-    return static_cast<float>(v);
-  }
-};
 
 template <typename T>
 struct Params {
   const float* q;            // [N, H, D]
-  const T* k_pool;           // [P, page, H, D]
-  const T* v_pool;
-  const float* k_scale;      // [P, page, H] (code pools only)
-  const float* v_scale;
+  paged::Pools<T> pools;     // [P, page, H, D] (+ scales [P, page, H])
   const int* page_table;     // [B, pages_per_seq]
   const int* kv_lens;        // [B]
   const int* q_starts;
   const int* q_lens;
   float* out;                // [N, H, D], zeroed by the caller
   float* ws;                 // split: [n_chunks, N, H, D + 2]
-  int N, H, D, page_size, pages_per_seq, split_pages, n_chunks;
+  int N, pages_per_seq, split_pages, n_chunks;
   float sm_scale;
 };
-
-// Shared memory in floats: the pre-scaled query tile, then a region
-// that holds each warp's staged K/V page during the walk and the
-// warps' partial states during the merge.
-__host__ __device__ inline int walk_floats(int D, int page_size) {
-  return kWarps * page_size * (2 * D + 1);
-}
-__host__ __device__ inline int merge_floats(int D) {
-  return kWarps * kTQ * (D + 2);
-}
-__host__ __device__ inline int smem_floats(int D, int page_size) {
-  const int w = walk_floats(D, page_size), m = merge_floats(D);
-  return kTQ * D + (w > m ? w : m);
-}
-
-// One warp stages page `page` of head h: K rows padded to D + 1 floats
-// (lane-per-key reads hit distinct banks), V rows of D floats.
-template <typename T>
-__device__ inline void stage_page(const Params<T>& a, int page, int h,
-                                  int lane, float* ks, float* vs) {
-  const int D = a.D, H = a.H, ps = a.page_size, Dk = D + 1;
-  if constexpr (!Code<T>::kQuant) {
-    for (int e = lane; e < ps * D; e += 32) {
-      const int j = e / D, d = e - j * D;
-      const size_t g = ((size_t)(page * ps + j) * H + h) * D + d;
-      ks[j * Dk + d] = a.k_pool[g];
-      vs[j * D + d] = a.v_pool[g];
-    }
-  } else {
-    const uint8_t* kb = reinterpret_cast<const uint8_t*>(a.k_pool);
-    const uint8_t* vb = reinterpret_cast<const uint8_t*>(a.v_pool);
-    if ((D & 3) == 0) {                      // four codes per load
-      const int D4 = D >> 2;
-      for (int e = lane; e < ps * D4; e += 32) {
-        const int j = e / D4, d = (e - j * D4) * 4;
-        const size_t row = (size_t)(page * ps + j) * H + h;
-        const uint32_t kw =
-            *reinterpret_cast<const uint32_t*>(kb + row * D + d);
-        const uint32_t vw =
-            *reinterpret_cast<const uint32_t*>(vb + row * D + d);
-        const float ksc = a.k_scale[row], vsc = a.v_scale[row];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ks[j * Dk + d + i] = Code<T>::to_float(kw >> (8 * i)) * ksc;
-          vs[j * D + d + i] = Code<T>::to_float(vw >> (8 * i)) * vsc;
-        }
-      }
-    } else {
-      for (int e = lane; e < ps * D; e += 32) {
-        const int j = e / D, d = e - j * D;
-        const size_t row = (size_t)(page * ps + j) * H + h;
-        ks[j * Dk + d] = Code<T>::to_float(kb[row * D + d]) * a.k_scale[row];
-        vs[j * D + d] = Code<T>::to_float(vb[row * D + d]) * a.v_scale[row];
-      }
-    }
-  }
-}
 
 template <typename T, bool kSplit, int DPL>   // DPL = ceil(D / 32)
 __global__ void __launch_bounds__(kWarps * 32)
 ragged_attention_kernel(const Params<T> a) {
-  const int H = a.H, D = a.D, page_size = a.page_size;
+  const int H = a.pools.H, D = a.pools.D, page_size = a.pools.page_size;
   const int h = blockIdx.y;
   const int b = kSplit ? (int)blockIdx.z / a.n_chunks : (int)blockIdx.z;
   const int c = kSplit ? (int)blockIdx.z - b * a.n_chunks : 0;
@@ -174,9 +93,8 @@ ragged_attention_kernel(const Params<T> a) {
   const int tok0 = a.q_starts[b] + t0;     // flat index of tile token 0
   const int pos0 = kv_len - q_len + t0;    // its global position
   // keys the tile can see: positions up to its last query's position
-  const int n_keys = max(0, min(kv_len, pos0 + nq));
-  const int n_pages = min((n_keys + page_size - 1) / page_size,
-                          a.pages_per_seq);
+  const int n_pages = paged::visible_pages(min(kv_len, pos0 + nq),
+                                           page_size, a.pages_per_seq);
   const int p_begin = kSplit ? c * a.split_pages : 0;
   const int p_end = kSplit ? min(p_begin + a.split_pages, n_pages) : n_pages;
   const int W = D + 2;                     // one (m, l, acc[D]) record
@@ -191,118 +109,23 @@ ragged_attention_kernel(const Params<T> a) {
   }
 
   extern __shared__ float smem[];
-  float* qs = smem;                        // [kTQ][D], pre-scaled
-  float* region = smem + kTQ * D;
-  for (int e = threadIdx.x; e < nq * D; e += blockDim.x) {
-    const int i = e / D, d = e - i * D;
-    qs[e] = a.q[((size_t)(tok0 + i) * H + h) * D + d] * a.sm_scale;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int Dk = D + 1;
-  float* ks = region + warp * page_size * (2 * D + 1);  // [page][D + 1]
-  float* vs = ks + page_size * Dk;                      // [page][D]
-
-  float m[kTQ], l[kTQ], acc[kTQ][DPL];
-#pragma unroll
-  for (int i = 0; i < kTQ; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < DPL; ++cc) acc[i][cc] = 0.f;
-  }
-
-  for (int p = p_begin + warp; p < p_end; p += kWarps) {
-    const int page = a.page_table[(size_t)b * a.pages_per_seq + p];
-    stage_page<T>(a, page, h, lane, ks, vs);
-    __syncwarp();
-    const int kv_pos = p * page_size + lane;   // lane j scores key j
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) {
-      if (i < nq) {                            // uniform across the warp
-        const bool valid = lane < page_size && kv_pos < kv_len
-                           && kv_pos <= pos0 + i;
-        float s = kNegInf;
-        if (valid) {
-          const float* qi = qs + i * D;
-          const float* kj = ks + lane * Dk;
-          float dot = 0.f;
-          for (int d = 0; d < D; ++d) dot = fmaf(qi[d], kj[d], dot);
-          s = dot;
-        }
-        float mx = s;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-        const float m_new = fmaxf(m[i], mx);
-        const float pj = valid ? expf(s - m_new) : 0.f;
-        float psum = pj;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          psum += __shfl_xor_sync(kFull, psum, o);
-        const float alpha = expf(m[i] - m_new);
-        l[i] = l[i] * alpha + psum;
-#pragma unroll
-        for (int cc = 0; cc < DPL; ++cc) acc[i][cc] *= alpha;
-        for (int j = 0; j < page_size; ++j) {
-          const float pb = __shfl_sync(kFull, pj, j);
-#pragma unroll
-          for (int cc = 0; cc < DPL; ++cc) {
-            const int d = lane + 32 * cc;
-            if (d < D) acc[i][cc] = fmaf(pb, vs[j * D + d], acc[i][cc]);
+  paged::attend_tile<T, kTQ, kWarps, DPL>(
+      a.pools, a.page_table + (size_t)b * a.pages_per_seq, h,
+      a.q + ((size_t)tok0 * H + h) * D, (size_t)H * D, a.sm_scale, nq, pos0,
+      kv_len, p_begin, p_end, smem,
+      [&](int i, int d, float mt, float lt, float at) {
+        if (kSplit) {
+          float* rec = a.ws + (((size_t)c * a.N + tok0 + i) * H + h) * W;
+          if (d == 0) {
+            rec[0] = mt;
+            rec[1] = lt;
           }
+          rec[2 + d] = at;
+        } else {
+          a.out[((size_t)(tok0 + i) * H + h) * D + d] =
+              lt == 0.f ? 0.f : at / lt;
         }
-        m[i] = m_new;
-      }
-    }
-    __syncwarp();                              // page slice free again
-  }
-
-  // merge the warps' partial states in fixed warp order
-  __syncthreads();                             // walk slices now reused
-  float* parts = region;                       // [kWarps][kTQ][D + 2]
-#pragma unroll
-  for (int i = 0; i < kTQ; ++i) {
-    if (i < nq) {
-      float* rec = parts + (warp * kTQ + i) * W;
-      if (lane == 0) {
-        rec[0] = m[i];
-        rec[1] = l[i];
-      }
-#pragma unroll
-      for (int cc = 0; cc < DPL; ++cc) {
-        const int d = lane + 32 * cc;
-        if (d < D) rec[2 + d] = acc[i][cc];
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nq * D; e += blockDim.x) {
-    const int i = e / D, d = e - i * D;
-    float mt = kNegInf;
-    for (int w = 0; w < kWarps; ++w)
-      mt = fmaxf(mt, parts[(w * kTQ + i) * W]);
-    float lt = 0.f, at = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float* rec = parts + (w * kTQ + i) * W;
-      const float sc = expf(rec[0] - mt);
-      lt = fmaf(rec[1], sc, lt);
-      at = fmaf(rec[2 + d], sc, at);
-    }
-    if (kSplit) {
-      float* rec = a.ws + (((size_t)c * a.N + tok0 + i) * H + h) * W;
-      if (d == 0) {
-        rec[0] = mt;
-        rec[1] = lt;
-      }
-      rec[2 + d] = at;
-    } else {
-      a.out[((size_t)(tok0 + i) * H + h) * D + d] =
-          lt == 0.f ? 0.f : at / lt;
-    }
-  }
+      });
 }
 
 // Merge the split's chunk partials in chunk order (the fixed-order
@@ -310,7 +133,7 @@ ragged_attention_kernel(const Params<T> a) {
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 ragged_split_combine_kernel(const Params<T> a) {
-  const int H = a.H, D = a.D, W = D + 2;
+  const int H = a.pools.H, D = a.pools.D, W = D + 2;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q_len = a.q_lens[b];
   const int t0 = blockIdx.x * kTQ;
@@ -335,27 +158,19 @@ ragged_split_combine_kernel(const Params<T> a) {
   }
 }
 
-template <typename T, bool kSplit, int DPL>
-cudaError_t launch_walk(dim3 grid, size_t smem, cudaStream_t stream,
-                        const Params<T>& a) {
-  auto kernel = ragged_attention_kernel<T, kSplit, DPL>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, kWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <typename T, bool kSplit>
 cudaError_t launch_dpl(dim3 grid, size_t smem, cudaStream_t s,
                        const Params<T>& a) {
-  switch ((a.D + 31) / 32) {
-    case 1: return launch_walk<T, kSplit, 1>(grid, smem, s, a);
-    case 2: return launch_walk<T, kSplit, 2>(grid, smem, s, a);
-    case 3: return launch_walk<T, kSplit, 3>(grid, smem, s, a);
-    default: return launch_walk<T, kSplit, 4>(grid, smem, s, a);
+  const int threads = kWarps * 32;
+  switch ((a.pools.D + 31) / 32) {
+    case 1: return paged::launch(ragged_attention_kernel<T, kSplit, 1>, grid,
+                                 threads, smem, s, a);
+    case 2: return paged::launch(ragged_attention_kernel<T, kSplit, 2>, grid,
+                                 threads, smem, s, a);
+    case 3: return paged::launch(ragged_attention_kernel<T, kSplit, 3>, grid,
+                                 threads, smem, s, a);
+    default: return paged::launch(ragged_attention_kernel<T, kSplit, 4>,
+                                  grid, threads, smem, s, a);
   }
 }
 
@@ -383,12 +198,15 @@ int launch(const float* q, const void* k_pool, const void* v_pool,
                              : 1;
   if (split && workspace == nullptr) return (int)cudaErrorInvalidValue;
   if ((long long)B * n_chunks > 65535) return (int)cudaErrorInvalidValue;
-  Params<T> a{q, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-              k_scale, v_scale, page_table, kv_lens, q_starts, q_lens, out,
-              workspace, N, H, D, page_size, pages_per_seq,
-              split_pages, n_chunks, sm_scale};
+  const paged::Pools<T> pools{static_cast<const T*>(k_pool),
+                              static_cast<const T*>(v_pool), k_scale,
+                              v_scale, H, D, page_size};
+  const Params<T> a{q, pools, page_table, kv_lens, q_starts, q_lens, out,
+                    workspace, N, pages_per_seq, split_pages, n_chunks,
+                    sm_scale};
   const int tiles = (max_q_len + kTQ - 1) / kTQ;
-  const size_t smem = (size_t)smem_floats(D, page_size) * sizeof(float);
+  const size_t smem =
+      (size_t)paged::smem_floats(kWarps, kTQ, D, page_size) * sizeof(float);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!split)
     return (int)launch_dpl<T, false>(dim3(tiles, H, B), smem, s, a);

@@ -1,32 +1,52 @@
-"""Ragged paged attention over a flat token block.
+"""Paged attention over the serving engine's K/V pages.
 
-Counterpart of ``paddle_tpu/kernels/paged_attention.py``'s ragged tier.
-Keys and values live in a shared paged pool ``[P, page, H, D]`` —
-float32, or 1-byte int8/fp8 codes beside float32 scale pools ``[P,
-page, H]`` (quantized serving; K/V = code x scale); row b
-of a step owns the flat query tokens ``[q_starts[b], q_starts[b] +
-q_lens[b])`` of ``q [N, H, D]``, and token t of the row sits at global
-position ``kv_lens[b] - q_lens[b] + t`` (``kv_lens`` are post-append:
-the step's own K/V are already in the pool). It attends causally
-through row b's page table over every position up to its own. Tokens
-covered by no row (bucket padding) output exact zeros.
+Counterpart of ``paddle_tpu/kernels/paged_attention.py``. Keys and
+values live in a shared paged pool ``[P, page, H, D]`` — float32, or
+1-byte int8/fp8 codes beside float32 scale pools ``[P, page, H]``
+(quantized serving; K/V = code x scale) — addressed through a per-slot
+page table. Three query shapes:
 
-Two tiers behind one dispatcher, :func:`ragged_attention`:
+- **ragged** (:func:`ragged_attention`, the unified engine step): one
+  flat token block ``q [N, H, D]``; row b owns the flat tokens
+  ``[q_starts[b], q_starts[b] + q_lens[b])``, token t of the row sits at
+  global position ``kv_lens[b] - q_lens[b] + t`` (``kv_lens`` are
+  post-append: the step's own K/V are already in the pool) and attends
+  causally through row b's page table over every position up to its
+  own. Tokens covered by no row (bucket padding) output exact zeros.
+- **decode** (:func:`paged_attention`, the per-tier decode graph): one
+  query per slot, ``q [B, H, D]``, at position ``seq_lens[b] - 1``
+  (``seq_lens`` post-append), seeing every key position below
+  ``seq_lens[b]``. Float pools.
+- **mixed** (:func:`mixed_attention`, and :func:`verify_attention`
+  which delegates to it: the per-tier chunk-prefill and verify graphs):
+  a block ``q [B, T, H, D]`` per slot with ``q_lens [B]`` valid rows;
+  row t sits at ``seq_lens[b] - q_lens[b] + t`` and sees every key
+  position ``<=`` its own and ``< seq_lens[b]``. Padding rows (``t >=
+  q_lens[b]``) lie past ``seq_lens[b]``, so they attend the whole
+  context (they are not zeroed). Float pools.
 
-- ``kernel``: the hand-written CUDA kernels (``csrc/ragged_attention*.cu``,
-  one library per page type) that replace the JAX package's Pallas
-  ``_ragged_kernel`` and, with ``split_pages``, its flash-decode
-  ``_ragged_split_kernel``. They take CUDA tensors only and raise on
-  anything else.
-- ``ref``: :func:`ragged_attention_ref`, the plain PyTorch version of
-  ``ragged_attention_lax`` — what the CPU runs and what the unsplit
-  kernels are held against on the card. The split kernels are held
-  against :func:`ragged_attention_ref_split`, the plain version of
+In every shape a query that sees no key (``seq_len == 0``) outputs
+exact zeros, and the finite ``NEG_INF`` masks.
+
+Each shape has two tiers behind its dispatcher:
+
+- ``kernel``: a hand-written CUDA kernel — ``csrc/ragged_attention*.cu``
+  (one library per page type; with ``split_pages`` the flash-decode KV
+  split) replacing the Pallas ``_ragged_kernel`` and
+  ``_ragged_split_kernel``; ``csrc/paged_attention.cu`` replacing
+  ``_decode_kernel``; ``csrc/mixed_attention.cu`` replacing
+  ``_mixed_kernel``. They take CUDA tensors only and raise on anything
+  else, and on shapes outside their limits.
+- ``ref``: the plain PyTorch version of the JAX ``_lax`` tier
+  (:func:`ragged_attention_ref`, :func:`paged_attention_ref`,
+  :func:`mixed_attention_ref`) — what the CPU runs and what the kernels
+  are held against on the card. The split kernels are held against
+  :func:`ragged_attention_ref_split`, the plain version of
   ``ragged_attention_lax_split`` (same chunk order, same merge).
 
-``tier="auto"`` launches a kernel for CUDA tensors and takes the plain
-unsplit version for CPU tensors; it never falls back from one to the
-other. ``split_pages`` is a schedule of the kernels only: as on the JAX
+``tier="auto"`` launches the kernel for CUDA tensors and takes the plain
+version for CPU tensors; it never falls back from one to the other.
+``split_pages`` is a schedule of the ragged kernels only: as on the JAX
 side's gather tier, it is inert on the plain path, which is what keeps
 split on and off bit-exact end to end on the CPU.
 """
@@ -39,10 +59,13 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "LAUNCHES", "KERNEL_NAMES", "kernel_name",
-           "ragged_rows", "ragged_attention", "ragged_attention_ref",
-           "ragged_attention_ref_split", "ragged_attention_cuda",
-           "split_active"]
+__all__ = ["NEG_INF", "LAUNCHES", "KERNEL_NAMES", "PAGED_KERNEL",
+           "MIXED_KERNEL", "kernel_name", "ragged_rows", "ragged_attention",
+           "ragged_attention_ref", "ragged_attention_ref_split",
+           "ragged_attention_cuda", "split_active", "paged_attention",
+           "paged_attention_ref", "paged_attention_cuda", "mixed_attention",
+           "mixed_attention_ref", "mixed_attention_cuda",
+           "verify_attention"]
 
 NEG_INF = -1e30
 
@@ -51,8 +74,8 @@ NEG_INF = -1e30
 # through (reset with LAUNCHES.clear())
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
-# the kernels' limits (csrc/ragged_attention.cuh): one lane per key of
-# a page, ceil(D / 32) head-dim elements per lane
+# the kernels' limits (csrc/paged_walk.cuh): one lane per key of a
+# page, ceil(D / 32) head-dim elements per lane
 _MAX_PAGE_SIZE = 32
 _MAX_HEAD_DIM = 128
 
@@ -72,6 +95,9 @@ def kernel_name(dtype: torch.dtype, split: bool) -> str:
 
 KERNEL_NAMES = tuple(kernel_name(dt, sp) for sp in (False, True)
                      for dt in _LIBS)
+# the per-tier graphs' kernels: decode, and mixed (chunk and verify)
+PAGED_KERNEL = "paged_attention"
+MIXED_KERNEL = "mixed_attention"
 
 
 def split_active(split_pages: int, pages_per_seq: int) -> bool:
@@ -215,16 +241,53 @@ def ragged_attention_ref_split(q, k_pool, v_pool, page_table, kv_lens,
     return out
 
 
-def _kernel_fn(dtype: torch.dtype):
+def _entry(lib_name: str, entry: str, n_ptr: int, n_int: int):
+    """C entry point ``entry`` of kernel library ``lib_name`` (built at
+    first use): ``n_ptr`` pointers, ``n_int`` ints, then the float
+    softmax scale and the stream; returns a CUDA error code."""
     from ._build import load
 
-    lib_name, entry, _ = _LIBS[dtype]
     fn = getattr(load(lib_name), entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_inputs(kernel: str, q, tensors: dict, index_names) -> None:
+    """The checks every kernel wrapper makes: each tensor on CUDA, on
+    ``q``'s device and contiguous; ``q`` float32; the index tensors
+    ``index_names`` int32."""
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"the {kernel} kernel needs CUDA tensors; "
+                             f"{name} is on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype != torch.float32:
+        raise ValueError(f"q must be float32, got {q.dtype}")
+    for name in index_names:
+        if tensors[name].dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got "
+                             f"{tensors[name].dtype}")
+
+
+def _check_pools(k_pool, v_pool, q_shape, H: int, D: int) -> None:
+    """Pools ``[P, page, H, D]`` matching ``q``'s heads and head dim,
+    inside the kernels' limits."""
+    if (k_pool.shape != v_pool.shape or k_pool.dim() != 4
+            or k_pool.shape[2:] != (H, D)):
+        raise ValueError(f"pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q_shape)} as [P, page, H, D]")
+    page_size = k_pool.shape[1]
+    if not 1 <= page_size <= _MAX_PAGE_SIZE or not 1 <= D <= _MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes page_size <= {_MAX_PAGE_SIZE} "
+                         f"and head_dim <= {_MAX_HEAD_DIM}; got "
+                         f"{page_size}, {D}")
 
 
 def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
@@ -257,28 +320,12 @@ def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
     elif k_scale is not None or v_scale is not None:
         raise ValueError("scale pools go with int8/fp8 code pools; the "
                          "K/V pools are float32")
-    for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"the ragged attention kernel needs CUDA "
-                             f"tensors; {name} is on {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if q.dtype != torch.float32:
-        raise ValueError(f"q must be float32, got {q.dtype}")
+    _check_inputs("ragged attention", q, tensors,
+                  ("page_table", "kv_lens", "q_starts", "q_lens"))
     if k_pool.dtype not in _LIBS or v_pool.dtype != k_pool.dtype:
         raise ValueError(f"pools must both be one of {list(_LIBS)}, got "
                          f"{k_pool.dtype}/{v_pool.dtype}")
-    for name in ("page_table", "kv_lens", "q_starts", "q_lens"):
-        if tensors[name].dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got "
-                             f"{tensors[name].dtype}")
-    if (k_pool.shape != v_pool.shape or k_pool.dim() != 4
-            or k_pool.shape[2:] != (H, D)):
-        raise ValueError(f"pools {tuple(k_pool.shape)}/"
-                         f"{tuple(v_pool.shape)} do not match q "
-                         f"{tuple(q.shape)} as [P, page, H, D]")
+    _check_pools(k_pool, v_pool, q.shape, H, D)
     if quant:
         for name in ("k_scale", "v_scale"):
             t = tensors[name]
@@ -289,10 +336,6 @@ def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
     if kv_lens.shape != (B,) or q_starts.shape != (B,) \
             or q_lens.shape != (B,):
         raise ValueError(f"kv_lens/q_starts/q_lens must be [{B}]")
-    if not 1 <= page_size <= _MAX_PAGE_SIZE or not 1 <= D <= _MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes page_size <= {_MAX_PAGE_SIZE} "
-                         f"and head_dim <= {_MAX_HEAD_DIM}; got "
-                         f"{page_size}, {D}")
     scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(D))
     max_q = N if max_q_len is None else min(int(max_q_len), N)
     out = torch.zeros_like(q)
@@ -305,7 +348,8 @@ def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
         n_chunks = -(-pages_per_seq // sp)
         ws = torch.empty((n_chunks, N, H, D + 2), dtype=torch.float32,
                          device=q.device)
-    fn = _kernel_fn(k_pool.dtype)
+    lib_name, entry, _ = _LIBS[k_pool.dtype]
+    fn = _entry(lib_name, entry, 11, 8)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              k_scale.data_ptr() if quant else None,
@@ -332,15 +376,180 @@ def ragged_attention(q, k_pool, v_pool, page_table, kv_lens, q_starts,
     CUDA tensors, the plain version for CPU tensors). ``k_scale``/
     ``v_scale`` go with int8/fp8 code pools. ``max_q_len`` only sizes
     the kernel's grid."""
-    if tier == "auto":
-        tier = "kernel" if q.is_cuda else "ref"
-    if tier == "kernel":
+    if _resolve_tier(tier, q) == "kernel":
         return ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens,
                                      q_starts, q_lens, sm_scale=sm_scale,
                                      max_q_len=max_q_len, k_scale=k_scale,
                                      v_scale=v_scale, split_pages=split_pages)
-    if tier == "ref":
-        return ragged_attention_ref(q, k_pool, v_pool, page_table, kv_lens,
-                                    q_starts, q_lens, sm_scale=sm_scale,
-                                    k_scale=k_scale, v_scale=v_scale)
-    raise ValueError(f"tier={tier!r} not in ('auto', 'kernel', 'ref')")
+    return ragged_attention_ref(q, k_pool, v_pool, page_table, kv_lens,
+                                q_starts, q_lens, sm_scale=sm_scale,
+                                k_scale=k_scale, v_scale=v_scale)
+
+
+# ------------------------------------------------ decode and mixed tiers
+
+
+def mixed_attention_ref(q, k_pool, v_pool, page_table, seq_lens, q_lens,
+                        sm_scale: Optional[float] = None):
+    """Plain PyTorch mixed attention, float32: ``mixed_attention_lax``
+    step for step. Gathers every slot's whole table ``[B, S, H, D]`` (S =
+    pages_per_seq * page) and attends ``q [B, T, H, D]``: row t of slot
+    b at position ``seq_lens[b] - q_lens[b] + t`` sees key positions
+    ``<=`` its own and ``< seq_lens[b]``; padding rows attend the whole
+    context; a slot with ``seq_len == 0`` outputs zeros."""
+    B, T, H, D = q.shape
+    S = page_table.shape[1] * k_pool.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    pages = page_table.long()
+    k = k_pool[pages].reshape(B, S, H, D)
+    v = v_pool[pages].reshape(B, S, H, D)
+    logits = torch.einsum("bthd,bshd->bhts", q, k) * scale
+    pos = torch.arange(S, device=q.device)
+    q_pos = ((seq_lens - q_lens)[:, None]
+             + torch.arange(T, device=q.device)[None, :])         # [B, T]
+    mask = ((pos[None, None, :] <= q_pos[:, :, None])
+            & (pos[None, None, :] < seq_lens[:, None, None]))     # [B,T,S]
+    logits = torch.where(mask[:, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(m <= NEG_INF / 2, torch.zeros_like(probs), probs)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens,
+                        sm_scale: Optional[float] = None):
+    """Plain PyTorch decode attention, float32: the plain version of
+    ``paged_attention_lax``. One query per slot, ``q [B, H, D]``, seeing
+    key positions ``< seq_lens[b]``: :func:`mixed_attention_ref` with one
+    valid row per slot (its causal bound ``<= seq_len - 1`` is the same
+    mask)."""
+    ones = torch.ones_like(seq_lens)
+    return mixed_attention_ref(q[:, None], k_pool, v_pool, page_table,
+                               seq_lens, ones, sm_scale=sm_scale)[:, 0]
+
+
+def _check_table(page_table, seq_lens, B: int) -> None:
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page_table must be [{B}, pages_per_seq], got "
+                         f"{tuple(page_table.shape)}")
+    if seq_lens.shape != (B,):
+        raise ValueError(f"seq_lens must be [{B}], got "
+                         f"{tuple(seq_lens.shape)}")
+
+
+def _check_float_pools(k_pool, v_pool) -> None:
+    if k_pool.dtype != torch.float32 or v_pool.dtype != torch.float32:
+        raise ValueError(f"the per-tier kernels take float32 pools, got "
+                         f"{k_pool.dtype}/{v_pool.dtype}")
+
+
+def paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens,
+                         sm_scale: Optional[float] = None):
+    """Launch the decode kernel (``csrc/paged_attention.cu``) on the
+    current stream: ``q [B, H, D]`` float32, float32 pools, int32
+    ``page_table [B, pages_per_seq]`` and ``seq_lens [B]``. Raises on
+    CPU tensors, on dtypes, layouts or shapes the kernel does not take,
+    and when the launch is refused."""
+    B, H, D = q.shape
+    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+               "page_table": page_table, "seq_lens": seq_lens}
+    _check_inputs("paged attention", q, tensors, ("page_table", "seq_lens"))
+    _check_float_pools(k_pool, v_pool)
+    _check_pools(k_pool, v_pool, q.shape, H, D)
+    _check_table(page_table, seq_lens, B)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(D))
+    fn = _entry("paged_attention", "paged_attention_f32", 6, 5)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B,
+             H, D, k_pool.shape[1], page_table.shape[1], scale,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES[PAGED_KERNEL] += 1
+    return out
+
+
+def mixed_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, q_lens,
+                         sm_scale: Optional[float] = None):
+    """Launch the mixed kernel (``csrc/mixed_attention.cu``) on the
+    current stream: ``q [B, T, H, D]`` float32, float32 pools, int32
+    ``page_table [B, pages_per_seq]``, ``seq_lens [B]`` and ``q_lens
+    [B]``. Every row is written, padding rows included. Raises on CPU
+    tensors, on dtypes, layouts or shapes the kernel does not take, and
+    when the launch is refused."""
+    B, T, H, D = q.shape
+    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+               "page_table": page_table, "seq_lens": seq_lens,
+               "q_lens": q_lens}
+    _check_inputs("mixed attention", q, tensors,
+                  ("page_table", "seq_lens", "q_lens"))
+    _check_float_pools(k_pool, v_pool)
+    _check_pools(k_pool, v_pool, q.shape, H, D)
+    _check_table(page_table, seq_lens, B)
+    if q_lens.shape != (B,):
+        raise ValueError(f"q_lens must be [{B}], got {tuple(q_lens.shape)}")
+    out = torch.empty_like(q)
+    if B == 0 or T == 0:
+        return out
+    scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(D))
+    fn = _entry("mixed_attention", "mixed_attention_f32", 7, 6)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             page_table.data_ptr(), seq_lens.data_ptr(), q_lens.data_ptr(),
+             out.data_ptr(), B, T, H, D, k_pool.shape[1],
+             page_table.shape[1], scale,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mixed attention kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES[MIXED_KERNEL] += 1
+    return out
+
+
+def _resolve_tier(tier: str, q) -> str:
+    if tier == "auto":
+        return "kernel" if q.is_cuda else "ref"
+    if tier not in ("kernel", "ref"):
+        raise ValueError(f"tier={tier!r} not in ('auto', 'kernel', 'ref')")
+    return tier
+
+
+def paged_attention(q, k_pool, v_pool, page_table, seq_lens,
+                    sm_scale: Optional[float] = None, tier: str = "auto"):
+    """Decode attention over the paged pool, one query per slot.
+    ``tier``: ``"kernel"`` (the CUDA decode kernel; raises on CPU
+    tensors), ``"ref"`` (:func:`paged_attention_ref`) or ``"auto"``
+    (the kernel for CUDA tensors, the plain version for CPU tensors)."""
+    if _resolve_tier(tier, q) == "kernel":
+        return paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens,
+                                    sm_scale=sm_scale)
+    return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens,
+                               sm_scale=sm_scale)
+
+
+def mixed_attention(q, k_pool, v_pool, page_table, seq_lens, q_lens,
+                    sm_scale: Optional[float] = None, tier: str = "auto"):
+    """Mixed attention over the paged pool: a ``[T, H, D]`` query block
+    per slot with ``q_lens`` valid rows (the chunk-prefill shape).
+    ``tier`` as in :func:`paged_attention`, with the mixed kernel and
+    :func:`mixed_attention_ref`."""
+    if _resolve_tier(tier, q) == "kernel":
+        return mixed_attention_cuda(q, k_pool, v_pool, page_table, seq_lens,
+                                    q_lens, sm_scale=sm_scale)
+    return mixed_attention_ref(q, k_pool, v_pool, page_table, seq_lens,
+                               q_lens, sm_scale=sm_scale)
+
+
+def verify_attention(q, k_pool, v_pool, page_table, seq_lens, q_lens,
+                     sm_scale: Optional[float] = None, tier: str = "auto"):
+    """Speculative-decode verify attention: per slot the pending token
+    and its drafts (``q_lens[b] = 1 + drafts``) attend causally through
+    the page table. The mixed shape exactly, so it delegates to
+    :func:`mixed_attention`: one kernel serves chunk prefill and
+    verification."""
+    return mixed_attention(q, k_pool, v_pool, page_table, seq_lens, q_lens,
+                           sm_scale=sm_scale, tier=tier)

@@ -27,8 +27,12 @@ def test_digest_covers_the_included_headers_only(tmp_path, monkeypatch):
 
 
 def test_the_port_libraries_and_their_headers():
-    assert "flash_attention" in _build.KERNELS
-    header = _build.CSRC / "ragged_attention.cuh"
+    assert {"flash_attention", "paged_attention",
+            "mixed_attention"} <= set(_build.KERNELS)
+    ragged = _build.CSRC / "ragged_attention.cuh"
+    walk = _build.CSRC / "paged_walk.cuh"
+    want = {"flash_attention": [], "paged_attention": [walk],
+            "mixed_attention": [walk]}
     for name in _build.KERNELS:
         headers = _build._local_headers(_build.CSRC / f"{name}.cu")
-        assert headers == ([] if name == "flash_attention" else [header])
+        assert headers == want.get(name, [ragged, walk])

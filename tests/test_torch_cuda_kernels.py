@@ -179,3 +179,128 @@ def test_quantized_split_engine_runs_the_split_kernel(device, kv):
     assert [len(o) for o in outs] == [8, 8]
     name = pa.kernel_name(eng.cache.k_pool.dtype, True)
     assert dict(pa.LAUNCHES) == {name: 2 * eng.steps_dispatched}
+
+
+def _per_tier_inputs(device, B, T, H, D, page, pps, seed):
+    """Float pools with distinct real pages per slot (page 0 is the
+    garbage page) and a query block ``[B, T, H, D]``."""
+    g = torch.Generator().manual_seed(seed)
+    n_pages = B * pps + 1
+    perm = torch.randperm(n_pages - 1, generator=g) + 1
+    return dict(
+        q=torch.randn(B, T, H, D, generator=g).to(device),
+        k_pool=torch.randn(n_pages, page, H, D, generator=g).to(device),
+        v_pool=torch.randn(n_pages, page, H, D, generator=g).to(device),
+        page_table=perm.reshape(B, pps).to(device=device,
+                                           dtype=torch.int32))
+
+
+GEOMETRIES = [(2, 16, 8, 4), (12, 64, 16, 64), (4, 128, 32, 8),
+              (3, 40, 16, 6)]
+
+
+@pytest.mark.parametrize("H,D,page,pps", GEOMETRIES)
+def test_decode_kernel_matches_plain_version(device, H, D, page, pps):
+    S = page * pps
+    seq = [S, 1, 0, S // 2 + 3, 5, S - 1]
+    args = _per_tier_inputs(device, len(seq), 1, H, D, page, pps, seed=D)
+    args["q"] = args["q"][:, 0].contiguous()
+    seq_lens = torch.tensor(seq, dtype=torch.int32, device=device)
+    before = pa.LAUNCHES[pa.PAGED_KERNEL]
+    out = pa.paged_attention(**args, seq_lens=seq_lens)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[pa.PAGED_KERNEL] == before + 1
+    ref = pa.paged_attention(**args, seq_lens=seq_lens, tier="ref")
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    assert (out[2] == 0).all()                 # seq_len 0: exact zeros
+    assert torch.equal(out, pa.paged_attention(**args, seq_lens=seq_lens))
+
+
+@pytest.mark.parametrize("H,D,page,pps", GEOMETRIES)
+@pytest.mark.parametrize("T", [1, 5, 37])
+def test_mixed_kernel_matches_plain_version(device, H, D, page, pps, T):
+    """Every row, padding rows included (they attend the whole
+    context), against the plain version; a slot at seq_len 0 is exact
+    zeros on every row; reruns give the same bits."""
+    S = page * pps
+    q_lens = [min(T, 3), 0, T, 1, 0, max(T - 2, 0)]
+    seq = [S, S // 2, min(S, T + 9), 1, 0, S - 1]
+    args = _per_tier_inputs(device, len(seq), T, H, D, page, pps, seed=T)
+    i32 = dict(dtype=torch.int32, device=device)
+    seq_lens, ql = torch.tensor(seq, **i32), torch.tensor(q_lens, **i32)
+    before = pa.LAUNCHES[pa.MIXED_KERNEL]
+    out = pa.verify_attention(**args, seq_lens=seq_lens, q_lens=ql)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[pa.MIXED_KERNEL] == before + 1
+    ref = pa.mixed_attention(**args, seq_lens=seq_lens, q_lens=ql,
+                             tier="ref")
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    assert (out[4] == 0).all()
+    assert torch.equal(out, pa.mixed_attention(**args, seq_lens=seq_lens,
+                                               q_lens=ql))
+
+
+def test_per_tier_kernels_refuse_what_they_do_not_take(device):
+    args = _per_tier_inputs(device, 2, 3, 2, 16, 8, 4, seed=0)
+    i32 = dict(dtype=torch.int32, device=device)
+    seq_lens, ql = torch.tensor([9, 4], **i32), torch.tensor([3, 1], **i32)
+    codes, _ = quantize_kv(args["k_pool"], "int8")
+    with pytest.raises(ValueError, match="float32 pools"):
+        pa.mixed_attention(**dict(args, k_pool=codes, v_pool=codes),
+                           seq_lens=seq_lens, q_lens=ql)
+    big = dict(args, k_pool=torch.zeros(9, 64, 2, 16, device=device),
+               v_pool=torch.zeros(9, 64, 2, 16, device=device))
+    with pytest.raises(ValueError, match="page_size"):
+        pa.mixed_attention(**big, seq_lens=seq_lens, q_lens=ql)
+    strided = dict(args, q=args["q"].transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.mixed_attention(**strided, seq_lens=seq_lens, q_lens=ql)
+    decode = dict(args, q=args["q"][:, 0].contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_attention(**decode, seq_lens=seq_lens.long())
+
+
+def test_per_tier_graphs_kernel_route_matches_plain_route(device):
+    """A tiny model's per-tier graphs (two chunks, a verify step, a decode
+    step) through the kernels and through the plain attention, on two
+    caches in lockstep: logits at 1e-4, one launch per layer per call."""
+    from paddle_tpu_torch.inference.llm.model import (
+        lm_chunk_prefill, lm_decode, lm_verify)
+
+    model = TorchLM.tiny(device=device)
+    spec, L = model.spec, model.spec.num_layers
+    i32 = dict(dtype=torch.int32, device=device)
+    pools, logits = {}, {}
+    before = dict(pa.LAUNCHES)
+    for tier in ("kernel", "ref"):
+        kp = torch.zeros(L, 17, 8, spec.num_heads, spec.head_dim,
+                         device=device)
+        vp = torch.zeros_like(kp)
+        row = torch.arange(1, 17, **i32)
+        prompt = torch.arange(3, 43, **i32) % spec.vocab
+        out = []
+        for start in (0, 16, 32):
+            n = min(16, 40 - start)
+            toks = torch.zeros(16, **i32)
+            toks[:n] = prompt[start:start + n]
+            out.append(lm_chunk_prefill(model.params, spec, toks, start, n,
+                                        kp, vp, row, attn_tier=tier)[:n])
+        out.append(lm_verify(model.params, spec,
+                             torch.tensor([[5, 6, 7, 0]], **i32),
+                             torch.tensor([40], **i32),
+                             torch.tensor([3], **i32), kp, vp, row[None],
+                             attn_tier=tier)[0])
+        out.append(lm_decode(model.params, spec, torch.tensor([9], **i32),
+                             torch.tensor([43], **i32), kp, vp, row[None],
+                             attn_tier=tier))
+        logits[tier], pools[tier] = out, (kp, vp)
+        if tier == "kernel":
+            torch.cuda.synchronize()
+            got = {k: pa.LAUNCHES[k] - before.get(k, 0)
+                   for k in (pa.MIXED_KERNEL, pa.PAGED_KERNEL)}
+            assert got == {pa.MIXED_KERNEL: 4 * L, pa.PAGED_KERNEL: L}
+    for got, want in zip(logits["kernel"], logits["ref"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for got, want in zip(pools["kernel"], pools["ref"]):
+        torch.testing.assert_close(got[:, 1:], want[:, 1:], rtol=1e-4,
+                                   atol=1e-4)

@@ -87,7 +87,7 @@ def test_release_refuses_a_double_free():
         t.release(0)
 
 
-def _drive(sched, cache, is_jax, rng, script, eos_id):
+def _drive(sched, cache, rng, script, eos_id):
     """Run ``script`` (step index -> actions) over ``sched`` and return
     the plan of every step as plain tuples, keyed by submission order."""
     order = {}
@@ -114,11 +114,7 @@ def _drive(sched, cache, is_jax, rng, script, eos_id):
             else:
                 cache.seq_lens[req.slot] += 1
                 emitted[req.slot] = int(rng[order[req.rid]].integers(0, 12))
-        if is_jax:
-            sched.on_verify_done({s: [t] for s, t in emitted.items()},
-                                 eos_id)
-        else:
-            sched.on_decode_done(emitted, eos_id)
+        sched.on_verify_done({s: [t] for s, t in emitted.items()}, eos_id)
         cache.check_invariants()
         if plan.kind == "idle" and step > max(script):
             break
@@ -154,7 +150,7 @@ def test_plan_sequence_equal(chunk_tokens, budget):
                 max_slots=4, max_seq_len=64, chunk_tokens=chunk_tokens,
                 step_token_budget=budget))
         rng = [np.random.default_rng(i) for i in range(16)]
-        results.append(_drive(sched, cache, is_jax, rng, script, eos_id=3))
+        results.append(_drive(sched, cache, rng, script, eos_id=3))
     (jp, jo), (tp, to) = results
     assert tp == jp
     assert to == jo
@@ -187,9 +183,8 @@ def test_submit_validation():
         sched.submit([3], 2)
 
 
-@pytest.mark.parametrize("knob", ["spec_tokens", "async_depth",
-                                  "tenant_max_pages", "tenant_max_slots",
-                                  "brownout_levels"])
+@pytest.mark.parametrize("knob", ["async_depth", "tenant_max_pages",
+                                  "tenant_max_slots", "brownout_levels"])
 def test_later_slice_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="slice"):
         SchedulerConfig(**{knob: 1})
