@@ -4,35 +4,44 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-(``--profile`` adds one more run of the quantized serving path and one
-more training call under ``torch.profiler`` and prints where the device
-time goes.)
+(``--profile`` adds one more run of the quantized serving path, one
+more training call and two ResNet-50 steps under ``torch.profiler`` and
+prints where the device time goes.)
 
 It builds every CUDA kernel of the port from the sources in
-``paddle_tpu_torch/kernels/csrc`` (into ``paddle_tpu_torch/kernels/build``,
-one ``nvcc`` per source, all at once), holds each kernel against its
-plain PyTorch version at the paths' shapes, and drives each path with
-the launch counts reset just before and read just after:
+``paddle_tpu_torch/kernels/csrc`` and the user kernel
+``paddle_tpu_torch/utils/csrc/my_triple.cu`` (into
+``paddle_tpu_torch/kernels/build``, one ``nvcc`` per source, all at
+once), holds each kernel against its plain PyTorch version at the
+paths' shapes, and drives each path with the launch counts reset just
+before and read just after:
 
 - the float serving path: ``GenerationEngine`` over a GPT-2-small-width
   ``TorchLM`` (float32 pages), unsplit and with the KV split;
-- speculative decoding, the main path of the fourth slice: the same
-  engine and model with ``spec_tokens`` 4 and then 0 on the float
-  path's traffic plus four prompts that repeat a motif (tokens equal
-  with speculation on and off), and the per-tier graphs
-  (``lm_chunk_prefill`` in 512-token chunks, then ``lm_verify`` or
-  ``lm_decode``) through the decode and mixed kernels, request by
+- speculative decoding: the same engine and model with ``spec_tokens``
+  4 and then 0 on the float path's traffic plus four prompts that repeat
+  a motif (tokens equal with speculation on and off), and the per-tier
+  graphs (``lm_chunk_prefill`` in 512-token chunks, then ``lm_verify``
+  or ``lm_decode``) through the decode and mixed kernels, request by
   request, teacher-forced on the engine's tokens against the same loop
   on the plain attention;
 - quantized long-context serving: GPT-3 XL widths at full depth,
   2048-token context, int8 KV pages, int8 weights and the KV split
   (16-page chunks), then the same traffic unsplit;
 - fp8 KV pages at GPT-3 XL widths, four layers, split and unsplit;
-- training, the main path of the third slice: ``bench.py``'s
-  configuration (GPT-2-small, batch 16 x 1024 tokens, AdamW under AMP
-  O2 bf16, ``TrainStep`` of 8 steps per call) through the flash
-  attention kernels, after a 2-layer float32 parity run of the kernel
-  route against the plain attention route.
+- training: ``bench.py``'s configuration (GPT-2-small, batch 16 x 1024
+  tokens, AdamW under AMP O2 bf16, ``TrainStep`` of 8 steps per call)
+  through the flash attention kernels, after a 2-layer float32 parity
+  run of the kernel route against the plain attention route;
+- the Paddle-API core, the main path of the fifth slice: ``custom_op``
+  programs on the card, the user kernel ``my_triple`` through
+  ``cuda_op`` (the counterpart of ``pallas_op``) at [4, 8] and
+  [8192, 8192], bit-equal to ``x * 3.0``; ResNet-50 float32 on the card
+  against the port's CPU path (TF32 off, 3 Momentum steps), and in
+  float64 through two free-running steps (gradients and updates); and
+  ``perf/resnet_bench.py``'s configuration with no cut (resnet50,
+  batch 256 x 224^2, Momentum under AMP O2 bf16, ``TrainStep``)
+  through ``nn.Layer``, cuDNN convolutions and BatchNorm.
 
 It checks that each path went through its kernels and no other, times
 every kernel beside its bound, its plain version and a library call,
@@ -45,6 +54,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -65,15 +75,23 @@ from paddle_tpu_torch.inference.llm.model import (init_lm_params,
                                                   lm_ragged_step, lm_verify)
 from paddle_tpu_torch.inference.llm.threefry import fold_in, gumbel, prng_key
 from paddle_tpu_torch.inference.llm.quant import QuantConfig, quantize_kv
+import paddle_tpu_torch as paddle
+import paddle_tpu_torch.nn.functional as PF
 from paddle_tpu_torch.amp import decorate
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import attention as attn
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_attention as pa
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import AdamW, Momentum
 from paddle_tpu_torch.text.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.utils import ShapeDtypeStruct, cuda_op, custom_op
+from paddle_tpu_torch.utils.custom_op import LAUNCHES as OP_LAUNCHES
+from paddle_tpu_torch.vision.models import resnet50
 
+# ~1 ms of device sleep (H100 SM clock up to 1.98 GHz) ahead of each
+# timed run, to cover the host's enqueueing of it
+SLEEP_CYCLES = 2_000_000
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and dense
 # float32 outside the tensor cores, the unit the kernels' arithmetic uses
 HBM_BYTES_PER_S = 3.35e12
@@ -146,6 +164,36 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_K = 16, 1024, 8
 TRAIN_LR = 1e-4
 TRAIN_CALLS = 3             # timed calls, after one warm call
 PARITY_LAYERS, PARITY_BATCH, PARITY_STEPS = 2, 4, 3
+# the Paddle-API core (the fifth slice): the JAX package's one user
+# kernel, ``x * 3`` over float32, as a cuda_op, at the extension test's
+# shape and at 256 MiB in / 256 MiB out
+TRIPLE_SOURCE = "paddle_tpu_torch/utils/csrc/my_triple.cu"
+TRIPLE_REPLACES = "paddle_tpu/utils/custom_op.py:75"
+TRIPLE_SHAPES = ((4, 8), (8192, 8192))
+# ResNet-50 training: perf/resnet_bench.py:29-63's configuration and
+# protocol (resnet50, 1000 classes, Momentum(0.1, 0.9), AMP O2 bf16,
+# TrainStep, batch 256 at 224 x 224, 3 warm-up then 10 timed steps)
+RESNET_CLASSES, RESNET_SIZE = 1000, 224
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 256, 3, 10
+RESNET_PLAIN_STEPS = 5      # more steps with the Tensor subclass's hook off
+# ResNet-50 float32 on the card (TF32 off) against the port's CPU path:
+# the same weights and inputs, batch 4, 3 Momentum steps, each from the
+# CPU's state. Convolutions sum in other orders on cuDNN and on the CPU
+# (~1e-6 relative each); 50 layers carry that to ~3e-5 of the logits'
+# scale (measured): the logits within 1e-4 of max |logit|, the losses
+# at 1e-3 relative, the BatchNorm running statistics (averages over
+# every position, forward-only) within 1e-4 of each buffer's largest
+# value. A randomly initialised ResNet-50's gradients are
+# ill-conditioned in float32 itself (the CPU's float32 against its
+# float64: up to ~0.2 of a tensor's largest value), so the backward
+# pass and the Momentum update are held in float64 on both sides, two
+# steps running freely: every loss, gradient, parameter update and
+# running statistic within 1e-6 of its tensor's largest value (float64
+# rounding carried through the same ill-conditioning stays ~1e-8)
+RESNET_PARITY_BATCH, RESNET_PARITY_STEPS = 4, 3
+RESNET_LOGIT_TOL, RESNET_LOSS_RTOL, RESNET_STAT_TOL = 1e-4, 1e-3, 1e-4
+RESNET_F64_STEPS, RESNET_F64_TOL = 2, 1e-6
 # the flash kernels' shapes: the training path's attention [B, H, S, D]
 # and a GPT-3 XL head layout at its 2048-token context
 FLASH_TRAIN = (16, 12, 1024, 1024, 64)
@@ -290,9 +338,11 @@ def plain(args, scales, split: int):
 # ---------------------------------------------------------------- phases
 
 
-def phase_build() -> None:
+def phase_build(user_op) -> None:
+    """Every kernel library of the port and the user kernel of
+    ``user_op`` (a ``cuda_op``), one nvcc each, all at once."""
     t0 = time.perf_counter()
-    built = _build.build(_build.KERNELS)
+    built = _build.build(_build.KERNELS, user_op.build_sources)
     log(f"[build] {len(built)} kernel librar(y/ies) compiled in "
         f"{time.perf_counter() - t0:.1f}s (one nvcc per source, in "
         "parallel); each nvcc's seconds: "
@@ -866,19 +916,12 @@ def phase_per_tier(model, requests, teacher, diverge) -> dict:
     return launches
 
 
-def phase_profile(model, requests) -> None:
-    """``--profile`` only: one more warm run of the main path under
-    ``torch.profiler``; prints device time per step by kernel and the
-    device's busy share of the run's wall time (profiler on)."""
+def log_device_profile(prof, label: str, wall: float, steps: int,
+                       top: int) -> None:
+    """Print the device's busy share of ``wall`` and the ``top`` device
+    operations by time per step, from a finished ``torch.profiler``
+    run over ``steps`` steps."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine, _, wall = run_engine(model, requests,
-                                     QuantConfig(kv="int8", weights="int8"),
-                                     SPLIT, CHUNK)
-    steps = engine.steps_dispatched
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -893,25 +936,44 @@ def phase_profile(model, requests) -> None:
         log("[profile] the profiler recorded no device time: device busy "
             "share not measured")
         return
-    log(f"[profile] main path, {steps} steps, wall {wall:.3f}s with the "
+    log(f"[profile] {label}, {steps} steps, wall {wall:.3f}s with the "
         f"profiler on; device busy {total / 1e6:.3f}s = "
         f"{100 * total / 1e6 / wall:.1f}% of wall; "
         f"{total / 1e3 / steps:.3f} ms device per step")
-    for e in sorted(events, key=dev_us, reverse=True)[:14]:
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"[profile]   {dev_us(e) / 1e3 / steps:8.4f} ms/step "
             f"{100 * dev_us(e) / total:5.1f}%  x{e.count:<6d} {e.key[:90]}")
+
+
+def phase_profile(model, requests) -> None:
+    """``--profile`` only: one more warm run of the main path under
+    ``torch.profiler``; prints device time per step by kernel and the
+    device's busy share of the run's wall time (profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine, _, wall = run_engine(model, requests,
+                                     QuantConfig(kv="int8", weights="int8"),
+                                     SPLIT, CHUNK)
+    log_device_profile(prof, "main path", wall, engine.steps_dispatched, 14)
 
 
 def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median ms of ``fn`` over ``reps`` runs, CUDA events around each,
     with the L2 cache flushed before every run (the serving step finds
-    each layer's pages cold)."""
+    each layer's pages cold). A device-side sleep between the flush and
+    the start event keeps the device busy while the host enqueues the
+    run, so the events time the device's work and not the host's launch
+    path (without it a row could include the host's launch time where
+    it outlasted the flush)."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1242,6 +1304,7 @@ def phase_train(device, profile: bool) -> dict:
             setattr(mod, name, _stub(name))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         fa.LAUNCHES.clear()
         pa.LAUNCHES.clear()
         t_warm = time.perf_counter()
@@ -1259,6 +1322,13 @@ def phase_train(device, profile: bool) -> dict:
         launches = dict(fa.LAUNCHES)
         other = dict(pa.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t_off = time.perf_counter()
+        with torch._C.DisableTorchFunctionSubclass():
+            off_losses = step(ids, ids).tolist()
+        wall_off = time.perf_counter() - t_off
+        peak_off = torch.cuda.max_memory_allocated()
         if profile:
             phase_profile_train(step, ids)
     finally:
@@ -1269,8 +1339,9 @@ def phase_train(device, profile: bool) -> dict:
     if launches != want or other:
         raise AssertionError(f"training launches {launches} (and {other}), "
                              f"expected {want} = layers x steps")
-    flat = [x for call in losses for x in call]
-    if len(flat) != steps or not all(math.isfinite(x) for x in flat):
+    flat = [x for call in losses + [off_losses] for x in call]
+    if len(flat) != steps + TRAIN_K or not all(math.isfinite(x)
+                                               for x in flat):
         raise AssertionError(f"training losses not all finite: {flat}")
     timed = TRAIN_K * TRAIN_CALLS
     tokens = TRAIN_BATCH * TRAIN_SEQ * timed
@@ -1279,9 +1350,13 @@ def phase_train(device, profile: bool) -> dict:
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW lr {TRAIN_LR}, AMP O2 "
         f"bf16, {TRAIN_K} steps per call): warm call {warm:.3f}s; "
         f"{TRAIN_CALLS} timed calls {wall:.3f}s = {tokens / wall:.1f} "
-        f"tokens/s, {ms_step:.2f} ms/step; peak memory "
-        f"{peak / 2**30:.2f} GiB; loss first {flat[0]:.4f} last "
-        f"{flat[-1]:.4f}, all {steps} finite; flash launches "
+        f"tokens/s, {ms_step:.2f} ms/step; memory allocated before the "
+        f"first call {base / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB "
+        f"allocated, {peak_reserved / 2**30:.2f} GiB reserved; one more "
+        f"call with the Tensor hook off {1e3 * wall_off / TRAIN_K:.2f} "
+        f"ms/step (not pipelined), peak {peak_off / 2**30:.2f} GiB "
+        f"allocated; loss first {flat[0]:.4f} last {flat[-1]:.4f}, all "
+        f"{steps + TRAIN_K} finite; flash launches "
         f"{launches} = {cfg_layers} layers x {steps} steps, no plain attention, no "
         "other attention kernel")
     return {"tokens_per_s": tokens / wall, "ms_per_step": ms_step,
@@ -1290,7 +1365,6 @@ def phase_train(device, profile: bool) -> dict:
 
 def phase_profile_train(step, ids) -> None:
     """``--profile`` only: one more training call under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1299,25 +1373,7 @@ def phase_profile_train(step, ids) -> None:
                              ProfilerActivity.CUDA]) as prof:
         step(ids, ids).tolist()
     wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    total = sum(dev_us(e) for e in events)
-    if total == 0:
-        log("[profile] the profiler recorded no device time: device busy "
-            "share not measured")
-        return
-    log(f"[profile] training call, {TRAIN_K} steps, wall {wall:.3f}s with "
-        f"the profiler on; device busy {total / 1e6:.3f}s = "
-        f"{100 * total / 1e6 / wall:.1f}% of wall; "
-        f"{total / 1e3 / TRAIN_K:.3f} ms device per step")
-    for e in sorted(events, key=dev_us, reverse=True)[:16]:
-        log(f"[profile]   {dev_us(e) / 1e3 / TRAIN_K:8.4f} ms/step "
-            f"{100 * dev_us(e) / total:5.1f}%  x{e.count:<6d} {e.key[:90]}")
+    log_device_profile(prof, "training call", wall, TRAIN_K, 16)
 
 
 def flash_work(shape, dtype, causal=True):
@@ -1415,6 +1471,312 @@ def flash_rows(device, launches: dict, errors: dict):
     return rows
 
 
+# ------------------------------------------------ the Paddle-API core
+
+
+def triple_plain(x):
+    """my_triple's plain version (and the JAX kernel's body)."""
+    return x * 3.0
+
+
+def triple_grid(x):
+    """Blocks of 256 threads, one float4 a thread per pass of the
+    grid-stride loop, at most 8 blocks for each of the 132 SMs."""
+    return (max(1, min(-(-x.numel() // (4 * 256)), 132 * 8)),)
+
+
+def triple_op():
+    """The JAX package's user kernel as the port registers it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, TRIPLE_SOURCE)) as f:
+        source = f.read()
+    return cuda_op("my_triple", source, "my_triple",
+                   out_shape_fn=lambda x: ShapeDtypeStruct(x.shape, x.dtype),
+                   grid_fn=triple_grid, block=256, reference=triple_plain)
+
+
+def phase_custom_ops(device) -> dict:
+    """The custom-op programs of ``tests/test_extensions.py:14-44`` on
+    the card (``custom_op`` with torch's autodiff and with a custom
+    backward; exact results), then the main path of the user kernel:
+    ``my_triple`` through its op at the extension test's [4, 8] and at
+    [8192, 8192], launches counted from 0, each output bit-equal to
+    ``x * 3.0`` and to a rerun."""
+    @custom_op("my_square_plus")
+    def my_square_plus(x, bias=0.0):
+        return x * x + bias
+
+    my_relu = custom_op("my_relu_custom",
+                        lambda x: (torch.clamp(x, min=0), (x,)),
+                        backward=lambda res, g: (g * (res[0] > 0) * 10.0,))
+    t = paddle.to_tensor(np.array([1.0, 2.0, 3.0], "float32"), place=device)
+    u = paddle.to_tensor(np.array([-1.0, 2.0], "float32"), place=device)
+    t.stop_gradient = u.stop_gradient = False
+    out = my_square_plus(t, bias=1.0)
+    out.sum().backward()
+    my_relu(u).sum().backward()
+    got = [out.numpy().tolist(), t.grad.numpy().tolist(),
+           u.grad.numpy().tolist()]
+    if got != [[2.0, 5.0, 10.0], [2.0, 4.0, 6.0], [0.0, 10.0]] or \
+            t.grad.device.type != device.type:
+        raise AssertionError(f"custom_op programs on {device}: {got}")
+    log(f"[core] custom_op on {device}: autodiff x*x+1 -> {got[0]}, grad "
+        f"{got[1]}; custom backward relu x10 grad {got[2]} (exact)")
+
+    triple = triple_op()
+    paddle.seed(5)
+    xs = [paddle.randn(list(shape)) for shape in TRIPLE_SHAPES]
+    OP_LAUNCHES.clear()
+    ys = [triple(x) for x in xs]
+    torch.cuda.synchronize()
+    launches = dict(OP_LAUNCHES)
+    if launches != {"my_triple": len(xs)}:
+        raise AssertionError(f"my_triple launches {launches}, expected "
+                             f"{len(xs)}")
+    errs = []
+    for x, y in zip(xs, ys):
+        plain = triple_plain(x)
+        if not isinstance(y, paddle.Tensor) or y.shape != x.shape:
+            raise AssertionError(f"my_triple gave {type(y)} {y.shape}")
+        if not torch.equal(y, plain):
+            raise AssertionError(f"my_triple {list(x.shape)}: max abs err "
+                                 f"{(y - plain).abs().max().item()}")
+        if not torch.equal(triple(x), y):
+            raise AssertionError("my_triple: a rerun is not bit-identical")
+        errs.append((y - plain).abs().max().item())
+    log(f"[core] my_triple (cuda_op, CUDA C++ user kernel) at "
+        f"{[list(s) for s in TRIPLE_SHAPES]}: bit-equal to x * 3.0, reruns "
+        f"bit-identical, {launches['my_triple']} launches on the main path")
+    return {"op": triple, "x": xs[-1], "x_small": xs[0],
+            "launches": launches["my_triple"], "max_abs_err": max(errs)}
+
+
+def triple_row(core: dict) -> dict:
+    """The kernels line's row for my_triple at [8192, 8192]: CUDA-event
+    medians (L2 flushed) of the op, its plain version and ``torch.mul``,
+    beside the byte bound (each input read once, each output written
+    once: 8 bytes an element; 1 multiply an element is far under the
+    float32 peak)."""
+    op, x = core["op"], core["x"]
+    nbytes = 2 * x.numel() * x.element_size()
+    row = {"name": "my_triple", "route": "cuda", "source": TRIPLE_SOURCE,
+           "replaces": TRIPLE_REPLACES, "launches": core["launches"],
+           "max_abs_err": core["max_abs_err"],
+           "ms": time_cuda(lambda: op(x)),
+           "plain_ms": time_cuda(lambda: triple_plain(x)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": time_cuda(lambda: torch.mul(x, 3.0)),
+           "shape": list(x.shape), "dtype": "float32",
+           "ms_4x8": time_cuda(lambda: op(core["x_small"]))}
+    log(f"[times] my_triple {list(x.shape)} float32: kernel {row['ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms, torch.mul "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"(bytes, {nbytes / 2**20:.0f} MiB); at [4, 8] {row['ms_4x8']:.4f} "
+        "ms")
+    return row
+
+
+def resnet_loss(net, x, y):
+    return PF.cross_entropy(net(x), y)
+
+
+def _eager_steps(net, opt, xs, ys):
+    """One eager step of ``opt`` on ``net`` per ``(x, y)``; returns, per
+    step, the logits, the loss, every parameter's gradient and the state
+    dict after the update, each on the CPU in float64."""
+    def copy(t):
+        return t.detach().to("cpu", torch.float64, copy=True)
+
+    p0 = net.parameters()[0]
+    out = []
+    for x, y in zip(xs, ys):
+        logits = net(paddle.to_tensor(x, dtype=p0.dtype, place=p0.device))
+        loss = PF.cross_entropy(logits, paddle.to_tensor(y, place=p0.device))
+        loss.backward()
+        grads = {n: copy(p.grad) for n, p in net.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        out.append((copy(logits), loss.item(), grads,
+                    {k: copy(v) for k, v in net.state_dict().items()}))
+    return out
+
+
+def _rel_gap(a, b) -> float:
+    """``max |a - b|`` over ``max |b|`` (``b`` the reference)."""
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-300)).item()
+
+
+def _is_stat(name: str) -> bool:
+    return name.endswith(("_mean", "_variance"))
+
+
+def phase_resnet_parity(device, ref_device=torch.device("cpu")) -> None:
+    """resnet50 (1000 classes) at batch 4 x 224^2, the same weights and
+    inputs on ``device`` and on ``ref_device`` (the port's CPU path),
+    with TF32 off for matmuls and cuDNN convolutions (PyTorch's default
+    runs float32 convolutions in TF32, ~1e-3 relative, which would hide
+    a fault):
+
+    - float32, RESNET_PARITY_STEPS eager ``Momentum(RESNET_LR, 0.9)``
+      steps, each from the CPU path's state (parameters, running
+      statistics and velocities copied to the card first): the first
+      logits within RESNET_LOGIT_TOL of max |logit|, the losses at
+      RESNET_LOSS_RTOL, every BatchNorm running statistic after the step
+      within RESNET_STAT_TOL of its buffer's largest value;
+    - float64, RESNET_F64_STEPS free-running steps from one state: every
+      loss, gradient, parameter update (after minus before) and running
+      statistic within RESNET_F64_TOL of its tensor's largest value.
+      This holds the backward pass and the optimizer's ``_foreach_*``
+      update on the card, which float32's own ill-conditioning hides."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.seed(0)
+    models = []
+    for dev in (device, ref_device):
+        paddle.set_device(dev)
+        models.append(resnet50(num_classes=RESNET_CLASSES))
+    paddle.set_device(device)
+    card, cpu = models
+    cpu.set_state_dict(card.state_dict())
+    start = {k: v.detach().cpu().clone() for k, v in cpu.state_dict().items()}
+    g = torch.Generator().manual_seed(3)
+    shape = (RESNET_PARITY_STEPS, RESNET_PARITY_BATCH, 3, RESNET_SIZE,
+             RESNET_SIZE)
+    xs = torch.rand(shape, generator=g)
+    ys = torch.randint(0, RESNET_CLASSES, shape[:2], generator=g)
+    opts = [Momentum(RESNET_LR, RESNET_MOMENTUM, parameters=n.parameters())
+            for n in (card, cpu)]
+    logit_gap, loss_gaps, stat_gaps = None, [], []
+    for x, y in zip(xs, ys):
+        card.set_state_dict(cpu.state_dict())
+        for pc, pr in zip(card.parameters(), cpu.parameters()):
+            if id(pr) in opts[1]._accumulators:
+                opts[0]._state_for(pc)["velocity"].copy_(
+                    opts[1]._accumulators[id(pr)]["velocity"])
+        (lg, lcard, _, sc), = _eager_steps(card, opts[0], [x], [y])
+        (lc, lcpu, _, sr), = _eager_steps(cpu, opts[1], [x], [y])
+        if logit_gap is None:
+            logit_gap = _rel_gap(lg, lc)
+        loss_gaps.append(abs(lcard - lcpu) / abs(lcpu))
+        stat_gaps.append(max(_rel_gap(sc[k], sr[k]) for k in sr
+                             if _is_stat(k)))
+    del card, cpu, models, opts
+    runs = []
+    for dev in (device, ref_device):
+        paddle.set_device(dev)
+        net = resnet50(num_classes=RESNET_CLASSES)
+        net.set_state_dict(start)
+        net.to(dtype="float64")
+        runs.append(_eager_steps(
+            net, Momentum(RESNET_LR, RESNET_MOMENTUM,
+                          parameters=net.parameters()),
+            xs[:RESNET_F64_STEPS], ys[:RESNET_F64_STEPS]))
+    paddle.set_device(device)
+    f64 = {"loss": [], "grad": [], "update": [], "stat": []}
+    before = {k: v.double() for k, v in start.items()}
+    for (_, lcard, gc, sc), (_, lcpu, gr, sr) in zip(*runs):
+        f64["loss"].append(abs(lcard - lcpu) / abs(lcpu))
+        f64["grad"].append(max(_rel_gap(gc[n], gr[n]) for n in gr))
+        f64["update"].append(max(_rel_gap(sc[k] - before[k], sr[k] - before[k])
+                                 for k in sr if not _is_stat(k)))
+        f64["stat"].append(max(_rel_gap(sc[k], sr[k]) for k in sr
+                               if _is_stat(k)))
+        before = sr
+    log(f"[resnet] parity, resnet50 (TF32 off), batch {RESNET_PARITY_BATCH} "
+        f"x {RESNET_SIZE}^2, {device} vs {ref_device}: float32, "
+        f"{RESNET_PARITY_STEPS} Momentum({RESNET_LR}, {RESNET_MOMENTUM}) "
+        f"steps from the CPU's state: first logits gap {logit_gap:.3e} of "
+        f"max |logit| (tol {RESNET_LOGIT_TOL}), loss gaps "
+        f"{[f'{v:.2e}' for v in loss_gaps]} (tol {RESNET_LOSS_RTOL}), BN "
+        f"running-stat gaps {[f'{v:.2e}' for v in stat_gaps]} of each "
+        f"buffer's max (tol {RESNET_STAT_TOL}); float64, "
+        f"{RESNET_F64_STEPS} free-running steps, largest gap of each "
+        f"tensor's max per step (tol {RESNET_F64_TOL}): "
+        + ", ".join(f"{k} {[f'{v:.2e}' for v in vs]}"
+                    for k, vs in f64.items()))
+    if not (logit_gap <= RESNET_LOGIT_TOL
+            and max(loss_gaps) <= RESNET_LOSS_RTOL
+            and max(stat_gaps) <= RESNET_STAT_TOL
+            and max(max(vs) for vs in f64.values()) <= RESNET_F64_TOL):
+        raise AssertionError("resnet50 on the card drifted from the CPU path")
+
+
+def timed_steps(step, x, y, n: int):
+    """``n`` steps, each step's loss read on the host after the next is
+    queued; returns the losses and the wall seconds."""
+    losses, prev = [], None
+    t0 = time.perf_counter()
+    for _ in range(n):
+        cur = step(x, y)
+        if prev is not None:
+            losses.append(prev.item())
+        prev = cur
+    losses.append(prev.item())
+    return losses, time.perf_counter() - t0
+
+
+def phase_resnet_train(device, profile: bool) -> dict:
+    """The ResNet-50 main path: perf/resnet_bench.py's configuration and
+    protocol with no cut (batch RESNET_BATCH x 3 x 224^2 random float32
+    inputs cast to bf16, int64 labels, AMP O2 bf16, Momentum, TrainStep;
+    RESNET_WARMUP steps, then RESNET_STEPS timed), then
+    RESNET_PLAIN_STEPS more with the ``Tensor`` subclass's
+    ``__torch_function__`` hook off, to price it."""
+    paddle.seed(0)
+    paddle.set_device(device)
+    model = resnet50(num_classes=RESNET_CLASSES)
+    opt = Momentum(RESNET_LR, RESNET_MOMENTUM, parameters=model.parameters())
+    model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+    if model.bn1._mean.dtype != torch.bfloat16:
+        raise AssertionError("AMP O2 left the BatchNorm buffers in "
+                             f"{model.bn1._mean.dtype}; JAX casts them")
+    step = TrainStep(model, resnet_loss, opt)
+    x = paddle.rand([RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE]).astype(
+        "bfloat16")
+    y = paddle.randint(0, RESNET_CLASSES, [RESNET_BATCH])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_before = (dict(pa.LAUNCHES), dict(fa.LAUNCHES), dict(OP_LAUNCHES))
+    warm_losses, warm = timed_steps(step, x, y, RESNET_WARMUP)
+    losses, wall = timed_steps(step, x, y, RESNET_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    with torch._C.DisableTorchFunctionSubclass():
+        _, wall_plain = timed_steps(step, x, y, RESNET_PLAIN_STEPS)
+    if kernels_before != (dict(pa.LAUNCHES), dict(fa.LAUNCHES),
+                          dict(OP_LAUNCHES)):
+        raise AssertionError("the ResNet path launched a port kernel")
+    every = warm_losses + losses
+    if not all(math.isfinite(v) for v in every):
+        raise AssertionError(f"resnet50 losses not all finite: {every}")
+    ms = 1e3 * wall / RESNET_STEPS
+    ms_plain = 1e3 * wall_plain / RESNET_PLAIN_STEPS
+    log(f"[resnet] main path: perf/resnet_bench.py config (resnet50, "
+        f"{RESNET_CLASSES} classes, batch {RESNET_BATCH} x 3 x "
+        f"{RESNET_SIZE}^2, Momentum({RESNET_LR}, {RESNET_MOMENTUM}), AMP O2 "
+        f"bf16, TrainStep): {RESNET_WARMUP} warm-up steps {warm:.3f}s; "
+        f"{RESNET_STEPS} timed steps {wall:.3f}s = "
+        f"{RESNET_BATCH * RESNET_STEPS / wall:.1f} samples/s, {ms:.2f} "
+        f"ms/step; with the Tensor hook off {ms_plain:.2f} ms/step over "
+        f"{RESNET_PLAIN_STEPS} steps; peak memory {peak / 2**30:.2f} GiB; "
+        f"losses {[round(v, 4) for v in every]} all finite; BN running "
+        f"stats {model.bn1._mean.dtype}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(x, y)
+            torch.cuda.synchronize()
+        log_device_profile(prof, "resnet50 training", time.perf_counter() - t0,
+                           2, 16)
+    return {"samples_per_s": RESNET_BATCH * RESNET_STEPS / wall,
+            "ms_per_step": ms, "ms_per_step_hook_off": ms_plain,
+            "peak_bytes": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -1424,7 +1786,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
-    phase_build()
+    phase_build(triple_op())
     log(f"[card] {card_identity()}")
     errors = phase_kernels(device)
     per_tier_errors = phase_per_tier_kernels(device)
@@ -1437,10 +1799,10 @@ def main() -> int:
     phase_step_float(device, gpt2.params)
     reqs = requests_gpt2(7)
     for split in (0, SPLIT):
-        got, *_ = drive_path(f"GPT-2-small float split {split}", gpt2, reqs,
-                            pa.kernel_name(torch.float32, split > 0),
-                            split=split, min_prefix_pages=256 // PAGE,
-                            rerun=split == 0)
+        got = drive_path(f"GPT-2-small float split {split}", gpt2, reqs,
+                         pa.kernel_name(torch.float32, split > 0),
+                         split=split, min_prefix_pages=256 // PAGE,
+                         rerun=split == 0)[0]
         launches.update(got)
 
     # the fourth slice's main path: speculative decoding on the engine,
@@ -1458,15 +1820,15 @@ def main() -> int:
     phase_step_quant(device, xl.params)
     reqs = requests_long(11, GPT3_XL.vocab)
     int8 = QuantConfig(kv="int8", weights="int8")
-    got, ms_split, *_ = drive_path(
+    got, ms_split = drive_path(
         "GPT-3 XL int8 KV + int8 weights, split 16", xl, reqs,
         pa.kernel_name(torch.int8, True), int8, SPLIT, CHUNK,
-        min_prefix_pages=512 // PAGE, rerun=True)
+        min_prefix_pages=512 // PAGE, rerun=True)[:2]
     launches.update(got)
-    got, ms_unsplit, *_ = drive_path(
+    got, ms_unsplit = drive_path(
         "GPT-3 XL int8 KV + int8 weights, unsplit", xl, reqs,
         pa.kernel_name(torch.int8, False), int8, 0, CHUNK,
-        min_prefix_pages=512 // PAGE)
+        min_prefix_pages=512 // PAGE)[:2]
     launches.update(got)
     log(f"[engine] GPT-3 XL int8 ms/step: split {SPLIT} {ms_split:.2f}, "
         f"unsplit {ms_unsplit:.2f} (warm split run vs the unsplit run "
@@ -1481,10 +1843,12 @@ def main() -> int:
                                              device=device), device=device)
     fp8 = QuantConfig(kv="fp8", weights="int8")
     for split in (SPLIT, 0):
-        got, *_ = drive_path(f"GPT-3 XL widths, 4 layers, fp8 KV, split "
-                            f"{split}", xl4, reqs,
-                            pa.kernel_name(torch.float8_e4m3fn, split > 0),
-                            fp8, split, CHUNK, min_prefix_pages=512 // PAGE)
+        # [0]: the engine the call also returns (with its model and KV
+        # pages) must not outlive this path into the training phases
+        got = drive_path(f"GPT-3 XL widths, 4 layers, fp8 KV, split "
+                         f"{split}", xl4, reqs,
+                         pa.kernel_name(torch.float8_e4m3fn, split > 0),
+                         fp8, split, CHUNK, min_prefix_pages=512 // PAGE)[0]
         launches.update(got)
     del xl4
     torch.cuda.empty_cache()
@@ -1497,9 +1861,20 @@ def main() -> int:
                     ["launches"])
     torch.cuda.empty_cache()
 
+    # the Paddle-API core, the main path of this slice: the custom ops
+    # and the user kernel, then ResNet-50 through Layer, Momentum, AMP O2
+    # and TrainStep
+    paddle.set_device(device)
+    core = phase_custom_ops(device)
+    phase_resnet_parity(device)
+    torch.cuda.empty_cache()
+    phase_resnet_train(device, "--profile" in sys.argv[1:])
+    torch.cuda.empty_cache()
+
     rows = phase_times(device, launches, errors)
     rows += per_tier_rows(device, launches, per_tier_errors)
     rows += flash_rows(device, launches, flash_errors)
+    rows.append(triple_row(core))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     # the card's name and power limit, exactly as nvidia-smi prints them
     log(card_identity())

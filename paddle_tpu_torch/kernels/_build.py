@@ -7,9 +7,10 @@ for ``sm_90a`` into a shared library under ``kernels/build/`` (listed in
 of its source, the headers it includes and the flags, so an edited
 source or header is rebuilt and never shadowed by a stale library, and
 an edit to one library's header rebuilds only the libraries that
-include it. Nothing is
-built when a module is imported: CPU-only machines import every module
-and never call here.
+include it. A user kernel registered with ``utils.custom_op.cuda_op``
+is built the same way from its source text (written beside its library
+as ``<name>-<digest>.cu``). Nothing is built when a module is imported:
+CPU-only machines import every module and never call here.
 """
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
-__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "library_path"]
+__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "library_path",
+           "source_paths", "load_source"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -64,21 +66,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, Tuple[str, float]]:
-    """Compile every named kernel not built yet, one ``nvcc`` per source,
-    all started together. Returns, for each compiled kernel, its
-    compiler log (``-Xptxas -v``: registers, shared memory, spills) and
-    the seconds from the common start until its ``nvcc`` exited; raises
-    with the log when a compile fails."""
+def source_paths(name: str, text: str) -> Tuple[Path, Path]:
+    """Where the library built from CUDA source ``text`` lives: the
+    source and the library, both named by ``name`` and a digest of the
+    text and the flags."""
+    digest = hashlib.sha256(
+        (text + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
+    stem = BUILD_DIR / f"{name}-{digest}"
+    return stem.with_suffix(".cu"), stem.with_suffix(".so")
+
+
+def build(names: Iterable[str] = KERNELS,
+          sources: Optional[Dict[str, str]] = None
+          ) -> Dict[str, Tuple[str, float]]:
+    """Compile every named kernel of ``csrc/`` and every ``sources``
+    entry (library name -> CUDA source text) not built yet, one
+    ``nvcc`` per source, all started together. Returns, for each
+    compiled library, its compiler log (``-Xptxas -v``: registers,
+    shared memory, spills) and the seconds from the common start until
+    its ``nvcc`` exited; raises with the log when a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {name: (CSRC / f"{name}.cu", library_path(name))
+               for name in names}
+    for name, text in (sources or {}).items():
+        src, out = source_paths(name, text)
+        if not out.exists():
+            tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, src)
+        targets[name] = (src, out)
     jobs = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
+    for name, (src, out) in targets.items():
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
@@ -107,3 +130,11 @@ def load(name: str) -> ctypes.CDLL:
     """The compiled kernel library ``name``, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def load_source(name: str, text: str) -> ctypes.CDLL:
+    """The library built from CUDA source ``text``, built first if
+    needed."""
+    build((), {name: text})
+    return ctypes.CDLL(str(source_paths(name, text)[1]))

@@ -1,15 +1,23 @@
-"""Functional ops of the layers the GPT model needs, with Paddle's
-semantics (counterparts of ``paddle_tpu/ops/nn_ops.py``'s ``linear``,
-``layer_norm``, ``gelu`` and ``cross_entropy``)."""
+"""Functional ops of the port's layers, with Paddle's arguments and
+semantics: counterparts of ``paddle_tpu/ops/nn_ops.py``'s ``linear``,
+``layer_norm``, ``gelu``, ``relu``, ``conv2d``, ``max_pool2d``,
+``adaptive_avg_pool2d``, ``batch_norm`` and ``cross_entropy``.
+
+Only the NCHW layout is ported; the channel-last forms raise. The
+convolutions and pools are PyTorch's (cuDNN on the card), as the JAX
+package leaves them to XLA: no TPU kernel of the JAX package computes
+them.
+"""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["linear", "layer_norm", "gelu", "cross_entropy"]
+__all__ = ["linear", "layer_norm", "gelu", "relu", "conv2d", "max_pool2d",
+           "adaptive_avg_pool2d", "batch_norm", "cross_entropy"]
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """``x @ weight + bias`` with Paddle's ``[in, out]`` weight. It runs
     as one GEMM on the weight's transposed view (no copy) with the bias
     added in the GEMM's epilogue: in bf16 the sum rounds once, where the
@@ -32,12 +40,104 @@ def gelu(x, approximate: bool = False):
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
-def cross_entropy(input, label, ignore_index: int = -100):  # noqa: A002
-    """Softmax cross-entropy over the last axis of ``input [N, C]`` with
-    integer labels ``[N]``, averaged over the rows whose label is not
-    ``ignore_index`` (0 when every row is ignored, where
-    ``F.cross_entropy`` would give NaN). Only the path the GPT loss uses:
-    Paddle's weights, soft labels and smoothing are not ported."""
+def relu(x, name=None):
+    return F.relu(x)
+
+
+def _pair(v):
+    return tuple(int(a) for a in v) if isinstance(v, (list, tuple)) \
+        else (int(v),) * 2
+
+
+def _nchw(data_format):
+    if data_format != "NCHW":
+        raise NotImplementedError(f"data_format={data_format!r}: only NCHW "
+                                  "is ported")
+
+
+def _conv_padding(padding):
+    """Paddle's padding spec as torch's: an int, ``[h, w]``, or
+    ``"SAME"``/``"VALID"``; the four-sided forms are not ported."""
+    if isinstance(padding, str):
+        return padding.lower()
+    if isinstance(padding, int):
+        return padding
+    if len(padding) != 2:
+        raise NotImplementedError(f"padding {padding}: only [h, w] is "
+                                  "ported")
+    return tuple(int(p) for p in padding)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """2-D convolution, weight ``[out, in / groups, kh, kw]``; the
+    output keeps x's dtype."""
+    _nchw(data_format)
+    return F.conv2d(x, weight, bias, _pair(stride), _conv_padding(padding),
+                    _pair(dilation), groups)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    """Max pooling; padding counts as ``-inf``, as in the JAX package."""
+    _nchw(data_format)
+    if return_mask:
+        raise NotImplementedError("max_pool2d(return_mask=True) is not "
+                                  "ported")
+    k = _pair(kernel_size)
+    return F.max_pool2d(x, k, _pair(stride) if stride is not None else k,
+                        _conv_padding(padding), ceil_mode=ceil_mode)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """Mean over the windows ``[floor(i * n / out), ceil((i + 1) * n /
+    out))`` of each axis: the JAX package's strided average where the
+    output size divides the input and its averaging-matrix einsum
+    elsewhere. Sums in float32 for any input dtype."""
+    _nchw(data_format)
+    return F.adaptive_avg_pool2d(x, _pair(output_size))
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """Batch normalisation of an NCHW input over N, H and W.
+
+    With batch statistics (``training`` unless ``use_global_stats``)
+    it normalises by the batch mean and population variance and updates
+    the running statistics in place, Paddle's ``r = momentum * r + (1 -
+    momentum) * batch`` with the unbiased variance (torch's ``momentum``
+    is ``1 - momentum``); otherwise it normalises by the running
+    statistics. The statistics and the normalisation are float32 for a
+    bfloat16/float16 input (PyTorch accumulates reduced types in
+    float32), the output has x's dtype, and the running statistics keep
+    theirs: the JAX package's rounding points, except that a bf16
+    running statistic rounds once per update where JAX rounds each
+    product."""
+    _nchw(data_format)
+    if x.ndim != 4:
+        raise NotImplementedError(f"batch_norm of a {x.ndim}-d input: only "
+                                  "NCHW is ported")
+    use_stats = (not training) if use_global_stats is None \
+        else use_global_stats
+    return F.batch_norm(x, running_mean, running_var, weight, bias,
+                        training=not use_stats, momentum=1.0 - momentum,
+                        eps=epsilon)
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """Softmax cross-entropy of ``input [N, C]`` against integer labels
+    ``[N]``, averaged over the rows whose label is not ``ignore_index``
+    (0 when every row is ignored, where ``F.cross_entropy`` would give
+    NaN). Only this path is ported: other reductions and label shapes,
+    class weights, soft labels and smoothing raise."""
+    if (weight is not None or soft_label or not use_softmax
+            or label_smoothing or reduction != "mean" or input.ndim != 2
+            or label.ndim != 1 or axis not in (-1, 1)):
+        raise NotImplementedError("cross_entropy: only the mean over hard "
+                                  "labels [N] of input [N, C] is ported")
     losses = F.cross_entropy(input, label.long(), ignore_index=ignore_index,
                              reduction="none")
     count = (label != ignore_index).sum().clamp(min=1)

@@ -1,4 +1,4 @@
 """Optimizers of the port."""
-from .optimizer import Adam, AdamW, Optimizer
+from .optimizer import Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]

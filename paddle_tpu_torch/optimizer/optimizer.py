@@ -1,4 +1,5 @@
-"""Optimizers: ``Adam`` and ``AdamW`` with the JAX package's update rule.
+"""Optimizers: ``Momentum``, ``Adam`` and ``AdamW`` with the JAX package's
+update rules.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``. The rule is the
 JAX ``Adam._rule``, not ``torch.optim.AdamW``'s (which orders its
@@ -28,7 +29,7 @@ from typing import Dict, List
 
 import torch
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
 
 def _not_ported(what: str):
@@ -122,6 +123,37 @@ class Optimizer:
 
     def _update(self, params, grads, states, lr, wd) -> None:
         raise NotImplementedError
+
+
+class Momentum(Optimizer):
+    """The JAX ``Momentum._rule`` over float32 (or master) values: ``g +
+    wd p`` (L2 folded into the gradient), ``v = momentum v + g``, then
+    ``p - lr v``, or with ``use_nesterov`` ``p - lr (g + momentum v)``,
+    each product rounded before its sum as in JAX."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _update(self, params, grads, states, lr, wd):
+        mu = self._momentum
+        if wd:
+            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        v = [st["velocity"] for st in states]
+        torch._foreach_mul_(v, mu)
+        torch._foreach_add_(v, grads)
+        if self._nesterov:
+            step = torch._foreach_add(grads, torch._foreach_mul(v, mu))
+        else:
+            step = v
+        torch._foreach_sub_(params, torch._foreach_mul(step, lr))
 
 
 class Adam(Optimizer):

@@ -168,7 +168,7 @@ class GPTModel(torch.nn.Module):
         return fused_block_stack_flat(
             x, *flat, num_layers=len(self.h),
             num_heads=cfg.num_attention_heads, causal=True,
-            epsilon=self.h[0].ln_1.eps,
+            epsilon=self.h[0].ln_1._epsilon,
             remat=cfg.recompute_policy or cfg.use_recompute,
             attn_tier=cfg.attn_tier)
 
@@ -207,8 +207,8 @@ class GPTForCausalLM(torch.nn.Module):
         self.config = cfg
         self.gpt = GPTModel(cfg, dev)
         self.lm_head = (None if cfg.tie_word_embeddings else
-                        Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                               device=dev))
+                        Linear(cfg.hidden_size, cfg.vocab_size,
+                               bias_attr=False, device=dev))
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         for m in self.modules():
             if isinstance(m, (Linear, Embedding)):

@@ -19,6 +19,7 @@ import ml_dtypes  # noqa: E402
 
 from paddle_tpu.kernels import attention as jattn  # noqa: E402
 from paddle_tpu_torch.kernels import attention as attn  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 BF16_TOL = 2e-2

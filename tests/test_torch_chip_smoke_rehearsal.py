@@ -1,4 +1,5 @@
-"""A CPU rehearsal of ``chip_smoke.py``'s speculative and per-tier phases.
+"""A CPU rehearsal of ``chip_smoke.py``'s speculative, per-tier and
+Paddle-API core phases.
 
 The smoke runs only on the card. Here its phase functions run on the
 CPU with each kernel wrapper replaced by the kernel's plain version
@@ -11,7 +12,12 @@ launch bookkeeping and their checks are exercised before a chip run:
   with GPT-2-small's vocabulary and context (d 64, 2 layers), the
   smoke's own twelve requests;
 - the bound arithmetic of the kernels line, and the library yardstick
-  (SDPA on K/V gathered dense) computing the plain version's function.
+  (SDPA on K/V gathered dense) computing the plain version's function;
+- the core phases: the custom-op programs and ``my_triple`` through its
+  op (reference counted as a launch) at small shapes, the ResNet
+  parity phase (CPU against CPU) and the ResNet training phase with
+  its hook-off steps, on resnet18 at 64 x 64, batch 2; ``torch.mul``
+  and the plain version agree with my_triple's reference.
 
 Nothing here measures the card: times printed by the phases under this
 rehearsal are host times of the plain versions.
@@ -22,10 +28,16 @@ torch = pytest.importorskip("torch")
 
 import torch.nn.functional as F  # noqa: E402
 
+import sys  # noqa: E402
+
 import chip_smoke as cs  # noqa: E402
+import paddle_tpu_torch as paddle  # noqa: E402
+from paddle_tpu_torch.core import device as tdevice  # noqa: E402
+from paddle_tpu_torch.vision.models import resnet18  # noqa: E402
 from paddle_tpu_torch.inference.llm import ModelSpec, TorchLM  # noqa: E402
 from paddle_tpu_torch.inference.llm.model import init_lm_params  # noqa: E402
 from paddle_tpu_torch.kernels import paged_attention as pa  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 
@@ -98,3 +110,46 @@ def test_bounds_and_library_yardstick():
         seen = args["seq_lens"] > 0                # empty slots excluded
         torch.testing.assert_close(lib.transpose(1, 2)[seen], ref[seen],
                                    rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture
+def core_on_cpu(monkeypatch):
+    """The core phases at CPU sizes: my_triple's op runs its reference
+    and counts a launch, the ResNet phases run resnet18 at 64 x 64,
+    batch 2, and the card's memory counters and synchronize are
+    no-ops."""
+    co = sys.modules["paddle_tpu_torch.utils.custom_op"]
+
+    def run(self, xs):
+        outs = self._reference(xs, self.out_specs(xs))
+        co.LAUNCHES[self.name] = co.LAUNCHES.get(self.name, 0) + 1
+        return outs
+
+    monkeypatch.setattr(co._CudaOp, "run", run)
+    monkeypatch.setattr(cs, "TRIPLE_SHAPES", ((4, 8), (64, 96)))
+    monkeypatch.setattr(cs, "resnet50", resnet18)
+    for name, value in (("RESNET_SIZE", 64), ("RESNET_BATCH", 2),
+                        ("RESNET_PARITY_BATCH", 2), ("RESNET_WARMUP", 1),
+                        ("RESNET_STEPS", 2), ("RESNET_PLAIN_STEPS", 1),
+                        ("RESNET_PARITY_STEPS", 2)):
+        monkeypatch.setattr(cs, name, value)
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    saved = tdevice._CURRENT[0]
+    paddle.set_device("cpu")
+    yield
+    tdevice._CURRENT[0] = saved
+    co.LAUNCHES.pop("my_triple", None)
+
+
+def test_core_phases(core_on_cpu):
+    core = cs.phase_custom_ops(CPU)
+    assert core["launches"] == 2 and core["max_abs_err"] == 0.0
+    x = core["x"]
+    assert torch.equal(torch.mul(x, 3.0), cs.triple_plain(x))
+    assert cs.triple_grid(torch.empty(8192, 8192)) == (132 * 8,)
+    assert cs.triple_grid(torch.empty(4, 8)) == (1,)
+    cs.phase_resnet_parity(CPU, CPU)
+    got = cs.phase_resnet_train(CPU, profile=False)
+    assert got["ms_per_step"] > 0 and got["ms_per_step_hook_off"] > 0

@@ -25,6 +25,7 @@ from paddle_tpu_torch.inference.llm import (  # noqa: E402
 from paddle_tpu_torch.inference.llm.quant import QuantConfig  # noqa: E402
 from paddle_tpu_torch.inference.llm import engine as tengine  # noqa: E402
 from paddle_tpu_torch.inference.llm.model import params_from_jax  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 GEOM = dict(num_layers=2, num_heads=2, head_dim=16, num_pages=64,
             page_size=8, max_slots=4, max_seq_len=128, prefix_cache=True,

@@ -24,6 +24,7 @@ import ml_dtypes  # noqa: E402
 from paddle_tpu.kernels import flash_attention as jfa  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.kernels.attention import sdpa_reference  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 FWD_TOL = 2e-4
 GRAD_TOL = 5e-4

@@ -29,6 +29,7 @@ from paddle_tpu.core.tensor import Tensor  # noqa: E402
 from paddle_tpu.text import gpt as jgpt  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.text import gpt as tgpt  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-4
 LOSS_RTOL = 1e-5

@@ -4,7 +4,9 @@
   for imports of ``jax`` or ``paddle_tpu`` (only ``paddle_tpu_torch``
   may be imported);
 - importing every module of the port in a fresh interpreter leaves
-  ``jax`` and ``paddle_tpu`` out of ``sys.modules``;
+  ``jax`` and ``paddle_tpu`` out of ``sys.modules``, and so does using
+  its top-level Paddle surface (``import paddle_tpu_torch as paddle``,
+  ``paddle.to_tensor``, a ``Layer``, a ``cuda_op`` on the CPU);
 - the port's copy of the serving-policy defaults equals the JAX
   package's ``shared_policy()`` with no ``PD_*`` environment set;
 - ``chip_smoke.py`` exits non-zero and prints no result line without a
@@ -54,6 +56,16 @@ def test_importing_the_port_loads_no_jax():
         "import paddle_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'paddle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device('cpu')\n"
+        "x = paddle.to_tensor([[1.0, 2.0]], stop_gradient=False)\n"
+        "paddle.sum(paddle.nn.Linear(2, 3)(x)).backward()\n"
+        "assert isinstance(x.grad, paddle.Tensor)\n"
+        "op = paddle.utils.cuda_op('iso_triple', '__global__ void k(const '\n"
+        "    'float* x, float* o, int64_t n) {}', 'k', lambda x: \n"
+        "    paddle.utils.ShapeDtypeStruct(x.shape, x.dtype),\n"
+        "    reference=lambda x: x * 3.0)\n"
+        "assert op(x.detach()).tolist() == [[3.0, 6.0]]\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(len([n for n in sys.modules if n.startswith('paddle_tpu_torch')]))\n"

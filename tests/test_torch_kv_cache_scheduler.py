@@ -19,6 +19,7 @@ from paddle_tpu_torch.inference.llm.kv_cache import (  # noqa: E402
     CacheConfig, PagedKVCache)
 from paddle_tpu_torch.inference.llm.scheduler import (  # noqa: E402
     ContinuousBatchingScheduler, InvalidRequest, QueueFull, SchedulerConfig)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 GEOM = dict(num_layers=1, num_heads=2, head_dim=4, page_size=4,
             max_slots=4, max_seq_len=64, prefix_cache=True, swap_pages=0,

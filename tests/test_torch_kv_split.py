@@ -32,6 +32,7 @@ from paddle_tpu.kernels.paged_attention import (  # noqa: E402
 from paddle_tpu_torch.inference.llm.kv_cache import (  # noqa: E402
     CacheConfig, PagedKVCache, flatten_page_levels)
 from paddle_tpu_torch.kernels import paged_attention as pa  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 H, D, PAGE = 2, 16, 8
 TOL = 2e-5

@@ -24,6 +24,7 @@ from paddle_tpu_torch.inference.llm.kv_cache import (  # noqa: E402
     ragged_page_indices)
 from paddle_tpu_torch.inference.llm.model import (  # noqa: E402
     TorchLM, init_lm_params, params_from_jax)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-4
 PAGE = 8

@@ -25,6 +25,7 @@ from paddle_tpu.kernels.paged_attention import (  # noqa: E402
     mixed_attention_lax, mixed_attention_pallas, paged_attention_lax,
     paged_attention_pallas)
 from paddle_tpu_torch.kernels import paged_attention as pa  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 2e-5
 H, D, PAGE, PPS = 2, 16, 8, 4

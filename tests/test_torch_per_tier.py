@@ -38,6 +38,7 @@ from paddle_tpu_torch.inference.llm import model as tmodel  # noqa: E402
 from paddle_tpu_torch.inference.llm.engine import (  # noqa: E402
     GREEDY, _sample_traced)
 from paddle_tpu_torch.inference.llm.model import params_from_jax  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-4
 PAGE = 8

@@ -35,6 +35,7 @@ from paddle_tpu_torch.inference.llm.model import (  # noqa: E402
     TorchLM, params_from_jax)
 from paddle_tpu_torch.kernels import int8 as tint8  # noqa: E402
 from paddle_tpu_torch.kernels import paged_attention as pa  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 H, D, PAGE = 2, 16, 8
 TOL = 2e-5

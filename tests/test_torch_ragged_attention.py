@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from paddle_tpu.kernels.paged_attention import (  # noqa: E402
     ragged_attention_lax, ragged_attention_pallas, ragged_rows as jax_rows)
 from paddle_tpu_torch.kernels import paged_attention as pa  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 H, D, PAGE = 2, 16, 8
 TOL = 2e-5

@@ -20,6 +20,7 @@ from paddle_tpu.inference.llm.engine import (  # noqa: E402
 from paddle_tpu_torch.inference.llm import threefry as tf  # noqa: E402
 from paddle_tpu_torch.inference.llm.engine import (  # noqa: E402
     SamplingParams, _sample_traced, resolve_sampling)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TINY = float(np.finfo(np.float32).tiny)
 

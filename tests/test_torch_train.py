@@ -36,6 +36,7 @@ from paddle_tpu_torch.amp import decorate  # noqa: E402
 from paddle_tpu_torch.jit import TrainStep  # noqa: E402
 from paddle_tpu_torch.optimizer import Adam, AdamW  # noqa: E402
 from paddle_tpu_torch.text import gpt as tgpt  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 OPT_RTOL, OPT_ATOL = 1e-6, 1e-7
 LR = 1e-5
