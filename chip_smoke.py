@@ -24,7 +24,8 @@ before and read just after:
   graphs (``lm_chunk_prefill`` in 512-token chunks, then ``lm_verify``
   or ``lm_decode``) through the decode and mixed kernels, request by
   request, teacher-forced on the engine's tokens against the same loop
-  on the plain attention;
+  on the plain attention (the mixed kernel is also held to its plain
+  version with its key walk split, the host's schedule, and unsplit);
 - quantized long-context serving: GPT-3 XL widths at full depth,
   2048-token context, int8 KV pages, int8 weights and the KV split
   (16-page chunks), then the same traffic unsplit;
@@ -198,7 +199,11 @@ RESNET_F64_STEPS, RESNET_F64_TOL = 2, 1e-6
 # and a GPT-3 XL head layout at its 2048-token context
 FLASH_TRAIN = (16, 12, 1024, 1024, 64)
 FLASH_XL = (2, 32, 2048, 2048, 64)
+# the bf16 forward (the training path's) has a source of its own; the
+# float32 forward and both backward kernels share flash_attention.cu
 FLASH_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+FLASH_SOURCES = {
+    "flash_attention_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd_bf16.cu"}
 FLASH_REPLACES = {
     "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:61",
     "flash_attention_bwd_dkdv": "paddle_tpu/kernels/flash_attention.py:167",
@@ -445,10 +450,26 @@ def per_tier_mix(kind: str, seed: int, device):
     return args
 
 
-def per_tier_call(args, tier):
+def per_tier_call(args, tier, split=None):
+    """The decode or mixed attention of ``args`` on ``tier``; ``split``
+    forces the mixed kernel's key-walk split (0: unsplit; None: the
+    host's own schedule, ``pa.mixed_plan``)."""
     if "q_lens" in args:
+        if split is not None and tier == "kernel":
+            return pa.mixed_attention_cuda(**args, split_blocks=split)
         return pa.mixed_attention(**args, tier=tier)
     return pa.paged_attention(**args, tier=tier)
+
+
+def mixed_schedule(args) -> str:
+    """The host's schedule for the mixed kernel at ``args``'s shape."""
+    B, T, H, _ = args["q"].shape
+    n_sm = (torch.cuda.get_device_properties(0).multi_processor_count
+            if torch.cuda.is_available() else 132)
+    rows, split, n_split = pa.mixed_plan(B, T, H, args["k_pool"].shape[1],
+                                         args["page_table"].shape[1], n_sm)
+    return (f"{rows}-row tiles, " + (f"key walk split in {n_split} chunks "
+            f"of {split} key blocks" if n_split > 1 else "unsplit"))
 
 
 PER_TIER_SHAPES = (("decode", pa.PAGED_KERNEL), ("chunk", pa.MIXED_KERNEL),
@@ -459,26 +480,33 @@ def phase_per_tier_kernels(device) -> dict:
     """The decode and mixed kernels against their plain versions at the
     three per-tier shapes, rtol = atol = ATTN_TOL, every row (padding
     rows of the mixed shape included); a zero-length slot exact 0; a
-    second run bit-identical. Returns the worst error per kernel."""
+    second run bit-identical. The mixed kernel runs both on the host's
+    schedule (its key walk split where the grid would leave SMs idle)
+    and unsplit. Returns the worst error per kernel."""
     worst: dict = {}
     for seed, (kind, name) in enumerate(PER_TIER_SHAPES):
         args = per_tier_mix(kind, 40 + seed, device)
-        out = per_tier_call(args, "kernel")
-        torch.cuda.synchronize()
         ref = per_tier_call(args, "ref")
-        torch.testing.assert_close(out, ref, rtol=ATTN_TOL, atol=ATTN_TOL)
-        err = (out - ref).abs().max().item()
-        worst[name] = max(worst.get(name, 0.0), err)
         zero = ((args["seq_lens"] == 0).nonzero().flatten().tolist())
-        if zero and out[zero].abs().max().item() != 0:
-            raise AssertionError(f"{name} {kind}: a slot at seq_len 0 is "
-                                 "not exact 0")
-        if not torch.equal(per_tier_call(args, "kernel"), out):
-            raise AssertionError(f"{name} {kind}: two runs differ")
-        log(f"[kernel] {name} {kind} {list(args['q'].shape)}: max_abs_err "
-            f"vs plain {err:.3e} (tol {ATTN_TOL}), every row"
-            + (", the seq_len-0 slot exact 0" if zero else "")
-            + "; a second run bit-identical")
+        for split in ((None, 0) if name == pa.MIXED_KERNEL else (None,)):
+            out = per_tier_call(args, "kernel", split)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, rtol=ATTN_TOL,
+                                       atol=ATTN_TOL)
+            err = (out - ref).abs().max().item()
+            worst[name] = max(worst.get(name, 0.0), err)
+            if zero and out[zero].abs().max().item() != 0:
+                raise AssertionError(f"{name} {kind}: a slot at seq_len 0 "
+                                     "is not exact 0")
+            if not torch.equal(per_tier_call(args, "kernel", split), out):
+                raise AssertionError(f"{name} {kind}: two runs differ")
+            how = ("" if name != pa.MIXED_KERNEL else
+                   f" ({mixed_schedule(args)})" if split is None else
+                   " (unsplit)")
+            log(f"[kernel] {name} {kind} {list(args['q'].shape)}{how}: "
+                f"max_abs_err vs plain {err:.3e} (tol {ATTN_TOL}), every row"
+                + (", the seq_len-0 slot exact 0" if zero else "")
+                + "; a second run bit-identical")
     return worst
 
 
@@ -917,10 +945,12 @@ def phase_per_tier(model, requests, teacher, diverge) -> dict:
 
 
 def log_device_profile(prof, label: str, wall: float, steps: int,
-                       top: int) -> None:
+                       top: int, group=None) -> None:
     """Print the device's busy share of ``wall`` and the ``top`` device
     operations by time per step, from a finished ``torch.profiler``
-    run over ``steps`` steps."""
+    run over ``steps`` steps; ``group`` = (name, substrings) also prints
+    the summed time and share of the operations whose names hold one of
+    the substrings."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
@@ -943,6 +973,12 @@ def log_device_profile(prof, label: str, wall: float, steps: int,
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"[profile]   {dev_us(e) / 1e3 / steps:8.4f} ms/step "
             f"{100 * dev_us(e) / total:5.1f}%  x{e.count:<6d} {e.key[:90]}")
+    if group is not None:
+        name, keys = group
+        part = sum(dev_us(e) for e in events
+                   if any(k in e.key for k in keys))
+        log(f"[profile] {name}: {part / 1e3 / steps:.4f} ms/step, "
+            f"{100 * part / total:.1f}% of device time")
 
 
 def phase_profile(model, requests) -> None:
@@ -1088,11 +1124,19 @@ def per_tier_rows(device, launches: dict, errors: dict):
              "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
+        note = ""
+        if name == pa.MIXED_KERNEL:
+            t["schedule"] = mixed_schedule(args)
+            t["unsplit_ms"] = time_cuda(
+                lambda: per_tier_call(args, "kernel", 0))
+            note = (f" ({t['schedule']}; unsplit {t['unsplit_ms']:.4f} "
+                    "ms)")
         shapes[name][kind] = t
         log(f"[times] {name} {kind} {list(args['q'].shape)}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} bytes, "
-            f"{flops} float32 operations)")
+            f"{ms:.4f} ms{note}, plain {plain_ms:.4f} ms, sdpa "
+            f"{lib_ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {nbytes} bytes, {flops} float32 "
+            "operations)")
     rows = []
     for name, (source, replaces) in PER_TIER.items():
         head = shapes[name]["decode" if name == pa.PAGED_KERNEL else "chunk"]
@@ -1373,7 +1417,9 @@ def phase_profile_train(step, ids) -> None:
                              ProfilerActivity.CUDA]) as prof:
         step(ids, ids).tolist()
     wall = time.perf_counter() - t0
-    log_device_profile(prof, "training call", wall, TRAIN_K, 16)
+    log_device_profile(prof, "training call", wall, TRAIN_K, 16,
+                       ("flash attention kernels",
+                        ("flash::", "fwd_kernel<")))
 
 
 def flash_work(shape, dtype, causal=True):
@@ -1459,7 +1505,9 @@ def flash_rows(device, launches: dict, errors: dict):
              for dt in (torch.bfloat16, torch.float32)}
     rows = []
     for name in fa.KERNEL_NAMES:
-        rows.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
+        rows.append({"name": name, "route": "cuda",
+                     "source": FLASH_SOURCES.get(name, FLASH_SOURCE),
+                     "source_f32": FLASH_SOURCE,
                      "replaces": FLASH_REPLACES[name],
                      "launches": launches.get(name, 0),
                      "max_abs_err": max(errors[(name, "bfloat16")],

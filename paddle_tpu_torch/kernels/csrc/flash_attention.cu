@@ -1,5 +1,7 @@
-// Flash attention for sm_90a: the forward and both backward kernels, for
-// float32 or bf16 inputs and head_dim 64 or 128, behind a plain C interface.
+// Flash attention for sm_90a: the float32 forward and both backward
+// kernels, for float32 or bf16 inputs and head_dim 64 or 128, behind a
+// plain C interface. The bf16 forward is flash_fwd_bf16.cu's (its own
+// library, built beside this one).
 //
 // Replaces paddle_tpu/kernels/flash_attention.py::_fwd_kernel (reached
 // through _flash_fwd), ::_bwd_dkdv_kernel and ::_bwd_dq_kernel (both
@@ -37,13 +39,12 @@
 //   tile with scalar float32 FMAs from float32 tiles in shared memory
 //   (rows padded by one word: conflict-free column reads). Row max and
 //   row sum reduce across the 16 threads of a row by shuffles.
-// - bf16: four warps, each owning 16 rows of the tile, run every product
-//   on the tensor cores (WMMA 16 x 16 x 16, bf16 in, float32 sums) from
-//   bf16 tiles in shared memory. Score and gradient tiles go through
-//   shared memory as float32, where each row's two threads apply the mask
-//   and the softmax (or the dS formula) and write the bf16 operand of the
-//   next product; the forward's output accumulator stays in registers,
-//   rescaled by the running max, and dK/dV/dQ accumulate in fragments.
+// - bf16 backward: four warps, each owning 16 rows of the tile, run every
+//   product on the tensor cores (WMMA 16 x 16 x 16, bf16 in, float32
+//   sums) from bf16 tiles in shared memory. Score and gradient tiles go
+//   through shared memory as float32, where each row's two threads apply
+//   the mask and the dS formula and write the bf16 operand of the next
+//   product; dK/dV/dQ accumulate in fragments.
 // cp.async or TMA staging, wgmma and warp specialization are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -526,94 +527,6 @@ __device__ inline void store_rows(T* dst, Strides st, int b, int h, int row0,
   __syncwarp();
 }
 
-// ------------------------------------------------------------- forward
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o,
-           float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-           Strides so, int H, int Sq, int Sk, float scale, int causal) {
-  constexpr int LD = D + 8, LO = D + 4, KD = D / 16, HALF = D / 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + kB * LD;
-  T* Vs = Ks + kB * LD;
-  T* Pb = Vs + kB * LD;                                   // [64][kLB]
-  float* Sf = reinterpret_cast<float*>(Pb + kB * kLB);    // [64][kLS]
-  float* Of = Sf + kB * kLS;                              // [64][LO]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // this thread's row of the tile, and the parity of its columns
-  const int r = warp * 16 + lane / 2, par = lane % 2, row = q0 + r;
-  const int offset = Sk - Sq;
-  const int k_end = key_end(q0, Sk, causal, offset);
-
-  load_tile<D>(Qs, q, sq, b, h, q0, Sq);
-  __syncthreads();
-  FragA qa[KD];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    wmma::load_matrix_sync(qa[kk], Qs + warp * 16 * LD + kk * 16, LD);
-  float m = kNegInf, l = 0.f, acc[HALF];     // acc: columns 2c + par
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) acc[c] = 0.f;
-  float* srow = Sf + r * kLS;
-  T* prow = Pb + r * kLB;
-  const float* orow = Of + r * LO;
-  for (int k0 = 0; k0 < k_end; k0 += kB) {
-    __syncthreads();                       // the last tile's readers are done
-    load_tile<D>(Ks, k, sk, b, h, k0, Sk);
-    load_tile<D>(Vs, v, sv, b, h, k0, Sk);
-    __syncthreads();
-    scores<D>(Sf + warp * 16 * kLS, qa, Ks);
-    __syncwarp();
-    float mx = kNegInf;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + par;
-      const float s = visible(row, k0 + c, Sq, Sk, causal, offset)
-                          ? srow[c] * scale : kNegInf;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(kFull, mx, 1)));
-    float sum = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + par;
-      const float p = visible(row, k0 + c, Sq, Sk, causal, offset)
-                          ? expf(srow[c] - m_new) : 0.f;
-      sum += p;
-      prow[c] = __float2bfloat16_rn(p);    // p.astype(v.dtype)
-    }
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + sum;
-    m = m_new;
-    __syncwarp();
-    FragC pv[KD];
-#pragma unroll
-    for (int n = 0; n < KD; ++n) wmma::fill_fragment(pv[n], 0.f);
-    accumulate<D>(pv, Pb + warp * 16 * kLB, Vs);
-#pragma unroll
-    for (int n = 0; n < KD; ++n)
-      wmma::store_matrix_sync(Of + warp * 16 * LO + n * 16, pv[n], LO,
-                              wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < HALF; ++c) acc[c] = acc[c] * alpha + orow[2 * c + par];
-  }
-  if (row < Sq) {
-    const float l_safe = l == 0.f ? 1.f : l;
-    T* out = o + b * so.b + h * so.h + row * so.s;
-#pragma unroll
-    for (int c = 0; c < HALF; ++c)
-      out[2 * c + par] = __float2bfloat16_rn(acc[c] / l_safe);
-    if (par == 0) lse[((long long)b * H + h) * Sq + row] = m + logf(l_safe);
-  }
-}
-
 // ------------------------------------------------------------- dK / dV
 
 template <int D>
@@ -788,8 +701,6 @@ template <int D> struct Plan<__nv_bfloat16, D> {
   static constexpr size_t tile = sizeof(__nv_bfloat16) * kB * (D + 8);
   static constexpr size_t btile = sizeof(__nv_bfloat16) * kB * bf16::kLB;
   static constexpr size_t stile = sizeof(float) * kB * bf16::kLS;
-  static constexpr size_t fwd = 3 * tile + btile + stile
-                                + sizeof(float) * kB * (D + 4);
   static constexpr size_t dkdv = 4 * tile + 2 * btile + 2 * stile
                                  + 2 * kB * sizeof(float);
   static constexpr size_t dq = 4 * tile + btile + 2 * stile;
@@ -808,14 +719,16 @@ cudaError_t launch(Kind kind, dim3 grid, cudaStream_t stream,
   constexpr bool kF32 = std::is_same<T, float>::value;
   cudaError_t e;
   if (kind == Kind::kFwd) {         // strides: q, k, v, o
-    auto kernel = [] {
-      if constexpr (kF32) return f32::fwd_kernel<D>;
-      else return bf16::fwd_kernel<D>;
-    }();
-    if ((e = prepare(kernel, P::fwd)) != cudaSuccess) return e;
-    kernel<<<grid, P::threads, P::fwd, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out0, lse_out, at(st, 0),
-        at(st, 1), at(st, 2), at(st, 3), H, Sq, Sk, scale, causal);
+    if constexpr (kF32) {             // bf16's is flash_fwd_bf16.cu's
+      auto kernel = f32::fwd_kernel<D>;
+      if ((e = prepare(kernel, P::fwd)) != cudaSuccess) return e;
+      kernel<<<grid, P::threads, P::fwd, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (T*)out0, lse_out,
+          at(st, 0), at(st, 1), at(st, 2), at(st, 3), H, Sq, Sk, scale,
+          causal);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   } else if (kind == Kind::kDkdv) { // strides: q, k, v, dout, dk, dv
     auto kernel = [] {
       if constexpr (kF32) return f32::bwd_dkdv_kernel<D>;
@@ -866,16 +779,18 @@ int run(Kind kind, int B, int H, int Sq, int Sk, int D, void* stream,
 // Each launches on `stream` and returns cudaGetLastError() after the
 // launch (0 = cudaSuccess); a shape the kernels do not take returns
 // cudaErrorInvalidValue without launching. `strides` holds (b, h, s) of
-// each tensor in argument order.
-#define FLASH_ENTRIES(SUFFIX, T)                                              \
-  extern "C" int flash_fwd_##SUFFIX(                                          \
-      const void* q, const void* k, const void* v, void* o, float* lse,      \
-      const long long* strides, int B, int H, int Sq, int Sk, int D,          \
-      float scale, int causal, void* stream) {                                \
-    return flash::run<T>(flash::Kind::kFwd, B, H, Sq, Sk, D, stream, q, k,   \
-                         v, nullptr, nullptr, nullptr, o, nullptr, lse,       \
-                         strides, scale, causal);                             \
-  }                                                                           \
+// each tensor in argument order. The bf16 forward, flash_fwd_bf16, is
+// flash_fwd_bf16.cu's.
+extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
+                             void* o, float* lse, const long long* strides,
+                             int B, int H, int Sq, int Sk, int D, float scale,
+                             int causal, void* stream) {
+  return flash::run<float>(flash::Kind::kFwd, B, H, Sq, Sk, D, stream, q, k,
+                           v, nullptr, nullptr, nullptr, o, nullptr, lse,
+                           strides, scale, causal);
+}
+
+#define FLASH_BWD_ENTRIES(SUFFIX, T)                                          \
   extern "C" int flash_bwd_dkdv_##SUFFIX(                                     \
       const void* q, const void* k, const void* v, const void* dout,         \
       const float* lse, const float* delta, void* dk, void* dv,               \
@@ -895,5 +810,5 @@ int run(Kind kind, int B, int H, int Sq, int Sk, int D, void* stream,
                          scale, causal);                                      \
   }
 
-FLASH_ENTRIES(f32, float)
-FLASH_ENTRIES(bf16, __nv_bfloat16)
+FLASH_BWD_ENTRIES(f32, float)
+FLASH_BWD_ENTRIES(bf16, __nv_bfloat16)

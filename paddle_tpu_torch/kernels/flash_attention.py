@@ -10,9 +10,10 @@ a query that sees no key outputs exact zeros.
 
 Two tiers, one function each way:
 
-- the hand-written CUDA kernels (``csrc/flash_attention.cu``) that
-  replace the JAX package's Pallas ``_fwd_kernel``, ``_bwd_dkdv_kernel``
-  and ``_bwd_dq_kernel``: :func:`flash_fwd_cuda`,
+- the hand-written CUDA kernels (``csrc/flash_attention.cu``, and
+  ``csrc/flash_fwd_bf16.cu`` for the bf16 forward) that replace the JAX
+  package's Pallas ``_fwd_kernel``, ``_bwd_dkdv_kernel`` and
+  ``_bwd_dq_kernel``: :func:`flash_fwd_cuda`,
   :func:`flash_bwd_dkdv_cuda`, :func:`flash_bwd_dq_cuda`. float32
   (scalar float32 FMAs) or bf16 (tensor cores, float32 sums), head_dim
   64 or 128, CUDA tensors only; anything else raises.
@@ -145,7 +146,10 @@ def flash_bwd_ref(q, k, v, o, lse, do, sm_scale: float, causal: bool):
 def _entry(kernel: str, dtype: torch.dtype):
     from ._build import load
 
-    fn = getattr(load("flash_attention"), f"flash_{kernel}_{_SUFFIX[dtype]}")
+    name = f"flash_{kernel}_{_SUFFIX[dtype]}"
+    # the bf16 forward is a library of its own (csrc/flash_fwd_bf16.cu)
+    lib = name if name == "flash_fwd_bf16" else "flash_attention"
+    fn = getattr(load(lib), name)
     if fn.argtypes is None:
         n_ptr = {"fwd": 5, "bwd_dkdv": 8, "bwd_dq": 7}[kernel]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_void_p]

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -64,7 +65,7 @@ __all__ = ["NEG_INF", "LAUNCHES", "KERNEL_NAMES", "PAGED_KERNEL",
            "ragged_attention_ref", "ragged_attention_ref_split",
            "ragged_attention_cuda", "split_active", "paged_attention",
            "paged_attention_ref", "paged_attention_cuda", "mixed_attention",
-           "mixed_attention_ref", "mixed_attention_cuda",
+           "mixed_attention_ref", "mixed_attention_cuda", "mixed_plan",
            "verify_attention"]
 
 NEG_INF = -1e30
@@ -75,7 +76,8 @@ NEG_INF = -1e30
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 # the kernels' limits (csrc/paged_walk.cuh): one lane per key of a
-# page, ceil(D / 32) head-dim elements per lane
+# page, ceil(D / 32) head-dim elements per lane; the mixed kernel keeps
+# them (key blocks of at least two whole pages, at most 128 columns)
 _MAX_PAGE_SIZE = 32
 _MAX_HEAD_DIM = 128
 
@@ -474,14 +476,47 @@ def paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens,
     return out
 
 
+# the mixed kernel's key blocks: 64 positions of whole pages
+_MIXED_KEY_BLOCK = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def mixed_plan(B: int, T: int, H: int, page_size: int, pages_per_seq: int,
+               n_sm: int, split_blocks: Optional[int] = None):
+    """The mixed kernel's schedule, decided on the host from the grid:
+    ``(tile_rows, split_blocks, n_split)``. A block owns ``tile_rows``
+    query rows of one (slot, head): 8 for ``T <= 8`` (verify), else 64.
+    When those tiles would leave SMs idle (fewer than ``n_sm``), each
+    row's key blocks (64 positions of whole pages) are split into
+    ``n_split`` chunks of ``split_blocks`` blocks, about two blocks per
+    SM in all, merged in fixed order by a second pass. ``split_blocks``
+    forces the split (0: unsplit)."""
+    tile_rows = 8 if T <= 8 else 64
+    n_kb = -(-pages_per_seq // (_MIXED_KEY_BLOCK // page_size))
+    if split_blocks is None:
+        tiles = -(-T // tile_rows) * H * B
+        want = -(-2 * n_sm // tiles) if tiles < n_sm else 1
+        split_blocks = -(-n_kb // want)
+    split_blocks = int(split_blocks)
+    if not 0 < split_blocks < n_kb:
+        return tile_rows, 0, 1
+    return tile_rows, split_blocks, -(-n_kb // split_blocks)
+
+
 def mixed_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, q_lens,
-                         sm_scale: Optional[float] = None):
+                         sm_scale: Optional[float] = None,
+                         split_blocks: Optional[int] = None):
     """Launch the mixed kernel (``csrc/mixed_attention.cu``) on the
     current stream: ``q [B, T, H, D]`` float32, float32 pools, int32
     ``page_table [B, pages_per_seq]``, ``seq_lens [B]`` and ``q_lens
-    [B]``. Every row is written, padding rows included. Raises on CPU
-    tensors, on dtypes, layouts or shapes the kernel does not take, and
-    when the launch is refused."""
+    [B]``. Every row is written, padding rows included. The split of
+    the key walk is :func:`mixed_plan`'s (``split_blocks`` forces it; 0
+    runs unsplit). Raises on CPU tensors, on dtypes, layouts or shapes
+    the kernel does not take, and when the launch is refused."""
     B, T, H, D = q.shape
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "page_table": page_table, "seq_lens": seq_lens,
@@ -496,12 +531,23 @@ def mixed_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, q_lens,
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    page_size, pps = k_pool.shape[1], page_table.shape[1]
+    tile_rows, split, n_split = mixed_plan(
+        B, T, H, page_size, pps, _sm_count(q.device.index or 0),
+        split_blocks)
+    part_ml = part_acc = None
+    if n_split > 1:
+        part_ml = torch.empty(B, T, H, n_split, 2, dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty(B, T, H, n_split, D, dtype=torch.float32,
+                               device=q.device)
     scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(D))
-    fn = _entry("mixed_attention", "mixed_attention_f32", 7, 6)
+    fn = _entry("mixed_attention", "mixed_attention_f32", 9, 9)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), q_lens.data_ptr(),
-             out.data_ptr(), B, T, H, D, k_pool.shape[1],
-             page_table.shape[1], scale,
+             out.data_ptr(), 0 if part_ml is None else part_ml.data_ptr(),
+             0 if part_acc is None else part_acc.data_ptr(), B, T, H, D,
+             page_size, pps, tile_rows, split, n_split, scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mixed attention kernel launch failed: CUDA "

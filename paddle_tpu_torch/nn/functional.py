@@ -55,17 +55,39 @@ def _nchw(data_format):
                                   "is ported")
 
 
-def _conv_padding(padding):
-    """Paddle's padding spec as torch's: an int, ``[h, w]``, or
-    ``"SAME"``/``"VALID"``; the four-sided forms are not ported."""
+def _conv_padding(padding, x, kernel, stride, dilation=(1, 1)):
+    """Paddle's padding spec as ``(lo, hi)`` pads of H and W: an int,
+    ``[h, w]``, or ``"SAME"``/``"VALID"``; the four-sided forms are not
+    ported. ``"SAME"`` pads as XLA's does: ``ceil(n / stride)`` outputs,
+    the total pad ``max((out - 1) * stride + (k - 1) * dilation + 1 - n,
+    0)`` split with the odd element on the high side."""
     if isinstance(padding, str):
-        return padding.lower()
+        mode = padding.upper()
+        if mode == "VALID":
+            return [(0, 0), (0, 0)]
+        if mode != "SAME":
+            raise ValueError(f"padding {padding!r}")
+        pads = []
+        for n, k, s, d in zip(x.shape[2:], kernel, stride, dilation):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
     if isinstance(padding, int):
-        return padding
+        return [(padding, padding)] * 2
     if len(padding) != 2:
         raise NotImplementedError(f"padding {padding}: only [h, w] is "
                                   "ported")
-    return tuple(int(p) for p in padding)
+    return [(int(p), int(p)) for p in padding]
+
+
+def _pad_input(x, pads, value=0.0):
+    """``(x, padding)`` for a torch convolution or pool: symmetric pads
+    stay the op's own padding; uneven ones go into one ``F.pad`` of x
+    ahead of it (with ``value``), and the op pads nothing."""
+    if all(lo == hi for lo, hi in pads):
+        return x, tuple(lo for lo, _ in pads)
+    (h0, h1), (w0, w1) = pads
+    return F.pad(x, (w0, w1, h0, h1), value=value), (0, 0)
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
@@ -73,20 +95,28 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     """2-D convolution, weight ``[out, in / groups, kh, kw]``; the
     output keeps x's dtype."""
     _nchw(data_format)
-    return F.conv2d(x, weight, bias, _pair(stride), _conv_padding(padding),
-                    _pair(dilation), groups)
+    stride, dilation = _pair(stride), _pair(dilation)
+    x, pad = _pad_input(x, _conv_padding(padding, x, weight.shape[2:],
+                                         stride, dilation))
+    return F.conv2d(x, weight, bias, stride, pad, dilation, groups)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCHW", name=None):
-    """Max pooling; padding counts as ``-inf``, as in the JAX package."""
+    """Max pooling; padding counts as ``-inf`` (an integer input's
+    least value), as in the JAX package, whose string paddings take no
+    ceil mode."""
     _nchw(data_format)
     if return_mask:
         raise NotImplementedError("max_pool2d(return_mask=True) is not "
                                   "ported")
     k = _pair(kernel_size)
-    return F.max_pool2d(x, k, _pair(stride) if stride is not None else k,
-                        _conv_padding(padding), ceil_mode=ceil_mode)
+    stride = _pair(stride) if stride is not None else k
+    low = (float("-inf") if x.is_floating_point()
+           else torch.iinfo(x.dtype).min)
+    x, pad = _pad_input(x, _conv_padding(padding, x, k, stride), low)
+    return F.max_pool2d(x, k, stride, pad,
+                        ceil_mode=ceil_mode and not isinstance(padding, str))
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
@@ -120,9 +150,35 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                                   "NCHW is ported")
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
+    if not use_stats and x.numel() == x.shape[1]:
+        return _batch_norm_one_value(x, running_mean, running_var, weight,
+                                     bias, momentum, epsilon)
     return F.batch_norm(x, running_mean, running_var, weight, bias,
                         training=not use_stats, momentum=1.0 - momentum,
                         eps=epsilon)
+
+
+def _batch_norm_one_value(x, running_mean, running_var, weight, bias,
+                          momentum, epsilon):
+    """Batch statistics over one value per channel (``[1, C, 1, 1]``),
+    which ``F.batch_norm`` refuses: the JAX package's formula as it
+    stands, so the output is the bias (0 without one), the batch
+    variance 0, and the running variance takes ``0 * n / max(n - 1, 1)``
+    with n = 1."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = xf.var(dim=(0, 2, 3), unbiased=False)
+    out = (xf - mean[:, None, None]) * torch.rsqrt(var + epsilon)[:, None,
+                                                                   None]
+    if weight is not None:
+        out = out * weight[:, None, None] + bias[:, None, None]
+    if running_mean is not None:
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_(
+                ((1 - momentum) * mean).to(running_mean.dtype))
+            running_var.mul_(momentum).add_(
+                ((1 - momentum) * var).to(running_var.dtype))
+    return out.to(x.dtype)
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002

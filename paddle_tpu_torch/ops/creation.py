@@ -24,16 +24,25 @@ def _dtype(dtype):
 
 
 def full(shape, fill_value, dtype=None, name=None):
+    """Without ``dtype``, the fill value's type picks it, as in the JAX
+    package: bool gives bool, int gives int64 (the port's integer
+    default), anything else the default float dtype."""
+    if isinstance(fill_value, torch.Tensor):
+        fill_value = fill_value.item()
+    if dtype is None:
+        dtype = (_dt.bool_ if isinstance(fill_value, bool)
+                 else _dt.int64 if isinstance(fill_value, int)
+                 else _dt.get_default_dtype())
     return as_tensor(torch.full(_shape(shape), fill_value,
                                 dtype=_dtype(dtype), device=current_device()))
 
 
 def zeros(shape, dtype=None, name=None):
-    return full(shape, 0, dtype)
+    return full(shape, 0, _dtype(dtype))
 
 
 def ones(shape, dtype=None, name=None):
-    return full(shape, 1, dtype)
+    return full(shape, 1, _dtype(dtype))
 
 
 def arange(start=0, end=None, step=1, dtype=None, name=None):

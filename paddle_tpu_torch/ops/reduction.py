@@ -20,6 +20,10 @@ def sum(x, axis=None, keepdim=False, name=None):  # noqa: A001 - Paddle's name
 
 
 def mean(x, axis=None, keepdim=False, name=None):
+    """The mean of an integer or bool tensor is float32, as
+    ``jnp.mean``'s."""
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.float32)
     return torch.mean(x, dim=_axis(axis), keepdim=keepdim)
 
 

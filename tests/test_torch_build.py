@@ -31,8 +31,10 @@ def test_the_port_libraries_and_their_headers():
             "mixed_attention"} <= set(_build.KERNELS)
     ragged = _build.CSRC / "ragged_attention.cuh"
     walk = _build.CSRC / "paged_walk.cuh"
-    want = {"flash_attention": [], "paged_attention": [walk],
-            "mixed_attention": [walk]}
+    cp_async = _build.CSRC / "cp_async.cuh"
+    want = {"flash_attention": [], "flash_fwd_bf16": [cp_async],
+            "paged_attention": [walk],
+            "mixed_attention": [walk, cp_async]}
     for name in _build.KERNELS:
         headers = _build._local_headers(_build.CSRC / f"{name}.cu")
         assert headers == want.get(name, [ragged, walk])

@@ -50,6 +50,7 @@ def plain_kernels(monkeypatch):
     def counting(ref, name_of):
         def run(*args, **kw):
             kw.pop("max_q_len", None)
+            kw.pop("split_blocks", None)
             split = kw.pop("split_pages", 0)
             out = ref(*args, **kw)
             pa.LAUNCHES[name_of(args, split)] += 1

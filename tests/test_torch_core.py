@@ -216,6 +216,8 @@ OPS = {
     "zeros": lambda p, x, y: p.zeros([2, 3]),
     "ones_int": lambda p, x, y: p.ones([4], dtype="int32"),
     "full": lambda p, x, y: p.full([2, 2], 1.5),
+    "full_int": lambda p, x, y: p.full([2, 3], 7),
+    "full_bool": lambda p, x, y: p.full([3], True),
     "arange_int": lambda p, x, y: p.arange(2, 11, 3),
     "arange_float": lambda p, x, y: p.arange(0.0, 1.0, 0.25),
     "add": lambda p, x, y: p.add(x, y),
@@ -233,6 +235,8 @@ OPS = {
     "sum_keepdim": lambda p, x, y: p.sum(x, axis=[0, 1], keepdim=True),
     "mean_axis": lambda p, x, y: p.mean(x, axis=0),
     "mean_all_keepdim": lambda p, x, y: p.mean(x, keepdim=True),
+    "mean_int": lambda p, x, y: p.mean(p.cast(p.multiply(x, 4.0), "int32"),
+                                       axis=1),
     "max_axis": lambda p, x, y: p.max(x, axis=-1),
     "min_all": lambda p, x, y: p.min(y),
     "reshape": lambda p, x, y: p.reshape(x, [2, 6]),
@@ -254,7 +258,8 @@ def test_ops_match_jax(name):
     assert list(t.shape) == list(j.shape)
     jname = np.dtype(j.dtype).name
     assert tdt.dtype_name(t.dtype) == ("int64" if jname == "int32" and
-                                       name == "arange_int" else jname)
+                                       name in ("arange_int", "full_int")
+                                       else jname)
     np.testing.assert_allclose(_np(t), _np(j), rtol=RTOL, atol=ATOL)
 
 

@@ -107,6 +107,62 @@ def test_rows_not_16_byte_aligned(device, dtype):
             assert torch.equal(a, b)
 
 
+# the bf16 forward (csrc/flash_fwd_bf16.cu) at lengths that are not whole
+# tiles (its query tiles are 128 rows at D 64 and 64 at D 128, its key
+# tiles 64): (Sq, Sk, D, causal)
+BF16_FWD_CASES = [(1, 1, 64, True), (63, 63, 64, True), (65, 65, 64, False),
+                  (200, 200, 64, True), (1000, 1000, 64, True),
+                  (1000, 1000, 128, False), (65, 65, 128, True),
+                  (63, 200, 64, True), (200, 63, 64, True),
+                  (65, 1000, 128, True), (1000, 65, 64, False),
+                  (1, 1000, 128, True), (1000, 1, 64, True),
+                  (200, 1000, 64, False)]
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", BF16_FWD_CASES)
+def test_bf16_forward_matches_plain_version(device, Sq, Sk, D, causal):
+    """o at 2e-2 and lse at 2e-5 against the plain version; a row that
+    sees no key (causal, Sq > Sk: the first Sq - Sk rows) exact 0 with
+    lse NEG_INF; a rerun bit-identical; one launch a call."""
+    q, k, v, _ = _inputs(device, 2, 3, Sq, Sk, D, torch.bfloat16,
+                         seed=Sq * 7 + Sk + D)
+    scale = D ** -0.5
+    before = fa.LAUNCHES["flash_attention_fwd"]
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
+    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=LSE_TOL, atol=LSE_TOL)
+    again = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    if causal and Sq > Sk:
+        dead = Sq - Sk
+        assert o[:, :, :dead].abs().max().item() == 0.0
+        assert (lse[:, :, :dead] == fa.NEG_INF).all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_forward_on_strided_bshd_views(device, D):
+    """q, k, v sliced out of one packed bf16 ``[B, S, 3, H, D]``
+    projection and read as ``[B, H, S, D]`` views: the same bits as on
+    contiguous copies, within tolerance of the plain version, and o
+    laid out ``[B, S, H, D]``."""
+    B, S, H = 2, 300, 3
+    g = torch.Generator(device=device).manual_seed(D)
+    qkv = torch.randn(B, S, 3, H, D, generator=g,
+                      device=device).to(torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))
+    o, lse = fa.flash_fwd_cuda(q, k, v, D ** -0.5, True)
+    assert o.transpose(1, 2).is_contiguous()
+    oc, lsec = fa.flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), D ** -0.5, True)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, D ** -0.5, True)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=LSE_TOL, atol=LSE_TOL)
+
+
 def test_autograd_on_strided_bshd_views(device):
     """The bshd entry on q, k, v sliced out of one packed projection (as
     the GPT attention does): the kernels read the strided views in

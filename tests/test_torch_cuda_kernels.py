@@ -216,12 +216,16 @@ def test_decode_kernel_matches_plain_version(device, H, D, page, pps):
     assert torch.equal(out, pa.paged_attention(**args, seq_lens=seq_lens))
 
 
+@pytest.mark.parametrize("split", [None, 0, 1])
 @pytest.mark.parametrize("H,D,page,pps", GEOMETRIES)
-@pytest.mark.parametrize("T", [1, 5, 37])
-def test_mixed_kernel_matches_plain_version(device, H, D, page, pps, T):
+@pytest.mark.parametrize("T", [1, 5, 37, 64, 65, 512])
+def test_mixed_kernel_matches_plain_version(device, H, D, page, pps, T,
+                                            split):
     """Every row, padding rows included (they attend the whole
     context), against the plain version; a slot at seq_len 0 is exact
-    zeros on every row; reruns give the same bits."""
+    zeros on every row; reruns give the same bits. ``split``: the
+    host's own schedule (None), unsplit (0), or one key block a chunk
+    (1, merged in a second pass)."""
     S = page * pps
     q_lens = [min(T, 3), 0, T, 1, 0, max(T - 2, 0)]
     seq = [S, S // 2, min(S, T + 9), 1, 0, S - 1]
@@ -229,15 +233,45 @@ def test_mixed_kernel_matches_plain_version(device, H, D, page, pps, T):
     i32 = dict(dtype=torch.int32, device=device)
     seq_lens, ql = torch.tensor(seq, **i32), torch.tensor(q_lens, **i32)
     before = pa.LAUNCHES[pa.MIXED_KERNEL]
-    out = pa.verify_attention(**args, seq_lens=seq_lens, q_lens=ql)
+    if split is None:
+        out = pa.verify_attention(**args, seq_lens=seq_lens, q_lens=ql)
+    else:
+        out = pa.mixed_attention_cuda(**args, seq_lens=seq_lens, q_lens=ql,
+                                      split_blocks=split)
     torch.cuda.synchronize()
     assert pa.LAUNCHES[pa.MIXED_KERNEL] == before + 1
     ref = pa.mixed_attention(**args, seq_lens=seq_lens, q_lens=ql,
                              tier="ref")
     torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
     assert (out[4] == 0).all()
-    assert torch.equal(out, pa.mixed_attention(**args, seq_lens=seq_lens,
-                                               q_lens=ql))
+    again = (pa.mixed_attention(**args, seq_lens=seq_lens, q_lens=ql)
+             if split is None else
+             pa.mixed_attention_cuda(**args, seq_lens=seq_lens, q_lens=ql,
+                                     split_blocks=split))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("split", [0, 2, None])
+def test_mixed_kernel_at_the_verify_shape(device, split):
+    """The verify shape (GPT-2-small heads, eight slots of 1 + 4 rows
+    near 1000 positions, one slot empty, q_lens 0 to 5) with the split
+    on (the host's schedule, or 2 key blocks a chunk) and off: each
+    within 2e-5 of the plain version, bit-identical run to run, the
+    empty slot exact 0."""
+    seq = [1000, 990, 0, 1023, 1001, 977, 1012, 960]
+    q_lens = [5, 1, 0, 3, 5, 2, 4, 5]
+    args = _per_tier_inputs(device, 8, 5, 12, 64, 16, 64, seed=11)
+    i32 = dict(dtype=torch.int32, device=device)
+    seq_lens, ql = torch.tensor(seq, **i32), torch.tensor(q_lens, **i32)
+    _, _, n_split = pa.mixed_plan(8, 5, 12, 16, 64, 132, split)
+    assert (n_split > 1) == (split != 0)
+    run = [pa.mixed_attention_cuda(**args, seq_lens=seq_lens, q_lens=ql,
+                                   split_blocks=split) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(run[0], run[1])
+    ref = pa.mixed_attention_ref(**args, seq_lens=seq_lens, q_lens=ql)
+    torch.testing.assert_close(run[0], ref, rtol=TOL, atol=TOL)
+    assert (run[0][2] == 0).all()
 
 
 def test_per_tier_kernels_refuse_what_they_do_not_take(device):

@@ -12,7 +12,9 @@ port's plain version:
   the Pallas interpret run, at 2e-5;
 - the mixed shape at T = 1 is decode;
 - the dispatchers on the CPU: ``auto`` takes the plain version and
-  launches nothing, ``kernel`` refuses CPU tensors.
+  launches nothing, ``kernel`` refuses CPU tensors;
+- ``mixed_plan``, the mixed kernel's schedule decided on the host:
+  its tile rows and whether (and how) it splits the key walk.
 """
 import numpy as np
 import pytest
@@ -129,3 +131,23 @@ def test_dispatchers_on_cpu():
         pa.paged_attention(dq, k, v, pt, seq, tier="kernel")
     with pytest.raises(ValueError, match="tier="):
         pa.paged_attention(dq, k, v, pt, seq, tier="pallas")
+
+
+@pytest.mark.parametrize("args,want", [
+    ((1, 512, 12, 16, 64, 132), (64, 6, 3)),     # the chunk: 96 tiles
+    ((8, 5, 12, 16, 64, 132), (8, 6, 3)),        # verify: 96 (slot, head)
+    ((8, 5, 12, 32, 32, 132), (8, 6, 3)),        # 2 pages a key block
+    ((16, 64, 12, 16, 64, 132), (64, 0, 1)),     # 192 tiles fill the card
+    ((1, 512, 12, 16, 4, 132), (64, 0, 1)),      # one key block: no split
+    ((2, 8, 1, 8, 32, 132), (8, 1, 4))])         # 8-page key blocks
+def test_mixed_plan_splits_only_a_grid_that_leaves_sms_idle(args, want):
+    """The mixed kernel's schedule, decided on the host: 8-row tiles up
+    to T = 8, 64-row tiles above; a grid of fewer tiles than SMs splits
+    each row's key blocks into chunks (about two blocks per SM)."""
+    assert pa.mixed_plan(*args) == want
+
+
+def test_mixed_plan_forced_split():
+    assert pa.mixed_plan(8, 5, 12, 16, 64, 132, split_blocks=0) == (8, 0, 1)
+    assert pa.mixed_plan(8, 5, 12, 16, 64, 132, split_blocks=5) == (8, 5, 4)
+    assert pa.mixed_plan(8, 5, 12, 16, 64, 132, split_blocks=16) == (8, 0, 1)

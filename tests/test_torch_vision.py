@@ -105,8 +105,17 @@ def _forward_backward(jlayer, tlayer, shape, seed=0):
     dict(in_channels=6, out_channels=4, kernel_size=3, groups=2, dilation=2,
          padding=2),
     dict(in_channels=3, out_channels=5, kernel_size=7, stride=2, padding=3,
-         bias_attr=False)],
-    ids=["plain", "stride_pad", "rect", "groups_dilation", "stem"])
+         bias_attr=False),
+    dict(in_channels=2, out_channels=3, kernel_size=3, stride=2,
+         padding="SAME"),
+    dict(in_channels=2, out_channels=3, kernel_size=4, stride=2,
+         padding="SAME"),
+    dict(in_channels=2, out_channels=3, kernel_size=(2, 3), stride=(1, 3),
+         dilation=2, padding="SAME"),
+    dict(in_channels=2, out_channels=3, kernel_size=3, stride=2,
+         padding="VALID")],
+    ids=["plain", "stride_pad", "rect", "groups_dilation", "stem",
+         "same_stride2", "same_even_kernel", "same_dilated", "valid"])
 def test_conv2d_matches_jax(cfg):
     jconv, tconv = jp.nn.Conv2D(**cfg), tp.nn.Conv2D(**cfg)
     assert [n for n, _ in tconv.named_parameters()] == \
@@ -157,11 +166,61 @@ def test_batch_norm_matches_jax(kind):
 
 @pytest.mark.parametrize("cfg", [dict(kernel_size=3, stride=2, padding=1),
                                  dict(kernel_size=2),
-                                 dict(kernel_size=3, stride=2, ceil_mode=True)],
-                         ids=["resnet_stem", "k2", "ceil"])
-def test_max_pool2d_matches_jax(cfg):
-    _forward_backward(jp.nn.MaxPool2D(**cfg), tp.nn.MaxPool2D(**cfg),
-                      (2, 3, 9, 8))
+                                 dict(kernel_size=3, stride=2, ceil_mode=True),
+                                 dict(kernel_size=3, stride=2, padding="SAME"),
+                                 dict(kernel_size=3, stride=2,
+                                      padding="VALID"),
+                                 dict(kernel_size=2, stride=3, padding="SAME")],
+                         ids=["resnet_stem", "k2", "ceil", "same", "valid",
+                              "same_k2_s3"])
+@pytest.mark.parametrize("shape", [(2, 3, 9, 8), (2, 3, 10, 7)])
+def test_max_pool2d_matches_jax(cfg, shape):
+    _forward_backward(jp.nn.MaxPool2D(**cfg), tp.nn.MaxPool2D(**cfg), shape)
+
+
+@pytest.mark.parametrize("padding,want", [("VALID", [2, 3, 4, 3]),
+                                          ("SAME", [2, 3, 5, 4])])
+def test_max_pool2d_string_padding_shapes(padding, want):
+    """The functional form on ``[2, 3, 10, 7]``, k 3, s 2: the JAX
+    package's shapes and values ("SAME" pads with -inf)."""
+    jx, tx = _input((2, 3, 10, 7), 6, grad=False)
+    j = JF.max_pool2d(jx, 3, 2, padding)
+    t = TF.max_pool2d(tx, 3, 2, padding)
+    assert list(t.shape) == list(j.shape) == want
+    _close(t, j)
+
+
+def test_conv2d_same_stride_two_shape():
+    """``[1, 2, 8, 8]``, k 3, s 2, "SAME": ``[1, 3, 4, 4]`` in both."""
+    jconv = jp.nn.Conv2D(2, 3, 3, stride=2, padding="SAME")
+    tconv = tp.nn.Conv2D(2, 3, 3, stride=2, padding="SAME")
+    _carry(jconv, tconv)
+    jx, tx = _input((1, 2, 8, 8), 8, grad=False)
+    j, t = jconv(jx), tconv(tx)
+    assert list(t.shape) == list(j.shape) == [1, 3, 4, 4]
+    _close(t, j)
+
+
+def test_batch_norm_one_value_per_channel_matches_jax():
+    """Training on ``[1, C, 1, 1]``: the output is the bias, the batch
+    variance 0, and the running statistics move by Paddle's momentum
+    with the unbiased factor ``n / max(n - 1, 1)``; gradients as JAX's
+    (x's is 0)."""
+    jbn, tbn = jp.nn.BatchNorm2D(4), tp.nn.BatchNorm2D(4)
+    rng = np.random.RandomState(9)
+    arrays = _arrays(jbn)
+    arrays["_mean"] = rng.randn(4).astype("float32")
+    arrays["_variance"] = rng.rand(4).astype("float32") + 0.5
+    arrays["weight"] = rng.randn(4).astype("float32")
+    arrays["bias"] = rng.randn(4).astype("float32")
+    jbn.set_state_dict(arrays)
+    layer_state_from_jax(arrays, tbn)
+    for seed in (10, 11):
+        _forward_backward(jbn, tbn, (1, 4, 1, 1), seed)
+    for name in ("_mean", "_variance"):
+        _close(getattr(tbn, name), getattr(jbn, name))
+    np.testing.assert_allclose(tbn._variance.numpy(),
+                               0.81 * arrays["_variance"], rtol=1e-6)
 
 
 @pytest.mark.parametrize("out,shape", [((1, 1), (2, 3, 7, 7)),
