@@ -199,11 +199,16 @@ RESNET_F64_STEPS, RESNET_F64_TOL = 2, 1e-6
 # and a GPT-3 XL head layout at its 2048-token context
 FLASH_TRAIN = (16, 12, 1024, 1024, 64)
 FLASH_XL = (2, 32, 2048, 2048, 64)
-# the bf16 forward (the training path's) has a source of its own; the
-# float32 forward and both backward kernels share flash_attention.cu
+# the bf16 kernels (the training path's) have sources of their own: the
+# forward, and the dK/dV and dQ kernels together; the three float32
+# kernels share flash_attention.cu
 FLASH_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
 FLASH_SOURCES = {
-    "flash_attention_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd_bf16.cu"}
+    "flash_attention_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd_bf16.cu",
+    "flash_attention_bwd_dkdv":
+        "paddle_tpu_torch/kernels/csrc/flash_bwd_bf16.cu",
+    "flash_attention_bwd_dq":
+        "paddle_tpu_torch/kernels/csrc/flash_bwd_bf16.cu"}
 FLASH_REPLACES = {
     "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:61",
     "flash_attention_bwd_dkdv": "paddle_tpu/kernels/flash_attention.py:167",
@@ -1321,6 +1326,7 @@ def _stub(name):
 
 
 PLAIN_ATTENTION = ((fa, "flash_fwd_ref"), (fa, "flash_bwd_ref"),
+                   (fa, "flash_bwd_dkdv_ref"), (fa, "flash_bwd_dq_ref"),
                    (attn, "sdpa_reference"), (attn, "causal_sdpa_chunked"))
 
 
@@ -1419,7 +1425,8 @@ def phase_profile_train(step, ids) -> None:
     wall = time.perf_counter() - t0
     log_device_profile(prof, "training call", wall, TRAIN_K, 16,
                        ("flash attention kernels",
-                        ("flash::", "fwd_kernel<")))
+                        ("flash::", "fwd_kernel<", "bwd_dkdv_kernel<",
+                         "bwd_dq_kernel<")))
 
 
 def flash_work(shape, dtype, causal=True):
@@ -1451,9 +1458,12 @@ def flash_bound(nbytes, flops, dtype):
 def flash_times(device, dtype) -> dict:
     """Each flash kernel, its plain version and the library call at the
     training shape (causal), CUDA-event medians with L2 flushed. The
-    library call is ``F.scaled_dot_product_attention(is_causal=True)``
-    forward, and forward+backward on the same tensors: timed only, the
-    port never calls it."""
+    library call is ``F.scaled_dot_product_attention(is_causal=True)``:
+    its forward, forward+backward, and backward alone (the gradients of
+    one kept output) on the same tensors, timed only: the port never
+    calls it. The backward rows also carry ``bwd_delta``'s time, the
+    plain pass the backward runs before its two kernels, so that delta +
+    dK/dV + dQ compares with SDPA's backward alone."""
     q, k, v, do = flash_inputs(FLASH_TRAIN, dtype, 99, device)
     scale = FLASH_TRAIN[-1] ** -0.5
     o, lse = fa.flash_fwd_cuda(q, k, v, scale, True)
@@ -1481,20 +1491,35 @@ def flash_times(device, dtype) -> dict:
             do)
 
     lib_fwd_bwd = time_cuda(sdpa_fwd_bwd)
+    kept = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd = time_cuda(lambda: torch.autograd.grad(
+        kept, (qg, kg, vg), do, retain_graph=True))
+    delta_ms = time_cuda(lambda: fa.bwd_delta(o, do))
     work = flash_work(FLASH_TRAIN, dtype)
     out = {}
     for name, (kernel, plain_fn) in calls.items():
         bms, by = flash_bound(*work[name], dtype)
+        fwd = name.endswith("fwd")
         out[name] = {"ms": time_cuda(kernel),
                      "plain_ms": time_cuda(plain_fn, reps=5, warmup=1),
                      "bound_ms": bms, "bound_by": by,
-                     "library_ms": lib_fwd if name.endswith("fwd") else None,
+                     "library_ms": lib_fwd if fwd else None,
                      "library_fwd_bwd_ms": lib_fwd_bwd}
+        if not fwd:
+            out[name].update(library_bwd_ms=lib_bwd, delta_ms=delta_ms)
         t = out[name]
         log(f"[times] {name} {str(dtype).split('.')[-1]} "
             f"{list(FLASH_TRAIN)} causal: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}); sdpa "
-            f"fwd {lib_fwd:.4f} ms, fwd+bwd {lib_fwd_bwd:.4f} ms")
+            f"fwd {lib_fwd:.4f} ms, fwd+bwd {lib_fwd_bwd:.4f} ms, bwd "
+            f"alone {lib_bwd:.4f} ms; bwd_delta {delta_ms:.4f} ms")
+    dkdv, dq = (out[n]["ms"] for n in ("flash_attention_bwd_dkdv",
+                                       "flash_attention_bwd_dq"))
+    log(f"[times] flash backward {str(dtype).split('.')[-1]}: bwd_delta + "
+        f"dK/dV + dQ = {delta_ms:.4f} + {dkdv:.4f} + {dq:.4f} = "
+        f"{delta_ms + dkdv + dq:.4f} ms against SDPA's backward alone "
+        f"{lib_bwd:.4f} ms ({(delta_ms + dkdv + dq) / lib_bwd:.2f}x; the "
+        f"two kernels {(dkdv + dq) / lib_bwd:.2f}x)")
     return out
 
 

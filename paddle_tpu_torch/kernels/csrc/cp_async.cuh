@@ -1,10 +1,10 @@
-// Asynchronous 16-byte copies from global to shared memory (sm_80 and
-// later), shared by the kernels that stage tiles in a ring: the bf16 flash
-// forward (flash_fwd_bf16.cu) and the mixed chunk/verify kernel
-// (mixed_attention.cu). A copy issued now lands while the block computes on
-// an earlier tile; cp_wait<N>() returns once at most N committed groups
-// are still in flight, and a __syncthreads() after it makes the data
-// visible to the whole block.
+// Asynchronous copies from global to shared memory (sm_80 and later),
+// shared by the kernels that stage tiles in a ring: the bf16 flash forward
+// (flash_fwd_bf16.cu) and backward (flash_bwd_bf16.cu) and the mixed
+// chunk/verify kernel (mixed_attention.cu). A copy issued now lands while
+// the block computes on an earlier tile; wait<N>() returns once at most N
+// committed groups are still in flight, and a __syncthreads() after it
+// makes the data visible to the whole block.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,6 +22,14 @@ __device__ inline void copy16(void* dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(in ? 16 : 0));
+}
+
+// 4 bytes from src to dst (both 4-byte aligned); when !in, dst is
+// zero-filled and src is not read
+__device__ inline void copy4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
 }
 
 // close the group of copies this thread issued since the last commit

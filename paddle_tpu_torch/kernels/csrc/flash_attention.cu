@@ -1,30 +1,26 @@
-// Flash attention for sm_90a: the float32 forward and both backward
-// kernels, for float32 or bf16 inputs and head_dim 64 or 128, behind a
-// plain C interface. The bf16 forward is flash_fwd_bf16.cu's (its own
-// library, built beside this one).
+// Flash attention for sm_90a in float32: the forward and both backward
+// kernels, head_dim 64 or 128, behind a plain C interface. The bf16
+// kernels are libraries of their own, built beside this one:
+// flash_fwd_bf16.cu (forward) and flash_bwd_bf16.cu (dK/dV and dQ).
 //
 // Replaces paddle_tpu/kernels/flash_attention.py::_fwd_kernel (reached
 // through _flash_fwd), ::_bwd_dkdv_kernel and ::_bwd_dq_kernel (both
-// reached through _flash_bwd). Semantics, as there: tensors are [B, H, S,
-// D] (any strides, the head dim contiguous); query i attends key j when
-// not causal, or when j <= i + (Sk - Sq) (bottom-right causal). The
-// forward writes o in the input dtype and lse = m + log(l_safe) in float32
-// [B, H, Sq]; a row that sees no key gets o = 0 and lse = NEG_INF through
-// the l == 0 guard. The backward takes lse and delta = rowsum(dO * O)
-// (float32, formed outside the kernels as the JAX package leaves it to
-// XLA) and recomputes p = exp(s * scale - lse), zeroed where masked (a
-// fully masked row has lse = NEG_INF, so s - lse alone would give p = 1).
-// The JAX casts are kept: p is rounded to the dtype of v (forward) and dO
-// (dV) before its product, dS to the dtype of q and k before the dK and dQ
-// products, and every product sums in float32.
+// reached through _flash_bwd) for float32. Semantics, as there: tensors
+// are [B, H, S, D] (any strides, the head dim contiguous); query i attends
+// key j when not causal, or when j <= i + (Sk - Sq) (bottom-right causal).
+// The forward writes o and lse = m + log(l_safe) in float32 [B, H, Sq]; a
+// row that sees no key gets o = 0 and lse = NEG_INF through the l == 0
+// guard. The backward takes lse and delta = rowsum(dO * O) (float32,
+// formed outside the kernels as the JAX package leaves it to XLA) and
+// recomputes p = exp(s * scale - lse), zeroed where masked (a fully masked
+// row has lse = NEG_INF, so s - lse alone would give p = 1). Every product
+// sums in float32.
 //
 // Bound. At the training shapes (S 1024, D 64) a key-query pair costs
 // 4 * D operations in the forward and 8 * D and 6 * D in the two backward
 // kernels, against 2 * D bytes of q, k and v per row: about S / 2 ops per
 // byte under the causal mask, far above the H100's ~20 float32 operations
-// per byte of HBM bandwidth, and level with its ~295 bf16 tensor-core
-// operations per byte. The float32 kernels are bound by operations; the
-// bf16 ones by operations and bytes alike.
+// per byte of HBM bandwidth: the kernels are bound by operations.
 //
 // Design. The Pallas kernels carry (m, l, acc) or a dK/dV/dQ sum in VMEM
 // across the sequential innermost grid axis. Here one block owns one
@@ -33,24 +29,12 @@
 // causal limit (the same skip rule as _causal_skip); a dK/dV block owns 64
 // key rows and walks the query tiles that can see them. Every output tile
 // has one writer, so there are no atomics and two runs give the same bits.
-//
-// - float32: 256 threads form a 16 x 16 grid; each computes a 4 x 4 patch
-//   of the 64 x 64 score tile and 4 rows x D/16 columns of the output
-//   tile with scalar float32 FMAs from float32 tiles in shared memory
-//   (rows padded by one word: conflict-free column reads). Row max and
-//   row sum reduce across the 16 threads of a row by shuffles.
-// - bf16 backward: four warps, each owning 16 rows of the tile, run every
-//   product on the tensor cores (WMMA 16 x 16 x 16, bf16 in, float32
-//   sums) from bf16 tiles in shared memory. Score and gradient tiles go
-//   through shared memory as float32, where each row's two threads apply
-//   the mask and the dS formula and write the bf16 operand of the next
-//   product; dK/dV/dQ accumulate in fragments.
-// cp.async or TMA staging, wgmma and warp specialization are later work.
-#include <cuda_bf16.h>
+// 256 threads form a 16 x 16 grid; each computes a 4 x 4 patch of the
+// 64 x 64 score tile and 4 rows x D/16 columns of the output tile with
+// scalar float32 FMAs from float32 tiles in shared memory (rows padded by
+// one word: conflict-free column reads). Row max and row sum reduce
+// across the 16 threads of a row by shuffles.
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
 
 namespace flash {
 
@@ -422,393 +406,106 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace f32
 
-namespace bf16 {
-
-namespace wmma = nvcuda::wmma;
-using T = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kThreads = 128;       // four warps, 16 tile rows each
-constexpr int kLB = kB + 8;         // bf16 row of a 64-wide tile (x 8)
-constexpr int kLS = kB + 4;         // float row of a 64-wide tile (x 4)
-
-// rows [r0, r0 + 64) of one (b, h) slice into shared memory as bf16 rows
-// of D + 8 elements (a multiple of 8 for WMMA, 16-byte aligned, and rows
-// 4 banks apart); rows at or past S read as 0. Where the rows allow
-// 16-byte loads, every load of a thread is issued before its first store,
-// so a tile costs one memory round trip (other layouts take a plain loop)
-template <int D>
-__device__ void load_tile(T* dst, const T* src, Strides st, int b, int h,
-                          int r0, int S) {
-  const T* base = src + b * st.b + h * st.h;
-  if (aligned16(base, st.s * sizeof(T))) {         // eight bf16 a load
-    constexpr int kPer = kB * D / 8 / kThreads;
-    uint4 buf[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = (threadIdx.x + i * kThreads) * 8, row = r0 + e / D;
-      buf[i] = row < S ? *reinterpret_cast<const uint4*>(
-                             base + row * st.s + e % D)
-                       : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = (threadIdx.x + i * kThreads) * 8;
-      *reinterpret_cast<uint4*>(dst + (e / D) * (D + 8) + e % D) = buf[i];
-    }
-    return;
-  }
-#pragma unroll 1
-  for (int e = threadIdx.x; e < kB * D; e += kThreads) {
-    const int row = r0 + e / D;
-    dst[(e / D) * (D + 8) + e % D] = row < S ? base[row * st.s + e % D]
-                                             : __float2bfloat16_rn(0.f);
-  }
-}
-
-// out[16 x 64] (float, row stride kLS) = a[16 x D] . b[64 x D]^T: a is
-// this warp's D/16 fragments, b a [64][D + 8] tile read as its transpose
-template <int D>
-__device__ inline void scores(float* out, const FragA (&a)[D / 16],
-                              const T* b) {
-#pragma unroll
-  for (int n = 0; n < kB / 16; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBt bt;
-      wmma::load_matrix_sync(bt, b + n * 16 * (D + 8) + kk * 16, D + 8);
-      wmma::mma_sync(c, a[kk], bt, c);
-    }
-    wmma::store_matrix_sync(out + n * 16, c, kLS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += a[16 x 64] . b[64 x D] for the D/16 column tiles n of b: a is
-// a bf16 tile of this warp's 16 rows (row stride kLB), b a [64][D + 8] tile
-template <int D>
-__device__ inline void accumulate(FragC (&acc)[D / 16], const T* a,
-                                  const T* b) {
-#pragma unroll
-  for (int kk = 0; kk < kB / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, kLB);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * (D + 8) + n * 16, D + 8);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// this warp's rows of `acc` (16 x D) to global rows [row0 + 16 w, ...) of
-// `dst` as bf16, through `stage` (float, row stride D + 4); rows at or
-// past S are not written
-template <int D>
-__device__ inline void store_rows(T* dst, Strides st, int b, int h, int row0,
-                                  int S, const FragC (&acc)[D / 16],
-                                  float* stage, int warp, int lane) {
-  float* ws = stage + warp * 16 * (D + 4);
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(ws + n * 16, acc[n], D + 4, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, d = i % D, row = row0 + warp * 16 + r;
-    if (row < S)
-      dst[b * st.b + h * st.h + row * st.s + d] =
-          __float2bfloat16_rn(ws[r * (D + 4) + d]);
-  }
-  __syncwarp();
-}
-
-// ------------------------------------------------------------- dK / dV
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dk, T* __restrict__ dv, Strides sq,
-                Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                int H, int Sq, int Sk, float scale, int causal) {
-  constexpr int LD = D + 8, KD = D / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kB * LD;
-  T* Qs = Vs + kB * LD;
-  T* dOs = Qs + kB * LD;
-  T* Pt = dOs + kB * LD;                                  // [64][kLB]
-  T* dSt = Pt + kB * kLB;                                 // [64][kLB]
-  float* St = reinterpret_cast<float*>(dSt + kB * kLB);   // [64][kLS]
-  float* dPt = St + kB * kLS;                             // [64][kLS]
-  float* Ls = dPt + kB * kLS;
-  float* Ds = Ls + kB;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // this thread's key row of the tile, and the parity of its query columns
-  const int r = warp * 16 + lane / 2, par = lane % 2, key = k0 + r;
-  const int offset = Sk - Sq;
-  const float* lse_bh = lse + ((long long)b * H + h) * Sq;
-  const float* delta_bh = delta + ((long long)b * H + h) * Sq;
-
-  load_tile<D>(Ks, k, sk, b, h, k0, Sk);
-  load_tile<D>(Vs, v, sv, b, h, k0, Sk);
-  FragC dkc[KD], dvc[KD];
-#pragma unroll
-  for (int n = 0; n < KD; ++n) {
-    wmma::fill_fragment(dkc[n], 0.f);
-    wmma::fill_fragment(dvc[n], 0.f);
-  }
-  for (int q0 = query_begin(k0, causal, offset); q0 < Sq; q0 += kB) {
-    __syncthreads();
-    load_tile<D>(Qs, q, sq, b, h, q0, Sq);
-    load_tile<D>(dOs, dout, sdo, b, h, q0, Sq);
-    for (int i = threadIdx.x; i < kB; i += kThreads) {
-      const bool in = q0 + i < Sq;
-      Ls[i] = in ? lse_bh[q0 + i] : 0.f;
-      Ds[i] = in ? delta_bh[q0 + i] : 0.f;
-    }
-    __syncthreads();
-    {   // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-      FragA ka[KD], va[KD];
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        wmma::load_matrix_sync(ka[kk], Ks + warp * 16 * LD + kk * 16, LD);
-        wmma::load_matrix_sync(va[kk], Vs + warp * 16 * LD + kk * 16, LD);
-      }
-      scores<D>(St + warp * 16 * kLS, ka, Qs);
-      scores<D>(dPt + warp * 16 * kLS, va, dOs);
-    }
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + par;
-      const float p = visible(q0 + c, key, Sq, Sk, causal, offset)
-                          ? expf(St[r * kLS + c] * scale - Ls[c]) : 0.f;
-      const float ds = p * (dPt[r * kLS + c] - Ds[c]) * scale;
-      Pt[r * kLB + c] = __float2bfloat16_rn(p);     // p.astype(do.dtype)
-      dSt[r * kLB + c] = __float2bfloat16_rn(ds);   // ds.astype(q.dtype)
-    }
-    __syncwarp();
-    accumulate<D>(dvc, Pt + warp * 16 * kLB, dOs);   // dV += P^T dO
-    accumulate<D>(dkc, dSt + warp * 16 * kLB, Qs);   // dK += dS^T Q
-  }
-  __syncthreads();            // St and dPt become the output stage
-  store_rows<D>(dk, sdk, b, h, k0, Sk, dkc, St, warp, lane);
-  store_rows<D>(dv, sdv, b, h, k0, Sk, dvc, St, warp, lane);
-}
-
-// ------------------------------------------------------------------ dQ
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
-              Strides sdo, Strides sdq, int H, int Sq, int Sk, float scale,
-              int causal) {
-  constexpr int LD = D + 8, KD = D / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kB * LD;
-  T* Ks = dOs + kB * LD;
-  T* Vs = Ks + kB * LD;
-  T* dSb = Vs + kB * LD;                                  // [64][kLB]
-  float* Sf = reinterpret_cast<float*>(dSb + kB * kLB);   // [64][kLS]
-  float* dPf = Sf + kB * kLS;                             // [64][kLS]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = warp * 16 + lane / 2, par = lane % 2, row = q0 + r;
-  const int offset = Sk - Sq;
-  const int k_end = key_end(q0, Sk, causal, offset);
-  const long long bh = (long long)b * H + h;
-  const float lse_r = row < Sq ? lse[bh * Sq + row] : 0.f;
-  const float delta_r = row < Sq ? delta[bh * Sq + row] : 0.f;
-
-  load_tile<D>(Qs, q, sq, b, h, q0, Sq);
-  load_tile<D>(dOs, dout, sdo, b, h, q0, Sq);
-  __syncthreads();
-  FragA qa[KD], oa[KD];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    wmma::load_matrix_sync(qa[kk], Qs + warp * 16 * LD + kk * 16, LD);
-    wmma::load_matrix_sync(oa[kk], dOs + warp * 16 * LD + kk * 16, LD);
-  }
-  FragC dqc[KD];
-#pragma unroll
-  for (int n = 0; n < KD; ++n) wmma::fill_fragment(dqc[n], 0.f);
-  for (int k0 = 0; k0 < k_end; k0 += kB) {
-    __syncthreads();
-    load_tile<D>(Ks, k, sk, b, h, k0, Sk);
-    load_tile<D>(Vs, v, sv, b, h, k0, Sk);
-    __syncthreads();
-    scores<D>(Sf + warp * 16 * kLS, qa, Ks);      // S  = Q K^T
-    scores<D>(dPf + warp * 16 * kLS, oa, Vs);     // dP = dO V^T
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + par;
-      const float p = visible(row, k0 + c, Sq, Sk, causal, offset)
-                          ? expf(Sf[r * kLS + c] * scale - lse_r) : 0.f;
-      const float ds = p * (dPf[r * kLS + c] - delta_r) * scale;
-      dSb[r * kLB + c] = __float2bfloat16_rn(ds);   // ds.astype(k.dtype)
-    }
-    __syncwarp();
-    accumulate<D>(dqc, dSb + warp * 16 * kLB, Ks);  // dQ += dS K
-  }
-  __syncthreads();            // Sf and dPf become the output stage
-  store_rows<D>(dq, sdq, b, h, q0, Sq, dqc, Sf, warp, lane);
-}
-
-}  // namespace bf16
-
 // --------------------------------------------------------------- launch
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
 
 inline Strides at(const long long* strides, int t) {
   return Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
 }
 
-inline bool shape_ok(int B, int H, int Sq, int Sk) {
-  return B > 0 && H > 0 && Sq > 0 && Sk > 0 && B <= 65535 && H <= 65535;
-}
-
-// each kernel's threads and shared memory, by dtype and head dim
-template <typename T, int D> struct Plan;
-template <int D> struct Plan<float, D> {
-  static constexpr int threads = f32::kThreads;
+// each kernel's shared memory by head dim
+template <int D>
+struct Plan {
   static constexpr size_t tile = sizeof(float) * kB * (D + 1);
   static constexpr size_t stile = sizeof(float) * kB * f32::kLP;
   static constexpr size_t fwd = 3 * tile + stile;
   static constexpr size_t dkdv = 4 * tile + 2 * stile + 2 * kB * sizeof(float);
   static constexpr size_t dq = 4 * tile + stile;
 };
-template <int D> struct Plan<__nv_bfloat16, D> {
-  static constexpr int threads = bf16::kThreads;
-  static constexpr size_t tile = sizeof(__nv_bfloat16) * kB * (D + 8);
-  static constexpr size_t btile = sizeof(__nv_bfloat16) * kB * bf16::kLB;
-  static constexpr size_t stile = sizeof(float) * kB * bf16::kLS;
-  static constexpr size_t dkdv = 4 * tile + 2 * btile + 2 * stile
-                                 + 2 * kB * sizeof(float);
-  static constexpr size_t dq = 4 * tile + btile + 2 * stile;
-};
 
 enum class Kind { kFwd, kDkdv, kDq };
 
-template <typename T, int D>
-cudaError_t launch(Kind kind, dim3 grid, cudaStream_t stream,
-                   const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* out0, void* out1, float* lse_out,
-                   const long long* st, int H, int Sq, int Sk, float scale,
-                   int causal) {
-  using P = Plan<T, D>;
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  cudaError_t e;
-  if (kind == Kind::kFwd) {         // strides: q, k, v, o
-    if constexpr (kF32) {             // bf16's is flash_fwd_bf16.cu's
-      auto kernel = f32::fwd_kernel<D>;
-      if ((e = prepare(kernel, P::fwd)) != cudaSuccess) return e;
-      kernel<<<grid, P::threads, P::fwd, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (T*)out0, lse_out,
-          at(st, 0), at(st, 1), at(st, 2), at(st, 3), H, Sq, Sk, scale,
-          causal);
-    } else {
-      return cudaErrorInvalidValue;
-    }
-  } else if (kind == Kind::kDkdv) { // strides: q, k, v, dout, dk, dv
-    auto kernel = [] {
-      if constexpr (kF32) return f32::bwd_dkdv_kernel<D>;
-      else return bf16::bwd_dkdv_kernel<D>;
-    }();
-    if ((e = prepare(kernel, P::dkdv)) != cudaSuccess) return e;
-    kernel<<<grid, P::threads, P::dkdv, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)out0, (T*)out1, at(st, 0), at(st, 1), at(st, 2), at(st, 3),
-        at(st, 4), at(st, 5), H, Sq, Sk, scale, causal);
-  } else {                          // strides: q, k, v, dout, dq
-    auto kernel = [] {
-      if constexpr (kF32) return f32::bwd_dq_kernel<D>;
-      else return bf16::bwd_dq_kernel<D>;
-    }();
-    if ((e = prepare(kernel, P::dq)) != cudaSuccess) return e;
-    kernel<<<grid, P::threads, P::dq, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)out0, at(st, 0), at(st, 1), at(st, 2), at(st, 3), at(st, 4), H,
-        Sq, Sk, scale, causal);
-  }
+template <typename Kernel, typename... Args>
+cudaError_t start(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                  Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, f32::kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int D>
+cudaError_t launch(Kind kind, dim3 grid, cudaStream_t stream, const float* q,
+                   const float* k, const float* v, const float* dout,
+                   const float* lse, const float* delta, float* out0,
+                   float* out1, float* lse_out, const long long* st, int H,
+                   int Sq, int Sk, float scale, int causal) {
+  using P = Plan<D>;
+  if (kind == Kind::kFwd)           // strides: q, k, v, o
+    return start(f32::fwd_kernel<D>, grid, P::fwd, stream, q, k, v, out0,
+                 lse_out, at(st, 0), at(st, 1), at(st, 2), at(st, 3), H, Sq,
+                 Sk, scale, causal);
+  if (kind == Kind::kDkdv)          // strides: q, k, v, dout, dk, dv
+    return start(f32::bwd_dkdv_kernel<D>, grid, P::dkdv, stream, q, k, v,
+                 dout, lse, delta, out0, out1, at(st, 0), at(st, 1),
+                 at(st, 2), at(st, 3), at(st, 4), at(st, 5), H, Sq, Sk, scale,
+                 causal);
+  return start(f32::bwd_dq_kernel<D>, grid, P::dq, stream, q, k, v, dout,
+               lse, delta, out0, at(st, 0), at(st, 1), at(st, 2), at(st, 3),
+               at(st, 4), H, Sq, Sk, scale, causal);   // q, k, v, dout, dq
+}
+
 int run(Kind kind, int B, int H, int Sq, int Sk, int D, void* stream,
         const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* delta, void* out0, void* out1,
         float* lse_out, const long long* st, float scale, int causal) {
-  if (!shape_ok(B, H, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  if (!(B > 0 && H > 0 && Sq > 0 && Sk > 0 && B <= 65535 && H <= 65535))
+    return (int)cudaErrorInvalidValue;
   // one block per 64-row tile of the output: query rows, or key rows for dK/dV
   const int rows = kind == Kind::kDkdv ? Sk : Sq;
   const dim3 grid((rows + kB - 1) / kB, H, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64)
-    return (int)launch<T, 64>(kind, grid, s, q, k, v, dout, lse, delta, out0,
-                              out1, lse_out, st, H, Sq, Sk, scale, causal);
-  if (D == 128)
-    return (int)launch<T, 128>(kind, grid, s, q, k, v, dout, lse, delta,
-                               out0, out1, lse_out, st, H, Sq, Sk, scale,
-                               causal);
-  return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  const auto launch_d = D == 64 ? launch<64> : launch<128>;
+  const auto f = [](const void* x) { return static_cast<const float*>(x); };
+  return (int)launch_d(kind, grid, (cudaStream_t)stream, f(q), f(k), f(v),
+                       f(dout), lse, delta, static_cast<float*>(out0),
+                       static_cast<float*>(out1), lse_out, st, H, Sq, Sk,
+                       scale, causal);
 }
 
 }  // namespace flash
 
-// C entry points, one per kernel and dtype; D selects the instantiation.
-// Each launches on `stream` and returns cudaGetLastError() after the
-// launch (0 = cudaSuccess); a shape the kernels do not take returns
+// C entry points, one per kernel; D selects the instantiation. Each
+// launches on `stream` and returns cudaGetLastError() after the launch (0
+// = cudaSuccess); a shape the kernels do not take returns
 // cudaErrorInvalidValue without launching. `strides` holds (b, h, s) of
-// each tensor in argument order. The bf16 forward, flash_fwd_bf16, is
-// flash_fwd_bf16.cu's.
+// each tensor in argument order.
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              void* o, float* lse, const long long* strides,
                              int B, int H, int Sq, int Sk, int D, float scale,
                              int causal, void* stream) {
-  return flash::run<float>(flash::Kind::kFwd, B, H, Sq, Sk, D, stream, q, k,
-                           v, nullptr, nullptr, nullptr, o, nullptr, lse,
-                           strides, scale, causal);
+  return flash::run(flash::Kind::kFwd, B, H, Sq, Sk, D, stream, q, k, v,
+                    nullptr, nullptr, nullptr, o, nullptr, lse, strides,
+                    scale, causal);
 }
 
-#define FLASH_BWD_ENTRIES(SUFFIX, T)                                          \
-  extern "C" int flash_bwd_dkdv_##SUFFIX(                                     \
-      const void* q, const void* k, const void* v, const void* dout,         \
-      const float* lse, const float* delta, void* dk, void* dv,               \
-      const long long* strides, int B, int H, int Sq, int Sk, int D,          \
-      float scale, int causal, void* stream) {                                \
-    return flash::run<T>(flash::Kind::kDkdv, B, H, Sq, Sk, D, stream, q, k,  \
-                         v, dout, lse, delta, dk, dv, nullptr, strides,       \
-                         scale, causal);                                      \
-  }                                                                           \
-  extern "C" int flash_bwd_dq_##SUFFIX(                                       \
-      const void* q, const void* k, const void* v, const void* dout,         \
-      const float* lse, const float* delta, void* dq,                         \
-      const long long* strides, int B, int H, int Sq, int Sk, int D,          \
-      float scale, int causal, void* stream) {                                \
-    return flash::run<T>(flash::Kind::kDq, B, H, Sq, Sk, D, stream, q, k, v, \
-                         dout, lse, delta, dq, nullptr, nullptr, strides,     \
-                         scale, causal);                                      \
-  }
+extern "C" int flash_bwd_dkdv_f32(const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse,
+                                  const float* delta, void* dk, void* dv,
+                                  const long long* strides, int B, int H,
+                                  int Sq, int Sk, int D, float scale,
+                                  int causal, void* stream) {
+  return flash::run(flash::Kind::kDkdv, B, H, Sq, Sk, D, stream, q, k, v,
+                    dout, lse, delta, dk, dv, nullptr, strides, scale,
+                    causal);
+}
 
-FLASH_BWD_ENTRIES(f32, float)
-FLASH_BWD_ENTRIES(bf16, __nv_bfloat16)
+extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* delta, void* dq,
+                                const long long* strides, int B, int H,
+                                int Sq, int Sk, int D, float scale,
+                                int causal, void* stream) {
+  return flash::run(flash::Kind::kDq, B, H, Sq, Sk, D, stream, q, k, v, dout,
+                    lse, delta, dq, nullptr, nullptr, strides, scale, causal);
+}

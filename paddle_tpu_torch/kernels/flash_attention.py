@@ -10,13 +10,13 @@ a query that sees no key outputs exact zeros.
 
 Two tiers, one function each way:
 
-- the hand-written CUDA kernels (``csrc/flash_attention.cu``, and
-  ``csrc/flash_fwd_bf16.cu`` for the bf16 forward) that replace the JAX
-  package's Pallas ``_fwd_kernel``, ``_bwd_dkdv_kernel`` and
-  ``_bwd_dq_kernel``: :func:`flash_fwd_cuda`,
-  :func:`flash_bwd_dkdv_cuda`, :func:`flash_bwd_dq_cuda`. float32
-  (scalar float32 FMAs) or bf16 (tensor cores, float32 sums), head_dim
-  64 or 128, CUDA tensors only; anything else raises.
+- the hand-written CUDA kernels that replace the JAX package's Pallas
+  ``_fwd_kernel``, ``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel``:
+  :func:`flash_fwd_cuda`, :func:`flash_bwd_dkdv_cuda`,
+  :func:`flash_bwd_dq_cuda`. float32 (scalar float32 FMAs,
+  ``csrc/flash_attention.cu``) or bf16 (tensor cores, float32 sums:
+  ``csrc/flash_fwd_bf16.cu`` forward, ``csrc/flash_bwd_bf16.cu`` dK/dV
+  and dQ), head_dim 64 or 128, CUDA tensors only; anything else raises.
 - their plain PyTorch versions :func:`flash_fwd_ref`,
   :func:`flash_bwd_dkdv_ref`, :func:`flash_bwd_dq_ref` (and
   :func:`flash_bwd_ref` for the whole backward): what the CPU runs and
@@ -54,6 +54,10 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
 
 _HEAD_DIMS = (64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the library of each C entry that is not flash_attention.cu's (float32)
+_LIBRARY = {"flash_fwd_bf16": "flash_fwd_bf16",
+            "flash_bwd_dkdv_bf16": "flash_bwd_bf16",
+            "flash_bwd_dq_bf16": "flash_bwd_bf16"}
 _TIERS = ("auto", "kernel", "ref")
 
 
@@ -147,9 +151,7 @@ def _entry(kernel: str, dtype: torch.dtype):
     from ._build import load
 
     name = f"flash_{kernel}_{_SUFFIX[dtype]}"
-    # the bf16 forward is a library of its own (csrc/flash_fwd_bf16.cu)
-    lib = name if name == "flash_fwd_bf16" else "flash_attention"
-    fn = getattr(load(lib), name)
+    fn = getattr(load(_LIBRARY.get(name, "flash_attention")), name)
     if fn.argtypes is None:
         n_ptr = {"fwd": 5, "bwd_dkdv": 8, "bwd_dq": 7}[kernel]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_void_p]

@@ -33,6 +33,7 @@ def test_the_port_libraries_and_their_headers():
     walk = _build.CSRC / "paged_walk.cuh"
     cp_async = _build.CSRC / "cp_async.cuh"
     want = {"flash_attention": [], "flash_fwd_bf16": [cp_async],
+            "flash_bwd_bf16": [cp_async],
             "paged_attention": [walk],
             "mixed_attention": [walk, cp_async]}
     for name in _build.KERNELS:

@@ -13,6 +13,11 @@ launch bookkeeping and their checks are exercised before a chip run:
   smoke's own twelve requests;
 - the bound arithmetic of the kernels line, and the library yardstick
   (SDPA on K/V gathered dense) computing the plain version's function;
+- the flash times phase and its rows of the kernels line at a small
+  shape (the wrappers swapped for their plain versions, each timing a
+  single call): the backward rows carry SDPA's backward alone and
+  ``bwd_delta``'s time, every row names a source in the repository, and
+  SDPA's backward computes the plain backward's gradients;
 - the core phases: the custom-op programs and ``my_triple`` through its
   op (reference counted as a launch) at small shapes, the ResNet
   parity phase (CPU against CPU) and the ResNet training phase with
@@ -111,6 +116,45 @@ def test_bounds_and_library_yardstick():
         seen = args["seq_lens"] > 0                # empty slots excluded
         torch.testing.assert_close(lib.transpose(1, 2)[seen], ref[seen],
                                    rtol=2e-5, atol=2e-5)
+
+
+def test_flash_times_and_rows(monkeypatch):
+    fa = cs.fa
+
+    def once(fn, reps=20, warmup=3):
+        fn()
+        return 1.0
+
+    monkeypatch.setattr(cs, "time_cuda", once)
+    monkeypatch.setattr(cs, "FLASH_TRAIN", (1, 2, 96, 96, 64))
+    for name in ("fwd", "bwd_dkdv", "bwd_dq"):
+        monkeypatch.setattr(fa, f"flash_{name}_cuda",
+                            getattr(fa, f"flash_{name}_ref"))
+    launches = {n: 384 for n in fa.KERNEL_NAMES}
+    errors = {(n, dt): 0.0 for n in fa.KERNEL_NAMES
+              for dt in ("bfloat16", "float32")}
+    rows = cs.flash_rows(CPU, launches, errors)
+    root = cs.os.path.dirname(cs.os.path.abspath(cs.__file__))
+    assert [r["name"] for r in rows] == list(fa.KERNEL_NAMES)
+    for row in rows:
+        assert row["launches"] == 384 and row["ms"] == 1.0
+        assert cs.os.path.exists(cs.os.path.join(root, row["source"]))
+        bwd = row["name"] != "flash_attention_fwd"
+        assert row["source"].endswith("flash_bwd_bf16.cu" if bwd
+                                      else "flash_fwd_bf16.cu")
+        for t in (row, row["f32"]):
+            assert (t["library_ms"] is None) == bwd
+            assert ("library_bwd_ms" in t and "delta_ms" in t) == bwd
+    # the yardstick computes the function: SDPA's backward alone gives
+    # the plain backward's gradients (float32)
+    q, k, v, do = cs.flash_inputs((1, 2, 96, 96, 64), torch.float32, 5, CPU)
+    o, lse = fa.flash_fwd_ref(q, k, v, 0.125, True)
+    want = fa.flash_bwd_ref(q, k, v, o, lse, do, 0.125, True)
+    qg, kg, vg = (t.requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    got = torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture

@@ -163,6 +163,80 @@ def test_bf16_forward_on_strided_bshd_views(device, D):
     torch.testing.assert_close(lse, rlse, rtol=LSE_TOL, atol=LSE_TOL)
 
 
+# the bf16 backward (csrc/flash_bwd_bf16.cu) at lengths that are not whole
+# tiles (dK/dV blocks of 64 keys walking query tiles of 32, dQ blocks of 64
+# rows walking key tiles of 64), Sq < Sk and Sq > Sk (the first Sq - Sk
+# rows see no key when causal): (Sq, Sk, D, causal)
+BF16_BWD_CASES = [(1, 1, 64, True), (63, 63, 64, True), (65, 65, 64, False),
+                  (200, 200, 64, True), (1000, 1000, 64, True),
+                  (1000, 1000, 128, False), (65, 65, 128, True),
+                  (63, 200, 64, True), (200, 63, 64, True),
+                  (65, 1000, 128, True), (1000, 65, 64, False),
+                  (1, 1000, 128, True), (1000, 1, 64, True),
+                  (200, 1000, 64, False), (1000, 200, 128, True),
+                  (63, 65, 128, False)]
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", BF16_BWD_CASES)
+def test_bf16_backward_matches_plain_versions(device, Sq, Sk, D, causal):
+    """dq, dk and dv at 2e-2 against the plain versions on the same lse
+    and delta; dq of a row that sees no key exact 0; a rerun
+    bit-identical; each call one launch of its kernel."""
+    q, k, v, do = _inputs(device, 2, 3, Sq, Sk, D, torch.bfloat16,
+                          seed=Sq * 5 + Sk + D)
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    delta = fa.bwd_delta(o, do)
+    names = ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+    before = [fa.LAUNCHES[n] for n in names]
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert [fa.LAUNCHES[n] for n in names] == [n + 1 for n in before]
+    rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal)
+    for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2, msg=name)
+    again = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert torch.equal(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale,
+                                            causal), dq)
+    if causal and Sq > Sk:
+        assert dq[:, :, :Sq - Sk].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_autograd_on_strided_bshd_views(device, D):
+    """The bshd entry on bf16 q, k, v sliced out of one packed ``[B, S,
+    3, H, D]`` projection (read in place as strided views) against the
+    same call on contiguous copies: the output and the packed gradient
+    bit-equal, each kernel launched once a call."""
+    B, S, H = 2, 320, 3
+    g = torch.Generator(device=device).manual_seed(D + 1)
+    qkv = torch.randn(B, S, 3, H, D, generator=g,
+                      device=device).to(torch.bfloat16)
+    do = torch.randn(B, S, H, D, generator=g, device=device).to(torch.bfloat16)
+    outs = []
+    for packed in (True, False):
+        x = qkv.clone().requires_grad_(True)
+        q, k, v = x.unbind(dim=2)
+        if not packed:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        before = dict(fa.LAUNCHES)
+        o = fa.flash_attention_bshd(q, k, v, causal=True, block_q=64,
+                                    block_k=64)
+        o.backward(do)
+        torch.cuda.synchronize()
+        assert {n: fa.LAUNCHES[n] - before.get(n, 0)
+                for n in fa.KERNEL_NAMES} == {n: 1 for n in fa.KERNEL_NAMES}
+        outs.append((o.detach(), x.grad))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
 def test_autograd_on_strided_bshd_views(device):
     """The bshd entry on q, k, v sliced out of one packed projection (as
     the GPT attention does): the kernels read the strided views in

@@ -12,6 +12,8 @@ at 2e-2: both sides round p and dS to bf16 (8 mantissa bits, a step of
 max and the port's plain version against the row's final max, so
 single roundings may fall on either side of a bf16 step.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -127,6 +129,40 @@ def test_kernel_tier_refuses_cpu_tensors():
         fa.flash_attention_bshd(q, q, q, tier="kernel")
     with pytest.raises(ValueError, match="tier"):
         fa.flash_attention_bshd(q, q, q, tier="fast")
+
+
+@pytest.mark.parametrize("kernel,dtype,library", [
+    ("fwd", torch.float32, "flash_attention"),
+    ("bwd_dkdv", torch.float32, "flash_attention"),
+    ("bwd_dq", torch.float32, "flash_attention"),
+    ("fwd", torch.bfloat16, "flash_fwd_bf16"),
+    ("bwd_dkdv", torch.bfloat16, "flash_bwd_bf16"),
+    ("bwd_dq", torch.bfloat16, "flash_bwd_bf16")])
+def test_entry_loads_each_kernel_from_its_library(monkeypatch, kernel, dtype,
+                                                  library):
+    """``_entry`` asks ``_build.load`` for the library that holds the C
+    entry ``flash_<kernel>_<dtype>`` and types its arguments: pointers
+    and the stream as ``c_void_p``, so none is cut to 32 bits."""
+    from paddle_tpu_torch.kernels import _build
+
+    class Entry:
+        argtypes = None
+        restype = None
+
+    asked = []
+
+    def load(name):
+        asked.append(name)
+        lib = type("Lib", (), {})()
+        setattr(lib, f"flash_{kernel}_{fa._SUFFIX[dtype]}", Entry())
+        return lib
+
+    monkeypatch.setattr(_build, "load", load)
+    fn = fa._entry(kernel, dtype)
+    assert asked == [library]
+    n_ptr = {"fwd": 5, "bwd_dkdv": 8, "bwd_dq": 7}[kernel]
+    assert fn.argtypes[:n_ptr + 1] == [ctypes.c_void_p] * (n_ptr + 1)
+    assert fn.argtypes[-1] is ctypes.c_void_p and fn.restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("causal", [False, True])
