@@ -33,7 +33,9 @@ before and read just after:
 - training: ``bench.py``'s configuration (GPT-2-small, batch 16 x 1024
   tokens, AdamW under AMP O2 bf16, ``TrainStep`` of 8 steps per call)
   through the flash attention kernels, after a 2-layer float32 parity
-  run of the kernel route against the plain attention route;
+  run of the kernel route against the plain attention route; then the
+  same widths and batch in float32 (no AMP, 2 steps per call), where the
+  float32 flash kernels (the 3xTF32 dK/dV and dQ) run at full width;
 - the Paddle-API core, the main path of the fifth slice: ``custom_op``
   programs on the card, the user kernel ``my_triple`` through
   ``cuda_op`` (the counterpart of ``pallas_op``) at [4, 8] and
@@ -44,8 +46,11 @@ before and read just after:
   batch 256 x 224^2, Momentum under AMP O2 bf16, ``TrainStep``)
   through ``nn.Layer``, cuDNN convolutions and BatchNorm.
 
-It checks that each path went through its kernels and no other, times
-every kernel beside its bound, its plain version and a library call,
+It checks that each path went through its kernels and no other, holds
+the float32 flash backward's gradients and its plain versions' against
+the same arithmetic in float64 (the kernel's error within 10x the plain
+version's), times every kernel beside its bound, its plain version and
+a library call,
 and prints a JSON object of per-kernel numbers and the JSON result
 line last. The weights are random, from a seed. Any failed phase
 raises; there is no CPU fallback: without CUDA it exits non-zero and
@@ -53,6 +58,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -94,12 +100,16 @@ from paddle_tpu_torch.vision.models import resnet50
 # timed run, to cover the host's enqueueing of it
 SLEEP_CYCLES = 2_000_000
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and dense
-# float32 outside the tensor cores, the unit the kernels' arithmetic uses
+# float32 outside the tensor cores, the unit the paged kernels' arithmetic
+# uses
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# and dense bf16 on the tensor cores, the peak for the training path's
-# bf16 inputs (the flash kernels themselves compute in float32 FMAs)
+# and dense bf16 and TF32 on the tensor cores: the peaks for the flash
+# kernels' bf16 inputs and, three TF32 products to one float32-accurate
+# product (3xTF32, as the float32 backward kernels compute), for their
+# float32 inputs: 165 TFLOP/s, 2.5x the float32 rate outside them
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 
 # the JAX package's own tolerance for its Pallas tier against the lax
 # tier (tests/test_ragged_attention.py), float32 against float32
@@ -164,6 +174,9 @@ TRAIN_CFG = dict(vocab_size=50304, hidden_size=768, num_hidden_layers=12,
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_K = 16, 1024, 8
 TRAIN_LR = 1e-4
 TRAIN_CALLS = 3             # timed calls, after one warm call
+# the float32 training path: the same widths and batch without AMP,
+# where the float32 flash kernels run at full width
+TRAIN_F32_K, TRAIN_F32_CALLS = 2, 2
 PARITY_LAYERS, PARITY_BATCH, PARITY_STEPS = 2, 4, 3
 # the Paddle-API core (the fifth slice): the JAX package's one user
 # kernel, ``x * 3`` over float32, as a cuda_op, at the extension test's
@@ -199,16 +212,17 @@ RESNET_F64_STEPS, RESNET_F64_TOL = 2, 1e-6
 # and a GPT-3 XL head layout at its 2048-token context
 FLASH_TRAIN = (16, 12, 1024, 1024, 64)
 FLASH_XL = (2, 32, 2048, 2048, 64)
-# the bf16 kernels (the training path's) have sources of their own: the
-# forward, and the dK/dV and dQ kernels together; the three float32
-# kernels share flash_attention.cu
-FLASH_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
-FLASH_SOURCES = {
-    "flash_attention_fwd": "paddle_tpu_torch/kernels/csrc/flash_fwd_bf16.cu",
-    "flash_attention_bwd_dkdv":
-        "paddle_tpu_torch/kernels/csrc/flash_bwd_bf16.cu",
-    "flash_attention_bwd_dq":
-        "paddle_tpu_torch/kernels/csrc/flash_bwd_bf16.cu"}
+# each flash kernel's source: bf16 (the training main path's) the forward
+# and the dK/dV and dQ kernels together; float32 the forward
+# (flash_attention.cu) and dK/dV and dQ together
+_FLASH_CSRC = "paddle_tpu_torch/kernels/csrc/"
+FLASH_SOURCES = {"flash_attention_fwd": _FLASH_CSRC + "flash_fwd_bf16.cu",
+                 "flash_attention_bwd_dkdv": _FLASH_CSRC + "flash_bwd_bf16.cu",
+                 "flash_attention_bwd_dq": _FLASH_CSRC + "flash_bwd_bf16.cu"}
+FLASH_SOURCES_F32 = {
+    "flash_attention_fwd": _FLASH_CSRC + "flash_attention.cu",
+    "flash_attention_bwd_dkdv": _FLASH_CSRC + "flash_bwd_f32.cu",
+    "flash_attention_bwd_dq": _FLASH_CSRC + "flash_bwd_f32.cu"}
 FLASH_REPLACES = {
     "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:61",
     "flash_attention_bwd_dkdv": "paddle_tpu/kernels/flash_attention.py:167",
@@ -222,6 +236,12 @@ FLASH_REPLACES = {
 # float32 from the same float32 products in both: 2e-5
 FLASH_TOL = {torch.float32: {"o": 2e-5, "lse": 2e-5, "grad": 1e-4},
              torch.bfloat16: {"o": 2e-2, "lse": 2e-5, "grad": 2e-2}}
+# the float32 dK/dV and dQ kernels (3xTF32 tensor-core products) and
+# their plain versions (float32 products) against the same arithmetic in
+# float64: the kernel's error at most this many times the plain
+# version's, so that agreement with the plain version cannot come from
+# an identical order of float32 sums alone
+FLASH_F64_RATIO = 10.0
 # training, kernel route against plain route (float32, 2 layers): the
 # losses at 1e-4 relative; AdamW moves each parameter by about lr a step
 # whatever its gradient's size, so where a gradient lies within float32
@@ -1202,11 +1222,58 @@ def flash_inputs(shape, dtype, seed, device):
             for S in (Sq, Sk, Sk, Sq)]
 
 
+def flash_bwd_f64(q, k, v, do, lse, delta, sm_scale, causal):
+    """The plain backward's arithmetic in float64 on the same inputs
+    (``lse`` and ``delta`` as given): ``(dq, dk, dv)`` in float64, the
+    yardstick both the float32 kernels and their plain versions are
+    measured against."""
+    q, k, v, do, lse, delta = (t.double() for t in (q, k, v, do, lse, delta))
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * sm_scale - lse)
+    if causal:
+        p = p.masked_fill(~fa._causal_mask(q.shape[2], k.shape[2], q.device),
+                          0.0)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta) * sm_scale
+    return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+            torch.matmul(p.transpose(-1, -2), do))
+
+
+def check_f64(worst, args, got, plain, shape) -> None:
+    """The float32 dK/dV and dQ kernels' gradients (``got``) and the
+    plain versions' (``plain``) against ``flash_bwd_f64`` on the same
+    inputs ``args``: the kernel's error must be above 0 and at most
+    FLASH_F64_RATIO times the plain version's. Records each kernel's
+    worst pair in ``worst[(name, "float64")]``."""
+    want = dict(zip(("dq", "dk", "dv"), flash_bwd_f64(*args)))
+    err = {n: ((got[n].double() - want[n]).abs().max().item(),
+               (plain[n].double() - want[n]).abs().max().item())
+           for n in want}
+    del want
+    for name, keys in (("flash_attention_bwd_dkdv", ("dk", "dv")),
+                       ("flash_attention_bwd_dq", ("dq",))):
+        kern = max(err[n][0] for n in keys)
+        ref = max(err[n][1] for n in keys)
+        if not 0 < kern <= FLASH_F64_RATIO * ref:
+            raise AssertionError(
+                f"{name} {shape}: float64 error {kern:.3e}, the plain "
+                f"version's {ref:.3e}: want above 0 and at most "
+                f"{FLASH_F64_RATIO:g}x")
+        old = worst.get((name, "float64"), (0.0, 0.0))
+        worst[(name, "float64")] = (max(old[0], kern), max(old[1], ref))
+    log(f"[flash] float32 {'causal' if args[-1] else 'full'} "
+        f"{list(shape)} against float64: "
+        + ", ".join(f"{n} kernel {e[0]:.3e} plain {e[1]:.3e}"
+                    for n, e in err.items())
+        + f" (kernel within {FLASH_F64_RATIO:g}x the plain version's)")
+
+
 def phase_flash(device) -> dict:
     """Each flash kernel against its plain version, float32 and bf16,
     causal and not, at the training shape and a GPT-3 XL head layout,
-    plus Sq < Sk causal; every kernel run twice for identical bits.
-    Returns the worst error per kernel and dtype."""
+    plus Sq < Sk causal; every kernel run twice for identical bits; the
+    float32 gradients of both also against float64 (``check_f64``).
+    Returns the worst error per kernel and dtype, and per backward
+    kernel the worst float64 errors (kernel, plain) under
+    ``(name, "float64")``."""
     worst: dict = {}
     cases = [(shape, dtype, causal) for shape in (FLASH_TRAIN, FLASH_XL)
              for dtype in (torch.float32, torch.bfloat16)
@@ -1236,6 +1303,10 @@ def phase_flash(device) -> dict:
             errs[name] = (got.float() - want.float()).abs().max().item()
             torch.testing.assert_close(got.float(), want.float(), rtol=t,
                                        atol=t, msg=f"{name} {shape} {dtype}")
+        if dtype == torch.float32:
+            check_f64(worst, (q, k, v, do, lse, delta, scale, causal),
+                      {"dq": dq, "dk": dk, "dv": dv},
+                      {"dq": rdq, "dk": rdk, "dv": rdv}, shape)
         del ro, rlse, rdk, rdv, rdq
         again = fa.flash_fwd_cuda(q, k, v, scale, causal)
         same = (torch.equal(again[0], o) and torch.equal(again[1], lse)
@@ -1330,6 +1401,20 @@ PLAIN_ATTENTION = ((fa, "flash_fwd_ref"), (fa, "flash_bwd_ref"),
                    (attn, "sdpa_reference"), (attn, "causal_sdpa_chunked"))
 
 
+@contextlib.contextmanager
+def plain_attention_refused():
+    """Inside the block the plain attention functions raise: a training
+    path that reaches one fails."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN_ATTENTION]
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, _stub(name))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def phase_train(device, profile: bool) -> dict:
     """The main path: bench.py's configuration and protocol. AdamW at lr
     1e-4 under AMP O2 bf16, ``TrainStep`` of 8 steps per call on 16 x
@@ -1347,11 +1432,8 @@ def phase_train(device, profile: bool) -> dict:
     ids = torch.randint(0, TRAIN_CFG["vocab_size"],
                         (TRAIN_K, TRAIN_BATCH, TRAIN_SEQ), generator=g,
                         device=device)
-    saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN_ATTENTION]
     losses = []
-    try:
-        for mod, name, _ in saved:
-            setattr(mod, name, _stub(name))
+    with plain_attention_refused():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1381,9 +1463,6 @@ def phase_train(device, profile: bool) -> dict:
         peak_off = torch.cuda.max_memory_allocated()
         if profile:
             phase_profile_train(step, ids)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
     steps = TRAIN_K * (1 + TRAIN_CALLS)
     want = {n: cfg_layers * steps for n in fa.KERNEL_NAMES}
     if launches != want or other:
@@ -1409,6 +1488,60 @@ def phase_train(device, profile: bool) -> dict:
         f"{steps + TRAIN_K} finite; flash launches "
         f"{launches} = {cfg_layers} layers x {steps} steps, no plain attention, no "
         "other attention kernel")
+    return {"tokens_per_s": tokens / wall, "ms_per_step": ms_step,
+            "launches": launches}
+
+
+def phase_train_f32(device) -> dict:
+    """The training path in float32, where the float32 flash kernels run
+    at full width: bench.py's widths and batch (GPT-2-small, 12 layers,
+    16 x 1024 token ids, labels = ids) without AMP, AdamW at lr 1e-4,
+    ``TrainStep`` of TRAIN_F32_K steps per call, one warm call then
+    TRAIN_F32_CALLS timed calls (their losses read once all are queued),
+    the plain attention functions refused. Every flash kernel must
+    launch once per layer per step."""
+    layers = TRAIN_CFG["num_hidden_layers"]
+    model = train_model(device, layers)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    step = TrainStep(model, loss_fn, opt, steps_per_call=TRAIN_F32_K)
+    g = torch.Generator(device=device).manual_seed(8)
+    ids = torch.randint(0, TRAIN_CFG["vocab_size"],
+                        (TRAIN_F32_K, TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                        device=device)
+    with plain_attention_refused():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES.clear()
+        pa.LAUNCHES.clear()
+        t_warm = time.perf_counter()
+        losses = [step(ids, ids).tolist()]
+        warm = time.perf_counter() - t_warm
+        t0 = time.perf_counter()
+        calls = [step(ids, ids) for _ in range(TRAIN_F32_CALLS)]
+        losses += [c.tolist() for c in calls]
+        wall = time.perf_counter() - t0
+        launches, other = dict(fa.LAUNCHES), dict(pa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_F32_K * (1 + TRAIN_F32_CALLS)
+    want = {n: layers * steps for n in fa.KERNEL_NAMES}
+    if launches != want or other:
+        raise AssertionError(f"float32 training launches {launches} (and "
+                             f"{other}), expected {want} = layers x steps")
+    flat = [x for call in losses for x in call]
+    if len(flat) != steps or not all(math.isfinite(x) for x in flat):
+        raise AssertionError(f"float32 training losses not all finite: "
+                             f"{flat}")
+    timed = TRAIN_F32_K * TRAIN_F32_CALLS
+    tokens = TRAIN_BATCH * TRAIN_SEQ * timed
+    ms_step = 1e3 * wall / timed
+    log(f"[train] float32 path: bench.py widths (GPT-2-small, {layers} "
+        f"layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW lr {TRAIN_LR}, "
+        f"no AMP, {TRAIN_F32_K} steps per call): warm call {warm:.3f}s; "
+        f"{TRAIN_F32_CALLS} timed calls {wall:.3f}s = "
+        f"{tokens / wall:.1f} tokens/s, {ms_step:.2f} ms/step; peak "
+        f"{peak / 2**30:.2f} GiB allocated; losses {flat}, all finite; "
+        f"flash launches {launches} = {layers} layers x {steps} steps, no "
+        "plain attention, no other attention kernel")
     return {"tokens_per_s": tokens / wall, "ms_per_step": ms_step,
             "launches": launches}
 
@@ -1449,8 +1582,12 @@ def flash_work(shape, dtype, causal=True):
 
 
 def flash_bound(nbytes, flops, dtype):
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM
+    bandwidth and the operations over the tensor cores' rate, bf16 for
+    bf16 inputs, three TF32 products per float32 product for float32."""
+    t_ops = (flops / BF16_FLOPS_PER_S if dtype == torch.bfloat16
+             else 3 * flops / TF32_FLOPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1523,18 +1660,24 @@ def flash_times(device, dtype) -> dict:
     return out
 
 
-def flash_rows(device, launches: dict, errors: dict):
+def flash_rows(device, launches: dict, errors: dict, launches_f32: dict):
     """The kernels line's rows for the flash kernels: numbers at the
-    main path's dtype (bf16), float32's beside them."""
+    main path's dtype (bf16), float32's beside them (their launches from
+    the float32 training path; the backward kernels' worst errors
+    against float64, kernel and plain version)."""
     times = {dt: flash_times(device, dt)
              for dt in (torch.bfloat16, torch.float32)}
     rows = []
     for name in fa.KERNEL_NAMES:
+        f64 = errors.get((name, "float64"))
         rows.append({"name": name, "route": "cuda",
-                     "source": FLASH_SOURCES.get(name, FLASH_SOURCE),
-                     "source_f32": FLASH_SOURCE,
+                     "source": FLASH_SOURCES[name],
+                     "source_f32": FLASH_SOURCES_F32[name],
                      "replaces": FLASH_REPLACES[name],
                      "launches": launches.get(name, 0),
+                     "launches_f32": launches_f32.get(name, 0),
+                     "f64_err_f32": (None if f64 is None else
+                                     {"kernel": f64[0], "plain": f64[1]}),
                      "max_abs_err": max(errors[(name, "bfloat16")],
                                         errors[(name, "float32")]),
                      **times[torch.bfloat16][name],
@@ -1933,6 +2076,9 @@ def main() -> int:
     launches.update(phase_train(device, "--profile" in sys.argv[1:])
                     ["launches"])
     torch.cuda.empty_cache()
+    # the float32 kernels at full width: the training path without AMP
+    launches_f32 = phase_train_f32(device)["launches"]
+    torch.cuda.empty_cache()
 
     # the Paddle-API core, the main path of this slice: the custom ops
     # and the user kernel, then ResNet-50 through Layer, Momentum, AMP O2
@@ -1946,7 +2092,7 @@ def main() -> int:
 
     rows = phase_times(device, launches, errors)
     rows += per_tier_rows(device, launches, per_tier_errors)
-    rows += flash_rows(device, launches, flash_errors)
+    rows += flash_rows(device, launches, flash_errors, launches_f32)
     rows.append(triple_row(core))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     # the card's name and power limit, exactly as nvidia-smi prints them

@@ -13,10 +13,13 @@ Two tiers, one function each way:
 - the hand-written CUDA kernels that replace the JAX package's Pallas
   ``_fwd_kernel``, ``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel``:
   :func:`flash_fwd_cuda`, :func:`flash_bwd_dkdv_cuda`,
-  :func:`flash_bwd_dq_cuda`. float32 (scalar float32 FMAs,
-  ``csrc/flash_attention.cu``) or bf16 (tensor cores, float32 sums:
-  ``csrc/flash_fwd_bf16.cu`` forward, ``csrc/flash_bwd_bf16.cu`` dK/dV
-  and dQ), head_dim 64 or 128, CUDA tensors only; anything else raises.
+  :func:`flash_bwd_dq_cuda`. float32 (the forward in scalar float32
+  FMAs, ``csrc/flash_attention.cu``; dK/dV and dQ on the TF32 tensor
+  cores in 3xTF32, float32-accurate products whatever PyTorch's TF32
+  flags say, ``csrc/flash_bwd_f32.cu`` with ``csrc/tf32x3.cuh``) or
+  bf16 (tensor cores, float32 sums: ``csrc/flash_fwd_bf16.cu`` forward,
+  ``csrc/flash_bwd_bf16.cu`` dK/dV and dQ), head_dim 64 or 128, CUDA
+  tensors only; anything else raises.
 - their plain PyTorch versions :func:`flash_fwd_ref`,
   :func:`flash_bwd_dkdv_ref`, :func:`flash_bwd_dq_ref` (and
   :func:`flash_bwd_ref` for the whole backward): what the CPU runs and
@@ -54,10 +57,13 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
 
 _HEAD_DIMS = (64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the library of each C entry that is not flash_attention.cu's (float32)
+# the library of each C entry that is not flash_attention.cu's (the
+# float32 forward)
 _LIBRARY = {"flash_fwd_bf16": "flash_fwd_bf16",
             "flash_bwd_dkdv_bf16": "flash_bwd_bf16",
-            "flash_bwd_dq_bf16": "flash_bwd_bf16"}
+            "flash_bwd_dq_bf16": "flash_bwd_bf16",
+            "flash_bwd_dkdv_f32": "flash_bwd_f32",
+            "flash_bwd_dq_f32": "flash_bwd_f32"}
 _TIERS = ("auto", "kernel", "ref")
 
 

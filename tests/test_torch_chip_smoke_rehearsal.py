@@ -16,8 +16,15 @@ launch bookkeeping and their checks are exercised before a chip run:
 - the flash times phase and its rows of the kernels line at a small
   shape (the wrappers swapped for their plain versions, each timing a
   single call): the backward rows carry SDPA's backward alone and
-  ``bwd_delta``'s time, every row names a source in the repository, and
-  SDPA's backward computes the plain backward's gradients;
+  ``bwd_delta``'s time, every row names its bf16 and float32 sources in
+  the repository, and SDPA's backward computes the plain backward's
+  gradients;
+- the flash phase's float64 check of the float32 backward: the plain
+  versions against themselves pass it with a non-zero error, gradients
+  off by 1e-3 fail it;
+- the float32 training phase on a narrow GPT (d 128, 2 layers, 2 x 128
+  tokens) with the flash wrappers swapped for their plain versions:
+  one launch of each per layer per step, finite losses;
 - the core phases: the custom-op programs and ``my_triple`` through its
   op (reference counted as a launch) at small shapes, the ResNet
   parity phase (CPU against CPU) and the ResNet training phase with
@@ -33,6 +40,7 @@ torch = pytest.importorskip("torch")
 
 import torch.nn.functional as F  # noqa: E402
 
+import collections  # noqa: E402
 import sys  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
@@ -133,15 +141,23 @@ def test_flash_times_and_rows(monkeypatch):
     launches = {n: 384 for n in fa.KERNEL_NAMES}
     errors = {(n, dt): 0.0 for n in fa.KERNEL_NAMES
               for dt in ("bfloat16", "float32")}
-    rows = cs.flash_rows(CPU, launches, errors)
+    errors.update({(n, "float64"): (2e-6, 1e-6) for n in fa.KERNEL_NAMES[1:]})
+    rows = cs.flash_rows(CPU, launches, errors,
+                         {n: 72 for n in fa.KERNEL_NAMES})
     root = cs.os.path.dirname(cs.os.path.abspath(cs.__file__))
     assert [r["name"] for r in rows] == list(fa.KERNEL_NAMES)
     for row in rows:
         assert row["launches"] == 384 and row["ms"] == 1.0
+        assert row["launches_f32"] == 72
         assert cs.os.path.exists(cs.os.path.join(root, row["source"]))
+        assert cs.os.path.exists(cs.os.path.join(root, row["source_f32"]))
         bwd = row["name"] != "flash_attention_fwd"
         assert row["source"].endswith("flash_bwd_bf16.cu" if bwd
                                       else "flash_fwd_bf16.cu")
+        assert row["source_f32"].endswith("flash_bwd_f32.cu" if bwd
+                                          else "flash_attention.cu")
+        assert row["f64_err_f32"] == ({"kernel": 2e-6, "plain": 1e-6}
+                                      if bwd else None)
         for t in (row, row["f32"]):
             assert (t["library_ms"] is None) == bwd
             assert ("library_bwd_ms" in t and "delta_ms" in t) == bwd
@@ -198,3 +214,51 @@ def test_core_phases(core_on_cpu):
     cs.phase_resnet_parity(CPU, CPU)
     got = cs.phase_resnet_train(CPU, profile=False)
     assert got["ms_per_step"] > 0 and got["ms_per_step_hook_off"] > 0
+
+
+def test_float32_training_phase(monkeypatch):
+    """The float32 training phase at a CPU size: each flash wrapper runs
+    its plain version and counts a launch (the plain functions the phase
+    refuses are reached only through the wrappers), every kernel
+    launches once per layer per step and the losses are finite."""
+    fa = cs.fa
+    monkeypatch.setattr(fa, "LAUNCHES", collections.Counter())
+    for kind, name in zip(("fwd", "bwd_dkdv", "bwd_dq"), fa.KERNEL_NAMES):
+        def run(*args, _ref=getattr(fa, f"flash_{kind}_ref"), _name=name):
+            fa.LAUNCHES[_name] += 1
+            return _ref(*args)
+        monkeypatch.setattr(fa, f"flash_{kind}_cuda", run)
+    monkeypatch.setattr(fa, "_use_kernel", lambda tier, q: tier != "ref")
+    monkeypatch.setattr(cs, "TRAIN_CFG", {
+        **cs.TRAIN_CFG, "vocab_size": 512, "hidden_size": 128,
+        "num_hidden_layers": 2, "num_attention_heads": 2,
+        "intermediate_size": 256, "max_position_embeddings": 128,
+        "loss_chunks": 2})
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 128)
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    got = cs.phase_train_f32(CPU)
+    steps = cs.TRAIN_F32_K * (1 + cs.TRAIN_F32_CALLS)
+    assert got["launches"] == {n: 2 * steps for n in fa.KERNEL_NAMES}
+    assert got["ms_per_step"] > 0
+    assert fa.flash_fwd_ref.__name__ == "flash_fwd_ref"   # restored
+
+
+def test_float64_check_of_the_float32_backward():
+    fa = cs.fa
+    shape = (1, 2, 96, 96, 64)
+    q, k, v, do = cs.flash_inputs(shape, torch.float32, 4, CPU)
+    o, lse = fa.flash_fwd_ref(q, k, v, 0.125, True)
+    args = (q, k, v, do, lse, fa.bwd_delta(o, do), 0.125, True)
+    dk, dv = fa.flash_bwd_dkdv_ref(*args)
+    plain = {"dq": fa.flash_bwd_dq_ref(*args), "dk": dk, "dv": dv}
+    worst = {}
+    cs.check_f64(worst, args, plain, plain, shape)
+    for name in cs.fa.KERNEL_NAMES[1:]:
+        kern, ref = worst[(name, "float64")]
+        assert kern == ref and 0 < kern < 1e-4
+    off = {n: t + 1e-3 for n, t in plain.items()}
+    with pytest.raises(AssertionError, match="float64 error"):
+        cs.check_f64({}, args, off, plain, shape)

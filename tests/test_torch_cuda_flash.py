@@ -5,10 +5,16 @@ is present, and runs on a machine with the card::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_flash.py -q
 
+The float32 backward's card tests select with ``-k f32``::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_flash.py -q -k f32
+
 Tolerances, kernel against plain version on the same inputs: float32
 ``o`` and ``lse`` at rtol = atol = 2e-5 (the JAX package's Pallas-tier
 tolerance), ``dq``/``dk``/``dv`` at 1e-4 (sums of up to S products of
-those); bf16 outputs and gradients at 2e-2 (both sides round p and dS to
+those; the float32 backward kernels' 3xTF32 products are held to their
+float64 version at the same 1e-4); bf16 outputs and gradients at 2e-2
+(both sides round p and dS to
 bf16, a step of 3.9e-3 relative, the kernel against a running max and
 the plain version against the row's final max), bf16 ``lse`` at 2e-5
 (it is formed in float32 from the same float32 products). Two runs of a
@@ -208,17 +214,15 @@ def test_bf16_backward_matches_plain_versions(device, Sq, Sk, D, causal):
         assert dq[:, :, :Sq - Sk].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("D", [64, 128])
-def test_bf16_autograd_on_strided_bshd_views(device, D):
-    """The bshd entry on bf16 q, k, v sliced out of one packed ``[B, S,
-    3, H, D]`` projection (read in place as strided views) against the
-    same call on contiguous copies: the output and the packed gradient
+def _packed_autograd_bits(device, D, dtype, seed):
+    """The bshd entry on q, k, v sliced out of one packed ``[B, S, 3, H,
+    D]`` projection (read in place as strided views) against the same
+    call on contiguous copies: the output and the packed gradient
     bit-equal, each kernel launched once a call."""
     B, S, H = 2, 320, 3
-    g = torch.Generator(device=device).manual_seed(D + 1)
-    qkv = torch.randn(B, S, 3, H, D, generator=g,
-                      device=device).to(torch.bfloat16)
-    do = torch.randn(B, S, H, D, generator=g, device=device).to(torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(B, S, 3, H, D, generator=g, device=device).to(dtype)
+    do = torch.randn(B, S, H, D, generator=g, device=device).to(dtype)
     outs = []
     for packed in (True, False):
         x = qkv.clone().requires_grad_(True)
@@ -235,6 +239,70 @@ def test_bf16_autograd_on_strided_bshd_views(device, D):
         outs.append((o.detach(), x.grad))
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_autograd_on_strided_bshd_views(device, D):
+    _packed_autograd_bits(device, D, torch.bfloat16, seed=D + 1)
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", BF16_BWD_CASES)
+def test_f32_backward_matches_plain_and_float64(device, Sq, Sk, D, causal):
+    """The float32 backward (csrc/flash_bwd_f32.cu, 3xTF32 on the tensor
+    cores) at the bf16 backward's edge lengths: dq, dk and dv at 1e-4
+    against the plain versions and against the same arithmetic in
+    float64 on the same lse and delta; dq of a row that sees no key
+    exact 0; a rerun bit-identical; each call one launch."""
+    import chip_smoke
+
+    q, k, v, do = _inputs(device, 2, 3, Sq, Sk, D, torch.float32,
+                          seed=Sq * 3 + Sk + D)
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    delta = fa.bwd_delta(o, do)
+    names = ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+    before = [fa.LAUNCHES[n] for n in names]
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert [fa.LAUNCHES[n] for n in names] == [n + 1 for n in before]
+    rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal)
+    wdq, wdk, wdv = chip_smoke.flash_bwd_f64(q, k, v, do, lse, delta, scale,
+                                             causal)
+    for name, got, want, exact in (("dq", dq, rdq, wdq), ("dk", dk, rdk, wdk),
+                                   ("dv", dv, rdv, wdv)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=name)
+        torch.testing.assert_close(got.double(), exact, rtol=1e-4, atol=1e-4,
+                                   msg=name)
+    again = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert torch.equal(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale,
+                                            causal), dq)
+    if causal and Sq > Sk:
+        assert dq[:, :, :Sq - Sk].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_f32_autograd_on_strided_bshd_views(device, D):
+    _packed_autograd_bits(device, D, torch.float32, seed=D + 2)
+
+
+def test_f32_backward_ignores_the_tf32_flag(device):
+    """The float32 backward is 3xTF32 whatever PyTorch's TF32 flag says:
+    the same bits with ``allow_tf32`` on and off."""
+    q, k, v, do = _inputs(device, 2, 3, 256, 256, 64, torch.float32, seed=5)
+    o, lse = fa.flash_fwd_cuda(q, k, v, 0.125, True)
+    delta = fa.bwd_delta(o, do)
+    outs = []
+    for flag in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        outs.append(fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, 0.125, True)
+                    + (fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, 0.125,
+                                            True),))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 def test_autograd_on_strided_bshd_views(device):

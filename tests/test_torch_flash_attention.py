@@ -133,8 +133,8 @@ def test_kernel_tier_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("kernel,dtype,library", [
     ("fwd", torch.float32, "flash_attention"),
-    ("bwd_dkdv", torch.float32, "flash_attention"),
-    ("bwd_dq", torch.float32, "flash_attention"),
+    ("bwd_dkdv", torch.float32, "flash_bwd_f32"),
+    ("bwd_dq", torch.float32, "flash_bwd_f32"),
     ("fwd", torch.bfloat16, "flash_fwd_bf16"),
     ("bwd_dkdv", torch.bfloat16, "flash_bwd_bf16"),
     ("bwd_dq", torch.bfloat16, "flash_bwd_bf16")])
