@@ -6,7 +6,11 @@ Run from the repository root with no arguments::
 
 (``--profile`` adds one more run of the quantized serving path, one
 more training call and two ResNet-50 steps under ``torch.profiler`` and
-prints where the device time goes.)
+prints where the device time goes. ``--old-source FILE`` builds FILE, an
+earlier source of the float32 forward's C entry ``flash_fwd_f32`` (for
+example the scalar design, ``git show 1b5748f:paddle_tpu_torch/kernels/
+csrc/flash_attention.cu``), beside the port's kernels and times it before
+and after the port's own in the flash times phase.)
 
 It builds every CUDA kernel of the port from the sources in
 ``paddle_tpu_torch/kernels/csrc`` and the user kernel
@@ -35,7 +39,7 @@ before and read just after:
   through the flash attention kernels, after a 2-layer float32 parity
   run of the kernel route against the plain attention route; then the
   same widths and batch in float32 (no AMP, 2 steps per call), where the
-  float32 flash kernels (the 3xTF32 dK/dV and dQ) run at full width;
+  float32 flash kernels (3xTF32 forward, dK/dV and dQ) run at full width;
 - the Paddle-API core, the main path of the fifth slice: ``custom_op``
   programs on the card, the user kernel ``my_triple`` through
   ``cuda_op`` (the counterpart of ``pallas_op``) at [4, 8] and
@@ -47,10 +51,10 @@ before and read just after:
   through ``nn.Layer``, cuDNN convolutions and BatchNorm.
 
 It checks that each path went through its kernels and no other, holds
-the float32 flash backward's gradients and its plain versions' against
-the same arithmetic in float64 (the kernel's error within 10x the plain
-version's), times every kernel beside its bound, its plain version and
-a library call,
+the float32 flash kernels' outputs (o and lse, the gradients) and their
+plain versions' against the same arithmetic in float64 (the kernel's
+error within 10x the plain version's), times every kernel beside its
+bound, its plain version and a library call,
 and prints a JSON object of per-kernel numbers and the JSON result
 line last. The weights are random, from a seed. Any failed phase
 raises; there is no CPU fallback: without CUDA it exits non-zero and
@@ -59,6 +63,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -184,6 +189,8 @@ PARITY_LAYERS, PARITY_BATCH, PARITY_STEPS = 2, 4, 3
 TRIPLE_SOURCE = "paddle_tpu_torch/utils/csrc/my_triple.cu"
 TRIPLE_REPLACES = "paddle_tpu/utils/custom_op.py:75"
 TRIPLE_SHAPES = ((4, 8), (8192, 8192))
+# my_triple's threads a block (triple_grid, triple_op)
+TRIPLE_BLOCK = 128
 # ResNet-50 training: perf/resnet_bench.py:29-63's configuration and
 # protocol (resnet50, 1000 classes, Momentum(0.1, 0.9), AMP O2 bf16,
 # TrainStep, batch 256 at 224 x 224, 3 warm-up then 10 timed steps)
@@ -212,15 +219,14 @@ RESNET_F64_STEPS, RESNET_F64_TOL = 2, 1e-6
 # and a GPT-3 XL head layout at its 2048-token context
 FLASH_TRAIN = (16, 12, 1024, 1024, 64)
 FLASH_XL = (2, 32, 2048, 2048, 64)
-# each flash kernel's source: bf16 (the training main path's) the forward
-# and the dK/dV and dQ kernels together; float32 the forward
-# (flash_attention.cu) and dK/dV and dQ together
+# each flash kernel's source: bf16 (the training main path's) and float32
+# each the forward, and the dK/dV and dQ kernels together
 _FLASH_CSRC = "paddle_tpu_torch/kernels/csrc/"
 FLASH_SOURCES = {"flash_attention_fwd": _FLASH_CSRC + "flash_fwd_bf16.cu",
                  "flash_attention_bwd_dkdv": _FLASH_CSRC + "flash_bwd_bf16.cu",
                  "flash_attention_bwd_dq": _FLASH_CSRC + "flash_bwd_bf16.cu"}
 FLASH_SOURCES_F32 = {
-    "flash_attention_fwd": _FLASH_CSRC + "flash_attention.cu",
+    "flash_attention_fwd": _FLASH_CSRC + "flash_fwd_f32.cu",
     "flash_attention_bwd_dkdv": _FLASH_CSRC + "flash_bwd_f32.cu",
     "flash_attention_bwd_dq": _FLASH_CSRC + "flash_bwd_f32.cu"}
 FLASH_REPLACES = {
@@ -236,12 +242,16 @@ FLASH_REPLACES = {
 # float32 from the same float32 products in both: 2e-5
 FLASH_TOL = {torch.float32: {"o": 2e-5, "lse": 2e-5, "grad": 1e-4},
              torch.bfloat16: {"o": 2e-2, "lse": 2e-5, "grad": 2e-2}}
-# the float32 dK/dV and dQ kernels (3xTF32 tensor-core products) and
-# their plain versions (float32 products) against the same arithmetic in
-# float64: the kernel's error at most this many times the plain
-# version's, so that agreement with the plain version cannot come from
-# an identical order of float32 sums alone
+# the float32 flash kernels (3xTF32 tensor-core products) and their plain
+# versions (float32 products) against the same arithmetic in float64: the
+# kernel's error at most this many times the plain version's, so that
+# agreement with the plain version cannot come from an identical order of
+# float32 sums alone
 FLASH_F64_RATIO = 10.0
+# each float32 flash kernel's outputs, as check_f64 names them
+FLASH_F64_OUTPUTS = (("flash_attention_fwd", ("o", "lse")),
+                     ("flash_attention_bwd_dkdv", ("dk", "dv")),
+                     ("flash_attention_bwd_dq", ("dq",)))
 # training, kernel route against plain route (float32, 2 layers): the
 # losses at 1e-4 relative; AdamW moves each parameter by about lr a step
 # whatever its gradient's size, so where a gradient lies within float32
@@ -368,11 +378,13 @@ def plain(args, scales, split: int):
 # ---------------------------------------------------------------- phases
 
 
-def phase_build(user_op) -> None:
-    """Every kernel library of the port and the user kernel of
-    ``user_op`` (a ``cuda_op``), one nvcc each, all at once."""
+def phase_build(user_op, others=None) -> None:
+    """Every kernel library of the port, the user kernel of ``user_op``
+    (a ``cuda_op``) and the ``others`` (library name -> CUDA source
+    text), one nvcc each, all at once."""
     t0 = time.perf_counter()
-    built = _build.build(_build.KERNELS, user_op.build_sources)
+    built = _build.build(_build.KERNELS,
+                         {**user_op.build_sources, **(others or {})})
     log(f"[build] {len(built)} kernel librar(y/ies) compiled in "
         f"{time.perf_counter() - t0:.1f}s (one nvcc per source, in "
         "parallel); each nvcc's seconds: "
@@ -1237,19 +1249,47 @@ def flash_bwd_f64(q, k, v, do, lse, delta, sm_scale, causal):
             torch.matmul(p.transpose(-1, -2), do))
 
 
+def flash_fwd_f64(q, k, v, sm_scale, causal):
+    """The plain forward's arithmetic in float64 on the same inputs:
+    ``(o, lse)`` in float64, ``lse`` ``[B, H, Sq, 1]``; a row that sees no
+    key gets o = 0 and, as the float32 sides give it, lse = float32
+    NEG_INF."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
+    if causal:
+        mask = fa._causal_mask(q.shape[2], k.shape[2], q.device)
+        s = s.masked_fill(~mask, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    seen = m > -math.inf
+    p = torch.exp(s - torch.where(seen, m, torch.zeros_like(m)))
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(seen, l, torch.ones_like(l))
+    lse = torch.where(seen, m + torch.log(l_safe),
+                      torch.full_like(m, float(np.float32(fa.NEG_INF))))
+    return torch.matmul(p, v) / l_safe, lse
+
+
 def check_f64(worst, args, got, plain, shape) -> None:
-    """The float32 dK/dV and dQ kernels' gradients (``got``) and the
-    plain versions' (``plain``) against ``flash_bwd_f64`` on the same
-    inputs ``args``: the kernel's error must be above 0 and at most
-    FLASH_F64_RATIO times the plain version's. Records each kernel's
-    worst pair in ``worst[(name, "float64")]``."""
-    want = dict(zip(("dq", "dk", "dv"), flash_bwd_f64(*args)))
+    """The float32 flash kernels' outputs (``got``: o and lse, and the
+    gradients dq, dk, dv, each where given) and the plain versions'
+    (``plain``, the same names) against ``flash_fwd_f64`` and
+    ``flash_bwd_f64`` on the same inputs ``args`` (the backward's: q,
+    k, v, dO, lse, delta, scale, causal): each kernel's error must be
+    above 0 and at most FLASH_F64_RATIO times its plain version's.
+    Records each kernel's worst pair in ``worst[(name, "float64")]``."""
+    q, k, v, do, lse, delta, scale, causal = args
+    want = {}
+    if "o" in got:
+        want.update(zip(("o", "lse"), flash_fwd_f64(q, k, v, scale, causal)))
+    if "dq" in got:
+        want.update(zip(("dq", "dk", "dv"), flash_bwd_f64(*args)))
     err = {n: ((got[n].double() - want[n]).abs().max().item(),
                (plain[n].double() - want[n]).abs().max().item())
            for n in want}
     del want
-    for name, keys in (("flash_attention_bwd_dkdv", ("dk", "dv")),
-                       ("flash_attention_bwd_dq", ("dq",))):
+    for name, keys in FLASH_F64_OUTPUTS:
+        if keys[0] not in err:
+            continue
         kern = max(err[n][0] for n in keys)
         ref = max(err[n][1] for n in keys)
         if not 0 < kern <= FLASH_F64_RATIO * ref:
@@ -1259,7 +1299,7 @@ def check_f64(worst, args, got, plain, shape) -> None:
                 f"{FLASH_F64_RATIO:g}x")
         old = worst.get((name, "float64"), (0.0, 0.0))
         worst[(name, "float64")] = (max(old[0], kern), max(old[1], ref))
-    log(f"[flash] float32 {'causal' if args[-1] else 'full'} "
+    log(f"[flash] float32 {'causal' if causal else 'full'} "
         f"{list(shape)} against float64: "
         + ", ".join(f"{n} kernel {e[0]:.3e} plain {e[1]:.3e}"
                     for n, e in err.items())
@@ -1270,10 +1310,10 @@ def phase_flash(device) -> dict:
     """Each flash kernel against its plain version, float32 and bf16,
     causal and not, at the training shape and a GPT-3 XL head layout,
     plus Sq < Sk causal; every kernel run twice for identical bits; the
-    float32 gradients of both also against float64 (``check_f64``).
-    Returns the worst error per kernel and dtype, and per backward
-    kernel the worst float64 errors (kernel, plain) under
-    ``(name, "float64")``."""
+    float32 outputs and gradients of both also against float64
+    (``check_f64``). Returns the worst error per kernel and dtype, and per
+    kernel the worst float64 errors (kernel, plain) under ``(name,
+    "float64")``."""
     worst: dict = {}
     cases = [(shape, dtype, causal) for shape in (FLASH_TRAIN, FLASH_XL)
              for dtype in (torch.float32, torch.bfloat16)
@@ -1305,8 +1345,9 @@ def phase_flash(device) -> dict:
                                        atol=t, msg=f"{name} {shape} {dtype}")
         if dtype == torch.float32:
             check_f64(worst, (q, k, v, do, lse, delta, scale, causal),
-                      {"dq": dq, "dk": dk, "dv": dv},
-                      {"dq": rdq, "dk": rdk, "dv": rdv}, shape)
+                      {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
+                      {"o": ro, "lse": rlse, "dq": rdq, "dk": rdk,
+                       "dv": rdv}, shape)
         del ro, rlse, rdk, rdv, rdq
         again = fa.flash_fwd_cuda(q, k, v, scale, causal)
         same = (torch.equal(again[0], o) and torch.equal(again[1], lse)
@@ -1592,7 +1633,20 @@ def flash_bound(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_times(device, dtype) -> dict:
+def f32_fwd_from(lib):
+    """``fa._entry`` with the float32 forward's C entry ``flash_fwd_f32``
+    taken from the library ``lib`` (built from another source of it),
+    every other entry the port's own."""
+    fn = lib.flash_fwd_f32
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    own = fa._entry
+    return lambda kernel, dtype: (fn if (kernel, dtype) == (
+        "fwd", torch.float32) else own(kernel, dtype))
+
+
+def flash_times(device, dtype, old_fwd=None) -> dict:
     """Each flash kernel, its plain version and the library call at the
     training shape (causal), CUDA-event medians with L2 flushed. The
     library call is ``F.scaled_dot_product_attention(is_causal=True)``:
@@ -1600,7 +1654,10 @@ def flash_times(device, dtype) -> dict:
     one kept output) on the same tensors, timed only: the port never
     calls it. The backward rows also carry ``bwd_delta``'s time, the
     plain pass the backward runs before its two kernels, so that delta +
-    dK/dV + dQ compares with SDPA's backward alone."""
+    dK/dV + dQ compares with SDPA's backward alone. With ``old_fwd``
+    (``(source path, library)`` of an earlier float32 forward) the
+    float32 forward's row also carries that design's time, taken before
+    and after the kernel's."""
     q, k, v, do = flash_inputs(FLASH_TRAIN, dtype, 99, device)
     scale = FLASH_TRAIN[-1] ** -0.5
     o, lse = fa.flash_fwd_cuda(q, k, v, scale, True)
@@ -1634,9 +1691,21 @@ def flash_times(device, dtype) -> dict:
     delta_ms = time_cuda(lambda: fa.bwd_delta(o, do))
     work = flash_work(FLASH_TRAIN, dtype)
     out = {}
+    old = None
+    if old_fwd is not None and dtype == torch.float32:
+        old = f32_fwd_from(old_fwd[1])
+
+    def time_old():
+        own, fa._entry = fa._entry, old
+        try:
+            return time_cuda(calls["flash_attention_fwd"][0])
+        finally:
+            fa._entry = own
+
     for name, (kernel, plain_fn) in calls.items():
         bms, by = flash_bound(*work[name], dtype)
         fwd = name.endswith("fwd")
+        before = time_old() if fwd and old else None
         out[name] = {"ms": time_cuda(kernel),
                      "plain_ms": time_cuda(plain_fn, reps=5, warmup=1),
                      "bound_ms": bms, "bound_by": by,
@@ -1644,6 +1713,13 @@ def flash_times(device, dtype) -> dict:
                      "library_fwd_bwd_ms": lib_fwd_bwd}
         if not fwd:
             out[name].update(library_bwd_ms=lib_bwd, delta_ms=delta_ms)
+        if before is not None:
+            out[name]["design"] = {"source": old_fwd[0],
+                                   "ms": [before, time_old()]}
+            log(f"[times] {name} float32: the design of {old_fwd[0]} "
+                f"{out[name]['design']['ms'][0]:.4f} / "
+                f"{out[name]['design']['ms'][1]:.4f} ms (before and after "
+                f"the kernel's {out[name]['ms']:.4f} ms)")
         t = out[name]
         log(f"[times] {name} {str(dtype).split('.')[-1]} "
             f"{list(FLASH_TRAIN)} causal: kernel {t['ms']:.4f} ms, plain "
@@ -1660,12 +1736,14 @@ def flash_times(device, dtype) -> dict:
     return out
 
 
-def flash_rows(device, launches: dict, errors: dict, launches_f32: dict):
+def flash_rows(device, launches: dict, errors: dict, launches_f32: dict,
+               old_fwd=None):
     """The kernels line's rows for the flash kernels: numbers at the
     main path's dtype (bf16), float32's beside them (their launches from
-    the float32 training path; the backward kernels' worst errors
-    against float64, kernel and plain version)."""
-    times = {dt: flash_times(device, dt)
+    the float32 training path; each kernel's worst errors against
+    float64, kernel and plain version; with ``old_fwd``, ``(source path,
+    library)``, an earlier float32 forward timed beside it)."""
+    times = {dt: flash_times(device, dt, old_fwd)
              for dt in (torch.bfloat16, torch.float32)}
     rows = []
     for name in fa.KERNEL_NAMES:
@@ -1696,9 +1774,10 @@ def triple_plain(x):
 
 
 def triple_grid(x):
-    """Blocks of 256 threads, one float4 a thread per pass of the
-    grid-stride loop, at most 8 blocks for each of the 132 SMs."""
-    return (max(1, min(-(-x.numel() // (4 * 256)), 132 * 8)),)
+    """Blocks of TRIPLE_BLOCK threads, each thread two float4 (the
+    kernel's kUnroll): one pass of the grid-stride loop, no cap (capped
+    grids of several passes measured slower)."""
+    return (max(1, -(-x.numel() // (8 * TRIPLE_BLOCK))),)
 
 
 def triple_op():
@@ -1708,7 +1787,8 @@ def triple_op():
         source = f.read()
     return cuda_op("my_triple", source, "my_triple",
                    out_shape_fn=lambda x: ShapeDtypeStruct(x.shape, x.dtype),
-                   grid_fn=triple_grid, block=256, reference=triple_plain)
+                   grid_fn=triple_grid, block=TRIPLE_BLOCK,
+                   reference=triple_plain)
 
 
 def phase_custom_ops(device) -> dict:
@@ -2002,7 +2082,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
-    phase_build(triple_op())
+    old_fwd, old_text = None, {}
+    if "--old-source" in sys.argv[1:]:
+        old_fwd = sys.argv[sys.argv.index("--old-source") + 1]
+        with open(old_fwd) as f:
+            old_text["flash_fwd_f32_old"] = f.read()
+    phase_build(triple_op(), old_text)
     log(f"[card] {card_identity()}")
     errors = phase_kernels(device)
     per_tier_errors = phase_per_tier_kernels(device)
@@ -2092,7 +2177,10 @@ def main() -> int:
 
     rows = phase_times(device, launches, errors)
     rows += per_tier_rows(device, launches, per_tier_errors)
-    rows += flash_rows(device, launches, flash_errors, launches_f32)
+    if old_fwd is not None:
+        old_fwd = (old_fwd, _build.load_source(
+            "flash_fwd_f32_old", old_text["flash_fwd_f32_old"]))
+    rows += flash_rows(device, launches, flash_errors, launches_f32, old_fwd)
     rows.append(triple_row(core))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     # the card's name and power limit, exactly as nvidia-smi prints them

@@ -14,10 +14,11 @@ tile), built against a copy of ``tf32x3.cuh`` whose ``split`` is
 exact rest truncated by the tensor core), ``cvt`` (``cvt.rna.tf32.f32``
 on both halves) or ``round`` (the rest rounded to tf32 too). Every build
 goes to ``paddle_tpu_torch/kernels/build/variants/``, one ``nvcc`` each,
-all at once, beside ``--old-source``: an earlier ``flash_attention.cu``
-that holds the C entries ``flash_bwd_dkdv_f32`` / ``flash_bwd_dq_f32``
-(for example ``git show 46ce780:paddle_tpu_torch/kernels/csrc/
-flash_attention.cu``, the scalar design).
+all at once, beside ``--old-source``: an earlier source that holds the
+C entries ``flash_bwd_dkdv_f32`` / ``flash_bwd_dq_f32`` (for example
+``git show 46ce780:paddle_tpu_torch/kernels/csrc/flash_attention.cu``,
+the scalar design, from before the float32 kernels had libraries of
+their own: ``flash_fwd_f32.cu`` and ``flash_bwd_f32.cu``).
 
 Each build's head_dim-64 kernels are summed up from their SASS
 (``cuobjdump``): instructions, and how many of them are ``HMMA``. Each
@@ -81,8 +82,9 @@ def variant_sources(spec: str):
 
 def build_all(specs, old_source):
     """Compile every variant (and the old source) at once: name ->
-    loaded library. The variant's header sits beside its source, which
-    ``#include "..."`` searches first."""
+    loaded library. The variant's ``tf32x3.cuh`` sits beside its source
+    and a copy of ``flash_f32_tiles.cuh``, which ``#include "..."``
+    searches first (the includer's directory)."""
     root = _build.BUILD_DIR / "variants"
     jobs = {}
     for spec in specs:
@@ -91,6 +93,8 @@ def build_all(specs, old_source):
         d.mkdir(parents=True, exist_ok=True)
         (d / "flash_bwd_f32.cu").write_text(src)
         (d / "tf32x3.cuh").write_text(header)
+        (d / "flash_f32_tiles.cuh").write_text(
+            (_build.CSRC / "flash_f32_tiles.cuh").read_text())
         jobs[name] = (d / "flash_bwd_f32.cu", d / "lib.so")
     if old_source:
         root.mkdir(parents=True, exist_ok=True)
@@ -252,7 +256,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     print(cs.card_identity(), flush=True)
-    _build.build(["flash_attention", "flash_bwd_f32"])
+    _build.build(["flash_fwd_f32", "flash_bwd_f32"])
     print(f"[build] default: "
           f"{sass_summary(_build.library_path('flash_bwd_f32'))}", flush=True)
     libs = build_all(opts.variant, opts.old_source)

@@ -1,7 +1,8 @@
 // Asynchronous copies from global to shared memory (sm_80 and later),
 // shared by the kernels that stage tiles in a ring: the bf16 flash forward
-// (flash_fwd_bf16.cu) and backward (flash_bwd_bf16.cu) and the mixed
-// chunk/verify kernel (mixed_attention.cu). A copy issued now lands while
+// (flash_fwd_bf16.cu) and backward (flash_bwd_bf16.cu), the float32 ones
+// (flash_fwd_f32.cu, flash_bwd_f32.cu, through flash_f32_tiles.cuh) and the
+// mixed chunk/verify kernel (mixed_attention.cu). A copy issued now lands while
 // the block computes on an earlier tile; wait<N>() returns once at most N
 // committed groups are still in flight, and a __syncthreads() after it
 // makes the data visible to the whole block.

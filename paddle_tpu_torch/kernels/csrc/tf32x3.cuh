@@ -6,7 +6,8 @@
 // within 2^-11 of x, and the tensor core reads small to 10 bits as well:
 // big + small is within 2^-21 of x, and a product's relative error is
 // about 2^-20, against 2^-11 for one TF32 product. Used by the float32
-// flash backward (flash_bwd_f32.cu).
+// flash forward and backward (flash_fwd_f32.cu, flash_bwd_f32.cu) through
+// flash_f32_tiles.cuh.
 //
 // Fragments of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, for lane
 // l of the warp with g = l / 4 and t = l % 4, as (row, column):

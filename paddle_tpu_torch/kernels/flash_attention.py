@@ -13,10 +13,10 @@ Two tiers, one function each way:
 - the hand-written CUDA kernels that replace the JAX package's Pallas
   ``_fwd_kernel``, ``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel``:
   :func:`flash_fwd_cuda`, :func:`flash_bwd_dkdv_cuda`,
-  :func:`flash_bwd_dq_cuda`. float32 (the forward in scalar float32
-  FMAs, ``csrc/flash_attention.cu``; dK/dV and dQ on the TF32 tensor
-  cores in 3xTF32, float32-accurate products whatever PyTorch's TF32
-  flags say, ``csrc/flash_bwd_f32.cu`` with ``csrc/tf32x3.cuh``) or
+  :func:`flash_bwd_dq_cuda`. float32 (on the TF32 tensor cores in
+  3xTF32, float32-accurate products whatever PyTorch's TF32 flags say:
+  ``csrc/flash_fwd_f32.cu`` forward, ``csrc/flash_bwd_f32.cu`` dK/dV
+  and dQ, both on ``csrc/flash_f32_tiles.cuh`` and ``csrc/tf32x3.cuh``) or
   bf16 (tensor cores, float32 sums: ``csrc/flash_fwd_bf16.cu`` forward,
   ``csrc/flash_bwd_bf16.cu`` dK/dV and dQ), head_dim 64 or 128, CUDA
   tensors only; anything else raises.
@@ -57,9 +57,9 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
 
 _HEAD_DIMS = (64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the library of each C entry that is not flash_attention.cu's (the
-# float32 forward)
-_LIBRARY = {"flash_fwd_bf16": "flash_fwd_bf16",
+# the library (csrc/<name>.cu) that holds each C entry
+_LIBRARY = {"flash_fwd_f32": "flash_fwd_f32",
+            "flash_fwd_bf16": "flash_fwd_bf16",
             "flash_bwd_dkdv_bf16": "flash_bwd_bf16",
             "flash_bwd_dq_bf16": "flash_bwd_bf16",
             "flash_bwd_dkdv_f32": "flash_bwd_f32",
@@ -157,7 +157,7 @@ def _entry(kernel: str, dtype: torch.dtype):
     from ._build import load
 
     name = f"flash_{kernel}_{_SUFFIX[dtype]}"
-    fn = getattr(load(_LIBRARY.get(name, "flash_attention")), name)
+    fn = getattr(load(_LIBRARY[name]), name)
     if fn.argtypes is None:
         n_ptr = {"fwd": 5, "bwd_dkdv": 8, "bwd_dq": 7}[kernel]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_void_p]

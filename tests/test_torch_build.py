@@ -27,15 +27,23 @@ def test_digest_covers_the_included_headers_only(tmp_path, monkeypatch):
 
 
 def test_the_port_libraries_and_their_headers():
-    assert {"flash_attention", "flash_bwd_f32", "paged_attention",
+    """Each library of ``KERNELS`` has its source, includes exactly its
+    headers, and every ``.cu`` of ``csrc/`` is a library: the float32
+    forward is ``flash_fwd_f32`` (no ``flash_attention`` library is
+    left), on the tile helpers it shares with the float32 backward."""
+    assert {"flash_fwd_f32", "flash_bwd_f32", "paged_attention",
             "mixed_attention"} <= set(_build.KERNELS)
+    assert "flash_attention" not in _build.KERNELS
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
+        _build.KERNELS)
     ragged = _build.CSRC / "ragged_attention.cuh"
     walk = _build.CSRC / "paged_walk.cuh"
     cp_async = _build.CSRC / "cp_async.cuh"
     tf32x3 = _build.CSRC / "tf32x3.cuh"
-    want = {"flash_attention": [], "flash_fwd_bf16": [cp_async],
-            "flash_bwd_bf16": [cp_async],
-            "flash_bwd_f32": [cp_async, tf32x3],
+    tiles = _build.CSRC / "flash_f32_tiles.cuh"
+    want = {"flash_fwd_f32": [tiles, cp_async, tf32x3],
+            "flash_fwd_bf16": [cp_async], "flash_bwd_bf16": [cp_async],
+            "flash_bwd_f32": [tiles, cp_async, tf32x3],
             "paged_attention": [walk],
             "mixed_attention": [walk, cp_async]}
     for name in _build.KERNELS:
@@ -43,17 +51,19 @@ def test_the_port_libraries_and_their_headers():
         assert headers == want.get(name, [ragged, walk])
 
 
+def _tool(name):
+    import importlib
+
+    return importlib.import_module(f"chip_tools.{name}")
+
+
 def test_tune_tool_rewrites_each_variant():
     """``chip_tools/flash_bwd_f32_tune.py`` builds variants of the float32
     backward by rewriting its head_dim-64 launch lines and the split
     routine of ``tf32x3.cuh``: both patterns still match the sources."""
-    import importlib.util
     import re
 
-    path = _build.CSRC.parents[2] / "chip_tools" / "flash_bwd_f32_tune.py"
-    spec = importlib.util.spec_from_file_location("flash_bwd_f32_tune", path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = _tool("flash_bwd_f32_tune")
     launches = r"launch_d\w+<64, [^>]*>"
     kept = re.findall(launches, (_build.CSRC / "flash_bwd_f32.cu").read_text())
     assert len(kept) == 2
@@ -64,3 +74,39 @@ def test_tune_tool_rewrites_each_variant():
         body = tool.SPLIT_BODY.search(header).group(2)
         assert ("cvt.rna" in body) == (split == "cvt")
         assert ("+ 0x1000u;" in body) == (split == "round")
+
+
+def test_forward_tune_tool_rewrites_each_variant():
+    """``chip_tools/flash_fwd_f32_tune.py`` builds variants of the float32
+    forward by rewriting its one head_dim-64 launch line, and checks more
+    edge lengths than the backward's tool (head_dim 128 among them)."""
+    tool = _tool("flash_fwd_f32_tune")
+    src = (_build.CSRC / "flash_fwd_f32.cu").read_text()
+    assert len(tool.LAUNCH.findall(src)) == 1
+    name, variant = tool.variant_source("v/4, 2, 64")
+    assert name == "v"
+    assert tool.LAUNCH.findall(variant) == ["launch<64, 4, 2, 64>"]
+    assert variant.replace("launch<64, 4, 2, 64>", "") == tool.LAUNCH.sub(
+        "", src)
+    assert {D for _, _, D, _ in tool.EDGES} == {64, 128}
+
+
+def test_my_triple_tool_rewrites_each_variant():
+    """``chip_tools/my_triple_tune.py`` builds variants of the user kernel
+    by rewriting ``kUnroll`` and the bodies of ``load4`` and ``store4``:
+    the patterns still match the source, the kept hints leave it as it
+    is, and every variant still declares ``cuda_op``'s launch contract."""
+    import importlib
+
+    import torch
+
+    custom_op = importlib.import_module("paddle_tpu_torch.utils.custom_op")
+    tool = _tool("my_triple_tune")
+    src = tool.SOURCE.read_text()
+    assert tool.variant_source(2, "none") == src
+    for hints, (load, store) in ((h, b) for h, b in tool.HINTS.items() if b):
+        variant = tool.variant_source(8, hints)
+        assert "constexpr int kUnroll = 8;" in variant
+        assert load in variant and store in variant
+        assert custom_op.kernel_pointer_dtypes(variant, "my_triple") == [
+            torch.float32, torch.float32]

@@ -17,11 +17,13 @@ launch bookkeeping and their checks are exercised before a chip run:
   shape (the wrappers swapped for their plain versions, each timing a
   single call): the backward rows carry SDPA's backward alone and
   ``bwd_delta``'s time, every row names its bf16 and float32 sources in
-  the repository, and SDPA's backward computes the plain backward's
-  gradients;
-- the flash phase's float64 check of the float32 backward: the plain
-  versions against themselves pass it with a non-zero error, gradients
-  off by 1e-3 fail it;
+  the repository, the float32 forward's row carries an earlier design's
+  two times when a library of it is given, and SDPA's backward computes
+  the plain backward's gradients;
+- the flash phase's float64 check of the float32 forward and backward:
+  the plain versions against themselves pass it with a non-zero error,
+  outputs or gradients off by 1e-3 fail it, and rows that see no key
+  (o = 0, lse = NEG_INF) count no error;
 - the float32 training phase on a narrow GPT (d 128, 2 layers, 2 x 128
   tokens) with the flash wrappers swapped for their plain versions:
   one launch of each per layer per step, finite losses;
@@ -141,9 +143,12 @@ def test_flash_times_and_rows(monkeypatch):
     launches = {n: 384 for n in fa.KERNEL_NAMES}
     errors = {(n, dt): 0.0 for n in fa.KERNEL_NAMES
               for dt in ("bfloat16", "float32")}
-    errors.update({(n, "float64"): (2e-6, 1e-6) for n in fa.KERNEL_NAMES[1:]})
+    errors.update({(n, "float64"): (2e-6, 1e-6) for n in fa.KERNEL_NAMES})
+    old_fwd = type("Lib", (), {"flash_fwd_f32": type("Fn", (), {})()})()
+    entry = fa._entry
     rows = cs.flash_rows(CPU, launches, errors,
-                         {n: 72 for n in fa.KERNEL_NAMES})
+                         {n: 72 for n in fa.KERNEL_NAMES}, ("old.cu", old_fwd))
+    assert fa._entry is entry
     root = cs.os.path.dirname(cs.os.path.abspath(cs.__file__))
     assert [r["name"] for r in rows] == list(fa.KERNEL_NAMES)
     for row in rows:
@@ -155,12 +160,14 @@ def test_flash_times_and_rows(monkeypatch):
         assert row["source"].endswith("flash_bwd_bf16.cu" if bwd
                                       else "flash_fwd_bf16.cu")
         assert row["source_f32"].endswith("flash_bwd_f32.cu" if bwd
-                                          else "flash_attention.cu")
-        assert row["f64_err_f32"] == ({"kernel": 2e-6, "plain": 1e-6}
-                                      if bwd else None)
+                                          else "flash_fwd_f32.cu")
+        assert row["f64_err_f32"] == {"kernel": 2e-6, "plain": 1e-6}
         for t in (row, row["f32"]):
             assert (t["library_ms"] is None) == bwd
             assert ("library_bwd_ms" in t and "delta_ms" in t) == bwd
+        assert "design" not in row
+        assert row["f32"].get("design") == (None if bwd else {
+            "source": "old.cu", "ms": [1.0, 1.0]})
     # the yardstick computes the function: SDPA's backward alone gives
     # the plain backward's gradients (float32)
     q, k, v, do = cs.flash_inputs((1, 2, 96, 96, 64), torch.float32, 5, CPU)
@@ -209,7 +216,8 @@ def test_core_phases(core_on_cpu):
     assert core["launches"] == 2 and core["max_abs_err"] == 0.0
     x = core["x"]
     assert torch.equal(torch.mul(x, 3.0), cs.triple_plain(x))
-    assert cs.triple_grid(torch.empty(8192, 8192)) == (132 * 8,)
+    assert cs.triple_grid(torch.empty(8192, 8192)) == (
+        8192 * 8192 // (8 * cs.TRIPLE_BLOCK),)
     assert cs.triple_grid(torch.empty(4, 8)) == (1,)
     cs.phase_resnet_parity(CPU, CPU)
     got = cs.phase_resnet_train(CPU, profile=False)
@@ -262,3 +270,28 @@ def test_float64_check_of_the_float32_backward():
     off = {n: t + 1e-3 for n, t in plain.items()}
     with pytest.raises(AssertionError, match="float64 error"):
         cs.check_f64({}, args, off, plain, shape)
+
+
+def test_float64_check_of_the_float32_forward():
+    """``check_f64`` on the forward's o and lse: the plain version against
+    itself passes with a non-zero error (rows that see no key, Sq > Sk
+    causal, add none: both sides give lse = NEG_INF there), o off by 1e-3
+    fails, and the forward's float64 version agrees with the plain one."""
+    fa = cs.fa
+    shape = (1, 2, 160, 96, 64)
+    q, k, v, do = cs.flash_inputs(shape, torch.float32, 6, CPU)
+    o, lse = fa.flash_fwd_ref(q, k, v, 0.125, True)
+    want_o, want_lse = cs.flash_fwd_f64(q, k, v, 0.125, True)
+    assert (want_lse[:, :, :64] == lse[:, :, :64].double()).all()
+    assert want_o[:, :, :64].abs().max().item() == 0.0
+    torch.testing.assert_close(want_o, o.double(), rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(want_lse, lse.double(), rtol=2e-5, atol=2e-5)
+    args = (q, k, v, do, lse, fa.bwd_delta(o, do), 0.125, True)
+    plain = {"o": o, "lse": lse}
+    worst = {}
+    cs.check_f64(worst, args, plain, plain, shape)
+    kern, ref = worst[("flash_attention_fwd", "float64")]
+    assert kern == ref and 0 < kern < 2e-5
+    assert set(worst) == {("flash_attention_fwd", "float64")}
+    with pytest.raises(AssertionError, match="float64 error"):
+        cs.check_f64({}, args, {"o": o + 1e-3, "lse": lse}, plain, shape)

@@ -11,7 +11,11 @@ Imports no JAX, so it runs where only PyTorch is installed.
   ``x * 3.0`` at sizes that leave a float4 tail, with its default grid
   and with a capped grid-stride grid; reruns bit-identical; one launch
   counted per call; on contiguous views at 4-, 8- and 12-byte offsets
-  (not 16-byte aligned, so the kernel takes its one-float path);
+  (not 16-byte aligned, so the kernel takes its one-float path); and at
+  sizes that are not multiples of 4 and at every offset, under the
+  default grid, under ``chip_smoke.triple_grid`` (two float4 a thread,
+  one pass) and under that grid cut to one block an SM (several passes
+  of the grid-stride loop);
 - a two-input kernel and a kernel with a bf16 input;
 - a source that does not compile raises at the first call, and a
   dtype that does not match the kernel raises before any build;
@@ -79,6 +83,33 @@ def test_my_triple_on_a_view_at_an_offset(device, offset):
     y = op(x)
     torch.cuda.synchronize()
     assert torch.equal(y, x * 3.0)
+
+
+@pytest.mark.parametrize("n", [3, 4099 * 4099, 132 * 8 * 256 * 16 + 5,
+                               8192 * 8192 + 2])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("grid", ["default", "triple_grid", "capped"])
+def test_my_triple_at_odd_sizes_and_offsets(device, n, offset, grid):
+    """Bit-equal to ``x * 3.0`` where n is not a multiple of 4 (a scalar
+    tail after the float4s), at 0-, 4-, 8- and 12-byte offsets, with the
+    grid-stride loop's passes of two float4 whole or cut short by the
+    grid: ``cuda_op``'s default grid (one block per 256 elements),
+    ``chip_smoke.triple_grid`` (its blocks of 128 threads) and that grid
+    cut to 132 blocks."""
+    import chip_smoke
+
+    grid_fn = {"default": None, "triple_grid": chip_smoke.triple_grid,
+               "capped": lambda x: (min(chip_smoke.triple_grid(x)[0],
+                                        132),)}[grid]
+    op = cuda_op("my_triple", TRIPLE, "my_triple", _same(lambda x: x.shape),
+                 grid_fn=grid_fn, block=256 if grid == "default" else
+                 chip_smoke.TRIPLE_BLOCK, reference=lambda x: x * 3.0)
+    x = paddle.randn([n + offset])[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    y = op(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 3.0)
+    del x, y
 
 
 def test_two_inputs_and_a_bf16_input(device):

@@ -5,15 +5,16 @@ is present, and runs on a machine with the card::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_flash.py -q
 
-The float32 backward's card tests select with ``-k f32``::
+The float32 kernels' card tests select with ``-k f32``::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_flash.py -q -k f32
 
 Tolerances, kernel against plain version on the same inputs: float32
 ``o`` and ``lse`` at rtol = atol = 2e-5 (the JAX package's Pallas-tier
-tolerance), ``dq``/``dk``/``dv`` at 1e-4 (sums of up to S products of
-those; the float32 backward kernels' 3xTF32 products are held to their
-float64 version at the same 1e-4); bf16 outputs and gradients at 2e-2
+tolerance; the float32 forward's 3xTF32 products are held to its float64
+version at the same 2e-5), ``dq``/``dk``/``dv`` at 1e-4 (sums of up to S
+products of those; the float32 backward kernels' 3xTF32 products are
+held to their float64 version at the same 1e-4); bf16 outputs and gradients at 2e-2
 (both sides round p and dS to
 bf16, a step of 3.9e-3 relative, the kernel against a running max and
 the plain version against the row's final max), bf16 ``lse`` at 2e-5
@@ -282,6 +283,69 @@ def test_f32_backward_matches_plain_and_float64(device, Sq, Sk, D, causal):
                                             causal), dq)
     if causal and Sq > Sk:
         assert dq[:, :, :Sq - Sk].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", BF16_BWD_CASES)
+def test_f32_forward_matches_plain_and_float64(device, Sq, Sk, D, causal):
+    """The float32 forward (csrc/flash_fwd_f32.cu, 3xTF32 on the tensor
+    cores) at the bf16 backward's edge lengths: o and lse at 2e-5 against
+    the plain version and against the same arithmetic in float64; a row
+    that sees no key exact 0 with lse NEG_INF; a rerun bit-identical; one
+    launch a call."""
+    import chip_smoke
+
+    q, k, v, _ = _inputs(device, 2, 3, Sq, Sk, D, torch.float32,
+                         seed=Sq * 11 + Sk + D)
+    scale = D ** -0.5
+    before = fa.LAUNCHES["flash_attention_fwd"]
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
+    assert o.dtype == torch.float32 and lse.shape == (2, 3, Sq, 1)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    wo, wlse = chip_smoke.flash_fwd_f64(q, k, v, scale, causal)
+    for name, got, want, exact in (("o", o, ro, wo), ("lse", lse, rlse, wlse)):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5, msg=name)
+        torch.testing.assert_close(got.double(), exact, rtol=2e-5, atol=2e-5,
+                                   msg=name)
+    again = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    if causal and Sq > Sk:
+        dead = Sq - Sk
+        assert o[:, :, :dead].abs().max().item() == 0.0
+        assert (lse[:, :, :dead] == fa.NEG_INF).all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_f32_forward_on_strided_bshd_views(device, D):
+    """q, k, v sliced out of one packed float32 ``[B, S, 3, H, D]``
+    projection and read as ``[B, H, S, D]`` views: the same bits as on
+    contiguous copies, within 2e-5 of the plain version, and o laid out
+    ``[B, S, H, D]``."""
+    B, S, H = 2, 300, 3
+    g = torch.Generator(device=device).manual_seed(D + 3)
+    qkv = torch.randn(B, S, 3, H, D, generator=g, device=device)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))
+    o, lse = fa.flash_fwd_cuda(q, k, v, D ** -0.5, True)
+    assert o.transpose(1, 2).is_contiguous()
+    oc, lsec = fa.flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), D ** -0.5, True)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, D ** -0.5, True)
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rlse, rtol=LSE_TOL, atol=LSE_TOL)
+
+
+def test_f32_forward_ignores_the_tf32_flag(device):
+    """The float32 forward is 3xTF32 whatever PyTorch's TF32 flag says:
+    the same bits with ``allow_tf32`` on and off."""
+    q, k, v, _ = _inputs(device, 2, 3, 256, 256, 64, torch.float32, seed=6)
+    outs = []
+    for flag in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        outs.append(fa.flash_fwd_cuda(q, k, v, 0.125, True))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 @pytest.mark.parametrize("D", [64, 128])

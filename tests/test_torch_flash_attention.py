@@ -132,7 +132,7 @@ def test_kernel_tier_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("kernel,dtype,library", [
-    ("fwd", torch.float32, "flash_attention"),
+    ("fwd", torch.float32, "flash_fwd_f32"),
     ("bwd_dkdv", torch.float32, "flash_bwd_f32"),
     ("bwd_dq", torch.float32, "flash_bwd_f32"),
     ("fwd", torch.bfloat16, "flash_fwd_bf16"),

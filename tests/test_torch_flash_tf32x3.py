@@ -1,7 +1,9 @@
-"""The float32 flash backward's arithmetic, 3xTF32, emulated on the CPU.
+"""The float32 flash kernels' arithmetic, 3xTF32, emulated on the CPU.
 
-The card's float32 dK/dV and dQ kernels (``csrc/flash_bwd_f32.cu`` on
-``csrc/tf32x3.cuh``) run every product on the TF32 tensor cores: each
+The card's float32 forward and dK/dV and dQ kernels
+(``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``, both on
+``csrc/flash_f32_tiles.cuh`` and ``csrc/tf32x3.cuh``) run every product
+on the TF32 tensor cores: each
 float32 operand x is split into ``big``, x rounded to tf32's 10-bit
 mantissa (to nearest, ties away from zero), and ``small = x - big``,
 which the tensor core reads truncated to tf32; each ``mma.sync.m16n8k8``
@@ -21,7 +23,16 @@ PyTorch, step by step:
   the gradients) of a float64 version of the plain arithmetic
   (``chip_smoke.flash_bwd_f64``) and of the plain float32 versions;
 - one TF32 product instead of three is at least 100 times further from
-  float64, which is why the kernels pay for three.
+  float64, which is why the kernels pay for three;
+- the whole forward: S = Q K^T in 3xTF32, the online softmax in the log2
+  domain over walked key tiles of 32 (x = s * (scale log2(e)) rounded to
+  float32, p = 2^(x - m), each thread's share of the row sum over its
+  columns 2t and 2t + 1, ``alpha`` = 2^(m_old - m_new)), each tile's P V
+  summed from zero with P in ``c_to_a``'s register order against
+  ``load_b_perm``'s V rows, and O = O alpha + tile in float32; held
+  within 2e-5 of float64 and of the JAX package's float32 flash forward
+  (its Pallas kernel in interpret mode), with rows that see no key at o
+  = 0 and lse = NEG_INF, and wrong where the key orders disagree.
 
 Inputs come from numpy with a seed; lse and delta are the plain float32
 forward's, given to every side alike.
@@ -33,13 +44,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 import chip_smoke as cs  # noqa: E402
+from paddle_tpu.kernels import flash_attention as jfa  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 from _torch_threads import one_thread  # noqa: E402,F401
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 GRAD_TOL = 1e-4
-# the walked tiles at head_dim 64: 32 queries (dK/dV), 32 keys (dQ)
+FWD_TOL = 2e-5
+# the walked tiles at head_dim 64: 32 queries (dK/dV), 32 keys (dQ and
+# the forward, which walks 32-key tiles at head_dim 128 too)
 WALK_TILE = 32
 
 # m16n8k8 tf32 fragments: for lane l, g = l // 4 and t = l % 4
@@ -248,3 +265,117 @@ def test_mismatched_fragment_order_gives_wrong_gradients():
     got = emulated_bwd(q, k, v, do, lse, delta, scale, False,
                        rows=B_K)
     assert _max_err(got, want) > 100 * GRAD_TOL
+
+
+def emulated_fwd(q, k, v, scale, causal, a_from_c=A_FROM_C,
+                 rows=B_ROW_READ):
+    """``(o, lse)`` of the forward kernel, ``lse`` ``[B, H, Sq, 1]``:
+    S = Q K^T as ``mma``; per walked tile of WALK_TILE keys (keys past Sk
+    read as 0 and are masked) the log2-domain online softmax, each
+    thread's share of the row sum kept apart (thread t of a row holds the
+    tile's columns 8 n + 2t and 8 n + 2t + 1, summed in that order) and
+    reduced once at the end as the two shuffles do; P V summed from zero
+    over the tile with P entering in the fragments' key order; O = O
+    alpha + tile in float32."""
+    f32 = lambda x: np.float32(x)  # noqa: E731
+    ao, bo = a_order(a_from_c), b_order(rows)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    n_keys = -(-Sk // WALK_TILE) * WALK_TILE
+    pad = (0, 0, 0, n_keys - Sk)
+    kp, vp = (torch.nn.functional.pad(t, pad) for t in (k, v))
+    s = mma(q, kp.transpose(-1, -2))
+    x = s * float(f32(f32(scale) * f32(LOG2E)))
+    i = torch.arange(Sq)[:, None]
+    j = torch.arange(n_keys)[None, :]
+    seen = (j < Sk) & ((j <= i + (Sk - Sq)) if causal else True)
+    x = x.masked_fill(~seen, -math.inf)
+    m = torch.full((B, H, Sq, 1), -math.inf)
+    share = torch.zeros(B, H, Sq, 4)               # thread t's share of l
+    o = torch.zeros(B, H, Sq, D)
+    cols = torch.arange(4)
+    for k0 in range(0, n_keys, WALK_TILE):
+        xt = x[..., k0:k0 + WALK_TILE]
+        m_new = torch.maximum(m, xt.amax(dim=-1, keepdim=True))
+        m_use = torch.where(m_new == -math.inf, torch.zeros_like(m_new),
+                            m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(xt - m_use)
+        part = torch.zeros(B, H, Sq, 4)
+        for n in range(WALK_TILE // 8):
+            for e in range(2):
+                part = part + p[..., n * 8 + 2 * cols + e]
+        share = share * alpha + part
+        tile = mma(p, vp[..., k0:k0 + WALK_TILE, :], 3, ao, bo)
+        o = o * alpha + tile
+        m = m_new
+    l = (share[..., 0:1] + share[..., 1:2]) + (share[..., 2:3]
+                                               + share[..., 3:4])
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(l == 0, torch.full_like(l, float(f32(fa.NEG_INF))),
+                      m * float(f32(LN2)) + torch.log(l_safe))
+    return o / l_safe, lse
+
+
+def _fwd_inputs(B, H, Sq, Sk, D, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, H, S, D))
+                             .astype(np.float32)) for S in (Sq, Sk, Sk)]
+
+
+def _check_fwd(got, want, Sq, Sk, causal):
+    """``(o, lse)`` float32, finite, within FWD_TOL of ``want``; rows that
+    see no key at o = 0 and lse = NEG_INF."""
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        torch.testing.assert_close(g.double(), w.double(), rtol=FWD_TOL,
+                                   atol=FWD_TOL)
+    if causal and Sq > Sk:
+        assert got[0][:, :, :Sq - Sk].abs().max().item() == 0.0
+        assert (got[1][:, :, :Sq - Sk] == np.float32(fa.NEG_INF)).all()
+
+
+# (B, H, Sq, Sk, D, causal) the JAX kernel takes (lengths divisible by
+# its blocks): causal Sq < Sk and Sq > Sk (the first Sq - Sk rows see no
+# key), head_dim 128 full
+JAX_FWD_SHAPES = [(1, 2, 64, 128, 64, True), (1, 2, 128, 64, 64, True),
+                  (1, 2, 128, 128, 128, False)]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", JAX_FWD_SHAPES)
+def test_emulated_forward_matches_float64_and_jax(B, H, Sq, Sk, D, causal):
+    q, k, v = _fwd_inputs(B, H, Sq, Sk, D, seed=Sq + 2 * Sk + D)
+    scale = 1.0 / math.sqrt(D)
+    got = emulated_fwd(q, k, v, scale, causal)
+    _check_fwd(got, cs.flash_fwd_f64(q, k, v, scale, causal), Sq, Sk,
+               causal)
+    jo, jlse = jfa._flash_fwd(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                              scale, causal, 128, 128)
+    _check_fwd(got, (torch.from_numpy(np.array(jo)),
+                     torch.from_numpy(np.array(jlse))), Sq, Sk, causal)
+
+
+# lengths that are not whole tiles (32 keys, 128 or 32 rows a block)
+PARTIAL_FWD_SHAPES = [(1, 2, 96, 96, 64, True), (2, 1, 63, 200, 64, True),
+                      (1, 2, 200, 63, 128, True), (1, 2, 65, 65, 128, False),
+                      (1, 2, 1, 33, 64, True), (1, 1, 40, 1, 64, True)]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", PARTIAL_FWD_SHAPES)
+def test_emulated_forward_at_partial_tiles(B, H, Sq, Sk, D, causal):
+    q, k, v = _fwd_inputs(B, H, Sq, Sk, D, seed=Sq * 3 + Sk + D)
+    scale = 1.0 / math.sqrt(D)
+    _check_fwd(emulated_fwd(q, k, v, scale, causal),
+               cs.flash_fwd_f64(q, k, v, scale, causal), Sq, Sk, causal)
+
+
+def test_forward_mismatched_key_order_gives_wrong_o():
+    """If V's B fragment read the step's rows in their natural order (t,
+    t + 4) while P keeps the {c0, c2, c1, c3} register order, o pairs
+    probabilities with the wrong keys' values: far outside 2e-5."""
+    q, k, v = _fwd_inputs(1, 2, 64, 64, 64, seed=5)
+    want = cs.flash_fwd_f64(q, k, v, 0.125, False)[0]
+    good = emulated_fwd(q, k, v, 0.125, False)[0]
+    bad = emulated_fwd(q, k, v, 0.125, False, rows=B_K)[0]
+    assert (good.double() - want).abs().max().item() < FWD_TOL
+    assert (bad.double() - want).abs().max().item() > 100 * FWD_TOL

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-- every module of ``paddle_tpu_torch`` and ``chip_smoke.py`` is scanned
-  for imports of ``jax`` or ``paddle_tpu`` (only ``paddle_tpu_torch``
-  may be imported);
+- every module of ``paddle_tpu_torch``, ``chip_smoke.py`` and the card
+  tools of ``chip_tools/`` is scanned for imports of ``jax`` or
+  ``paddle_tpu`` (only ``paddle_tpu_torch`` may be imported);
 - importing every module of the port in a fresh interpreter leaves
   ``jax`` and ``paddle_tpu`` out of ``sys.modules``, and so does using
   its top-level Paddle surface (``import paddle_tpu_torch as paddle``,
@@ -28,7 +28,7 @@ from paddle_tpu_torch.inference.llm import policy  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "chip_tools").glob("*.py"))
 
 
 def _forbidden(name: str) -> bool:
