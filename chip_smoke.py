@@ -6,11 +6,15 @@ Run from the repository root with no arguments::
 
 (``--profile`` adds one more run of the quantized serving path, one
 more training call and two ResNet-50 steps under ``torch.profiler`` and
-prints where the device time goes. ``--old-source FILE`` builds FILE, an
-earlier source of the float32 forward's C entry ``flash_fwd_f32`` (for
-example the scalar design, ``git show 1b5748f:paddle_tpu_torch/kernels/
-csrc/flash_attention.cu``), beside the port's kernels and times it before
-and after the port's own in the flash times phase.)
+prints where the device time goes. ``--old-source FILE``, which may be
+given more than once, builds FILE beside the port's kernels and times it
+before and after the port's own: an earlier source of the float32
+forward's C entry ``flash_fwd_f32`` (for example the scalar design,
+``git show 1b5748f:paddle_tpu_torch/kernels/csrc/flash_attention.cu``) in
+the flash times phase, or an earlier ``ragged_attention.cuh`` (for
+example the SIMT page walk, ``git show 73a9031:paddle_tpu_torch/kernels/
+csrc/ragged_attention.cuh``; its page types' libraries are built from it)
+in the ragged times phase.)
 
 It builds every CUDA kernel of the port from the sources in
 ``paddle_tpu_torch/kernels/csrc`` and the user kernel
@@ -54,7 +58,10 @@ It checks that each path went through its kernels and no other, holds
 the float32 flash kernels' outputs (o and lse, the gradients) and their
 plain versions' against the same arithmetic in float64 (the kernel's
 error within 10x the plain version's), times every kernel beside its
-bound, its plain version and a library call,
+bound, its plain version and a library call (the ragged kernels also
+beside the bound of the tensor-core arithmetic they run, with their
+launches on each engine path split into decode-only steps and steps
+with a chunk or prefix row),
 and prints a JSON object of per-kernel numbers and the JSON result
 line last. The weights are random, from a seed. Any failed phase
 raises; there is no CPU fallback: without CUDA it exits non-zero and
@@ -62,6 +69,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -157,6 +165,13 @@ DTYPES = {"f32": torch.float32, "int8": torch.int8,
           "fp8": torch.float8_e4m3fn}
 REPLACES = {False: "paddle_tpu/kernels/paged_attention.py:465",
             True: "paddle_tpu/kernels/paged_attention.py:539"}
+# rows of at most this many queries take the ragged kernels' decode walk
+# (float32 FMAs), longer rows their tensor-core tile (kDecodeMaxQ in
+# csrc/ragged_attention.cuh)
+DECODE_MAX_Q = 1
+# the ragged kernels' launches on each engine path by step class, filled
+# by drive_path: path label -> {"kernel", "decode", "mix"}
+LAUNCHES_BY_STEP: dict = {}
 # the per-tier graphs' kernels (the fourth slice)
 SPEC_TOKENS = 4        # spec_tokens of the speculative path
 PER_TIER = {
@@ -363,6 +378,32 @@ def attention_work(args, quant: bool):
 def bound(args, quant: bool):
     nbytes, flops = attention_work(args, quant)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tc_bound(args, quant: bool):
+    """(ms, "bytes" or "operations") for the arithmetic the kernels run:
+    the bytes of ``attention_work``; the (query, key) pairs of rows of at
+    most DECODE_MAX_Q queries on float32 FMAs (67 TFLOP/s), those of
+    longer rows on the TF32 tensor cores at three products (float32
+    pages, 3xTF32) or two (codes: only q and p x scale are split) per
+    operation (495 TFLOP/s), and dequantization's one operation per K
+    and V element of each visible position at 67."""
+    nbytes, _ = attention_work(args, quant)
+    _, H, D = args["q"].shape
+    q_lens = args["q_lens"].tolist()
+    kv_lens = args["kv_lens"].tolist()
+    pairs = {True: 0, False: 0}
+    for ql, kv in zip(q_lens, kv_lens):
+        pairs[ql > DECODE_MAX_Q] += sum(kv - ql + t + 1 for t in range(ql))
+    positions = sum(kv for ql, kv in zip(q_lens, kv_lens) if ql > 0)
+    t_ops = (pairs[True] * H * 4 * D * (2 if quant else 3)
+             / TF32_FLOPS_PER_S
+             + (pairs[False] * H * 4 * D
+                + (positions * H * D * 2 if quant else 0))
+             / FP32_FLOPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -725,8 +766,9 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
     requires identical tokens. Returns (launches, ms per step, the
     engine, the outputs)."""
     pa.LAUNCHES.clear()
-    engine, outputs, wall = run_engine(model, requests, quant, split, chunk,
-                                       spec_tokens)
+    with ragged_steps() as by_step:
+        engine, outputs, wall = run_engine(model, requests, quant, split,
+                                           chunk, spec_tokens)
     launches = dict(pa.LAUNCHES)
     steps = engine.steps_dispatched
     for (prompt, _), out in zip(requests, outputs):
@@ -737,6 +779,11 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
     if launches != want:
         raise AssertionError(f"{label}: attention launches {launches}, "
                              f"expected {want} (layers x steps)")
+    if sum(by_step.values()) != launches[kernel]:
+        raise AssertionError(f"{label}: launches by step class {by_step} "
+                             f"do not add up to {launches[kernel]}")
+    LAUNCHES_BY_STEP[label] = {"kernel": kernel, "decode": by_step["decode"],
+                               "mix": by_step["mix"]}
     if engine.cache.prefix_hits < min_prefix_pages:
         raise AssertionError(f"{label}: the prefix cache served "
                              f"{engine.cache.prefix_hits} pages, fewer than "
@@ -750,8 +797,10 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
     log(f"[engine] {label}: {len(outputs)} requests x {NEW_TOKENS} tokens in "
         f"{steps} steps, {wall:.3f}s: {n_tok / wall:.1f} tokens/s, "
         f"{ms_step:.2f} ms/step; {kernel} launches {want[kernel]} = "
-        f"layers x steps, no other attention kernel; prefix-cache hits "
-        f"{engine.cache.prefix_hits} pages")
+        f"layers x steps ({by_step['decode']} in decode-only steps, "
+        f"{by_step['mix']} in steps with a chunk or prefix row), no other "
+        f"attention kernel; prefix-cache hits {engine.cache.prefix_hits} "
+        "pages")
     if rerun:
         _, again, wall2 = run_engine(model, requests, quant, split, chunk,
                                      spec_tokens)
@@ -762,6 +811,42 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
         log(f"[engine] {label}: rerun identical; {n_tok / wall2:.1f} "
             f"tokens/s, {ms_step:.2f} ms/step (warm)")
     return launches, ms_step, engine, outputs
+
+
+@contextlib.contextmanager
+def ragged_steps():
+    """Count the ragged kernels' launches by step class while the block
+    runs: "decode" where the step's ``max_q_len`` is at most DECODE_MAX_Q
+    (every row decodes; the tile kernel does not launch), "mix" where a
+    row carries a chunk, a prefix hit or drafts.
+    Wraps ``pa.ragged_attention_cuda`` and counts after it returns, that
+    is after a launch."""
+    counts: collections.Counter = collections.Counter()
+    inner = pa.ragged_attention_cuda
+
+    def counted(*args, **kw):
+        out = inner(*args, **kw)
+        max_q = kw.get("max_q_len")
+        decode = max_q is not None and max_q <= DECODE_MAX_Q
+        counts["decode" if decode else "mix"] += 1
+        return out
+
+    pa.ragged_attention_cuda = counted
+    try:
+        yield counts
+    finally:
+        pa.ragged_attention_cuda = inner
+
+
+def log_split_agreement(label, requests, outs) -> None:
+    """Log how many greedy requests gave the same tokens with the KV split
+    on and off (``outs``: split pages -> outputs). Not a check: the two
+    schedules sum in other orders, and a near-tie among the top logits may
+    fall either way."""
+    greedy = [i for i, (_, sp) in enumerate(requests) if sp is None]
+    same = sum(outs[0][i] == outs[SPLIT][i] for i in greedy)
+    log(f"[engine] {label}: greedy tokens equal with the split on and off "
+        f"for {same} of {len(greedy)} requests")
 
 
 def requests_spec():
@@ -1091,18 +1176,38 @@ def sdpa_inputs(args, scales):
     return qd, kv[0], kv[1], mask
 
 
-def time_shape(args, scales, max_q, split, quant):
-    ms = time_cuda(lambda: pa.ragged_attention(
-        **args, tier="kernel", max_q_len=max_q, split_pages=split, **scales))
-    plain_ms = time_cuda(lambda: plain(args, scales, split), reps=5,
-                         warmup=1)
+def time_shape(args, scales, max_q, split, quant, old=None):
+    """The kernel, its plain version and the library yardstick at one
+    shape, beside both bounds; with ``old`` (a ``pa._entry`` that takes
+    the ragged C entries from an earlier design's libraries) that
+    design's time before and after the kernel's."""
+    def kernel():
+        return pa.ragged_attention(**args, tier="kernel", max_q_len=max_q,
+                                   split_pages=split, **scales)
+
+    def time_old():
+        own, pa._entry = pa._entry, old
+        try:
+            return time_cuda(kernel)
+        finally:
+            pa._entry = own
+
+    before = time_old() if old else None
+    ms = time_cuda(kernel)
+    out = {"ms": ms}
+    if old:
+        out["design_ms"] = [before, time_old()]
+    out["plain_ms"] = time_cuda(lambda: plain(args, scales, split), reps=5,
+                                warmup=1)
     qd, k, v, mask = sdpa_inputs(args, scales)
     lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         qd, k, v, attn_mask=mask))
     del qd, k, v, mask
     bms, by = bound(args, quant)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms}
+    tc_ms, tc_by = tc_bound(args, quant)
+    out.update(bound_ms=bms, bound_by=by, library_ms=lib_ms,
+               tc_bound_ms=tc_ms, tc_bound_by=tc_by)
+    return out
 
 
 def per_tier_work(args):
@@ -1187,13 +1292,21 @@ def per_tier_rows(device, launches: dict, errors: dict):
     return rows
 
 
-def phase_times(device, launches: dict, errors: dict):
+def phase_times(device, launches: dict, errors: dict, old_ragged=None):
     """Each kernel, its plain version and the library yardstick at the
     decode shape (the engine's steady state, reported first) and the mix
     shape of GPT-3 XL geometry; the float kernel also at its own
     GPT-2-small shapes. The yardstick times
     ``F.scaled_dot_product_attention`` alone on K/V already gathered and
-    dequantized dense; the port never calls it."""
+    dequantized dense; the port never calls it. Each shape carries both
+    bounds (``bound``: float32 operations at 67 TFLOP/s; ``tc_bound``:
+    the arithmetic the kernels run) and, with ``old_ragged`` (source
+    path, C entry -> library of an earlier design), that design's two
+    times. Each row carries the launches by step class of the path its
+    launches come from (LAUNCHES_BY_STEP) and launches x (time - bound)
+    at the matching shape: decode-only steps at the decode shape, the
+    rest at the mix."""
+    old = ragged_entry(old_ragged[1]) if old_ragged else None
     rows = []
     for split in (0, SPLIT):
         for mode in MODES:
@@ -1206,21 +1319,88 @@ def phase_times(device, launches: dict, errors: dict):
                 for kind, seed in (("decode", 1), ("mix", 0)):
                     args, scales, max_q, _ = ragged_mix(kind, seed, device,
                                                         spec, mode)
-                    shapes[kind + suffix] = time_shape(args, scales, max_q,
-                                                       split, mode != "f32")
+                    shapes[kind + suffix] = time_shape(
+                        args, scales, max_q, split, mode != "f32", old)
                     del args, scales
                     t = shapes[kind + suffix]
+                    design = ("" if old is None else
+                              f", {old_ragged[0]} {t['design_ms'][0]:.4f} / "
+                              f"{t['design_ms'][1]:.4f} ms")
                     log(f"[times] {name} {kind}{suffix}: kernel "
-                        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                        f"sdpa {t['library_ms']:.4f} ms, bound "
-                        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
-            rows.append({"name": name, "route": "cuda",
-                         "source": SOURCES[mode],
-                         "replaces": REPLACES[split > 0],
-                         "launches": launches.get(name, 0),
-                         "max_abs_err": errors[name], **shapes["decode"],
-                         "shapes": shapes})
+                        f"{t['ms']:.4f} ms{design}, plain "
+                        f"{t['plain_ms']:.4f} ms, sdpa "
+                        f"{t['library_ms']:.4f} ms, bound "
+                        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                        f"tensor-core bound {t['tc_bound_ms']:.4f} ms "
+                        f"({t['tc_bound_by']})")
+            row = {"name": name, "route": "cuda", "source": SOURCES[mode],
+                   "replaces": REPLACES[split > 0],
+                   "launches": launches.get(name, 0),
+                   "max_abs_err": errors[name], **shapes["decode"],
+                   "shapes": shapes}
+            # the path whose launches the row reports
+            by_step = next(({"path": path, **rec} for path, rec in
+                            reversed(LAUNCHES_BY_STEP.items())
+                            if rec["kernel"] == name and rec["decode"]
+                            + rec["mix"] == launches.get(name)), None)
+            if by_step:
+                suffix = "_gpt2_small" if name == "ragged_attention" else ""
+                loss = {k: by_step[k] * (shapes[k + suffix]["ms"]
+                                         - shapes[k + suffix]["bound_ms"])
+                        for k in ("decode", "mix")}
+                row["launches_by_step"] = by_step
+                row["launch_ms_over_bound"] = loss
+                log(f"[times] {name} on {by_step['path']}: "
+                    f"{by_step['decode']} launches in decode-only steps x "
+                    f"(time - bound) = {loss['decode']:.2f} ms, "
+                    f"{by_step['mix']} in steps with a chunk or prefix row = "
+                    f"{loss['mix']:.2f} ms (at the{suffix.replace('_', ' ')}"
+                    " decode and mix shapes)")
+            rows.append(row)
     return rows
+
+
+def ragged_entry(libs: dict):
+    """``pa._entry`` with each ragged C entry in ``libs`` (C entry ->
+    library built from another source of it) taken from there, every
+    other entry the port's own."""
+    own = pa._entry
+
+    def pick(lib_name, entry, n_ptr, n_int):
+        if entry not in libs:
+            return own(lib_name, entry, n_ptr, n_int)
+        fn = getattr(libs[entry], entry)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        return fn
+    return pick
+
+
+def inline_includes(text: str, seen=None) -> str:
+    """``text`` with each ``#include "..."`` of a ``csrc/`` header
+    replaced by the header (recursively, each once, ``#pragma once``
+    dropped), so that it builds outside ``csrc/``."""
+    seen = set() if seen is None else seen
+
+    def sub(m):
+        if m.group(1) in seen:
+            return ""
+        seen.add(m.group(1))
+        return inline_includes((_build.CSRC / m.group(1)).read_text(), seen)
+
+    text = re.sub(r"^\s*#pragma once\s*$", "", text, flags=re.M)
+    return re.sub(r'^\s*#include\s+"([^"]+)"\s*$', sub, text, flags=re.M)
+
+
+def old_ragged_sources(text: str) -> dict:
+    """Library name -> CUDA source of each page type's library built
+    from ``text``, an earlier ``ragged_attention.cuh``: the port's
+    one-line instantiation with that header in place of its own."""
+    return {f"{lib}_old": inline_includes(
+        (_build.CSRC / f"{lib}.cu").read_text().replace(
+            '#include "ragged_attention.cuh"', text))
+        for lib, _, _ in pa._LIBS.values()}
 
 
 # ------------------------------------------------------------ training
@@ -2082,11 +2262,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
-    old_fwd, old_text = None, {}
-    if "--old-source" in sys.argv[1:]:
-        old_fwd = sys.argv[sys.argv.index("--old-source") + 1]
-        with open(old_fwd) as f:
-            old_text["flash_fwd_f32_old"] = f.read()
+    old_fwd, old_ragged, old_text = None, None, {}
+    argv = sys.argv[1:]
+    for path in (argv[i + 1] for i, a in enumerate(argv[:-1])
+                 if a == "--old-source"):
+        with open(path) as f:
+            text = f.read()
+        if "#define RAGGED_ATTENTION_ENTRY" in text:
+            old_ragged = path
+            old_text.update(old_ragged_sources(text))
+        else:
+            old_fwd = path
+            old_text["flash_fwd_f32_old"] = text
     phase_build(triple_op(), old_text)
     log(f"[card] {card_identity()}")
     errors = phase_kernels(device)
@@ -2099,12 +2286,16 @@ def main() -> int:
                                               device=device), device=device)
     phase_step_float(device, gpt2.params)
     reqs = requests_gpt2(7)
+    outs = {}
     for split in (0, SPLIT):
         got = drive_path(f"GPT-2-small float split {split}", gpt2, reqs,
                          pa.kernel_name(torch.float32, split > 0),
                          split=split, min_prefix_pages=256 // PAGE,
-                         rerun=split == 0)[0]
-        launches.update(got)
+                         rerun=split == 0)
+        launches.update(got[0])
+        outs[split] = got[3]
+    del got
+    log_split_agreement("GPT-2-small float", reqs, outs)
 
     # the fourth slice's main path: speculative decoding on the engine,
     # then the per-tier graphs through the decode and mixed kernels
@@ -2121,16 +2312,20 @@ def main() -> int:
     phase_step_quant(device, xl.params)
     reqs = requests_long(11, GPT3_XL.vocab)
     int8 = QuantConfig(kv="int8", weights="int8")
-    got, ms_split = drive_path(
-        "GPT-3 XL int8 KV + int8 weights, split 16", xl, reqs,
-        pa.kernel_name(torch.int8, True), int8, SPLIT, CHUNK,
-        min_prefix_pages=512 // PAGE, rerun=True)[:2]
-    launches.update(got)
-    got, ms_unsplit = drive_path(
-        "GPT-3 XL int8 KV + int8 weights, unsplit", xl, reqs,
-        pa.kernel_name(torch.int8, False), int8, 0, CHUNK,
-        min_prefix_pages=512 // PAGE)[:2]
-    launches.update(got)
+    outs, ms = {}, {}
+    for split in (SPLIT, 0):
+        # the engine the call also returns (with its model and KV pages)
+        # must not outlive this path
+        got = drive_path(
+            f"GPT-3 XL int8 KV + int8 weights, "
+            f"{f'split {split}' if split else 'unsplit'}", xl, reqs,
+            pa.kernel_name(torch.int8, split > 0), int8, split, CHUNK,
+            min_prefix_pages=512 // PAGE, rerun=split > 0)
+        launches.update(got[0])
+        ms[split], outs[split] = got[1], got[3]
+    del got
+    ms_split, ms_unsplit = ms[SPLIT], ms[0]
+    log_split_agreement("GPT-3 XL int8", reqs, outs)
     log(f"[engine] GPT-3 XL int8 ms/step: split {SPLIT} {ms_split:.2f}, "
         f"unsplit {ms_unsplit:.2f} (warm split run vs the unsplit run "
         "that followed it)")
@@ -2143,14 +2338,18 @@ def main() -> int:
     xl4 = TorchLM(GPT3_XL_4L, init_lm_params(GPT3_XL_4L, seed=1,
                                              device=device), device=device)
     fp8 = QuantConfig(kv="fp8", weights="int8")
+    outs = {}
     for split in (SPLIT, 0):
-        # [0]: the engine the call also returns (with its model and KV
-        # pages) must not outlive this path into the training phases
+        # the engine the call also returns (with its model and KV pages)
+        # must not outlive this path into the training phases
         got = drive_path(f"GPT-3 XL widths, 4 layers, fp8 KV, split "
                          f"{split}", xl4, reqs,
                          pa.kernel_name(torch.float8_e4m3fn, split > 0),
-                         fp8, split, CHUNK, min_prefix_pages=512 // PAGE)[0]
-        launches.update(got)
+                         fp8, split, CHUNK, min_prefix_pages=512 // PAGE)
+        launches.update(got[0])
+        outs[split] = got[3]
+    del got
+    log_split_agreement("GPT-3 XL fp8", reqs, outs)
     del xl4
     torch.cuda.empty_cache()
 
@@ -2175,7 +2374,11 @@ def main() -> int:
     phase_resnet_train(device, "--profile" in sys.argv[1:])
     torch.cuda.empty_cache()
 
-    rows = phase_times(device, launches, errors)
+    if old_ragged is not None:
+        old_ragged = (old_ragged, {
+            entry: _build.load_source(f"{lib}_old", old_text[f"{lib}_old"])
+            for lib, entry, _ in pa._LIBS.values()})
+    rows = phase_times(device, launches, errors, old_ragged)
     rows += per_tier_rows(device, launches, per_tier_errors)
     if old_fwd is not None:
         old_fwd = (old_fwd, _build.load_source(

@@ -2,11 +2,11 @@
 // sm_90a: one block attends a tile of up to TQ query rows of one head
 // against one sequence's K/V pages, through its page-table row.
 //
-// Used by the ragged kernels (ragged_attention.cuh) and the decode kernel
-// (paged_attention.cu); each __global__ owns its grid, its query and
-// output layout and its masks' inputs, and calls attend_tile. The mixed
-// chunk/verify kernel (mixed_attention.cu) walks its pages itself and
-// takes only launch and visible_pages from here.
+// Used by the decode kernel (paged_attention.cu), whose __global__ owns its
+// grid, its query and output layout and its masks' inputs, and calls
+// attend_tile. The mixed chunk/verify kernel (mixed_attention.cu) walks
+// its pages itself and takes only launch and visible_pages from here; the
+// ragged kernels (ragged_attention.cuh) have walks of their own.
 //
 // Semantics. Query row i of the tile sits at global position pos0 + i
 // and sees every key position kv_pos < kv_len with kv_pos <= pos0 + i

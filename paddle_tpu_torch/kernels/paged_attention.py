@@ -31,8 +31,9 @@ exact zeros, and the finite ``NEG_INF`` masks.
 Each shape has two tiers behind its dispatcher:
 
 - ``kernel``: a hand-written CUDA kernel — ``csrc/ragged_attention*.cu``
-  (one library per page type; with ``split_pages`` the flash-decode KV
-  split) replacing the Pallas ``_ragged_kernel`` and
+  (one library per page type: a tensor-core tile for rows of several
+  queries, a bandwidth walk for one-query rows, which ``split_pages``
+  splits flash-decode style) replacing the Pallas ``_ragged_kernel`` and
   ``_ragged_split_kernel``; ``csrc/paged_attention.cu`` replacing
   ``_decode_kernel``; ``csrc/mixed_attention.cu`` replacing
   ``_mixed_kernel``. They take CUDA tensors only and raise on anything
@@ -75,9 +76,11 @@ NEG_INF = -1e30
 # through (reset with LAUNCHES.clear())
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
-# the kernels' limits (csrc/paged_walk.cuh): one lane per key of a
-# page, ceil(D / 32) head-dim elements per lane; the mixed kernel keeps
-# them (key blocks of at least two whole pages, at most 128 columns)
+# the kernels' limits: the decode kernel (csrc/paged_walk.cuh) scores one
+# key a lane and holds ceil(D / 32) head-dim elements a lane; the ragged
+# kernels' decode walk reads pages of at most 32 keys and the tile pads D
+# to 32, 64 or 128; the mixed kernel's key blocks hold at least two whole
+# pages and at most 128 columns
 _MAX_PAGE_SIZE = 32
 _MAX_HEAD_DIM = 128
 
@@ -299,9 +302,10 @@ def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
     """Launch the CUDA kernel for the pools' page type on the current
     stream: float32 pools, or int8 / float8_e4m3fn code pools with
     float32 scale pools ``[P, page, H]``. ``split_pages`` in ``(0,
-    pages_per_seq)`` launches the KV split (a chunk pass into a float32
-    workspace from PyTorch's caching allocator, then the fixed-order
-    combine); anything else the unsplit kernel. ``max_q_len`` (the
+    pages_per_seq)`` launches the KV split: one-query rows walk their
+    pages in chunks into a float32 workspace from PyTorch's caching
+    allocator, merged by a fixed-order combine; rows of several queries
+    walk unsplit. Anything else launches the unsplit kernels. ``max_q_len`` (the
     largest ``q_lens`` entry, which the engine knows on the host) sizes
     the grid without a device sync; ``None`` takes the whole flat width
     ``N``, whose extra blocks exit at once. Raises on CPU tensors, on

@@ -30,7 +30,9 @@ def test_the_port_libraries_and_their_headers():
     """Each library of ``KERNELS`` has its source, includes exactly its
     headers, and every ``.cu`` of ``csrc/`` is a library: the float32
     forward is ``flash_fwd_f32`` (no ``flash_attention`` library is
-    left), on the tile helpers it shares with the float32 backward."""
+    left), on the tile helpers it shares with the float32 backward; the
+    ragged libraries' tensor-core tile uses the same helpers, and only
+    the decode and mixed kernels use the shared page walk."""
     assert {"flash_fwd_f32", "flash_bwd_f32", "paged_attention",
             "mixed_attention"} <= set(_build.KERNELS)
     assert "flash_attention" not in _build.KERNELS
@@ -48,7 +50,7 @@ def test_the_port_libraries_and_their_headers():
             "mixed_attention": [walk, cp_async]}
     for name in _build.KERNELS:
         headers = _build._local_headers(_build.CSRC / f"{name}.cu")
-        assert headers == want.get(name, [ragged, walk])
+        assert headers == want.get(name, [ragged, tiles, cp_async, tf32x3])
 
 
 def _tool(name):
@@ -110,3 +112,32 @@ def test_my_triple_tool_rewrites_each_variant():
         assert load in variant and store in variant
         assert custom_op.kernel_pointer_dtypes(variant, "my_triple") == [
             torch.float32, torch.float32]
+
+
+def test_ragged_tool_rewrites_each_variant():
+    """``chip_tools/ragged_tune.py`` builds variants of the ragged kernels
+    by rewriting the head_dim-64 tile's launch lines (code and float32
+    pages) and the decode walk's constants in ``ragged_attention.cuh``:
+    each pattern matches once, and a variant differs from the header
+    only there."""
+    tool = _tool("ragged_tune")
+    src = (_build.CSRC / tool.HEADER).read_text()
+    patterns = (tool.CTILE, tool.FTILE, tool.DQ, tool.DW, tool.DPW, tool.DNS)
+    for pattern in patterns:
+        assert len(pattern.findall(src)) == 1, pattern.pattern
+    name, variant = tool.variant_header(
+        "v/ctile=4, 2, 64, 3/ftile=2, 1, 32, 2/dq=2/dw=4/dpw=2/dns=3")
+    assert name == "v"
+    assert tool.CTILE.findall(variant) == ["launch_tile<T, 64, 4, 2, 64, 3>"]
+    assert tool.FTILE.findall(variant) == ["launch_tile<T, 64, 2, 1, 32, 2>"]
+    assert "constexpr int kDecodeMaxQ = 2;" in variant
+    assert "constexpr int kDecodeWarps = 4;" in variant
+    assert "constexpr int kDecodePagesPerWarp = 2;" in variant
+    assert "constexpr int kDecodeStages = 3;" in variant
+
+    def strip(text):
+        for pattern in patterns:
+            text = pattern.sub("", text)
+        return text
+    assert strip(variant) == strip(src)
+    assert tool.variant_header("same")[1] == src

@@ -27,6 +27,18 @@ launch bookkeeping and their checks are exercised before a chip run:
 - the float32 training phase on a narrow GPT (d 128, 2 layers, 2 x 128
   tokens) with the flash wrappers swapped for their plain versions:
   one launch of each per layer per step, finite losses;
+- the ragged times phase and its rows of the kernels line at narrow
+  heads (H 2, D 16, the smoke's contexts): both bounds at every shape
+  (the tensor-core bound's arithmetic checked by hand on a tiny mix),
+  an earlier design's two times when its libraries are given, each
+  row's launches by step class and launches x (time - bound); and the
+  engine path's count of ragged launches by step class (decode-only
+  steps and steps with a chunk or prefix row), which must add up to
+  its launches;
+- the smoke's build of an earlier ``ragged_attention.cuh`` (the SIMT
+  page walk of the parent commit's design as text): each page type's
+  library source has the header and its local includes inlined and
+  keeps its C entry;
 - the core phases: the custom-op programs and ``my_triple`` through its
   op (reference counted as a launch) at small shapes, the ResNet
   parity phase (CPU against CPU) and the ResNet training phase with
@@ -295,3 +307,98 @@ def test_float64_check_of_the_float32_forward():
     assert set(worst) == {("flash_attention_fwd", "float64")}
     with pytest.raises(AssertionError, match="float64 error"):
         cs.check_f64({}, args, {"o": o + 1e-3, "lse": lse}, plain, shape)
+
+
+def test_tensor_core_bound_by_hand():
+    """Rows of one query at 67 TFLOP/s, longer rows at two (codes) or
+    three (float32) TF32 products per operation at 495, dequantization
+    at 67; bytes as the float32 bound counts them."""
+    i32 = dict(dtype=torch.int32)
+    args = dict(q=torch.zeros(4, 1, 8), q_lens=torch.tensor([1, 3], **i32),
+                kv_lens=torch.tensor([5, 3], **i32))
+    ops = {True: 6 * 32 * 2 / 495e12 + (5 * 32 + 8 * 8 * 2) / 67e12,
+           False: 6 * 32 * 3 / 495e12 + 5 * 32 / 67e12}
+    for quant in (True, False):
+        nbytes, _ = cs.attention_work(args, quant)
+        ms, by = cs.tc_bound(args, quant)
+        want = max(nbytes / cs.HBM_BYTES_PER_S, ops[quant])
+        assert ms == pytest.approx(want * 1e3, rel=1e-12)
+        assert by == "bytes"
+    long_row = dict(q=torch.zeros(601, 1, 64),    # a 600-token chunk
+                    q_lens=torch.tensor([1, 600], **i32),
+                    kv_lens=torch.tensor([5, 600], **i32))
+    assert cs.tc_bound(long_row, True)[1] == "operations"
+
+
+def test_ragged_times_and_rows(plain_kernels, monkeypatch):
+    monkeypatch.setattr(cs, "time_cuda", lambda fn, reps=20, warmup=3:
+                        (fn(), 1.0)[1])
+    for name, spec in (("GPT3_XL", cs.GPT3_XL), ("GPT2_SMALL",
+                                                  cs.GPT2_SMALL)):
+        monkeypatch.setattr(cs, name, ModelSpec(
+            vocab=64, d_model=32, num_layers=2, num_heads=2, head_dim=16,
+            max_seq_len=spec.max_seq_len))
+    names = [pa.kernel_name(cs.DTYPES[m], sp) for sp in (False, True)
+             for m in cs.MODES]
+    int8 = pa.kernel_name(torch.int8, True)
+    # the row takes the path its launches come from: the last one whose
+    # total matches
+    monkeypatch.setattr(cs, "LAUNCHES_BY_STEP", {
+        "quantized": {"kernel": int8, "decode": 1200, "mix": 120},
+        "other": {"kernel": int8, "decode": 1, "mix": 2}})
+    entry = pa._entry
+    rows = cs.phase_times(CPU, {n: 1320 if n == int8 else 24 for n in names},
+                          {n: 0.0 for n in names}, ("old.cuh", {}))
+    assert pa._entry is entry
+    assert [r["name"] for r in rows] == names
+    root = cs.os.path.dirname(cs.os.path.abspath(cs.__file__))
+    for row in rows:
+        assert cs.os.path.exists(cs.os.path.join(root, row["source"]))
+        assert row["launches"] == (1320 if row["name"] == int8 else 24)
+        assert row["ms"] == 1.0
+        kinds = {"decode", "mix"} | ({"decode_gpt2_small", "mix_gpt2_small"}
+                                     if row["name"] == names[0] else set())
+        assert set(row["shapes"]) == kinds
+        for t in row["shapes"].values():
+            assert t["design_ms"] == [1.0, 1.0]
+            assert 0 < t["tc_bound_ms"] <= t["bound_ms"]
+            assert {t["bound_by"], t["tc_bound_by"]} <= {"bytes",
+                                                         "operations"}
+        assert ("launches_by_step" in row) == (row["name"] == int8)
+    assert rows[names.index(int8)]["launches_by_step"] == {
+        "path": "quantized", "kernel": int8, "decode": 1200, "mix": 120}
+    loss = rows[names.index(int8)]["launch_ms_over_bound"]
+    shapes = rows[names.index(int8)]["shapes"]
+    assert loss == {k: n * (1.0 - shapes[k]["bound_ms"])
+                    for k, n in (("decode", 1200), ("mix", 120))}
+
+
+def test_engine_path_counts_launches_by_step(plain_kernels, monkeypatch):
+    spec = ModelSpec(vocab=cs.GPT2_SMALL.vocab, d_model=64, num_layers=2,
+                     num_heads=2, head_dim=32,
+                     max_seq_len=cs.GPT2_SMALL.max_seq_len)
+    model = TorchLM(spec, init_lm_params(spec, seed=0, device=CPU),
+                    device=CPU)
+    monkeypatch.setattr(cs, "LAUNCHES_BY_STEP", {})
+    name = pa.kernel_name(torch.float32, True)
+    launches = cs.drive_path("rehearsal", model, cs.requests_gpt2(7), name,
+                             split=cs.SPLIT, chunk=cs.CHUNK,
+                             min_prefix_pages=256 // cs.PAGE)[0]
+    got = cs.LAUNCHES_BY_STEP["rehearsal"]
+    assert got["kernel"] == name
+    assert got["decode"] > 0 and got["mix"] > 0
+    assert got["decode"] + got["mix"] == launches[name]
+    assert pa.ragged_attention_cuda.__name__ == "run"     # unwrapped
+
+
+def test_old_ragged_sources_inline_the_header():
+    old = (cs._build.CSRC / "paged_walk.cuh").read_text()
+    header = ('#pragma once\n#include "paged_walk.cuh"\n' + old[:0]
+              + "#define RAGGED_ATTENTION_ENTRY(NAME, T) int NAME;\n")
+    sources = cs.old_ragged_sources(header)
+    assert set(sources) == {f"{lib}_old" for lib, _, _ in pa._LIBS.values()}
+    for lib, entry, _ in pa._LIBS.values():
+        text = sources[f"{lib}_old"]
+        assert "#include \"" not in text and "#pragma once" not in text
+        assert "namespace paged" in text           # paged_walk.cuh inlined
+        assert f"RAGGED_ATTENTION_ENTRY({entry}," in text

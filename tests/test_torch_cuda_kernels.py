@@ -8,6 +8,9 @@ is present, and runs on a machine with the card::
 Imports no JAX (``--noconftest`` skips ``tests/conftest.py``, which
 does), so it runs where only PyTorch is installed.
 """
+import hashlib
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -127,6 +130,88 @@ def test_quant_and_split_kernels_match_plain(device, mode, split, H, D,
         again = pa.ragged_attention(**args, max_q_len=max(q_lens),
                                     split_pages=split, **scales)
         assert torch.equal(out, again)     # no atomics: the same bits
+
+
+# every row kind of the redesigned kernels: idle, one query (the decode
+# walk), two (the smallest tile row), around one and eight 64-row tiles;
+# the last row sees no key (kv_len 0); context lengths are no multiple of
+# the page
+EDGE_Q_LENS = [0, 1, 2, 15, 16, 17, 63, 64, 65, 512, 1]
+EDGE_KV_LENS = [0, 77, 43, 15, 111, 170, 63, 333, 101, 600, 0]
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8", "fp8"])
+@pytest.mark.parametrize("split", [0, 3])
+@pytest.mark.parametrize("page,D", [(8, 32), (16, 64), (32, 80), (16, 128)])
+def test_row_kinds_page_sizes_and_head_dims(device, mode, split, page, D):
+    """The decode walk and the tensor-core tile at every q_len around
+    their threshold and the tile's rows, page sizes 8/16/32, head dims
+    32/64/80/128, a page of all-zero values (codes 0 under scale 0) read
+    by two rows: within 2e-5 of the plain version (the split one's
+    reference for the split), padding exact 0, the split within 2e-5 of
+    the unsplit kernel, reruns bit-identical."""
+    pps = -(-640 // page)
+    args, n_used = _mix(device, 4, D, page, EDGE_Q_LENS, EDGE_KV_LENS, pps,
+                        7, seed=page + D)
+    args, scales = _quantized(args, mode)
+    zero_page = int(args["page_table"][9, 1])     # rows 9 and 4 read it
+    args["page_table"][4, 0] = zero_page
+    if mode == "f32":
+        for pool in ("k_pool", "v_pool"):
+            args[pool][zero_page] = 0
+    else:
+        for pool in ("k_pool", "v_pool"):
+            args[pool].view(torch.uint8)[zero_page] = 0
+        for sc in scales.values():
+            sc[zero_page] = 0
+    max_q = max(EDGE_Q_LENS)
+    outs = {}
+    for sp in (0, split) if split else (0,):
+        out = pa.ragged_attention(**args, max_q_len=max_q, split_pages=sp,
+                                  **scales)
+        again = pa.ragged_attention(**args, max_q_len=max_q, split_pages=sp,
+                                    **scales)
+        torch.cuda.synchronize()
+        ref = pa.ragged_attention_ref_split(**args, split_pages=sp, **scales)
+        torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+        assert (out[n_used:] == 0).all()
+        assert torch.equal(out, again)
+        outs[sp] = out
+    if split:
+        torch.testing.assert_close(outs[split], outs[0], rtol=TOL, atol=TOL)
+    row = sum(EDGE_Q_LENS[:-1])                   # the last row: no key
+    assert (outs[0][row] == 0).all()
+
+
+# sha256 of the decode kernel's output bytes at its GPT-2-small geometry on
+# the inputs of ``_decode_bits_inputs`` (the parent's build of
+# paged_attention.cu and paged_walk.cuh gives the same)
+DECODE_BITS = "411e59becd30794a7c3698f256df2eb84e298466cb34e0c33d592a380c3167a5"
+
+
+def _decode_bits_inputs(device):
+    rng = np.random.default_rng(2024)
+    B, H, D, page, pps = 8, 12, 64, 16, 64
+    n_pages = B * pps + 1
+    f32 = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+    table = rng.permutation(n_pages - 1).reshape(B, pps) + 1
+    seq = [1000, 1, 0, 517, 1024, 999, 16, 33]
+    i32 = dict(dtype=torch.int32, device=device)
+    return dict(q=f32(B, H, D), k_pool=f32(n_pages, page, H, D),
+                v_pool=f32(n_pages, page, H, D),
+                page_table=torch.tensor(table, **i32),
+                seq_lens=torch.tensor(seq, **i32))
+
+
+def test_decode_kernel_bits_did_not_move(device):
+    """The decode kernel (``paged_attention.cu``, on ``paged_walk.cuh``)
+    gives the bits it gave before the ragged kernels left the shared
+    page walk."""
+    out = pa.paged_attention(**_decode_bits_inputs(device), tier="kernel")
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    assert digest == DECODE_BITS, digest
 
 
 def test_quantized_kernel_rejects_missing_scales(device):
