@@ -14,7 +14,11 @@ forward's C entry ``flash_fwd_f32`` (for example the scalar design,
 the flash times phase, or an earlier ``ragged_attention.cuh`` (for
 example the SIMT page walk, ``git show 73a9031:paddle_tpu_torch/kernels/
 csrc/ragged_attention.cuh``; its page types' libraries are built from it)
-in the ragged times phase.)
+in the ragged times phase, or an earlier decode kernel
+``paged_attention.cu`` (for example the SIMT walk, ``git show
+6afcada:paddle_tpu_torch/kernels/csrc/paged_attention.cu``, with its
+``paged_walk.cuh`` extracted beside it: a source's ``#include "..."`` is
+found beside it first, then in ``csrc/``) in the per-tier times phase.)
 
 It builds every CUDA kernel of the port from the sources in
 ``paddle_tpu_torch/kernels/csrc`` and the user kernel
@@ -80,6 +84,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -1246,14 +1251,33 @@ def per_tier_sdpa_inputs(args):
     return q.transpose(1, 2).contiguous(), k, v, mask
 
 
-def per_tier_rows(device, launches: dict, errors: dict):
+def per_tier_rows(device, launches: dict, errors: dict, old_decode=None):
     """The kernels line's rows for the decode and mixed kernels: kernel,
     plain and library times and the bound at each per-tier shape (the
-    mixed kernel's headline at the chunk shape, verify beside it)."""
+    mixed kernel's headline at the chunk shape, verify beside it). With
+    ``old_decode`` (source path, library of an earlier decode kernel) that
+    design's time at the decode shape before and after the kernel's."""
     shapes = {name: {} for name in PER_TIER}
+    old = (ragged_entry({"paged_attention_f32": old_decode[1]})
+           if old_decode else None)
+
+    def time_old(args):
+        own, pa._entry = pa._entry, old
+        try:
+            return time_cuda(lambda: per_tier_call(args, "kernel"))
+        finally:
+            pa._entry = own
+
     for seed, (kind, name) in enumerate(PER_TIER_SHAPES):
         args = per_tier_mix(kind, 40 + seed, device)
+        with_old = old is not None and name == pa.PAGED_KERNEL
+        before = time_old(args) if with_old else None
         ms = time_cuda(lambda: per_tier_call(args, "kernel"))
+        design = ""
+        if with_old:
+            design_ms = [before, time_old(args)]
+            design = (f", {old_decode[0]} {design_ms[0]:.4f} / "
+                      f"{design_ms[1]:.4f} ms")
         plain_ms = time_cuda(lambda: per_tier_call(args, "ref"), reps=5,
                              warmup=1)
         qd, k, v, mask = per_tier_sdpa_inputs(args)
@@ -1266,6 +1290,8 @@ def per_tier_rows(device, launches: dict, errors: dict):
              "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
+        if with_old:
+            t["design_ms"] = design_ms
         note = ""
         if name == pa.MIXED_KERNEL:
             t["schedule"] = mixed_schedule(args)
@@ -1275,7 +1301,7 @@ def per_tier_rows(device, launches: dict, errors: dict):
                     "ms)")
         shapes[name][kind] = t
         log(f"[times] {name} {kind} {list(args['q'].shape)}: kernel "
-            f"{ms:.4f} ms{note}, plain {plain_ms:.4f} ms, sdpa "
+            f"{ms:.4f} ms{note}{design}, plain {plain_ms:.4f} ms, sdpa "
             f"{lib_ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}: {nbytes} bytes, {flops} float32 "
             "operations)")
@@ -1377,17 +1403,21 @@ def ragged_entry(libs: dict):
     return pick
 
 
-def inline_includes(text: str, seen=None) -> str:
-    """``text`` with each ``#include "..."`` of a ``csrc/`` header
-    replaced by the header (recursively, each once, ``#pragma once``
-    dropped), so that it builds outside ``csrc/``."""
+def inline_includes(text: str, seen=None, beside=None) -> str:
+    """``text`` with each ``#include "..."`` replaced by the header, taken
+    from the directory ``beside`` where it is there, else from ``csrc/``
+    (recursively, each once, ``#pragma once`` dropped), so that it builds
+    outside ``csrc/``."""
     seen = set() if seen is None else seen
 
     def sub(m):
         if m.group(1) in seen:
             return ""
         seen.add(m.group(1))
-        return inline_includes((_build.CSRC / m.group(1)).read_text(), seen)
+        path = _build.CSRC / m.group(1)
+        if beside is not None and (Path(beside) / m.group(1)).exists():
+            path = Path(beside) / m.group(1)
+        return inline_includes(path.read_text(), seen, beside)
 
     text = re.sub(r"^\s*#pragma once\s*$", "", text, flags=re.M)
     return re.sub(r'^\s*#include\s+"([^"]+)"\s*$', sub, text, flags=re.M)
@@ -2262,7 +2292,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
-    old_fwd, old_ragged, old_text = None, None, {}
+    old_fwd, old_ragged, old_decode, old_text = None, None, None, {}
     argv = sys.argv[1:]
     for path in (argv[i + 1] for i, a in enumerate(argv[:-1])
                  if a == "--old-source"):
@@ -2271,6 +2301,10 @@ def main() -> int:
         if "#define RAGGED_ATTENTION_ENTRY" in text:
             old_ragged = path
             old_text.update(old_ragged_sources(text))
+        elif 'extern "C" int paged_attention_f32' in text:
+            old_decode = path
+            old_text["paged_attention_old"] = inline_includes(
+                text, beside=Path(path).parent)
         else:
             old_fwd = path
             old_text["flash_fwd_f32_old"] = text
@@ -2379,7 +2413,10 @@ def main() -> int:
             entry: _build.load_source(f"{lib}_old", old_text[f"{lib}_old"])
             for lib, entry, _ in pa._LIBS.values()})
     rows = phase_times(device, launches, errors, old_ragged)
-    rows += per_tier_rows(device, launches, per_tier_errors)
+    if old_decode is not None:
+        old_decode = (old_decode, _build.load_source(
+            "paged_attention_old", old_text["paged_attention_old"]))
+    rows += per_tier_rows(device, launches, per_tier_errors, old_decode)
     if old_fwd is not None:
         old_fwd = (old_fwd, _build.load_source(
             "flash_fwd_f32_old", old_text["flash_fwd_f32_old"]))

@@ -13,7 +13,8 @@ ragged_attention.cuh`` with some of its shapes rewritten:
   launch line for code pages and for float32 pages (warps a block, 16-row
   tiles a warp, keys a walked tile, ring stages);
 - ``dq=N``: ``kDecodeMaxQ`` (rows of up to N queries take the decode
-  walk, longer ones the tile);
+  walk, longer ones the tile; the walk it shares with the decode kernel,
+  ``paged_walk.cuh``, takes one query, so N > 1 no longer builds);
 - ``dw=N``: ``kDecodeWarps`` (the decode walk's most warps a block);
 - ``dpw=N``: ``kDecodePagesPerWarp`` (a warp for every N pages a block
   walks);

@@ -55,17 +55,18 @@
 //      q's planes hold each 16 columns permuted to match; V's columns go
 //      to the output tiles transposed (column d = (D / 8) * n + tile),
 //      so a lane's codes of a V row come in one load.
-// 2. Rows of 1 .. kDecodeMaxQ queries (decode): a bandwidth walk. A block
-//    owns one (row, head) (and, split, one chunk of its pages); each warp
-//    walks every W-th page through its own ring (16-byte cp.async, one
-//    page in flight while one is read), its pool pages read once from the
-//    table into a register, a page's rows at a fixed stride (no division
-//    on the way to a copy). D / 8 lanes share a key (eight columns a
-//    lane) and 256 / D keys go at once, so no 16-key page idles half a
-//    warp. Scores reduce over a key's lanes by shuffles, the online
-//    softmax (log2 domain) updates once a page, and the warps' states
-//    merge at the end in fixed warp order. A block has a warp for every
-//    kDecodePagesPerWarp pages it walks, at most kDecodeWarps.
+// 2. Rows of kDecodeMaxQ (one) query (decode): a bandwidth walk, the one
+//    the decode kernel runs too (paged_walk.cuh's walk_pages). A block owns
+//    one (row, head) (and, split, one chunk of its pages); each warp walks
+//    every W-th page through its own ring (16-byte cp.async, one page in
+//    flight while one is read), its pool pages read once from the table
+//    into a register, a page's rows at a fixed stride (no division on the
+//    way to a copy). D / 8 lanes share a key (eight columns a lane) and
+//    256 / D keys go at once, so no 16-key page idles half a warp. Scores
+//    reduce over a key's lanes by shuffles, the online softmax (log2
+//    domain) updates once a page, and the warps' states merge at the end
+//    in fixed warp order. A block has a warp for every kDecodePagesPerWarp
+//    pages it walks, at most kDecodeWarps.
 //
 // The KV split (split_pages = sp > 0) splits decode rows only: the
 // decode kernel's block (h, c, b) walks pages [c sp, (c + 1) sp) of the
@@ -91,6 +92,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "paged_walk.cuh"
 #include "flash_f32_tiles.cuh"
 
 namespace ragged {
@@ -110,62 +112,9 @@ constexpr int kDecodeStages = 2;
 constexpr int kCombineThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-// page element traits: float pools as they are; 1-byte codes four at a
-// time from a 32-bit word, exactly
-template <typename T> struct Page;
-template <> struct Page<float> {
-  static constexpr bool kQuant = false;
-  using Elem = float;
-};
-template <> struct Page<int8_t> {
-  static constexpr bool kQuant = true;
-  using Elem = uint8_t;
-  // 0x4b0000xx is 2^23 + xx: with the byte biased by 128, subtracting
-  // 2^23 + 128 leaves the code
-  __device__ static void to_float4(uint32_t w, float (&f)[4]) {
-    const uint32_t u = w ^ 0x80808080u;
-    f[0] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440)) - 8388736.f;
-    f[1] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7441)) - 8388736.f;
-    f[2] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7442)) - 8388736.f;
-    f[3] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7443)) - 8388736.f;
-  }
-};
-template <> struct Page<__nv_fp8_e4m3> {
-  static constexpr bool kQuant = true;
-  using Elem = uint8_t;
-  __device__ static void to_float4(uint32_t w, float (&f)[4]) {
-    const __half2 lo(__nv_cvt_fp8x2_to_halfraw2(
-        (__nv_fp8x2_storage_t)(w & 0xffffu), __NV_E4M3));
-    const __half2 hi(__nv_cvt_fp8x2_to_halfraw2(
-        (__nv_fp8x2_storage_t)(w >> 16), __NV_E4M3));
-    const float2 a = __half22float2(lo), b = __half22float2(hi);
-    f[0] = a.x;
-    f[1] = a.y;
-    f[2] = b.x;
-    f[3] = b.y;
-  }
-};
-
-// N (4 or 8) codes from shared memory (N-byte aligned) as floats
-template <typename T, int N>
-__device__ inline void load_codes(const uint8_t* p, float (&f)[N]) {
-  static_assert(N == 4 || N == 8, "one 4- or 8-byte load");
-  uint32_t w[N / 4];
-  if constexpr (N == 4) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    w[0] = x.x;
-    w[1] = x.y;
-  }
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    float g[4];
-    Page<T>::to_float4(w[i], g);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) f[4 * i + e] = g[e];
-  }
-}
+// the page traits and code loads of the shared one-query walk
+using paged::load_codes;
+using paged::Page;
 
 template <typename T>
 struct Params {
@@ -573,107 +522,17 @@ ragged_tile_kernel(const Params<T> a) {
 
 // ---------------------------------------------------------- decode rows
 
-// The decode walk's shapes: DP / 8 lanes share a key (eight columns a
-// lane), 256 / DP keys a pass; a ring stage is one page: K and V rows of
-// DP elements, then (codes) the page's scales, padded to 16 bytes.
-template <typename T, int DP>
-struct Walk {
-  static constexpr int LPK = DP / 8;
-  static constexpr int KPP = 32 / LPK;
-  static constexpr int MP = 32 / KPP;        // passes of a 32-key page
-  __host__ __device__ static size_t rows_bytes(int page_size) {
-    return (size_t)page_size * DP * sizeof(typename Page<T>::Elem);
-  }
-  __host__ __device__ static size_t stage_bytes(int page_size) {
-    const size_t b = 2 * rows_bytes(page_size)
-                     + (Page<T>::kQuant ? 8 * (size_t)page_size : 0);
-    return (b + 15) & ~(size_t)15;
-  }
-};
-
-// column of element i (0..7) of lane s of a key's lanes: float32 rows as
-// two float4 (s and s + LPK, so eight lanes read 128 contiguous bytes),
-// code rows as eight contiguous bytes
-// One page of the decode walk, by the warp's lanes: rows j < page_size
-// of pool page `page` (positions base + j; rows at or past n_keys read as
-// 0), K and V of head h into rows of DP elements (columns past D 0),
-// then (codes) the rows' scales. No division: the page's rows lie at a
-// fixed stride H * D.
-template <typename T, int DP>
-__device__ inline void stage_page(const Params<T>& a, int page, int h,
-                                  int base, int n_keys,
-                                  typename Page<T>::Elem* ks,
-                                  typename Page<T>::Elem* vs, float* kss,
-                                  float* vss, int lane) {
-  using E = typename Page<T>::Elem;
-  const int D = a.D, ps = a.page_size;
-  const E* kp = static_cast<const E*>(a.k_pool);
-  const E* vp = static_cast<const E*>(a.v_pool);
-  const size_t hd = (size_t)a.H * D;
-  const size_t row0 = (size_t)page * ps * a.H + h;   // key 0's (row, head)
-  const int n_in = min(ps, n_keys - base);           // rows with keys
-  if (a.vec) {
-    constexpr int kEpc = 16 / sizeof(E);
-    constexpr int kCh = DP / kEpc;
-    for (int e = lane; e < ps * kCh; e += 32) {
-      const int j = e / kCh, c = (e % kCh) * kEpc;
-      const bool in = j < n_in && c < D;
-      const size_t g = in ? row0 * D + j * hd + c : 0;
-      cpasync::copy16(ks + j * DP + c, kp + g, in);
-      cpasync::copy16(vs + j * DP + c, vp + g, in);
-    }
-  } else {
-    for (int e = lane; e < ps * DP; e += 32) {
-      const int j = e / DP, c = e - j * DP;
-      E kv = 0, vv = 0;
-      if (j < n_in && c < D) {
-        const size_t g = row0 * D + j * hd + c;
-        kv = kp[g];
-        vv = vp[g];
-      }
-      ks[j * DP + c] = kv;
-      vs[j * DP + c] = vv;
-    }
-  }
-  if constexpr (Page<T>::kQuant) {
-    for (int j = lane; j < ps; j += 32) {
-      const bool in = j < n_in;
-      const size_t g = in ? row0 + (size_t)j * a.H : 0;
-      cpasync::copy4(kss + j, a.k_scale + g, in);
-      cpasync::copy4(vss + j, a.v_scale + g, in);
-    }
-  }
-}
-
-template <typename T, int DP>
-__device__ inline int lane_col(int s, int i) {
-  if constexpr (Page<T>::kQuant) return 8 * s + i;
-  return 4 * s + (i & 3) + (i >> 2) * (DP / 2);
-}
-
-template <typename T, int DP>
-__device__ inline void load_row8(const typename Page<T>::Elem* row, int s,
-                                 float (&f)[8]) {
-  if constexpr (Page<T>::kQuant) {
-    load_codes<T, 8>(row + 8 * s, f);
-  } else {
-    const float4 x = *reinterpret_cast<const float4*>(row + 4 * s);
-    const float4 y = *reinterpret_cast<const float4*>(row + 4 * s + DP / 2);
-    f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
-    f[4] = y.x; f[5] = y.y; f[6] = y.z; f[7] = y.w;
-  }
-}
-
+// One (row, head) of a one-query row, or one chunk of its pages under
+// the KV split: the block's warps walk the pages (paged_walk.cuh's
+// walk_pages; warp w takes pages p_begin + w, p_begin + w + W, ...), then
+// merge in fixed warp order into the output row or the chunk's partial.
 template <typename T, bool kSplit, int DP, int NS>
 __device__ inline void decode_walk(const Params<T>& a) {
-  using Wk = Walk<T, DP>;
-  using E = typename Page<T>::Elem;
-  constexpr bool kQuant = Page<T>::kQuant;
-  constexpr int LPK = Wk::LPK, KPP = Wk::KPP, MP = Wk::MP, NQ = kDecodeMaxQ;
+  static_assert(kDecodeMaxQ == 1, "the shared walk takes one query a row");
+  using Wk = paged::Walk<T, DP>;
   const int H = a.H, D = a.D, ps = a.page_size;
   const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int q_len = a.q_lens[b];
-  if (q_len < 1 || q_len > NQ) return;
+  if (a.q_lens[b] != 1) return;
   const int kv_len = a.kv_lens[b];
   const int tok0 = a.q_starts[b];
   const int cap = min(kv_len, a.pages_per_seq * ps);
@@ -681,164 +540,27 @@ __device__ inline void decode_walk(const Params<T>& a) {
   const int p_begin = kSplit ? c * a.split_pages : 0;
   const int p_end = kSplit ? min(p_begin + a.split_pages, n_pages) : n_pages;
   if (kSplit && p_begin >= p_end) return;    // nothing to merge: no write
-  const int* prow = a.page_table + (size_t)b * a.pages_per_seq;
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int W = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int s = lane % LPK, kg = lane / LPK;
-  const size_t sb = Wk::stage_bytes(ps), rb = Wk::rows_bytes(ps);
-  unsigned char* ring = smem + (size_t)warp * NS * sb;
+  const int warp = threadIdx.x >> 5;
+  const size_t row = (size_t)tok0 * H + h;
+  const paged::Pools pools{a.k_pool, a.v_pool, a.k_scale, a.v_scale,
+                           H, D, ps, a.vec};
+  const paged::State st = paged::walk_pages<T, DP, NS>(
+      pools, a.page_table + (size_t)b * a.pages_per_seq, a.pages_per_seq, h,
+      a.q + row * D, a.scale_log2, cap, p_begin + warp, W, p_end,
+      smem + (size_t)warp * NS * Wk::stage_bytes(ps));
 
-  // the row's queries, scaled into the log2 domain; query i sees keys
-  // below lim[i]
-  float qr[NQ][8], mrun[NQ], lrun[NQ], acc[NQ][8];
-  int lim[NQ];
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-    const float* qi = a.q + ((size_t)(tok0 + i) * H + h) * D;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int d = lane_col<T, DP>(s, e);
-      qr[i][e] = i < q_len && d < D ? qi[d] * a.scale_log2 : 0.f;
-      acc[i][e] = 0.f;
-    }
-    mrun[i] = -INFINITY;
-    lrun[i] = 0.f;
-    lim[i] = min(cap, kv_len - q_len + i + 1);
-  }
-
-  // this warp's pages: p_begin + warp + W u, u = 0 .. n_my - 1; lane i
-  // holds the pool page of u = i, read once
-  const int first = p_begin + warp;
-  const int n_my = first < p_end ? (p_end - first + W - 1) / W : 0;
-  const int pid = lane < n_my ? prow[first + lane * W] : 0;
-  auto stage = [&](int u) {                  // warp-uniform u
-    unsigned char* st = ring + (u % NS) * sb;
-    const int page = u < 32 ? __shfl_sync(kFull, pid, u)
-                            : prow[first + u * W];
-    stage_page<T, DP>(a, page, h, (first + u * W) * ps, cap,
-                      reinterpret_cast<E*>(st), reinterpret_cast<E*>(st + rb),
-                      reinterpret_cast<float*>(st + 2 * rb),
-                      reinterpret_cast<float*>(st + 2 * rb) + ps, lane);
-  };
-#pragma unroll
-  for (int u = 0; u < NS - 1; ++u) {
-    if (u < n_my) stage(u);
-    cpasync::commit();
-  }
-  for (int u = 0; u < n_my; ++u) {
-    // page u + NS - 1 goes to the slot page u - 1 left (freed by the
-    // __syncwarp that ended its turn) before page u is waited for
-    if (u + NS - 1 < n_my) stage(u + NS - 1);
-    cpasync::commit();
-    cpasync::wait<NS - 1>();                 // page u has landed
-    __syncwarp();
-    const unsigned char* st = ring + (u % NS) * sb;
-    const E* ks = reinterpret_cast<const E*>(st);
-    const E* vs = reinterpret_cast<const E*>(st + rb);
-    const float* kss = reinterpret_cast<const float*>(st + 2 * rb);
-    const int base = (first + u * W) * ps;   // position of the page's key 0
-
-    // scores of the page: key pp * KPP + kg on this lane's group
-    float sc[NQ][MP], mx[NQ];
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) mx[i] = -INFINITY;
-#pragma unroll
-    for (int pp = 0; pp < MP; ++pp) {
-      if (pp * KPP >= ps) break;             // uniform across the warp
-      const int j = pp * KPP + kg;
-      const bool key = j < ps;
-      float kf[8];
-      load_row8<T, DP>(ks + (key ? j : 0) * DP, s, kf);
-#pragma unroll
-      for (int i = 0; i < NQ; ++i) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dot = fmaf(qr[i][e], kf[e], dot);
-#pragma unroll
-        for (int o = LPK / 2; o > 0; o >>= 1)
-          dot += __shfl_xor_sync(kFull, dot, o);
-        if constexpr (kQuant) dot *= kss[key ? j : 0];
-        const bool valid = key && base + j < lim[i] && i < q_len;
-        sc[i][pp] = valid ? dot : -INFINITY;
-        mx[i] = fmaxf(mx[i], sc[i][pp]);
-      }
-    }
-    float m_use[NQ];
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-#pragma unroll
-      for (int o = LPK; o < 32; o <<= 1)
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], o));
-      const float m_new = fmaxf(mrun[i], mx[i]);
-      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = ex2(mrun[i] - m_use[i]);
-      lrun[i] *= alpha;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
-      mrun[i] = m_new;
-    }
-#pragma unroll
-    for (int pp = 0; pp < MP; ++pp) {
-      if (pp * KPP >= ps) break;
-      const int j = pp * KPP + kg;
-      const bool key = j < ps;
-      float vf[8];
-      load_row8<T, DP>(vs + (key ? j : 0) * DP, s, vf);
-      const float vsc = kQuant ? kss[ps + (key ? j : 0)] : 1.f;
-#pragma unroll
-      for (int i = 0; i < NQ; ++i) {
-        const float p = ex2(sc[i][pp] - m_use[i]);   // masked: 0
-        lrun[i] += p;
-        const float pv = kQuant ? p * vsc : p;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(pv, vf[e], acc[i][e]);
-      }
-    }
-    __syncwarp();                            // the slot is free again
-  }
-  cpasync::wait<0>();
-
-  // sum the key groups' shares, then merge the warps in fixed order
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int o = LPK; o < 32; o <<= 1) {
-      lrun[i] += __shfl_xor_sync(kFull, lrun[i], o);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        acc[i][e] += __shfl_xor_sync(kFull, acc[i][e], o);
-    }
+  // merge the warps in fixed order
   __syncthreads();                           // the rings are free
-  const int R = DP + 2;                      // (m, l, acc[DP]) a query
-  float* parts = reinterpret_cast<float*>(smem);   // [W][NQ][R]
-  if (kg == 0) {
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      float* rec = parts + (warp * NQ + i) * R;
-      if (s == 0) {
-        rec[0] = mrun[i];
-        rec[1] = lrun[i];
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) rec[2 + lane_col<T, DP>(s, e)] = acc[i][e];
-    }
-  }
+  float* parts = reinterpret_cast<float*>(smem);   // [W][R]
+  paged::store_state<T, DP>(st, parts + warp * Wk::R);
   __syncthreads();
-  for (int e = threadIdx.x; e < q_len * D; e += blockDim.x) {
-    const int i = e / D, d = e - i * D;
-    float mt = -INFINITY;
-    for (int w = 0; w < W; ++w) mt = fmaxf(mt, parts[(w * NQ + i) * R]);
-    const float mu = mt == -INFINITY ? 0.f : mt;
-    float lt = 0.f, at = 0.f;
-    for (int w = 0; w < W; ++w) {
-      const float* rec = parts + (w * NQ + i) * R;
-      const float f = ex2(rec[0] - mu);
-      lt = fmaf(rec[1], f, lt);
-      at = fmaf(rec[2 + d], f, at);
-    }
-    const size_t row = (size_t)(tok0 + i) * H + h;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float mt, lt, at;
+    paged::merge_states(d, W, [&](int w) { return parts + w * Wk::R; }, mt,
+                        lt, at);
     if (kSplit) {
       float* rec = a.ws + ((size_t)c * a.N * H + row) * (D + 2);
       if (d == 0) {
@@ -912,7 +634,7 @@ cudaError_t launch_tile(const Params<T>& a, int B, int max_q_len,
 template <typename T, bool kSplit, int DP, int NS>
 cudaError_t launch_decode(const Params<T>& a, int B, bool after_tile,
                           cudaStream_t s) {
-  using Wk = Walk<T, DP>;
+  using Wk = paged::Walk<T, DP>;
   const size_t per_warp = NS * Wk::stage_bytes(a.page_size);
   const int pages = kSplit ? a.split_pages : a.pages_per_seq;
   int warps = (pages + kDecodePagesPerWarp - 1) / kDecodePagesPerWarp;

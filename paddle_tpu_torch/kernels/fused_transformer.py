@@ -22,7 +22,7 @@ _N_PARAMS = 12       # params of one block, in the order _block_body reads
 def _ln(x, g, b, eps):
     """float32 mean and population variance, ``rsqrt(var + eps)``, scale
     and shift in float32, cast back to x's dtype."""
-    return layer_norm(x, g, b, eps)
+    return layer_norm(x, x.shape[-1], g, b, eps)
 
 
 def _block_body(num_heads: int, causal: bool, epsilon: float, remat,

@@ -76,11 +76,11 @@ NEG_INF = -1e30
 # through (reset with LAUNCHES.clear())
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
-# the kernels' limits: the decode kernel (csrc/paged_walk.cuh) scores one
-# key a lane and holds ceil(D / 32) head-dim elements a lane; the ragged
-# kernels' decode walk reads pages of at most 32 keys and the tile pads D
-# to 32, 64 or 128; the mixed kernel's key blocks hold at least two whole
-# pages and at most 128 columns
+# the kernels' limits: the decode kernel and the ragged kernels' one-query
+# rows walk pages of at most 32 keys with D padded to 32, 64 or 128 (eight
+# columns a lane, csrc/paged_walk.cuh), and the tile pads D the same way;
+# the mixed kernel's key blocks hold at least two whole pages and at most
+# 128 columns
 _MAX_PAGE_SIZE = 32
 _MAX_HEAD_DIM = 128
 

@@ -25,16 +25,20 @@ def linear(x, weight, bias=None, name=None):
     return F.linear(x, weight.t(), bias)
 
 
-def layer_norm(x, weight, bias, epsilon: float = 1e-5):
-    """LayerNorm over the last axis in float32 (mean, population
-    variance, ``rsqrt(var + eps)``, then ``* weight + bias``), cast back
-    to x's dtype: the JAX package's ``layer_norm`` and the fused stack's
-    ``_ln`` alike."""
-    return F.layer_norm(x.float(), (x.shape[-1],), weight.float(),
-                        bias.float(), epsilon).to(x.dtype)
+def layer_norm(x, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5, name=None):
+    """LayerNorm over the last ``len(normalized_shape)`` axes in float32
+    (mean, population variance, ``rsqrt(var + eps)``, then ``* weight +
+    bias`` where given, each reshaped to ``normalized_shape``), cast back
+    to x's dtype: the JAX package's ``layer_norm``."""
+    shape = ((int(normalized_shape),) if isinstance(normalized_shape, int)
+             else tuple(int(n) for n in normalized_shape))
+    w, b = (None if t is None else t.float().reshape(shape)
+            for t in (weight, bias))
+    return F.layer_norm(x.float(), shape, w, b, epsilon).to(x.dtype)
 
 
-def gelu(x, approximate: bool = False):
+def gelu(x, approximate: bool = False, name=None):
     """GELU; ``approximate=True`` is the tanh form (``jax.nn.gelu``'s
     default, which the GPT model uses)."""
     return F.gelu(x, approximate="tanh" if approximate else "none")

@@ -54,7 +54,10 @@ class Linear(Layer):
 
 class Embedding(Layer):
     """A lookup table ``weight [num_embeddings, embedding_dim]``,
-    Xavier-normal."""
+    Xavier-normal. With ``padding_idx`` k (negative: counted from the
+    end), row k starts at zero and the ids k look up exact zeros
+    whatever the table holds, with no gradient to row k: the JAX
+    package's ``jnp.where`` over the lookup."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  weight_attr=None, name=None, device=None):
@@ -65,14 +68,25 @@ class Embedding(Layer):
         self.weight = self.create_parameter(
             [num_embeddings, embedding_dim], attr=weight_attr,
             default_initializer=XavierNormal(), device=device)
+        self._zero_padding_row()
+
+    @torch.no_grad()
+    def _zero_padding_row(self):
+        if self._padding_idx is not None:
+            self.weight[self._padding_idx] = 0
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
-        """Xavier-normal table from ``generator``."""
+        """Xavier-normal table from ``generator``, the padding row zero."""
         _xavier_normal_(self.weight, generator)
+        self._zero_padding_row()
 
     def forward(self, x):
-        return F.embedding(x, self.weight, self._padding_idx)
+        out = F.embedding(x, self.weight)
+        if self._padding_idx is None:
+            return out
+        return torch.where((x == self._padding_idx)[..., None],
+                           out.new_zeros(()), out)
 
 
 class Flatten(Layer):

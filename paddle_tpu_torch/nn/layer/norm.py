@@ -54,18 +54,26 @@ class BatchNorm2D(Layer):
 
 
 class LayerNorm(Layer):
-    """LayerNorm over the last axis (eps 1e-5), computed in float32
-    whatever the input dtype, as the JAX package's is."""
+    """LayerNorm over the last ``len(normalized_shape)`` axes (an int is
+    one axis; eps 1e-5), computed in float32 whatever the input dtype, as
+    the JAX package's is. ``weight_attr=False`` / ``bias_attr=False``
+    create no weight / bias (``None``)."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, device=None):
         super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = [int(n) for n in normalized_shape]
         self._epsilon = epsilon
-        self.weight = self.create_parameter(
-            [normalized_shape], attr=weight_attr,
+        self.weight = (self.create_parameter(
+            self._normalized_shape, attr=weight_attr,
             default_initializer=Constant(1.0), device=device)
-        self.bias = self.create_parameter([normalized_shape], attr=bias_attr,
-                                          is_bias=True, device=device)
+            if weight_attr is not False else None)
+        self.bias = (self.create_parameter(
+            self._normalized_shape, attr=bias_attr, is_bias=True,
+            device=device) if bias_attr is not False else None)
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self._epsilon)
+        return layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                          self._epsilon)

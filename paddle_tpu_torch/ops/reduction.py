@@ -15,8 +15,18 @@ def _axis(axis):
             else (int(axis),))
 
 
+def _reduce(fn, x, axis, keepdim):
+    """``fn`` over ``axis``: None reduces every axis, an empty list or
+    tuple none (x comes back unchanged, as ``jnp.sum(x, axis=())``
+    does; torch would read ``dim=()`` as every axis)."""
+    dim = _axis(axis)
+    if dim == ():
+        return fn(x.unsqueeze(0), dim=0)
+    return fn(x, dim=() if dim is None else dim, keepdim=keepdim)
+
+
 def sum(x, axis=None, keepdim=False, name=None):  # noqa: A001 - Paddle's name
-    return torch.sum(x, dim=_axis(axis), keepdim=keepdim)
+    return _reduce(torch.sum, x, axis, keepdim)
 
 
 def mean(x, axis=None, keepdim=False, name=None):
@@ -24,12 +34,12 @@ def mean(x, axis=None, keepdim=False, name=None):
     ``jnp.mean``'s."""
     if not (x.is_floating_point() or x.is_complex()):
         x = x.to(torch.float32)
-    return torch.mean(x, dim=_axis(axis), keepdim=keepdim)
+    return _reduce(torch.mean, x, axis, keepdim)
 
 
 def max(x, axis=None, keepdim=False, name=None):  # noqa: A001 - Paddle's name
-    return torch.amax(x, dim=_axis(axis) or (), keepdim=keepdim)
+    return _reduce(torch.amax, x, axis, keepdim)
 
 
 def min(x, axis=None, keepdim=False, name=None):  # noqa: A001 - Paddle's name
-    return torch.amin(x, dim=_axis(axis) or (), keepdim=keepdim)
+    return _reduce(torch.amin, x, axis, keepdim)

@@ -31,8 +31,9 @@ def test_the_port_libraries_and_their_headers():
     headers, and every ``.cu`` of ``csrc/`` is a library: the float32
     forward is ``flash_fwd_f32`` (no ``flash_attention`` library is
     left), on the tile helpers it shares with the float32 backward; the
-    ragged libraries' tensor-core tile uses the same helpers, and only
-    the decode and mixed kernels use the shared page walk."""
+    ragged libraries' tensor-core tile uses the same helpers, and the
+    decode kernel and the ragged libraries' one-query rows share the page
+    walk (the mixed kernel takes its launch helpers)."""
     assert {"flash_fwd_f32", "flash_bwd_f32", "paged_attention",
             "mixed_attention"} <= set(_build.KERNELS)
     assert "flash_attention" not in _build.KERNELS
@@ -46,11 +47,12 @@ def test_the_port_libraries_and_their_headers():
     want = {"flash_fwd_f32": [tiles, cp_async, tf32x3],
             "flash_fwd_bf16": [cp_async], "flash_bwd_bf16": [cp_async],
             "flash_bwd_f32": [tiles, cp_async, tf32x3],
-            "paged_attention": [walk],
+            "paged_attention": [walk, cp_async],
             "mixed_attention": [walk, cp_async]}
     for name in _build.KERNELS:
         headers = _build._local_headers(_build.CSRC / f"{name}.cu")
-        assert headers == want.get(name, [ragged, tiles, cp_async, tf32x3])
+        assert headers == want.get(name, [ragged, walk, cp_async, tiles,
+                                          tf32x3])
 
 
 def _tool(name):
@@ -141,3 +143,26 @@ def test_ragged_tool_rewrites_each_variant():
         return text
     assert strip(variant) == strip(src)
     assert tool.variant_header("same")[1] == src
+
+
+def test_decode_tool_rewrites_each_variant():
+    """``chip_tools/decode_tune.py`` builds variants of the decode kernel
+    by rewriting its launch constants in ``paged_attention.cu``: each
+    pattern matches once, and a variant differs from the source only
+    there."""
+    tool = _tool("decode_tune")
+    src = (_build.CSRC / tool.SOURCE).read_text()
+    for pattern in tool.PATTERNS.values():
+        assert len(pattern.findall(src)) == 1, pattern.pattern
+    name, variant = tool.variant_source("v/warps=8/ppw=1/cluster=2/ns=3")
+    assert name == "v"
+    for line in ("kWarps = 8;", "kPagesPerWarp = 1;", "kMaxCluster = 2;",
+                 "kStages = 3;"):
+        assert f"constexpr int {line}" in variant
+
+    def strip(text):
+        for pattern in tool.PATTERNS.values():
+            text = pattern.sub("", text)
+        return text
+    assert strip(variant) == strip(src)
+    assert tool.variant_source("same")[1] == src

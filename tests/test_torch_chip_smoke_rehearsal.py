@@ -38,7 +38,10 @@ launch bookkeeping and their checks are exercised before a chip run:
 - the smoke's build of an earlier ``ragged_attention.cuh`` (the SIMT
   page walk of the parent commit's design as text): each page type's
   library source has the header and its local includes inlined and
-  keeps its C entry;
+  keeps its C entry; and of an earlier decode kernel
+  ``paged_attention.cu``: the headers beside it are inlined before the
+  port's, and the per-tier times phase (the smoke's shapes, GPT-2-small
+  heads) gives its decode row that design's two times;
 - the core phases: the custom-op programs and ``my_triple`` through its
   op (reference counted as a launch) at small shapes, the ResNet
   parity phase (CPU against CPU) and the ResNet training phase with
@@ -402,3 +405,38 @@ def test_old_ragged_sources_inline_the_header():
         assert "#include \"" not in text and "#pragma once" not in text
         assert "namespace paged" in text           # paged_walk.cuh inlined
         assert f"RAGGED_ATTENTION_ENTRY({entry}," in text
+
+
+def test_old_decode_source_takes_the_headers_beside_it(tmp_path):
+    """An earlier ``paged_attention.cu`` with its own ``paged_walk.cuh``
+    beside it: that header is inlined, not the port's, and a header not
+    beside it comes from ``csrc/``."""
+    (tmp_path / "paged_walk.cuh").write_text(
+        '#pragma once\n#include "cp_async.cuh"\n// the earlier walk\n')
+    text = ('#include "paged_walk.cuh"\n'
+            'extern "C" int paged_attention_f32() { return 0; }\n')
+    got = cs.inline_includes(text, beside=tmp_path)
+    assert "// the earlier walk" in got and "walk_pages" not in got
+    assert "namespace cpasync" in got              # from csrc/
+    assert '#include "' not in got and "#pragma once" not in got
+
+
+def test_per_tier_rows_time_an_earlier_decode_kernel(plain_kernels,
+                                                     monkeypatch):
+    """The per-tier times phase at the smoke's shapes with an earlier
+    decode kernel given: the decode row carries that design's two times
+    (before and after the kernel's), the mixed row none; ``pa._entry`` is
+    the port's own afterwards."""
+    monkeypatch.setattr(cs, "time_cuda", lambda fn, reps=20, warmup=3:
+                        (fn(), 1.0)[1])
+    entry = pa._entry
+    names = list(cs.PER_TIER)
+    rows = cs.per_tier_rows(CPU, {n: 7 for n in names},
+                            {n: 0.0 for n in names}, ("old.cu", None))
+    assert pa._entry is entry
+    by_name = {r["name"]: r for r in rows}
+    decode = by_name[pa.PAGED_KERNEL]["shapes"]["decode"]
+    assert decode["design_ms"] == [1.0, 1.0]
+    assert 0 < decode["bound_ms"] and decode["bound_by"] == "bytes"
+    for kind, t in by_name[pa.MIXED_KERNEL]["shapes"].items():
+        assert "design_ms" not in t, kind

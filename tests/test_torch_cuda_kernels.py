@@ -184,9 +184,11 @@ def test_row_kinds_page_sizes_and_head_dims(device, mode, split, page, D):
 
 
 # sha256 of the decode kernel's output bytes at its GPT-2-small geometry on
-# the inputs of ``_decode_bits_inputs`` (the parent's build of
-# paged_attention.cu and paged_walk.cuh gives the same)
-DECODE_BITS = "411e59becd30794a7c3698f256df2eb84e298466cb34e0c33d592a380c3167a5"
+# the inputs of ``_decode_bits_inputs``, from the build of the cluster design
+# (paged_attention.cu on paged_walk.cuh's asynchronous-copy walk) on an H100
+# (132 SMs: clusters of four blocks at these 96 pairs; a card with another
+# SM count may pick another cluster size, and so other bits)
+DECODE_BITS = "0e66e4ea2631c99b8c50c512e0ef27af6ef9fe47f08fb1d1417357542024956f"
 
 
 def _decode_bits_inputs(device):
@@ -204,14 +206,119 @@ def _decode_bits_inputs(device):
                 seq_lens=torch.tensor(seq, **i32))
 
 
+def _digest(out):
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
 def test_decode_kernel_bits_did_not_move(device):
-    """The decode kernel (``paged_attention.cu``, on ``paged_walk.cuh``)
-    gives the bits it gave before the ragged kernels left the shared
-    page walk."""
+    """The decode kernel (``paged_attention.cu``) gives the bits its
+    build gave when they were pinned."""
     out = pa.paged_attention(**_decode_bits_inputs(device), tier="kernel")
     torch.cuda.synchronize()
-    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
-    assert digest == DECODE_BITS, digest
+    assert _digest(out) == DECODE_BITS, _digest(out)
+
+
+# sha256 of the ragged kernels' output bytes on decode-only rows (every row
+# one query: the one-query walk alone), by (page type, geometry, split), as
+# the build of ragged_attention.cuh with its own copy of the walk gave them:
+# the walk moved to paged_walk.cuh without moving a bit
+RAGGED_DECODE_BITS = {
+    "f32 gpt2 0":
+        "7d7ea99bfd27bb17ec81ed018934de33582552f2b64a6d4d02a2a5457db6e2fd",
+    "f32 gpt2 16":
+        "5bdedd66717194bdc20f3add8115edd93ace9021cced26db67d9c5fbad5ad4f0",
+    "int8 gpt2 0":
+        "525e710e044a4d2044c8289bec4b06053a7d8c438ec36d44589995631d6d0230",
+    "int8 gpt2 16":
+        "a02d8da299f2d0911b9cbaaf078c1ae2cc56b5096496a8f4898b41a66698a328",
+    "fp8 gpt2 0":
+        "69b2a549e47e5c58498d3af49272a975d4ad5bb4e974a955df64a98ae2ea87e8",
+    "fp8 gpt2 16":
+        "307068415a24ab4395313db86a5619a6d43e7eccb245d15983d6ff6921b09de1",
+    "f32 d40 0":
+        "16b465bc7137b9eb793862031b15873611255c3e9328af3d09df69cff8ed76fa",
+    "f32 d40 16":
+        "571f5539aa633756bfe31d269a8a41548b597d84ed3d8c3dd0ae00802f84954e",
+    "int8 d40 0":
+        "6b814fb3769c2dabc9d29a6e918b58e7f7e68c20f8a702f3ed5196f676955516",
+    "int8 d40 16":
+        "2585a837a8c1c8035a1e89a91b1266eff3c8bdefc6513db7b12f62aba9266ed4",
+    "fp8 d40 0":
+        "bddcdfd1ae0502203036e7ad19ae1fe066884e113ecbe44370d64f5439c4904a",
+    "fp8 d40 16":
+        "98c935ff6c1ce3da77ebf226acbb3f385a40bae8c7c2a7192343bd2eb775a558",
+}
+RAGGED_BITS_GEOMETRIES = {"gpt2": (12, 64, 16, 64), "d40": (3, 40, 8, 24)}
+
+
+def _ragged_decode_inputs(device, geometry, mode):
+    """Eight one-query rows (lengths 0 to the full table) at ``geometry``
+    (H, D, page, pages a row), float32 pools re-stored as ``mode``."""
+    H, D, page, pps = RAGGED_BITS_GEOMETRIES[geometry]
+    rng = np.random.default_rng(7)
+    S = page * pps
+    kv_lens = [S - 24, 1, 0, S // 2 + 5, S, S - 1, page, 2 * page + 1]
+    B = len(kv_lens)
+    n_pages = B * pps + 1
+    f32 = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+    i32 = dict(dtype=torch.int32, device=device)
+    args = dict(q=f32(B, H, D), k_pool=f32(n_pages, page, H, D),
+                v_pool=f32(n_pages, page, H, D),
+                page_table=torch.tensor(
+                    rng.permutation(n_pages - 1).reshape(B, pps) + 1, **i32),
+                kv_lens=torch.tensor(kv_lens, **i32),
+                q_starts=torch.arange(B, **i32),
+                q_lens=torch.ones(B, **i32))
+    return _quantized(args, mode)
+
+
+def ragged_decode_digests(device):
+    """{"mode geometry split": sha256} of the ragged kernels on
+    ``_ragged_decode_inputs``, unsplit and split 16."""
+    out = {}
+    for geometry in RAGGED_BITS_GEOMETRIES:
+        for mode in ("f32", "int8", "fp8"):
+            args, scales = _ragged_decode_inputs(device, geometry, mode)
+            for split in (0, 16):
+                got = pa.ragged_attention(**args, tier="kernel", max_q_len=1,
+                                          split_pages=split, **scales)
+                torch.cuda.synchronize()
+                out[f"{mode} {geometry} {split}"] = _digest(got)
+    return out
+
+
+def test_ragged_decode_bits_did_not_move(device):
+    """The ragged kernels' one-query rows, float32 / int8 / fp8 pages,
+    unsplit and split 16, at two geometries (the 16-byte copy route and,
+    for code pages at D 40, the plain-load one) give the bits of the build
+    that had its own copy of the walk."""
+    assert ragged_decode_digests(device) == RAGGED_DECODE_BITS
+
+
+@pytest.mark.parametrize("H,D,page,pps,seq", [
+    (2, 32, 8, 64, [1, 8, 9, 24, 0]),      # every slot under a block's share
+    (3, 64, 16, 64, [0]),                  # B = 1, seq_len 0
+    (2, 16, 8, 40, [320, 1, 0, 161]),      # a cluster of three
+    (4, 128, 32, 64, [2048, 33, 0, 1000]),  # D 128: a ring of fewer warps
+])
+def test_decode_kernel_cluster_edges(device, H, D, page, pps, seq):
+    """Slots whose pages leave whole blocks of the cluster with nothing
+    to walk (they still reach both cluster barriers), a lone empty slot,
+    and the widest rows: within 2e-5 of the plain version, a seq_len-0
+    slot exact 0, a rerun bit-identical."""
+    args = _per_tier_inputs(device, len(seq), 1, H, D, page, pps, seed=pps)
+    args["q"] = args["q"][:, 0].contiguous()
+    seq_lens = torch.tensor(seq, dtype=torch.int32, device=device)
+    out = pa.paged_attention(**args, seq_lens=seq_lens, tier="kernel")
+    again = pa.paged_attention(**args, seq_lens=seq_lens, tier="kernel")
+    torch.cuda.synchronize()
+    ref = pa.paged_attention(**args, seq_lens=seq_lens, tier="ref")
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    assert torch.equal(out, again)
+    for b, n in enumerate(seq):
+        if n == 0:
+            assert (out[b] == 0).all()
 
 
 def test_quantized_kernel_rejects_missing_scales(device):
