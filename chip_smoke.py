@@ -41,6 +41,19 @@ before and read just after:
 - quantized long-context serving: GPT-3 XL widths at full depth,
   2048-token context, int8 KV pages, int8 weights and the KV split
   (16-page chunks), then the same traffic unsplit;
+- the async pipeline on the quantized long-context path: the same
+  model and traffic at async depths 0, 1 and 2, each with CUDA graphs
+  (one per step signature, replayed) off and then on; equal tokens in
+  all six, launches layers x steps through the replays, the captured
+  graphs within the engine's bound, and each run's ms per step,
+  tokens/s, busy share and peak memory beside the card's name and
+  power limit (``phase_async_serving``);
+- preemption and the host swap tier: GPT-2-small widths, float32
+  pages, async depth 1 with graphs, a pool too small for every request
+  at once, three priority classes, a tenant slot quota and a deadline
+  (``phase_preempt_swap``): high-priority arrivals preempt, pages swap
+  out and back in, the quota defers, the deadline times out, and every
+  surviving request's tokens equal its uncontended run;
 - fp8 KV pages at GPT-3 XL widths, four layers, split and unsplit;
 - training: ``bench.py``'s configuration (GPT-2-small, batch 16 x 1024
   tokens, AdamW under AMP O2 bf16, ``TrainStep`` of 8 steps per call)
@@ -97,7 +110,8 @@ from paddle_tpu_torch.inference.llm import (CacheConfig, GenerationEngine,
                                             TorchLM, ngram_draft)
 from paddle_tpu_torch.inference.llm.model import (init_lm_params,
                                                   lm_chunk_prefill, lm_decode,
-                                                  lm_ragged_step, lm_verify)
+                                                  lm_prefill, lm_ragged_step,
+                                                  lm_verify)
 from paddle_tpu_torch.inference.llm.threefry import fold_in, gumbel, prng_key
 from paddle_tpu_torch.inference.llm.quant import QuantConfig, quantize_kv
 import paddle_tpu_torch as paddle
@@ -184,6 +198,16 @@ PER_TIER = {
                       "paddle_tpu/kernels/paged_attention.py:102"),
     pa.MIXED_KERNEL: ("paddle_tpu_torch/kernels/csrc/mixed_attention.cu",
                       "paddle_tpu/kernels/paged_attention.py:219")}
+# the async pipeline's depths, each run with CUDA graphs off and on
+ASYNC_DEPTHS = (0, 1, 2)
+# the preemption path: usable pages (too few for every request at
+# once), the step the priority-0 requests arrive at, the slot quota of
+# tenant "bulk", and the priority-1 request's total deadline (it asks
+# for 600 tokens)
+PREEMPT_PAGES = 170
+PREEMPT_ARRIVAL = 12
+PREEMPT_TENANT_SLOTS = 3
+PREEMPT_DEADLINE_S = 0.3
 # a token decision closer than this (the two best candidates' scores)
 # may fall either way between two float32 computations that agree to
 # ~1e-5 (GEMMs of other shapes, attention summed in another order): such
@@ -736,28 +760,46 @@ def _with_sampling(prompts, sampled_idx):
     return [(p, sampled.get(i)) for i, p in enumerate(prompts)]
 
 
-def run_engine(model, requests, quant=None, split=0, chunk=0, spec_tokens=0):
+def make_engine(model, quant=None, split=0, chunk=0, spec_tokens=0,
+                async_depth=0, cuda_graphs=None, swap_pages=None):
+    """The smoke's serving engine: SLOTS slots, PAGE-token pages, a pool
+    that holds every slot's whole context. ``cuda_graphs=None`` takes
+    the engine's default (on, on the card); ``swap_pages=None`` the
+    cache's."""
     spec = model.spec
     pps = -(-spec.max_seq_len // PAGE)
-    engine = GenerationEngine(
+    swap = {} if swap_pages is None else {"swap_pages": swap_pages}
+    return GenerationEngine(
         model,
         cache_config=CacheConfig(
             num_layers=spec.num_layers, num_heads=spec.num_heads,
             head_dim=spec.head_dim, num_pages=SLOTS * pps + 1,
-            page_size=PAGE, max_slots=SLOTS, max_seq_len=spec.max_seq_len),
+            page_size=PAGE, max_slots=SLOTS, max_seq_len=spec.max_seq_len,
+            **swap),
         scheduler_config=SchedulerConfig(max_slots=SLOTS,
                                          max_seq_len=spec.max_seq_len,
                                          chunk_tokens=chunk,
                                          kv_split_pages=split,
-                                         spec_tokens=spec_tokens),
-        quant=quant, device=model.device)
+                                         spec_tokens=spec_tokens,
+                                         async_depth=async_depth),
+        quant=quant, device=model.device, cuda_graphs=cuda_graphs)
+
+
+def serve(engine, requests):
+    """Submit ``requests`` and run the engine dry; returns (outputs,
+    wall seconds from the first step to the device's last work)."""
     rids = [engine.submit(p, NEW_TOKENS, sp) for p, sp in requests]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return engine, [engine.output_of(r) for r in rids], wall
+    return [engine.output_of(r) for r in rids], time.perf_counter() - t0
+
+
+def run_engine(model, requests, quant=None, split=0, chunk=0, spec_tokens=0):
+    engine = make_engine(model, quant, split, chunk, spec_tokens)
+    outputs, wall = serve(engine, requests)
+    return engine, outputs, wall
 
 
 def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
@@ -771,11 +813,11 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
     requires identical tokens. Returns (launches, ms per step, the
     engine, the outputs)."""
     pa.LAUNCHES.clear()
-    with ragged_steps() as by_step:
-        engine, outputs, wall = run_engine(model, requests, quant, split,
-                                           chunk, spec_tokens)
+    engine, outputs, wall = run_engine(model, requests, quant, split, chunk,
+                                       spec_tokens)
     launches = dict(pa.LAUNCHES)
     steps = engine.steps_dispatched
+    by_step = launches_by_step(engine)
     for (prompt, _), out in zip(requests, outputs):
         if len(out) != NEW_TOKENS:
             raise AssertionError(f"{label}: a {len(prompt)}-token prompt "
@@ -818,29 +860,15 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
     return launches, ms_step, engine, outputs
 
 
-@contextlib.contextmanager
-def ragged_steps():
-    """Count the ragged kernels' launches by step class while the block
-    runs: "decode" where the step's ``max_q_len`` is at most DECODE_MAX_Q
-    (every row decodes; the tile kernel does not launch), "mix" where a
-    row carries a chunk, a prefix hit or drafts.
-    Wraps ``pa.ragged_attention_cuda`` and counts after it returns, that
-    is after a launch."""
-    counts: collections.Counter = collections.Counter()
-    inner = pa.ragged_attention_cuda
-
-    def counted(*args, **kw):
-        out = inner(*args, **kw)
-        max_q = kw.get("max_q_len")
-        decode = max_q is not None and max_q <= DECODE_MAX_Q
-        counts["decode" if decode else "mix"] += 1
-        return out
-
-    pa.ragged_attention_cuda = counted
-    try:
-        yield counts
-    finally:
-        pa.ragged_attention_cuda = inner
+def launches_by_step(engine) -> dict:
+    """The ragged kernels' launches on an engine path by step class, one
+    a layer per step: "decode" for steps whose rows are all of at most
+    DECODE_MAX_Q queries (the tile kernel does not launch), "mix" for
+    steps with a chunk, a prefix hit or drafts. From the engine's count
+    of steps by class, since a CUDA-graph replay runs no Python."""
+    layers = engine.model.spec.num_layers
+    return {k: layers * engine.steps_by_class.get(k, 0)
+            for k in ("decode", "mix")}
 
 
 def log_split_agreement(label, requests, outs) -> None:
@@ -1106,6 +1134,302 @@ def log_device_profile(prof, label: str, wall: float, steps: int,
                    if any(k in e.key for k in keys))
         log(f"[profile] {name}: {part / 1e3 / steps:.4f} ms/step, "
             f"{100 * part / total:.1f}% of device time")
+
+
+def _device_busy(prof):
+    """Device time (ms) a finished ``torch.profiler`` run recorded:
+    kernels, copies and memsets, graph replays' kernels included."""
+    from torch.autograd import DeviceType
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def step_spans(engine):
+    """CUDA events before and after each step's device work (its input
+    copies through its result copies), recorded by wrapping the
+    engine's dispatch; the events of one stream, so the spans never
+    overlap. Returns the list the pairs go into."""
+    spans = []
+    inner = engine._dispatch
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    engine._dispatch = timed
+    return spans
+
+
+def phase_async_serving(model, batches=None) -> list:
+    """The quantized long-context path (int8 KV and weights, the KV
+    split of SPLIT pages, CHUNK-token chunks) through the async pipeline
+    at each of ASYNC_DEPTHS, with CUDA graphs off and then on: six
+    engines. Each serves three batches of traffic (by default
+    ``requests_long`` with seeds 11, 13 and 17): a warm one (the first
+    step of each signature captures its graph), a timed one (launches
+    reset before it) and one under ``torch.profiler``. All six must give the same tokens in every
+    batch; the timed batch must launch the split int8 kernel layers x
+    steps times and no other attention kernel, and no engine may need
+    more step signatures (captured graphs) than its ``graph_bound``.
+    Prints, for each engine, ms per step and tokens/s of the timed
+    batch, its stream's busy share from CUDA events around each step,
+    the profiled batch's device busy share, and peak device memory.
+    The swap tier is off here (no preemption on this path), so the
+    timed batch's evictions of the warm batch's parked pages copy
+    nothing to the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    quant = QuantConfig(kv="int8", weights="int8")
+    kernel = pa.kernel_name(torch.int8, True)
+    layers = model.spec.num_layers
+    if batches is None:
+        batches = [requests_long(s, model.spec.vocab) for s in (11, 13, 17)]
+    card = card_identity()
+    want, rows = None, []
+    for depth in ASYNC_DEPTHS:
+        for graphs in (False, True):
+            label = f"depth {depth}, graphs {'on' if graphs else 'off'}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            engine = make_engine(model, quant, SPLIT, CHUNK,
+                                 async_depth=depth, cuda_graphs=graphs,
+                                 swap_pages=0)
+            outs = [serve(engine, batches[0])[0]]
+            steps0 = engine.steps_dispatched
+            classes0 = dict(engine.steps_by_class)
+            graphs0 = engine.xla_compiles
+            spans = step_spans(engine)
+            pa.LAUNCHES.clear()
+            got, wall = serve(engine, batches[1])
+            outs.append(got)
+            steps = engine.steps_dispatched - steps0
+            launches = dict(pa.LAUNCHES)
+            if launches != {kernel: layers * steps}:
+                raise AssertionError(
+                    f"[async] {label}: launches {launches}, expected "
+                    f"{ {kernel: layers * steps} } (layers x steps)")
+            by_class = {k: layers * (engine.steps_by_class.get(k, 0)
+                                     - classes0.get(k, 0))
+                        for k in ("decode", "mix")}
+            if sum(by_class.values()) != launches[kernel]:
+                raise AssertionError(f"[async] {label}: launches by step "
+                                     f"class {by_class} do not add up")
+            stream_ms = sum(a.elapsed_time(b) for a, b in spans)
+            del engine._dispatch               # the wrapper off again
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                got, wall_prof = serve(engine, batches[2])
+            outs.append(got)
+            busy_ms = _device_busy(prof)
+            if engine.xla_compiles > engine.graph_bound:
+                raise AssertionError(
+                    f"[async] {label}: {engine.xla_compiles} step "
+                    f"signatures, above the bound {engine.graph_bound}")
+            captured = sum(g is not None for g in engine._graphs.values())
+            if captured != (engine.xla_compiles if engine.cuda_graphs
+                            else 0):
+                raise AssertionError(f"[async] {label}: {captured} graphs "
+                                     f"for {engine.xla_compiles} signatures")
+            engine.cache.check_invariants()
+            if engine.cache.pages_in_use or engine.pipeline_depth:
+                raise AssertionError(f"[async] {label}: pages or steps "
+                                     "left in flight")
+            if want is None:
+                want = outs
+            elif outs != want:
+                raise AssertionError(f"[async] {label}: tokens differ from "
+                                     "depth 0 with graphs off")
+            n_tok = sum(len(o) for o in outs[1])
+            row = {"depth": depth, "graphs": graphs, "steps": steps,
+                   "ms_per_step": 1e3 * wall / steps,
+                   "tokens_per_s": n_tok / wall,
+                   "stream_busy": stream_ms / (1e3 * wall),
+                   "device_busy": (busy_ms / (1e3 * wall_prof)
+                                   if busy_ms else None),
+                   "graphs_captured": captured,
+                   "signatures": engine.xla_compiles,
+                   "graph_bound": engine.graph_bound,
+                   "graphs_in_timed_batch": engine.xla_compiles - graphs0,
+                   "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "peak_reserved_gib":
+                       torch.cuda.max_memory_reserved() / 2**30,
+                   "rollbacks": engine.async_rollbacks,
+                   "occupancy": list(engine.occupancy_hist)}
+            rows.append(row)
+            busy = ("not measured (the profiler recorded no device time)"
+                    if row["device_busy"] is None
+                    else f"{100 * row['device_busy']:.1f}%")
+            log(f"[async] {label}: {steps} steps, {wall:.3f}s: "
+                f"{row['ms_per_step']:.2f} ms/step, "
+                f"{row['tokens_per_s']:.1f} tokens/s; stream busy "
+                f"{100 * row['stream_busy']:.1f}% (CUDA events around each "
+                f"step), device busy {busy} (profiled batch, "
+                f"{wall_prof:.3f}s); {captured} graphs captured, "
+                f"{engine.xla_compiles} signatures <= bound "
+                f"{engine.graph_bound} ({row['graphs_in_timed_batch']} new "
+                f"in the timed batch); {kernel} launches "
+                f"{launches[kernel]} = layers x steps ({by_class['decode']} "
+                f"decode-only, {by_class['mix']} mix); peak "
+                f"{row['peak_alloc_gib']:.2f} GiB allocated, "
+                f"{row['peak_reserved_gib']:.2f} GiB reserved; "
+                f"occupancy {row['occupancy']}; {card}")
+            del engine, prof
+    log(f"[async] the {len(rows)} runs gave the same tokens in all "
+        f"{len(batches)} batches ({card})")
+    print(json.dumps({"async_serving": rows, "card": card}))
+    return rows
+
+
+def requests_contended(seed: int, vocab: int):
+    """The preemption path's traffic (``phase_preempt_swap``), as
+    (arrival step, prompt, new tokens, sampling, priority, tenant,
+    deadline_s): five low-priority requests of tenant "bulk" and one of
+    priority 1 with a total deadline it cannot meet at step 0, three
+    priority-0 requests of two tenants at step PREEMPT_ARRIVAL; two
+    bulk and one vip request sampled."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda n: torch.randint(0, vocab, (n,),  # noqa: E731
+                                   generator=g).tolist()
+
+    def sampled(s):
+        return SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=s)
+
+    reqs = [(0, rand(n), 48, sampled(300 + i) if i in (1, 3) else None, 2,
+             "bulk", 0.0) for i, n in enumerate((700, 520, 610, 450, 380))]
+    reqs.append((0, rand(96), 600, None, 1, "mid", PREEMPT_DEADLINE_S))
+    reqs += [(PREEMPT_ARRIVAL, rand(n), 24, sampled(400) if i == 1 else None,
+              0, f"vip{i % 2}", 0.0) for i, n in enumerate((480, 600, 500))]
+    return reqs
+
+
+def compare_with_ties(model, label, prompts, samplings, got, want) -> int:
+    """Each request's tokens ``got`` against ``want``: equal, or the
+    first differing token a near-tie (the sampler's decision gap, from a
+    dense prefill of the common context, below NEAR_TIE), which ends the
+    comparison of that request. Raises otherwise; returns the
+    near-ties."""
+    ties = 0
+    for prompt, sp, a, b in zip(prompts, samplings, got, want):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            if len(a) != len(b):
+                raise AssertionError(f"{label}: {len(a)} tokens, the "
+                                     f"reference {len(b)}")
+            continue
+        ctx = torch.tensor([prompt + b[:j]], dtype=torch.int32,
+                           device=model.device)
+        logits = lm_prefill(model.params, model.spec, ctx)[0][0, -1]
+        gap = decision_gap(logits, sp, j)
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"{label}: token {j} of a "
+                                 f"{len(prompt)}-token prompt differs from "
+                                 f"the reference with a decision gap "
+                                 f"{gap:.3e}")
+        ties += 1
+    return ties
+
+
+def phase_preempt_swap(model) -> dict:
+    """Priority admission with preemption, tenant quotas, deadlines and
+    the host swap tier at GPT-2-small widths (float32 pages), async
+    depth 1, CUDA graphs on (the engine's default on the card): the
+    ``requests_contended`` traffic on a pool of PREEMPT_PAGES usable
+    pages, too small for every request at once, tenant "bulk" held to
+    PREEMPT_TENANT_SLOTS slots. The priority-0 arrivals must preempt
+    (swapping pages out and back in), the quota must defer, the
+    priority-1 request must time out, and every other request's tokens
+    must equal its uncontended run (all of them at priority 0 on a pool
+    that holds every slot's whole context), outside counted near-ties;
+    the ragged kernel launches layers x steps, and the cache ends with
+    its invariants holding and every page free."""
+    spec = model.spec
+    reqs = requests_contended(5, spec.vocab)
+    kernel = pa.kernel_name(torch.float32, False)
+    engine = GenerationEngine(
+        model,
+        cache_config=CacheConfig(
+            num_layers=spec.num_layers, num_heads=spec.num_heads,
+            head_dim=spec.head_dim, num_pages=PREEMPT_PAGES + 1,
+            page_size=PAGE, max_slots=SLOTS, max_seq_len=spec.max_seq_len),
+        scheduler_config=SchedulerConfig(
+            max_slots=SLOTS, max_seq_len=spec.max_seq_len, chunk_tokens=CHUNK,
+            async_depth=1, tenant_max_slots=PREEMPT_TENANT_SLOTS),
+        device=model.device)
+    pa.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids, step = [], 0
+    for arrive, prompt, new, sp, prio, tenant, deadline in sorted(
+            reqs, key=lambda r: r[0]):
+        while step < arrive:
+            engine.step()
+            step += 1
+        rids.append(engine.submit(prompt, new, sp, priority=prio,
+                                  tenant=tenant, deadline_s=deadline))
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pa.LAUNCHES)
+    steps = engine.steps_dispatched
+    sch, cache = engine.scheduler, engine.cache
+    if launches != {kernel: spec.num_layers * steps}:
+        raise AssertionError(f"[preempt] launches {launches}, expected "
+                             f"{spec.num_layers} x {steps}")
+    reqs = sorted(reqs, key=lambda r: r[0])
+    final = {r: sch.requests[r] for r in rids}
+    timed_out = [r for r in rids if final[r].finish_reason == "timeout"]
+    survivors = [i for i, r in enumerate(rids) if r not in timed_out]
+    if [reqs[i][6] > 0 for i in range(len(rids))] != \
+            [r in timed_out for r in rids]:
+        raise AssertionError(f"[preempt] finish reasons "
+                             f"{[final[r].finish_reason for r in rids]}: "
+                             "the deadline request must time out, no "
+                             "other")
+    if any(final[rids[i]].finish_reason != "max_new_tokens"
+           for i in survivors):
+        raise AssertionError("[preempt] a survivor did not finish")
+    st = sch.stats
+    for name, n in (("preemptions", st["n_preemptions"]),
+                    ("quota deferrals", st["n_quota_deferred"]),
+                    ("pages swapped out", cache.swapped_out_pages),
+                    ("pages swapped in", cache.swapped_in_pages)):
+        if n <= 0:
+            raise AssertionError(f"[preempt] no {name}: the path was not "
+                                 "driven")
+    cache.check_invariants()
+    if cache.pages_in_use or cache.num_free_pages != PREEMPT_PAGES:
+        raise AssertionError("[preempt] pages left mapped at the end")
+    # the uncontended runs: every survivor at priority 0, all at once
+    ref = make_engine(model, async_depth=1, chunk=CHUNK)
+    ref_rids = [ref.submit(reqs[i][1], reqs[i][2], reqs[i][3])
+                for i in survivors]
+    ref.run()
+    want = [ref.output_of(r) for r in ref_rids]
+    got = [final[rids[i]].output for i in survivors]
+    ties = compare_with_ties(model, "[preempt]",
+                             [reqs[i][1] for i in survivors],
+                             [reqs[i][3] for i in survivors], got, want)
+    resumed = sum(final[r].preemptions > 0 for r in rids)
+    captured = sum(g is not None for g in engine._graphs.values())
+    log(f"[preempt] {len(rids)} requests in {steps} steps, {wall:.3f}s "
+        f"(async depth 1, {captured} CUDA graphs captured): "
+        f"{st['n_preemptions']} preemptions of {resumed} requests "
+        f"({st['n_resumed']} resumed), {st['n_quota_deferred']} quota "
+        f"deferrals, {len(timed_out)} timed out; swap out "
+        f"{cache.swapped_out_pages} / in {cache.swapped_in_pages} pages "
+        f"({cache.demoted_pages} demoted); {len(survivors)} survivors "
+        f"equal to their uncontended runs outside {ties} near-ties; "
+        f"{kernel} launches {launches[kernel]} = layers x steps; every "
+        "page free, invariants hold")
+    return {"preemptions": st["n_preemptions"], "ties": ties,
+            "swapped_in": cache.swapped_in_pages}
 
 
 def phase_profile(model, requests) -> None:
@@ -2337,7 +2661,11 @@ def main() -> int:
     got, teacher, diverge = phase_spec_engine(gpt2, spec_reqs)
     launches.update(got)
     launches.update(phase_per_tier(gpt2, spec_reqs, teacher, diverge))
+    # this slice's: priority admission, preemption through the host swap
+    # tier, tenant quotas and deadlines, at async depth 1 with graphs on
+    phase_preempt_swap(gpt2)
     del gpt2
+    torch.cuda.empty_cache()
 
     # the main path: GPT-3 XL widths, full depth, int8 KV + int8 weights
     xl = TorchLM(GPT3_XL, init_lm_params(GPT3_XL, seed=0, device=device),
@@ -2363,6 +2691,9 @@ def main() -> int:
     log(f"[engine] GPT-3 XL int8 ms/step: split {SPLIT} {ms_split:.2f}, "
         f"unsplit {ms_unsplit:.2f} (warm split run vs the unsplit run "
         "that followed it)")
+    # this slice's main path: the same traffic through the async
+    # pipeline at depths 0, 1 and 2, CUDA graphs off and on
+    phase_async_serving(xl)
     if "--profile" in sys.argv[1:]:
         phase_profile(xl, reqs)
     del xl

@@ -26,19 +26,45 @@ accepted tokens plus one, and rolls the rejected tail's K/V back with
 ``PagedKVCache.truncate``. Sampling keys depend only on (seed, token
 index), so tokens with speculation on equal tokens with it off.
 
-Async pipelining, the request journal, fault injection and the NaN
-quarantine, the tensor-parallel mesh and the observability hooks are
-later slices of the port.
+Async pipelining (``SchedulerConfig.async_depth = D > 0``): the host
+plans and dispatches step N+1 while step N runs, and lands N's results
+one step later (:meth:`GenerationEngine._step_async`). A pipelined
+decode row takes its pending token from the device-resident carry
+(``resolve_carry_tokens``/``step_carry``), never from the host; a
+request torn down with rows still in flight (finish, cancel, timeout,
+preemption) has those rows dead-marked and skipped at commit. Tokens
+are a pure function of (seed, token index), so depths 0, 1 and 2 give
+the same tokens.
+
+CUDA graphs (on the card, by default): each step signature — its
+ragged bucket, and whether any row has more than one query — is
+captured once into a ``torch.cuda.CUDAGraph`` (embeddings through
+sampling, the ragged attention kernels included) and replayed after,
+with the step's metadata copied into the graph's static inputs. The
+graphs are the port's form of the JAX engine's one compiled executable
+per bucket; ``xla_compiles`` counts them, within ``graph_bound``.
+
+Preemption, priorities, tenant quotas and deadlines are the scheduler's
+(see ``scheduler.py``); the host swap tier is the cache's. The request
+journal, fault injection and the NaN quarantine, brownout, the
+tensor-parallel mesh and the observability hooks are later slices of
+the port.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import gc
+import weakref
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...kernels import paged_attention as pa
+from ...kernels.paged_attention import DECODE_MAX_Q
 from .kv_cache import CacheConfig, PagedKVCache, flatten_page_levels
 from .model import TorchLM, lm_ragged_step, resolve_carry_tokens, step_carry
 from .policy import (SPEC_DECAY_BELOW, SPEC_GROW_ABOVE, SPEC_NGRAM_MAX,
@@ -136,29 +162,40 @@ def ngram_draft(context: np.ndarray, max_tokens: int,
     return []
 
 
-def _step(model: TorchLM, cache: PagedKVCache, page_levels, row_meta,
-          tok_meta, samp_meta, sample_idx, carry_in, attn_tier: str,
-          max_q_len: int, quant: Optional[QuantConfig],
-          kv_split_pages: int):
-    """One unified step (the JAX engine's ``_step_jit_for`` body).
+def _step(model: TorchLM, cache: PagedKVCache, page_levels, ints, floats,
+          carry, bucket: int, attn_tier: str, max_q_len: int,
+          quant: Optional[QuantConfig], kv_split_pages: int):
+    """One unified step (the JAX engine's ``_step_jit_for`` body), the
+    function a CUDA graph captures per ragged bucket.
 
     ``page_levels``: the two-level table ``(slot_dir, index_pool)`` on
     the device, flattened here to the ``[max_slots, pages_per_seq]``
-    page table the step consumes.
-    ``row_meta [3, max_slots]``: q_starts / q_lens / kv_lens;
-    ``tok_meta [5, bucket]``: tokens / tok_src / seeds / sample_pos /
-    top_k; ``samp_meta [2, bucket]``: temperature / top_p;
-    ``sample_idx``: the flat positions whose tokens landing reads —
-    each chunk row's last one and every position of a decode or verify
-    row — each sampled with its own (seed, token index) key; the other
-    positions stay 0. Updates the cache's pools in place and returns
-    ``(toks [bucket], ok [bucket], carry_out [max_slots])``. ``ok``
-    flags the flat positions whose logits are all finite."""
+    page table the step consumes. ``ints`` (int32) packs ``row_meta [3,
+    max_slots]`` (q_starts / q_lens / kv_lens), ``tok_meta [5,
+    bucket]`` (tokens / tok_src / seeds / sample_pos / top_k) and
+    ``sample_idx [max_slots * (1 + spec_tokens) + 1]``; ``floats``
+    (float32) packs ``samp_meta [2, bucket]`` (temperature / top_p).
+    ``sample_idx`` lists the flat positions whose tokens landing reads
+    (each chunk row's last one and every position of a decode or verify
+    row), padded with ``bucket``, a position past the block that nothing
+    reads: every step of a bucket samples the same number of rows, each
+    with its own (seed, token index) key. Flat positions with
+    ``tok_src >= 0`` take their input token from the device-resident
+    ``carry`` (the previous step's last sampled token of that slot);
+    ``carry`` is then updated in place. Updates the cache's pools in
+    place and returns ``(toks [bucket], ok [bucket])``: the sampled
+    tokens (0 where nothing was sampled) and whether each flat
+    position's logits are all finite."""
+    ms = carry.shape[0]
+    row_meta = ints[:3 * ms].view(3, ms)
+    tok_meta = ints[3 * ms:3 * ms + 5 * bucket].view(5, bucket)
+    sample_idx = ints[3 * ms + 5 * bucket:].long()
+    samp_meta = floats.view(2, bucket)
     q_starts, q_lens, kv_lens = row_meta[0], row_meta[1], row_meta[2]
     tokens, tok_src, seeds = tok_meta[0], tok_meta[1], tok_meta[2]
     sample_pos, top_k = tok_meta[3], tok_meta[4]
     temp, top_p = samp_meta[0], samp_meta[1]
-    toks_in = resolve_carry_tokens(tokens, tok_src, carry_in)
+    toks_in = resolve_carry_tokens(tokens, tok_src, carry)
     page_table = flatten_page_levels(page_levels[0], page_levels[1],
                                      cache.config.pages_per_seq)
     logits = lm_ragged_step(model.params, model.spec, toks_in, q_starts,
@@ -167,12 +204,74 @@ def _step(model: TorchLM, cache: PagedKVCache, page_levels, row_meta,
                             max_q_len=max_q_len, k_scale=cache.k_scale,
                             v_scale=cache.v_scale, quant=quant,
                             kv_split_pages=kv_split_pages)
-    idx = sample_idx.long()
-    toks = torch.zeros_like(tokens)
-    toks[idx] = _sample_traced(logits[idx], seeds[idx], sample_pos[idx],
-                               temp[idx], top_k[idx], top_p[idx])
+    src = torch.clamp(sample_idx, max=bucket - 1)
+    toks = torch.zeros((bucket + 1,), dtype=torch.int32,
+                       device=tokens.device)
+    toks[sample_idx] = _sample_traced(logits[src], seeds[src],
+                                      sample_pos[src], temp[src], top_k[src],
+                                      top_p[src])
+    toks = toks[:bucket]
     ok = torch.isfinite(logits).all(dim=-1)
-    return toks, ok, step_carry(toks, q_starts, q_lens, carry_in)
+    carry.copy_(step_carry(toks, q_starts, q_lens, carry))
+    return toks, ok
+
+
+def _teardown_hook(engine: "GenerationEngine"):
+    """The scheduler's teardown hook for ``engine``, holding it weakly:
+    the engine owns the scheduler, and a reference cycle would keep a
+    dropped engine's pools and graphs on the card until a collection."""
+    ref = weakref.ref(engine)
+
+    def hook(req, slot: int, cause: str) -> None:
+        eng = ref()
+        if eng is not None:
+            eng._on_slot_teardown(req, slot, cause)
+    return hook
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """One captured step: the CUDA graph, its static outputs, and the
+    kernel launches it holds (added to the launch counts per replay)."""
+    graph: object
+    toks: torch.Tensor
+    ok: torch.Tensor
+    held: collections.Counter
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One entry of the card's ring of pinned host buffers: a step's
+    staged metadata, its outputs copied back, and the event recorded
+    after those copies."""
+    ints: torch.Tensor
+    floats: torch.Tensor
+    toks: torch.Tensor
+    ok: torch.Tensor
+    event: object
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched step (async pipelining: dispatched but not yet
+    committed). It holds what the lagged commit needs to land the step
+    as the serial engine would: the packed rows, the pack-time
+    metadata, and where the results arrive (the host ring entry and its
+    event on the card, host arrays on the CPU). ``dead`` collects the
+    rids whose request was torn down after dispatch: their rows are
+    skipped at commit, and a resumed request regenerates their tokens,
+    since sampling is a pure function of (seed, token index)."""
+    plan: Plan
+    chunk_rows: List[RowPlan]
+    decode_rows: List[RowPlan]
+    drafts: Dict[int, List[int]]
+    q_starts: np.ndarray
+    q_lens: np.ndarray
+    pre_lens: Dict[int, int]
+    toks: object
+    ok: object
+    event: object = None
+    dead: Set[int] = dataclasses.field(default_factory=set)
 
 
 class GenerationEngine:
@@ -184,18 +283,32 @@ class GenerationEngine:
     or ``"ref"``. ``quant`` (a :class:`QuantConfig`; ``None`` reads
     ``SchedulerConfig.kv_quant``/``weight_quant``) turns on quantized
     KV pages and weight-only int8; an explicit all-off config forces
-    the float engine."""
+    the float engine. ``cuda_graphs`` (default: on the card with the
+    attention kernels; never on the CPU or with ``attn_tier="ref"``)
+    runs each step as the replay of one CUDA graph per step signature
+    (see :meth:`_dispatch`); ``False`` launches every step eagerly. A
+    capture that fails raises: there is no eager fallback."""
 
     def __init__(self, model: TorchLM,
                  cache_config: Optional[CacheConfig] = None,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  eos_id: Optional[int] = None, attn_tier: str = "auto",
-                 quant: Optional[QuantConfig] = None, device=None):
+                 quant: Optional[QuantConfig] = None, device=None,
+                 cuda_graphs: Optional[bool] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device} but the "
                              f"engine runs on {self.device}; build the "
                              "model on the engine's device")
+        # a graph needs the card and the kernel tier: the plain attention
+        # reads its row spans on the host, which a capture cannot hold
+        graphs_ok = self.device.type == "cuda" and attn_tier != "ref"
+        if cuda_graphs and not graphs_ok:
+            raise ValueError("CUDA graphs need a CUDA device and the "
+                             "attention kernels (attn_tier 'auto' or "
+                             "'kernel'); the plain path runs every step "
+                             "eagerly")
+        self.cuda_graphs = graphs_ok if cuda_graphs is None else cuda_graphs
         # the reference is float32 end to end: no TF32 in matmuls or
         # convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -243,41 +356,179 @@ class GenerationEngine:
         self._tok_matrix = np.zeros((ms, cache_config.max_seq_len),
                                     dtype=np.int32)
         self._row_len = np.zeros((ms,), dtype=np.int64)
+        # the device copy of the two-level page table (static buffers,
+        # rewritten in place when the host table changed) and the
+        # device-resident carry of each slot's last sampled token
+        self._levels_dev = (
+            torch.zeros(self.cache.slot_dir.shape, dtype=torch.int32,
+                        device=self.device),
+            torch.zeros(self.cache.index_pool.shape, dtype=torch.int32,
+                        device=self.device))
+        self._levels_version = -1
+        self.pt_uploads = 0
         self._carry_d = torch.zeros((ms,), dtype=torch.int32,
                                     device=self.device)
-        # device copy of the two-level page table, re-uploaded only when
-        # the host table changed (allocate / release)
-        self._levels_dev = None
-        self._levels_version = -1
+        # sample rows per step: every position of a decode or verify row
+        # and each chunk row's last one, plus the pad
+        self._n_sample = ms * (1 + max(scheduler_config.spec_tokens, 0)) + 1
+        # ---- async pipelining (SchedulerConfig.async_depth) ----
+        # up to async_depth steps dispatched ahead of their commit.
+        # _carry_ok[slot]: the carry holds the slot's true last token (a
+        # pipelined decode row may read it); _inflight_out[slot]: tokens
+        # of the slot dispatched but not yet landed
+        self.async_depth = max(int(scheduler_config.async_depth), 0)
+        self._inflight: Deque[_InFlight] = deque()
+        self._carry_ok = np.zeros((ms,), dtype=bool)
+        self._inflight_out = np.zeros((ms,), dtype=np.int64)
         self.steps_dispatched = 0
+        self.steps_committed = 0
+        self.async_rollbacks = 0
+        self.async_rollback_reasons: Dict[str, int] = {
+            c: 0 for c in ("finished", "cancelled", "timeout", "preempted",
+                           "device_fault")}
+        # occupancy_hist[k]: mixed steps after whose commit phase k steps
+        # were in flight (async_depth when the pipeline is full)
+        self.occupancy_hist = [0] * (self.async_depth + 1)
+        self.scheduler.teardown_hook = _teardown_hook(self)
+        # ---- step dispatch ----
+        # graph key ("step", bucket, tile rows) -> its captured graph
+        # (None on the eager paths, where the key only counts as a
+        # signature launched); steps by class: "decode" (every row one
+        # query: no tile kernel) or "mix"
+        self._graphs: Dict[tuple, Optional[_StepGraph]] = {}
+        self.steps_by_class: "collections.Counter[str]" = \
+            collections.Counter()
+        self._inputs_dev: Dict[int, tuple] = {}
+        self._ring: List[_Slot] = []
+        self._ring_next = 0
+        self._graph_pool = None
 
     # ------------------------------------------------------------ surface --
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
                sampling: Optional[SamplingParams] = None,
-               priority: int = 0, ttft_deadline_s: float = 0.0,
-               deadline_s: float = 0.0) -> int:
+               priority: int = 0, tenant: str = "default",
+               ttft_deadline_s: float = 0.0, deadline_s: float = 0.0) -> int:
         # validate BEFORE the seed draw: a rejected submit burns nothing
         # of the per-request seed stream
         self.scheduler._validate_submit(prompt, max_new_tokens, priority,
                                         ttft_deadline_s, deadline_s)
         sp = resolve_sampling(sampling, self._rng)
         return self.scheduler.submit(prompt, max_new_tokens, sp,
-                                     priority=priority,
+                                     priority=priority, tenant=tenant,
                                      ttft_deadline_s=ttft_deadline_s,
                                      deadline_s=deadline_s)
 
     def cancel(self, rid: int) -> bool:
+        """Tear down request ``rid`` at any stage with its pages restored
+        and ``finish_reason='cancelled'``; its rows still in flight are
+        dead-marked. False for unknown or terminal rids."""
         return self.scheduler.cancel(rid)
 
+    @property
+    def xla_compiles(self) -> int:
+        """Distinct step signatures ``("step", bucket, tile rows)`` this
+        engine launched: with CUDA graphs on, the graphs it captured.
+        At most :attr:`graph_bound`."""
+        return len(self._graphs)
+
+    @property
+    def graph_bound(self) -> int:
+        """The most step signatures a run can need: one per ragged
+        bucket with tile rows, and one more per bucket that can hold a
+        step of one-query rows only (at most ``max_slots`` tokens)."""
+        sch = self.scheduler
+        buckets = sch.config.step_buckets()
+        small = sch.ragged_bucket_for(min(sch.config.max_slots,
+                                          buckets[-1]))
+        return len(buckets) + sum(1 for b in buckets if b <= small)
+
+    @property
+    def pipeline_depth(self) -> int:
+        """Dispatched-but-uncommitted steps in flight."""
+        return len(self._inflight)
+
     def step(self) -> str:
-        plan = self.scheduler.step_plan()
+        """Sweep deadlines, then plan and run one step: serially at
+        depth 0, else through the pipeline (:meth:`_step_async`)."""
+        self.scheduler.sweep_deadlines()
+        if self.async_depth > 0:
+            return self._step_async()
+        plan = self.scheduler.step_plan(sweep=False)
         if plan.kind == "mixed":
-            self._run_mixed(plan)
+            self._commit_step(self._prepare_step(plan))
         return plan.kind
 
+    def _step_async(self) -> str:
+        """One step at ``async_depth > 0``: plan and dispatch step N+1
+        from the optimistic host state first (the device queues it
+        behind N), THEN commit steps until at most ``async_depth`` are in
+        flight. An idle plan with work in flight commits one step
+        (reported as ``commit``), so the pipeline always drains."""
+        self._refresh_async_hold()
+        plan = self.scheduler.step_plan(sweep=False)
+        kind = plan.kind
+        if kind == "mixed":
+            self._inflight.append(self._prepare_step(plan))
+        committed = False
+        limit = self.async_depth if kind == "mixed" else 0
+        while len(self._inflight) > limit:
+            self._commit_step(self._inflight.popleft())
+            committed = True
+            if kind != "mixed":
+                break
+        if kind == "mixed":
+            occ = min(len(self._inflight), len(self.occupancy_hist) - 1)
+            self.occupancy_hist[occ] += 1
+        if kind == "idle" and committed:
+            kind = "commit"
+        return kind
+
+    def _refresh_async_hold(self) -> None:
+        """Slots the next plan must skip: one whose in-flight row is a
+        verify row (how many tokens it lands is data-dependent, so the
+        next row's sample positions are unknown until it commits), and
+        one whose in-flight tokens exhaust ``max_new_tokens`` (a further
+        row would be dead on arrival). Plain decode and final chunk rows
+        land exactly one token, so their slots pipeline freely."""
+        sch = self.scheduler
+        hold = set()
+        for stp in self._inflight:
+            for r in stp.decode_rows:
+                req = r.request
+                if req.rid not in stp.dead and stp.drafts.get(req.slot):
+                    hold.add(req.slot)
+        for slot, req in sch.running.items():
+            if (req.state == "running"
+                    and len(req.output) + int(self._inflight_out[slot])
+                    >= req.max_new_tokens):
+                hold.add(slot)
+        sch.async_hold = hold
+
+    def _drain_pipeline(self) -> None:
+        """Commit every in-flight step."""
+        while self._inflight:
+            self._commit_step(self._inflight.popleft())
+
+    def _on_slot_teardown(self, req, slot: int, cause: str) -> None:
+        """The scheduler's teardown hook: ``req`` leaves ``slot``
+        (finish, cancel, timeout, preemption) and may still have rows in
+        flight. Dead-mark them: their tokens are never landed, and the
+        K/V they write is overwritten by the slot's next owner or masked
+        by its ``kv_lens``; the release restores the pool."""
+        for stp in self._inflight:
+            if req.rid in stp.dead:
+                continue
+            if any(r.request is req for r in stp.plan.rows):
+                stp.dead.add(req.rid)
+                self.async_rollbacks += 1
+                self.async_rollback_reasons[cause] = \
+                    self.async_rollback_reasons.get(cause, 0) + 1
+        self._inflight_out[slot] = 0
+        self._carry_ok[slot] = False
+
     def run(self) -> None:
-        while self.scheduler.has_work:
-            if self.step() == "idle":
+        while self.scheduler.has_work or self._inflight:
+            if self.step() == "idle" and not self._inflight:
                 break
 
     def output_of(self, rid: int) -> List[int]:
@@ -302,22 +553,27 @@ class GenerationEngine:
         return [self.output_of(r) for r in rids]
 
     # ------------------------------------------------- unified mixed step --
-    def _run_mixed(self, plan: Plan) -> None:
-        self._commit_step(self._prepare_step(plan))
-
-    def _prepare_step(self, plan: Plan) -> dict:
-        """Stage chunk contexts, pack the plan's rows into a flat ragged
-        token block, and run the step for the block's bucket."""
+    def _prepare_step(self, plan: Plan) -> _InFlight:
+        """The dispatch half of one step: stage chunk contexts, collect
+        drafts, pack the plan's rows into a flat ragged token block and
+        dispatch it. At ``async_depth > 0`` the host state advances
+        OPTIMISTICALLY here (prefill cursors, ``seq_lens``, in-flight
+        token counts), so the next plan needs nothing of this step's
+        results; a pipelined decode row reads its pending token from
+        the device-resident carry."""
         sch = self.scheduler
         chunk_rows = [r for r in plan.rows if r.kind == "chunk"]
         decode_rows = [r for r in plan.rows if r.kind == "decode"]
         for r in chunk_rows:
             if r.first_chunk:
+                # a resumed request's context is prompt + the output
+                # before its preemption: it re-prefills like a prompt
                 req = r.request
                 ctx = req.kv_tokens()
                 self._tok_matrix[req.slot, :] = 0
                 self._tok_matrix[req.slot, :len(ctx)] = ctx
                 self._row_len[req.slot] = len(ctx)
+                self._inflight_out[req.slot] = 0
         drafts: Dict[int, List[int]] = {}
         if (decode_rows and sch.config.spec_tokens > 0
                 and not sch.spec_suspended):
@@ -330,11 +586,13 @@ class GenerationEngine:
                           + len(decode_rows))
                 budget = max(sch.config.step_token_budget - packed, 0)
             drafts = self._collect_drafts(budget)
+        asynch = self.async_depth > 0
         ms = sch.config.max_slots
         q_starts = np.zeros((ms,), np.int32)
         q_lens = np.zeros((ms,), np.int32)
         kv_lens = np.zeros((ms,), np.int32)
         flat_tokens: List[int] = []
+        tok_src: List[int] = []
         seeds: List[int] = []
         sample_pos: List[int] = []
         temps: List[float] = []
@@ -348,29 +606,39 @@ class GenerationEngine:
             sp = req.sampling or GREEDY
             if r.kind == "chunk":
                 toks = req.kv_tokens()[r.start:r.start + r.chunk_len]
+                src = [-1] * r.chunk_len
                 ql = r.chunk_len
                 kv = r.start + r.chunk_len
                 # only the final position's sample is kept: output index
-                # len(output) (0 for a fresh request)
+                # len(output) (0 for a fresh request, the key plain decode
+                # would use for a resumed one)
                 base = len(req.output) - (ql - 1)
                 sample_idx.append(len(flat_tokens) + ql - 1)
             else:
                 d = drafts.get(slot, [])
                 toks = [int(self._tok_matrix[slot, self._row_len[slot] - 1])
                         ] + d
+                # pipelined: the pending token is the previous step's
+                # output, read from the carry when that entry is the
+                # slot's true last token (the host value may be one
+                # commit stale, and the step then ignores it)
+                use_carry = asynch and bool(self._carry_ok[slot])
+                src = ([slot] if use_carry else [-1]) + [-1] * len(d)
                 ql = 1 + len(d)
                 n0 = int(self.cache.seq_lens[slot])
                 pre_lens[slot] = n0
                 kv = n0 + ql
-                # position t samples output index len(output) + t: the
-                # keys of ql successive plain decode steps
-                base = len(req.output)
+                # position t samples output index len(output) + t (+ the
+                # tokens of the slot still in flight): the keys of ql
+                # successive plain decode steps
+                base = len(req.output) + int(self._inflight_out[slot])
                 sample_idx.extend(range(len(flat_tokens),
                                         len(flat_tokens) + ql))
             q_starts[slot] = len(flat_tokens)
             q_lens[slot] = ql
             kv_lens[slot] = kv
             flat_tokens.extend(int(t) for t in toks)
+            tok_src.extend(src)
             for t in range(ql):
                 seeds.append(sp.seed or 0)
                 sample_pos.append(base + t)
@@ -379,49 +647,101 @@ class GenerationEngine:
                 top_ps.append(sp.top_p)
         n = len(flat_tokens)
         bucket = sch.ragged_bucket_for(n)
-        row_meta = np.stack([q_starts, q_lens, kv_lens]).astype(np.int32)
-        tok_meta = np.zeros((5, bucket), np.int32)
+        ints = np.zeros((3 * ms + 5 * bucket + self._n_sample,), np.int32)
+        ints[:3 * ms] = np.concatenate([q_starts, q_lens, kv_lens])
+        tok_meta = ints[3 * ms:3 * ms + 5 * bucket].reshape(5, bucket)
         tok_meta[1, :] = -1                  # tok_src: host-fed tokens
         tok_meta[0, :n] = flat_tokens
+        tok_meta[1, :n] = tok_src
         tok_meta[2, :n] = seeds
         tok_meta[3, :n] = sample_pos
         tok_meta[4, :n] = top_ks
-        samp_meta = np.zeros((2, bucket), np.float32)
-        samp_meta[0, :n] = temps
-        samp_meta[1, :n] = top_ps
-        toks_d, ok_d, self._carry_d = _step(
-            self.model, self.cache, self._device_page_levels(),
-            self._stage(row_meta), self._stage(tok_meta),
-            self._stage(samp_meta),
-            self._stage(np.asarray(sample_idx, np.int32)), self._carry_d,
-            self._attn_tier,
-            max_q_len=int(q_lens.max()), quant=self.quant,
-            kv_split_pages=self._kv_split_pages)
+        idx = ints[3 * ms + 5 * bucket:]
+        idx[:] = bucket                      # the pad: read by nothing
+        idx[:len(sample_idx)] = sample_idx
+        floats = np.zeros((2 * bucket,), np.float32)
+        floats[:n] = temps
+        floats[bucket:bucket + n] = top_ps
+        toks_h, ok_h, event = self._dispatch(bucket, ints, floats,
+                                             int(q_lens.max()))
         self.steps_dispatched += 1
-        return dict(chunk_rows=chunk_rows, decode_rows=decode_rows,
-                    drafts=drafts, q_starts=q_starts, q_lens=q_lens,
-                    pre_lens=pre_lens, toks=toks_d.cpu().numpy(),
-                    ok=ok_d.cpu().numpy())
+        stp = _InFlight(plan=plan, chunk_rows=chunk_rows,
+                        decode_rows=decode_rows, drafts=drafts,
+                        q_starts=q_starts, q_lens=q_lens, pre_lens=pre_lens,
+                        toks=toks_h, ok=ok_h, event=event)
+        if asynch:
+            # optimistic host state: the next plan runs before commit
+            for r in chunk_rows:
+                req = r.request
+                req.prefill_pos = r.start + r.chunk_len
+                self.cache.seq_lens[req.slot] = max(
+                    int(self.cache.seq_lens[req.slot]),
+                    r.start + r.chunk_len)
+                self._carry_ok[req.slot] = r.final_chunk
+                if r.final_chunk:
+                    # the request decodes from the next step on; its
+                    # first token is in flight and the prefill lane is
+                    # free for the next admission
+                    req.state = "running"
+                    self._inflight_out[req.slot] += 1
+                    if sch._chunking is req:
+                        sch._chunking = None
+            for r in decode_rows:
+                slot = r.request.slot
+                if not drafts.get(slot):
+                    # plain decode: one token in flight, one K/V entry
+                    # written. A verify row's slot is held instead
+                    self.cache.seq_lens[slot] = pre_lens[slot] + 1
+                    self._inflight_out[slot] += 1
+                    self._carry_ok[slot] = True
+                else:
+                    self._carry_ok[slot] = False
+        return stp
 
-    def _commit_step(self, stp: dict) -> None:
-        """Check the landed rows' logits, then land them. The JAX engine
-        quarantines a row with non-finite logits; until the port's
-        device-fault slice brings that, such a row stops the engine."""
-        ok, q_starts, q_lens = stp["ok"], stp["q_starts"], stp["q_lens"]
-        bad = [r.request.rid for r in stp["chunk_rows"] + stp["decode_rows"]
-               if not ok[q_starts[r.request.slot]:q_starts[r.request.slot]
-                         + q_lens[r.request.slot]].all()]
+    def _commit_step(self, stp: _InFlight) -> None:
+        """The landing half of one step, one step behind its dispatch
+        under pipelining: wait for its results, check the live rows'
+        logits, then land them; rows dead-marked since dispatch are
+        skipped. The JAX engine quarantines a row with non-finite
+        logits; until the port's device-fault slice brings that, such a
+        row stops the engine."""
+        if stp.event is not None:
+            stp.event.synchronize()
+        toks, ok = stp.toks, stp.ok
+        self.steps_committed += 1
+        bad = [r.request.rid for r in stp.plan.rows
+               if r.request.rid not in stp.dead
+               and not ok[stp.q_starts[r.request.slot]:
+                          stp.q_starts[r.request.slot]
+                          + stp.q_lens[r.request.slot]].all()]
         if bad:
             raise FloatingPointError(
                 f"non-finite logits in the rows of requests {bad}")
-        self._land_step(stp)
+        self._land_step(stp, toks)
 
-    def _land_step(self, stp: dict) -> None:
-        """Land every row: chunk cursor advances, prefill completions
-        (first tokens), decode and verify tokens."""
+    def _land_step(self, stp: _InFlight, toks: np.ndarray) -> None:
+        """Land every live row: chunk cursor advances, prefill
+        completions (first tokens), decode and verify tokens."""
         sch = self.scheduler
-        toks, q_starts, q_lens = stp["toks"], stp["q_starts"], stp["q_lens"]
-        for r in stp["chunk_rows"]:
+        q_starts, q_lens = stp.q_starts, stp.q_lens
+        chunk_rows = [r for r in stp.chunk_rows
+                      if r.request.rid not in stp.dead]
+        decode_rows = [r for r in stp.decode_rows
+                       if r.request.rid not in stp.dead]
+        if self.async_depth > 0:
+            # this step's pending tokens land now: the optimistic counts
+            # fold back down
+            for r in chunk_rows:
+                if r.final_chunk:
+                    slot = r.request.slot
+                    self._inflight_out[slot] = max(
+                        0, int(self._inflight_out[slot]) - 1)
+            for r in decode_rows:
+                slot = r.request.slot
+                if not stp.drafts.get(slot):
+                    self._inflight_out[slot] = max(
+                        0, int(self._inflight_out[slot]) - 1)
+        for r in chunk_rows:
             req = r.request
             slot = req.slot
             if not r.final_chunk:
@@ -432,23 +752,24 @@ class GenerationEngine:
             if req.state != "finished":
                 self._tok_matrix[slot, self._row_len[slot]] = first
                 self._row_len[slot] += 1
-        self._land_verify_rows(stp)
+        self._land_verify_rows(decode_rows, stp.drafts, q_starts,
+                               stp.pre_lens, toks)
 
-    def _land_verify_rows(self, stp: dict) -> None:
+    def _land_verify_rows(self, decode_rows: List[RowPlan],
+                          drafts: Dict[int, List[int]], q_starts, pre_lens,
+                          toks) -> None:
         """Land the decode and verify rows: per slot, accept the longest
         draft prefix that matches the target's samples and emit the
         accepted drafts plus one more token (the bonus on full
         acceptance, the corrected target on a mismatch; a draftless row
-        emits its one token). The rejected tail's K/V is rolled back
-        with ``cache.truncate`` under the request's reserve floor. An
-        EOS inside a block stops delivery at the EOS. A step in which
-        any slot drafted counts in the ``n_spec_*`` stats."""
+        emits its one token). The rejected tail's K/V is rolled back with
+        ``cache.truncate`` under the request's reserve floor. An EOS
+        inside a block stops delivery at the EOS. A step in which any
+        slot drafted counts in the ``n_spec_*`` stats."""
         sch = self.scheduler
-        toks, q_starts = stp["toks"], stp["q_starts"]
-        drafts, pre_lens = stp["drafts"], stp["pre_lens"]
         emitted: Dict[int, List[int]] = {}
         n_active = n_drafted = n_accepted = 0
-        for r in stp["decode_rows"]:
+        for r in decode_rows:
             req = r.request
             slot = req.slot
             n_active += 1
@@ -466,7 +787,8 @@ class GenerationEngine:
             if acc == k:               # full acceptance: the bonus token
                 out.append(int(toks[qs + k]))
             # positions n0 .. n0 + k were written; those past 1 + acc
-            # hold rejected drafts
+            # hold rejected drafts. max: a later pipelined step may have
+            # advanced a draftless slot already
             n0 = pre_lens[slot]
             self.cache.seq_lens[slot] = max(int(self.cache.seq_lens[slot]),
                                             n0 + 1 + k)
@@ -488,7 +810,7 @@ class GenerationEngine:
             sch.stats["n_spec_emitted"] += sum(delivered.values())
         # each still-running slot's landed tokens join its host context
         # (the next pending token and the drafter's input)
-        for r in stp["decode_rows"]:
+        for r in decode_rows:
             req = r.request
             if req.state == "running":
                 out = emitted[req.slot]
@@ -501,9 +823,9 @@ class GenerationEngine:
                         ) -> Dict[int, List[int]]:
         """n-gram drafts for every decoding slot that has budget and a
         match (slot -> draft tokens). A draft is capped at ``remaining -
-        1`` tokens, so the verify row (drafts plus the bonus or corrected
-        token) never overruns ``max_new_tokens`` or the reserved pages,
-        and at the step budget's remainder when one is given."""
+        1`` tokens (the tokens of the slot still in flight counted), so
+        the verify row never overruns ``max_new_tokens`` or the reserved
+        pages, and at the step budget's remainder when one is given."""
         cfg = self.scheduler.config
         drafts: Dict[int, List[int]] = {}
         left = budget
@@ -519,7 +841,8 @@ class GenerationEngine:
                     req.spec_len = 1
                     req.spec_window.clear()
                 continue
-            remaining = req.max_new_tokens - len(req.output)
+            remaining = (req.max_new_tokens - len(req.output)
+                         - int(self._inflight_out[slot]))
             cap = min(req.spec_len, cfg.spec_tokens, remaining - 1)
             if left is not None:
                 cap = min(cap, left)
@@ -553,12 +876,138 @@ class GenerationEngine:
             req.spec_len = min(req.spec_len + 1,
                                self.scheduler.config.spec_tokens)
 
-    # --------------------------------------------------- device mirrors --
-    def _stage(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+    # ---------------------------------------------------- step dispatch --
+    def _dispatch(self, bucket: int, ints: np.ndarray, floats: np.ndarray,
+                  max_q: int):
+        """Run one step and start its results on their way to the host;
+        returns ``(toks, ok, event)`` (``event`` None on the CPU, where
+        the step has run by the time this returns).
+
+        The step's signature is ``("step", bucket, tile rows)``: whether
+        a row has more than one query decides whether the ragged kernel
+        launches its tile kernel at all. On the card the metadata goes
+        to the bucket's static device inputs from a ring of pinned host
+        buffers (``async_depth + 2`` entries, so an entry is rewritten
+        only after the step that used it has committed), and the
+        outputs come back into the same entry, followed by its event.
+        With CUDA graphs, a signature's first step runs eagerly and
+        then captures the step into one graph (every bucket's graph in
+        one shared memory pool; the tile grid sized to the whole bucket,
+        whose extra blocks exit at once); each later step of that
+        signature replays it. The copies out of a replay are queued
+        right behind it, before any other replay can reuse the pool's
+        memory."""
+        tiles = max_q > DECODE_MAX_Q
+        key = ("step", bucket, tiles)
+        self.steps_by_class["mix" if tiles else "decode"] += 1
+        levels = self._device_page_levels()
+        if self.device.type != "cuda":
+            self._graphs.setdefault(key, None)
+            toks, ok = self._run_step(
+                bucket, torch.from_numpy(ints), torch.from_numpy(floats),
+                max_q, levels)
+            return toks.numpy(), ok.numpy(), None
+        slot = self._ring_slot()
+        slot.ints[:len(ints)].numpy()[:] = ints
+        slot.floats[:len(floats)].numpy()[:] = floats
+        ints_d, floats_d = self._bucket_inputs(bucket, len(ints),
+                                               len(floats))
+        ints_d.copy_(slot.ints[:len(ints)], non_blocking=True)
+        floats_d.copy_(slot.floats[:len(floats)], non_blocking=True)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.graph.replay()
+            pa.LAUNCHES.update(graph.held)
+            toks, ok = graph.toks, graph.ok
+        elif not self.cuda_graphs:
+            self._graphs[key] = None
+            toks, ok = self._run_step(bucket, ints_d, floats_d, max_q,
+                                      levels)
+        else:
+            grid_q = bucket if tiles else max_q
+            toks, ok = self._run_step(bucket, ints_d, floats_d, grid_q,
+                                      levels)
+            self._graphs[key] = self._capture(bucket, ints_d, floats_d,
+                                              grid_q, levels)
+        slot.toks[:bucket].copy_(toks, non_blocking=True)
+        slot.ok[:bucket].copy_(ok, non_blocking=True)
+        slot.event.record()
+        return (slot.toks[:bucket].numpy(), slot.ok[:bucket].numpy(),
+                slot.event)
+
+    def _run_step(self, bucket, ints, floats, max_q, levels):
+        return _step(self.model, self.cache, levels, ints, floats,
+                     self._carry_d, bucket, self._attn_tier,
+                     max_q_len=max_q, quant=self.quant,
+                     kv_split_pages=self._kv_split_pages)
+
+    def _capture(self, bucket, ints_d, floats_d, max_q,
+                 levels) -> _StepGraph:
+        """Capture the step of ``bucket`` over its static inputs into a
+        CUDA graph (nothing runs). Raises if the capture fails."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        # no garbage collection while capturing: a collected graph (an
+        # earlier engine's) would be destroyed mid-capture, which the
+        # driver refuses and which invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with pa.held_launches() as held:
+                with torch.cuda.graph(graph, pool=self._graph_pool):
+                    toks, ok = self._run_step(bucket, ints_d, floats_d,
+                                              max_q, levels)
+        finally:
+            if collecting:
+                gc.enable()
+        return _StepGraph(graph=graph, toks=toks, ok=ok, held=held)
+
+    def _ring_slot(self) -> _Slot:
+        """The next pinned ring entry, once the step that used it last
+        has finished with it."""
+        if not self._ring:
+            cfg = self.scheduler.config
+            width = cfg.step_buckets()[-1]
+            n_int = 3 * cfg.max_slots + 5 * width + self._n_sample
+            for _ in range(self.async_depth + 2):
+                self._ring.append(_Slot(
+                    ints=torch.empty((n_int,), dtype=torch.int32,
+                                     pin_memory=True),
+                    floats=torch.empty((2 * width,), dtype=torch.float32,
+                                       pin_memory=True),
+                    toks=torch.empty((width,), dtype=torch.int32,
+                                     pin_memory=True),
+                    ok=torch.empty((width,), dtype=torch.bool,
+                                   pin_memory=True),
+                    event=torch.cuda.Event()))
+        slot = self._ring[self._ring_next % len(self._ring)]
+        self._ring_next += 1
+        slot.event.synchronize()
+        return slot
+
+    def _bucket_inputs(self, bucket: int, n_int: int, n_float: int):
+        """The static device inputs of ``bucket``'s steps (a graph reads
+        them where they lie)."""
+        if bucket not in self._inputs_dev:
+            self._inputs_dev[bucket] = (
+                torch.empty((n_int,), dtype=torch.int32, device=self.device),
+                torch.empty((n_float,), dtype=torch.float32,
+                            device=self.device))
+        return self._inputs_dev[bucket]
 
     def _device_page_levels(self):
+        """The device copy of the two-level page table, rewritten in
+        place (queued behind the steps in flight, which read the old
+        table first) only when the host table changed."""
         if self._levels_version != self.cache.page_table_version:
-            self._levels_dev = self.cache.device_page_levels()
+            for dst, src in zip(self._levels_dev, (self.cache.slot_dir,
+                                                   self.cache.index_pool)):
+                host = torch.from_numpy(src)
+                if self.device.type == "cuda":
+                    dst.copy_(host.pin_memory(), non_blocking=True)
+                else:
+                    dst.copy_(host)
             self._levels_version = self.cache.page_table_version
+            self.pt_uploads += 1
         return self._levels_dev

@@ -26,9 +26,24 @@ pool of page-index rows (``index_pool [dir_capacity, dir_fanout]``, row
 pages_per_seq]`` view on the device (:func:`flatten_page_levels`);
 ``page_table`` is the same flat view on the host. Heavy prefix sharing
 can exhaust the index rows before the pages: ``allocate`` then refuses,
-exactly as the JAX cache does. The JAX cache's host swap tier and
-cold-prefix demotion come with later slices; this ``CacheConfig``
-rejects settings that need them.
+exactly as the JAX cache does.
+
+The host swap tier (``swap_pages > 0``): preemption copies a slot's
+full resident pages into a host store keyed by the prefix cache's
+rolling digests (``swap_out``), and a resumed request's fresh pages are
+written back from it (``swap_in``), byte for byte: an int8 or fp8 page
+travels as its codes and its scale rows. Cold-prefix demotion
+(``demote_cold_prefix``): evicting a parked prefix page spills its
+bytes into the same store first, so a later hit on that content swaps
+it back in at admission instead of re-prefilling;
+``demote_prefix_pages`` demotes parked pages on demand.
+
+Device work the host orders: the engine may have steps in flight on the
+cache's stream. Host writes to the pools (``swap_in``, the scale-row
+zeroing of freed pages) are enqueued on the same stream from pinned
+host memory without waiting for it, so they land after every step
+already queued; host reads (``swap_out``, ``_spill_page``) copy on that
+stream and wait for it, so they see every queued step's writes.
 
 ``truncate`` rolls back the tail of a slot (speculative decoding's
 rejected drafts) under the request's reserve floor. The module-level
@@ -48,6 +63,7 @@ import torch
 
 from ...device import resolve_device
 from ...kernels.paged_attention import ragged_rows
+from .policy import COLD_DEMOTE_DEFAULT, SWAP_PAGES_DEFAULT
 from .quant import QuantConfig, kv_pool_dtype, kv_scale_shape
 
 __all__ = ["GARBAGE_PAGE", "CacheConfig", "PagedKVCache",
@@ -68,10 +84,12 @@ class CacheConfig:
     ``kv_quant`` (off | int8 | fp8) picks the page encoding;
     ``scale_dtype`` and ``weight_quant`` never change the pool layout
     beyond that but enter the content-hash salt, as on the JAX side.
-    ``swap_pages``, ``demote_cold_prefix``, ``coll_quant``,
-    ``coll_block`` and ``weight_matmul`` exist so that configs can be
-    written alike on both sides; the slices that drive them are not
-    ported, so only their defaults are accepted here."""
+    ``swap_pages`` bounds the host swap store (0 = off) and
+    ``demote_cold_prefix`` spills evicted prefix pages there, with the
+    JAX cache's defaults. ``coll_quant``, ``coll_block`` and
+    ``weight_matmul`` exist so that configs can be written alike on
+    both sides; the slices that drive them are not ported, so only
+    their defaults are accepted here."""
 
     num_layers: int
     num_heads: int
@@ -81,8 +99,8 @@ class CacheConfig:
     max_slots: int = 8
     max_seq_len: int = 512
     prefix_cache: bool = True
-    swap_pages: int = 0
-    demote_cold_prefix: bool = False
+    swap_pages: int = SWAP_PAGES_DEFAULT
+    demote_cold_prefix: bool = COLD_DEMOTE_DEFAULT
     kv_quant: str = "off"
     scale_dtype: str = "float32"
     weight_quant: str = "off"
@@ -91,11 +109,9 @@ class CacheConfig:
     weight_matmul: str = "off"
 
     def __post_init__(self):
-        if self.swap_pages != 0 or self.demote_cold_prefix:
-            raise NotImplementedError(
-                "the host swap tier and cold-prefix demotion come with the "
-                "preemption slice of the port; use swap_pages=0, "
-                "demote_cold_prefix=False")
+        if self.swap_pages < 0:
+            raise ValueError(f"swap_pages must be >= 0, got "
+                             f"{self.swap_pages}")
         if (self.coll_quant, self.coll_block) != ("off", 32):
             raise NotImplementedError(
                 "quantized collectives come with the tensor-parallel mesh "
@@ -229,6 +245,16 @@ class PagedKVCache:
         self._n_shared = 0           # pages mapped by >= 2 slots
         self.prefix_hits = 0         # pages served from the cache
         self.prefix_evictions = 0
+        # host swap tier: rolling digest -> host copies of a page's bytes
+        # (k, v[, k_scale, v_scale], each [L, page, ...]), LRU-bounded at
+        # config.swap_pages entries
+        self._swap: "OrderedDict[bytes, tuple]" = OrderedDict()
+        self.swapped_out_pages = 0   # lifetime host copies
+        self.swapped_in_pages = 0
+        self.swap_evictions = 0
+        # parked prefix pages whose bytes spilled to the host store before
+        # the page returned to the free list
+        self.demoted_pages = 0
 
     # ------------------------------------------------ two-level page table --
     @property
@@ -364,12 +390,49 @@ class PagedKVCache:
         matched = self._match_prefix(prompt, hashes)
         return need - len(matched) <= self._avail_for(matched)
 
+    def _page_entry(self, page: int) -> tuple:
+        """Host copies of ``page``'s bytes across every layer: K and V,
+        and with quantized pools their scale rows. The copies run on the
+        cache's stream and wait for it, so they hold every queued
+        step's writes."""
+        pools = [self.k_pool, self.v_pool]
+        if self.k_scale is not None:
+            pools += [self.k_scale, self.v_scale]
+        return tuple(p[:, page].to("cpu", copy=True) for p in pools)
+
+    def _store(self, key: bytes, entry: tuple) -> None:
+        """Put ``entry`` at the MRU end of the swap store, evicting its
+        oldest entries beyond ``config.swap_pages``."""
+        self._swap[key] = entry
+        while len(self._swap) > self.config.swap_pages:
+            self._swap.popitem(last=False)
+            self.swap_evictions += 1
+
+    def _spill_page(self, key: bytes, page: int) -> bool:
+        """Copy ``page``'s bytes (scale rows included) into the host swap
+        store under its content digest, in the entry format ``swap_out``
+        writes. A key already held only moves to the MRU end. Returns
+        True when bytes were copied."""
+        if self.config.swap_pages <= 0:
+            return False
+        if key in self._swap:
+            self._swap.move_to_end(key)
+            return False
+        self._store(key, self._page_entry(page))
+        return True
+
     def _evict_one(self) -> int:
         """Reclaim the least-recently-released cached page (refcount 0
-        by construction — a mapped page is never on the LRU)."""
+        by construction — a mapped page is never on the LRU). With
+        cold-prefix demotion on, its bytes spill to the host store
+        first, so a later request with that prefix swaps it back in at
+        admission instead of re-prefilling."""
         page, _ = self._evictable.popitem(last=False)
         key = self._page_key.pop(page)
         del self._prefix_map[key]
+        if self.config.demote_cold_prefix and self._spill_page(key, page):
+            self.demoted_pages += 1
+            self.swapped_out_pages += 1
         self.prefix_evictions += 1
         return page
 
@@ -484,6 +547,127 @@ class PagedKVCache:
             n_new += 1
         return n_new
 
+    # ------------------------------------------------- host swap tier --
+    @property
+    def num_swapped_pages(self) -> int:
+        """Pages resident in the host swap store."""
+        return len(self._swap)
+
+    def demote_prefix_pages(self, max_pages: Optional[int] = None) -> int:
+        """Demote up to ``max_pages`` (default all) parked prefix pages,
+        least recently released first: spill each page's bytes to the
+        host store under its digest, unregister it and return it to the
+        free list. A later prompt with that content swaps it back in at
+        admission. A no-op without the swap tier. Returns pages
+        demoted."""
+        if self.config.swap_pages <= 0:
+            return 0
+        budget = len(self._evictable) if max_pages is None \
+            else min(max(max_pages, 0), len(self._evictable))
+        freed: List[int] = []
+        copied = 0
+        for _ in range(budget):
+            page, _ = self._evictable.popitem(last=False)
+            key = self._page_key.pop(page)
+            del self._prefix_map[key]
+            if self._spill_page(key, page):
+                copied += 1
+            freed.append(page)
+        if freed:
+            # spilled before the scale rows zero: the entry carries the
+            # live scales, the freed page audits clean
+            self._free.extend(freed)
+            self._zero_scale_rows(freed)
+            self.demoted_pages += len(freed)
+            self.swapped_out_pages += copied
+        return len(freed)
+
+    def swap_out(self, slot: int, tokens: Sequence[int],
+                 hashes: Optional[List[bytes]] = None) -> int:
+        """Copy ``slot``'s FULL pages holding ``tokens``' KV into the
+        host swap store (preemption; call before ``release``).
+        ``tokens`` is the slot's KV-resident prefix (at most
+        ``seq_lens[slot]`` long): pages past it hold garbage and are
+        never copied. Keys are the prefix cache's rolling digests; a key
+        already held only moves to the MRU end. Returns pages copied."""
+        if self.config.swap_pages <= 0 or not len(tokens):
+            return 0
+        pages = self._allocated_pages[slot]
+        if not pages:
+            raise RuntimeError(
+                f"swap_out of slot {slot} which holds no allocation")
+        if len(tokens) > int(self.seq_lens[slot]):
+            raise RuntimeError(
+                f"swap_out of {len(tokens)} tokens but slot {slot} has "
+                f"only {int(self.seq_lens[slot])} KV-resident — the tail "
+                "pages hold garbage")
+        keys = hashes if hashes is not None else self._block_hashes(tokens)
+        n = 0
+        for i, key in enumerate(keys[:len(pages)]):
+            if key in self._swap:
+                self._swap.move_to_end(key)
+                continue
+            self._store(key, self._page_entry(pages[i]))
+            n += 1
+        self.swapped_out_pages += n
+        return n
+
+    def swap_in(self, slot: int, tokens: Sequence[int],
+                hashes: Optional[List[bytes]] = None) -> int:
+        """Write host-swapped pages back into ``slot``'s freshly reserved
+        pages (resume; call right after ``allocate``). Walks ``tokens``'
+        page keys from past the device prefix hit; each key the store
+        holds is written into the slot's page for that position, byte
+        for byte, and registered in the prefix map, and
+        ``prefix_len(slot)`` advances, so only the unrestored tail
+        re-prefills. Leaves at least one token uncovered for the
+        sampler's logits, as ``_match_prefix`` does. Returns pages
+        restored."""
+        if self.config.swap_pages <= 0 or not self._swap or not len(tokens):
+            return 0
+        pages = self._allocated_pages[slot]
+        if not pages:
+            raise RuntimeError(
+                f"swap_in of slot {slot} which holds no allocation")
+        keys = hashes if hashes is not None else self._block_hashes(tokens)
+        ps = self.config.page_size
+        start = self._prefix_lens[slot] // ps
+        stop = min(len(keys), len(pages), (len(tokens) - 1) // ps)
+        pools = [self.k_pool, self.v_pool]
+        if self.k_scale is not None:
+            pools += [self.k_scale, self.v_scale]
+        restored = 0
+        for i in range(start, stop):
+            entry = self._swap.get(keys[i])
+            if entry is None:
+                break
+            page = pages[i]
+            if self._refcount[page] != 1 or page in self._page_key:
+                # a mapped cache hit past the device-matched prefix: its
+                # KV is resident already; only the cursor advances
+                self._prefix_lens[slot] += ps
+                continue
+            for pool, host in zip(pools, entry):
+                _write_page(pool, page, host)
+            self._swap.move_to_end(keys[i])
+            if (self.config.prefix_cache and keys[i] not in self._prefix_map
+                    and page not in self._page_key):
+                self._prefix_map[keys[i]] = page
+                self._page_key[page] = keys[i]
+            self._prefix_lens[slot] += ps
+            restored += 1
+        self.swapped_in_pages += restored
+        return restored
+
+    @property
+    def swap_quant_key(self) -> tuple:
+        """The quant-config tuple that must match for two caches'
+        content-addressed entries to be interchangeable: the fields the
+        block-hash salt folds in."""
+        c = self.config
+        return (c.kv_quant, c.scale_dtype, c.weight_quant, c.coll_quant,
+                c.coll_block, c.weight_matmul)
+
     def release(self, slot: int) -> None:
         """Drop ``slot``'s mapping: refcount-- on every page; uncached
         pages at refcount 0 return to the free list, cached ones park on
@@ -527,7 +711,8 @@ class PagedKVCache:
         exact, as the JAX cache does under its audit switch."""
         if self.k_scale is None or not pages:
             return
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        idx = _host_to_device(torch.tensor(pages, dtype=torch.long),
+                              self.device)
         self.k_scale[:, idx] = 0
         self.v_scale[:, idx] = 0
 
@@ -568,6 +753,9 @@ class PagedKVCache:
         for s, ps in self._allocated_pages.items():
             _check(self.seq_lens[s] <= len(ps) * c.page_size,
                    f"slot {s} overflowed its reservation")
+        _check(len(self._swap) <= max(c.swap_pages, 0),
+               f"swap store holds {len(self._swap)} pages, budget "
+               f"{c.swap_pages}")
         # ---- two-level table ----
         _check(bool((self.index_pool[0] == GARBAGE_PAGE).all()),
                "reserved garbage index row 0 was written")
@@ -596,6 +784,26 @@ class PagedKVCache:
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def _host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``. On CUDA it goes through pinned
+    memory without waiting for the stream: the copy is queued behind
+    every step already in flight, and PyTorch's pinned allocator
+    recycles the staging buffer only once the copy has run."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _write_page(pool: torch.Tensor, page: int, host: torch.Tensor) -> None:
+    """``pool[:, page] = host`` byte for byte (float8 pools through
+    byte views), queued on the pool's stream."""
+    dst = pool[:, page]
+    if dst.dtype == torch.float8_e4m3fn:
+        dst, host = dst.view(torch.uint8), host.view(torch.uint8)
+    dst.copy_(_host_to_device(host, pool.device),
+              non_blocking=pool.device.type == "cuda")
 
 
 def ragged_page_indices(page_table, q_starts, q_lens, kv_lens, width: int,

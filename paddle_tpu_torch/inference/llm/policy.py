@@ -6,7 +6,9 @@ keeps its own copy of the values instead, so that it reads nothing of
 that package. ``tests/test_torch_isolation.py`` pins every constant here
 against the JAX package's ``shared_policy()`` (with no ``PD_*``
 environment set), and ``tests/test_torch_spec_decode.py`` the drafting
-knobs against the JAX engine's, so a drifted copy fails there.
+knobs against the JAX engine's, so a drifted copy fails there. The
+swap-tier defaults are the JAX cache module's (``SWAP_PAGES_DEFAULT``,
+``COLD_DEMOTE_DEFAULT``), pinned there too.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ __all__ = ["MAX_QUEUE", "DEFAULT_CHUNK_TOKENS", "STEP_TOKEN_BUDGET",
            "DEFAULT_SPEC_TOKENS", "ASYNC_DEPTH", "KV_QUANT", "WEIGHT_QUANT",
            "KV_QUANT_MODES", "WEIGHT_QUANT_MODES", "KV_SPLIT_PAGES",
            "SPEC_NGRAM_MAX", "SPEC_NGRAM_MIN", "SPEC_WINDOW",
-           "SPEC_PROBE_EVERY", "SPEC_DECAY_BELOW", "SPEC_GROW_ABOVE"]
+           "SPEC_PROBE_EVERY", "SPEC_DECAY_BELOW", "SPEC_GROW_ABOVE",
+           "PRIORITY_CLASSES", "TENANT_MAX_PAGES", "TENANT_MAX_SLOTS",
+           "SWAP_PAGES_DEFAULT", "COLD_DEMOTE_DEFAULT"]
 
 MAX_QUEUE = 1024             # admission ceiling (waiting-queue depth)
 DEFAULT_CHUNK_TOKENS = 0     # chunked-prefill token budget (0 = off)
@@ -26,6 +30,18 @@ WEIGHT_QUANT = "off"         # serving weight storage mode
 KV_QUANT_MODES = ("off", "int8", "fp8")
 WEIGHT_QUANT_MODES = ("off", "int8")
 KV_SPLIT_PAGES = 0           # flash-decode KV-split chunk width (0 = off)
+
+# multi-tenant admission: priority classes (0 = most urgent) and the
+# per-tenant quotas over running requests (0 = unlimited)
+PRIORITY_CLASSES = 3
+TENANT_MAX_PAGES = 0
+TENANT_MAX_SLOTS = 0
+
+# the host swap tier: pages the host store holds (0 = swapping off; a
+# preempted request then re-prefills), and whether evicting a parked
+# prefix page spills its bytes there first (cold-prefix demotion)
+SWAP_PAGES_DEFAULT = 256
+COLD_DEMOTE_DEFAULT = True
 
 # n-gram (prompt-lookup) drafting. Any draft is safe (verification emits
 # exactly the target-sampled tokens), so these only tune how often

@@ -4,8 +4,8 @@ Counterpart of ``paddle_tpu/inference/llm/scheduler.py`` for the
 unified mixed-step plan. The scheduler owns WHAT runs each step; the
 ``GenerationEngine`` owns HOW it runs.
 
-- **Admission control**: a bounded FIFO waiting queue (``max_queue``);
-  ``submit`` raises ``QueueFull`` beyond it.
+- **Admission control**: bounded waiting queues (``max_queue`` in
+  all); ``submit`` raises ``QueueFull`` beyond it.
 - **Backpressure**: a request is admitted to a slot only when the paged
   pool can reserve every page it may touch (prompt + max_new_tokens),
   so a running sequence never runs out of pages mid-decode.
@@ -25,15 +25,41 @@ unified mixed-step plan. The scheduler owns WHAT runs each step; the
   adaptive draft state lives on the ``Request`` (``spec_len``,
   ``spec_window``, ``spec_idle``) and the totals in ``stats``.
 
-Priority classes, tenant quotas, deadlines, preemption, brownout
-shedding (so ``spec_suspended`` stays False), async pipelining,
-quantized collectives and the int8 matmul are later slices of the port:
-their knobs exist so a config reads like the JAX one, and a non-default
-value raises ``NotImplementedError`` naming the slice.
+- **Priority classes and tenant quotas**: every request carries a
+  ``priority`` (0 = most urgent, ``priority_classes`` classes) and a
+  ``tenant``. Admission scans the classes in order, FIFO within one; a
+  tenant at its slot or page quota (``tenant_max_slots`` /
+  ``tenant_max_pages``, over running requests) is skipped and never
+  blocks another tenant. One class and no quotas is the plain FIFO.
+- **Deadlines and cancellation**: per-request TTFT and total deadlines
+  are swept before every plan (``sweep_deadlines``); an expired or
+  cancelled request is torn down at any stage with its pages restored
+  (``finish_reason`` ``timeout`` / ``cancelled``), and reaches its
+  terminal state exactly once.
+- **Preemption with KV swap**: a higher-priority request blocked on a
+  slot or pages evicts the lowest-priority running ones (most recently
+  admitted first). A victim's full resident pages are registered in
+  the prefix cache and copied to the host swap tier
+  (``PagedKVCache.swap_out``), its slot is released, and it re-queues
+  at the front of its class; on re-admission the pages are mapped or
+  written back (``swap_in``) and only the tail re-prefills. Sampling is
+  a pure function of (seed, token index), so the resumed request
+  delivers the same tokens. A victim that cannot re-queue ends with
+  ``finish_reason="preempted"``.
+- **Async pipelining hooks** (engine-attached): ``async_hold`` lists
+  the slots the next plan skips, and ``teardown_hook(req, slot,
+  cause)`` runs at the top of every slot teardown so the engine can
+  dead-mark the request's rows still in flight.
+
+Brownout shedding (so ``spec_suspended`` stays False), quantized
+collectives and the int8 matmul are later slices of the port: their
+knobs exist so a config reads like the JAX one, and a non-default value
+raises ``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
 
@@ -46,6 +72,7 @@ __all__ = ["SchedulerConfig", "Request", "QueueFull", "InvalidRequest",
 
 WAITING, PREFILL, RUNNING, FINISHED = "waiting", "prefill", "running", \
     "finished"
+PREEMPTED = "preempted"
 
 
 class QueueFull(RuntimeError):
@@ -54,7 +81,8 @@ class QueueFull(RuntimeError):
 
 class InvalidRequest(ValueError):
     """Typed rejection of a malformed submit (empty prompt, non-positive
-    ``max_new_tokens``, a prompt that cannot fit the engine or pool),
+    ``max_new_tokens``, a prompt that cannot fit the engine, pool or
+    tenant quota, a priority outside the classes, a negative deadline),
     raised before a rid is assigned."""
 
 
@@ -89,10 +117,18 @@ class SchedulerConfig:
     step_token_budget: int = policy.STEP_TOKEN_BUDGET
     # speculative decoding: most draft tokens per decode row (0 = off)
     spec_tokens: int = policy.DEFAULT_SPEC_TOKENS
-    # later slices: only the defaults are accepted (see __post_init__)
+    # multi-tenant admission: priority classes (0 most urgent; a submit
+    # outside [0, classes) is InvalidRequest), per-tenant quotas over
+    # running requests (0 = unlimited), and SLO preemption (False: a
+    # blocked high-priority admission waits)
+    priority_classes: int = policy.PRIORITY_CLASSES
+    tenant_max_pages: int = policy.TENANT_MAX_PAGES
+    tenant_max_slots: int = policy.TENANT_MAX_SLOTS
+    preempt: bool = True
+    # async pipelining: steps dispatched ahead of their commit (0 =
+    # serial); the engine reads it
     async_depth: int = policy.ASYNC_DEPTH
-    tenant_max_pages: int = 0
-    tenant_max_slots: int = 0
+    # a later slice (overload brownout): only 0 is accepted
     brownout_levels: int = 0
     # quantized serving: KV-page storage mode (off | int8 | fp8) and
     # weight storage mode (off | int8). The scheduler never reads them
@@ -110,13 +146,9 @@ class SchedulerConfig:
     kv_split_pages: int = policy.KV_SPLIT_PAGES
 
     def __post_init__(self):
-        later = (("async_depth", "async pipelining"),
-                 ("tenant_max_pages", "multi-tenant admission"),
-                 ("tenant_max_slots", "multi-tenant admission"),
-                 ("brownout_levels", "overload brownout"))
-        for knob, slice_name in later:
-            if getattr(self, knob) != 0:
-                raise _later_slice(knob, getattr(self, knob), slice_name)
+        if self.brownout_levels != 0:
+            raise _later_slice("brownout_levels", self.brownout_levels,
+                               "overload brownout")
         if self.coll_quant != "off":
             raise _later_slice("coll_quant", self.coll_quant,
                                "tensor-parallel mesh")
@@ -161,10 +193,28 @@ class Request:
     spec_accepted: int = 0
     spec_window: List = dataclasses.field(default_factory=list)
     spec_idle: int = 0
+    # multi-tenant serving: priority class (0 most urgent), tenant,
+    # deadlines in seconds from submit (0 = none), and the lifecycle
+    # timeline (perf_counter seconds; 0.0 = not reached)
+    priority: int = 0
+    tenant: str = "default"
+    ttft_deadline_s: float = 0.0   # to the first token
+    deadline_s: float = 0.0        # to the terminal state
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first_token: float = 0.0
+    t_finish: float = 0.0
+    pages_reserved: int = 0
+    prefix_len: int = 0            # tokens served from cache or swap
+    preemptions: int = 0           # times evicted from a slot
+    t_preempt: float = 0.0         # the latest eviction
+    restored_tokens: int = 0       # served from cache/swap at the latest
+                                   # re-admission of a preempted request
 
     def kv_tokens(self) -> List[int]:
         """prompt + generated output — every token whose KV must be
-        resident before the request can take another decode step."""
+        resident before the request can take another decode step (what
+        a preempted request re-prefills on resume)."""
         return self.prompt + self.output if self.output else self.prompt
 
 
@@ -200,25 +250,50 @@ class ContinuousBatchingScheduler:
         self.cache = cache
         self.config = config
         self._step_buckets = config.step_buckets()
-        self._queue: Deque[Request] = deque()
+        # one FIFO per priority class, class 0 scanned first
+        self._queues: List[Deque[Request]] = [
+            deque() for _ in range(max(config.priority_classes, 1))]
         self.running: Dict[int, Request] = {}      # slot -> request
         self.finished: Dict[int, Request] = {}     # rid -> request
         self.requests: Dict[int, Request] = {}     # rid -> request
         self._free_slots = list(range(config.max_slots - 1, -1, -1))
         self._chunking: Optional[Request] = None   # owner of the prefill lane
         self._next_rid = 0
-        # speculative-decoding totals (engine-updated): verify steps,
-        # slot participations in them, drafted / accepted / emitted tokens
-        self.stats = {"n_spec_steps": 0, "n_spec_slot_steps": 0,
+        # lifecycle counts, and the speculative-decoding totals (engine-
+        # updated): verify steps, slot participations in them, drafted /
+        # accepted / emitted tokens
+        self.stats = {"n_submitted": 0, "n_rejected": 0, "n_prefills": 0,
+                      "n_chunks": 0, "n_backpressure": 0, "n_recycled": 0,
+                      "n_finished": 0,
+                      "n_spec_steps": 0, "n_spec_slot_steps": 0,
                       "n_spec_drafted": 0, "n_spec_accepted": 0,
-                      "n_spec_emitted": 0}
+                      "n_spec_emitted": 0,
+                      "n_preemptions": 0, "n_resumed": 0,
+                      "n_preempt_drops": 0, "n_timeouts": 0,
+                      "n_cancelled": 0, "n_quota_deferred": 0}
+        # live requests carrying a deadline: the sweep is skipped while
+        # this is zero
+        self._live_deadlines = 0
         # brownout turns drafting off; the port has no brownout yet
         self.spec_suspended = False
+        # async pipelining (engine-attached): slots the next plan skips
+        # while their in-flight results cannot be planned past, and the
+        # hook every slot teardown calls first, teardown_hook(req, slot,
+        # cause), so the engine can dead-mark the request's rows still
+        # in flight
+        self.async_hold: set = set()
+        self.teardown_hook = None
 
     # -------------------------------------------------------------- views --
     @property
+    def waiting(self) -> List[Request]:
+        """Waiting requests in admission-scan order (class 0 first, FIFO
+        within a class); a snapshot."""
+        return [r for q in self._queues for r in q]
+
+    @property
     def num_waiting(self) -> int:
-        return len(self._queue)
+        return sum(len(q) for q in self._queues)
 
     # --------------------------------------------------------- admission --
     def _validate_submit(self, prompt, max_new_tokens, priority=0,
@@ -239,27 +314,42 @@ class ContinuousBatchingScheduler:
                 f"request needs {need} pages but one slot maps at most "
                 f"{self.cache.slot_page_capacity} — it could never be "
                 "admitted; grow CacheConfig.num_pages / max_seq_len")
-        if priority != 0:
-            raise _later_slice("priority", priority, "multi-tenant admission")
-        if ttft_deadline_s or deadline_s:
-            raise _later_slice("deadline_s",
-                               deadline_s or ttft_deadline_s, "deadlines")
+        if (self.config.tenant_max_pages > 0
+                and need > self.config.tenant_max_pages):
+            raise InvalidRequest(
+                f"request needs {need} pages but the per-tenant quota is "
+                f"{self.config.tenant_max_pages} — it could never be "
+                "admitted")
+        if not 0 <= priority < self.config.priority_classes:
+            raise InvalidRequest(
+                f"priority {priority} outside [0, "
+                f"{self.config.priority_classes})")
+        if ttft_deadline_s < 0 or deadline_s < 0:
+            raise InvalidRequest("deadlines must be >= 0 seconds")
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
-               sampling=None, priority: int = 0,
+               sampling=None, priority: int = 0, tenant: str = "default",
                ttft_deadline_s: float = 0.0, deadline_s: float = 0.0) -> int:
         self._validate_submit(prompt, max_new_tokens, priority,
                               ttft_deadline_s, deadline_s)
         if self.num_waiting >= self.config.max_queue:
+            self.stats["n_rejected"] += 1
             raise QueueFull(
                 f"serving queue full ({self.config.max_queue} pending)")
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=list(prompt),
                       max_new_tokens=max_new_tokens, sampling=sampling,
-                      spec_len=self.config.spec_tokens)
-        self._queue.append(req)
+                      spec_len=self.config.spec_tokens, priority=priority,
+                      tenant=tenant or "default",
+                      ttft_deadline_s=float(ttft_deadline_s),
+                      deadline_s=float(deadline_s),
+                      t_submit=time.perf_counter())
+        self._queues[priority].append(req)
         self.requests[rid] = req
+        if req.ttft_deadline_s > 0 or req.deadline_s > 0:
+            self._live_deadlines += 1
+        self.stats["n_submitted"] += 1
         return rid
 
     def ragged_bucket_for(self, n: int) -> int:
@@ -272,30 +362,127 @@ class ContinuousBatchingScheduler:
 
     # ---------------------------------------------------------- planning --
     def _hashes_for(self, req: Request) -> List[bytes]:
+        """Memoized rolling digests over ``req.kv_tokens()`` (preemption
+        drops the memo: the context grew by the output)."""
         if req.block_hashes is None:
+            c = self.cache.config
             req.block_hashes = (self.cache._block_hashes(req.kv_tokens())
-                                if self.cache.config.prefix_cache else [])
+                                if c.prefix_cache or c.swap_pages > 0
+                                else [])
         return req.block_hashes
 
     def _need_tokens(self, req: Request) -> int:
+        # the reserve-ahead bound; output counts inside max_new_tokens,
+        # so it also covers a resumed request's context and the rest
         return len(req.prompt) + req.max_new_tokens
 
-    def _admission_candidate(self) -> Optional[Request]:
-        """The queue head when a slot and its pages are free; else None
-        (FIFO: nothing behind a blocked head is admitted)."""
-        if not self._queue:
+    def _pages_ok(self, req: Request) -> bool:
+        return self.cache.can_allocate(self._need_tokens(req),
+                                       prompt=req.kv_tokens(),
+                                       hashes=self._hashes_for(req))
+
+    def tenant_usage(self) -> Dict[str, Dict[str, int]]:
+        """Per tenant: slots and KV pages held by running requests, and
+        tokens generated so far by every request this scheduler
+        remembers."""
+        out: Dict[str, Dict[str, int]] = {}
+        for tenant, (slots, pages) in self._tenant_usage().items():
+            out[tenant] = {"slots": slots, "pages": pages, "tokens": 0}
+        for r in self.requests.values():
+            row = out.setdefault(r.tenant,
+                                 {"slots": 0, "pages": 0, "tokens": 0})
+            row["tokens"] += len(r.output)
+        return out
+
+    def _tenant_usage(self) -> Dict[str, List[int]]:
+        """tenant -> [held slots, held pages] over running requests, once
+        per admission scan."""
+        usage: Dict[str, List[int]] = {}
+        for r in self.running.values():
+            held = usage.setdefault(r.tenant, [0, 0])
+            held[0] += 1
+            held[1] += r.pages_reserved
+        return usage
+
+    def _quota_blocked(self, req: Request,
+                       usage: Dict[str, List[int]]) -> bool:
+        """True when admitting ``req`` now would push its tenant over a
+        slot or page quota; the scan then skips it."""
+        cfg = self.config
+        held_slots, held_pages = usage.get(req.tenant, (0, 0))
+        if cfg.tenant_max_slots > 0 and held_slots + 1 > cfg.tenant_max_slots:
+            blocked = True
+        elif cfg.tenant_max_pages > 0:
+            need = self.cache.config.pages_for(self._need_tokens(req))
+            blocked = held_pages + need > cfg.tenant_max_pages
+        else:
+            blocked = False
+        if blocked:
+            self.stats["n_quota_deferred"] += 1
+        return blocked
+
+    def _admission_candidate(self, allow_preempt: bool = True
+                             ) -> Optional[Request]:
+        """Scan the classes in priority order, FIFO within a class.
+        Quota-blocked requests are skipped; the first request blocked
+        on a slot or pages ends the scan, after a preemption attempt, so
+        nothing later or of lower priority starves it."""
+        if self.num_waiting == 0:
             return None
-        req = self._queue[0]
-        if self._free_slots and self.cache.can_allocate(
-                self._need_tokens(req), prompt=req.kv_tokens(),
-                hashes=self._hashes_for(req)):
-            return req
+        quotas_on = (self.config.tenant_max_slots > 0
+                     or self.config.tenant_max_pages > 0)
+        usage = self._tenant_usage() if quotas_on else None
+        for q in self._queues:
+            for req in q:
+                if quotas_on and self._quota_blocked(req, usage):
+                    continue
+                if self._free_slots and self._pages_ok(req):
+                    return req
+                if allow_preempt and self._try_preempt_for(req):
+                    return req
+                self.stats["n_backpressure"] += 1
+                return None
         return None
 
-    def step_plan(self) -> Plan:
-        """ONE mixed plan: the prefill lane's next chunk row (admitting
-        the queue head into the lane when it is free) packed with a
-        decode row for every running slot."""
+    def _try_preempt_for(self, cand: Request) -> bool:
+        """Evict running requests of a strictly lower priority (the
+        largest class first, the most recently admitted first) until
+        ``cand`` has a slot and pages, or no victim is left. Returns
+        whether ``cand`` is now admissible."""
+        if not self.config.preempt:
+            return False
+        victims = [r for r in self.running.values()
+                   if r.priority > cand.priority
+                   and r.state in (PREFILL, RUNNING)]
+        if not victims:
+            return False
+        # optimistic precheck (a prefix hit only shrinks the need): evict
+        # no one for a candidate that still could not fit
+        need = self.cache.config.pages_for(self._need_tokens(cand))
+        reclaimable = sum(len(self.cache._allocated_pages[v.slot])
+                          for v in victims)
+        if self.cache.num_free_pages + reclaimable < need:
+            return False
+        victims.sort(key=lambda r: (-r.priority, -r.t_admit))
+        for v in victims:
+            if self._free_slots and self._pages_ok(cand):
+                break
+            self.preempt_request(
+                v, reason="slot" if not self._free_slots else "pages")
+        return bool(self._free_slots) and self._pages_ok(cand)
+
+    def sweep_deadlines(self) -> None:
+        """The deadline sweep ``step_plan`` runs first; the engine runs
+        it itself before planning (``step_plan(sweep=False)``)."""
+        self._expire_deadlines()
+
+    def step_plan(self, sweep: bool = True) -> Plan:
+        """ONE mixed plan, after the deadline sweep (``sweep=False``
+        skips it): the prefill lane's next chunk row (admitting the next
+        candidate into the lane when it is free) packed with a decode
+        row for every running slot not on ``async_hold``."""
+        if sweep:
+            self._expire_deadlines()
         chunk_row = None
         if self._chunking is None:
             cand = self._admission_candidate()
@@ -304,32 +491,46 @@ class ContinuousBatchingScheduler:
         if self._chunking is not None:
             chunk_row = self._next_chunk_row(self._chunking)
         rows = [chunk_row] if chunk_row is not None else []
-        decode_rows = self._decode_rows()
-        rows.extend(decode_rows)
+        rows.extend(self._decode_rows())
         if not rows:
             return Plan(kind="idle")
         return Plan(kind="mixed", rows=rows)
 
     def _decode_rows(self) -> List[RowPlan]:
-        """One pending-token row per RUNNING slot, in slot order."""
+        """One pending-token row per RUNNING slot, in slot order; slots
+        on ``async_hold`` sit the step out."""
         return [RowPlan(kind="decode", request=r)
-                for _, r in sorted(self.running.items())
-                if r.state == RUNNING]
+                for slot, r in sorted(self.running.items())
+                if r.state == RUNNING and slot not in self.async_hold]
 
     def _admit(self, req: Request) -> None:
-        """Move ``req`` from the queue into a slot and hand it the
-        prefill lane: its context streams in as chunk rows."""
-        self._queue.popleft()
+        """Move ``req`` from its queue into a slot and hand it the
+        prefill lane; host-swapped pages past the device prefix hit are
+        written back first, so only the rest streams in as chunk rows."""
+        self._queues[req.priority].remove(req)
+        resumed = req.preemptions > 0 and req.state == PREEMPTED
         ctx = req.kv_tokens()
+        hashes = self._hashes_for(req)
         slot = self._free_slots.pop()
         if not self.cache.allocate(slot, self._need_tokens(req), prompt=ctx,
-                                   hashes=self._hashes_for(req)):
+                                   hashes=hashes):
             raise RuntimeError("admission check and allocator disagree")
         req.slot = slot
         req.state = PREFILL
-        req.prefill_pos = self.cache.prefix_len(slot)
+        req.t_admit = time.perf_counter()
+        req.pages_reserved = self.cache.config.pages_for(
+            self._need_tokens(req))
+        self.cache.swap_in(slot, ctx, hashes=hashes)
+        req.prefix_len = self.cache.prefix_len(slot)
+        req.prefill_pos = req.prefix_len
+        # "restored": served from cache or swap at the RE-admission of a
+        # preempted request (a fresh request's prefix hit is not one)
+        req.restored_tokens = req.prefix_len if resumed else 0
         self.running[slot] = req
         self._chunking = req
+        self.stats["n_prefills"] += 1
+        if resumed:
+            self.stats["n_resumed"] += 1
 
     def _next_chunk_row(self, req: Request) -> RowPlan:
         """The next chunk row of the request owning the prefill lane,
@@ -346,43 +547,136 @@ class ContinuousBatchingScheduler:
         first = req.prefill_chunks == 0
         final = start + chunk_len >= ctx_len
         req.prefill_chunks += 1
+        self.stats["n_chunks"] += 1
         return RowPlan(kind="chunk", request=req, start=start,
                        chunk_len=chunk_len, first_chunk=first,
                        final_chunk=final)
 
-    # ------------------------------------------------------------ cancel --
+    # ---------------------------------------- deadlines / cancel / preempt --
+    def _deadline_hit(self, req: Request, now: float) -> bool:
+        if req.deadline_s > 0 and now - req.t_submit >= req.deadline_s:
+            return True
+        return (req.ttft_deadline_s > 0 and req.t_first_token == 0.0
+                and now - req.t_submit >= req.ttft_deadline_s)
+
+    def _expire_deadlines(self) -> None:
+        """Time out waiting and running requests past a deadline, between
+        engine steps (never mid-dispatch)."""
+        if self._live_deadlines == 0:
+            return
+        now = time.perf_counter()
+        for q in self._queues:
+            for req in [r for r in q if self._deadline_hit(r, now)]:
+                if req.state == FINISHED or req not in q:
+                    continue           # a cancel raced the sweep
+                q.remove(req)
+                self._retire(req, "timeout")
+        for req in [r for r in self.running.values()
+                    if self._deadline_hit(r, now)]:
+            if req.state == FINISHED or self.running.get(req.slot) is not req:
+                continue
+            self._teardown_slot(req, recycled=True, cause="timeout")
+            self._retire(req, "timeout")
+
     def cancel(self, rid: int) -> bool:
-        """Tear down request ``rid`` queued, mid-prefill or mid-decode,
-        restoring its pages and finishing it with ``finish_reason=
-        'cancelled'``. False when the rid is unknown or already
-        terminal. Call between engine steps."""
+        """Tear down request ``rid`` queued, mid-prefill, mid-decode or
+        mid-verify, restoring its pages and finishing it with
+        ``finish_reason='cancelled'``. False when the rid is unknown or
+        already terminal. Call between engine steps."""
         req = self.requests.get(rid)
         if req is None or req.state == FINISHED:
             return False
         if req.slot >= 0:
-            self._teardown_slot(req)
+            self._teardown_slot(req, recycled=True, cause="cancelled")
         else:
-            self._queue.remove(req)
+            self._queues[req.priority].remove(req)
         self._retire(req, "cancelled")
         return True
 
-    def _teardown_slot(self, req: Request) -> None:
-        """Detach ``req`` from its slot and return its pages."""
+    def preempt(self, rid: int, requeue: bool = True,
+                reason: str = "manual") -> bool:
+        """Evict running request ``rid`` (tests, operators); the SLO path
+        calls :meth:`preempt_request`."""
+        req = self.requests.get(rid)
+        if req is None:
+            return False
+        return self.preempt_request(req, reason=reason, requeue=requeue)
+
+    def preempt_request(self, req: Request, reason: str = "slo",
+                        requeue: bool = True) -> bool:
+        """Evict ``req`` from its slot: register its full resident pages
+        in the prefix cache and copy them to the host swap tier, release
+        the slot, and re-queue it at the FRONT of its class. When it
+        cannot re-queue (queue full, or ``requeue=False``) it ends with
+        ``finish_reason='preempted'``."""
+        if req.state not in (PREFILL, RUNNING) or req.slot < 0:
+            return False
         slot = req.slot
+        n_res = int(self.cache.seq_lens[slot])
+        cc = self.cache.config
+        if n_res >= cc.page_size and (cc.prefix_cache or cc.swap_pages > 0):
+            # full pages of the RESIDENT context only: pages past
+            # seq_lens hold garbage mid-prefill
+            resident = req.kv_tokens()[:n_res]
+            h = self.cache._block_hashes(resident)
+            self.cache.commit_prefix(slot, resident, hashes=h)
+            self.cache.swap_out(slot, resident, hashes=h)
+        self._teardown_slot(req, cause="preempted")
+        req.state = PREEMPTED
+        req.preemptions += 1
+        req.t_preempt = time.perf_counter()
+        req.prefill_pos = 0
+        req.prefix_len = 0
+        req.prefill_chunks = 0
+        req.pages_reserved = 0
+        req.block_hashes = None          # the context grew by the output
+        req.spec_len = self.config.spec_tokens
+        req.spec_window.clear()
+        req.spec_idle = 0
+        self.stats["n_preemptions"] += 1
+        if requeue and self.num_waiting < self.config.max_queue:
+            self._queues[req.priority].appendleft(req)
+        else:
+            self.stats["n_preempt_drops"] += 1
+            self._retire(req, "preempted")
+        return True
+
+    def _teardown_slot(self, req: Request, recycled: bool = False,
+                       cause: str = "finished") -> None:
+        """Detach ``req`` from its slot and return its pages — shared by
+        finish, cancel, timeout and preemption. ``recycled`` marks a
+        terminal slot return (a preemption is counted apart); ``cause``
+        names the teardown to the engine's ``teardown_hook``, which
+        dead-marks the request's rows still in flight."""
+        slot = req.slot
+        if self.teardown_hook is not None:
+            self.teardown_hook(req, slot, cause)
         if self._chunking is req:
             self._chunking = None
         self.cache.release(slot)
         del self.running[slot]
         self._free_slots.append(slot)
         req.slot = -1
+        if recycled:
+            self.stats["n_recycled"] += 1
 
     def _retire(self, req: Request, reason: str) -> None:
-        """Terminal bookkeeping (the slot, if any, is already torn
-        down); a request reaches its terminal state exactly once."""
+        """Terminal bookkeeping (the slot, if any, is already torn down).
+        Idempotent once: a request reaches its terminal state exactly
+        one time, so a sweep racing a cancel neither double-counts nor
+        overwrites the first reason."""
         if req.state == FINISHED:
             return
         req.state = FINISHED
         req.finish_reason = reason
+        req.t_finish = time.perf_counter()
+        if req.ttft_deadline_s > 0 or req.deadline_s > 0:
+            self._live_deadlines -= 1
+        self.stats["n_finished"] += 1
+        if reason == "timeout":
+            self.stats["n_timeouts"] += 1
+        elif reason == "cancelled":
+            self.stats["n_cancelled"] += 1
         self.finished[req.rid] = req
 
     # ----------------------------------------------------------- results --
@@ -391,7 +685,10 @@ class ContinuousBatchingScheduler:
                       eos_id: Optional[int] = None) -> None:
         """One chunk row's K/V is resident. A non-final chunk advances
         the prefill cursor; the final chunk completes the prefill (the
-        engine sampled the first token from the row's last position)."""
+        engine sampled the first token from the row's last position).
+        The updates are monotone (max): under async pipelining the
+        engine advanced them at dispatch, and this lagged call must not
+        walk them back past a later chunk in flight."""
         req.prefill_pos = max(req.prefill_pos, plan.start + plan.chunk_len)
         self.cache.seq_lens[req.slot] = max(
             int(self.cache.seq_lens[req.slot]), plan.start + plan.chunk_len)
@@ -430,15 +727,17 @@ class ContinuousBatchingScheduler:
 
     def _emit(self, req: Request, token: int, eos_id: Optional[int]) -> None:
         req.output.append(token)
+        if req.t_first_token == 0.0:
+            req.t_first_token = time.perf_counter()
         if eos_id is not None and token == eos_id:
             self._finish(req, "eos")
         elif len(req.output) >= req.max_new_tokens:
             self._finish(req, "max_new_tokens")
 
     def _finish(self, req: Request, reason: str) -> None:
-        self._teardown_slot(req)
+        self._teardown_slot(req, recycled=True, cause="finished")
         self._retire(req, reason)
 
     @property
     def has_work(self) -> bool:
-        return bool(self._queue or self.running)
+        return bool(self.num_waiting or self.running)

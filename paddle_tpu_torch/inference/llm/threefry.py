@@ -80,7 +80,9 @@ def uniform(key, n: int, minval: float = 0.0):
     shifted in float32, then floored at ``minval``."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    # a fill on the device, not a host copy: the serving step runs
+    # inside a CUDA graph, where a host-to-device copy cannot be captured
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (1.0 - lo) + lo)
 
 

@@ -54,6 +54,7 @@ split on and off bit-exact end to end on the CPU.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import math
@@ -61,7 +62,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "LAUNCHES", "KERNEL_NAMES", "PAGED_KERNEL",
+__all__ = ["NEG_INF", "DECODE_MAX_Q", "LAUNCHES", "held_launches", "KERNEL_NAMES", "PAGED_KERNEL",
            "MIXED_KERNEL", "kernel_name", "ragged_rows", "ragged_attention",
            "ragged_attention_ref", "ragged_attention_ref_split",
            "ragged_attention_cuda", "split_active", "paged_attention",
@@ -71,10 +72,32 @@ __all__ = ["NEG_INF", "LAUNCHES", "KERNEL_NAMES", "PAGED_KERNEL",
 
 NEG_INF = -1e30
 
+# rows of at most this many queries take the ragged kernels' one-query
+# walk; a step whose rows are all that short launches no tile kernel
+# (kDecodeMaxQ in csrc/ragged_attention.cuh)
+DECODE_MAX_Q = 1
+
 # kernel launches by kernel name: each wrapper adds one where it launches
 # its kernel and nowhere else, so a run can show which kernels it went
 # through (reset with LAUNCHES.clear())
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+
+@contextlib.contextmanager
+def held_launches():
+    """The kernel launches a CUDA-graph capture holds. The wrappers count
+    as usual inside the block; on exit the yielded Counter holds what
+    they counted and ``LAUNCHES`` is set back, since a capture launches
+    nothing. A replay runs no Python: add the Counter to ``LAUNCHES``
+    at each replay of the graph."""
+    before = LAUNCHES.copy()
+    held: "collections.Counter[str]" = collections.Counter()
+    try:
+        yield held
+    finally:
+        held.update(LAUNCHES - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
 
 # the kernels' limits: the decode kernel and the ragged kernels' one-query
 # rows walk pages of at most 32 keys with D padded to 32, 64 or 128 (eight

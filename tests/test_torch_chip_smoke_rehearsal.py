@@ -42,6 +42,17 @@ launch bookkeeping and their checks are exercised before a chip run:
   ``paged_attention.cu``: the headers beside it are inlined before the
   port's, and the per-tier times phase (the smoke's shapes, GPT-2-small
   heads) gives its decode row that design's two times;
+- the async serving phase (depths 0 and 1 here, the smoke's three
+  batches of long-context traffic with prompts cut to a quarter, int8
+  KV and weights, the KV split) on a narrow model with GPT-3 XL's
+  context (a 1024-token vocabulary): equal tokens across depths and the
+  graphs switch (the CPU path runs eagerly either way), launches layers
+  x steps in the timed batch, signatures within the bound, one row of
+  numbers a run;
+- the preemption phase on a narrow model with GPT-2-small's context (a
+  1024-token vocabulary), at async depth 1: preemptions, swap-outs and
+  swap-ins, quota deferrals and the deadline's timeout all happen, and
+  the survivors equal their uncontended runs;
 - the core phases: the custom-op programs and ``my_triple`` through its
   op (reference counted as a launch) at small shapes, the ResNet
   parity phase (CPU against CPU) and the ResNet training phase with
@@ -101,6 +112,89 @@ def plain_kernels(monkeypatch):
     yield
     pa.LAUNCHES.clear()                # the phases leave their counts
     pa.LAUNCHES.update(saved)
+
+
+class _Event:
+    """A stand-in for ``torch.cuda.Event`` on the CPU: every span 1 ms."""
+
+    def __init__(self, **kw):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 1.0
+
+
+class _Profile:
+    """A stand-in for ``torch.profiler.profile`` that records nothing
+    (the CPU profiler's per-op records would dominate the rehearsal)."""
+
+    def __init__(self, **kw):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        return []
+
+
+@pytest.fixture
+def cpu_card(monkeypatch):
+    """What a serving phase reads of the card, stood in for on the CPU:
+    its name, memory statistics, events and the profiler; engines built
+    without CUDA graphs, which need the card."""
+    monkeypatch.setattr(cs, "card_identity", lambda: "CPU rehearsal")
+    for name in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "max_memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    make = cs.make_engine
+
+    def eager(*args, **kw):
+        kw["cuda_graphs"] = None
+        return make(*args, **kw)
+
+    monkeypatch.setattr(cs, "make_engine", eager)
+
+
+def test_async_serving_phase(plain_kernels, cpu_card, monkeypatch):
+    # GPT-3 XL's context with a 1024-token vocabulary: the plain
+    # sampler over 50304 tokens takes most of a step on the CPU
+    spec = ModelSpec(vocab=1024, d_model=64, num_layers=2, num_heads=2,
+                     head_dim=32, max_seq_len=cs.GPT3_XL.max_seq_len)
+    model = TorchLM(spec, init_lm_params(spec, seed=0, device=CPU),
+                    device=CPU)
+    monkeypatch.setattr(cs, "ASYNC_DEPTHS", (0, 1))
+    # the smoke's traffic with each prompt cut to a quarter
+    batches = [[(p[:len(p) // 4], sp) for p, sp in cs.requests_long(
+        s, spec.vocab)] for s in (11, 13, 17)]
+    rows = cs.phase_async_serving(model, batches)
+    assert [(r["depth"], r["graphs"]) for r in rows] == [
+        (0, False), (0, True), (1, False), (1, True)]
+    for r in rows:
+        assert r["steps"] > 0 and r["ms_per_step"] > 0
+        assert r["signatures"] <= r["graph_bound"]
+        assert r["graphs_captured"] == 0          # eager on the CPU
+    # depth 1: every mixed step's commit phase left one step in flight
+    assert rows[2]["occupancy"][0] == 0 < rows[2]["occupancy"][1]
+
+
+def test_preempt_swap_phase(plain_kernels, cpu_card):
+    spec = ModelSpec(vocab=1024, d_model=64, num_layers=2, num_heads=2,
+                     head_dim=32, max_seq_len=cs.GPT2_SMALL.max_seq_len)
+    model = TorchLM(spec, init_lm_params(spec, seed=0, device=CPU),
+                    device=CPU)
+    got = cs.phase_preempt_swap(model)
+    assert got["preemptions"] > 0 and got["swapped_in"] > 0
+    assert got["ties"] == 0                       # one backend: equal
 
 
 def test_per_tier_kernel_phase(plain_kernels):

@@ -530,3 +530,116 @@ def test_per_tier_graphs_kernel_route_matches_plain_route(device):
     for got, want in zip(pools["kernel"], pools["ref"]):
         torch.testing.assert_close(got[:, 1:], want[:, 1:], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8", "fp8"])
+@pytest.mark.parametrize("split", [0, 3])
+def test_graph_replay_of_the_step_is_bit_equal_to_eager(device, mode,
+                                                        split):
+    """``lm_ragged_step`` captured into a CUDA graph (the tile grid sized
+    to the whole block, as the engine captures it) and replayed gives
+    the eager step's logits and pool writes bit for bit (the garbage
+    page aside); the capture holds one ragged launch a layer and counts
+    none itself."""
+    from paddle_tpu_torch.inference.llm.kv_cache import PagedKVCache
+    from paddle_tpu_torch.inference.llm.model import lm_ragged_step
+
+    model = TorchLM.tiny(device=device)
+    spec = model.spec
+    quant = None if mode == "f32" else QuantConfig(kv=mode)
+    cache = PagedKVCache(CacheConfig(
+        num_layers=2, num_heads=2, head_dim=16, num_pages=64, page_size=8,
+        max_slots=4, max_seq_len=128, kv_quant=quant.kv if quant else "off"),
+        device=device)
+    for slot, n in enumerate((40, 17, 60)):
+        assert cache.allocate(slot, n)
+    g = torch.Generator().manual_seed(5)
+    i32 = dict(dtype=torch.int32, device=device)
+    # a chunk row of 12 after 20 resident, two decode rows, an idle slot
+    q_lens = torch.tensor([12, 1, 1, 0], **i32)
+    q_starts = torch.tensor([0, 12, 13, 0], **i32)
+    kv_lens = torch.tensor([32, 9, 44, 0], **i32)
+    N = 16
+    tokens = torch.randint(0, spec.vocab, (N,), generator=g).to(**i32)
+    page_table = torch.from_numpy(cache.page_table.copy()).to(**i32)
+    for pool in (cache.k_pool, cache.v_pool):
+        raw = torch.randint(-100, 100, pool.shape, generator=g)
+        if mode == "fp8":        # finite e4m3 codes (0x7f is NaN)
+            pool.view(torch.uint8).copy_((raw + 100) % 120)
+        elif mode == "int8":
+            pool.copy_(raw)
+        else:
+            pool.copy_(raw / 50.0)
+    if cache.k_scale is not None:
+        cache.k_scale.copy_(torch.rand(cache.k_scale.shape, generator=g))
+        cache.v_scale.copy_(torch.rand(cache.v_scale.shape, generator=g))
+    pools = [p for p in (cache.k_pool, cache.v_pool, cache.k_scale,
+                         cache.v_scale) if p is not None]
+    before = [p.clone() for p in pools]
+
+    def step(max_q):
+        return lm_ragged_step(model.params, spec, tokens, q_starts, q_lens,
+                              kv_lens, cache.k_pool, cache.v_pool,
+                              page_table, max_q_len=max_q,
+                              k_scale=cache.k_scale, v_scale=cache.v_scale,
+                              quant=quant, kv_split_pages=split)
+
+    eager = step(12)
+    torch.cuda.synchronize()
+    after = [p.clone() for p in pools]
+    for p, b in zip(pools, before):
+        p.copy_(b)
+    graph = torch.cuda.CUDAGraph()
+    n0 = dict(pa.LAUNCHES)
+    with pa.held_launches() as held:
+        with torch.cuda.graph(graph):
+            static = step(N)
+    assert dict(pa.LAUNCHES) == n0
+    name = pa.kernel_name(cache.k_pool.dtype,
+                          pa.split_active(split, page_table.shape[1]))
+    assert dict(held) == {name: spec.num_layers}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, eager)
+    # every page but the garbage page 0, where the padding tokens'
+    # duplicate writes leave an arbitrary one of their values
+    for p, a in zip(pools, after):
+        if p.dtype == torch.float8_e4m3fn:
+            p, a = p.view(torch.uint8), a.view(torch.uint8)
+        assert torch.equal(p[:, 1:], a[:, 1:])
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2])
+@pytest.mark.parametrize("kv,split", [("off", 0), ("int8", 3)])
+def test_engine_graphs_on_and_off_give_the_same_tokens(device, depth, kv,
+                                                       split):
+    """The engine with CUDA graphs (one per step signature, replayed)
+    and without, at async depths 0-2: the same tokens as the eager
+    serial engine, launches layers x steps counted through the replays,
+    the signatures within ``graph_bound``, one graph each."""
+    model = TorchLM.tiny(device=device)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6] * 3, [2, 7, 1, 8] * 5, [1, 2, 3],
+               list(range(40, 90))]
+    outs = []
+    for graphs in (False, True):
+        eng = GenerationEngine(
+            model, cache_config=CacheConfig(
+                num_layers=2, num_heads=2, head_dim=16, num_pages=64,
+                page_size=8, max_slots=3, max_seq_len=128),
+            scheduler_config=SchedulerConfig(
+                max_slots=3, max_seq_len=128, chunk_tokens=16,
+                async_depth=depth if graphs else 0, kv_split_pages=split),
+            quant=QuantConfig(kv=kv), cuda_graphs=graphs)
+        pa.LAUNCHES.clear()
+        outs.append(eng.generate(prompts, 12))
+        name = pa.kernel_name(eng.cache.k_pool.dtype, split > 0)
+        assert dict(pa.LAUNCHES) == {name: 2 * eng.steps_dispatched}
+        captured = sum(g is not None for g in eng._graphs.values())
+        assert captured == (eng.xla_compiles if graphs else 0)
+        assert 0 < eng.xla_compiles <= eng.graph_bound
+        eng.cache.check_invariants()
+        assert eng.cache.pages_in_use == 0 and eng.pipeline_depth == 0
+    assert outs[0] == outs[1]

@@ -8,7 +8,8 @@
   its top-level Paddle surface (``import paddle_tpu_torch as paddle``,
   ``paddle.to_tensor``, a ``Layer``, a ``cuda_op`` on the CPU);
 - the port's copy of the serving-policy defaults equals the JAX
-  package's ``shared_policy()`` with no ``PD_*`` environment set;
+  package's ``shared_policy()`` with no ``PD_*`` environment set, and
+  its swap-tier defaults the JAX cache module's;
 - ``chip_smoke.py`` exits non-zero and prints no result line without a
   CUDA device, and when it stands alone in a directory.
 """
@@ -92,6 +93,22 @@ def test_policy_copy_matches_the_reference(monkeypatch):
     assert policy.KV_QUANT == ref["kv_quant"]
     assert policy.WEIGHT_QUANT == ref["weight_quant"]
     assert policy.KV_SPLIT_PAGES == ref["kv_split_pages"]
+    assert policy.PRIORITY_CLASSES == ref["priority_classes"]
+    assert policy.TENANT_MAX_PAGES == ref["tenant_max_pages"]
+    assert policy.TENANT_MAX_SLOTS == ref["tenant_max_slots"]
+
+
+def test_swap_defaults_match_the_reference(monkeypatch):
+    """The host swap tier's defaults are the JAX cache module's (read
+    there from ``PD_SWAP_PAGES``/``PD_COLD_DEMOTE`` at import; with
+    neither set, these)."""
+    from paddle_tpu.inference.llm import kv_cache as jkv
+
+    monkeypatch.delenv("PD_SWAP_PAGES", raising=False)
+    assert policy.SWAP_PAGES_DEFAULT == jkv._swap_pages_default() == 256
+    if "PD_COLD_DEMOTE" not in os.environ:
+        assert policy.COLD_DEMOTE_DEFAULT == jkv.COLD_DEMOTE_DEFAULT
+    assert policy.COLD_DEMOTE_DEFAULT is True
 
 
 def test_policy_mode_sets_match_the_reference():

@@ -187,20 +187,31 @@ def test_submit_validation():
 @pytest.mark.parametrize("knob", ["async_depth", "tenant_max_pages",
                                   "tenant_max_slots", "brownout_levels"])
 def test_later_slice_knobs_raise(knob):
+    """Async depth and the tenant quotas came with the async and
+    multi-tenant slice and are accepted; brownout is still a later
+    slice and raises, beside any of them."""
+    if knob != "brownout_levels":
+        assert getattr(SchedulerConfig(**{knob: 1}), knob) == 1
     with pytest.raises(NotImplementedError, match="slice"):
-        SchedulerConfig(**{knob: 1})
+        SchedulerConfig(**{knob: 1, "brownout_levels": 1})
 
 
 def test_later_slice_submit_args_and_cache_knobs_raise():
+    """Priorities, deadlines, the swap tier and cold-prefix demotion are
+    ported (the JAX package's defaults included); the quantized
+    collectives and the int8 matmul still raise."""
     _, cache = _caches()
     sched = ContinuousBatchingScheduler(cache, SchedulerConfig(
         max_slots=4, max_seq_len=64))
-    with pytest.raises(NotImplementedError, match="slice"):
-        sched.submit([1, 2], 2, priority=1)
-    with pytest.raises(NotImplementedError, match="slice"):
-        sched.submit([1, 2], 2, deadline_s=1.0)
-    with pytest.raises(NotImplementedError, match="slice"):
-        CacheConfig(num_layers=1, num_heads=1, head_dim=4, swap_pages=8)
-    with pytest.raises(NotImplementedError, match="slice"):
-        CacheConfig(num_layers=1, num_heads=1, head_dim=4,
-                    demote_cold_prefix=True)
+    rid = sched.submit([1, 2], 2, priority=1, tenant="t", deadline_s=1.0)
+    req = sched.requests[rid]
+    assert (req.priority, req.tenant, req.deadline_s) == (1, "t", 1.0)
+    with pytest.raises(InvalidRequest):
+        sched.submit([1, 2], 2, priority=SchedulerConfig().priority_classes)
+    cfg = CacheConfig(num_layers=1, num_heads=1, head_dim=4)
+    jcfg = JaxCacheConfig(num_layers=1, num_heads=1, head_dim=4)
+    assert (cfg.swap_pages, cfg.demote_cold_prefix) == \
+        (jcfg.swap_pages, jcfg.demote_cold_prefix)
+    for kw in (dict(coll_quant="int8"), dict(weight_matmul="int8")):
+        with pytest.raises(NotImplementedError, match="slice"):
+            CacheConfig(num_layers=1, num_heads=1, head_dim=4, **kw)
