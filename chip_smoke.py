@@ -54,6 +54,27 @@ before and read just after:
   (``phase_preempt_swap``): high-priority arrivals preempt, pages swap
   out and back in, the quota defers, the deadline times out, and every
   surviving request's tokens equal its uncontended run;
+- the request journal and the device-fault boundary at GPT-2-small
+  widths, async depth 1, graphs on (``phase_faults_journal``): a
+  journaled run killed at a fixed step and restored into a fresh engine
+  gives the uninterrupted run's tokens; seeded NaN rows and seeded
+  dispatch faults are counted as retried once (at depth 1 the boundary
+  quarantines without a re-run, as the JAX engine does) and end their
+  requests ``device_fault`` (retries = injections), every
+  other request's tokens equal the clean run, no page leaks; and under
+  overload (a queue of 8, the four-level brownout ladder) the ladder
+  climbs to shedding, every shed request and ``Overloaded`` rejection
+  carries a retry-after above 0, and the ladder descends once the load
+  stops;
+- observability on the main path (``phase_observability``): the
+  quantized long-context engine at async depth 1 with graphs, its
+  timed batch with observability on and then off (tokens identical,
+  and identical to the async phase's); ms/step on and off, the step
+  profiler's phases, its event-timed device-idle share beside
+  ``torch.profiler``'s busy share and the graphed path's device time
+  by kernel, the SLO digest's TTFT / ITL / queue-wait percentiles, the
+  cost ledger's modelled bytes and FLOPs per step against the measured
+  device time, and the graph captures against ``graph_bound``;
 - fp8 KV pages at GPT-3 XL widths, four layers, split and unsplit;
 - training: ``bench.py``'s configuration (GPT-2-small, batch 16 x 1024
   tokens, AdamW under AMP O2 bf16, ``TrainStep`` of 8 steps per call)
@@ -106,14 +127,21 @@ import numpy as np
 
 from paddle_tpu_torch.inference.llm import (CacheConfig, GenerationEngine,
                                             ModelSpec, PagedKVCache,
-                                            SamplingParams, SchedulerConfig,
-                                            TorchLM, ngram_draft)
+                                            QueueFull, SamplingParams,
+                                            SchedulerConfig, TorchLM,
+                                            ngram_draft)
 from paddle_tpu_torch.inference.llm.model import (init_lm_params,
                                                   lm_chunk_prefill, lm_decode,
                                                   lm_prefill, lm_ragged_step,
                                                   lm_verify)
 from paddle_tpu_torch.inference.llm.threefry import fold_in, gumbel, prng_key
 from paddle_tpu_torch.inference.llm.quant import QuantConfig, quantize_kv
+from paddle_tpu_torch.inference.llm.faults import (EngineKilled, FaultConfig,
+                                                   FaultInjector,
+                                                   set_default_injector)
+from paddle_tpu_torch.inference.llm.journal import RequestJournal
+from paddle_tpu_torch.inference.llm.scheduler import Overloaded
+from paddle_tpu_torch import observability as obs
 import paddle_tpu_torch as paddle
 import paddle_tpu_torch.nn.functional as PF
 from paddle_tpu_torch.amp import decorate
@@ -188,6 +216,9 @@ REPLACES = {False: "paddle_tpu/kernels/paged_attention.py:465",
 # (float32 FMAs), longer rows their tensor-core tile (kDecodeMaxQ in
 # csrc/ragged_attention.cuh)
 DECODE_MAX_Q = 1
+# the async phase's tokens of each batch (every run's), filled by
+# phase_async_serving and held against by phase_observability
+ASYNC_TOKENS: list = []
 # the ragged kernels' launches on each engine path by step class, filled
 # by drive_path: path label -> {"kernel", "decode", "mix"}
 LAUNCHES_BY_STEP: dict = {}
@@ -208,6 +239,20 @@ PREEMPT_PAGES = 170
 PREEMPT_ARRIVAL = 12
 PREEMPT_TENANT_SLOTS = 3
 PREEMPT_DEADLINE_S = 0.3
+# the fault and journal phase: the step the journaled run is killed at,
+# the seeded NaN-row and dispatch-fault injections (rate, seed), and the
+# overload: a queue of OVERLOAD_QUEUE, OVERLOAD_ARRIVALS submits a step
+# for OVERLOAD_STEPS steps, then at most OVERLOAD_CALM steps to descend
+FAULT_KILL_STEP = 30
+FAULT_NAN = (0.005, 75)
+FAULT_DISPATCH = (0.02, 192)
+OVERLOAD_QUEUE = 8
+OVERLOAD_ARRIVALS = 3
+OVERLOAD_STEPS = 120
+OVERLOAD_CALM = 400
+# the phases' share of a step's wall time the profiler's phases must
+# account for
+PHASE_SUM_TOL = 0.05
 # a token decision closer than this (the two best candidates' scores)
 # may fall either way between two float32 computations that agree to
 # ~1e-5 (GEMMs of other shapes, attention summed in another order): such
@@ -727,12 +772,12 @@ def phase_step_quant(device, params) -> dict:
             "codes_written": written}
 
 
-def requests_gpt2(seed: int):
+def requests_gpt2(seed: int, vocab: int = GPT2_SMALL.vocab):
     """The float path's traffic: eight requests, prompts from 17 to 900 tokens;
     the second and third share a 256-token prefix; six greedy and two
     sampled with fixed seeds."""
     g = torch.Generator().manual_seed(seed)
-    rand = lambda n: torch.randint(0, GPT2_SMALL.vocab, (n,),  # noqa: E731
+    rand = lambda n: torch.randint(0, vocab, (n,),  # noqa: E731
                                    generator=g).tolist()
     shared = rand(256)
     prompts = [rand(900), shared + rand(44), shared + rand(131), rand(17),
@@ -785,10 +830,24 @@ def make_engine(model, quant=None, split=0, chunk=0, spec_tokens=0,
         quant=quant, device=model.device, cuda_graphs=cuda_graphs)
 
 
-def serve(engine, requests):
-    """Submit ``requests`` and run the engine dry; returns (outputs,
-    wall seconds from the first step to the device's last work)."""
-    rids = [engine.submit(p, NEW_TOKENS, sp) for p, sp in requests]
+def assert_no_faults(engine, label: str) -> None:
+    """A phase that injects no fault: no retry of the device-fault
+    boundary and no ``device_fault`` termination, so a failing kernel
+    cannot hide behind the retry."""
+    st = engine.scheduler.stats
+    if any(engine.fault_retries.values()) or st["n_device_faults"]:
+        raise AssertionError(f"{label}: device-fault retries "
+                             f"{engine.fault_retries}, "
+                             f"{st['n_device_faults']} device_fault "
+                             "terminations in a phase that injects none")
+
+
+def serve(engine, requests, tenants=("default",)):
+    """Submit ``requests`` (tenants taken in turn) and run the engine
+    dry; returns (outputs, wall seconds from the first step to the
+    device's last work)."""
+    rids = [engine.submit(p, NEW_TOKENS, sp, tenant=tenants[i % len(tenants)])
+            for i, (p, sp) in enumerate(requests)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run()
@@ -839,6 +898,7 @@ def drive_path(label, model, requests, kernel, quant=None, split=0, chunk=0,
     if engine.cache.pages_in_use:
         raise AssertionError(f"{label}: {engine.cache.pages_in_use} pages "
                              "still mapped after every request finished")
+    assert_no_faults(engine, label)
     n_tok = sum(len(o) for o in outputs)
     ms_step = 1e3 * wall / steps
     log(f"[engine] {label}: {len(outputs)} requests x {NEW_TOKENS} tokens in "
@@ -1146,25 +1206,21 @@ def _device_busy(prof):
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
-def step_spans(engine):
-    """CUDA events before and after each step's device work (its input
-    copies through its result copies), recorded by wrapping the
-    engine's dispatch; the events of one stream, so the spans never
-    overlap. Returns the list the pairs go into."""
-    spans = []
-    inner = engine._dispatch
-
-    def timed(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = inner(*args, **kw)
-        end.record()
-        spans.append((start, end))
-        return out
-
-    engine._dispatch = timed
-    return spans
+def device_busy_s(engine, commits: int, label: str) -> float:
+    """The device time of an engine's committed steps since its last
+    ``reset_step_profile``: the sum of the step profiler's CUDA-event
+    spans around each step (net of the gaps between steps), every
+    committed step counted. Fails unless the profiler is on and timed
+    exactly ``commits`` steps."""
+    summ = engine.stepprof.summary()
+    if not (engine.stepprof.enabled and engine.obs_registry.enabled):
+        raise AssertionError(f"{label}: the step profiler is off "
+                             "(PD_OBS_DISABLED or PD_OBS_STEPPROF=0)")
+    if summ["device_busy_steps"] != commits:
+        raise AssertionError(f"{label}: the step profiler timed "
+                             f"{summ['device_busy_steps']} steps of "
+                             f"{commits} committed")
+    return summ["device_busy_s"]
 
 
 def phase_async_serving(model, batches=None) -> list:
@@ -1179,8 +1235,10 @@ def phase_async_serving(model, batches=None) -> list:
     steps times and no other attention kernel, and no engine may need
     more step signatures (captured graphs) than its ``graph_bound``.
     Prints, for each engine, ms per step and tokens/s of the timed
-    batch, its stream's busy share from CUDA events around each step,
-    the profiled batch's device busy share, and peak device memory.
+    batch, its stream's busy share from the step profiler's CUDA events
+    (the device's time in the steps, net of the gaps between them, over
+    the batch's wall time), the profiled batch's device busy share, and
+    peak device memory.
     The swap tier is off here (no preemption on this path), so the
     timed batch's evictions of the warm batch's parked pages copy
     nothing to the host."""
@@ -1203,13 +1261,16 @@ def phase_async_serving(model, batches=None) -> list:
                                  swap_pages=0)
             outs = [serve(engine, batches[0])[0]]
             steps0 = engine.steps_dispatched
+            commits0 = engine.steps_committed
             classes0 = dict(engine.steps_by_class)
             graphs0 = engine.xla_compiles
-            spans = step_spans(engine)
+            engine.reset_step_profile()
             pa.LAUNCHES.clear()
             got, wall = serve(engine, batches[1])
             outs.append(got)
             steps = engine.steps_dispatched - steps0
+            stream_ms = 1e3 * device_busy_s(
+                engine, engine.steps_committed - commits0, f"[async] {label}")
             launches = dict(pa.LAUNCHES)
             if launches != {kernel: layers * steps}:
                 raise AssertionError(
@@ -1221,8 +1282,6 @@ def phase_async_serving(model, batches=None) -> list:
             if sum(by_class.values()) != launches[kernel]:
                 raise AssertionError(f"[async] {label}: launches by step "
                                      f"class {by_class} do not add up")
-            stream_ms = sum(a.elapsed_time(b) for a, b in spans)
-            del engine._dispatch               # the wrapper off again
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 got, wall_prof = serve(engine, batches[2])
@@ -1241,6 +1300,7 @@ def phase_async_serving(model, batches=None) -> list:
             if engine.cache.pages_in_use or engine.pipeline_depth:
                 raise AssertionError(f"[async] {label}: pages or steps "
                                      "left in flight")
+            assert_no_faults(engine, f"[async] {label}")
             if want is None:
                 want = outs
             elif outs != want:
@@ -1269,8 +1329,8 @@ def phase_async_serving(model, batches=None) -> list:
             log(f"[async] {label}: {steps} steps, {wall:.3f}s: "
                 f"{row['ms_per_step']:.2f} ms/step, "
                 f"{row['tokens_per_s']:.1f} tokens/s; stream busy "
-                f"{100 * row['stream_busy']:.1f}% (CUDA events around each "
-                f"step), device busy {busy} (profiled batch, "
+                f"{100 * row['stream_busy']:.1f}% (the step profiler's CUDA "
+                f"events), device busy {busy} (profiled batch, "
                 f"{wall_prof:.3f}s); {captured} graphs captured, "
                 f"{engine.xla_compiles} signatures <= bound "
                 f"{engine.graph_bound} ({row['graphs_in_timed_batch']} new "
@@ -1284,6 +1344,7 @@ def phase_async_serving(model, batches=None) -> list:
     log(f"[async] the {len(rows)} runs gave the same tokens in all "
         f"{len(batches)} batches ({card})")
     print(json.dumps({"async_serving": rows, "card": card}))
+    ASYNC_TOKENS[:] = want
     return rows
 
 
@@ -1406,6 +1467,7 @@ def phase_preempt_swap(model) -> dict:
     cache.check_invariants()
     if cache.pages_in_use or cache.num_free_pages != PREEMPT_PAGES:
         raise AssertionError("[preempt] pages left mapped at the end")
+    assert_no_faults(engine, "[preempt]")
     # the uncontended runs: every survivor at priority 0, all at once
     ref = make_engine(model, async_depth=1, chunk=CHUNK)
     ref_rids = [ref.submit(reqs[i][1], reqs[i][2], reqs[i][3])
@@ -1430,6 +1492,421 @@ def phase_preempt_swap(model) -> dict:
         "page free, invariants hold")
     return {"preemptions": st["n_preemptions"], "ties": ties,
             "swapped_in": cache.swapped_in_pages}
+
+
+def _phase_shares(records) -> float:
+    """The largest gap between a step record's wall time and the sum of
+    its phases, as a share of the wall time."""
+    worst = 0.0
+    for r in records:
+        if r.dur > 0:
+            worst = max(worst, abs(sum(r.phases.values()) - r.dur) / r.dur)
+    return worst
+
+
+def phase_observability(model, batches) -> dict:
+    """Observability on the main path: the quantized long-context engine
+    of ``phase_async_serving`` (int8 KV and weights, split SPLIT, chunk
+    CHUNK) at async depth 1 with CUDA graphs, its warm batch and then its
+    timed batch (tenants "a" and "b" in turn), once with observability on
+    (the default: registry, recorder, SLO digest, step profiler, cost
+    ledger) and once off (``obs.disable()`` and no ledger); then one more
+    batch under ``torch.profiler`` with it on. Tokens must be identical
+    on and off and equal to the async phase's. Checks: the step
+    profiler has one record per committed step (no record commits more
+    than one) whose phases sum to within PHASE_SUM_TOL of its wall time,
+    the ledger's per-tenant sums equal its totals, its graph misses equal
+    the engine's signatures within ``graph_bound``, and no retry or
+    device fault happened. Prints ms/step on and off, the profiler's
+    mean ms per phase, its event-timed device-idle share beside the
+    profiler's busy share and the graphed path's device time by kernel,
+    the SLO digest's percentiles, and the modelled bytes per step over
+    the measured device time as a share of HBM_BYTES_PER_S."""
+    from torch.profiler import ProfilerActivity, profile
+
+    quant = QuantConfig(kv="int8", weights="int8")
+    card = card_identity()
+    tenants = ("a", "b")
+    runs = {}
+    for on in (True, False):
+        if on:
+            obs.enable()
+        else:
+            obs.disable()
+        digest = obs.SLODigest()
+        prev_digest = obs.set_default_slo_digest(digest)
+        torch.cuda.empty_cache()
+        engine = make_engine(model, quant, SPLIT, CHUNK, async_depth=1,
+                             swap_pages=0)
+        obs.set_default_slo_digest(prev_digest)
+        if not on:
+            engine.ledger = None
+        warm, _ = serve(engine, batches[0], tenants)
+        engine.reset_step_profile()
+        digest.clear()
+        led = engine.ledger
+        led0 = ((led.total_hbm_bytes, led.total_flops, led.steps_accounted)
+                if led is not None else None)
+        steps0, commits0 = engine.steps_dispatched, engine.steps_committed
+        got, wall = serve(engine, batches[1], tenants)
+        steps = engine.steps_dispatched - steps0
+        row = {"on": on, "steps": steps, "ms_per_step": 1e3 * wall / steps,
+               "tokens": [warm, got]}
+        if on:
+            prof = engine.stepprof
+            recs = prof.records()
+            commits = engine.steps_committed - commits0
+            if (sum(r.commits for r in recs) != commits
+                    or max(r.commits for r in recs) > 1):
+                raise AssertionError(
+                    f"[obs] {len(recs)} step records hold "
+                    f"{sum(r.commits for r in recs)} commits (at most one "
+                    f"each) for {commits} committed steps")
+            worst = _phase_shares(recs)
+            if worst > PHASE_SUM_TOL:
+                raise AssertionError(f"[obs] a step's phases miss "
+                                     f"{100 * worst:.1f}% of its wall time")
+            summ = prof.summary()
+            row["phase_ms"] = {ph: 1e3 * v / len(recs)
+                               for ph, v in sorted(summ["phase_s"].items())}
+            row["idle_share"] = summ["idle_share"]
+            row["device_ms_per_step"] = (
+                1e3 * device_busy_s(engine, commits, "[obs]") / commits)
+            row["slo"] = digest.snapshot()
+            d_bytes = led.total_hbm_bytes - led0[0]
+            d_flops = led.total_flops - led0[1]
+            d_steps = led.steps_accounted - led0[2]
+            row["bytes_per_step"] = d_bytes / d_steps
+            row["flops_per_step"] = d_flops / d_steps
+            row["hbm_share"] = (row["bytes_per_step"]
+                                / (row["device_ms_per_step"] / 1e3)
+                                / HBM_BYTES_PER_S)
+            if (sum(led.tenant_hbm_bytes.values()) != led.total_hbm_bytes
+                    or sum(led.tenant_flops.values()) != led.total_flops):
+                raise AssertionError("[obs] per-tenant ledger sums differ "
+                                     "from its totals")
+            misses = sum(led.cache_misses.values())
+            if misses != engine.xla_compiles or \
+                    engine.xla_compiles > engine.graph_bound:
+                raise AssertionError(
+                    f"[obs] {misses} graph misses for "
+                    f"{engine.xla_compiles} signatures (bound "
+                    f"{engine.graph_bound})")
+            row["captures"] = len(led.captures)
+            row["capture_s"] = sum(c["compile_seconds"]
+                                   for c in led.captures.values())
+            row["signatures"] = engine.xla_compiles
+            row["graph_bound"] = engine.graph_bound
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as tprof:
+                got3, wall3 = serve(engine, batches[2], tenants)
+            row["tokens"].append(got3)
+            busy_ms = _device_busy(tprof)
+            row["profiler_busy"] = (busy_ms / (1e3 * wall3)
+                                    if busy_ms else None)
+            log_device_profile(tprof, "graphed main path, async depth 1, "
+                               "observability on", wall3,
+                               engine.steps_dispatched - steps0 - steps, 16,
+                               group=("ragged attention", ("ragged",)))
+        else:
+            if len(engine.stepprof) or engine.ledger is not None:
+                raise AssertionError("[obs] the profiler or the ledger ran "
+                                     "with observability off")
+        assert_no_faults(engine, f"[obs] observability "
+                         f"{'on' if on else 'off'}")
+        engine.cache.check_invariants()
+        runs[on] = row
+        del engine
+    obs.enable()
+    on, off = runs[True], runs[False]
+    if on["tokens"][:2] != off["tokens"]:
+        raise AssertionError("[obs] tokens differ with observability on "
+                             "and off")
+    if ASYNC_TOKENS and on["tokens"] != ASYNC_TOKENS:
+        raise AssertionError("[obs] tokens differ from the async phase's")
+    over = on["ms_per_step"] - off["ms_per_step"]
+    log(f"[obs] depth 1, graphs on, {on['steps']} steps: "
+        f"{on['ms_per_step']:.3f} ms/step with observability on, "
+        f"{off['ms_per_step']:.3f} off: overhead {over:+.3f} ms/step "
+        f"({100 * over / off['ms_per_step']:+.2f}%); tokens identical on, "
+        f"off and in the async phase; {card}")
+    log("[obs] step profiler, mean ms per step: " + ", ".join(
+        f"{ph} {ms:.4f}" for ph, ms in on["phase_ms"].items()))
+    busy = ("not measured (the profiler recorded no device time)"
+            if on["profiler_busy"] is None
+            else f"{100 * on['profiler_busy']:.1f}%")
+    log(f"[obs] device idle share {100 * on['idle_share']:.2f}% "
+        f"(CUDA events around each step, timed batch); device busy {busy} "
+        f"(torch.profiler, next batch); {on['device_ms_per_step']:.3f} "
+        f"device ms per step")
+    for metric, rows in sorted(on["slo"].items()):
+        for r in rows:
+            log(f"[obs] SLO {metric} tenant {r['tenant']} priority "
+                f"{r['priority']}: n {r['count']}, p50 "
+                f"{1e3 * r['p50']:.3f} ms, p99 {1e3 * r['p99']:.3f} ms")
+    log(f"[obs] cost ledger: {on['bytes_per_step']:.0f} modelled bytes and "
+        f"{on['flops_per_step']:.0f} FLOPs per step; bytes / measured "
+        f"device time = {100 * on['hbm_share']:.1f}% of "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {on['captures']} graph "
+        f"captures ({on['capture_s']:.3f} s) for {on['signatures']} "
+        f"signatures, bound {on['graph_bound']}; {card}")
+    out = {k: v for k, v in on.items() if k != "tokens"}
+    out["ms_per_step_off"] = off["ms_per_step"]
+    print(json.dumps({"observability": out, "card": card}))
+    return out
+
+
+class _RecordingInjector(FaultInjector):
+    """A seeded injector that remembers the requests it poisoned."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.nan_rids = []
+
+    def nan_row(self, rid=None):
+        hit = super().nan_row(rid)
+        if hit:
+            self.nan_rids.append(rid)
+        return hit
+
+
+def _fault_engine(model, injector=None, journal=None, **sched):
+    """The fault phase's engine (GPT-2-small widths, chunk CHUNK, async
+    depth 1, graphs by default), built with ``injector`` as the process
+    default fault injector (it binds at construction)."""
+    prev = set_default_injector(injector or FaultInjector(FaultConfig()))
+    try:
+        spec = model.spec
+        pps = -(-spec.max_seq_len // PAGE)
+        return GenerationEngine(
+            model,
+            cache_config=CacheConfig(
+                num_layers=spec.num_layers, num_heads=spec.num_heads,
+                head_dim=spec.head_dim, num_pages=SLOTS * pps + 1,
+                page_size=PAGE, max_slots=SLOTS,
+                max_seq_len=spec.max_seq_len),
+            scheduler_config=SchedulerConfig(
+                max_slots=SLOTS, max_seq_len=spec.max_seq_len,
+                chunk_tokens=CHUNK, async_depth=1, **sched),
+            device=model.device, journal=journal)
+    finally:
+        set_default_injector(prev)
+
+
+def _survivors_equal(model, label, requests, rids, engine, clean) -> tuple:
+    """Requests of ``rids`` not ended ``device_fault`` against the clean
+    run's tokens (counted near-ties allowed); returns (survivors,
+    ties)."""
+    sch = engine.scheduler
+    keep = [i for i, r in enumerate(rids)
+            if sch.requests[r].finish_reason != "device_fault"]
+    for i in keep:
+        if sch.requests[rids[i]].finish_reason != "max_new_tokens":
+            raise AssertionError(f"{label}: a survivor ended "
+                                 f"{sch.requests[rids[i]].finish_reason}")
+    ties = compare_with_ties(model, label, [requests[i][0] for i in keep],
+                             [requests[i][1] for i in keep],
+                             [sch.requests[rids[i]].output for i in keep],
+                             [clean[i] for i in keep])
+    return keep, ties
+
+
+def _check_pool(engine, label) -> None:
+    engine.cache.check_invariants()
+    if engine.cache.pages_in_use or engine.pipeline_depth:
+        raise AssertionError(f"{label}: pages or steps left in flight")
+
+
+def phase_faults_journal(model) -> dict:
+    """The request journal, the device-fault boundary and brownout at
+    GPT-2-small widths (float32 pages), async depth 1, graphs on, on
+    the float path's traffic (``requests_gpt2``):
+
+    1. a clean run; then the same requests journaled, the engine killed
+       (``EngineKilled``) at step FAULT_KILL_STEP, the journal restored
+       into a fresh engine: every request's tokens equal the clean
+       run's;
+    2. seeded NaN rows (FAULT_NAN): the poisoned requests end
+       ``device_fault``, every other request equals the clean run, one
+       retry per injected row, no page leaks;
+    3. seeded dispatch faults (FAULT_DISPATCH): the same, one retry per
+       injected fault, the faulted steps' requests ``device_fault``;
+    4. overload: a queue of OVERLOAD_QUEUE and ``brownout_levels=4``
+       under OVERLOAD_ARRIVALS submits a step: the ladder climbs to
+       level 4 (shedding), every shed request and every ``Overloaded``
+       rejection carries a retry-after above 0, and once the load stops
+       the ladder descends to 0.
+    The clean and restored runs inject nothing and must show no retry
+    and no device fault."""
+    import tempfile
+
+    requests = requests_gpt2(7, model.spec.vocab)
+    label = "[faults]"
+    clean_eng = _fault_engine(model)
+    clean, _ = serve(clean_eng, requests)
+    assert_no_faults(clean_eng, f"{label} clean run")
+    del clean_eng
+    report = {}
+
+    # 1. journal, kill, restore
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "requests.pdj")
+        journal = RequestJournal(path)
+        doomed = _fault_engine(model, FaultInjector(FaultConfig(
+            kill_step=FAULT_KILL_STEP)), journal=journal)
+        rids = [doomed.submit(p, NEW_TOKENS, sp) for p, sp in requests]
+        steps = 0
+        try:
+            while True:
+                doomed.step()
+                steps += 1
+        except EngineKilled:
+            pass
+        if steps != FAULT_KILL_STEP - 1:
+            raise AssertionError(f"{label} the kill landed after {steps} "
+                                 f"steps, not {FAULT_KILL_STEP - 1}")
+        before = {r: list(doomed.scheduler.requests[r].output)
+                  for r in rids}
+        delivered = sum(len(o) for o in before.values())
+        journal.close()
+        del doomed
+        fresh = _fault_engine(model)
+        mapping = fresh.restore(path)
+        fresh.run()
+        if not mapping:
+            raise AssertionError(f"{label} every request finished before "
+                                 "the kill: nothing was restored")
+        # a request that finished before the kill keeps its tokens
+        restored = [fresh.scheduler.requests[mapping[r]].output
+                    if r in mapping else before[r] for r in rids]
+        ties = compare_with_ties(model, f"{label} restore",
+                                 [p for p, _ in requests],
+                                 [sp for _, sp in requests], restored, clean)
+        assert_no_faults(fresh, f"{label} restore")
+        _check_pool(fresh, f"{label} restore")
+        report["restore"] = {"killed_at": FAULT_KILL_STEP,
+                             "delivered_before": delivered,
+                             "restored": len(mapping), "ties": ties}
+        log(f"{label} journaled run killed at step {FAULT_KILL_STEP} "
+            f"({delivered} tokens delivered), {len(mapping)} requests "
+            f"restored into a fresh engine: "
+            f"{'bit-exact with' if not ties else 'equal to'} the "
+            f"uninterrupted run ({ties} near-ties); no retry, no device "
+            "fault")
+        del fresh
+
+    # 2. NaN rows; 3. dispatch faults
+    for kind, (rate, seed) in (("nan", FAULT_NAN),
+                               ("dispatch", FAULT_DISPATCH)):
+        cfg = (FaultConfig(nan_rate=rate, seed=seed) if kind == "nan"
+               else FaultConfig(dispatch_rate=rate, seed=seed))
+        inj = _RecordingInjector(cfg)
+        # the engine's own flight recorder (bound at construction)
+        rec = obs.FlightRecorder()
+        prev_rec = obs.set_default_recorder(rec)
+        engine = _fault_engine(model, inj)
+        obs.set_default_recorder(prev_rec)
+        got, _ = serve(engine, requests)
+        sch = engine.scheduler
+        injected = inj.counts.get(kind, 0)
+        faulted = {r for r, req in sch.requests.items()
+                   if req.finish_reason == "device_fault"}
+        if not injected or not faulted:
+            raise AssertionError(f"{label} {kind}: {injected} injected, "
+                                 f"{len(faulted)} device faults: the path "
+                                 "was not driven")
+        if engine.fault_retries[kind] != injected:
+            raise AssertionError(f"{label} {kind}: "
+                                 f"{engine.fault_retries[kind]} retries "
+                                 f"for {injected} injections")
+        if kind == "nan":
+            if faulted != set(inj.nan_rids):
+                raise AssertionError(f"{label} nan: device_fault requests "
+                                     f"{sorted(faulted)}, poisoned "
+                                     f"{sorted(inj.nan_rids)}")
+        else:
+            steps_failed = [e for e in rec.snapshot()
+                            if e.name == "device_fault_step"]
+            if len(steps_failed) != injected:
+                raise AssertionError(f"{label} dispatch: {len(steps_failed)}"
+                                     f" steps quarantined for {injected} "
+                                     "injections")
+        rids = [r for r in sorted(sch.requests)]
+        keep, ties = _survivors_equal(model, f"{label} {kind}", requests,
+                                      rids, engine, clean)
+        _check_pool(engine, f"{label} {kind}")
+        if engine.cache.num_free_pages != engine.cache.config.num_pages - 1:
+            raise AssertionError(f"{label} {kind}: pages leaked")
+        report[kind] = {"injected": injected, "retries":
+                        engine.fault_retries[kind],
+                        "device_faults": len(faulted),
+                        "survivors": len(keep), "ties": ties}
+        log(f"{label} {kind} faults (rate {rate}, seed {seed}): {injected} "
+            f"injected, {engine.fault_retries[kind]} retries recorded "
+            f"(quarantined with no re-run at depth 1), {len(faulted)} "
+            "requests ended device_fault; "
+            f"{len(keep)} survivors equal to the clean run ({ties} "
+            "near-ties); invariants hold, every page free")
+        del engine
+
+    # 4. overload and the brownout ladder
+    engine = _fault_engine(model, max_queue=OVERLOAD_QUEUE,
+                           brownout_levels=4)
+    g = torch.Generator().manual_seed(3)
+    levels, overloaded, rejected = [], [], 0
+    for step in range(OVERLOAD_STEPS):
+        for i in range(OVERLOAD_ARRIVALS):
+            prompt = torch.randint(0, model.spec.vocab, (24 + 8 * i,),
+                                   generator=g).tolist()
+            try:
+                engine.submit(prompt, 8, priority=2 if i else 1)
+            except Overloaded as e:
+                overloaded.append(e.retry_after_s)
+            except QueueFull:
+                rejected += 1
+        engine.step()
+        levels.append(engine.brownout.level)
+    steps = 0
+    while (engine.brownout.level > 0 or engine.scheduler.has_work
+           or engine.pipeline_depth) and steps < OVERLOAD_CALM:
+        engine.step()
+        levels.append(engine.brownout.level)
+        steps += 1
+    sch = engine.scheduler
+    shed = [r for r in sch.requests.values() if r.finish_reason == "shed"]
+    if max(levels) != 4 or not (shed or overloaded):
+        raise AssertionError(f"{label} overload: the ladder reached "
+                             f"{max(levels)}, {len(shed)} shed, "
+                             f"{len(overloaded)} Overloaded")
+    if any(r.retry_after_s <= 0 for r in shed) or \
+            any(v <= 0 for v in overloaded):
+        raise AssertionError(f"{label} overload: a shed without a "
+                             "retry-after")
+    if engine.brownout.level != 0:
+        raise AssertionError(f"{label} overload: the ladder stayed at "
+                             f"{engine.brownout.level} after the load")
+    _check_pool(engine, f"{label} overload")
+    assert_no_faults(engine, f"{label} overload")
+    up = levels.index(4)
+    report["overload"] = {"top_level_at_step": up,
+                          "transitions": engine.brownout.transitions,
+                          "shed": len(shed), "overloaded": len(overloaded),
+                          "queue_full": rejected,
+                          "retry_after_s": [min(overloaded + [r.retry_after_s
+                                                              for r in shed]),
+                                            max(overloaded + [r.retry_after_s
+                                                              for r in shed])],
+                          "calm_steps": steps}
+    log(f"{label} overload (queue {OVERLOAD_QUEUE}, {OVERLOAD_ARRIVALS} "
+        f"submits a step for {OVERLOAD_STEPS} steps): the ladder reached "
+        f"level 4 at step {up}, {engine.brownout.transitions} transitions; "
+        f"{len(shed)} queued requests shed, {len(overloaded)} submits "
+        f"Overloaded, {rejected} QueueFull; retry-after "
+        f"{report['overload']['retry_after_s'][0]:.3f}-"
+        f"{report['overload']['retry_after_s'][1]:.3f} s; back to level 0 "
+        f"{steps} steps after the load stopped")
+    print(json.dumps({"faults_journal": report}))
+    return report
 
 
 def phase_profile(model, requests) -> None:
@@ -2664,6 +3141,9 @@ def main() -> int:
     # this slice's: priority admission, preemption through the host swap
     # tier, tenant quotas and deadlines, at async depth 1 with graphs on
     phase_preempt_swap(gpt2)
+    # this slice's: the journal's kill and restore, the device-fault
+    # boundary under seeded NaN rows and dispatch faults, and brownout
+    phase_faults_journal(gpt2)
     del gpt2
     torch.cuda.empty_cache()
 
@@ -2693,7 +3173,11 @@ def main() -> int:
         "that followed it)")
     # this slice's main path: the same traffic through the async
     # pipeline at depths 0, 1 and 2, CUDA graphs off and on
-    phase_async_serving(xl)
+    batches = [requests_long(s, GPT3_XL.vocab) for s in (11, 13, 17)]
+    phase_async_serving(xl, batches)
+    # this slice's main path: the same engine at depth 1 with graphs,
+    # observability on and off
+    phase_observability(xl, batches)
     if "--profile" in sys.argv[1:]:
         phase_profile(xl, reqs)
     del xl

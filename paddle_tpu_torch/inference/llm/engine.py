@@ -45,19 +45,42 @@ graphs are the port's form of the JAX engine's one compiled executable
 per bucket; ``xla_compiles`` counts them, within ``graph_bound``.
 
 Preemption, priorities, tenant quotas and deadlines are the scheduler's
-(see ``scheduler.py``); the host swap tier is the cache's. The request
-journal, fault injection and the NaN quarantine, brownout, the
-tensor-parallel mesh and the observability hooks are later slices of
-the port.
+(see ``scheduler.py``); the host swap tier is the cache's.
+
+Observability, as the JAX engine wires it: every step is decomposed
+into the step profiler's host phases (``stepprof``), the device's busy
+and idle time of each step come from CUDA events recorded on the
+engine's stream around its device work (never inside a captured
+graph), the serving counters and the flight recorder see every step
+and request, the cost ledger (``ledger``) models each landed step's
+bytes and FLOPs per tenant, and each graph capture is timed into its
+compile observatory. ``request_summary`` reconstructs one request's
+latency breakdown.
+
+Robustness: the crash-safe ``journal`` (``submit`` and the scheduler
+append to it; ``restore`` replays it into a fresh engine bit-exactly,
+``drain`` stops admission and checkpoints), the fault injector
+(``faults.py``: a kill at a step, delays, NaN rows, dispatch faults),
+the brownout controller (``brownout.py``, ticked before every plan),
+and the device-fault boundary: an injected dispatch fault is retried
+once; at depth 0 a step with rows whose logits read non-finite runs
+once more, whole, on the engine's own route (the kernels); what is
+still poisoned (at depth > 0 at once, as in the JAX engine) ends
+``device_fault`` with its pages scrubbed and restored, and the engine
+serves on. No step is ever served from another route: a real exception
+from a step (a kernel that fails to build or launch, a sticky CUDA
+error) propagates.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import gc
+import os
+import time
 import weakref
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence, Set
+from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -65,17 +88,26 @@ import torch
 from ...device import resolve_device
 from ...kernels import paged_attention as pa
 from ...kernels.paged_attention import DECODE_MAX_Q
+from ...observability import serving_metrics
+from ...observability.ledger import StepLedger
+from ...observability.metrics import default_registry
+from ...observability.recorder import default_recorder
+from ...observability.stepprof import StepProfiler
+from ...observability.tracing import instrument_jit
+from .brownout import BrownoutController
+from .faults import EngineKilled, default_injector
+from .journal import RequestJournal, read_journal
 from .kv_cache import CacheConfig, PagedKVCache, flatten_page_levels
 from .model import TorchLM, lm_ragged_step, resolve_carry_tokens, step_carry
 from .policy import (SPEC_DECAY_BELOW, SPEC_GROW_ABOVE, SPEC_NGRAM_MAX,
                      SPEC_NGRAM_MIN, SPEC_PROBE_EVERY, SPEC_WINDOW)
 from .quant import QuantConfig
 from .scheduler import (ContinuousBatchingScheduler, Plan, QueueFull,
-                        RowPlan, SchedulerConfig)
+                        Request, RowPlan, SchedulerConfig)
 from .threefry import categorical, fold_in, prng_key
 
 __all__ = ["SamplingParams", "GREEDY", "resolve_sampling", "ngram_draft",
-           "GenerationEngine"]
+           "GenerationEngine", "GraphCaptureError"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,6 +261,29 @@ def _teardown_hook(engine: "GenerationEngine"):
     return hook
 
 
+class GraphCaptureError(RuntimeError):
+    """A CUDA graph capture of a step failed. The device-fault boundary
+    never retries it: there is no eager fallback for a capture."""
+
+
+class _InjectedFault(RuntimeError):
+    """The fault injector's dispatch fault (``PD_FAULT_DISPATCH_RATE``)."""
+
+
+# CUDA errors after which the context is unusable: nothing launched
+# after them can succeed, so the fault boundary lets them propagate
+_STICKY_CUDA = ("illegal memory access", "unspecified launch failure",
+                "misaligned address", "illegal instruction",
+                "device-side assert", "launch timed out",
+                "uncorrectable ECC", "hardware stack error",
+                "unknown error")
+
+
+def _sticky_cuda_error(err: BaseException) -> bool:
+    msg = str(err)
+    return any(k in msg for k in _STICKY_CUDA)
+
+
 @dataclasses.dataclass
 class _StepGraph:
     """One captured step: the CUDA graph, its static outputs, and the
@@ -242,13 +297,16 @@ class _StepGraph:
 @dataclasses.dataclass
 class _Slot:
     """One entry of the card's ring of pinned host buffers: a step's
-    staged metadata, its outputs copied back, and the event recorded
-    after those copies."""
+    staged metadata, its outputs copied back, the event recorded after
+    those copies (``event``) and, while the step profiler is on, the
+    one recorded before the step's input copies (``start``); both time
+    the step's device span."""
     ints: torch.Tensor
     floats: torch.Tensor
     toks: torch.Tensor
     ok: torch.Tensor
     event: object
+    start: object
 
 
 @dataclasses.dataclass
@@ -272,6 +330,24 @@ class _InFlight:
     ok: object
     event: object = None
     dead: Set[int] = dataclasses.field(default_factory=set)
+    # the packed step (the depth-0 retry runs it again), its bucket,
+    # ragged tokens and the host clock at dispatch
+    ints: Optional[np.ndarray] = None
+    floats: Optional[np.ndarray] = None
+    bucket: int = 0
+    n_ragged: int = 0
+    t0: float = 0.0
+    # the device span: start/end events on the card (the previous
+    # step's end event beside them), host clock on the CPU; the step
+    # profiler's sample flag and the pipeline occupancy at dispatch
+    t_done: float = 0.0
+    start_ev: object = None
+    prev_end: object = None
+    fence: bool = False
+    fence_s: Optional[float] = None
+    depth: int = 0
+    # the dispatch needed the fault boundary's one retry
+    retried: bool = False
 
 
 class GenerationEngine:
@@ -287,14 +363,17 @@ class GenerationEngine:
     attention kernels; never on the CPU or with ``attn_tier="ref"``)
     runs each step as the replay of one CUDA graph per step signature
     (see :meth:`_dispatch`); ``False`` launches every step eagerly. A
-    capture that fails raises: there is no eager fallback."""
+    capture that fails raises :class:`GraphCaptureError`: there is no
+    eager fallback. ``journal`` (a :class:`RequestJournal`) makes the
+    engine's requests durable (see :meth:`restore`)."""
 
     def __init__(self, model: TorchLM,
                  cache_config: Optional[CacheConfig] = None,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  eos_id: Optional[int] = None, attn_tier: str = "auto",
                  quant: Optional[QuantConfig] = None, device=None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None,
+                 journal: Optional[RequestJournal] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device} but the "
@@ -402,6 +481,66 @@ class GenerationEngine:
         self._ring: List[_Slot] = []
         self._ring_next = 0
         self._graph_pool = None
+        # ---- observability ----
+        # registry handles bound once; the labelled families' known
+        # series pre-bound so an export shows them at zero
+        self.obs_registry = default_registry()
+        self._obs = serving_metrics()
+        for _kind in ("chunk", "decode", "verify"):
+            self._obs["mixed_rows"].labels(kind=_kind)
+        for _cause in self.async_rollback_reasons:
+            self._obs["async_rollbacks"].labels(reason=_cause)
+        for _kind in ("nan", "dispatch"):
+            self._obs["fault_retries"].labels(kind=_kind)
+        self._obs["async_depth"].set(self.async_depth)
+        self._obs["kv_quant_mode"].set(
+            {"off": 0, "int8": 1, "fp8": 2}[
+                self.quant.kv if self.quant is not None else "off"])
+        self._obs["kv_page_bytes"].set(float(self.cache.config.page_bytes()))
+        self._rec = default_recorder()
+        self._spec_drafted_total = 0
+        self._spec_accepted_total = 0
+        # the step-phase profiler; under pipelining its idle accounting
+        # is the device-side gap between consecutive steps
+        self.stepprof = StepProfiler()
+        self.stepprof.set_overlap(self.async_depth > 0)
+        # the previous dispatched step's end event (the card): the gap
+        # to the next step's start event is the device's idle time
+        self._prev_end = None
+        # the step functions, observed: eager launches and graph
+        # replays (pd_jit_call_seconds{graph}; the compile family is
+        # counted once, per step signature, by _note_signature); they
+        # hold the engine weakly, as the teardown hook does (a cycle
+        # would keep a dropped engine's pools and graphs on the card
+        # until a collection)
+        ref = weakref.ref(self)
+        self._eager_fn = instrument_jit(
+            lambda *args: ref()._run_step(*args), "step_eager",
+            count_compiles=False)
+        self._replay_fn = instrument_jit(lambda key: ref()._replay(key),
+                                         "step_replay", count_compiles=False)
+        # ---- robustness ----
+        # fault injection (inert by default) and PD_KV_CHECK: with it
+        # on, every step ends with the pool's accounting audit
+        self._faults = default_injector()
+        self._kv_check = os.environ.get(
+            "PD_KV_CHECK", "0").lower() not in ("0", "false", "off", "")
+        # the device-fault boundary's retries by kind: rows re-run after
+        # non-finite logits, steps re-dispatched after a dispatch fault
+        self.fault_retries = {"nan": 0, "dispatch": 0}
+        # the crash-safe request journal (optional): submits land here,
+        # the scheduler appends delivered tokens and terminal reasons
+        self.journal = journal
+        self.scheduler.journal = journal
+        # overload brownout: inert (one branch per step) unless
+        # SchedulerConfig.brownout_levels > 0
+        self.brownout = BrownoutController(self)
+        # the cost ledger & compile observatory (PD_COST_LEDGER, default
+        # on); None = off, one branch per step
+        ledger_on = os.environ.get(
+            "PD_COST_LEDGER", "1").lower() not in ("0", "false", "off", "")
+        self.ledger: Optional[StepLedger] = (
+            StepLedger.for_engine(self) if ledger_on else None)
 
     # ------------------------------------------------------------ surface --
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
@@ -413,10 +552,18 @@ class GenerationEngine:
         self.scheduler._validate_submit(prompt, max_new_tokens, priority,
                                         ttft_deadline_s, deadline_s)
         sp = resolve_sampling(sampling, self._rng)
-        return self.scheduler.submit(prompt, max_new_tokens, sp,
-                                     priority=priority, tenant=tenant,
-                                     ttft_deadline_s=ttft_deadline_s,
-                                     deadline_s=deadline_s)
+        rid = self.scheduler.submit(prompt, max_new_tokens, sp,
+                                    priority=priority, tenant=tenant,
+                                    ttft_deadline_s=ttft_deadline_s,
+                                    deadline_s=deadline_s)
+        if self.journal is not None:
+            # the RESOLVED sampling (concrete seed): a replay re-draws
+            # nothing
+            self.journal.record_submit(rid, prompt, max_new_tokens, sp,
+                                       priority=priority, tenant=tenant,
+                                       ttft_deadline_s=ttft_deadline_s,
+                                       deadline_s=deadline_s)
+        return rid
 
     def cancel(self, rid: int) -> bool:
         """Tear down request ``rid`` at any stage with its pages restored
@@ -448,15 +595,45 @@ class GenerationEngine:
         return len(self._inflight)
 
     def step(self) -> str:
-        """Sweep deadlines, then plan and run one step: serially at
-        depth 0, else through the pipeline (:meth:`_step_async`)."""
+        """One engine step: the injected kill and delay (chaos only),
+        the deadline sweep, the brownout controller's tick, then plan
+        and run the step serially at depth 0, else through the pipeline
+        (:meth:`_step_async`); each part lapped into the step
+        profiler's phases."""
+        if self._faults.should_kill():   # chaos: simulated process death
+            raise EngineKilled(
+                f"injected kill at step {self._faults.counts['kill_probe']}"
+                " (PD_FAULT_KILL_STEP)")
+        prof = self.stepprof
+        prof.begin_step()
+        delay = self._faults.step_delay_s()
+        if delay > 0.0:
+            # an injected stall lands in its own phase, never in
+            # device_wait or the device-idle accounting
+            time.sleep(delay)
+            prof.lap("fault_delay")
         self.scheduler.sweep_deadlines()
+        prof.lap("deadline_sweep")
+        # brownout feedback: evaluate pressure and (at the shed level)
+        # shed queued low-priority work BEFORE planning admits anyone
+        self.brownout.tick()
+        committed = self.steps_committed
         if self.async_depth > 0:
-            return self._step_async()
-        plan = self.scheduler.step_plan(sweep=False)
-        if plan.kind == "mixed":
-            self._commit_step(self._prepare_step(plan))
-        return plan.kind
+            kind = self._step_async()
+        else:
+            plan = self.scheduler.step_plan(sweep=False)
+            prof.lap("plan")
+            if plan.kind == "mixed":
+                stp = self._prepare_step(plan)
+                if stp is not None:
+                    self._commit_step(stp)
+            kind = plan.kind
+        prof.annotate(commits=self.steps_committed - committed)
+        if self._kv_check:
+            self.cache.check_invariants()
+        prof.lap("page_bookkeeping")
+        prof.end_step(kind)
+        return kind
 
     def _step_async(self) -> str:
         """One step at ``async_depth > 0``: plan and dispatch step N+1
@@ -466,9 +643,12 @@ class GenerationEngine:
         (reported as ``commit``), so the pipeline always drains."""
         self._refresh_async_hold()
         plan = self.scheduler.step_plan(sweep=False)
+        self.stepprof.lap("plan")
         kind = plan.kind
         if kind == "mixed":
-            self._inflight.append(self._prepare_step(plan))
+            stp = self._prepare_step(plan)
+            if stp is not None:
+                self._inflight.append(stp)
         committed = False
         limit = self.async_depth if kind == "mixed" else 0
         while len(self._inflight) > limit:
@@ -523,6 +703,9 @@ class GenerationEngine:
                 self.async_rollbacks += 1
                 self.async_rollback_reasons[cause] = \
                     self.async_rollback_reasons.get(cause, 0) + 1
+                self._obs["async_rollbacks"].labels(reason=cause).inc()
+                self._rec.emit("engine", "async_rollback", rid=req.rid,
+                               slot=slot, reason=cause)
         self._inflight_out[slot] = 0
         self._carry_ok[slot] = False
 
@@ -533,6 +716,144 @@ class GenerationEngine:
 
     def output_of(self, rid: int) -> List[int]:
         return list(self.scheduler.finished[rid].output)
+
+    # ------------------------------------------------ drain / hot restart --
+    def drain(self, finish_residents: bool = False,
+              max_steps: int = 10000) -> List[int]:
+        """Graceful shutdown: stop admission, then either PREEMPT every
+        resident request back to its queue (default: their journaled
+        state restores them after a restart) or keep stepping until
+        residents finish (``finish_residents=True``), land every step
+        in flight, and flush + fsync the journal. Returns the rids still
+        live (unfinished) at drain — what ``restore`` of this journal
+        would resubmit."""
+        sch = self.scheduler
+        sch.admission_paused = True
+        if finish_residents:
+            steps = 0
+            while (sch.running or self._inflight) and steps < max_steps:
+                self.step()
+                steps += 1
+        # residents are evicted from fully committed state: their
+        # journaled token streams end at a record boundary
+        self._drain_pipeline()
+        for req in list(sch.running.values()):
+            sch.preempt_request(req, reason="drain", requeue=True)
+        if self.journal is not None:
+            self.journal.flush(sync=True)
+        live = [r.rid for r in sch.waiting]
+        self._rec.emit("engine", "drained", live=len(live),
+                       journaled=self.journal is not None)
+        return live
+
+    def restore(self, journal) -> Dict[int, int]:
+        """Hot restart: re-submit every UNFINISHED request of
+        ``journal`` (a path, a :class:`RequestJournal`, or a replayed
+        entry dict — the JAX package's journals included, the format
+        is shared) into this engine with its original seed, priority,
+        tenant and deadlines, pre-loading the tokens it had been
+        delivered. It resumes through the re-prefill path a preemption
+        uses, so its remaining output is bit-exact with the
+        uninterrupted run (sampling is a pure function of (seed, token
+        index)). The last journaled token of each request is
+        regenerated, not replayed, so the EOS / ``max_new_tokens``
+        logic fires as it would have. Returns {old rid -> new rid}."""
+        if isinstance(journal, RequestJournal):
+            entries = journal.replay()
+        elif isinstance(journal, dict):
+            entries = journal
+        else:
+            entries = read_journal(str(journal))
+        mapping: Dict[int, int] = {}
+        for old_rid in sorted(entries):
+            e = entries[old_rid]
+            if e.finish_reason is not None:
+                continue
+            sp = SamplingParams(temperature=e.temperature, top_k=e.top_k,
+                                top_p=e.top_p, seed=e.seed)
+            rid = self.submit(e.prompt, e.max_new_tokens, sp,
+                              priority=e.priority, tenant=e.tenant,
+                              ttft_deadline_s=e.ttft_deadline_s,
+                              deadline_s=e.deadline_s)
+            replay = list(e.tokens[:-1]) if e.tokens else []
+            if replay:
+                req = self.scheduler.requests[rid]
+                req.output.extend(replay)
+                req.restored_tokens = len(replay)
+                if self.journal is not None:
+                    # a SECOND crash must still see these tokens
+                    self.journal.record_tokens(rid, replay)
+            mapping[old_rid] = rid
+            self._rec.emit("request", "restore_from_journal", rid=rid,
+                           old_rid=old_rid, replayed=len(replay))
+        if self.journal is not None:
+            self.journal.flush(sync=True)
+        return mapping
+
+    # ------------------------------------------------- request tracing --
+    def request_summary(self, rid: int) -> dict:
+        """Latency breakdown of one request (any state), from its
+        lifecycle timestamps: queue wait, TTFT, decode time, the
+        inter-token-latency percentiles of its newest tokens, tokens,
+        pages and the cost ledger's bytes and FLOPs. The flight
+        recorder's ``events_for(rid)`` holds the full timeline."""
+        req = self.scheduler.requests.get(rid)
+        if req is None:
+            raise KeyError(f"unknown request id {rid}")
+        now = time.perf_counter()
+        itl_p50 = itl_p99 = None
+        if len(req.token_times) >= 2:
+            gaps = np.diff(np.asarray(req.token_times,
+                                      dtype=np.float64)) * 1e3
+            itl_p50 = float(np.percentile(gaps, 50))
+            itl_p99 = float(np.percentile(gaps, 99))
+        return {
+            "rid": rid,
+            "state": req.state,
+            "slot": req.slot,
+            "prompt_len": len(req.prompt),
+            "max_new_tokens": req.max_new_tokens,
+            "tokens_generated": len(req.output),
+            "pages_reserved": req.pages_reserved,
+            "cached_prefix_tokens": req.prefix_len,
+            "prefill_chunks": req.prefill_chunks,
+            "priority": req.priority,
+            "tenant": req.tenant,
+            "preemptions": req.preemptions,
+            "restored_tokens": req.restored_tokens,
+            "finish_reason": req.finish_reason or None,
+            "retry_after_s": req.retry_after_s or None,
+            "age_seconds": now - req.t_submit,
+            "queue_wait_seconds": ((req.t_admit or now) - req.t_submit),
+            "ttft_seconds": ((req.t_first_token - req.t_submit)
+                             if req.t_first_token else None),
+            "decode_seconds": (((req.t_finish or now) - req.t_first_token)
+                               if req.t_first_token else None),
+            "itl_p50_ms": itl_p50,
+            "itl_p99_ms": itl_p99,
+            "spec_drafted": req.spec_drafted,
+            "spec_accepted": req.spec_accepted,
+            "cost_hbm_bytes": req.cost_hbm_bytes,
+            "cost_flops": req.cost_flops,
+            "cost_hbm_bytes_per_token": (
+                req.cost_hbm_bytes / len(req.output)
+                if req.output else None),
+            "cost_flops_per_token": (
+                req.cost_flops / len(req.output)
+                if req.output else None),
+        }
+
+    def request_summaries(self) -> Dict[int, dict]:
+        """Summaries of every request this engine has seen."""
+        return {rid: self.request_summary(rid)
+                for rid in list(self.scheduler.requests)}
+
+    def reset_step_profile(self) -> None:
+        """A fresh step profiler (records, phase and device totals) and
+        a fresh device-gap chain, for a measurement that starts now."""
+        self.stepprof = StepProfiler()
+        self.stepprof.set_overlap(self.async_depth > 0)
+        self._prev_end = None
 
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens=16,
                  sampling: Optional[SamplingParams] = None) -> List[List[int]]:
@@ -574,18 +895,23 @@ class GenerationEngine:
                 self._tok_matrix[req.slot, :len(ctx)] = ctx
                 self._row_len[req.slot] = len(ctx)
                 self._inflight_out[req.slot] = 0
+                req.t_prefill_start = time.perf_counter()
+        prof = self.stepprof
+        prof.lap("plan")           # chunk-row context staging above
         drafts: Dict[int, List[int]] = {}
         if (decode_rows and sch.config.spec_tokens > 0
                 and not sch.spec_suspended):
             budget = None
-            if sch.config.step_token_budget > 0:
+            eff_budget = sch.effective_step_budget()
+            if eff_budget > 0:
                 # the budget bounds the step's total ragged tokens; the
                 # chunk slice and one pending token per slot are packed
                 # already, so drafts get what remains
                 packed = (sum(r.chunk_len for r in chunk_rows)
                           + len(decode_rows))
-                budget = max(sch.config.step_token_budget - packed, 0)
+                budget = max(eff_budget - packed, 0)
             drafts = self._collect_drafts(budget)
+        prof.lap("draft")
         asynch = self.async_depth > 0
         ms = sch.config.max_slots
         q_starts = np.zeros((ms,), np.int32)
@@ -662,13 +988,22 @@ class GenerationEngine:
         floats = np.zeros((2 * bucket,), np.float32)
         floats[:n] = temps
         floats[bucket:bucket + n] = top_ps
-        toks_h, ok_h, event = self._dispatch(bucket, ints, floats,
-                                             int(q_lens.max()))
-        self.steps_dispatched += 1
+        prof.lap("pack")
         stp = _InFlight(plan=plan, chunk_rows=chunk_rows,
                         decode_rows=decode_rows, drafts=drafts,
                         q_starts=q_starts, q_lens=q_lens, pre_lens=pre_lens,
-                        toks=toks_h, ok=ok_h, event=event)
+                        toks=None, ok=None, ints=ints, floats=floats,
+                        bucket=bucket, n_ragged=n, fence=prof.fence,
+                        depth=len(self._inflight))
+        if not self._guarded_dispatch(stp, int(q_lens.max())):
+            # both attempts failed: every row's request is quarantined
+            # (pages restored); the step lands nothing, the engine lives
+            prof.annotate(tokens=n, bucket=bucket, tokens_out=0)
+            prof.lap("sample_commit")
+            return None
+        self.steps_dispatched += 1
+        prof.lap("dispatch")
+        prof.annotate(tokens=n, bucket=bucket)
         if asynch:
             # optimistic host state: the next plan runs before commit
             for r in chunk_rows:
@@ -700,29 +1035,193 @@ class GenerationEngine:
 
     def _commit_step(self, stp: _InFlight) -> None:
         """The landing half of one step, one step behind its dispatch
-        under pipelining: wait for its results, check the live rows'
-        logits, then land them; rows dead-marked since dispatch are
-        skipped. The JAX engine quarantines a row with non-finite
-        logits; until the port's device-fault slice brings that, such a
-        row stops the engine."""
+        under pipelining: wait for its results (the device-fault
+        boundary's materialize side), report its device span to the
+        step profiler, scan the live rows for non-finite logits (and
+        injected NaN rows), retry a poisoned step once at depth 0
+        (:meth:`_retry_step`) and quarantine what stays poisoned, then
+        land the rest. Rows dead-marked since dispatch are skipped."""
+        prof = self.stepprof
+        if stp.event is not None:
+            try:
+                stp.event.synchronize()
+            except EngineKilled:
+                raise
+            except Exception as e:     # noqa: BLE001 — the fault boundary
+                if _sticky_cuda_error(e):
+                    raise
+                prof.lap("device_wait")
+                self.steps_committed += 1
+                self._async_step_failed(stp, e)
+                prof.lap("sample_commit")
+                return
+        prof.lap("device_wait")
+        self._observe_device(stp)
+        self.steps_committed += 1
+        toks, ok = stp.toks, stp.ok
+        live = [r for r in stp.plan.rows if r.request.rid not in stp.dead]
+        bad, injected = self._scan_poisoned_rows(live, stp.q_starts,
+                                                 stp.q_lens, ok)
+        if bad or injected:
+            poisoned = bad | injected
+            if not stp.retried:
+                # one retry per step: a step whose dispatch was retried
+                # already quarantines its poisoned rows at once
+                self._note_retry("nan", stp.bucket, len(poisoned))
+                if self.async_depth == 0:
+                    poisoned, toks = self._retry_step(stp, live)
+            if poisoned is None:
+                # the retry's own dispatch failed: the step is
+                # unrunnable, every live row is quarantined
+                self._quarantine_failed_step(
+                    {r.request.rid: r.request for r in live}, stp.bucket,
+                    _InjectedFault("injected dispatch fault on the retry "
+                                   "(PD_FAULT_DISPATCH_RATE)"))
+                stp.dead.update(r.request.rid for r in live)
+                poisoned = ()
+            for r in live:
+                req = r.request
+                if req.slot not in poisoned:
+                    continue
+                # page hygiene before the teardown: the poisoned row's
+                # NaN K/V must not survive into the pages' next owner
+                self.cache.scrub_slot(req.slot)
+                self.scheduler.fault_terminate(req, kind="nan")
+                stp.dead.add(req.rid)
+        self._land_step(stp, toks)
+
+    def _observe_device(self, stp: _InFlight) -> None:
+        """Report a committed step's device span to the step profiler
+        (busy, and the idle gap since the previous step), and on
+        sampled steps its span into the step record."""
+        prof = self.stepprof
+        if stp.start_ev is not None:
+            busy = stp.start_ev.elapsed_time(stp.event) / 1e3
+            gap = (stp.prev_end.elapsed_time(stp.start_ev) / 1e3
+                   if stp.prev_end is not None else None)
+            prof.device_span(gap, busy, stp.depth)
+        elif stp.event is None and stp.t_done:
+            busy = stp.t_done - stp.t0
+            prof.device_gap(stp.t0, stp.t_done, stp.depth)
+        else:
+            return
+        if stp.fence:
+            prof.device(stp.t0, busy)
+            stp.fence_s = busy
+
+    # ------------------------------------------------ device-fault boundary --
+    def _guarded_dispatch(self, stp: _InFlight, max_q: int) -> bool:
+        """The device-fault boundary around one step's dispatch. Only an
+        injected dispatch fault (``PD_FAULT_DISPATCH_RATE``) is retried:
+        once, on the engine's own route, at depth 0 after the injector
+        is rolled again as the JAX engine's retry rolls it. At depth > 0
+        the JAX engine quarantines without a retry, so the fault
+        persists and both engines end the same requests
+        ``device_fault``. A step still faulted has every row's request
+        quarantined and returns False. A real exception from the step
+        propagates: no step is served from another route, so a kernel
+        that fails to build or launch stops the engine."""
+        inj = self._faults
+        if not inj.dispatch_fault():
+            self._dispatch(stp, max_q)
+            return True
+        err = _InjectedFault("injected dispatch fault "
+                             "(PD_FAULT_DISPATCH_RATE)")
+        self.stepprof.lap("dispatch")           # the failed attempt
+        self._note_retry("dispatch", stp.bucket, 1, err)
+        if self.async_depth == 0 and not inj.dispatch_fault():
+            self._dispatch(stp, max_q)
+            stp.retried = True
+            return True
+        self._quarantine_failed_step(
+            {r.request.rid: r.request for r in stp.plan.rows}, stp.bucket,
+            err)
+        return False
+
+    def _note_retry(self, kind: str, bucket: int, n: int,
+                    err: Optional[BaseException] = None) -> None:
+        """Count and record one retry of the fault boundary: ``n`` rows
+        (kind ``nan``) or one step (kind ``dispatch``). At depth > 0 a
+        retry is recorded but not run: the rows are quarantined."""
+        self.fault_retries[kind] += n
+        self._obs["fault_retries"].labels(kind=kind).inc(n)
+        self._rec.emit("engine", "device_fault_retry", kind=kind,
+                       bucket=bucket, rows=n,
+                       error=str(err)[:200] if err is not None else "")
+
+    def _scan_poisoned_rows(self, rows: List[RowPlan], q_starts, q_lens,
+                            ok) -> Tuple[set, set]:
+        """Slots of ``rows`` whose logits read non-finite anywhere in the
+        row, and slots the injector poisons (``PD_FAULT_NAN_RATE``; a
+        row already non-finite rolls nothing, as on the JAX side)."""
+        inj = self._faults
+        inject = inj.config.nan_rate > 0
+        bad, injected = set(), set()
+        for r in rows:
+            slot = r.request.slot
+            qs, ql = int(q_starts[slot]), int(q_lens[slot])
+            if not bool(ok[qs:qs + ql].all()):
+                bad.add(slot)
+            elif inject and inj.nan_row(r.request.rid):
+                injected.add(slot)
+        return bad, injected
+
+    def _retry_step(self, stp: _InFlight, live: List[RowPlan]):
+        """Depth 0, as the JAX engine's retry: the injector's dispatch
+        fault is rolled first (a hit makes the step unrunnable: returns
+        ``(None, toks)``), then the whole step runs once more on the
+        engine's own route from the same in-place pools (its scatters
+        are idempotent: the same positions get the same values, and at
+        depth 0 no row reads the carry), and every live row is scanned
+        again with the injector rolled again. Returns (poisoned slots,
+        the retry's tokens)."""
+        if self._faults.dispatch_fault():
+            return None, stp.toks
+        self._dispatch(stp, int(stp.q_lens.max()), retry=True)
         if stp.event is not None:
             stp.event.synchronize()
-        toks, ok = stp.toks, stp.ok
-        self.steps_committed += 1
-        bad = [r.request.rid for r in stp.plan.rows
-               if r.request.rid not in stp.dead
-               and not ok[stp.q_starts[r.request.slot]:
-                          stp.q_starts[r.request.slot]
-                          + stp.q_lens[r.request.slot]].all()]
-        if bad:
-            raise FloatingPointError(
-                f"non-finite logits in the rows of requests {bad}")
-        self._land_step(stp, toks)
+        bad, injected = self._scan_poisoned_rows(live, stp.q_starts,
+                                                 stp.q_lens, stp.ok)
+        return bad | injected, stp.toks
+
+    def _quarantine_failed_step(self, victims: Dict[int, Request],
+                                bucket: int, err) -> None:
+        """Shared tail of every unrunnable-step path (both dispatch
+        attempts failed; a pipelined step whose results failed to
+        arrive): terminate the affected requests ``device_fault`` with
+        their pages restored. The port's pools are written in place,
+        never consumed by a failed step, so no pool is rebuilt."""
+        sch = self.scheduler
+        for req in list(victims.values()):
+            sch.fault_terminate(req, kind="dispatch")
+        self._rec.emit("engine", "device_fault_step", bucket=bucket,
+                       kind="dispatch", rows=len(victims),
+                       error=str(err)[:200] if err else "")
+
+    def _async_step_failed(self, stp: _InFlight, err) -> None:
+        """A pipelined step's results failed to arrive at commit (a
+        non-sticky error): every later step in flight consumed its
+        carry, so the whole pipeline is dropped — the live rows of this
+        step and of every later one are quarantined."""
+        later = list(self._inflight)
+        self._inflight.clear()
+        victims: Dict[int, Request] = {}
+        for s in [stp] + later:
+            for r in s.plan.rows:
+                if r.request.rid not in s.dead:
+                    victims[r.request.rid] = r.request
+        self._quarantine_failed_step(victims, stp.bucket, err)
+        self._inflight_out[:] = 0
+        self.steps_committed += len(later)   # they will never commit
 
     def _land_step(self, stp: _InFlight, toks: np.ndarray) -> None:
         """Land every live row: chunk cursor advances, prefill
-        completions (first tokens), decode and verify tokens."""
+        completions (first tokens), decode and verify tokens; then the
+        step's counters, recorder events and cost-ledger accounting."""
         sch = self.scheduler
+        prof = self.stepprof
+        now = time.perf_counter()
+        t0, bucket = stp.t0, stp.bucket
         q_starts, q_lens = stp.q_starts, stp.q_lens
         chunk_rows = [r for r in stp.chunk_rows
                       if r.request.rid not in stp.dead]
@@ -741,23 +1240,75 @@ class GenerationEngine:
                 if not stp.drafts.get(slot):
                     self._inflight_out[slot] = max(
                         0, int(self._inflight_out[slot]) - 1)
+        out_tokens = 0
         for r in chunk_rows:
             req = r.request
             slot = req.slot
+            self._rec.emit("request", "prefill_chunk", rid=req.rid, ts=t0,
+                           dur=now - t0, start=r.start, tokens=r.chunk_len,
+                           slot=slot)
             if not r.final_chunk:
                 sch.on_chunk_done(req, r)
                 continue
             first = int(toks[q_starts[slot] + q_lens[slot] - 1])
+            self._obs["prefill_latency"].observe(now - req.t_prefill_start)
+            self._obs["ttft"].observe(now - (req.t_submit or now))
+            self._obs["tokens"].inc()
+            out_tokens += 1
+            # the whole chunk train renders as ONE prefill slice
+            self._rec.emit("request", "prefill", rid=req.rid,
+                           ts=req.t_prefill_start,
+                           dur=now - req.t_prefill_start, bucket=bucket,
+                           slot=slot, chunks=req.prefill_chunks,
+                           cached_tokens=req.prefix_len)
             sch.on_chunk_done(req, r, first, self.eos_id)
             if req.state != "finished":
                 self._tok_matrix[slot, self._row_len[slot]] = first
                 self._row_len[slot] += 1
-        self._land_verify_rows(decode_rows, stp.drafts, q_starts,
-                               stp.pre_lens, toks)
+        n_verify = sum(1 for r in decode_rows if stp.drafts.get(
+            r.request.slot))
+        if decode_rows:
+            out_tokens += self._land_verify_rows(
+                decode_rows, stp.drafts, q_starts, stp.pre_lens, toks)
+            self._obs["decode_latency"].observe(now - t0)
+            self._rec.emit("engine", "decode_step", ts=t0, dur=now - t0,
+                           n_active=len(decode_rows))
+        n_chunk, n_plain = len(chunk_rows), len(decode_rows) - n_verify
+        for kind, n in (("chunk", n_chunk), ("decode", n_plain),
+                        ("verify", n_verify)):
+            if n:
+                self._obs["mixed_rows"].labels(kind=kind).inc(n)
+        self._rec.emit("engine", "mixed_step", ts=t0, dur=now - t0,
+                       chunk_rows=n_chunk, decode_rows=n_plain,
+                       verify_rows=n_verify, tokens=stp.n_ragged,
+                       bucket=bucket)
+        if self.ledger is not None:
+            # the landed rows at their real ragged lengths: chunk rows
+            # span their context window, decode/verify rows attend the
+            # pre-step residency plus their own tokens; dead rows landed
+            # nothing and cost nothing here
+            led_rows = (
+                [(r.request, r.chunk_len, r.start + r.chunk_len)
+                 for r in chunk_rows]
+                + [(r.request, int(q_lens[r.request.slot]),
+                    stp.pre_lens.get(r.request.slot, 0)
+                    + int(q_lens[r.request.slot]))
+                   for r in decode_rows])
+            step_bytes, step_flops = self.ledger.account_step(led_rows)
+            if stp.fence_s is not None:
+                tenant_pages = {t: int(u.get("pages", 0))
+                                for t, u in sch.tenant_usage().items()}
+                self.ledger.observe_roofline(bucket, step_bytes, step_flops,
+                                             stp.fence_s, tenant_pages)
+        prof.annotate(tokens=stp.n_ragged, bucket=bucket,
+                      chunk_rows=n_chunk, decode_rows=n_plain,
+                      verify_rows=n_verify, tokens_out=out_tokens)
+        prof.note_tokens(out_tokens)
+        prof.lap("sample_commit")
 
     def _land_verify_rows(self, decode_rows: List[RowPlan],
                           drafts: Dict[int, List[int]], q_starts, pre_lens,
-                          toks) -> None:
+                          toks) -> int:
         """Land the decode and verify rows: per slot, accept the longest
         draft prefix that matches the target's samples and emit the
         accepted drafts plus one more token (the bonus on full
@@ -765,7 +1316,8 @@ class GenerationEngine:
         emits its one token). The rejected tail's K/V is rolled back with
         ``cache.truncate`` under the request's reserve floor. An EOS
         inside a block stops delivery at the EOS. A step in which any
-        slot drafted counts in the ``n_spec_*`` stats."""
+        slot drafted counts in the ``n_spec_*`` stats. Returns the
+        tokens delivered."""
         sch = self.scheduler
         emitted: Dict[int, List[int]] = {}
         n_active = n_drafted = n_accepted = 0
@@ -802,12 +1354,24 @@ class GenerationEngine:
                 n_accepted += acc
                 self._adapt_spec_len(req, k, acc)
         delivered = sch.on_verify_done(emitted, self.eos_id)
+        n_emitted = sum(delivered.values())
+        self._obs["tokens"].inc(n_emitted)
         if drafts:
             sch.stats["n_spec_steps"] += 1
             sch.stats["n_spec_slot_steps"] += n_active
             sch.stats["n_spec_drafted"] += n_drafted
             sch.stats["n_spec_accepted"] += n_accepted
-            sch.stats["n_spec_emitted"] += sum(delivered.values())
+            sch.stats["n_spec_emitted"] += n_emitted
+            self._spec_drafted_total += n_drafted
+            self._spec_accepted_total += n_accepted
+            self._obs["spec_drafted"].inc(n_drafted)
+            self._obs["spec_accepted"].inc(n_accepted)
+            if self._spec_drafted_total:
+                self._obs["spec_ratio"].set(self._spec_accepted_total
+                                            / self._spec_drafted_total)
+            self._rec.emit("engine", "spec_verify", n_active=n_active,
+                           drafted=n_drafted, accepted=n_accepted,
+                           emitted=n_emitted)
         # each still-running slot's landed tokens join its host context
         # (the next pending token and the drafter's input)
         for r in decode_rows:
@@ -817,6 +1381,7 @@ class GenerationEngine:
                 rl = self._row_len[req.slot]
                 self._tok_matrix[req.slot, rl:rl + len(out)] = out
                 self._row_len[req.slot] += len(out)
+        return n_emitted
 
     # ----------------------------------------------- speculative drafting --
     def _collect_drafts(self, budget: Optional[int] = None
@@ -877,11 +1442,14 @@ class GenerationEngine:
                                self.scheduler.config.spec_tokens)
 
     # ---------------------------------------------------- step dispatch --
-    def _dispatch(self, bucket: int, ints: np.ndarray, floats: np.ndarray,
-                  max_q: int):
-        """Run one step and start its results on their way to the host;
-        returns ``(toks, ok, event)`` (``event`` None on the CPU, where
-        the step has run by the time this returns).
+    def _dispatch(self, stp: _InFlight, max_q: int,
+                  retry: bool = False) -> None:
+        """Run one step and start its results on their way to the host:
+        fills ``stp``'s ``toks``/``ok`` (host arrays; on the card views
+        of a pinned ring entry, valid once ``stp.event`` completes) and
+        its device-span fields. ``retry`` (the fault boundary's depth-0
+        retry of a step already dispatched) runs it again on the same
+        route, its graph replayed, outside the signature bookkeeping.
 
         The step's signature is ``("step", bucket, tile rows)``: whether
         a row has more than one query decides whether the ragged kernel
@@ -896,18 +1464,30 @@ class GenerationEngine:
         whose extra blocks exit at once); each later step of that
         signature replays it. The copies out of a replay are queued
         right behind it, before any other replay can reuse the pool's
-        memory."""
+        memory. The step profiler's start event (when it is on) is
+        recorded before the input copies, the end event after the
+        output copies: around the replay, never inside a graph."""
+        bucket, ints, floats = stp.bucket, stp.ints, stp.floats
         tiles = max_q > DECODE_MAX_Q
         key = ("step", bucket, tiles)
-        self.steps_by_class["mix" if tiles else "decode"] += 1
+        if not retry:
+            self._note_signature(key)
+            self.steps_by_class["mix" if tiles else "decode"] += 1
         levels = self._device_page_levels()
+        run = (self._eager_fn if self.obs_registry.enabled
+               else self._run_step)
+        stp.t0 = time.perf_counter()
         if self.device.type != "cuda":
             self._graphs.setdefault(key, None)
-            toks, ok = self._run_step(
-                bucket, torch.from_numpy(ints), torch.from_numpy(floats),
-                max_q, levels)
-            return toks.numpy(), ok.numpy(), None
+            toks, ok = run(bucket, torch.from_numpy(ints),
+                           torch.from_numpy(floats), max_q, levels)
+            stp.toks, stp.ok = toks.numpy(), ok.numpy()
+            stp.t_done = time.perf_counter()
+            return
         slot = self._ring_slot()
+        if self.stepprof.active:
+            slot.start.record()
+            stp.start_ev, stp.prev_end = slot.start, self._prev_end
         slot.ints[:len(ints)].numpy()[:] = ints
         slot.floats[:len(floats)].numpy()[:] = floats
         ints_d, floats_d = self._bucket_inputs(bucket, len(ints),
@@ -916,24 +1496,41 @@ class GenerationEngine:
         floats_d.copy_(slot.floats[:len(floats)], non_blocking=True)
         graph = self._graphs.get(key)
         if graph is not None:
-            graph.graph.replay()
-            pa.LAUNCHES.update(graph.held)
+            if self.obs_registry.enabled:
+                self._replay_fn(key)
+            else:
+                self._replay(key)
             toks, ok = graph.toks, graph.ok
-        elif not self.cuda_graphs:
-            self._graphs[key] = None
-            toks, ok = self._run_step(bucket, ints_d, floats_d, max_q,
-                                      levels)
+        elif retry or not self.cuda_graphs:
+            self._graphs.setdefault(key, None)
+            toks, ok = run(bucket, ints_d, floats_d, max_q, levels)
         else:
             grid_q = bucket if tiles else max_q
-            toks, ok = self._run_step(bucket, ints_d, floats_d, grid_q,
-                                      levels)
+            toks, ok = run(bucket, ints_d, floats_d, grid_q, levels)
             self._graphs[key] = self._capture(bucket, ints_d, floats_d,
-                                              grid_q, levels)
+                                              grid_q, levels, tiles)
         slot.toks[:bucket].copy_(toks, non_blocking=True)
         slot.ok[:bucket].copy_(ok, non_blocking=True)
         slot.event.record()
-        return (slot.toks[:bucket].numpy(), slot.ok[:bucket].numpy(),
-                slot.event)
+        self._prev_end = slot.event
+        stp.toks, stp.ok = (slot.toks[:bucket].numpy(),
+                            slot.ok[:bucket].numpy())
+        stp.event = slot.event
+
+    def _note_signature(self, key) -> None:
+        """The compile observatory's view of one step's graph lookup: a
+        miss is a signature this engine has not launched before
+        (exactly what grows ``xla_compiles``)."""
+        miss = key not in self._graphs
+        if miss:
+            self._obs["compiles"].labels(graph="step").inc()
+        if self.ledger is not None:
+            self.ledger.note_dispatch("step", miss, key[1])
+
+    def _replay(self, key) -> None:
+        graph = self._graphs[key]
+        graph.graph.replay()
+        pa.LAUNCHES.update(graph.held)
 
     def _run_step(self, bucket, ints, floats, max_q, levels):
         return _step(self.model, self.cache, levels, ints, floats,
@@ -941,13 +1538,17 @@ class GenerationEngine:
                      max_q_len=max_q, quant=self.quant,
                      kv_split_pages=self._kv_split_pages)
 
-    def _capture(self, bucket, ints_d, floats_d, max_q,
-                 levels) -> _StepGraph:
+    def _capture(self, bucket, ints_d, floats_d, max_q, levels,
+                 tiles: bool) -> _StepGraph:
         """Capture the step of ``bucket`` over its static inputs into a
-        CUDA graph (nothing runs). Raises if the capture fails."""
+        CUDA graph (nothing runs); its wall time and memory go to the
+        compile observatory. Raises :class:`GraphCaptureError` if the
+        capture fails."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
         # no garbage collection while capturing: a collected graph (an
         # earlier engine's) would be destroyed mid-capture, which the
         # driver refuses and which invalidates the capture
@@ -958,9 +1559,17 @@ class GenerationEngine:
                 with torch.cuda.graph(graph, pool=self._graph_pool):
                     toks, ok = self._run_step(bucket, ints_d, floats_d,
                                               max_q, levels)
+        except Exception as e:         # noqa: BLE001 — no eager fallback
+            raise GraphCaptureError(
+                f"capture of the step of bucket {bucket} failed: {e}") from e
         finally:
             if collecting:
                 gc.enable()
+        if self.ledger is not None:
+            self.ledger.observe_capture(
+                "step", bucket, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(),
+                torch.cuda.memory_allocated() - before, tiles=tiles)
         return _StepGraph(graph=graph, toks=toks, ok=ok, held=held)
 
     def _ring_slot(self) -> _Slot:
@@ -980,7 +1589,8 @@ class GenerationEngine:
                                      pin_memory=True),
                     ok=torch.empty((width,), dtype=torch.bool,
                                    pin_memory=True),
-                    event=torch.cuda.Event()))
+                    event=torch.cuda.Event(enable_timing=True),
+                    start=torch.cuda.Event(enable_timing=True)))
         slot = self._ring[self._ring_next % len(self._ring)]
         self._ring_next += 1
         slot.event.synchronize()

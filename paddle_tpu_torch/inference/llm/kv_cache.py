@@ -45,6 +45,15 @@ host memory without waiting for it, so they land after every step
 already queued; host reads (``swap_out``, ``_spill_page``) copy on that
 stream and wait for it, so they see every queued step's writes.
 
+Observability and robustness, as on the JAX side: the pool gauges
+(pages in use, shared and parked prefix pages; the memory observatory's
+free / mapped / cached / swapped partition and its peaks), prefix-hit,
+eviction, swap and demotion counters, flight-recorder events of the
+page churn; ``prefix_admission_paused`` (brownout level >= 3: cached
+entries keep serving hits, ``commit_prefix`` registers no new ones);
+and ``scrub_slot``, the device-fault quarantine's zeroing of a
+poisoned request's private pages.
+
 ``truncate`` rolls back the tail of a slot (speculative decoding's
 rejected drafts) under the request's reserve floor. The module-level
 scatter helpers (``append_kv``, ``write_prefill_kv``,
@@ -63,6 +72,8 @@ import torch
 
 from ...device import resolve_device
 from ...kernels.paged_attention import ragged_rows
+from ...observability import ledger_metrics, serving_metrics
+from ...observability.recorder import default_recorder
 from .policy import COLD_DEMOTE_DEFAULT, SWAP_PAGES_DEFAULT
 from .quant import QuantConfig, kv_pool_dtype, kv_scale_shape
 
@@ -255,6 +266,32 @@ class PagedKVCache:
         # parked prefix pages whose bytes spilled to the host store before
         # the page returned to the free list
         self.demoted_pages = 0
+        # brownout level >= 3 pauses prefix-cache ADMISSION: existing
+        # entries keep serving hits, commit_prefix registers no new pages
+        self.prefix_admission_paused = False
+        m = serving_metrics()
+        self._pages_gauge = m["pages_in_use"]
+        self._hits_ctr = m["prefix_hits"]
+        self._evict_ctr = m["prefix_evictions"]
+        self._shared_gauge = m["prefix_shared_pages"]
+        self._cached_gauge = m["prefix_cached_pages"]
+        self._swap_out_ctr = m["swap_pages"].labels(dir="out")
+        self._swap_in_ctr = m["swap_pages"].labels(dir="in")
+        # the memory observatory: free/mapped/cached partition the
+        # usable pool exactly; swapped counts host-tier entries
+        lm = ledger_metrics()
+        self._kv_pages_gauge = lm["kv_pages"]
+        self._kv_pool_gauge = lm["kv_pool_pages"]
+        self._kv_pool_gauge.set(c.num_pages - 1)
+        self._kv_peak_gauge = lm["kv_pages_peak"]
+        self._prefix_saved_ctr = lm["prefix_saved"]
+        self._demoted_ctr = lm["kv_demoted"]
+        self._demoted_ctr.inc(0)       # pre-bind: an export shows it
+        self.peak_pages_in_use = 0
+        self.peak_swapped_pages = 0
+        self._page_cost = c.page_bytes()
+        self._rec = default_recorder()
+        self._update_gauges()
 
     # ------------------------------------------------ two-level page table --
     @property
@@ -432,8 +469,13 @@ class PagedKVCache:
         del self._prefix_map[key]
         if self.config.demote_cold_prefix and self._spill_page(key, page):
             self.demoted_pages += 1
+            self._demoted_ctr.inc()
             self.swapped_out_pages += 1
+            self._swap_out_ctr.inc()
+            self._rec.emit("cache", "page_demoted", page=page,
+                           resident=len(self._swap))
         self.prefix_evictions += 1
+        self._evict_ctr.inc()
         return page
 
     def allocate(self, slot: int, n_tokens: int,
@@ -473,7 +515,18 @@ class PagedKVCache:
         self._set_slot_pages(slot, pages)
         self.seq_lens[slot] = 0
         self._prefix_lens[slot] = len(matched) * self.config.page_size
-        self.prefix_hits += len(matched)
+        if matched:
+            self.prefix_hits += len(matched)
+            self._hits_ctr.inc(len(matched))
+            # every cache-served page is a page of prefill K/V writes
+            # avoided (the cost ledger's saved bytes)
+            self._prefix_saved_ctr.inc(len(matched) * self._page_cost)
+            self._rec.emit("cache", "prefix_hit", slot=slot,
+                           pages=len(matched),
+                           tokens=self._prefix_lens[slot])
+        self._update_gauges()
+        self._rec.emit("cache", "pages_allocated", slot=slot, pages=need,
+                       cached=len(matched), free_pages=self.num_free_pages)
         return True
 
     def truncate(self, slot: int, n_tokens: int,
@@ -525,6 +578,10 @@ class PagedKVCache:
             self._zero_scale_rows(doomed)
             self._allocated_pages[slot] = pages[:keep]
             self._truncate_slot_pages(slot, keep)
+            self._update_gauges()
+        self._rec.emit("cache", "pages_truncated", slot=slot,
+                       tokens=n_tokens, pages=len(doomed),
+                       free_pages=self.num_free_pages)
         return len(doomed)
 
     def commit_prefix(self, slot: int, prompt: Sequence[int],
@@ -532,8 +589,10 @@ class PagedKVCache:
         """Register ``slot``'s now-prefilled FULL prompt pages in the
         prefix map (idempotent; pages already cached or keys already
         owned by another page are skipped). Call once the prompt's KV
-        is resident, i.e. after prefill. Returns pages registered."""
-        if not self.config.prefix_cache or not prompt:
+        is resident, i.e. after prefill. A no-op while
+        ``prefix_admission_paused``. Returns pages registered."""
+        if (not self.config.prefix_cache or not prompt
+                or self.prefix_admission_paused):
             return 0
         pages = self._allocated_pages[slot]
         keys = hashes if hashes is not None else self._block_hashes(prompt)
@@ -579,7 +638,14 @@ class PagedKVCache:
             self._free.extend(freed)
             self._zero_scale_rows(freed)
             self.demoted_pages += len(freed)
-            self.swapped_out_pages += copied
+            self._demoted_ctr.inc(len(freed))
+            if copied:
+                self.swapped_out_pages += copied
+                self._swap_out_ctr.inc(copied)
+            self._update_gauges()
+            self._rec.emit("cache", "pages_demoted", pages=len(freed),
+                           copied=copied, resident=len(self._swap),
+                           free_pages=self.num_free_pages)
         return len(freed)
 
     def swap_out(self, slot: int, tokens: Sequence[int],
@@ -609,7 +675,12 @@ class PagedKVCache:
                 continue
             self._store(key, self._page_entry(pages[i]))
             n += 1
-        self.swapped_out_pages += n
+        if n:
+            self.swapped_out_pages += n
+            self._swap_out_ctr.inc(n)
+            self._rec.emit("cache", "swap_out", slot=slot, pages=n,
+                           resident=len(self._swap))
+            self._update_gauges()
         return n
 
     def swap_in(self, slot: int, tokens: Sequence[int],
@@ -656,7 +727,12 @@ class PagedKVCache:
                 self._page_key[page] = keys[i]
             self._prefix_lens[slot] += ps
             restored += 1
-        self.swapped_in_pages += restored
+        if restored:
+            self.swapped_in_pages += restored
+            self._swap_in_ctr.inc(restored)
+            self._rec.emit("cache", "swap_in", slot=slot, pages=restored,
+                           tokens=self._prefix_lens[slot])
+            self._update_gauges()
         return restored
 
     @property
@@ -701,6 +777,54 @@ class PagedKVCache:
         self._truncate_slot_pages(slot, 0)
         self.seq_lens[slot] = 0
         self._prefix_lens[slot] = 0
+        self._update_gauges()
+        self._rec.emit("cache", "pages_released", slot=slot,
+                       pages=len(pages), free_pages=self.num_free_pages)
+
+    def scrub_slot(self, slot: int) -> int:
+        """Zero the pool values of ``slot``'s PRIVATE pages (refcount 1,
+        not prefix-registered) — the device-fault quarantine calls this
+        before releasing a poisoned request: NaN K/V left in a freed
+        page would leak into the next request that reuses it, because
+        IEEE ``0 * NaN = NaN`` defeats the masked attention. Shared or
+        registered pages are skipped: a healthy prefill wrote them and
+        other requests may read them. The zeroing is queued on the
+        cache's stream, behind every step already in flight. Returns
+        pages scrubbed."""
+        pages = [p for p in self._allocated_pages[slot]
+                 if self._refcount[p] == 1 and p not in self._page_key]
+        if pages:
+            idx = _host_to_device(torch.tensor(pages, dtype=torch.long),
+                                  self.device)
+            pools = [self.k_pool, self.v_pool]
+            if self.k_scale is not None:
+                # a poisoned row's scales can be NaN too
+                pools += [self.k_scale, self.v_scale]
+            for pool in pools:
+                if pool.dtype == torch.float8_e4m3fn:
+                    pool = pool.view(torch.uint8)     # 0x00 is +0.0
+                pool[:, idx] = 0
+            self._rec.emit("cache", "pages_scrubbed", slot=slot,
+                           pages=len(pages))
+        return len(pages)
+
+    def _update_gauges(self) -> None:
+        in_use = self.pages_in_use
+        self.peak_pages_in_use = max(self.peak_pages_in_use, in_use)
+        self.peak_swapped_pages = max(self.peak_swapped_pages,
+                                      len(self._swap))
+        self._pages_gauge.set(in_use)
+        self._shared_gauge.set(self._n_shared)
+        self._cached_gauge.set(len(self._evictable))
+        g = self._kv_pages_gauge
+        g.labels(state="free").set(len(self._free))
+        g.labels(state="mapped").set(in_use)
+        g.labels(state="cached").set(len(self._evictable))
+        g.labels(state="swapped").set(len(self._swap))
+        self._kv_peak_gauge.labels(state="mapped").set(
+            self.peak_pages_in_use)
+        self._kv_peak_gauge.labels(state="swapped").set(
+            self.peak_swapped_pages)
 
     def _zero_scale_rows(self, pages: List[int]) -> None:
         """Quantized pools: zero the scale rows of pages returning to the

@@ -18,7 +18,9 @@ __all__ = ["MAX_QUEUE", "DEFAULT_CHUNK_TOKENS", "STEP_TOKEN_BUDGET",
            "SPEC_NGRAM_MAX", "SPEC_NGRAM_MIN", "SPEC_WINDOW",
            "SPEC_PROBE_EVERY", "SPEC_DECAY_BELOW", "SPEC_GROW_ABOVE",
            "PRIORITY_CLASSES", "TENANT_MAX_PAGES", "TENANT_MAX_SLOTS",
-           "SWAP_PAGES_DEFAULT", "COLD_DEMOTE_DEFAULT"]
+           "SWAP_PAGES_DEFAULT", "COLD_DEMOTE_DEFAULT",
+           "STEPPROF_SAMPLE_PCT", "BROWNOUT_LEVELS", "JOURNAL_SYNC_EVERY",
+           "JOURNAL_MAX_BYTES"]
 
 MAX_QUEUE = 1024             # admission ceiling (waiting-queue depth)
 DEFAULT_CHUNK_TOKENS = 0     # chunked-prefill token budget (0 = off)
@@ -36,6 +38,15 @@ KV_SPLIT_PAGES = 0           # flash-decode KV-split chunk width (0 = off)
 PRIORITY_CLASSES = 3
 TENANT_MAX_PAGES = 0
 TENANT_MAX_SLOTS = 0
+
+# observability and robustness: the share of engine steps the step
+# profiler samples (percent), the overload brownout ladder's depth (0 =
+# controller off), and the request journal's fsync cadence (records
+# between syncs) and compaction bound (bytes)
+STEPPROF_SAMPLE_PCT = 6
+BROWNOUT_LEVELS = 0
+JOURNAL_SYNC_EVERY = 64
+JOURNAL_MAX_BYTES = 1048576
 
 # the host swap tier: pages the host store holds (0 = swapping off; a
 # preempted request then re-prefills), and whether evicting a parked

@@ -36,7 +36,7 @@ from . import policy
 
 __all__ = ["QuantConfig", "FP8_E4M3_MAX", "kv_pool_dtype", "kv_scale_shape",
            "quantize_kv", "dequantize_kv", "quantized_weight_names",
-           "quantize_lm_weights"]
+           "quantize_lm_weights", "modeled_weight_bytes"]
 
 # largest finite e4m3 magnitude: the per-position absmax maps onto it
 FP8_E4M3_MAX = 448.0
@@ -133,6 +133,32 @@ def quantized_weight_names(spec) -> Tuple[str, ...]:
     for l in range(spec.num_layers):
         names += [f"l{l}.wqkv", f"l{l}.wo", f"l{l}.wfc", f"l{l}.wproj"]
     return tuple(names)
+
+
+def modeled_weight_bytes(spec, quant: "QuantConfig",
+                         itemsize: int = 4) -> int:
+    """Total parameter bytes ONE step streams from device memory under
+    this quant config — the weight-traffic term of the cost ledger's
+    byte model (``pd_cost_bytes_component_total{component="weights"}``).
+
+    Counts what :func:`~.model.init_lm_params` allocates (+ the int8
+    re-storage of :func:`quantize_lm_weights`): the per-layer quartet
+    (wqkv/wo/wfc/wproj) at 1 byte/element + float32 per-output-channel
+    scale rows when ``quant.weights == "int8"``, ``itemsize``
+    bytes/element otherwise; embedding, positions and the LayerNorm
+    vectors always full width (the tied embedding doubles as the LM
+    head, so it is not counted twice)."""
+    d, hd, v = spec.d_model, spec.num_heads * spec.head_dim, spec.vocab
+    mm_elems = spec.num_layers * (d * 3 * hd + hd * d
+                                  + d * 4 * d + 4 * d * d)
+    # per-output-channel scales (absmax over the input axis, float32)
+    scale_elems = spec.num_layers * (3 * hd + d + 4 * d + d)
+    full_elems = (v * d + spec.max_seq_len * d      # embed + pos
+                  + spec.num_layers * 4 * d         # ln1/ln2 g+b
+                  + 2 * d)                          # lnf g+b
+    if quant is not None and quant.weights == "int8":
+        return mm_elems * 1 + scale_elems * 4 + full_elems * itemsize
+    return (mm_elems + full_elems) * itemsize
 
 
 def quantize_lm_weights(params: Dict[str, torch.Tensor], spec

@@ -50,24 +50,44 @@ unified mixed-step plan. The scheduler owns WHAT runs each step; the
   the slots the next plan skips, and ``teardown_hook(req, slot,
   cause)`` runs at the top of every slot teardown so the engine can
   dead-mark the request's rows still in flight.
+- **Resilience hooks**: ``admission_paused`` (``engine.drain``),
+  ``spec_suspended``, ``step_budget_override`` and ``shed_floor`` (the
+  brownout controller's levels), ``shed_queued`` and ``Overloaded``
+  with its retry-after, ``fault_terminate`` (the device-fault
+  quarantine), the fault injector's allocator exhaustion in the
+  admission scan, and the optional request ``journal`` fed from
+  ``_emit`` and ``_retire``.
+- **Observability**: the serving counters and gauges, flight-recorder
+  events of every lifecycle transition, and the SLO digest's queue
+  wait, TTFT and inter-token latency per {tenant, priority}.
+- **Request ids** come from a per-scheduler block of ``RID_BLOCK``
+  ids, unique across every engine in the process, so the flight
+  recorder's per-request tracks and a journal restore never mix two
+  engines' requests.
 
-Brownout shedding (so ``spec_suspended`` stays False), quantized
-collectives and the int8 matmul are later slices of the port: their
-knobs exist so a config reads like the JAX one, and a non-default value
-raises ``NotImplementedError`` naming the slice.
+Quantized collectives and the int8 matmul are later slices of the
+port: their knobs exist so a config reads like the JAX one, and a
+non-default value raises ``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
 
+from ...observability import serving_metrics
+from ...observability.recorder import (DECODE_PROGRESS_EVERY,
+                                       default_recorder)
+from ...observability.stepprof import default_slo_digest
 from . import policy
+from .faults import default_injector
 from .kv_cache import PagedKVCache
 
 __all__ = ["SchedulerConfig", "Request", "QueueFull", "InvalidRequest",
-           "ContinuousBatchingScheduler", "Plan", "RowPlan",
+           "Overloaded", "ContinuousBatchingScheduler", "Plan", "RowPlan",
            "ragged_buckets"]
 
 WAITING, PREFILL, RUNNING, FINISHED = "waiting", "prefill", "running", \
@@ -79,11 +99,34 @@ class QueueFull(RuntimeError):
     """Admission control rejected the request (queue depth exceeded)."""
 
 
+class Overloaded(QueueFull):
+    """Typed brownout rejection: the engine is shedding this request's
+    priority class under sustained overload. ``retry_after_s`` is the
+    controller-computed backoff hint (always > 0). A :class:`QueueFull`,
+    so callers that treat rejection as backpressure keep working."""
+
+    def __init__(self, retry_after_s: float, msg: Optional[str] = None):
+        super().__init__(
+            msg or f"engine overloaded — retry after {retry_after_s:.3f}s")
+        self.retry_after_s = float(retry_after_s)
+
+
 class InvalidRequest(ValueError):
     """Typed rejection of a malformed submit (empty prompt, non-positive
     ``max_new_tokens``, a prompt that cannot fit the engine, pool or
     tenant quota, a priority outside the classes, a negative deadline),
     raised before a rid is assigned."""
+
+
+# each scheduler draws its request ids from its own block, so rids are
+# unique across every engine in the process; a scheduler that outlives
+# its block chains a fresh one
+RID_BLOCK = 1 << 20
+_rid_blocks = itertools.count()
+
+# per-token delivery timestamps kept on each Request (bounded ring): the
+# raw material of request_summary's inter-token-latency percentiles
+ITL_RING = max(2, int(os.environ.get("PD_OBS_ITL_RING", "256")))
 
 
 def _later_slice(knob: str, value, slice_name: str) -> NotImplementedError:
@@ -128,8 +171,9 @@ class SchedulerConfig:
     # async pipelining: steps dispatched ahead of their commit (0 =
     # serial); the engine reads it
     async_depth: int = policy.ASYNC_DEPTH
-    # a later slice (overload brownout): only 0 is accepted
-    brownout_levels: int = 0
+    # overload brownout: depth of the degradation ladder the engine's
+    # controller may walk (0 = controller off; see brownout.py)
+    brownout_levels: int = policy.BROWNOUT_LEVELS
     # quantized serving: KV-page storage mode (off | int8 | fp8) and
     # weight storage mode (off | int8). The scheduler never reads them
     # (page accounting is encoding-agnostic); an engine built without an
@@ -146,9 +190,6 @@ class SchedulerConfig:
     kv_split_pages: int = policy.KV_SPLIT_PAGES
 
     def __post_init__(self):
-        if self.brownout_levels != 0:
-            raise _later_slice("brownout_levels", self.brownout_levels,
-                               "overload brownout")
         if self.coll_quant != "off":
             raise _later_slice("coll_quant", self.coll_quant,
                                "tensor-parallel mesh")
@@ -179,7 +220,9 @@ class Request:
     state: str = WAITING
     slot: int = -1
     output: List[int] = dataclasses.field(default_factory=list)
-    finish_reason: str = ""        # eos | max_new_tokens | cancelled
+    finish_reason: str = ""        # eos | max_new_tokens | timeout |
+                                   # cancelled | preempted | shed |
+                                   # device_fault
     prefill_pos: int = 0           # prompt tokens whose KV is resident
     prefill_chunks: int = 0        # chunk rows issued for this request
     # memoized full-page rolling digests of the prompt
@@ -210,6 +253,18 @@ class Request:
     t_preempt: float = 0.0         # the latest eviction
     restored_tokens: int = 0       # served from cache/swap at the latest
                                    # re-admission of a preempted request
+    t_prefill_start: float = 0.0   # the first chunk row's staging
+    # inter-token latency: the newest token's delivery time and a
+    # bounded ring of the last ITL_RING delivery times
+    t_last_token: float = 0.0
+    token_times: Deque[float] = dataclasses.field(
+        default_factory=lambda: deque(maxlen=ITL_RING))
+    # the backoff hint attached when the request was shed (0.0 else)
+    retry_after_s: float = 0.0
+    # the cost ledger's modelled bytes and FLOPs of every step the
+    # request rode in (0 with the ledger off)
+    cost_hbm_bytes: int = 0
+    cost_flops: int = 0
 
     def kv_tokens(self) -> List[int]:
         """prompt + generated output — every token whose KV must be
@@ -256,26 +311,62 @@ class ContinuousBatchingScheduler:
         self.running: Dict[int, Request] = {}      # slot -> request
         self.finished: Dict[int, Request] = {}     # rid -> request
         self.requests: Dict[int, Request] = {}     # rid -> request
+        # the newest finished rids (a bounded view for watchdog dumps)
+        self.recent_finished: Deque[int] = deque(maxlen=64)
         self._free_slots = list(range(config.max_slots - 1, -1, -1))
         self._chunking: Optional[Request] = None   # owner of the prefill lane
-        self._next_rid = 0
+        self.rid_base = next(_rid_blocks) * RID_BLOCK
+        self._next_rid = self.rid_base
+        self._rid_block_end = self.rid_base + RID_BLOCK
         # lifecycle counts, and the speculative-decoding totals (engine-
         # updated): verify steps, slot participations in them, drafted /
         # accepted / emitted tokens
         self.stats = {"n_submitted": 0, "n_rejected": 0, "n_prefills": 0,
-                      "n_chunks": 0, "n_backpressure": 0, "n_recycled": 0,
+                      "n_chunks": 0, "n_decode_steps": 0,
+                      "n_backpressure": 0, "n_recycled": 0,
                       "n_finished": 0,
                       "n_spec_steps": 0, "n_spec_slot_steps": 0,
                       "n_spec_drafted": 0, "n_spec_accepted": 0,
                       "n_spec_emitted": 0,
                       "n_preemptions": 0, "n_resumed": 0,
                       "n_preempt_drops": 0, "n_timeouts": 0,
-                      "n_cancelled": 0, "n_quota_deferred": 0}
+                      "n_cancelled": 0, "n_quota_deferred": 0,
+                      "n_shed": 0, "n_overload_rejected": 0,
+                      "n_device_faults": 0}
+        # registry handles bound once; the labelled families' known
+        # series pre-bound so an export shows them at zero
+        self._obs = serving_metrics()
+        for _reason in ("slot", "pages", "manual"):
+            self._obs["preemptions"].labels(reason=_reason)
+        for _pr in range(max(config.priority_classes, 1)):
+            self._obs["shed"].labels(priority=str(_pr))
+        for _kind in ("nan", "dispatch"):
+            self._obs["device_faults"].labels(kind=_kind)
+        # exact SLO percentiles keyed {tenant, priority}: queue wait,
+        # TTFT, inter-token latency
+        self._slo = default_slo_digest()
+        self._rec = default_recorder()
+        self._faults = default_injector()
+        self._last_bp_rid = -1     # one backpressure event per blocked head
+        self._quota_evented: set = set()   # one quota event per deferral
         # live requests carrying a deadline: the sweep is skipped while
         # this is zero
         self._live_deadlines = 0
-        # brownout turns drafting off; the port has no brownout yet
+        # ---- resilience hooks (brownout controller / journal / drain) --
+        # admission_paused: engine.drain() stops the admission scan;
+        # spec_suspended: brownout level >= 2 turns drafting off
+        # (lossless: tokens never change); step_budget_override: the
+        # brownout's shrunk ragged-token budget (None = config value);
+        # shed_floor: priority classes >= this are rejected Overloaded
+        # at submit with overload_retry_after_s (None = accept all)
+        self.admission_paused = False
         self.spec_suspended = False
+        self.step_budget_override: Optional[int] = None
+        self.shed_floor: Optional[int] = None
+        self.overload_retry_after_s = 0.0
+        # optional crash-safe journal (engine-attached): _emit appends
+        # delivered tokens, _retire terminal reasons
+        self.journal = None
         # async pipelining (engine-attached): slots the next plan skips
         # while their in-flight results cannot be planned past, and the
         # hook every slot teardown calls first, teardown_hook(req, slot,
@@ -294,6 +385,11 @@ class ContinuousBatchingScheduler:
     @property
     def num_waiting(self) -> int:
         return sum(len(q) for q in self._queues)
+
+    @property
+    def slo_digest(self):
+        """The SLO digest this scheduler observes into."""
+        return self._slo
 
     # --------------------------------------------------------- admission --
     def _validate_submit(self, prompt, max_new_tokens, priority=0,
@@ -332,10 +428,34 @@ class ContinuousBatchingScheduler:
                ttft_deadline_s: float = 0.0, deadline_s: float = 0.0) -> int:
         self._validate_submit(prompt, max_new_tokens, priority,
                               ttft_deadline_s, deadline_s)
+        if self.admission_paused:
+            # draining: a submit accepted now would never be served
+            self.stats["n_rejected"] += 1
+            self._obs["rejected"].inc()
+            raise QueueFull("engine draining — admission closed")
+        if self.shed_floor is not None and priority >= self.shed_floor:
+            # brownout shedding: typed rejection before a rid exists,
+            # with the controller's backoff hint
+            retry = max(self.overload_retry_after_s, 1e-3)
+            self.stats["n_overload_rejected"] += 1
+            self._obs["shed"].labels(priority=str(priority)).inc()
+            self._rec.emit("request", "shed", priority=priority,
+                           retry_after_s=retry, stage="submit",
+                           queue_depth=self.num_waiting)
+            raise Overloaded(retry, f"brownout shedding priority classes "
+                                    f">= {self.shed_floor} — retry after "
+                                    f"{retry:.3f}s")
         if self.num_waiting >= self.config.max_queue:
             self.stats["n_rejected"] += 1
+            self._obs["rejected"].inc()
+            self._rec.emit("request", "rejected",
+                           queue_depth=self.num_waiting,
+                           prompt_len=len(prompt))
             raise QueueFull(
                 f"serving queue full ({self.config.max_queue} pending)")
+        if self._next_rid >= self._rid_block_end:
+            self._next_rid = next(_rid_blocks) * RID_BLOCK
+            self._rid_block_end = self._next_rid + RID_BLOCK
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=list(prompt),
@@ -350,7 +470,24 @@ class ContinuousBatchingScheduler:
         if req.ttft_deadline_s > 0 or req.deadline_s > 0:
             self._live_deadlines += 1
         self.stats["n_submitted"] += 1
+        self._obs["submitted"].inc()
+        self._obs["queue_depth"].set(self.num_waiting)
+        self._rec.emit("request", "queued", rid=rid, ts=req.t_submit,
+                       prompt_len=len(prompt),
+                       max_new_tokens=max_new_tokens,
+                       priority=priority, tenant=req.tenant,
+                       queue_depth=self.num_waiting)
         return rid
+
+    def effective_step_budget(self) -> int:
+        """The ragged-token budget of one mixed step: the brownout
+        controller's shrunk override when a level is active, else the
+        configured ``step_token_budget`` (0 = unbounded). The buckets
+        are sized from the config value, so an override only shrinks a
+        step, never adds a signature."""
+        if self.step_budget_override is not None:
+            return self.step_budget_override
+        return self.config.step_token_budget
 
     def ragged_bucket_for(self, n: int) -> int:
         """Smallest ragged-token bucket holding an ``n``-token step."""
@@ -419,7 +556,23 @@ class ContinuousBatchingScheduler:
             blocked = False
         if blocked:
             self.stats["n_quota_deferred"] += 1
+            self._obs["quota_deferrals"].inc()
+            if req.rid not in self._quota_evented:  # one event per deferral
+                self._quota_evented.add(req.rid)
+                self._rec.emit("request", "quota_deferred", rid=req.rid,
+                               tenant=req.tenant)
         return blocked
+
+    def _note_backpressure(self, req: Request) -> None:
+        self.stats["n_backpressure"] += 1
+        self._obs["backpressure"].inc()
+        if req.rid != self._last_bp_rid:   # one event per blocked head
+            self._last_bp_rid = req.rid
+            self._rec.emit(
+                "request", "backpressure", rid=req.rid,
+                need_pages=self.cache.config.pages_for(
+                    self._need_tokens(req)),
+                free_pages=self.cache.num_free_pages)
 
     def _admission_candidate(self, allow_preempt: bool = True
                              ) -> Optional[Request]:
@@ -427,8 +580,10 @@ class ContinuousBatchingScheduler:
         Quota-blocked requests are skipped; the first request blocked
         on a slot or pages ends the scan, after a preemption attempt, so
         nothing later or of lower priority starves it."""
-        if self.num_waiting == 0:
+        if self.num_waiting == 0 or self.admission_paused:
             return None
+        # injected allocator exhaustion: this scan sees a full pool
+        fault_block = self._faults.alloc_fail()
         quotas_on = (self.config.tenant_max_slots > 0
                      or self.config.tenant_max_pages > 0)
         usage = self._tenant_usage() if quotas_on else None
@@ -436,11 +591,12 @@ class ContinuousBatchingScheduler:
             for req in q:
                 if quotas_on and self._quota_blocked(req, usage):
                     continue
-                if self._free_slots and self._pages_ok(req):
+                if (self._free_slots and not fault_block
+                        and self._pages_ok(req)):
                     return req
                 if allow_preempt and self._try_preempt_for(req):
                     return req
-                self.stats["n_backpressure"] += 1
+                self._note_backpressure(req)
                 return None
         return None
 
@@ -491,9 +647,12 @@ class ContinuousBatchingScheduler:
         if self._chunking is not None:
             chunk_row = self._next_chunk_row(self._chunking)
         rows = [chunk_row] if chunk_row is not None else []
-        rows.extend(self._decode_rows())
+        decode_rows = self._decode_rows()
+        rows.extend(decode_rows)
         if not rows:
             return Plan(kind="idle")
+        if decode_rows:
+            self.stats["n_decode_steps"] += 1
         return Plan(kind="mixed", rows=rows)
 
     def _decode_rows(self) -> List[RowPlan]:
@@ -508,6 +667,7 @@ class ContinuousBatchingScheduler:
         prefill lane; host-swapped pages past the device prefix hit are
         written back first, so only the rest streams in as chunk rows."""
         self._queues[req.priority].remove(req)
+        self._quota_evented.discard(req.rid)
         resumed = req.preemptions > 0 and req.state == PREEMPTED
         ctx = req.kv_tokens()
         hashes = self._hashes_for(req)
@@ -518,9 +678,11 @@ class ContinuousBatchingScheduler:
         req.slot = slot
         req.state = PREFILL
         req.t_admit = time.perf_counter()
+        self._slo.observe("queue_wait", req.tenant, req.priority,
+                          req.t_admit - req.t_submit)
         req.pages_reserved = self.cache.config.pages_for(
             self._need_tokens(req))
-        self.cache.swap_in(slot, ctx, hashes=hashes)
+        swapped = self.cache.swap_in(slot, ctx, hashes=hashes)
         req.prefix_len = self.cache.prefix_len(slot)
         req.prefill_pos = req.prefix_len
         # "restored": served from cache or swap at the RE-admission of a
@@ -529,8 +691,23 @@ class ContinuousBatchingScheduler:
         self.running[slot] = req
         self._chunking = req
         self.stats["n_prefills"] += 1
+        self._obs["queue_depth"].set(self.num_waiting)
+        self._obs["running_slots"].set(len(self.running))
+        self._last_bp_rid = -1
         if resumed:
             self.stats["n_resumed"] += 1
+            self._rec.emit("request", "restore", rid=req.rid, slot=slot,
+                           cached_tokens=req.prefix_len,
+                           swapped_pages=swapped,
+                           context_tokens=len(ctx))
+        # the queue phase renders as one slice on the request track
+        self._rec.emit("request", "queue_wait", rid=req.rid,
+                       ts=req.t_submit,
+                       dur=req.t_admit - req.t_submit,
+                       slot=slot,
+                       tail_tokens=len(ctx) - req.prefill_pos,
+                       pages=req.pages_reserved,
+                       cached_tokens=req.prefix_len)
 
     def _next_chunk_row(self, req: Request) -> RowPlan:
         """The next chunk row of the request owning the prefill lane,
@@ -541,8 +718,9 @@ class ContinuousBatchingScheduler:
         chunk_len = ctx_len - start
         if self.config.chunk_tokens > 0:
             chunk_len = min(chunk_len, self.config.chunk_tokens)
-        if self.config.step_token_budget > 0:
-            chunk_len = min(chunk_len, self.config.step_token_budget)
+        budget = self.effective_step_budget()
+        if budget > 0:
+            chunk_len = min(chunk_len, budget)
         chunk_len = max(chunk_len, 1)
         first = req.prefill_chunks == 0
         final = start + chunk_len >= ctx_len
@@ -570,13 +748,18 @@ class ContinuousBatchingScheduler:
                 if req.state == FINISHED or req not in q:
                     continue           # a cancel raced the sweep
                 q.remove(req)
+                self._rec.emit("request", "timeout", rid=req.rid,
+                               stage=req.state)
                 self._retire(req, "timeout")
         for req in [r for r in self.running.values()
                     if self._deadline_hit(r, now)]:
             if req.state == FINISHED or self.running.get(req.slot) is not req:
                 continue
+            self._rec.emit("request", "timeout", rid=req.rid,
+                           stage=req.state)
             self._teardown_slot(req, recycled=True, cause="timeout")
             self._retire(req, "timeout")
+        self._obs["queue_depth"].set(self.num_waiting)
 
     def cancel(self, rid: int) -> bool:
         """Tear down request ``rid`` queued, mid-prefill, mid-decode or
@@ -586,11 +769,63 @@ class ContinuousBatchingScheduler:
         req = self.requests.get(rid)
         if req is None or req.state == FINISHED:
             return False
+        stage = req.state
         if req.slot >= 0:
             self._teardown_slot(req, recycled=True, cause="cancelled")
         else:
             self._queues[req.priority].remove(req)
+            self._obs["queue_depth"].set(self.num_waiting)
+        self._rec.emit("request", "cancel", rid=rid, stage=stage,
+                       tokens=len(req.output))
         self._retire(req, "cancelled")
+        return True
+
+    def shed_queued(self, max_n: int, retry_after_s: float,
+                    min_class: int = 1) -> int:
+        """Brownout load shedding: retire up to ``max_n`` QUEUED
+        requests from the lowest-priority classes (never below
+        ``min_class``), newest first within a class, each with
+        ``finish_reason='shed'`` and the controller's ``retry_after_s``
+        attached. Returns requests shed."""
+        retry = max(float(retry_after_s), 1e-3)
+        shed = 0
+        for pr in range(len(self._queues) - 1, min_class - 1, -1):
+            q = self._queues[pr]
+            while q and shed < max_n:
+                req = q.pop()          # newest arrival of the class
+                req.retry_after_s = retry
+                shed += 1
+                self.stats["n_shed"] += 1
+                self._obs["shed"].labels(priority=str(pr)).inc()
+                self._rec.emit("request", "shed", rid=req.rid,
+                               priority=pr, retry_after_s=retry,
+                               stage="queued")
+                self._retire(req, "shed")
+            if shed >= max_n:
+                break
+        if shed:
+            self._obs["queue_depth"].set(self.num_waiting)
+        return shed
+
+    def fault_terminate(self, req: Request, kind: str = "nan") -> bool:
+        """Device-fault quarantine: terminate ONE request whose step
+        results are poisoned (non-finite logits, a failed dispatch)
+        with its pages restored and ``finish_reason='device_fault'``.
+        The engine's fault boundary calls this for the offending rows
+        only. Idempotent."""
+        if req.state == FINISHED:
+            return False
+        stage = req.state
+        if req.slot >= 0 and self.running.get(req.slot) is req:
+            self._teardown_slot(req, recycled=True, cause="device_fault")
+        elif req in self._queues[req.priority]:
+            self._queues[req.priority].remove(req)
+            self._obs["queue_depth"].set(self.num_waiting)
+        self.stats["n_device_faults"] += 1
+        self._obs["device_faults"].labels(kind=kind).inc()
+        self._rec.emit("request", "device_fault", rid=req.rid, kind=kind,
+                       stage=stage, tokens=len(req.output))
+        self._retire(req, "device_fault")
         return True
 
     def preempt(self, rid: int, requeue: bool = True,
@@ -614,13 +849,14 @@ class ContinuousBatchingScheduler:
         slot = req.slot
         n_res = int(self.cache.seq_lens[slot])
         cc = self.cache.config
+        swapped = 0
         if n_res >= cc.page_size and (cc.prefix_cache or cc.swap_pages > 0):
             # full pages of the RESIDENT context only: pages past
             # seq_lens hold garbage mid-prefill
             resident = req.kv_tokens()[:n_res]
             h = self.cache._block_hashes(resident)
             self.cache.commit_prefix(slot, resident, hashes=h)
-            self.cache.swap_out(slot, resident, hashes=h)
+            swapped = self.cache.swap_out(slot, resident, hashes=h)
         self._teardown_slot(req, cause="preempted")
         req.state = PREEMPTED
         req.preemptions += 1
@@ -634,8 +870,15 @@ class ContinuousBatchingScheduler:
         req.spec_window.clear()
         req.spec_idle = 0
         self.stats["n_preemptions"] += 1
-        if requeue and self.num_waiting < self.config.max_queue:
+        self._obs["preemptions"].labels(reason=reason).inc()
+        can_requeue = requeue and self.num_waiting < self.config.max_queue
+        self._rec.emit("request", "preempt", rid=req.rid, slot=slot,
+                       reason=reason, resident_tokens=n_res,
+                       swapped_pages=swapped, requeued=can_requeue,
+                       tokens=len(req.output))
+        if can_requeue:
             self._queues[req.priority].appendleft(req)
+            self._obs["queue_depth"].set(self.num_waiting)
         else:
             self.stats["n_preempt_drops"] += 1
             self._retire(req, "preempted")
@@ -657,8 +900,12 @@ class ContinuousBatchingScheduler:
         del self.running[slot]
         self._free_slots.append(slot)
         req.slot = -1
+        self._obs["running_slots"].set(len(self.running))
         if recycled:
             self.stats["n_recycled"] += 1
+            self._obs["recycled"].inc()
+            self._rec.emit("request", "recycled", rid=req.rid, slot=slot,
+                           free_pages=self.cache.num_free_pages)
 
     def _retire(self, req: Request, reason: str) -> None:
         """Terminal bookkeeping (the slot, if any, is already torn down).
@@ -670,14 +917,30 @@ class ContinuousBatchingScheduler:
         req.state = FINISHED
         req.finish_reason = reason
         req.t_finish = time.perf_counter()
+        self._quota_evented.discard(req.rid)
         if req.ttft_deadline_s > 0 or req.deadline_s > 0:
             self._live_deadlines -= 1
         self.stats["n_finished"] += 1
+        self._obs["finished"].inc()
         if reason == "timeout":
             self.stats["n_timeouts"] += 1
+            self._obs["timeouts"].inc()
         elif reason == "cancelled":
             self.stats["n_cancelled"] += 1
+            self._obs["cancels"].inc()
+        if self.journal is not None:
+            self.journal.record_finish(req.rid, reason)
         self.finished[req.rid] = req
+        self.recent_finished.append(req.rid)
+        # the whole decode phase as one slice, then the terminal marker
+        if req.t_first_token:
+            self._rec.emit("request", "decode", rid=req.rid,
+                           ts=req.t_first_token,
+                           dur=req.t_finish - req.t_first_token,
+                           tokens=len(req.output))
+        self._rec.emit("request", "finished", rid=req.rid,
+                       ts=req.t_finish, reason=reason,
+                       tokens=len(req.output))
 
     # ----------------------------------------------------------- results --
     def on_chunk_done(self, req: Request, plan: RowPlan,
@@ -726,9 +989,25 @@ class ContinuousBatchingScheduler:
         return delivered
 
     def _emit(self, req: Request, token: int, eos_id: Optional[int]) -> None:
+        now = time.perf_counter()
         req.output.append(token)
+        if self.journal is not None:
+            self.journal.record_tokens(req.rid, (token,))
         if req.t_first_token == 0.0:
-            req.t_first_token = time.perf_counter()
+            req.t_first_token = now
+            self._slo.observe("ttft", req.tenant, req.priority,
+                              now - req.t_submit)
+        else:
+            # the gap since the previous delivered token is the ITL a
+            # streaming caller sees (a verify step landing several
+            # tokens at once yields near-zero gaps: real burstiness)
+            self._slo.observe("itl", req.tenant, req.priority,
+                              now - req.t_last_token)
+            if len(req.output) % DECODE_PROGRESS_EVERY == 0:
+                self._rec.emit("request", "decode_progress", rid=req.rid,
+                               tokens=len(req.output))
+        req.t_last_token = now
+        req.token_times.append(now)
         if eos_id is not None and token == eos_id:
             self._finish(req, "eos")
         elif len(req.output) >= req.max_new_tokens:

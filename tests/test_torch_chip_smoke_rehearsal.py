@@ -197,6 +197,53 @@ def test_preempt_swap_phase(plain_kernels, cpu_card):
     assert got["ties"] == 0                       # one backend: equal
 
 
+def _narrow_model(max_seq_len):
+    spec = ModelSpec(vocab=1024, d_model=64, num_layers=2, num_heads=2,
+                     head_dim=32, max_seq_len=max_seq_len)
+    return TorchLM(spec, init_lm_params(spec, seed=0, device=CPU),
+                   device=CPU)
+
+
+def test_observability_phase(plain_kernels, cpu_card, monkeypatch):
+    """The main path's observability phase at depth 1 (the async phase's
+    traffic cut to a quarter): tokens equal on and off, one record per
+    committed step, phases summing to each step's wall time, the
+    ledger's tenant sums, and the printed numbers present."""
+    model = _narrow_model(cs.GPT3_XL.max_seq_len)
+    monkeypatch.setattr(cs, "ASYNC_TOKENS", [])
+    batches = [[(p[:len(p) // 4], sp) for p, sp in cs.requests_long(
+        s, model.spec.vocab)] for s in (11, 13, 17)]
+    out = cs.phase_observability(model, batches)
+    assert out["steps"] > 0 and out["ms_per_step"] > 0
+    assert out["ms_per_step_off"] > 0
+    assert set(out["phase_ms"]) >= {"plan", "pack", "dispatch",
+                                    "sample_commit"}
+    assert out["bytes_per_step"] > 0 and out["flops_per_step"] > 0
+    assert out["captures"] == 0                   # eager on the CPU
+    assert {"ttft", "itl", "queue_wait"} <= set(out["slo"])
+    assert {r["tenant"] for r in out["slo"]["ttft"]} == {"a", "b"}
+    from paddle_tpu_torch import observability as obs
+    assert obs.default_registry().enabled        # left on
+
+
+def test_faults_journal_phase(plain_kernels, cpu_card):
+    """The journal, fault and brownout phase at GPT-2-small's context on
+    a narrow model: the kill lands, the restore equals the clean run,
+    seeded NaN rows and dispatch faults are retried once each and end
+    only their requests, and the brownout ladder climbs to shedding and
+    back to 0."""
+    model = _narrow_model(cs.GPT2_SMALL.max_seq_len)
+    rep = cs.phase_faults_journal(model)
+    assert rep["restore"]["restored"] > 0
+    assert rep["restore"]["ties"] == 0            # one backend: equal
+    for kind in ("nan", "dispatch"):
+        assert rep[kind]["injected"] == rep[kind]["retries"] > 0
+        assert rep[kind]["device_faults"] > 0 and rep[kind]["survivors"] > 0
+        assert rep[kind]["ties"] == 0
+    o = rep["overload"]
+    assert o["shed"] + o["overloaded"] > 0 and o["retry_after_s"][0] > 0
+
+
 def test_per_tier_kernel_phase(plain_kernels):
     errors = cs.phase_per_tier_kernels(CPU)
     assert errors == {pa.PAGED_KERNEL: 0.0, pa.MIXED_KERNEL: 0.0}

@@ -643,3 +643,71 @@ def test_engine_graphs_on_and_off_give_the_same_tokens(device, depth, kv,
         eng.cache.check_invariants()
         assert eng.cache.pages_in_use == 0 and eng.pipeline_depth == 0
     assert outs[0] == outs[1]
+
+
+def _tiny_engine(device, depth, graphs=True, **sched):
+    return GenerationEngine(
+        TorchLM.tiny(device=device), cache_config=CacheConfig(
+            num_layers=2, num_heads=2, head_dim=16, num_pages=64,
+            page_size=8, max_slots=3, max_seq_len=128),
+        scheduler_config=SchedulerConfig(
+            max_slots=3, max_seq_len=128, chunk_tokens=16,
+            async_depth=depth, **sched), cuda_graphs=graphs)
+
+
+_PROMPTS = [[3, 1, 4, 1, 5, 9, 2, 6] * 3, [2, 7, 1, 8] * 5, [1, 2, 3],
+            list(range(40, 90)), [5] * 30]
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_step_events_time_the_device(device, depth):
+    """The step profiler's CUDA events around each step (graph replays
+    included): one record per step call, a busy span for every step
+    after the first, an idle share in [0, 1), and the sampled steps'
+    spans in their records; tokens equal with observability off."""
+    from paddle_tpu_torch import observability as obs
+
+    eng = _tiny_engine(device, depth)
+    on = eng.generate(_PROMPTS, 12)
+    summ = eng.stepprof.summary()
+    assert summ["commits"] == eng.steps_committed
+    assert summ["gap_steps"] == eng.steps_dispatched - 1
+    assert summ["gap_busy_s"] > 0 and 0 <= summ["idle_share"] < 1
+    assert any(r.fenced and r.device_s > 0 for r in eng.stepprof.records())
+    try:
+        obs.disable()
+        off_eng = _tiny_engine(device, depth)
+        off = off_eng.generate(_PROMPTS, 12)
+    finally:
+        obs.enable()
+    assert off == on and len(off_eng.stepprof) == 0
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_fault_boundary_with_graphs(device, depth):
+    """Injected NaN rows through graph replays at async depths 1 and 2:
+    the poisoned requests end device_fault after one recorded retry
+    each (no re-run at depth > 0, as in the JAX engine), the others give
+    the tokens of a clean run with graphs off, no page leaks. (At depth
+    0 the retry runs the step again and draws again, as the JAX engine's
+    does, and these rows survive it: the CPU tests hold that case to the
+    JAX engine.)"""
+    from paddle_tpu_torch.inference.llm import faults
+
+    clean = _tiny_engine(device, 0, graphs=False).generate(_PROMPTS, 12)
+    inj = faults.FaultInjector(faults.FaultConfig(nan_rate=0.04, seed=6))
+    prev = faults.set_default_injector(inj)
+    try:
+        eng = _tiny_engine(device, depth)
+    finally:
+        faults.set_default_injector(prev)
+    rids = [eng.submit(p, 12) for p in _PROMPTS]
+    eng.run()
+    reqs = [eng.scheduler.requests[r] for r in rids]
+    hit = [r.finish_reason == "device_fault" for r in reqs]
+    assert any(hit) and not all(hit)
+    assert [r.output for r, h in zip(reqs, hit) if not h] == \
+        [o for o, h in zip(clean, hit) if not h]
+    assert eng.fault_retries["nan"] == inj.counts["nan"]
+    eng.cache.check_invariants()
+    assert eng.cache.pages_in_use == 0

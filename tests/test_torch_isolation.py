@@ -8,8 +8,12 @@
   its top-level Paddle surface (``import paddle_tpu_torch as paddle``,
   ``paddle.to_tensor``, a ``Layer``, a ``cuda_op`` on the CPU);
 - the port's copy of the serving-policy defaults equals the JAX
-  package's ``shared_policy()`` with no ``PD_*`` environment set, and
-  its swap-tier defaults the JAX cache module's;
+  package's ``shared_policy()`` with no ``PD_*`` environment set (the
+  step profiler's sample share, the brownout depth and the journal's
+  knobs included), and its swap-tier defaults the JAX cache module's;
+- the scan covers the observability and robustness modules (metrics,
+  recorder, export, tracing, chrome trace, step profiler, ledger,
+  watchdog; faults, journal, brownout);
 - ``chip_smoke.py`` exits non-zero and prints no result line without a
   CUDA device, and when it stands alone in a directory.
 """
@@ -49,6 +53,18 @@ def test_no_jax_or_reference_imports(path):
             if node.module and _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_scan_covers_observability_and_robustness():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    obs = ROOT / "paddle_tpu_torch" / "observability"
+    llm = ROOT / "paddle_tpu_torch" / "inference" / "llm"
+    want = ([obs / f"{m}.py" for m in (
+        "__init__", "metrics", "recorder", "export", "tracing",
+        "chrome_trace", "stepprof", "ledger", "watchdog")]
+        + [llm / f"{m}.py" for m in ("faults", "journal", "brownout")])
+    for path in want:
+        assert str(path.relative_to(ROOT)) in names, path
 
 
 def test_importing_the_port_loads_no_jax():
@@ -96,6 +112,10 @@ def test_policy_copy_matches_the_reference(monkeypatch):
     assert policy.PRIORITY_CLASSES == ref["priority_classes"]
     assert policy.TENANT_MAX_PAGES == ref["tenant_max_pages"]
     assert policy.TENANT_MAX_SLOTS == ref["tenant_max_slots"]
+    assert policy.STEPPROF_SAMPLE_PCT == ref["stepprof_sample_pct"]
+    assert policy.BROWNOUT_LEVELS == ref["brownout_levels"]
+    assert policy.JOURNAL_SYNC_EVERY == ref["journal_sync_every"]
+    assert policy.JOURNAL_MAX_BYTES == ref["journal_max_bytes"]
 
 
 def test_swap_defaults_match_the_reference(monkeypatch):

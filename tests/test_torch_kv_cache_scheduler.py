@@ -187,13 +187,16 @@ def test_submit_validation():
 @pytest.mark.parametrize("knob", ["async_depth", "tenant_max_pages",
                                   "tenant_max_slots", "brownout_levels"])
 def test_later_slice_knobs_raise(knob):
-    """Async depth and the tenant quotas came with the async and
-    multi-tenant slice and are accepted; brownout is still a later
-    slice and raises, beside any of them."""
-    if knob != "brownout_levels":
-        assert getattr(SchedulerConfig(**{knob: 1}), knob) == 1
+    """Async depth, the tenant quotas (the async and multi-tenant slice)
+    and the brownout ladder (the robustness slice) are accepted, alone
+    and beside each other; the quantized collectives, a later slice,
+    still raise beside any of them."""
+    assert getattr(SchedulerConfig(**{knob: 1}), knob) == 1
+    cfg = SchedulerConfig(**{knob: 1, "brownout_levels": 4})
+    assert (getattr(cfg, knob), cfg.brownout_levels) == (
+        4 if knob == "brownout_levels" else 1, 4)
     with pytest.raises(NotImplementedError, match="slice"):
-        SchedulerConfig(**{knob: 1, "brownout_levels": 1})
+        SchedulerConfig(**{knob: 1, "coll_quant": "int8"})
 
 
 def test_later_slice_submit_args_and_cache_knobs_raise():

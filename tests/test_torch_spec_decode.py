@@ -131,7 +131,8 @@ def test_spec_engine_matches_jax(models, chunk_tokens, kv, budget, sampling):
     if sampling != "sampled":
         assert te.scheduler.stats["n_spec_accepted"] > 0
     for rid, req in te.scheduler.finished.items():
-        jreq = je.scheduler.finished[je.scheduler.rid_base + rid]
+        jreq = je.scheduler.finished[je.scheduler.rid_base + rid
+                                     - te.scheduler.rid_base]
         assert ((req.spec_len, req.spec_drafted, req.spec_accepted)
                 == (jreq.spec_len, jreq.spec_drafted, jreq.spec_accepted))
     assert te.cache.prefix_hits == je.cache.prefix_hits > 0
