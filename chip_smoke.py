@@ -75,6 +75,25 @@ before and read just after:
   by kernel, the SLO digest's TTFT / ITL / queue-wait percentiles, the
   cost ledger's modelled bytes and FLOPs per step against the measured
   device time, and the graph captures against ``graph_bound``;
+- quantized serving, the rest: the int8 weight matmul and its row
+  quantizer bit-equal to their plain versions at GPT-3 XL's four
+  products (M 1 to 512), timed beside their bounds and
+  ``torch._int_mm`` (``phase_int8_matmul``); the ragged pair with
+  float16/bfloat16 scale pools against its plain version
+  (``phase_narrow_kernels``) and the main path with bfloat16 scale
+  pools (``phase_narrow_serving``); the main path at depth 1 with graphs,
+  ``weight_matmul`` off and then int8 (ms/step, device busy, GEMM and
+  dequantization shares, tokens identical across engines and chunk
+  budgets, teacher-forced logits within the JAX quality bar of the
+  dequant-first route and of float: ``phase_weight_matmul``);
+- the replicated serving fabric (``phase_fabric``): two replicas of
+  that engine with the int8 matmul on one card, a two-tenant
+  shared-prefix burst, outputs equal to one engine's colocated, after
+  a mid-burst kill, disaggregated and with tracing off (partings only
+  where each run drew its token from its own logits and the two runs'
+  logits differ by arithmetic route alone), affinity placement,
+  memory released across the kill, and a burn-rate alert fired by a
+  slow step and cleared after healing;
 - fp8 KV pages at GPT-3 XL widths, four layers, split and unsplit;
 - training: ``bench.py``'s configuration (GPT-2-small, batch 16 x 1024
   tokens, AdamW under AMP O2 bf16, ``TrainStep`` of 8 steps per call)
@@ -109,6 +128,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import ctypes
 import json
 import math
@@ -125,17 +145,22 @@ import torch.nn.functional as F
 
 import numpy as np
 
-from paddle_tpu_torch.inference.llm import (CacheConfig, GenerationEngine,
-                                            ModelSpec, PagedKVCache,
-                                            QueueFull, SamplingParams,
-                                            SchedulerConfig, TorchLM,
+from paddle_tpu_torch.inference.llm import (CacheConfig, FabricConfig,
+                                            GenerationEngine, ModelSpec,
+                                            PagedKVCache, QueueFull,
+                                            SamplingParams, SchedulerConfig,
+                                            ServingFabric, TorchLM,
                                             ngram_draft)
 from paddle_tpu_torch.inference.llm.model import (init_lm_params,
                                                   lm_chunk_prefill, lm_decode,
                                                   lm_prefill, lm_ragged_step,
                                                   lm_verify)
+from paddle_tpu_torch.inference.llm.engine import _sample_traced
+import paddle_tpu_torch.inference.llm.engine as engine_mod
 from paddle_tpu_torch.inference.llm.threefry import fold_in, gumbel, prng_key
-from paddle_tpu_torch.inference.llm.quant import QuantConfig, quantize_kv
+from paddle_tpu_torch.inference.llm.quant import (QuantConfig,
+                                                  align_cache_config,
+                                                  prepare_model, quantize_kv)
 from paddle_tpu_torch.inference.llm.faults import (EngineKilled, FaultConfig,
                                                    FaultInjector,
                                                    set_default_injector)
@@ -149,6 +174,7 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import attention as attn
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import int8 as i8
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.optimizer import AdamW, Momentum
 from paddle_tpu_torch.text.gpt import GPTConfig, GPTForCausalLM
@@ -170,6 +196,8 @@ FP32_FLOPS_PER_S = 67e12
 # float32 inputs: 165 TFLOP/s, 2.5x the float32 rate outside them
 BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
+# and dense int8 on the tensor cores: the int8 weight matmul's unit
+INT8_OPS_PER_S = 1979e12
 
 # the JAX package's own tolerance for its Pallas tier against the lax
 # tier (tests/test_ragged_attention.py), float32 against float32
@@ -250,6 +278,43 @@ OVERLOAD_QUEUE = 8
 OVERLOAD_ARRIVALS = 3
 OVERLOAD_STEPS = 120
 OVERLOAD_CALM = 400
+# the int8 weight matmul: GPT-3 XL's four per-layer
+# products as (K, N) (wqkv flattened to N = 3 * H * D, wo, wfc, wproj),
+# at M rows from one decode row to a 512-token chunk; the decode
+# bucket of eight slots is the kernels line's headline shape
+INT8_SHAPES = (("wqkv", 2048, 6144), ("wo", 2048, 2048),
+               ("wfc", 2048, 8192), ("wproj", 8192, 2048))
+INT8_ROWS = (1, 8, 9, 64, 512)
+INT8_HEADLINE_M = 8
+INT8_SOURCE = "paddle_tpu_torch/kernels/csrc/int8_matmul.cu"
+# the JAX package's quantized-serving quality bar (mean absolute logit
+# error, tests/test_coll_quant.py), and the teacher-forced prompt's length
+QUANT_MAE_MAX = 0.05
+TEACHER_TOKENS = 256
+# narrow scale pools: (code mode, scale dtype) pairs of the ragged pair
+NARROW = (("int8", torch.float16), ("int8", torch.bfloat16),
+          ("fp8", torch.float16), ("fp8", torch.bfloat16))
+NARROW_SOURCES = {
+    (m, sd): f"paddle_tpu_torch/kernels/csrc/ragged_attention_{m}_"
+             f"{'f16' if sd == torch.float16 else 'bf16'}.cu"
+    for m, sd in NARROW}
+# the fabric phase: replicas, a burst of FABRIC_BURST requests per
+# tenant over one shared FABRIC_PREFIX-token prefix each (tails of 4 to
+# FABRIC_TAIL tokens, 8 new tokens each), the fabric step the kill lands
+# on, the share of prefix-hit pages that must be placed by affinity, and
+# the slow-step fault (ms of sleep a replica step) against the alert's
+# inter-token objective (ms)
+FABRIC_REPLICAS = 2
+FABRIC_BURST = 8
+FABRIC_PREFIX = 512
+FABRIC_TAIL = 64
+FABRIC_KILL_STEP = 6
+FABRIC_AFFINITY_MIN = 0.9
+FABRIC_FAULT_MS = 400
+FABRIC_ITL_MS = 300
+# rows of a LogitsTap's device ring: every row a compared fabric run
+# samples (padding included) must fit
+TAP_ROWS = 2048
 # the phases' share of a step's wall time the profiler's phases must
 # account for
 PHASE_SUM_TOL = 0.05
@@ -429,10 +494,11 @@ def ragged_mix(kind: str, seed: int, device, spec=GPT3_XL, mode="f32"):
     return args, scales, max(q_lens), start
 
 
-def attention_work(args, quant: bool):
+def attention_work(args, quant: bool, scale_bytes: int = 4):
     """Bytes the function must move (q read, out written, every K and V
     position a row can see read once: float32 values, or 1-byte codes
-    plus a 4-byte scale per position and head) and the float32
+    plus a ``scale_bytes``-byte scale per position and head) and the
+    float32
     operations it does (QK and PV: 4 * D per visible (query, key) pair
     per head; dequantization: one multiply per K and V element of each
     visible position)."""
@@ -441,7 +507,7 @@ def attention_work(args, quant: bool):
     kv_lens = args["kv_lens"].tolist()
     n_tok = sum(q_lens)
     positions = sum(kv for ql, kv in zip(q_lens, kv_lens) if ql > 0)
-    per_pos = H * (D + 4) if quant else H * D * 4
+    per_pos = H * (D + scale_bytes) if quant else H * D * 4
     nbytes = positions * per_pos * 2 + n_tok * H * D * 4 * 2
     pairs = sum((kv - ql + t + 1) for ql, kv in zip(q_lens, kv_lens)
                 for t in range(ql))
@@ -449,14 +515,14 @@ def attention_work(args, quant: bool):
     return nbytes, flops
 
 
-def bound(args, quant: bool):
-    nbytes, flops = attention_work(args, quant)
+def bound(args, quant: bool, scale_bytes: int = 4):
+    nbytes, flops = attention_work(args, quant, scale_bytes)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def tc_bound(args, quant: bool):
+def tc_bound(args, quant: bool, scale_bytes: int = 4):
     """(ms, "bytes" or "operations") for the arithmetic the kernels run:
     the bytes of ``attention_work``; the (query, key) pairs of rows of at
     most DECODE_MAX_Q queries on float32 FMAs (67 TFLOP/s), those of
@@ -464,7 +530,7 @@ def tc_bound(args, quant: bool):
     pages, 3xTF32) or two (codes: only q and p x scale are split) per
     operation (495 TFLOP/s), and dequantization's one operation per K
     and V element of each visible position at 67."""
-    nbytes, _ = attention_work(args, quant)
+    nbytes, _ = attention_work(args, quant, scale_bytes)
     _, H, D = args["q"].shape
     q_lens = args["q_lens"].tolist()
     kv_lens = args["kv_lens"].tolist()
@@ -956,18 +1022,22 @@ def requests_spec():
     return requests_gpt2(7) + [(p, None) for p in prompts]
 
 
-def decision_gap(logits, sp, index: int) -> float:
-    """The margin of the sampler's decision for output token ``index``
-    from one row of logits: the gap between the two best candidates'
-    scores. Greedy: the two largest logits. Sampled: the scores the
-    engine's sampler takes the argmax of — temperature-scaled logits in
-    descending order, top-k / top-p masked, plus the Gumbel noise of the
-    key fold_in(PRNGKey(seed), index)."""
+def decision_scores(logits, sp, index: int):
+    """The scores, one per token id, whose first argmax is the engine's
+    sampler's decision for output token ``index`` from one row of
+    logits. Greedy: the logits. Sampled: the temperature-scaled logits,
+    top-k / top-p masked to -inf on their stable descending sort, plus
+    the Gumbel noise of the key fold_in(PRNGKey(seed), index) at each
+    token's rank. A sampled request's ``seed`` must be the one it was
+    served with (``served_sampling``), never None."""
     if sp is None or sp.temperature <= 0:
-        top = logits.float().topk(2).values
-        return (top[0] - top[1]).item()
+        return logits.float()
+    if sp.seed is None:
+        raise ValueError("a sampled decision needs the seed the request "
+                         "was served with; seed=None was never used")
     scaled = logits.float() / max(sp.temperature, 1e-6)
-    s = torch.sort(scaled, descending=True, stable=True).values
+    order = torch.argsort(-scaled, stable=True)
+    s = scaled[order]
     V = s.shape[0]
     rank = torch.arange(V, device=s.device)
     keep = rank < (V if sp.top_k <= 0 else sp.top_k)
@@ -975,10 +1045,26 @@ def decision_gap(logits, sp, index: int) -> float:
     keep &= (torch.cumsum(p, dim=-1) - p) < sp.top_p
     keep[0] = True
     masked = torch.where(keep, s, torch.full_like(s, -torch.inf))
-    key = fold_in(prng_key(torch.tensor([sp.seed or 0], dtype=torch.int32,
+    key = fold_in(prng_key(torch.tensor([sp.seed], dtype=torch.int32,
                                         device=s.device)),
                   torch.tensor([index], dtype=torch.int32, device=s.device))
-    top = (masked + gumbel(key, V)[0]).topk(2).values
+    ranked = masked + gumbel(key, V)[0]
+    return torch.empty_like(ranked).scatter_(0, order, ranked)
+
+
+def score_scale(sp) -> float:
+    """How far the sampler's scores move per unit of logits: 1 greedy,
+    1 / temperature sampled."""
+    if sp is None or sp.temperature <= 0:
+        return 1.0
+    return 1.0 / max(sp.temperature, 1e-6)
+
+
+def decision_gap(logits, sp, index: int) -> float:
+    """The margin of the sampler's decision for output token ``index``
+    from one row of logits: the gap between the two best candidates'
+    scores (``decision_scores``)."""
+    top = decision_scores(logits, sp, index).topk(2).values
     return (top[0] - top[1]).item()
 
 
@@ -1909,6 +1995,972 @@ def phase_faults_journal(model) -> dict:
     return report
 
 
+# ------------------------------------------------ the int8 weight matmul
+
+
+def int8_inputs(M: int, K: int, N: int, seed: int, device):
+    """Seeded activations ``[M, K]`` and the int8 codes of a ``[K, N]``
+    weight (N(0, 0.02), per-output-channel absmax, as
+    ``quantize_lm_weights``), their transposed ``[N, K]`` layout and
+    their scales."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=device)
+    w = 0.02 * torch.randn(K, N, generator=g, device=device)
+    wq, ws = i8.quantize_absmax(w, axis=0)
+    return x, wq, wq.t().contiguous(), ws
+
+
+def int8_bounds(M: int, K: int, N: int) -> dict:
+    """Least times (ms) of the int8 matmul and of the row quantizer at
+    one shape: bytes (each input read once, each output written once)
+    over HBM_BYTES_PER_S against operations over their peak (the
+    product's 2 M N K on the int8 tensor cores, the quantizer's absmax,
+    divide and round of each value at the float32 rate)."""
+    mm = (M * K + K * N + 4 * (M + N + M * N)) / HBM_BYTES_PER_S, \
+        2 * M * N * K / INT8_OPS_PER_S
+    qr = (4 * M * K + M * K + 4 * M) / HBM_BYTES_PER_S, \
+        3 * M * K / FP32_FLOPS_PER_S
+    return {"bound_ms": max(mm) * 1e3,
+            "bound_by": "bytes" if mm[0] >= mm[1] else "operations",
+            "q_bound_ms": max(qr) * 1e3,
+            "q_bound_by": "bytes" if qr[0] >= qr[1] else "operations"}
+
+
+def phase_int8_matmul(device) -> dict:
+    """The int8 weight matmul and its row quantizer against their plain
+    versions at GPT-3 XL's four per-layer products (INT8_SHAPES) and M
+    in INT8_ROWS: codes, scales and products bit-equal. Times each
+    kernel and plain version beside the bounds, and ``torch._int_mm``
+    (the int32 product alone, no rescale) where it takes the shape (M >
+    16, K and N multiples of 8). Returns {(product, M): numbers}."""
+    times = {}
+    for si, (name, K, N) in enumerate(INT8_SHAPES):
+        for M in INT8_ROWS:
+            x, wq, wqt, ws = int8_inputs(M, K, N, 100 * si + M, device)
+            xq, xs = i8.quantize_rows(x)
+            rq, rs = i8.quantize_rows_ref(x)
+            torch.cuda.synchronize()
+            if not (torch.equal(xq, rq) and torch.equal(xs, rs)):
+                raise AssertionError(f"[int8] quantize_rows {M}x{K}: codes "
+                                     "or scales differ from the plain "
+                                     "version")
+            out = i8.int8_matmul(xq, xs, wqt, ws)
+            ref = i8.int8_matmul_ref(xq, xs, wqt, ws)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"[int8] int8_matmul {name} M {M}: max_abs_err "
+                    f"{(out - ref).abs().max().item():.3e}, not bit-equal")
+            t = {"ms": time_cuda(lambda: i8.int8_matmul(xq, xs, wqt, ws)),
+                 "plain_ms": time_cuda(
+                     lambda: i8.int8_matmul_ref(xq, xs, wqt, ws), reps=5,
+                     warmup=1),
+                 "q_ms": time_cuda(lambda: i8.quantize_rows(x)),
+                 "q_plain_ms": time_cuda(lambda: i8.quantize_rows_ref(x),
+                                         reps=5, warmup=1),
+                 "int_mm_ms": None, **int8_bounds(M, K, N)}
+            if M > 16 and K % 8 == 0 and N % 8 == 0:
+                t["int_mm_ms"] = time_cuda(lambda: torch._int_mm(xq, wq))
+            times[(name, M)] = t
+            lib = ("refused" if t["int_mm_ms"] is None
+                   else f"{t['int_mm_ms']:.4f} ms")
+            log(f"[int8] {name} [{M}, {K}] x [{K}, {N}]: bit-equal; "
+                f"int8_matmul {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, "
+                f"{t['bound_by']}), plain {t['plain_ms']:.4f}, "
+                f"torch._int_mm {lib}; quantize_rows {t['q_ms']:.4f} ms "
+                f"(bound {t['q_bound_ms']:.4f}), plain "
+                f"{t['q_plain_ms']:.4f}")
+            del x, wq, wqt, ws, xq, xs, rq, rs, out, ref
+    return times
+
+
+def int8_rows(times: dict, launches: dict) -> list:
+    """The kernels line's rows of the int8 matmul and the row quantizer:
+    headline numbers for one layer at the decode bucket (the four
+    products at M = INT8_HEADLINE_M, summed), every shape beside them.
+    Neither replaces a Pallas kernel (the JAX package leaves the product
+    to XLA's dot_general), and no one PyTorch call computes either
+    function (``torch._int_mm`` gives the int32 product without the
+    rescale and refuses M <= 16): ``library_ms`` is null and the
+    ``int_mm_ms`` of each shape stands beside it."""
+    head = [times[(name, INT8_HEADLINE_M)] for name, _, _ in INT8_SHAPES]
+    shapes = {f"{name}_m{M}": t for (name, M), t in times.items()}
+    replaces = ("none (paddle_tpu/inference/llm/model.py:113 _int8_dot: "
+                "lax.dot_general, no Pallas kernel)")
+    rows = []
+    for kernel, pre, by in ((i8.INT8_MATMUL_KERNEL, "", "bound_by"),
+                            (i8.QUANTIZE_ROWS_KERNEL, "q_", "q_bound_by")):
+        rows.append({
+            "name": kernel, "route": "cuda", "source": INT8_SOURCE,
+            "replaces": replaces, "launches": launches.get(kernel, 0),
+            "max_abs_err": 0.0,
+            "ms": sum(t[pre + "ms"] for t in head),
+            "plain_ms": sum(t[pre + "plain_ms"] for t in head),
+            "bound_ms": sum(t[pre + "bound_ms"] for t in head),
+            "bound_by": head[0][by], "library_ms": None,
+            "shape": f"one GPT-3 XL layer's four products at M "
+                     f"{INT8_HEADLINE_M}",
+            "shapes": {k: {key: v for key, v in t.items()
+                           if key.startswith(pre) or (
+                               not pre and not key.startswith("q_"))}
+                       for k, t in shapes.items()}})
+    return rows
+
+
+def teacher_forced(model, prompt, quant):
+    """Logits of ``prompt`` through ``lm_ragged_step`` on a fresh cache
+    aligned to ``quant`` (the kernels on the card), the weights prepared
+    as an engine prepares them: one prefill step of the whole prompt
+    (the tile kernel's rows)."""
+    spec = model.spec
+    params = prepare_model(model, quant).params
+    n = len(prompt)
+    cc = align_cache_config(CacheConfig(
+        num_layers=spec.num_layers, num_heads=spec.num_heads,
+        head_dim=spec.head_dim, num_pages=-(-n // PAGE) + 1, page_size=PAGE,
+        max_slots=1, max_seq_len=spec.max_seq_len, swap_pages=0), quant)
+    cache = PagedKVCache(cc, device=model.device)
+    if not cache.allocate(0, n):
+        raise AssertionError("the teacher-forced cache refused the prompt")
+    i32 = dict(dtype=torch.int32, device=model.device)
+    table = torch.as_tensor(np.array(cache.page_table), **i32)
+
+    with torch.no_grad():
+        return lm_ragged_step(
+            params, spec, torch.tensor(prompt, **i32), torch.zeros(1, **i32),
+            torch.tensor([n], **i32), torch.tensor([n], **i32),
+            cache.k_pool, cache.v_pool, table, max_q_len=n,
+            k_scale=cache.k_scale, v_scale=cache.v_scale, quant=quant)
+
+
+def pick_token(logits, sp, index: int) -> int:
+    """The engine's sampler on one row of logits: output token
+    ``index`` of a request served with sampling ``sp`` (greedy when
+    None; a sampled request's resolved seed, never None)."""
+    dev = logits.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    greedy = sp is None or sp.temperature <= 0
+    if not greedy and sp.seed is None:
+        raise ValueError("a sampled pick needs the seed the request was "
+                         "served with; seed=None was never used")
+    tok = _sample_traced(
+        logits.reshape(1, -1).float(),
+        torch.tensor([0 if greedy else sp.seed], **i32),
+        torch.tensor([index], **i32),
+        torch.tensor([0.0 if greedy else sp.temperature], **f32),
+        torch.tensor([0 if greedy else sp.top_k], **i32),
+        torch.tensor([1.0 if greedy else sp.top_p], **f32))
+    return int(tok[0])
+
+
+def served_sampling(target, rids) -> list:
+    """The sampling each of ``rids`` was served with, ``seed=None``
+    resolved to the seed the engine or fabric drew for it, from the
+    target's own request records (a fabric follows migrations and
+    handoffs)."""
+    find = getattr(target, "find_request", None)
+    if find is None:
+        find = target.scheduler.requests.get
+    return [find(r).sampling for r in rids]
+
+
+def compare_routes(label, requests, got, want, routes) -> list:
+    """Each request's tokens ``got`` against ``want``, where the two runs
+    took different arithmetic routes (other scale dtypes): equal, or
+    parted at a near-tie, which ends the comparison of that request.
+    ``requests`` holds each request's prompt and the sampling it was
+    served with (the seed the run drew, never None). ``routes(context)``
+    gives the last row's logits of ``got``'s route and of ``want``'s
+    route, teacher-forced on the common context (prompt and common
+    tokens). The parting at token j is a near-tie when
+
+    - both runs' tokens j score within a margin of the best candidate
+      of ``got``'s route (``decision_scores``; the margin is the larger
+      of NEAR_TIE and twice the largest difference between the two
+      routes' logits there, in score units), or
+    - the sampler on each route picks exactly the token its run emitted.
+
+    Raises otherwise; returns the near-ties as (token, gap, difference,
+    decided apart)."""
+    ties = []
+    for (prompt, sp), a, b in zip(requests, got, want):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            if len(a) != len(b):
+                raise AssertionError(f"{label}: {len(a)} tokens, the "
+                                     f"reference {len(b)}")
+            continue
+        la, lb = routes(prompt + b[:j])
+        la, lb = la[-1], lb[-1]
+        scores = decision_scores(la, sp, j)
+        top = scores.topk(2).values
+        gap = (top[0] - top[1]).item()
+        delta = (la - lb).abs().max().item()
+        margin = max(NEAR_TIE, 2 * delta * score_scale(sp))
+        near = all(scores[t].item() >= top[0].item() - margin
+                   for t in (a[j], b[j]))
+        picks = (pick_token(la, sp, j), pick_token(lb, sp, j))
+        apart = picks == (a[j], b[j])
+        del la, lb, scores
+        if not (near or apart):
+            raise AssertionError(
+                f"{label}: token {j} of a {len(prompt)}-token prompt is "
+                f"{a[j]}, the reference's {b[j]}, with a decision gap "
+                f"{gap:.3e} and the routes' logits {delta:.3e} apart: "
+                f"not both within {margin:.3e} of the best, and the "
+                f"routes pick {picks}")
+        ties.append((j, gap, delta, apart))
+    return ties
+
+
+class LogitsTap:
+    """The logits row behind every token the engines sample, recorded on
+    the card inside each step (and so inside its CUDA graph): while the
+    tap is entered, the engine's sampler is wrapped so that its input
+    rows and their (seed, token index) keys are appended to a device
+    ring of ``rows`` rows before it draws. Keys are unique per request
+    and token, since every request is served with a seed of its own.
+    The tap must outlive the engines that ran under it (their graphs
+    write its ring)."""
+
+    def __init__(self, vocab: int, device, rows: int = TAP_ROWS):
+        self.rows = rows
+        self.logits = torch.empty((rows, vocab), dtype=torch.float32,
+                                  device=device)
+        self.keys = torch.empty((rows, 2), dtype=torch.int64, device=device)
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+        self._index = None
+
+    def __enter__(self):
+        self._real = engine_mod._sample_traced
+
+        def sample(logits, seeds, positions, *rest):
+            at = (self.count + torch.arange(
+                logits.shape[0], device=logits.device)) % self.rows
+            self.logits.index_copy_(0, at, logits.float())
+            self.keys.index_copy_(0, at, torch.stack(
+                (seeds.long(), positions.long()), dim=1))
+            self.count += logits.shape[0]
+            return self._real(logits, seeds, positions, *rest)
+
+        engine_mod._sample_traced = sample
+        return self
+
+    def __exit__(self, *exc):
+        engine_mod._sample_traced = self._real
+
+    def row(self, seed: int, index: int):
+        """The logits that output token ``index`` of the request served
+        with ``seed`` was drawn from: the newest row of that key (a
+        token drawn again, after a relocation or a discarded partial
+        chunk, comes later in the ring)."""
+        if self._index is None:
+            n = int(self.count)
+            if n > self.rows:
+                raise AssertionError(f"the logits tap overflowed: {n} rows "
+                                     f"sampled, {self.rows} kept")
+            self._index = {tuple(k): i
+                           for i, k in enumerate(self.keys[:n].tolist())}
+        i = self._index.get((seed, index))
+        if i is None:
+            raise AssertionError(f"no tapped logits for token {index} of "
+                                 f"the request with seed {seed}")
+        return self.logits[i]
+
+
+def check_tapped(label, requests, outputs, tap) -> None:
+    """Every delivered token is the sampler's draw from the logits its
+    run computed for it (``tap``): the tap is aligned with the outputs,
+    and nothing rewrote a token after it was drawn."""
+    for (prompt, sp), out in zip(requests, outputs):
+        if sp.seed is None:
+            raise ValueError("the tapped rows are keyed by the seed each "
+                             "request was served with; seed=None was "
+                             "never used")
+        for j, tok in enumerate(out):
+            drawn = pick_token(tap.row(sp.seed, j), sp, j)
+            if drawn != tok:
+                raise AssertionError(
+                    f"{label}: token {j} of a {len(prompt)}-token prompt "
+                    f"is {tok}, but its run's logits draw {drawn}")
+
+
+def compare_tapped(label, requests, got, want, tap_got, tap_want) -> list:
+    """Each request's tokens ``got`` against ``want`` from two runs that
+    computed the same contexts along other schedules (rows re-prefilled,
+    moved between replicas, decoded where the other prefilled), with
+    the logits each run drew every token from (``check_tapped`` holds
+    both runs to them): equal, or parted where the two runs' logits on
+    the common context agree within the quantized-serving bar (mean
+    absolute difference at most QUANT_MAE_MAX) and so differ only by
+    arithmetic route; that ends the comparison of the request. A parting
+    whose logits disagree beyond the bar fails. ``requests`` holds each
+    prompt with the sampling it was served with (``served_sampling``).
+    Returns the partings as (token, decision gap of ``got``'s logits,
+    largest and mean logit difference)."""
+    check_tapped(label, requests, got, tap_got)
+    check_tapped(label + " (reference)", requests, want, tap_want)
+    ties = []
+    for (prompt, sp), a, b in zip(requests, got, want):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            if len(a) != len(b):
+                raise AssertionError(f"{label}: {len(a)} tokens, the "
+                                     f"reference {len(b)}")
+            continue
+        la, lb = tap_got.row(sp.seed, j), tap_want.row(sp.seed, j)
+        diff = (la - lb).abs()
+        delta, mae = diff.max().item(), diff.mean().item()
+        if mae > QUANT_MAE_MAX:
+            raise AssertionError(
+                f"{label}: token {j} of a {len(prompt)}-token prompt is "
+                f"{a[j]}, the reference's {b[j]}, drawn from logits "
+                f"{mae:.3e} apart on average (largest {delta:.3e}; bar "
+                f"{QUANT_MAE_MAX}): not the same context")
+        ties.append((j, decision_gap(la, sp, j), delta, mae))
+    return ties
+
+
+def _share(prof, keys) -> float:
+    """Share of a finished ``torch.profiler`` run's device time spent in
+    operations whose names hold one of ``keys``."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in events)
+    part = sum(dev_us(e) for e in events if any(k in e.key for k in keys))
+    return part / total if total else None
+
+
+# device kernels of the float32 GEMMs (cuBLAS, CUTLASS, gemv), of the
+# int8 matmul, and the elementwise multiplies (with weight_matmul off,
+# the int8 weights' dequantization in front of each GEMM)
+GEMM_KEYS = ("gemm", "gemv", "xmma", "cutlass", "sm90_", "Kernel2")
+INT8_KEYS = ("int8_matmul_kernel", "quantize_rows_kernel")
+DEQUANT_KEYS = ("MulFunctor",)
+
+
+def phase_weight_matmul(model, batches) -> dict:
+    """The int8 long-context path (GPT-3 XL, full depth, int8 KV and int8
+    weights, split SPLIT, chunk CHUNK, async depth 1, graphs on, the
+    ``requests_long`` batches) with ``weight_matmul`` off and then int8.
+    Each engine serves a warm batch, a timed batch (ms/step; device time
+    from the step profiler's events) and a batch under
+    ``torch.profiler`` (device time in float32 GEMMs, in the int8 kernels
+    and in elementwise multiplies). The int8 run's launches are counted
+    over its timed batch: the int8 matmul and the quantizer four times a
+    layer a step, the ragged kernel once. Tokens of the int8 route must
+    be identical across two engines and across chunk budgets (CHUNK and
+    CHUNK // 2), and its teacher-forced logits within QUANT_MAE_MAX (mean
+    absolute error, the JAX bar) of the dequant-first route and of the
+    float model. Returns the numbers and the int8 run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    card = card_identity()
+    out, tokens, launches = {}, {}, {}
+    steps_main = 0
+    for wm in ("off", "int8"):
+        quant = QuantConfig(kv="int8", weights="int8", weight_matmul=wm)
+        torch.cuda.empty_cache()
+        engine = make_engine(model, quant, SPLIT, CHUNK, async_depth=1,
+                             swap_pages=0)
+        warm, _ = serve(engine, batches[0])
+        engine.reset_step_profile()
+        pa.LAUNCHES.clear()
+        steps0, commits0 = engine.steps_dispatched, engine.steps_committed
+        got, wall = serve(engine, batches[1])
+        steps = engine.steps_dispatched - steps0
+        commits = engine.steps_committed - commits0
+        if wm == "int8":
+            launches = dict(pa.LAUNCHES)
+            steps_main = steps
+        busy = device_busy_s(engine, commits, f"[wm {wm}]")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as tprof:
+            got3, wall3 = serve(engine, batches[2])
+        log_device_profile(tprof, f"weight_matmul {wm}", wall3,
+                           engine.steps_dispatched - steps0 - steps, 10)
+        row = {"ms_per_step": 1e3 * wall / steps, "steps": steps,
+               "device_ms_per_step": 1e3 * busy / commits,
+               "device_busy": busy / wall,
+               "gemm_share": _share(tprof, GEMM_KEYS),
+               "int8_share": _share(tprof, INT8_KEYS),
+               "dequant_share": _share(tprof, DEQUANT_KEYS)}
+        assert_no_faults(engine, f"[wm {wm}]")
+        engine.cache.check_invariants()
+        tokens[wm] = [warm, got, got3]
+        out[wm] = row
+        shares = ", ".join(
+            f"{k} " + ("not measured" if row[k] is None
+                       else f"{100 * row[k]:.1f}%")
+            for k in ("gemm_share", "int8_share", "dequant_share"))
+        log(f"[wm] weight_matmul {wm}: {row['ms_per_step']:.3f} ms/step "
+            f"({steps} steps), device {row['device_ms_per_step']:.3f} "
+            f"ms/step, busy {100 * row['device_busy']:.1f}% of wall; "
+            f"{shares}; {card}")
+        del engine
+    L = model.spec.num_layers
+    want = {i8.INT8_MATMUL_KERNEL: 4 * L * steps_main,
+            i8.QUANTIZE_ROWS_KERNEL: 4 * L * steps_main,
+            pa.kernel_name(torch.int8, True): L * steps_main}
+    if launches != want:
+        raise AssertionError(f"[wm] int8 route launches {launches}, "
+                             f"expected {want}")
+    # determinism: a second engine, and the chunk budget halved
+    quant = QuantConfig(kv="int8", weights="int8", weight_matmul="int8")
+    for chunk in (CHUNK, CHUNK // 2):
+        torch.cuda.empty_cache()
+        engine = make_engine(model, quant, SPLIT, chunk, async_depth=1,
+                             swap_pages=0)
+        again, _ = serve(engine, batches[0])
+        if again != tokens["int8"][0]:
+            raise AssertionError(f"[wm] int8 route tokens differ in another "
+                                 f"engine at chunk {chunk}")
+        del engine
+    # teacher-forced quality against the dequant-first route and float
+    torch.cuda.empty_cache()
+    prompt = batches[0][0][0][:TEACHER_TOKENS]
+    mxu = teacher_forced(model, prompt, QuantConfig(weights="int8",
+                                                    weight_matmul="int8"))
+    deq = teacher_forced(model, prompt, QuantConfig(weights="int8"))
+    mae_deq = (mxu - deq).abs().mean().item()
+    del deq
+    flt = TorchLM(model.spec, init_lm_params(model.spec, seed=0,
+                                             device=model.device),
+                  device=model.device)
+    ref = teacher_forced(flt, prompt, None)
+    del flt
+    mae_f = (mxu - ref).abs().mean().item()
+    scale = ref.abs().mean().item()
+    del mxu, ref
+    torch.cuda.empty_cache()
+    if not (0.0 < mae_deq <= QUANT_MAE_MAX and mae_f <= QUANT_MAE_MAX):
+        raise AssertionError(f"[wm] teacher-forced logits MAE {mae_deq:.4f} "
+                             f"vs dequant-first, {mae_f:.4f} vs float "
+                             f"(bar {QUANT_MAE_MAX})")
+    off, on = out["off"], out["int8"]
+    log(f"[wm] int8 route: tokens identical in two engines and at chunk "
+        f"{CHUNK} and {CHUNK // 2}; teacher-forced {TEACHER_TOKENS}-token "
+        f"logits MAE {mae_deq:.5f} vs dequant-first, {mae_f:.5f} vs float "
+        f"(mean |logit| {scale:.4f}; bar {QUANT_MAE_MAX}); ms/step off "
+        f"{off['ms_per_step']:.3f}, int8 {on['ms_per_step']:.3f}; launches "
+        f"{launches}; {card}")
+    res = {"off": off, "int8": on, "mae_vs_dequant": mae_deq,
+           "mae_vs_float": mae_f, "launches": launches}
+    print(json.dumps({"weight_matmul": res, "card": card}))
+    return res
+
+
+# ---------------------------------------------------- narrow scale pools
+
+
+def narrow_mix(kind: str, seed: int, device, mode: str, scale_dtype):
+    """``ragged_mix`` at GPT-3 XL geometry with its scale pools stored in
+    ``scale_dtype`` (the codes from the float32 scales, as
+    ``quantize_kv`` writes them)."""
+    args, scales, max_q, n_used = ragged_mix(kind, seed, device, GPT3_XL,
+                                             mode)
+    return (args, {k: v.to(scale_dtype) for k, v in scales.items()}, max_q,
+            n_used)
+
+
+def phase_narrow_kernels(device) -> dict:
+    """The ragged pair with float16 and bfloat16 scale pools (int8 and
+    fp8 codes) against their plain versions at the main path's decode
+    and mix shapes, unsplit and split SPLIT: within ATTN_TOL, padding
+    exact 0, a second split run bit-identical. Returns the worst error
+    per kernel."""
+    worst = {}
+    for ci, (mode, sd) in enumerate(NARROW):
+        for kind in ("decode", "mix"):
+            args, scales, max_q, n_used = narrow_mix(kind, 40 + ci, device,
+                                                     mode, sd)
+            for split in (0, SPLIT):
+                name = pa.kernel_name(DTYPES[mode], split > 0, sd)
+                out = pa.ragged_attention(**args, tier="kernel",
+                                          max_q_len=max_q, split_pages=split,
+                                          **scales)
+                torch.cuda.synchronize()
+                ref = plain(args, scales, split)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                torch.testing.assert_close(out, ref, rtol=ATTN_TOL,
+                                           atol=ATTN_TOL)
+                if n_used < out.shape[0] and \
+                        out[n_used:].abs().max().item() != 0:
+                    raise AssertionError(f"{name}: bucket padding is not "
+                                         "exact 0")
+                if split:
+                    again = pa.ragged_attention(
+                        **args, tier="kernel", max_q_len=max_q,
+                        split_pages=split, **scales)
+                    if not torch.equal(again, out):
+                        raise AssertionError(f"{name}: two runs differ")
+                worst[name] = max(worst.get(name, 0.0), err)
+                log(f"[kernel] {name} {kind}: max_abs_err vs plain "
+                    f"{err:.3e} (tol {ATTN_TOL}), padding exact 0")
+    return worst
+
+
+def narrow_rows(device, launches: dict, errors: dict) -> list:
+    """The kernels line's rows of the narrow-scale variants: each timed
+    at the decode shape (the headline) and the mix shape beside its
+    plain version, the library yardstick and the bounds (2-byte scales
+    in the byte counts)."""
+    rows = []
+    for split in (0, SPLIT):
+        for ci, (mode, sd) in enumerate(NARROW):
+            name = pa.kernel_name(DTYPES[mode], split > 0, sd)
+            shapes = {}
+            for kind, seed in (("decode", 1), ("mix", 0)):
+                args, scales, max_q, _ = narrow_mix(kind, seed, device, mode,
+                                                    sd)
+                shapes[kind] = time_shape(args, scales, max_q, split, True)
+                del args, scales
+                t = shapes[kind]
+                log(f"[times] {name} {kind}: kernel {t['ms']:.4f} ms, "
+                    f"plain {t['plain_ms']:.4f} ms, sdpa "
+                    f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+                    f"ms ({t['bound_by']}), tensor-core bound "
+                    f"{t['tc_bound_ms']:.4f} ms ({t['tc_bound_by']})")
+            rows.append({"name": name, "route": "cuda",
+                         "source": NARROW_SOURCES[(mode, sd)],
+                         "replaces": REPLACES[split > 0],
+                         "launches": launches.get(name, 0),
+                         "max_abs_err": errors[name], **shapes["decode"],
+                         "shapes": shapes})
+    return rows
+
+
+def phase_narrow_serving(model, requests, want,
+                         min_prefix_pages: int = 512 // PAGE) -> dict:
+    """The main path's quantized engine (int8 KV and weights, split
+    SPLIT, chunk CHUNK) with bfloat16 scale pools: launches of the
+    bfloat16-scale split kernel layers x steps, and tokens equal to the
+    float32-scale run's ``want`` outside counted near-ties. The two runs
+    store different scales (bfloat16 keeps 8 bits of each), so their
+    logits differ by more than float32 summation order: a parting is a
+    near-tie when the two routes, teacher-forced on the common context
+    with their own scale pools, decide the token apart or sit within
+    twice their logit difference of a tie (``compare_routes``). Any
+    other parting fails."""
+    f32 = QuantConfig(kv="int8", weights="int8")
+    quant = dataclasses.replace(f32, scale_dtype="bfloat16")
+    name = pa.kernel_name(torch.int8, True, torch.bfloat16)
+    got = drive_path("GPT-3 XL int8 KV (bfloat16 scales) + int8 weights, "
+                     f"split {SPLIT}", model, requests, name, quant, SPLIT,
+                     CHUNK, min_prefix_pages=min_prefix_pages)
+    launches, outs = got[0], got[3]
+    del got
+    ties = compare_routes(
+        "[narrow] bfloat16 scales", requests, outs, want,
+        lambda ctx: (teacher_forced(model, ctx, quant),
+                     teacher_forced(model, ctx, f32)))
+    same = len(outs) - len(ties)
+    log(f"[narrow] bfloat16 scale pools on the main path: {same} of "
+        f"{len(outs)} requests token-identical to float32 scales; "
+        f"{len(ties)} part at a near-tie (token, decision gap, the two "
+        f"routes' logit difference there, decided apart): "
+        + (", ".join(f"({j}, {g:.3e}, {d:.3e}, {ap})" for j, g, d, ap
+                     in ties) or "none")
+        + f"; {name} launches {launches[name]}")
+    return {"launches": launches, "ties": len(ties), "same": same,
+            "tie_detail": ties}
+
+
+# ------------------------------------------------------ the serving fabric
+
+
+def make_shared_prefix_workload(n, rng, vocab, prefix_len, tail_hi):
+    """``perf/bench_serving.py:451``'s shared-prefix burst: ``n``
+    prompts of one ``prefix_len``-token prefix and a 4 to ``tail_hi``
+    token tail each, 8 new tokens each."""
+    prefix = rng.integers(0, vocab, size=prefix_len).tolist()
+    prompts = [prefix + rng.integers(0, vocab, size=int(
+        rng.integers(4, tail_hi))).tolist() for _ in range(n)]
+    return prompts, [8] * n
+
+
+def fabric_burst(vocab: int, seed: int = 5):
+    """The fabric phase's traffic: two tenants, each with a burst of
+    FABRIC_BURST prompts over its own FABRIC_PREFIX-token prefix
+    (``make_shared_prefix_workload``), interleaved a, b, a, ...; every
+    third request sampled with ``seed=None`` (the fabric draws its seed)
+    and every fifth with a fixed seed. Returns [(prompt, new tokens,
+    sampling, tenant)]; the first request of each tenant warms its
+    prefix."""
+    rng = np.random.default_rng(seed)
+    per = {t: make_shared_prefix_workload(FABRIC_BURST, rng, vocab,
+                                          FABRIC_PREFIX, FABRIC_TAIL)
+           for t in ("a", "b")}
+    out = []
+    for i in range(FABRIC_BURST):
+        for t in ("a", "b"):
+            k = len(out)
+            sp = (SamplingParams(temperature=0.8, top_k=50, top_p=0.9)
+                  if k % 3 == 2 else
+                  SamplingParams(temperature=0.8, top_k=50, seed=700 + k)
+                  if k % 5 == 4 else None)
+            out.append((per[t][0][i], per[t][1][i], sp, t))
+    return out
+
+
+def fabric_configs(model, slots=SLOTS):
+    spec = model.spec
+    pps = -(-spec.max_seq_len // PAGE)
+    cache = CacheConfig(num_layers=spec.num_layers, num_heads=spec.num_heads,
+                        head_dim=spec.head_dim, num_pages=slots * pps + 1,
+                        page_size=PAGE, max_slots=slots,
+                        max_seq_len=spec.max_seq_len)
+    sched = SchedulerConfig(max_slots=slots, max_seq_len=spec.max_seq_len,
+                            chunk_tokens=CHUNK, kv_split_pages=SPLIT,
+                            async_depth=1)
+    return cache, sched
+
+
+FABRIC_QUANT = QuantConfig(kv="int8", weights="int8", weight_matmul="int8")
+
+
+def run_fabric(model, burst, replicas=FABRIC_REPLICAS, roles="colocated",
+               trace=True, kill_at=None, journal_dir=None, watch=False):
+    """Serve ``burst`` on a fresh fabric (or, with ``replicas=0``, one
+    engine of the same configuration): the first request of each tenant
+    first, run dry (its prefix then sits on one replica), then the rest
+    at once. ``kill_at`` kills replica 1 at that fabric step; ``watch``
+    puts a hang watchdog on every replica for the whole run and fails
+    if one fires. Returns (target, rids, outputs, the burst's timing,
+    memory before and after the kill): its wall seconds, and the CUDA
+    graph captures made inside it (new step signatures) with their wall
+    seconds, from each engine's compile observatory."""
+    cache, sched = fabric_configs(model)
+    if replicas:
+        target = ServingFabric(model, FabricConfig(
+            replicas=replicas, roles=roles, trace=trace,
+            journal_dir=journal_dir), cache_config=cache,
+            scheduler_config=sched, quant=FABRIC_QUANT,
+            device=model.device)
+    else:
+        target = GenerationEngine(model, cache_config=cache,
+                                  scheduler_config=sched,
+                                  quant=FABRIC_QUANT, device=model.device)
+    dogs = ([obs.watch_engine(e, name=f"replica{i}", deadline_s=120.0,
+                              register_default=False)
+             for i, e in enumerate(target.replicas)]
+            if watch and replicas else [])
+    rids = [target.submit(p, n, sp, tenant=t) for p, n, sp, t in burst[:2]]
+    target.run()
+    mem = None
+    caps0 = _captures(target)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids += [target.submit(p, n, sp, tenant=t) for p, n, sp, t in burst[2:]]
+    steps = 0
+    while target.has_work if replicas else (
+            target.scheduler.has_work or target.pipeline_depth):
+        if kill_at is not None and steps == kill_at:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            target.kill_replica(1)
+            torch.cuda.synchronize()
+            mem = (before, torch.cuda.memory_allocated())
+        target.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    caps = {k: v for k, v in _captures(target).items() if k not in caps0}
+    timing = {"wall_s": wall, "captures": len(caps),
+              "capture_s": sum(caps.values())}
+    for d in dogs:
+        d.check()
+        stalls = d.status()["stalls_total"]
+        d.stop()
+        if stalls:
+            raise AssertionError("[fabric] a replica's hang watchdog fired")
+    return target, rids, [target.output_of(r) for r in rids], timing, mem
+
+
+def _captures(target) -> dict:
+    """Every step graph the target's engines captured so far, by
+    (engine, signature), with its capture's wall seconds."""
+    engines = getattr(target, "replicas", [target])
+    return {(id(e), k): v["compile_seconds"] for e in engines
+            if e.ledger is not None for k, v in e.ledger.captures.items()}
+
+
+def _burst_record(n_tok, timing, ttft) -> dict:
+    """A timed burst's records: tokens/s over its wall time, and over
+    its wall time less the graph captures made inside it."""
+    return {"tokens_per_s": n_tok / timing["wall_s"],
+            "tokens_per_s_less_captures":
+                n_tok / (timing["wall_s"] - timing["capture_s"]),
+            "captures": timing["captures"],
+            "capture_s": timing["capture_s"], "ttft_ms": ttft}
+
+
+def _ttft_ms(target, rids):
+    vals = sorted(1e3 * target.request_summary(r)["ttft_seconds"]
+                  for r in rids[2:])
+    return (float(np.percentile(vals, 50)), float(np.percentile(vals, 99)))
+
+
+def _check_fabric(fab, label) -> None:
+    if not fab.pool_restored():
+        raise AssertionError(f"{label}: a replica's pool is not back at "
+                             "its boot size")
+    fab.check_invariants()
+    for i, eng in enumerate(fab.replicas):
+        assert_no_faults(eng, f"{label} replica {i}")
+
+
+def phase_fabric(model) -> dict:
+    """The replicated serving fabric on the card: FABRIC_REPLICAS
+    replicas of the int8 GPT-3 XL engine (int8 KV, int8 weights, the int8
+    weight matmul, split SPLIT, chunk CHUNK, async depth 1, graphs on,
+    SLOTS slots each) sharing one copy of the weights, on the two-tenant
+    shared-prefix burst (``fabric_burst``). Checks:
+
+    1. outputs equal to one engine's on the same submissions, outside
+       partings between logits that differ only by arithmetic route
+       (``compare_tapped``: a token prefilled in one run may be decoded
+       in the other, and the tile kernel and the one-query walk sum in
+       other orders); every run serves each request with one engine's
+       sampling (the same seeds drawn for ``seed=None``), and every
+       delivered token is the draw from the logits its run computed
+       for it (a ``LogitsTap`` on each compared run);
+    2. of the prefix pages the burst's followers could hit, at least
+       FABRIC_AFFINITY_MIN are placed by affinity;
+    3. replica 1 killed at fabric step FABRIC_KILL_STEP of the burst:
+       no request dropped, outputs equal to the unkilled fabric's
+       (greedy and sampled) outside such partings (the replayed
+       requests re-prefill what they had decoded), and
+       device memory after the kill and respawn no higher than before
+       it by half a replica's KV pools (a corpse left on the card would
+       add a whole replica's);
+    4. prefill/decode disaggregation: outputs equal outside such
+       partings, pages handed off;
+    5. tracing off: outputs identical to the colocated run's;
+    6. a slow step (FABRIC_FAULT_MS of sleep a replica step) fires the
+       burn-rate alert on an inter-token objective of FABRIC_ITL_MS,
+       and healing it clears the alert;
+    every fabric's pools restored, no device fault, and the replicas'
+    watchdogs silent. Prints tokens/s (also less the graph captures
+    made inside the timed burst) and TTFT p50/p99 for one engine and
+    for the fabric (records, not gates)."""
+    import tempfile
+
+    card = card_identity()
+    burst = fabric_burst(model.spec.vocab)
+
+    def tapped():
+        return LogitsTap(model.spec.vocab, model.device)
+
+    res = {"ties": {}}
+    torch.cuda.empty_cache()
+    # each tap outlives the engines that ran under it
+    tap_one, tap_col, tap_kill, tap_dis = (tapped() for _ in range(4))
+    with tap_one:
+        eng, rids, want, timing, _ = run_fabric(model, burst, replicas=0)
+    # each request with the sampling it was served with: every run must
+    # draw the same seeds, and the tapped checks use them
+    sps = served_sampling(eng, rids)
+    reqs = [(p, sp) for (p, _, _, _), sp in zip(burst, sps)]
+
+    def same_seeds(target, rids, label):
+        if served_sampling(target, rids) != sps:
+            raise AssertionError(f"{label}: requests served with other "
+                                 "sampling than one engine's")
+
+    n_tok = sum(len(o) for o in want[2:])
+    res["one"] = _burst_record(n_tok, timing, _ttft_ms(eng, rids))
+    assert_no_faults(eng, "[fabric] one engine")
+    del eng
+    with tempfile.TemporaryDirectory() as jdir:
+        torch.cuda.empty_cache()
+        with tap_col:
+            fab, rids, got, timing, _ = run_fabric(
+                model, burst, journal_dir=jdir, watch=True)
+        same_seeds(fab, rids, "[fabric] colocated")
+        res["ties"]["colocated"] = compare_tapped(
+            "[fabric] colocated vs one engine", reqs, got, want, tap_col,
+            tap_one)
+        colocated = got
+        rec = [dict(e.attrs) for e in fab._rec.by_category("fabric")
+               if e.name == "routed" and e.rid in rids[2:]]
+        prefix_pages = FABRIC_PREFIX // PAGE
+        by_aff = sum(r["hit_pages"] for r in rec
+                     if r["reason"] == "affinity")
+        could = prefix_pages * len(rec)
+        if by_aff < FABRIC_AFFINITY_MIN * could:
+            raise AssertionError(f"[fabric] {by_aff} of {could} prefix "
+                                 "pages placed by affinity")
+        _check_fabric(fab, "[fabric]")
+        res["two"] = {**_burst_record(n_tok, timing, _ttft_ms(fab, rids)),
+                      "affinity_pages": by_aff, "prefix_pages": could,
+                      "reasons": collections.Counter(r["reason"]
+                                                     for r in rec)}
+        pools = sum(t.numel() * t.element_size() for t in (
+            fab.replicas[1].cache.k_pool, fab.replicas[1].cache.v_pool,
+            fab.replicas[1].cache.k_scale, fab.replicas[1].cache.v_scale))
+        del fab
+    with tempfile.TemporaryDirectory() as jdir:
+        torch.cuda.empty_cache()
+        with tap_kill:
+            fab, rids, got, _, mem = run_fabric(
+                model, burst, journal_dir=jdir, kill_at=FABRIC_KILL_STEP)
+        if any(len(o) != n for o, (_, n, _, _) in zip(got, burst)):
+            raise AssertionError("[fabric] a request was dropped or cut "
+                                 "short by the kill")
+        same_seeds(fab, rids, "[fabric] killed")
+        res["ties"]["kill"] = compare_tapped(
+            "[fabric] killed vs unkilled", reqs, got, colocated, tap_kill,
+            tap_col)
+        if fab.migrations < 1:
+            raise AssertionError("[fabric] the kill migrated no request")
+        if mem[1] - mem[0] > pools // 2:
+            raise AssertionError(
+                f"[fabric] device memory {mem[0]} -> {mem[1]} bytes across "
+                f"the kill and respawn: the killed replica's "
+                f"{pools}-byte pools were not released")
+        _check_fabric(fab, "[fabric] killed")
+        res["kill"] = {"migrated": fab.migrations, "mem_before": mem[0],
+                       "mem_after": mem[1], "replica_pools": pools}
+        del fab
+    with tempfile.TemporaryDirectory() as jdir:
+        torch.cuda.empty_cache()
+        with tap_dis:
+            fab, rids, got, _, _ = run_fabric(
+                model, burst, roles="disaggregated", journal_dir=jdir)
+        if fab.handoff_pages <= 0:
+            raise AssertionError("[fabric] disaggregated: no page handed off")
+        same_seeds(fab, rids, "[fabric] disaggregated")
+        res["ties"]["disaggregated"] = compare_tapped(
+            "[fabric] disaggregated vs one engine", reqs, got, want, tap_dis,
+            tap_one)
+        _check_fabric(fab, "[fabric] disaggregated")
+        res["disaggregated"] = {"handoff_pages": fab.handoff_pages}
+        del fab
+    del tap_one, tap_col, tap_kill, tap_dis
+    with tempfile.TemporaryDirectory() as jdir:
+        torch.cuda.empty_cache()
+        prev = obs.set_default_recorder(obs.FlightRecorder())
+        try:
+            fab, _, got, _, _ = run_fabric(model, burst, trace=False,
+                                           journal_dir=jdir)
+            stamped = [ev for ev in fab._rec.snapshot()
+                       if ev.attr("trace") is not None or ev.cat == "trace"]
+        finally:
+            obs.set_default_recorder(prev)
+        if got != colocated:
+            raise AssertionError("[fabric] outputs differ with tracing off")
+        if stamped:
+            raise AssertionError(f"[fabric] {len(stamped)} trace events "
+                                 "with tracing off")
+        del fab
+    res["alerts"] = fabric_alerts(model, burst)
+    one, two = res["one"], res["two"]
+    ties = {k: len(v) for k, v in res["ties"].items()}
+    log(f"[fabric] {FABRIC_REPLICAS} replicas x {SLOTS} slots, "
+        f"{len(burst)} requests (2 tenants x {FABRIC_BURST}, "
+        f"{FABRIC_PREFIX}-token prefixes): outputs equal to one engine's "
+        f"colocated, after a kill (replica 1 at step {FABRIC_KILL_STEP}, "
+        f"{res['kill']['migrated']} migrated; against the unkilled "
+        f"fabric) and disaggregated "
+        f"({res['disaggregated']['handoff_pages']} pages handed off), "
+        f"outside {ties} partings where the two runs drew from logits "
+        f"apart only by route (token, decision gap, largest and mean "
+        f"logit difference: {res['ties']}), every token the draw from "
+        f"its run's own logits, and identical with tracing off; "
+        f"affinity placed "
+        f"{two['affinity_pages']} of {two['prefix_pages']} prefix pages "
+        f"({dict(two['reasons'])}); memory across the kill "
+        f"{res['kill']['mem_before']} -> {res['kill']['mem_after']} bytes "
+        f"(a replica's KV pools {res['kill']['replica_pools']}); "
+        f"pools restored, watchdogs silent; {card}")
+    log("[fabric] records: " + "; ".join(
+        f"{name} {r['tokens_per_s']:.1f} tokens/s "
+        f"({r['tokens_per_s_less_captures']:.1f} less the "
+        f"{r['captures']} graph captures in the burst, "
+        f"{r['capture_s']:.3f} s), TTFT p50 {r['ttft_ms'][0]:.1f} ms p99 "
+        f"{r['ttft_ms'][1]:.1f}"
+        for name, r in (("one engine", one),
+                        (f"{FABRIC_REPLICAS} replicas", two)))
+        + f"; {card}")
+    print(json.dumps({"fabric": res, "card": card}, default=str))
+    return res
+
+
+def fabric_alerts(model, burst) -> dict:
+    """A slow step fires the fabric's burn-rate alert and healing clears
+    it: every replica step sleeps FABRIC_FAULT_MS (the injector's delay)
+    against an inter-token objective of FABRIC_ITL_MS (small windows so
+    that the run stays short); once it fires the fault is healed and
+    fresh traffic flows until the alert clears. The burning replicas'
+    brownout pressure is raised while it fires and lowered after."""
+    alerts = obs.AlertConfig(itl_ms=FABRIC_ITL_MS, fast_window=8,
+                             slow_window=32, eval_every=4, up_after=2,
+                             down_after=2, min_samples=4)
+    inj = FaultInjector(FaultConfig(delay_rate=1.0,
+                                    delay_ms=FABRIC_FAULT_MS, seed=3))
+    prev = set_default_injector(inj)
+    try:
+        import tempfile
+        with tempfile.TemporaryDirectory() as jdir:
+            cache, sched = fabric_configs(model)
+            fab = ServingFabric(model, FabricConfig(
+                replicas=FABRIC_REPLICAS, journal_dir=jdir),
+                cache_config=cache, scheduler_config=sched,
+                quant=FABRIC_QUANT, device=model.device)
+            fab.alerts = obs.SLOAlerts(fab, alerts)
+            for p, n, sp, t in burst[:4]:
+                fab.submit(p, n, sp, tenant=t)
+            fired = cleared = None
+            for step in range(1, 200):
+                fab.step()
+                if fab.alerts.fires:
+                    fired = step
+                    pressure = [e.brownout.alert_pressure
+                                for e in fab.replicas]
+                    if not any(pressure):
+                        raise AssertionError("[fabric] the alert fired "
+                                             "without brownout pressure")
+                    inj.config = FaultConfig(seed=3)          # heal
+                    break
+            if fired is None:
+                raise AssertionError("[fabric] the slow step never fired "
+                                     "the burn-rate alert")
+            for i in range(400):
+                if not fab.has_work:
+                    for p, n, sp, t in burst[4 + 2 * (i % 6):
+                                             6 + 2 * (i % 6)]:
+                        fab.submit(p[:FABRIC_PREFIX // 4], 16, sp, tenant=t)
+                fab.step()
+                step += 1
+                if fab.alerts.clears:
+                    cleared = step
+                    break
+            if cleared is None or fab.alerts.active() or \
+                    any(e.brownout.alert_pressure for e in fab.replicas):
+                raise AssertionError("[fabric] the alert did not clear "
+                                     "after healing")
+            fab.run()
+            _check_fabric(fab, "[fabric] alerts")
+            log(f"[fabric] burn-rate alert fired at fabric step {fired} "
+                f"under a {FABRIC_FAULT_MS} ms step sleep (objective "
+                f"{FABRIC_ITL_MS} ms inter-token), cleared at step "
+                f"{cleared} after healing; brownout pressure raised and "
+                "lowered")
+            del fab
+    finally:
+        set_default_injector(prev)
+    return {"fired_at": fired, "cleared_at": cleared}
+
+
 def phase_profile(model, requests) -> None:
     """``--profile`` only: one more warm run of the main path under
     ``torch.profiler``; prints device time per step by kernel and the
@@ -2009,8 +3061,9 @@ def time_shape(args, scales, max_q, split, quant, old=None):
     lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         qd, k, v, attn_mask=mask))
     del qd, k, v, mask
-    bms, by = bound(args, quant)
-    tc_ms, tc_by = tc_bound(args, quant)
+    sb = scales["k_scale"].element_size() if scales else 4
+    bms, by = bound(args, quant, sb)
+    tc_ms, tc_by = tc_bound(args, quant, sb)
     out.update(bound_ms=bms, bound_by=by, library_ms=lib_ms,
                tc_bound_ms=tc_ms, tc_bound_by=tc_by)
     return out
@@ -3112,6 +4165,9 @@ def main() -> int:
     phase_build(triple_op(), old_text)
     log(f"[card] {card_identity()}")
     errors = phase_kernels(device)
+    # the narrow-scale ragged pair and the int8 weight matmul
+    narrow_errors = phase_narrow_kernels(device)
+    int8_times = phase_int8_matmul(device)
     per_tier_errors = phase_per_tier_kernels(device)
     flash_errors = phase_flash(device)
     launches: dict = {}
@@ -3178,6 +4234,13 @@ def main() -> int:
     # this slice's main path: the same engine at depth 1 with graphs,
     # observability on and off
     phase_observability(xl, batches)
+    # quantized serving, the rest: bfloat16 scale pools on the main path,
+    # the int8 weight matmul off and on, then the replicated fabric
+    launches.update(phase_narrow_serving(xl, reqs, outs[SPLIT])["launches"])
+    wm = phase_weight_matmul(xl, batches)["launches"]
+    launches.update({k: wm[k] for k in (i8.INT8_MATMUL_KERNEL,
+                                        i8.QUANTIZE_ROWS_KERNEL)})
+    phase_fabric(xl)
     if "--profile" in sys.argv[1:]:
         phase_profile(xl, reqs)
     del xl
@@ -3228,6 +4291,8 @@ def main() -> int:
             entry: _build.load_source(f"{lib}_old", old_text[f"{lib}_old"])
             for lib, entry, _ in pa._LIBS.values()})
     rows = phase_times(device, launches, errors, old_ragged)
+    rows += narrow_rows(device, launches, narrow_errors)
+    rows += int8_rows(int8_times, launches)
     if old_decode is not None:
         old_decode = (old_decode, _build.load_source(
             "paged_attention_old", old_text["paged_attention_old"]))

@@ -47,8 +47,9 @@ stay away longer.
 Off by default (``policy.BROWNOUT_LEVELS`` = 0;
 ``SchedulerConfig.brownout_levels`` turns it on). Disabled cost: one
 attribute load + one branch per engine step, the observability
-substrate's contract. ``alert_pressure`` (the SLO burn-rate alerts'
-input) stays False until the alerts are ported.
+substrate's contract. ``alert_pressure`` is the SLO burn-rate alerts'
+input: the serving fabric's ``SLOAlerts`` raises it on burning
+replicas.
 """
 from __future__ import annotations
 
@@ -107,7 +108,8 @@ class BrownoutController:
         self.transitions = 0
         self.sheds = 0
         # SLO burn-rate alert input: a firing alert counts as pressure
-        # and blocks calm. The alerts are not ported; nothing sets it
+        # and blocks calm (the serving fabric's SLOAlerts sets it on
+        # the replicas whose own windows burn)
         self.alert_pressure = False
         # the base the level-1+ budget shrink halves from: the config
         # budget when one is set, else the most tokens a step can pack

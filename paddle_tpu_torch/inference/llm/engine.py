@@ -101,7 +101,9 @@ from .kv_cache import CacheConfig, PagedKVCache, flatten_page_levels
 from .model import TorchLM, lm_ragged_step, resolve_carry_tokens, step_carry
 from .policy import (SPEC_DECAY_BELOW, SPEC_GROW_ABOVE, SPEC_NGRAM_MAX,
                      SPEC_NGRAM_MIN, SPEC_PROBE_EVERY, SPEC_WINDOW)
-from .quant import QuantConfig
+from .quant import (QuantConfig, align_cache_config, prepare_model,
+                    quant_roundtrip_events, resolve_quant,
+                    time_quant_roundtrip)
 from .scheduler import (ContinuousBatchingScheduler, Plan, QueueFull,
                         Request, RowPlan, SchedulerConfig)
 from .threefry import categorical, fold_in, prng_key
@@ -392,18 +394,12 @@ class GenerationEngine:
         # convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.model = model
         self.eos_id = eos_id
         self._attn_tier = attn_tier
         scheduler_config = scheduler_config or SchedulerConfig()
-        if quant is None:
-            quant = QuantConfig(kv=scheduler_config.kv_quant,
-                                weights=scheduler_config.weight_quant)
-        if not quant.active:
-            quant = None
+        quant = resolve_quant(quant, scheduler_config)
         self.quant = quant
-        if quant is not None and quant.weights == "int8":
-            self.model = model.quantize_weights()
+        self.model = prepare_model(model, quant)
         # the kernels' KV-split schedule: engine-constant, 0 = unsplit
         self._kv_split_pages = max(int(scheduler_config.kv_split_pages), 0)
         if cache_config is None:
@@ -416,15 +412,8 @@ class GenerationEngine:
             scheduler_config = dataclasses.replace(
                 scheduler_config, max_seq_len=cache_config.max_seq_len)
         # the engine's quant config decides the page encoding: a
-        # caller's cache config is aligned to it (a float pool under a
-        # quantized step would scatter the wrong dtype)
-        want = dict(
-            kv_quant=quant.kv if quant is not None else "off",
-            scale_dtype=(quant.scale_dtype if quant is not None
-                         else cache_config.scale_dtype),
-            weight_quant=quant.weights if quant is not None else "off")
-        if any(getattr(cache_config, k) != v for k, v in want.items()):
-            cache_config = dataclasses.replace(cache_config, **want)
+        # caller's cache config is aligned to it
+        cache_config = align_cache_config(cache_config, quant)
         self.cache = PagedKVCache(cache_config, device=self.device)
         self.scheduler = ContinuousBatchingScheduler(self.cache,
                                                      scheduler_config)
@@ -498,6 +487,8 @@ class GenerationEngine:
                 self.quant.kv if self.quant is not None else "off"])
         self._obs["kv_page_bytes"].set(float(self.cache.config.page_bytes()))
         self._rec = default_recorder()
+        # the card's pending quantize/dequantize probe (start, end events)
+        self._quant_probe = None
         self._spec_drafted_total = 0
         self._spec_accepted_total = 0
         # the step-phase profiler; under pipelining its idle accounting
@@ -629,11 +620,44 @@ class GenerationEngine:
                     self._commit_step(stp)
             kind = plan.kind
         prof.annotate(commits=self.steps_committed - committed)
+        probe_quant = (self.quant is not None and self.quant.kv_active
+                       and prof.fence and kind == "mixed")
         if self._kv_check:
             self.cache.check_invariants()
         prof.lap("page_bookkeeping")
         prof.end_step(kind)
+        if probe_quant:
+            # the fenced cadence of the JAX engine: one page-sized
+            # quantize+dequantize roundtrip into pd_quant_dequant_seconds,
+            # after end_step so that it stays out of the step's accounting
+            self._observe_quant()
         return kind
+
+    def _observe_quant(self) -> None:
+        """Time one page-sized quantize -> dequantize roundtrip into
+        ``pd_quant_dequant_seconds``. On the card its CUDA events are
+        read at the next fenced sample, once they have completed, so the
+        probe never waits on the stream (the pipeline is never
+        drained); on the CPU it is timed at once."""
+        cc = self.cache.config
+        if self.device.type != "cuda":
+            secs = time_quant_roundtrip(self.quant.kv, cc.page_size,
+                                        cc.num_heads, cc.head_dim,
+                                        self.device)
+        else:
+            pending, secs = self._quant_probe, None
+            if pending is not None:
+                if not pending[1].query():
+                    return
+                secs = pending[0].elapsed_time(pending[1]) / 1000.0
+            self._quant_probe = quant_roundtrip_events(
+                self.quant.kv, cc.page_size, cc.num_heads, cc.head_dim,
+                self.device)
+            if secs is None:
+                return
+        self._obs["quant_dequant"].observe(secs)
+        self._rec.emit("engine", "quant_probe", mode=self.quant.kv,
+                       seconds=secs)
 
     def _step_async(self) -> str:
         """One step at ``async_depth > 0``: plan and dispatch step N+1
@@ -745,6 +769,29 @@ class GenerationEngine:
         self._rec.emit("engine", "drained", live=len(live),
                        journaled=self.journal is not None)
         return live
+
+    def close(self) -> None:
+        """Release the engine's device and pinned memory now, without
+        waiting for a collection: its CUDA graphs and their pool, the
+        steps in flight, the static step inputs, the pinned ring, the
+        device page table and carry, and the KV and scale pools (the
+        model, which replicas share, stays). The serving fabric calls it
+        on a killed replica after replaying its requests; the engine
+        serves nothing afterwards."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._graphs.clear()
+        self._graph_pool = None
+        self._inflight.clear()
+        self._inputs_dev.clear()
+        self._ring.clear()
+        self._quant_probe = None
+        self._levels_dev = self._carry_d = None
+        c = self.cache
+        c.k_pool = c.v_pool = c.k_scale = c.v_scale = None
+        self._prev_end = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def restore(self, journal) -> Dict[int, int]:
         """Hot restart: re-submit every UNFINISHED request of

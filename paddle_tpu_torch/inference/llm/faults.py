@@ -27,12 +27,15 @@ answers), and the same chaos harness.
     quarantined at once) and then only the offending rows' requests
     terminate ``device_fault``; the engine itself never dies. A real
     exception from a step is not retried: it propagates.
-  * **mesh device death** (``device_dead``, ``device_dead_step``),
-    **collective probe failures** (``collective_rate``) and **replica
-    kills** (``replica_kill``, ``replica_kill_step``): their fields are
-    kept so a config reads as on the JAX side; one card has no mesh and
-    no fabric to lose them in, so :meth:`FaultInjector.dead_device`
-    answers None there and nothing consults the other two.
+  * **replica kills** (``replica_kill``, ``replica_kill_step``): the
+    serving fabric consults :meth:`FaultInjector.should_kill_replica`
+    once per fabric step and kills that replica, replaying its live
+    requests onto a survivor.
+  * **mesh device death** (``device_dead``, ``device_dead_step``) and
+    **collective probe failures** (``collective_rate``): their fields
+    are kept so a config reads as on the JAX side; one card has no mesh
+    to lose them in, so :meth:`FaultInjector.dead_device` answers None
+    there and nothing consults the collective rate.
 
 - :func:`run_chaos` — the chaos test harness: a mixed-priority,
   mixed-tenant workload (some requests carrying tight deadlines)
@@ -222,6 +225,22 @@ class FaultInjector:
             return c.device_dead
         return None
 
+    def should_kill_replica(self) -> bool:
+        """True exactly once, at the ``replica_kill_step``-th
+        consultation (the fabric consults once per fabric step): the
+        fabric kills replica ``replica_kill``, replays its live requests
+        onto a survivor and respawns the slot. Counted from 1;
+        ``replica_kill < 0`` disables."""
+        if self.config.replica_kill < 0:
+            return False
+        n = self.counts.get("replica_kill_probe", 0) + 1
+        self.counts["replica_kill_probe"] = n
+        if n == max(self.config.replica_kill_step, 1):
+            self.counts["replica_kill"] = \
+                self.counts.get("replica_kill", 0) + 1
+            return True
+        return False
+
     # ---- harness-consulted faults ---------------------------------------
     def should_cancel(self) -> bool:
         return self._roll(self.config.cancel_rate, "cancel")
@@ -283,7 +302,7 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
               check_every: int = 16) -> dict:
     """Drive ``engine`` through a mixed-priority, mixed-tenant workload
     under fault injection and report on the lifecycle invariants (the
-    JAX harness's workload and report, for one engine):
+    JAX harness's workload and report):
 
     - ``drained``: all work reached a terminal state within
       ``max_steps`` engine steps (no hang);
@@ -295,18 +314,51 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
     - ``invariants_ok``: ``PagedKVCache.check_invariants()`` passed at
       every checkpoint and at drain;
     - ``watchdog_stalls``: stall count of the (optional) watchdog.
+
+    Accepts a :class:`~.fabric.ServingFabric` in place of ``engine``:
+    the workload then drives the fabric's routed surface, random
+    cancels draw from every replica's live set, the malformed-submit
+    leak check covers every replica's rid counter, a
+    ``replica_kill``-configured injector fires through ``fabric.step``
+    (the report's ``migrated`` counts the replayed requests), and the
+    leak and invariant checks run on every replica, respawned slots
+    included.
     """
     from ...observability.recorder import default_recorder
     from .scheduler import InvalidRequest, QueueFull
 
-    sch = engine.scheduler
-    cfg = sch.config
+    is_fabric = hasattr(engine, "replicas")
+    schedulers = ([r.scheduler for r in engine.replicas] if is_fabric
+                  else [engine.scheduler])
+    cfg = schedulers[0].config
     inj = injector or getattr(engine, "_faults", None) or default_injector()
     rng = np.random.default_rng(seed)
     rec = default_recorder()
     classes = cfg.priority_classes
     tenants = ("acme", "bolt", "corp")
     max_seq = cfg.max_seq_len
+
+    def has_work() -> bool:
+        return (engine.has_work if is_fabric
+                else engine.scheduler.has_work or engine.pipeline_depth)
+
+    def next_rids() -> tuple:
+        # replicas respawn mid-chaos, so re-read the scheduler list
+        if is_fabric:
+            return tuple(r.scheduler._next_rid for r in engine.replicas)
+        return (engine.scheduler._next_rid,)
+
+    def live_rids():
+        if is_fabric:
+            return engine.live_rids()
+        return ([r.rid for r in engine.scheduler.waiting]
+                + [r.rid for r in engine.scheduler.running.values()])
+
+    def check_pools() -> None:
+        if is_fabric:
+            engine.check_invariants()
+        else:
+            engine.cache.check_invariants()
 
     admitted: Dict[int, dict] = {}
     cancelled_rids = set()
@@ -315,18 +367,18 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
     malformed_leaks = 0
     rejected = 0
     invariants_ok = True
-    free0 = engine.cache.num_free_pages
+    free0 = None if is_fabric else engine.cache.num_free_pages
     pending = n_requests
     steps = 0
 
-    while pending > 0 or sch.has_work or engine.pipeline_depth:
+    while pending > 0 or has_work():
         if steps >= max_steps:
             break
         if pending > 0 and rng.random() < 0.6:
             pending -= 1
             if inj.should_malform():
                 malformed_attempts += 1
-                rid_before = sch._next_rid
+                rid_before = next_rids()
                 events_before = len(rec)
                 try:
                     _submit_malformed(engine,
@@ -334,7 +386,7 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
                                       cfg)
                     malformed_leaks += 1      # should have raised
                 except InvalidRequest:
-                    if (sch._next_rid != rid_before
+                    if (next_rids() != rid_before
                             or len(rec) != events_before):
                         malformed_leaks += 1  # burned a rid or an event
             else:
@@ -356,8 +408,7 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
                 except QueueFull:
                     rejected += 1
         if inj.should_cancel():
-            live = ([r.rid for r in sch.waiting]
-                    + [r.rid for r in sch.running.values()])
+            live = live_rids()
             if live:
                 rid = int(inj.choice(live))
                 if engine.cancel(rid):
@@ -368,13 +419,13 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
             if watchdog is not None:
                 watchdog.check()
             try:
-                engine.cache.check_invariants()
+                check_pools()
             except AssertionError:
                 invariants_ok = False
                 break
 
     try:
-        engine.cache.check_invariants()
+        check_pools()
     except AssertionError:
         invariants_ok = False
 
@@ -382,14 +433,22 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
     truthful = True
     reasons: Dict[str, int] = {}
     for rid, info in admitted.items():
-        req = sch.requests.get(rid)
+        if is_fabric:
+            req = engine.find_request(rid)
+        else:
+            req = engine.scheduler.requests.get(rid)
         if req is None or req.state != "finished":
             all_terminal = False
             continue
         reason = req.finish_reason
         reasons[reason] = reasons.get(reason, 0) + 1
         if reason == "cancelled":
-            ok = rid in cancelled_rids
+            # the harness cancels by CURRENT rid, but a migrated
+            # request was admitted under its pre-kill rid — follow the
+            # fabric's redirect chain before declaring the reason a lie
+            ok = (rid in cancelled_rids
+                  or (is_fabric and engine._resolve(rid)
+                      in cancelled_rids))
         elif reason == "timeout":
             ok = rid in deadline_rids
         elif reason == "max_new_tokens":
@@ -409,6 +468,21 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
             ok = False
         truthful = truthful and ok
 
+    if is_fabric:
+        # every replica's free list back at boot size: the fabric keeps
+        # its own baseline because killed slots respawn with fresh pools
+        free_restored = engine.pool_restored()
+    else:
+        free_restored = engine.cache.num_free_pages == free0
+
+    def stat(key: str) -> int:
+        # live schedulers only: a killed replica's counters died with
+        # it, but its requests were migrated — their terminal outcomes
+        # are what the truthfulness pass above already verified
+        live_sch = ([r.scheduler for r in engine.replicas] if is_fabric
+                    else [engine.scheduler])
+        return sum(s.stats[key] for s in live_sch)
+
     return {
         "steps": steps,
         "submitted": len(admitted),
@@ -416,18 +490,18 @@ def run_chaos(engine, n_requests: int = 24, vocab: int = 64, seed: int = 0,
         "malformed_attempts": malformed_attempts,
         "malformed_leaks": malformed_leaks,
         "injected": dict(inj.counts),
-        "drained": (pending == 0 and not sch.has_work
-                    and not engine.pipeline_depth),
+        "drained": pending == 0 and not has_work(),
         "all_terminal": all_terminal,
         "truthful_reasons": truthful,
         "reasons": reasons,
         "cancelled": len(cancelled_rids),
-        "preemptions": sch.stats["n_preemptions"],
-        "resumed": sch.stats["n_resumed"],
-        "timeouts": sch.stats["n_timeouts"],
-        "device_faults": sch.stats["n_device_faults"],
-        "shed": sch.stats["n_shed"],
-        "free_pages_restored": engine.cache.num_free_pages == free0,
+        "preemptions": stat("n_preemptions"),
+        "resumed": stat("n_resumed"),
+        "timeouts": stat("n_timeouts"),
+        "device_faults": stat("n_device_faults"),
+        "shed": stat("n_shed"),
+        "migrated": int(getattr(engine, "migrations", 0)),
+        "free_pages_restored": free_restored,
         "invariants_ok": invariants_ok,
         "watchdog_stalls": (watchdog.status()["stalls_total"]
                             if watchdog is not None else 0),

@@ -11,8 +11,9 @@ the same rolling SHA-256 block digests as the JAX cache (salted alike
 by the quant config), so both caches agree on what a prefix hit is.
 
 Quantized pages (``CacheConfig.kv_quant`` int8 or fp8): the pools hold
-1-byte codes, and float32 scale pools ``k_scale``/``v_scale`` ``[L, P,
-page, H]`` hold one scale per page position per head beside them.
+1-byte codes, and scale pools ``k_scale``/``v_scale`` ``[L, P, page,
+H]`` in ``CacheConfig.scale_dtype`` (float32, float16 or bfloat16) hold
+one scale per page position per head beside them.
 
 Page 0 is the reserved *garbage page*: page-table entries of unmapped
 positions point at it, and padding tokens scatter their K/V into it,
@@ -37,6 +38,17 @@ travels as its codes and its scale rows. Cold-prefix demotion
 bytes into the same store first, so a later hit on that content swaps
 it back in at admission instead of re-prefilling;
 ``demote_prefix_pages`` demotes parked pages on demand.
+
+The swap-store bridges the serving fabric uses (as in the JAX cache):
+``adopt_swap_store`` carries another cache's host entries over,
+``held_prefix_pages`` is the router's affinity probe,
+``publish_prefix_pages`` copies registered prefix pages into the host
+store without a live slot (the disaggregation handoff), and
+``export_swap_entries``/``import_swap_entries`` move content-addressed
+entries between replicas. Entries are CPU tensors (codes and scale rows
+in their stored dtypes) and are shared by reference: nothing writes
+into an entry once it is stored. Adoption across quant configs is
+refused: their keys live in disjoint salted keyspaces.
 
 Device work the host orders: the engine may have steps in flight on the
 cache's stream. Host writes to the pools (``swap_in``, the scale-row
@@ -65,7 +77,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,7 +87,8 @@ from ...kernels.paged_attention import ragged_rows
 from ...observability import ledger_metrics, serving_metrics
 from ...observability.recorder import default_recorder
 from .policy import COLD_DEMOTE_DEFAULT, SWAP_PAGES_DEFAULT
-from .quant import QuantConfig, kv_pool_dtype, kv_scale_shape
+from .quant import QuantConfig, kv_pool_dtype, kv_scale_dtype, \
+    kv_scale_shape
 
 __all__ = ["GARBAGE_PAGE", "CacheConfig", "PagedKVCache",
            "ragged_page_indices", "flatten_page_levels", "page_offsets",
@@ -92,15 +105,15 @@ class CacheConfig:
 
     ``num_pages`` includes the reserved garbage page, so the usable pool
     is ``num_pages - 1`` pages of ``page_size`` tokens each.
-    ``kv_quant`` (off | int8 | fp8) picks the page encoding;
-    ``scale_dtype`` and ``weight_quant`` never change the pool layout
-    beyond that but enter the content-hash salt, as on the JAX side.
-    ``swap_pages`` bounds the host swap store (0 = off) and
-    ``demote_cold_prefix`` spills evicted prefix pages there, with the
-    JAX cache's defaults. ``coll_quant``, ``coll_block`` and
-    ``weight_matmul`` exist so that configs can be written alike on
-    both sides; the slices that drive them are not ported, so only
-    their defaults are accepted here."""
+    ``kv_quant`` (off | int8 | fp8) picks the page encoding and
+    ``scale_dtype`` the scale pools' dtype; ``weight_quant`` and
+    ``weight_matmul`` never change the pool layout but enter the
+    content-hash salt, as on the JAX side. ``swap_pages`` bounds the
+    host swap store (0 = off) and ``demote_cold_prefix`` spills evicted
+    prefix pages there, with the JAX cache's defaults. ``coll_quant``
+    and ``coll_block`` exist so that configs can be written alike on
+    both sides; the tensor-parallel slice that drives them is not
+    ported, so only their defaults are accepted here."""
 
     num_layers: int
     num_heads: int
@@ -127,9 +140,8 @@ class CacheConfig:
             raise NotImplementedError(
                 "quantized collectives come with the tensor-parallel mesh "
                 "slice of the port; use coll_quant='off', coll_block=32")
-        # the page encoding and the weight mode are validated exactly as
-        # QuantConfig validates them (int8-matmul and narrow scales raise
-        # NotImplementedError there)
+        # the page encoding and the weight modes are validated exactly as
+        # QuantConfig validates them
         QuantConfig(kv=self.kv_quant, weights=self.weight_quant,
                     scale_dtype=self.scale_dtype,
                     weight_matmul=self.weight_matmul)
@@ -171,18 +183,22 @@ class CacheConfig:
 
     @property
     def quant_config_active(self) -> bool:
-        """Any quantization in play (KV pages or weights): gates the
-        content-hash salt, empty when everything is off."""
-        return self.kv_quant_active or self.weight_quant != "off"
+        """Any quantization in play (KV pages, weights or the weight
+        matmul): gates the content-hash salt, empty when everything is
+        off."""
+        return (self.kv_quant_active or self.weight_quant != "off"
+                or self.weight_matmul != "off")
 
     def page_bytes(self) -> int:
-        """Bytes ONE page costs across all layers, K+V, scale rows
-        included."""
+        """Bytes ONE page costs across all layers, K+V, scale rows (at
+        the scale dtype's itemsize) included."""
         elems = self.num_layers * self.page_size * self.num_heads
         if self.kv_quant_active:
             kv_item = torch.empty((), dtype=kv_pool_dtype(
                 self.kv_quant)).element_size()
-            return 2 * elems * (self.head_dim * kv_item + 4)
+            scale_item = torch.empty((), dtype=kv_scale_dtype(
+                self.scale_dtype)).element_size()
+            return 2 * elems * (self.head_dim * kv_item + scale_item)
         return 2 * elems * self.head_dim * 4
 
     def pages_for_budget(self, pool_bytes: int) -> int:
@@ -222,7 +238,7 @@ class PagedKVCache:
         self.k_scale = self.v_scale = None
         if c.kv_quant_active:
             self.k_scale = torch.zeros(kv_scale_shape(shape),
-                                       dtype=torch.float32,
+                                       dtype=kv_scale_dtype(c.scale_dtype),
                                        device=self.device)
             self.v_scale = torch.zeros_like(self.k_scale)
         # two-level table: slot_dir[slot] holds index-row ids, index_pool
@@ -743,6 +759,103 @@ class PagedKVCache:
         c = self.config
         return (c.kv_quant, c.scale_dtype, c.weight_quant, c.coll_quant,
                 c.coll_block, c.weight_matmul)
+
+    def adopt_swap_store(self, other: "PagedKVCache") -> int:
+        """Carry another cache's host swap entries into this one (its
+        entries are content-addressed host copies, valid in any cache
+        of the same quant config). Respects this cache's ``swap_pages``
+        budget, oldest entries evicted first. Returns the entries now
+        resident. Refuses the entries of a cache with a different quant
+        config: their keys live in a disjoint salted keyspace and could
+        never be hit."""
+        if self.config.swap_pages <= 0:
+            return 0
+        if other.swap_quant_key != self.swap_quant_key:
+            return len(self._swap)
+        for key, entry in other._swap.items():
+            self._store(key, entry)
+        self._update_gauges()
+        return len(self._swap)
+
+    # -------------------------------------- cross-replica page export --
+    def held_prefix_pages(self, hashes: Sequence[bytes]) -> int:
+        """The longest leading run of ``hashes`` this cache can serve
+        without recompute, from the device prefix cache or the host swap
+        tier: the serving fabric's affinity probe. Read-only (no LRU is
+        touched: probing N replicas must not reorder their eviction)."""
+        n = 0
+        for key in hashes:
+            if key in self._prefix_map or key in self._swap:
+                n += 1
+            else:
+                break
+        return n
+
+    def publish_prefix_pages(self, tokens: Sequence[int],
+                             hashes: Optional[Sequence[bytes]] = None
+                             ) -> int:
+        """Copy the device prefix-cache pages covering ``tokens`` into
+        the host swap store without a live slot: the disaggregation
+        handoff (a prefill replica finished a prompt, ``commit_prefix``
+        registered its pages, and a decode replica imports them). Stops
+        at the first page not registered. The copies wait for the
+        cache's stream (:meth:`_page_entry`). Returns pages newly
+        published."""
+        if self.config.swap_pages <= 0 or not len(tokens):
+            return 0
+        keys = list(hashes if hashes is not None
+                    else self._block_hashes(tokens))
+        n = 0
+        for key in keys:
+            if key in self._swap:
+                self._swap.move_to_end(key)
+                continue
+            page = self._prefix_map.get(key)
+            if page is None:
+                break
+            self._store(key, self._page_entry(page))
+            n += 1
+        if n:
+            self.swapped_out_pages += n
+            self._swap_out_ctr.inc(n)
+            self._rec.emit("cache", "pages_published", pages=n,
+                           resident=len(self._swap))
+        return n
+
+    def export_swap_entries(self, hashes: Sequence[bytes]
+                            ) -> "OrderedDict[bytes, tuple]":
+        """The leading run of ``hashes`` resident in the host swap
+        store, as an ordered key -> (k, v[, k_scale, v_scale]) mapping:
+        the fabric's format for replica-to-replica KV transfer. The
+        entries are shared by reference (nothing writes into a stored
+        entry), so export costs pointers, not copies."""
+        out: "OrderedDict[bytes, tuple]" = OrderedDict()
+        for key in hashes:
+            entry = self._swap.get(key)
+            if entry is None:
+                break
+            out[key] = entry
+        return out
+
+    def import_swap_entries(self, entries: Mapping[bytes, tuple]) -> int:
+        """Merge exported entries into this cache's host swap store (the
+        decode replica's side of the handoff: the next ``allocate`` +
+        ``swap_in`` of the matching prompt restores them as a prefix
+        hit, writing them from pinned memory on the cache's stream).
+        The caller keeps the quant configs compatible
+        (``swap_quant_key``): keys of another salt are never hit.
+        Respects the ``swap_pages`` budget. Returns entries added."""
+        if self.config.swap_pages <= 0:
+            return 0
+        added = 0
+        for key, entry in entries.items():
+            if self._swap.pop(key, None) is None:
+                added += 1
+            self._store(key, entry)
+        if added:
+            self._rec.emit("cache", "pages_imported", pages=added,
+                           resident=len(self._swap))
+        return added
 
     def release(self, slot: int) -> None:
         """Drop ``slot``'s mapping: refcount-- on every page; uncached

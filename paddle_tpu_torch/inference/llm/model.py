@@ -10,7 +10,11 @@ new K/V into the paged pools IN PLACE (JAX returns new pools; here the
 step owns the engine's pools and updates them where they lie). With
 quantized KV pages the codes and their scales are written in place the
 same way; with weight-only int8 every serving matmul weight is an
-``@q``/``@s`` pair dequantized in front of its matmul (:func:`_w`).
+``@q``/``@s`` pair dequantized in front of its matmul (:func:`_w`), and
+with the int8 weight matmul (``weight_matmul="int8"``) the codes are
+stored transposed (``@qt``) and each activation row is quantized and
+multiplied int8 x int8 instead, through the kernels of
+``kernels/int8.py`` (:func:`_int8_dot`).
 
 The per-tier graphs the unified step replaced, and which remain the
 reference for it: :func:`lm_prefill` (dense causal prefill,
@@ -20,7 +24,8 @@ token per slot through the decode kernel) and :func:`lm_verify` (the
 pending token plus drafts per slot through the mixed kernel). They
 take the JAX functions' arguments, write the pools in place and return
 the logits alone; like the JAX graphs they serve float32 pools only
-(weight-only int8 works through :func:`_w`).
+(weight-only int8 works through :func:`_w`, and ``weight_matmul="int8"``
+through :func:`_int8_dot`).
 
 Numerics follow the reference: LayerNorm with population variance and
 eps 1e-5, the tanh-approximate GELU (``jax.nn.gelu``'s default),
@@ -38,7 +43,7 @@ import torch.nn.functional as F
 
 from ...device import resolve_device
 from ...kernels.attention import sdpa_reference
-from ...kernels.int8 import dequantize
+from ...kernels.int8 import dequantize, int8_matmul, quantize_rows
 from ...kernels.paged_attention import (mixed_attention, paged_attention,
                                         ragged_attention, verify_attention)
 from .kv_cache import (block_page_indices, chunk_page_indices, page_offsets,
@@ -127,17 +132,46 @@ def _w(p, name):
     return dequantize(p[name + "@q"], p[name + "@s"])
 
 
-def _qkv(p, l, h):
+def _int8_dot(x, w_qt, w_s):
+    """The int8 weight matmul (``weight_matmul="int8"``; JAX
+    ``model._int8_dot``): each row of ``x [..., K]`` quantized by its
+    absmax (:func:`quantize_rows`), multiplied int8 x int8 with int32
+    sums and rescaled once, ``acc * x_scale * w_scale``
+    (:func:`int8_matmul`): the kernels on the card, their plain
+    versions on the CPU. ``w_qt [N, K]`` is the codes' transposed
+    layout (:meth:`TorchLM.with_int8_matmul_layout`); the keepdims scale
+    ``w_s [1, ...]`` gives the output's trailing axes (``[1, 3, H*D]``
+    for the packed ``wqkv``, N of them flattened)."""
+    K = x.shape[-1]
+    xq, xs = quantize_rows(x.reshape(-1, K).contiguous())
+    out = int8_matmul(xq, xs, w_qt, w_s.reshape(-1))
+    return out.reshape(tuple(x.shape[:-1]) + tuple(w_s.shape[1:]))
+
+
+def _wdot(p, name, x, wm="off"):
+    """``x @ weight`` from either parameter layout. Float parameters and
+    ``wm == "off"`` compute the expressions of :func:`_w` exactly;
+    ``wm == "int8"`` on an ``@qt``/``@s`` pair takes :func:`_int8_dot`."""
+    if wm == "int8" and name not in p:
+        return _int8_dot(x, p[name + "@qt"], p[name + "@s"])
+    return x @ _w(p, name)
+
+
+def _qkv(p, l, h, wm="off"):
     """``h [..., d] -> (q, k, v)`` each ``[..., H*D]`` through the
     head-major packed ``wqkv [d, 3, H*D]``: one contraction over
     ``d_model``."""
-    qkv = torch.einsum("...d,dch->...ch", h, _w(p, f"l{l}.wqkv"))
+    name = f"l{l}.wqkv"
+    if wm == "int8" and name not in p:
+        qkv = _int8_dot(h, p[name + "@qt"], p[name + "@s"])
+    else:
+        qkv = torch.einsum("...d,dch->...ch", h, _w(p, name))
     return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
 
-def _mlp(p, l, x):
-    h = F.gelu(x @ _w(p, f"l{l}.wfc"), approximate="tanh")
-    return h @ _w(p, f"l{l}.wproj")
+def _mlp(p, l, x, wm="off"):
+    h = F.gelu(_wdot(p, f"l{l}.wfc", x, wm), approximate="tanh")
+    return _wdot(p, f"l{l}.wproj", h, wm)
 
 
 def _scatter(pool, pages, offs, values):
@@ -148,12 +182,13 @@ def _scatter(pool, pages, offs, values):
     pool.index_put_((pages, offs), values)
 
 
-def _block(p, l, x, attend):
+def _block(p, l, x, attend, wm="off"):
     """One pre-LN block: ``attend(q, k, v)`` (each ``[..., H*D]``)
-    scatters this layer's K/V and returns the attention ``[..., H*D]``."""
+    scatters this layer's K/V and returns the attention ``[..., H*D]``;
+    ``wm`` is the weight-matmul mode of its four projections."""
     h = _ln(x, p[f"l{l}.ln1_g"], p[f"l{l}.ln1_b"])
-    x = x + attend(*_qkv(p, l, h)) @ _w(p, f"l{l}.wo")
-    return x + _mlp(p, l, _ln(x, p[f"l{l}.ln2_g"], p[f"l{l}.ln2_b"]))
+    x = x + _wdot(p, f"l{l}.wo", attend(*_qkv(p, l, h, wm)), wm)
+    return x + _mlp(p, l, _ln(x, p[f"l{l}.ln2_g"], p[f"l{l}.ln2_b"]), wm)
 
 
 def _logits(p, x):
@@ -167,7 +202,7 @@ def _float_pools(k_pool, v_pool) -> None:
                          f"{k_pool.dtype}/{v_pool.dtype}")
 
 
-def lm_prefill(params, spec: ModelSpec, tokens):
+def lm_prefill(params, spec: ModelSpec, tokens, weight_matmul: str = "off"):
     """Dense prefill. tokens ``[B, S]`` -> (logits ``[B, S, V]``, k
     ``[L, B, S, H, D]``, v ``[L, B, S, H, D]``), causal attention through
     ``sdpa_reference`` as in the JAX graph."""
@@ -185,12 +220,13 @@ def lm_prefill(params, spec: ModelSpec, tokens):
                               is_causal=True).reshape(B, S, H * D)
 
     for l in range(spec.num_layers):
-        x = _block(params, l, x, attend)
+        x = _block(params, l, x, attend, weight_matmul)
     return _logits(params, x), torch.stack(ks), torch.stack(vs)
 
 
 def lm_chunk_prefill(params, spec: ModelSpec, tokens, start, chunk_len,
-                     k_pool, v_pool, page_row, attn_tier="auto"):
+                     k_pool, v_pool, page_row, attn_tier="auto",
+                     weight_matmul: str = "off"):
     """Prefill one CHUNK of one sequence through the paged pools.
 
     tokens ``[C]`` (zero-padded chunk), ``start`` (the chunk's first
@@ -202,6 +238,7 @@ def lm_chunk_prefill(params, spec: ModelSpec, tokens, start, chunk_len,
     :func:`mixed_attention`. Returns logits ``[C, V]``; rows ``>=
     chunk_len`` carry no meaning."""
     _float_pools(k_pool, v_pool)
+    wm = weight_matmul
     C = tokens.shape[0]
     H, D = spec.num_heads, spec.head_dim
     dev = tokens.device
@@ -223,12 +260,12 @@ def lm_chunk_prefill(params, spec: ModelSpec, tokens, start, chunk_len,
             return mixed_attention(q.reshape(1, C, H, D).contiguous(),
                                    k_pool[l], v_pool[l], table, seq_lens,
                                    q_lens, tier=attn_tier).reshape(C, H * D)
-        x = _block(params, l, x, attend)
+        x = _block(params, l, x, attend, wm)
     return _logits(params, x)
 
 
 def lm_decode(params, spec: ModelSpec, tokens, positions, k_pool, v_pool,
-              page_table, attn_tier="auto"):
+              page_table, attn_tier="auto", weight_matmul: str = "off"):
     """One decode step for all slots.
 
     tokens ``[B]`` (each slot's last sampled token), positions ``[B]``
@@ -238,6 +275,7 @@ def lm_decode(params, spec: ModelSpec, tokens, positions, k_pool, v_pool,
     table over ``positions + 1`` tokens with :func:`paged_attention`.
     Returns logits ``[B, V]``."""
     _float_pools(k_pool, v_pool)
+    wm = weight_matmul
     B = tokens.shape[0]
     H, D = spec.num_heads, spec.head_dim
     pages, offs = page_offsets(page_table, positions, k_pool.shape[2])
@@ -252,12 +290,13 @@ def lm_decode(params, spec: ModelSpec, tokens, positions, k_pool, v_pool,
                                    k_pool[l], v_pool[l], page_table,
                                    seq_incl, tier=attn_tier).reshape(
                                        B, H * D)
-        x = _block(params, l, x, attend)
+        x = _block(params, l, x, attend, wm)
     return _logits(params, x)
 
 
 def lm_verify(params, spec: ModelSpec, tokens, starts, q_lens, k_pool,
-              v_pool, page_table, attn_tier="auto"):
+              v_pool, page_table, attn_tier="auto",
+              weight_matmul: str = "off"):
     """Multi-token VERIFY step for speculative decoding.
 
     tokens ``[B, T]``: per slot the pending token then up to T-1 drafts
@@ -271,6 +310,7 @@ def lm_verify(params, spec: ModelSpec, tokens, starts, q_lens, k_pool,
     row t of slot b is the distribution of the token at position
     ``starts[b] + t + 1``."""
     _float_pools(k_pool, v_pool)
+    wm = weight_matmul
     B, T = tokens.shape
     H, D = spec.num_heads, spec.head_dim
     pages, offs = block_page_indices(page_table, starts, q_lens, T,
@@ -291,7 +331,7 @@ def lm_verify(params, spec: ModelSpec, tokens, starts, q_lens, k_pool,
                                     k_pool[l], v_pool[l], page_table,
                                     seq_incl, q_lens,
                                     tier=attn_tier).reshape(B, T, H * D)
-        x = _block(params, l, x, attend)
+        x = _block(params, l, x, attend, wm)
     return _logits(params, x)
 
 
@@ -346,6 +386,7 @@ def lm_ragged_step(params, spec: ModelSpec, tokens, q_starts, q_lens,
     H, D = spec.num_heads, spec.head_dim
     kv_quant = (quant.kv if quant is not None and quant.kv_active
                 else None)
+    wm = quant.weight_matmul if quant is not None else "off"
     if (kv_quant is None) != (k_scale is None):
         raise ValueError("scale pools go with a quant config whose kv mode "
                          "is on, and only with one")
@@ -374,7 +415,7 @@ def lm_ragged_step(params, spec: ModelSpec, tokens, q_starts, q_lens,
                 page_table, kv_lens, q_starts, q_lens, tier=attn_tier,
                 max_q_len=max_q_len, split_pages=kv_split_pages,
                 **scales).reshape(N, H * D)
-        x = _block(params, l, x, attend)
+        x = _block(params, l, x, attend, wm)
     return _logits(params, x)
 
 
@@ -388,12 +429,30 @@ class TorchLM:
         self.device = resolve_device(device)
         self.params = {name: t.to(self.device) for name, t in params.items()}
 
+    def with_int8_matmul_layout(self) -> "TorchLM":
+        """The int8 weight matmul's layout (a new ``TorchLM`` sharing
+        this one's other tensors; this one untouched): each ``@q`` code
+        tensor ``[K, ...]`` replaced by its transpose ``@qt [N, K]`` (K
+        contiguous, what the kernel's B operand loads), so that the
+        card holds one copy of the codes. A model in this layout serves
+        only ``weight_matmul="int8"``. Idempotent; a float model is
+        returned as it is."""
+        names = [n for n in quantized_weight_names(self.spec)
+                 if n + "@q" in self.params]
+        if not names:
+            return self
+        params = dict(self.params)
+        for n in names:
+            q = params.pop(n + "@q")
+            params[n + "@qt"] = q.reshape(q.shape[0], -1).t().contiguous()
+        return TorchLM(self.spec, params, device=self.device)
+
     def quantize_weights(self) -> "TorchLM":
         """Weight-only int8 (a new ``TorchLM``; this one untouched):
         every serving matmul weight re-stored as per-output-channel int8
         codes and float32 scales (:func:`quant.quantize_lm_weights`).
         Idempotent."""
-        if any(n + "@q" in self.params
+        if any(n + "@q" in self.params or n + "@qt" in self.params
                for n in quantized_weight_names(self.spec)):
             return self
         return TorchLM(self.spec, quantize_lm_weights(self.params,

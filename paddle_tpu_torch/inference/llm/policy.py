@@ -20,7 +20,9 @@ __all__ = ["MAX_QUEUE", "DEFAULT_CHUNK_TOKENS", "STEP_TOKEN_BUDGET",
            "PRIORITY_CLASSES", "TENANT_MAX_PAGES", "TENANT_MAX_SLOTS",
            "SWAP_PAGES_DEFAULT", "COLD_DEMOTE_DEFAULT",
            "STEPPROF_SAMPLE_PCT", "BROWNOUT_LEVELS", "JOURNAL_SYNC_EVERY",
-           "JOURNAL_MAX_BYTES"]
+           "JOURNAL_MAX_BYTES", "WEIGHT_MATMUL", "WEIGHT_MATMUL_MODES",
+           "FABRIC_REPLICAS", "FABRIC_SPILL", "FABRIC_ROLES",
+           "FABRIC_ROLES_MODES", "SLO_TTFT_MS", "SLO_ITL_MS"]
 
 MAX_QUEUE = 1024             # admission ceiling (waiting-queue depth)
 DEFAULT_CHUNK_TOKENS = 0     # chunked-prefill token budget (0 = off)
@@ -32,6 +34,24 @@ WEIGHT_QUANT = "off"         # serving weight storage mode
 KV_QUANT_MODES = ("off", "int8", "fp8")
 WEIGHT_QUANT_MODES = ("off", "int8")
 KV_SPLIT_PAGES = 0           # flash-decode KV-split chunk width (0 = off)
+# the int8 x int8 weight matmul (int32 sums, one epilogue rescale); only
+# meaningful with int8 weights, the engine degrades it to off otherwise
+WEIGHT_MATMUL = "off"
+WEIGHT_MATMUL_MODES = ("off", "int8")
+
+# the replicated serving fabric: replicas behind the prefix-affinity
+# router, the queue gap past which an affinity claim spills to the
+# least-loaded replica (0 = never), and the topology (a typo'd roles
+# string degrades to colocated: there is no fabric-off mode)
+FABRIC_REPLICAS = 2
+FABRIC_SPILL = 4
+FABRIC_ROLES = "colocated"
+FABRIC_ROLES_MODES = ("colocated", "disaggregated")
+
+# SLO burn-rate alerting objectives in milliseconds (0 = that objective
+# off; both 0 = the evaluator is inert)
+SLO_TTFT_MS = 0
+SLO_ITL_MS = 0
 
 # multi-tenant admission: priority classes (0 = most urgent) and the
 # per-tenant quotas over running requests (0 = unlimited)

@@ -65,9 +65,10 @@ unified mixed-step plan. The scheduler owns WHAT runs each step; the
   recorder's per-request tracks and a journal restore never mix two
   engines' requests.
 
-Quantized collectives and the int8 matmul are later slices of the
-port: their knobs exist so a config reads like the JAX one, and a
-non-default value raises ``NotImplementedError`` naming the slice.
+Quantized collectives are a later slice of the port: the knob exists so
+a config reads like the JAX one, and a non-default value raises
+``NotImplementedError`` naming the slice. ``load_snapshot`` is the
+serving fabric router's load probe.
 """
 from __future__ import annotations
 
@@ -174,16 +175,16 @@ class SchedulerConfig:
     # overload brownout: depth of the degradation ladder the engine's
     # controller may walk (0 = controller off; see brownout.py)
     brownout_levels: int = policy.BROWNOUT_LEVELS
-    # quantized serving: KV-page storage mode (off | int8 | fp8) and
-    # weight storage mode (off | int8). The scheduler never reads them
-    # (page accounting is encoding-agnostic); an engine built without an
-    # explicit QuantConfig does.
+    # quantized serving: KV-page storage mode (off | int8 | fp8), weight
+    # storage mode (off | int8) and the int8 x int8 weight matmul (off |
+    # int8). The scheduler never reads them (page accounting is
+    # encoding-agnostic); an engine built without an explicit
+    # QuantConfig does.
     kv_quant: str = policy.KV_QUANT
     weight_quant: str = policy.WEIGHT_QUANT
-    # later slices (quantized mesh collectives, the int8 x int8 matmul):
-    # only "off" is accepted
+    weight_matmul: str = policy.WEIGHT_MATMUL
+    # a later slice (quantized mesh collectives): only "off" is accepted
     coll_quant: str = "off"
-    weight_matmul: str = "off"
     # flash-decode KV split: chunk width in pages of the attention
     # kernels' split page walk (0 = off). A kernel schedule knob the
     # engine reads; the scheduler never does.
@@ -192,10 +193,7 @@ class SchedulerConfig:
     def __post_init__(self):
         if self.coll_quant != "off":
             raise _later_slice("coll_quant", self.coll_quant,
-                               "tensor-parallel mesh")
-        if self.weight_matmul != "off":
-            raise _later_slice("weight_matmul", self.weight_matmul,
-                               "int8-matmul")
+                               "tensor-parallel mesh (ROADMAP A.11)")
 
     def max_step_tokens(self) -> int:
         """Most ragged tokens one mixed step can pack: the chunk row's
@@ -385,6 +383,16 @@ class ContinuousBatchingScheduler:
     @property
     def num_waiting(self) -> int:
         return sum(len(q) for q in self._queues)
+
+    def load_snapshot(self) -> Dict[str, int]:
+        """Instantaneous load facts the serving fabric's router ties
+        affinity against: queued and running request counts and KV-page
+        pressure. Pure reads: safe to probe every replica on every
+        submit."""
+        return {"queue_depth": self.num_waiting,
+                "running": len(self.running),
+                "pages_in_use": self.cache.pages_in_use,
+                "free_pages": self.cache.num_free_pages}
 
     @property
     def slo_digest(self):

@@ -12,6 +12,15 @@
 // (mixed_attention.cu) walks its pages itself and takes only kFull, launch
 // and visible_pages from here.
 //
+// Scale pools. Code pages carry one scale per (position, head) in a pool
+// [P, page, H] of float32, float16 or bfloat16 (the page type
+// Scaled<code, scale> names the narrow ones; a bare int8_t or e4m3 page
+// has float32 scales). A ring stage always holds the page's scales as
+// float32: 4-byte scales go by cp.async, 2-byte ones by a plain load
+// widened in registers (cp.async moves 4 bytes at least, and a page's
+// scales of one head lie H apart), so the walk and the tile read float32
+// whatever the pool stores, and no pass widens the pool.
+//
 // Semantics. The query sees every key position below `cap` (its slot's
 // visible context, never past the table); a query that sees no key ends
 // with l == 0 and its caller writes exact 0.
@@ -29,6 +38,7 @@
 // so two runs give the same bits. No atomics.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -51,15 +61,17 @@ __device__ inline float ex2(float x) {
 }
 
 // page element traits: float pools as they are; 1-byte codes four at a
-// time from a 32-bit word, exactly
+// time from a 32-bit word, exactly; Scale is the scale pool's stored type
 template <typename T> struct Page;
 template <> struct Page<float> {
   static constexpr bool kQuant = false;
   using Elem = float;
+  using Scale = float;
 };
 template <> struct Page<int8_t> {
   static constexpr bool kQuant = true;
   using Elem = uint8_t;
+  using Scale = float;
   // 0x4b0000xx is 2^23 + xx: with the byte biased by 128, subtracting
   // 2^23 + 128 leaves the code
   __device__ static void to_float4(uint32_t w, float (&f)[4]) {
@@ -73,6 +85,7 @@ template <> struct Page<int8_t> {
 template <> struct Page<__nv_fp8_e4m3> {
   static constexpr bool kQuant = true;
   using Elem = uint8_t;
+  using Scale = float;
   __device__ static void to_float4(uint32_t w, float (&f)[4]) {
     const __half2 lo(__nv_cvt_fp8x2_to_halfraw2(
         (__nv_fp8x2_storage_t)(w & 0xffffu), __NV_E4M3));
@@ -85,6 +98,38 @@ template <> struct Page<__nv_fp8_e4m3> {
     f[3] = b.y;
   }
 };
+
+// code pages of type C whose scale pools store S (__half or
+// __nv_bfloat16): the codes' traits, another scale type
+template <typename C, typename S> struct Scaled {};
+template <typename C, typename S> struct Page<Scaled<C, S>> : Page<C> {
+  static_assert(Page<C>::kQuant, "scale pools go with code pages");
+  using Scale = S;
+};
+
+// a stored scale, widened to float32 exactly
+__device__ inline float widen(float s) { return s; }
+__device__ inline float widen(__half s) { return __half2float(s); }
+__device__ inline float widen(__nv_bfloat16 s) { return __bfloat162float(s); }
+
+// The scales of one (position, head) of a page into a ring stage's
+// float32 slots: 4-byte scales by cp.async (the caller commits and
+// waits), 2-byte ones by plain loads widened in registers; !in writes 0.
+template <typename T>
+__device__ inline void stage_scales(float* kdst, float* vdst,
+                                    const void* k_scale, const void* v_scale,
+                                    size_t g, bool in) {
+  using S = typename Page<T>::Scale;
+  const S* ks = static_cast<const S*>(k_scale);
+  const S* vs = static_cast<const S*>(v_scale);
+  if constexpr (sizeof(S) == 4) {
+    cpasync::copy4(kdst, ks + g, in);
+    cpasync::copy4(vdst, vs + g, in);
+  } else {
+    *kdst = in ? widen(ks[g]) : 0.f;
+    *vdst = in ? widen(vs[g]) : 0.f;
+  }
+}
 
 // N (4 or 8) codes from shared memory (N-byte aligned) as floats
 template <typename T, int N>
@@ -108,13 +153,13 @@ __device__ inline void load_codes(const uint8_t* p, float (&f)[N]) {
 }
 
 // The K/V pools [P, page, H, D] (one key's row of head h is D contiguous
-// elements at stride H * D) and, for code pools, their float32 scale
-// pools [P, page, H]; vec: rows and pools take 16-byte copies.
+// elements at stride H * D) and, for code pools, their scale pools [P,
+// page, H] (Page<T>::Scale); vec: rows and pools take 16-byte copies.
 struct Pools {
   const void* k_pool;
   const void* v_pool;
-  const float* k_scale;
-  const float* v_scale;
+  const void* k_scale;
+  const void* v_scale;
   int H, D, page_size, vec;
 };
 
@@ -188,8 +233,7 @@ __device__ inline void stage_page(const Pools& a, int page, int h, int base,
     for (int j = lane; j < ps; j += 32) {
       const bool in = j < n_in;
       const size_t g = in ? row0 + (size_t)j * a.H : 0;
-      cpasync::copy4(kss + j, a.k_scale + g, in);
-      cpasync::copy4(vss + j, a.v_scale + g, in);
+      stage_scales<T>(kss + j, vss + j, a.k_scale, a.v_scale, g, in);
     }
   }
 }

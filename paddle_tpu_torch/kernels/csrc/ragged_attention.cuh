@@ -15,7 +15,10 @@
 //
 // Pools are [P, page, H, D]: one key's row of head h is D contiguous
 // elements at stride H * D. Code pools hold 1-byte int8 or e4m3 codes
-// beside float32 scale pools [P, page, H] (K/V = code * scale).
+// beside scale pools [P, page, H] (K/V = code * scale) of float32, or of
+// float16 or bfloat16 for the page types paged::Scaled<code, scale>; the
+// staging widens a narrow scale in registers (paged_walk.cuh), as JAX's
+// _ragged_kernel widens ks_ref[0].astype(jnp.float32).
 //
 // Bound. At the serving mix of GPT-3 XL geometry (H 32, D 64: a 512-token
 // chunk row, a prefix hit, five decode rows near 2000 positions) the
@@ -121,8 +124,8 @@ struct Params {
   const float* q;            // [N, H, D]
   const void* k_pool;        // [P, page, H, D]
   const void* v_pool;
-  const float* k_scale;      // [P, page, H], code pools only
-  const float* v_scale;
+  const void* k_scale;       // [P, page, H] of Page<T>::Scale, codes only
+  const void* v_scale;
   const int* page_table;     // [B, pages_per_seq]
   const int* kv_lens;        // [B]
   const int* q_starts;
@@ -188,8 +191,7 @@ __device__ inline void stage_keys(const Params<T>& a, const int* page_row,
       const bool in = pos < n_keys;
       const size_t g =
           in ? ((size_t)page_row[pos / ps] * ps + pos % ps) * H + h : 0;
-      cpasync::copy4(kss + r, a.k_scale + g, in);
-      cpasync::copy4(vss + r, a.v_scale + g, in);
+      paged::stage_scales<T>(kss + r, vss + r, a.k_scale, a.v_scale, g, in);
     }
   }
 }
@@ -703,7 +705,7 @@ inline bool aligned16(const void* p) {
 // n_chunks = ceil(pages_per_seq / split_pages).
 template <typename T>
 int launch(const float* q, const void* k_pool, const void* v_pool,
-           const float* k_scale, const float* v_scale,
+           const void* k_scale, const void* v_scale,
            const int* page_table, const int* kv_lens, const int* q_starts,
            const int* q_lens, float* out, float* workspace, int N, int B,
            int H, int D, int page_size, int pages_per_seq, int max_q_len,
@@ -745,8 +747,8 @@ int launch(const float* q, const void* k_pool, const void* v_pool,
 // One C entry point per page type, all with this signature.
 #define RAGGED_ATTENTION_ENTRY(NAME, T)                                     \
   extern "C" int NAME(const float* q, const void* k_pool,                   \
-                      const void* v_pool, const float* k_scale,             \
-                      const float* v_scale, const int* page_table,          \
+                      const void* v_pool, const void* k_scale,              \
+                      const void* v_scale, const int* page_table,           \
                       const int* kv_lens, const int* q_starts,              \
                       const int* q_lens, float* out, float* workspace,      \
                       int N, int B, int H, int D, int page_size,            \

@@ -2,9 +2,9 @@
 
 Counterpart of ``paddle_tpu/kernels/paged_attention.py``. Keys and
 values live in a shared paged pool ``[P, page, H, D]`` — float32, or
-1-byte int8/fp8 codes beside float32 scale pools ``[P, page, H]``
-(quantized serving; K/V = code x scale) — addressed through a per-slot
-page table. Three query shapes:
+1-byte int8/fp8 codes beside scale pools ``[P, page, H]`` of float32,
+float16 or bfloat16 (quantized serving; K/V = code x scale, the scale
+widened to float32) — addressed through a per-slot page table. Three query shapes:
 
 - **ragged** (:func:`ragged_attention`, the unified engine step): one
   flat token block ``q [N, H, D]``; row b owns the flat tokens
@@ -31,7 +31,8 @@ exact zeros, and the finite ``NEG_INF`` masks.
 Each shape has two tiers behind its dispatcher:
 
 - ``kernel``: a hand-written CUDA kernel — ``csrc/ragged_attention*.cu``
-  (one library per page type: a tensor-core tile for rows of several
+  (one library per page type and scale dtype: a tensor-core tile for
+  rows of several
   queries, a bandwidth walk for one-query rows, which ``split_pages``
   splits flash-decode style) replacing the Pallas ``_ragged_kernel`` and
   ``_ragged_split_kernel``; ``csrc/paged_attention.cu`` replacing
@@ -62,7 +63,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "DECODE_MAX_Q", "LAUNCHES", "held_launches", "KERNEL_NAMES", "PAGED_KERNEL",
+__all__ = ["NEG_INF", "DECODE_MAX_Q", "LAUNCHES", "held_launches",
+           "KERNEL_NAMES", "NARROW_KERNEL_NAMES", "SCALE_DTYPES",
+           "PAGED_KERNEL",
            "MIXED_KERNEL", "kernel_name", "ragged_rows", "ragged_attention",
            "ragged_attention_ref", "ragged_attention_ref_split",
            "ragged_attention_cuda", "split_active", "paged_attention",
@@ -115,14 +118,37 @@ _LIBS = {torch.float32: ("ragged_attention", "ragged_attention_f32", ""),
                                "_fp8")}
 
 
-def kernel_name(dtype: torch.dtype, split: bool) -> str:
+# (code page dtype, narrow scale dtype) -> the same triple: the code pages
+# whose scale pools are stored in float16 or bfloat16, widened to float32
+# in registers as each page is staged
+_NARROW_LIBS = {
+    (code, scale): (f"ragged_attention_{c}_{s}", f"ragged_attention_{c}_{s}",
+                    f"_{c}_{s}s")
+    for code, c in ((torch.int8, "int8"), (torch.float8_e4m3fn, "fp8"))
+    for scale, s in ((torch.float16, "f16"), (torch.bfloat16, "bf16"))}
+SCALE_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def _lib(dtype: torch.dtype, scale_dtype: Optional[torch.dtype]) -> tuple:
+    if scale_dtype in (None, torch.float32):
+        return _LIBS[dtype]
+    return _NARROW_LIBS[(dtype, scale_dtype)]
+
+
+def kernel_name(dtype: torch.dtype, split: bool,
+                scale_dtype: Optional[torch.dtype] = None) -> str:
     """The ``LAUNCHES`` key of the kernel for ``dtype`` pages, unsplit
-    or split (e.g. ``ragged_attention_split_int8``)."""
-    return "ragged_attention" + ("_split" if split else "") + _LIBS[dtype][2]
+    or split, with float32 scale pools (``None``) or narrow ones (e.g.
+    ``ragged_attention_split_int8``, ``ragged_attention_int8_bf16s``)."""
+    return ("ragged_attention" + ("_split" if split else "")
+            + _lib(dtype, scale_dtype)[2])
 
 
 KERNEL_NAMES = tuple(kernel_name(dt, sp) for sp in (False, True)
                      for dt in _LIBS)
+# the narrow-scale variants of the code pages' kernels
+NARROW_KERNEL_NAMES = tuple(kernel_name(dt, sp, sd) for sp in (False, True)
+                            for dt, sd in _NARROW_LIBS)
 # the per-tier graphs' kernels: decode, and mixed (chunk and verify)
 PAGED_KERNEL = "paged_attention"
 MIXED_KERNEL = "mixed_attention"
@@ -324,7 +350,8 @@ def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
                           v_scale=None, split_pages: int = 0):
     """Launch the CUDA kernel for the pools' page type on the current
     stream: float32 pools, or int8 / float8_e4m3fn code pools with
-    float32 scale pools ``[P, page, H]``. ``split_pages`` in ``(0,
+    scale pools ``[P, page, H]`` of float32, float16 or bfloat16 (both
+    of one dtype; the kernel reads them as stored). ``split_pages`` in ``(0,
     pages_per_seq)`` launches the KV split: one-query rows walk their
     pages in chunks into a float32 workspace from PyTorch's caching
     allocator, merged by a fixed-order combine; rows of several queries
@@ -358,9 +385,11 @@ def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
     if quant:
         for name in ("k_scale", "v_scale"):
             t = tensors[name]
-            if t.dtype != torch.float32 or t.shape != k_pool.shape[:3]:
-                raise ValueError(f"{name} must be float32 "
-                                 f"{tuple(k_pool.shape[:3])}, got {t.dtype} "
+            if (t.dtype not in SCALE_DTYPES or t.dtype != k_scale.dtype
+                    or t.shape != k_pool.shape[:3]):
+                raise ValueError(f"{name} must be one of {SCALE_DTYPES} "
+                                 f"{tuple(k_pool.shape[:3])} (both scales "
+                                 f"of one dtype), got {t.dtype} "
                                  f"{tuple(t.shape)}")
     if kv_lens.shape != (B,) or q_starts.shape != (B,) \
             or q_lens.shape != (B,):
@@ -377,7 +406,8 @@ def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
         n_chunks = -(-pages_per_seq // sp)
         ws = torch.empty((n_chunks, N, H, D + 2), dtype=torch.float32,
                          device=q.device)
-    lib_name, entry, _ = _LIBS[k_pool.dtype]
+    scale_dtype = k_scale.dtype if quant else None
+    lib_name, entry, _ = _lib(k_pool.dtype, scale_dtype)
     fn = _entry(lib_name, entry, 11, 8)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -390,7 +420,7 @@ def ragged_attention_cuda(q, k_pool, v_pool, page_table, kv_lens, q_starts,
     if err != 0:
         raise RuntimeError(f"ragged attention kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES[kernel_name(k_pool.dtype, split)] += 1
+    LAUNCHES[kernel_name(k_pool.dtype, split, scale_dtype)] += 1
     return out
 
 

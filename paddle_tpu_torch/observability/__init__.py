@@ -16,16 +16,23 @@ its own copy; it reads nothing of the JAX package):
   any step function (the engine's eager step and graph replays).
 - :mod:`.recorder` — the flight recorder, a bounded ring of structured
   events (request lifecycle, host phases, cache page churn).
-- :mod:`.chrome_trace` — the recorder as Chrome trace-event JSON, and
-  its merge with the device trace ``torch.profiler`` exports.
+- :mod:`.chrome_trace` — the recorder as Chrome trace-event JSON, its
+  merge with the device trace ``torch.profiler`` exports, and the
+  fabric's cross-replica per-request tracks (``merge_traces``).
 - :mod:`.stepprof` — the step-phase profiler (host phases, the
   device's busy and idle time from CUDA events) and the SLO digests.
 - :mod:`.ledger` — the modelled HBM bytes and FLOPs of every step,
   attributed per tenant, and the graph-capture observatory.
 - :mod:`.watchdog` — the hang watchdog and its diagnostic dump.
+- :mod:`.fabricobs` — the serving fabric's plane over its replicas:
+  cross-replica request tracing and ``FabricRegistryView``, the
+  export-time merge of the per-replica registries with a ``replica``
+  label and exact SLO-digest re-merging (``fabric_metrics`` holds the
+  router's own families).
+- :mod:`.alerts` — multi-window SLO burn-rate alerting over the exact
+  digest windows, feeding the fabric router and the brownout ladder.
 
-The fabric plane (``fabricobs``, ``alerts``) and the training and
-native-host metric families are not ported yet.
+The training and native-host metric families are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,12 +50,16 @@ from .tracing import Span, instrument_jit, jit_signature, span
 from .recorder import (Event, FlightRecorder, default_recorder,
                        set_default_recorder)
 from .chrome_trace import (host_events_to_events, merge_device_trace,
-                           to_chrome_trace, write_chrome_trace)
+                           merge_traces, to_chrome_trace, write_chrome_trace,
+                           write_merged_trace)
 from .stepprof import (PHASES, QuantileDigest, SLODigest, StepProfiler,
                        StepRecord, default_slo_digest,
                        set_default_slo_digest, step_metrics)
 from .watchdog import (Watchdog, default_watchdog, set_default_watchdog,
                        watch_engine)
+from .alerts import AlertConfig, SLOAlerts
+from .fabricobs import (FabricRegistryView, FabricTracer, ReplicaRecorder,
+                        merge_slo_digests)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "Span", "MetricsServer",
@@ -59,7 +70,9 @@ __all__ = [
     "serving_metrics", "ledger_metrics",
     "Event", "FlightRecorder", "default_recorder", "set_default_recorder",
     "to_chrome_trace", "write_chrome_trace", "host_events_to_events",
-    "merge_device_trace",
+    "merge_device_trace", "merge_traces", "write_merged_trace",
+    "fabric_metrics", "AlertConfig", "SLOAlerts", "FabricRegistryView",
+    "FabricTracer", "ReplicaRecorder", "merge_slo_digests",
     "Watchdog", "default_watchdog", "set_default_watchdog", "watch_engine",
     "PHASES", "StepProfiler", "StepRecord", "step_metrics",
     "QuantileDigest", "SLODigest", "default_slo_digest",
@@ -248,6 +261,13 @@ def serving_metrics(registry: Optional[Registry] = None) -> dict:
             "bytes ONE KV page costs across all layers, K+V, scale "
             "rows included — the per-page cost the capacity-at-fixed-"
             "pool-bytes scaling of quantized serving divides by"),
+        "quant_dequant": r.histogram(
+            "pd_quant_dequant_seconds",
+            "one page-sized quantize+dequantize roundtrip (timed by "
+            "CUDA events on its own launches on the card), probed on "
+            "the fenced step-profiler samples — the in-kernel dequant "
+            "cost the quantized page walk pays per page",
+            buckets=log_buckets(1e-7, 1.0, 2.0)),
     }
 
 
@@ -372,4 +392,56 @@ def ledger_metrics(registry: Optional[Registry] = None) -> dict:
             "unsplit rows and the knob off — every accounted row "
             "lands in exactly one series)",
             labelnames=("split",)),
+    }
+
+
+def fabric_metrics(registry: Optional[Registry] = None) -> dict:
+    """Create-or-get the serving-fabric metric families (idempotent).
+
+    Bound once by ``ServingFabric`` at construction, which also pre-binds
+    every ``(replica, reason)`` routing series at 0 so the families
+    export before the first request is routed."""
+    r = registry or default_registry()
+    return {
+        "replicas": r.gauge(
+            "pd_fabric_replicas",
+            "engine replicas the serving fabric routes across"),
+        "routed": r.counter(
+            "pd_fabric_routed_total",
+            "requests placed on a replica, by placement reason "
+            "(affinity: it held the longest prompt prefix; load: no "
+            "replica held any prefix, least-loaded won; spill: the "
+            "affinity target was too far above the least-loaded "
+            "replica's queue depth)",
+            labelnames=("replica", "reason")),
+        "hit_pages": r.counter(
+            "pd_fabric_prefix_hit_pages",
+            "prompt pages already held (prefix cache or host swap "
+            "tier) by the replica an affinity-routed request landed "
+            "on"),
+        "migrations": r.counter(
+            "pd_fabric_migrations_total",
+            "live requests replayed onto a surviving replica after "
+            "their replica was killed or drained"),
+        "handoff_pages": r.counter(
+            "pd_fabric_handoff_pages_total",
+            "KV pages published by a prefill replica into the shared "
+            "content-addressed store and imported by a decode "
+            "replica (disaggregated roles only)"),
+        # per-hop latency histograms of the cross-replica request path
+        "route_s": r.histogram(
+            "pd_fabric_route_seconds",
+            "wall time of one routing decision (prefix-affinity scan "
+            "over every candidate replica)",
+            buckets=log_buckets(1e-6, 10.0, 2.0)),
+        "handoff_s": r.histogram(
+            "pd_fabric_handoff_seconds",
+            "wall time of one disaggregated prefill->decode handoff "
+            "(swap-entry import + decode-half submit)",
+            buckets=log_buckets(1e-6, 10.0, 2.0)),
+        "replay_s": r.histogram(
+            "pd_fabric_replay_seconds",
+            "wall time of one journal replay migrating a live request "
+            "onto a surviving replica after a kill/drain",
+            buckets=log_buckets(1e-6, 10.0, 2.0)),
     }

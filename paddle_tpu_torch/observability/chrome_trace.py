@@ -19,6 +19,10 @@ Timestamps are rebased to the earliest event and converted to the
 format's microseconds, so traces start at t=0 regardless of process
 uptime.
 
+:func:`merge_traces` is the serving fabric's view: one track per
+logical request (pid ``FABRIC_PID``), grouped by the ``trace`` attr the
+fabric's tracer stamps on every hop, across replicas.
+
 :func:`merge_device_trace` lays the device trace that
 ``torch.profiler`` exports (``prof.export_chrome_trace(path)``: kernels,
 copies and memsets on the card's streams) beside such a host trace,
@@ -32,10 +36,12 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 from .recorder import Event, FlightRecorder, default_recorder
 
 __all__ = ["to_chrome_trace", "write_chrome_trace", "host_events_to_events",
-           "REQUEST_PID", "HOST_PID", "DEVICE_PID", "merge_device_trace"]
+           "REQUEST_PID", "HOST_PID", "FABRIC_PID", "DEVICE_PID",
+           "merge_device_trace", "merge_traces", "write_merged_trace"]
 
 REQUEST_PID = 1
 HOST_PID = 2
+FABRIC_PID = 3
 DEVICE_PID = 4
 # the categories of a torch.profiler Chrome export that ran on the card
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")
@@ -114,6 +120,65 @@ def write_chrome_trace(path: str,
     ui.perfetto.dev (or chrome://tracing) to browse it."""
     obj = to_chrome_trace(events=events, recorder=recorder,
                           extra_events=extra_events)
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return path
+
+
+def merge_traces(events: Optional[Sequence[Event]] = None,
+                 recorder: Optional[FlightRecorder] = None) -> dict:
+    """Cross-replica per-request tracks: the fabric view of a trace.
+
+    :func:`to_chrome_trace` lanes events by rid, but a fabric request
+    changes rid at every relocation (prefill ticket -> decode rid, kill
+    -> replayed rid). The fabric tracer stamps every hop of a request's
+    lineage with the same ``trace`` attr (and ``replica`` and a rising
+    ``hop``); this export groups by it: one track (pid ``FABRIC_PID``,
+    one tid per trace id in first-seen order) per logical request.
+    Per-replica lifecycle slices are renamed ``{name}@r{replica}``.
+    Events without a ``trace`` attr are ignored; with none the result
+    is the metadata header alone, still valid JSON."""
+    if events is None:
+        events = (recorder or default_recorder()).snapshot()
+    evs = sorted(events, key=lambda e: e.ts)
+    trace: List[dict] = [
+        {"ph": "M", "ts": 0, "pid": FABRIC_PID, "tid": 0,
+         "name": "process_name", "args": {"name": "fabric requests"}},
+    ]
+    traced = [ev for ev in evs if ev.attr("trace") is not None]
+    if not traced:
+        return {"traceEvents": trace, "displayTimeUnit": "ms"}
+    base = traced[0].ts
+    tids: Dict[str, int] = {}
+    for ev in traced:
+        tid = tids.get(ev.attr("trace"))
+        if tid is None:
+            tid = tids[ev.attr("trace")] = len(tids) + 1
+            trace.append({"ph": "M", "ts": 0, "pid": FABRIC_PID,
+                          "tid": tid, "name": "thread_name",
+                          "args": {"name": f"trace {ev.attr('trace')}"}})
+        replica = ev.attr("replica")
+        name = ev.name
+        if ev.cat == "request" and replica is not None:
+            name = f"{name}@r{replica}"
+        rec = {"name": name, "cat": ev.cat, "pid": FABRIC_PID,
+               "tid": tid, "ts": (ev.ts - base) * 1e6,
+               "args": _attr_args(ev)}
+        if ev.dur > 0.0:
+            rec["ph"] = "X"
+            rec["dur"] = ev.dur * 1e6
+        else:
+            rec["ph"] = "i"
+            rec["s"] = "t"
+        trace.append(rec)
+    return {"traceEvents": trace, "displayTimeUnit": "ms"}
+
+
+def write_merged_trace(path: str,
+                       events: Optional[Sequence[Event]] = None,
+                       recorder: Optional[FlightRecorder] = None) -> str:
+    """Dump :func:`merge_traces` to ``path``."""
+    obj = merge_traces(events=events, recorder=recorder)
     with open(path, "w") as f:
         json.dump(obj, f)
     return path

@@ -33,7 +33,9 @@ def test_the_port_libraries_and_their_headers():
     left), on the tile helpers it shares with the float32 backward; the
     ragged libraries' tensor-core tile uses the same helpers, and the
     decode kernel and the ragged libraries' one-query rows share the page
-    walk (the mixed kernel takes its launch helpers)."""
+    walk (the mixed kernel takes its launch helpers); the narrow-scale
+    ragged libraries include the ragged header like the others, and the
+    int8 matmul includes no header."""
     assert {"flash_fwd_f32", "flash_bwd_f32", "paged_attention",
             "mixed_attention"} <= set(_build.KERNELS)
     assert "flash_attention" not in _build.KERNELS
@@ -48,7 +50,8 @@ def test_the_port_libraries_and_their_headers():
             "flash_fwd_bf16": [cp_async], "flash_bwd_bf16": [cp_async],
             "flash_bwd_f32": [tiles, cp_async, tf32x3],
             "paged_attention": [walk, cp_async],
-            "mixed_attention": [walk, cp_async]}
+            "mixed_attention": [walk, cp_async],
+            "int8_matmul": []}
     for name in _build.KERNELS:
         headers = _build._local_headers(_build.CSRC / f"{name}.cu")
         assert headers == want.get(name, [ragged, walk, cp_async, tiles,

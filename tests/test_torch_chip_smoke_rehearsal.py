@@ -53,6 +53,17 @@ launch bookkeeping and their checks are exercised before a chip run:
   1024-token vocabulary), at async depth 1: preemptions, swap-outs and
   swap-ins, quota deferrals and the deadline's timeout all happen, and
   the survivors equal their uncontended runs;
+- the quantized-serving and fabric phases: the int8 matmul phase at
+  narrow shapes (bit-equal codes and products, each shape's numbers,
+  and the kernels line's two rows with every key of the contract), the
+  narrow-scale ragged kernels and their rows (2-byte scales in the byte
+  bound), the weight-matmul phase on a narrow model with GPT-3 XL's
+  context (launches four a layer a step, tokens identical across
+  engines and chunk budgets, the quality bar), bfloat16 scale pools on
+  the main path (partings judged by ``compare_routes``, itself checked
+  on made-up logits), and the fabric phase (outputs equal to one
+  engine's colocated, killed, disaggregated and with tracing off;
+  affinity placement; the alert fires and clears);
 - the core phases: the custom-op programs and ``my_triple`` through its
   op (reference counted as a launch) at small shapes, the ResNet
   parity phase (CPU against CPU) and the ResNet training phase with
@@ -71,12 +82,16 @@ import torch.nn.functional as F  # noqa: E402
 import collections  # noqa: E402
 import sys  # noqa: E402
 
+import numpy as np  # noqa: E402
+
 import chip_smoke as cs  # noqa: E402
 import paddle_tpu_torch as paddle  # noqa: E402
 from paddle_tpu_torch.core import device as tdevice  # noqa: E402
 from paddle_tpu_torch.vision.models import resnet18  # noqa: E402
 from paddle_tpu_torch.inference.llm import ModelSpec, TorchLM  # noqa: E402
 from paddle_tpu_torch.inference.llm.model import init_lm_params  # noqa: E402
+from paddle_tpu_torch.inference.llm import model as tmodel  # noqa: E402
+from paddle_tpu_torch.kernels import int8 as i8  # noqa: E402
 from paddle_tpu_torch.kernels import paged_attention as pa  # noqa: E402
 from _torch_threads import one_thread  # noqa: E402,F401
 
@@ -94,17 +109,27 @@ def plain_kernels(monkeypatch):
             kw.pop("split_blocks", None)
             split = kw.pop("split_pages", 0)
             out = ref(*args, **kw)
-            pa.LAUNCHES[name_of(args, split)] += 1
+            pa.LAUNCHES[name_of(args, split, kw)] += 1
             return out
         return run
 
+    def ragged_name(a, sp, kw):
+        scale = kw.get("k_scale")
+        return pa.kernel_name(a[1].dtype, pa.split_active(sp, a[3].shape[1]),
+                              None if scale is None else scale.dtype)
+
     monkeypatch.setattr(pa, "ragged_attention_cuda", counting(
-        pa.ragged_attention_ref, lambda a, sp: pa.kernel_name(
-            a[1].dtype, pa.split_active(sp, a[3].shape[1]))))
+        pa.ragged_attention_ref, ragged_name))
     monkeypatch.setattr(pa, "paged_attention_cuda", counting(
-        pa.paged_attention_ref, lambda a, sp: pa.PAGED_KERNEL))
+        pa.paged_attention_ref, lambda a, sp, kw: pa.PAGED_KERNEL))
     monkeypatch.setattr(pa, "mixed_attention_cuda", counting(
-        pa.mixed_attention_ref, lambda a, sp: pa.MIXED_KERNEL))
+        pa.mixed_attention_ref, lambda a, sp, kw: pa.MIXED_KERNEL))
+    # the int8 matmul's two kernels, where the model calls them
+    for mod in (i8, tmodel):
+        monkeypatch.setattr(mod, "quantize_rows", counting(
+            i8.quantize_rows_ref, lambda a, sp, kw: i8.QUANTIZE_ROWS_KERNEL))
+        monkeypatch.setattr(mod, "int8_matmul", counting(
+            i8.int8_matmul_ref, lambda a, sp, kw: i8.INT8_MATMUL_KERNEL))
     monkeypatch.setattr(pa, "_resolve_tier",
                         lambda tier, q: "ref" if tier == "ref" else "kernel")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -581,3 +606,245 @@ def test_per_tier_rows_time_an_earlier_decode_kernel(plain_kernels,
     assert 0 < decode["bound_ms"] and decode["bound_by"] == "bytes"
     for kind, t in by_name[pa.MIXED_KERNEL]["shapes"].items():
         assert "design_ms" not in t, kind
+
+
+# ------------------------------- quantized serving, the rest, the fabric
+
+
+def _once(fn, reps=20, warmup=3):
+    fn()
+    return 1.0
+
+
+CONTRACT_KEYS = {"name", "route", "source", "replaces", "launches",
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms"}
+
+
+def test_int8_matmul_phase_and_rows(plain_kernels, monkeypatch):
+    monkeypatch.setattr(cs, "time_cuda", _once)
+    monkeypatch.setattr(cs, "INT8_SHAPES", (("wqkv", 32, 96), ("wo", 32, 32),
+                                            ("wfc", 32, 128),
+                                            ("wproj", 128, 32)))
+    monkeypatch.setattr(cs, "INT8_ROWS", (1, 8, 24))
+    times = cs.phase_int8_matmul(CPU)
+    assert set(times) == {(n, m) for n, _, _ in cs.INT8_SHAPES
+                          for m in (1, 8, 24)}
+    for (name, m), t in times.items():
+        assert (t["int_mm_ms"] is None) == (m <= 16)
+        assert t["bound_ms"] > 0 and t["q_bound_ms"] > 0
+    rows = cs.int8_rows(times, {i8.INT8_MATMUL_KERNEL: 96,
+                                i8.QUANTIZE_ROWS_KERNEL: 96})
+    root = cs.os.path.dirname(cs.os.path.abspath(cs.__file__))
+    assert [r["name"] for r in rows] == [i8.INT8_MATMUL_KERNEL,
+                                         i8.QUANTIZE_ROWS_KERNEL]
+    for r in rows:
+        assert CONTRACT_KEYS <= set(r)
+        assert r["launches"] == 96 and r["max_abs_err"] == 0.0
+        assert r["ms"] == 4.0 and r["library_ms"] is None
+        assert r["bound_by"] in ("bytes", "operations")
+        assert cs.os.path.exists(cs.os.path.join(root, r["source"]))
+        assert len(r["shapes"]) == 12
+    assert rows[0]["bound_ms"] == sum(
+        cs.int8_bounds(8, k, n)["bound_ms"] for _, k, n in cs.INT8_SHAPES)
+
+
+def _narrow_xl(monkeypatch):
+    monkeypatch.setattr(cs, "GPT3_XL", ModelSpec(
+        vocab=64, d_model=32, num_layers=2, num_heads=2, head_dim=16,
+        max_seq_len=cs.GPT3_XL.max_seq_len))
+
+
+def test_narrow_kernels_and_rows(plain_kernels, monkeypatch):
+    monkeypatch.setattr(cs, "time_cuda", _once)
+    _narrow_xl(monkeypatch)
+    errors = cs.phase_narrow_kernels(CPU)
+    assert set(errors) == set(pa.NARROW_KERNEL_NAMES)
+    assert all(e <= cs.ATTN_TOL for e in errors.values())
+    rows = cs.narrow_rows(CPU, {n: 7 for n in errors}, errors)
+    root = cs.os.path.dirname(cs.os.path.abspath(cs.__file__))
+    assert [r["name"] for r in rows] == list(pa.NARROW_KERNEL_NAMES)
+    for r in rows:
+        assert CONTRACT_KEYS <= set(r) and r["launches"] == 7
+        assert cs.os.path.exists(cs.os.path.join(root, r["source"]))
+        assert set(r["shapes"]) == {"decode", "mix"}
+    # two-byte scales in the byte count
+    args, scales, _, _ = cs.narrow_mix("decode", 1, CPU, "int8",
+                                       torch.bfloat16)
+    four = cs.attention_work(args, True)[0]
+    two = cs.attention_work(args, True, 2)[0]
+    positions = sum(args["kv_lens"].tolist())
+    assert four - two == positions * 2 * 2 * 2      # H 2, K and V
+
+
+def test_weight_matmul_phase(plain_kernels, cpu_card, monkeypatch):
+    model = TorchLM(*(lambda s: (s, init_lm_params(s, seed=0, device=CPU)))(
+        ModelSpec(vocab=1024, d_model=64, num_layers=2, num_heads=2,
+                  head_dim=32, max_seq_len=cs.GPT3_XL.max_seq_len)),
+        device=CPU).quantize_weights()
+    batches = [[(p[:len(p) // 4], sp) for p, sp in cs.requests_long(
+        s, model.spec.vocab)] for s in (11, 13, 17)]
+    res = cs.phase_weight_matmul(model, batches)
+    assert res["launches"][i8.INT8_MATMUL_KERNEL] == \
+        4 * res["launches"][pa.kernel_name(torch.int8, True)] > 0
+    assert 0 < res["mae_vs_dequant"] <= cs.QUANT_MAE_MAX
+    assert res["mae_vs_float"] <= cs.QUANT_MAE_MAX
+    for wm in ("off", "int8"):
+        assert res[wm]["ms_per_step"] > 0
+        assert res[wm]["gemm_share"] is None     # no profiler on the CPU
+
+
+def test_narrow_serving_phase(plain_kernels, cpu_card, monkeypatch):
+    spec = ModelSpec(vocab=1024, d_model=64, num_layers=2, num_heads=2,
+                     head_dim=32, max_seq_len=cs.GPT3_XL.max_seq_len)
+    model = TorchLM(spec, init_lm_params(spec, seed=0, device=CPU),
+                    device=CPU).quantize_weights()
+    monkeypatch.setattr(cs, "LAUNCHES_BY_STEP", {})
+    reqs = [(p[:len(p) // 4], sp) for p, sp in cs.requests_long(
+        11, spec.vocab)]
+    f32 = cs.drive_path("f32 scales", model, reqs,
+                        pa.kernel_name(torch.int8, True),
+                        cs.QuantConfig(kv="int8", weights="int8"), cs.SPLIT,
+                        cs.CHUNK, min_prefix_pages=128 // cs.PAGE)[3]
+    got = cs.phase_narrow_serving(model, reqs, f32, 128 // cs.PAGE)
+    name = pa.kernel_name(torch.int8, True, torch.bfloat16)
+    assert got["launches"][name] > 0
+    assert got["same"] + got["ties"] == len(reqs)
+
+
+def test_fabric_phase(plain_kernels, cpu_card, monkeypatch):
+    model = TorchLM(*(lambda s: (s, init_lm_params(s, seed=0, device=CPU)))(
+        ModelSpec(vocab=1024, d_model=64, num_layers=2, num_heads=2,
+                  head_dim=32, max_seq_len=cs.GPT3_XL.max_seq_len)),
+        device=CPU)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(cs, "FABRIC_BURST", 4)
+    monkeypatch.setattr(cs, "FABRIC_PREFIX", 128)
+    monkeypatch.setattr(cs, "FABRIC_KILL_STEP", 3)
+    monkeypatch.setattr(cs, "FABRIC_FAULT_MS", 300)
+    monkeypatch.setattr(cs, "FABRIC_ITL_MS", 250)
+    res = cs.phase_fabric(model)
+    assert res["kill"]["migrated"] >= 1
+    assert res["disaggregated"]["handoff_pages"] > 0
+    assert res["two"]["affinity_pages"] >= 0.9 * res["two"]["prefix_pages"]
+    assert res["alerts"]["cleared_at"] > res["alerts"]["fired_at"]
+    assert res["one"]["tokens_per_s"] > 0
+
+
+def test_compare_routes_counts_ties_and_fails_the_rest():
+    """``compare_routes`` (teacher-forced routes): equal outputs pass; a
+    parting where the sampler on each route picks exactly its run's
+    token, or where both tokens sit within twice the routes' difference
+    of the best, counts as a near-tie; a parting the routes decide alike
+    far from a tie fails, and so does a token that neither route picks
+    and that sits far from the best. A sampled request must come with
+    the seed it was served with."""
+    V = 16
+    clear = torch.zeros(1, V)
+    clear[0, 3] = 5.0                                 # token 3 by 5.0
+    close = clear.clone()
+    close[0, 4] = 4.99                                # 3 over 4 by 0.01
+    flipped = clear.clone()
+    flipped[0, 4] = 5.5                               # 4 wins here
+    reqs = [([1, 2], None)] * 3
+    want = [[3, 3], [3, 3], [3, 3]]
+    assert cs.compare_routes("same", reqs, want, want,
+                             lambda ctx: (clear, clear)) == []
+    got = [[3, 3], [3, 4], [3, 3]]
+    ties = cs.compare_routes("apart", reqs, got, want,
+                             lambda ctx: (flipped, clear))
+    assert [(j, apart) for j, _, _, apart in ties] == [(1, True)]
+    ties = cs.compare_routes("close", reqs, got, want,
+                             lambda ctx: (close, close + 0.006))
+    assert ties and not ties[0][3]
+    with pytest.raises(AssertionError, match="not both within"):
+        cs.compare_routes("far", reqs, got, want,
+                          lambda ctx: (clear, clear + 1e-3))
+    with pytest.raises(AssertionError, match="is 7"):
+        cs.compare_routes("planted", reqs, [[3, 3], [3, 7], [3, 3]], want,
+                          lambda ctx: (close, close + 0.006))
+    sampled = [([1, 2], cs.SamplingParams(temperature=0.8, top_k=8))]
+    with pytest.raises(ValueError, match="seed=None"):
+        cs.compare_routes("unresolved", sampled, [[3, 4]], [[3, 3]],
+                          lambda ctx: (close, close + 0.006))
+
+
+class _Tap:
+    """A stand-in for ``LogitsTap``: rows by (seed, token index)."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def row(self, seed, index):
+        return self.rows[(seed, index)]
+
+
+def test_compare_tapped_judges_sampled_tokens_with_the_served_seed():
+    """``compare_tapped`` (the fabric's check) on a sampled ``seed=None``
+    request, judged with the seed the fabric drew for it: a parting
+    where each run drew its token from its own logits, and the two
+    runs' logits agree within the quantized-serving bar, passes; a
+    planted token that its run's logits do not draw fails, and so do
+    two runs whose logits are too far apart to be one context."""
+    from paddle_tpu_torch.inference.llm.engine import resolve_sampling
+    V = 64
+    g = torch.Generator().manual_seed(3)
+    sp = cs.SamplingParams(temperature=0.8, top_k=50, top_p=0.9)
+    served = resolve_sampling(sp, np.random.default_rng(90210))
+    assert served.seed is not None
+    rows = [torch.randn(V, generator=g) for _ in range(2)]
+    la = torch.randn(V, generator=g)
+    lb = la.clone()
+    pick = lambda lg, j: cs.pick_token(lg, served, j)  # noqa: E731
+    while pick(lb, 2) == pick(la, 2):                 # the runs part
+        lb = la + 0.05 * torch.randn(V, generator=g)
+    prefix = [pick(rows[0], 0), pick(rows[1], 1)]
+    got, want = [prefix + [pick(la, 2)]], [prefix + [pick(lb, 2)]]
+    tap_got = _Tap({(served.seed, 0): rows[0], (served.seed, 1): rows[1],
+                    (served.seed, 2): la})
+    tap_want = _Tap({**tap_got.rows, (served.seed, 2): lb})
+    reqs = [([1], served)]
+    ties = cs.compare_tapped("served", reqs, got, want, tap_got, tap_want)
+    assert [t[0] for t in ties] == [2] and ties[0][3] <= cs.QUANT_MAE_MAX
+    wrong = int(cs.decision_scores(la, served, 2).argmin())
+    with pytest.raises(AssertionError, match="logits draw"):
+        cs.compare_tapped("planted", reqs, [prefix + [wrong]], want,
+                          tap_got, tap_want)
+    # every logit of the reference one higher: the same draws, but not
+    # the same context
+    with pytest.raises(AssertionError, match="not the same context"):
+        cs.compare_tapped("far", reqs, got, [prefix + [pick(lb + 1.0, 2)]],
+                          tap_got, _Tap({**tap_got.rows,
+                                         (served.seed, 2): lb + 1.0}))
+    with pytest.raises(ValueError, match="seed=None"):
+        cs.compare_tapped("unresolved", [([1], sp)], got, want, tap_got,
+                          tap_want)
+
+
+def test_fabric_phase_fails_a_planted_token(plain_kernels, cpu_card,
+                                            monkeypatch):
+    """The fabric phase fails when the killed fabric's output of a
+    sampled ``seed=None`` request carries a token that neither schedule
+    picks with the seed the fabric drew."""
+    model = TorchLM(*(lambda s: (s, init_lm_params(s, seed=0, device=CPU)))(
+        ModelSpec(vocab=1024, d_model=64, num_layers=2, num_heads=2,
+                  head_dim=32, max_seq_len=cs.GPT3_XL.max_seq_len)),
+        device=CPU)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(cs, "FABRIC_BURST", 4)
+    monkeypatch.setattr(cs, "FABRIC_PREFIX", 128)
+    monkeypatch.setattr(cs, "FABRIC_KILL_STEP", 3)
+    real = cs.run_fabric
+
+    def planted(model, burst, **kw):
+        out = real(model, burst, **kw)
+        if kw.get("kill_at") is not None:
+            k = 2
+            assert burst[k][2].temperature > 0 and burst[k][2].seed is None
+            tokens = out[2][k]
+            tokens[-1] = (tokens[-1] + 512) % 1024
+        return out
+
+    monkeypatch.setattr(cs, "run_fabric", planted)
+    with pytest.raises(AssertionError, match="killed vs unkilled"):
+        cs.phase_fabric(model)

@@ -711,3 +711,148 @@ def test_fault_boundary_with_graphs(device, depth):
     assert eng.fault_retries["nan"] == inj.counts["nan"]
     eng.cache.check_invariants()
     assert eng.cache.pages_in_use == 0
+
+
+# ------------------------------------------ the int8 matmul, narrow scales
+
+from paddle_tpu_torch.inference.llm import (  # noqa: E402
+    FabricConfig, ServingFabric)
+from paddle_tpu_torch.kernels import int8 as i8  # noqa: E402
+
+
+@pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 64, 130])
+@pytest.mark.parametrize("K,N", [(32, 96), (48, 40), (2048, 6144),
+                                 (8192, 2048), (1040, 24)])
+def test_int8_matmul_bit_equal(device, M, K, N):
+    """The row quantizer and the int8 matmul against their plain
+    versions: codes, scales and products bit-equal, at row counts
+    around the 16-row tile and the decode/chunk switch, K a multiple of
+    16 but not of 64, N not a multiple of the block; an all-zero row and
+    a row with one huge value included."""
+    g = torch.Generator(device=device).manual_seed(M * 7 + K + N)
+    x = torch.randn(M, K, generator=g, device=device)
+    x[0] = 0.0
+    if M > 2:
+        x[2, 3] = 1e4
+    w = 0.02 * torch.randn(K, N, generator=g, device=device)
+    wq, ws = i8.quantize_absmax(w, axis=0)
+    wqt = wq.t().contiguous()
+    pa.LAUNCHES.clear()
+    xq, xs = i8.quantize_rows(x)
+    out = i8.int8_matmul(xq, xs, wqt, ws)
+    rq, rs = i8.quantize_rows_ref(x)
+    ref = i8.int8_matmul_ref(xq, xs, wqt, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, rq) and torch.equal(xs, rs)
+    assert torch.equal(out, ref)
+    assert dict(pa.LAUNCHES) == {i8.QUANTIZE_ROWS_KERNEL: 1,
+                                 i8.INT8_MATMUL_KERNEL: 1}
+
+
+def test_int8_kernels_nan_row_and_refusals(device):
+    x = torch.randn(5, 64, device=device)
+    x[3, 9] = float("nan")
+    w = 0.02 * torch.randn(64, 32, device=device)
+    wq, ws = i8.quantize_absmax(w, axis=0)
+    xq, xs = i8.quantize_rows(x)
+    out = i8.int8_matmul(xq, xs, wq.t().contiguous(), ws)
+    torch.cuda.synchronize()
+    assert torch.isnan(xs[3]).all() and torch.isnan(out[3]).all()
+    assert torch.isfinite(out[[0, 1, 2, 4]]).all()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        i8.int8_matmul(xq[:, :40].contiguous(), xs,
+                       wq.t().contiguous()[:, :40].contiguous(), ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        i8.int8_matmul(xq, xs, wq.t(), ws)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("scale_dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("split", [0, 3])
+@pytest.mark.parametrize("page,D", [(8, 32), (16, 64), (16, 128)])
+def test_narrow_scale_kernels_match_plain(device, mode, scale_dtype, split,
+                                          page, D):
+    """The ragged pair over float16/bfloat16 scale pools: within 2e-5 of
+    the plain version on the same narrow scales, padding exact 0, reruns
+    bit-identical, launches under the narrow kernel's name."""
+    pps = -(-640 // page)
+    args, n_used = _mix(device, 4, D, page, EDGE_Q_LENS, EDGE_KV_LENS, pps,
+                        7, seed=page + D + 3)
+    args, scales = _quantized(args, mode)
+    scales = {k: v.to(scale_dtype) for k, v in scales.items()}
+    pa.LAUNCHES.clear()
+    out = pa.ragged_attention(**args, max_q_len=max(EDGE_Q_LENS),
+                              split_pages=split, **scales)
+    again = pa.ragged_attention(**args, max_q_len=max(EDGE_Q_LENS),
+                                split_pages=split, **scales)
+    torch.cuda.synchronize()
+    ref = pa.ragged_attention_ref_split(**args, split_pages=split, **scales)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    assert (out[n_used:] == 0).all() and torch.equal(out, again)
+    name = pa.kernel_name(args["k_pool"].dtype,
+                          pa.split_active(split, pps), scale_dtype)
+    assert dict(pa.LAUNCHES) == {name: 2}
+    with pytest.raises(ValueError, match="one dtype"):
+        pa.ragged_attention(**args, k_scale=scales["k_scale"],
+                            v_scale=scales["v_scale"].float())
+
+
+@pytest.mark.parametrize("sd", ["float32", "bfloat16"])
+def test_weight_matmul_engine_graphs_and_launches(device, sd):
+    """The engine with the int8 weight matmul: graphs on and off give the
+    same tokens, the two int8 kernels launch four times a layer a step
+    through the replays, and the narrow scale pool is stored narrow."""
+    model = TorchLM.tiny(device=device)
+    quant = QuantConfig(kv="int8", weights="int8", weight_matmul="int8",
+                        scale_dtype=sd)
+    outs = []
+    for graphs in (False, True):
+        eng = GenerationEngine(
+            model, cache_config=CacheConfig(
+                num_layers=2, num_heads=2, head_dim=16, num_pages=64,
+                page_size=8, max_slots=3, max_seq_len=128),
+            scheduler_config=SchedulerConfig(
+                max_slots=3, max_seq_len=128, chunk_tokens=16,
+                async_depth=1 if graphs else 0),
+            quant=quant, cuda_graphs=graphs)
+        assert eng.cache.k_scale.dtype == getattr(torch, sd)
+        pa.LAUNCHES.clear()
+        outs.append(eng.generate(_PROMPTS, 10))
+        steps = eng.steps_dispatched
+        got = dict(pa.LAUNCHES)
+        assert got[i8.INT8_MATMUL_KERNEL] == 8 * steps
+        assert got[i8.QUANTIZE_ROWS_KERNEL] == 8 * steps
+        eng.cache.check_invariants()
+    assert outs[0] == outs[1]
+
+
+def test_fabric_kill_releases_the_replica(device):
+    """A two-replica fabric on the card: outputs equal one engine's, and
+    after a mid-run kill and respawn the card holds no more memory than
+    before it by half a replica's pools (a corpse would add them all)."""
+    model = TorchLM.tiny(device=device)
+    cache = CacheConfig(num_layers=2, num_heads=2, head_dim=16,
+                        num_pages=64, page_size=8, max_slots=3,
+                        max_seq_len=128)
+    sched = SchedulerConfig(max_slots=3, max_seq_len=128, chunk_tokens=16,
+                            async_depth=1)
+    quant = QuantConfig(kv="int8", weights="int8", weight_matmul="int8")
+    one = GenerationEngine(model, cache_config=cache, scheduler_config=sched,
+                           quant=quant)
+    want = one.generate(_PROMPTS, 10)
+    fab = ServingFabric(model, FabricConfig(replicas=2), cache_config=cache,
+                        scheduler_config=sched, quant=quant)
+    rids = [fab.submit(p, 10) for p in _PROMPTS]
+    for _ in range(3):
+        fab.step()
+    pools = sum(t.numel() * t.element_size() for t in (
+        fab.replicas[1].cache.k_pool, fab.replicas[1].cache.v_pool,
+        fab.replicas[1].cache.k_scale, fab.replicas[1].cache.v_scale))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fab.kill_replica(1)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before <= pools // 2
+    fab.run()
+    assert [fab.output_of(r) for r in rids] == want
+    assert fab.pool_restored()

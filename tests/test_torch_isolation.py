@@ -9,11 +9,14 @@
   ``paddle.to_tensor``, a ``Layer``, a ``cuda_op`` on the CPU);
 - the port's copy of the serving-policy defaults equals the JAX
   package's ``shared_policy()`` with no ``PD_*`` environment set (the
-  step profiler's sample share, the brownout depth and the journal's
-  knobs included), and its swap-tier defaults the JAX cache module's;
+  step profiler's sample share, the brownout depth, the journal's,
+  the weight-matmul, fabric and SLO knobs included), and its swap-tier
+  defaults the JAX cache module's;
 - the scan covers the observability and robustness modules (metrics,
   recorder, export, tracing, chrome trace, step profiler, ledger,
-  watchdog; faults, journal, brownout);
+  watchdog; faults, journal, brownout), and the int8 matmul, the
+  serving fabric, its observability plane, the SLO alerts and the
+  serving bridge;
 - ``chip_smoke.py`` exits non-zero and prints no result line without a
   CUDA device, and when it stands alone in a directory.
 """
@@ -116,6 +119,12 @@ def test_policy_copy_matches_the_reference(monkeypatch):
     assert policy.BROWNOUT_LEVELS == ref["brownout_levels"]
     assert policy.JOURNAL_SYNC_EVERY == ref["journal_sync_every"]
     assert policy.JOURNAL_MAX_BYTES == ref["journal_max_bytes"]
+    assert policy.WEIGHT_MATMUL == ref["weight_matmul"]
+    assert policy.FABRIC_REPLICAS == ref["fabric_replicas"]
+    assert policy.FABRIC_SPILL == ref["fabric_spill"]
+    assert policy.FABRIC_ROLES == ref["fabric_roles"]
+    assert policy.SLO_TTFT_MS == ref["slo_ttft_ms"]
+    assert policy.SLO_ITL_MS == ref["slo_itl_ms"]
 
 
 def test_swap_defaults_match_the_reference(monkeypatch):
@@ -136,6 +145,23 @@ def test_policy_mode_sets_match_the_reference():
 
     assert policy.KV_QUANT_MODES == jpolicy.KV_QUANT_MODES
     assert policy.WEIGHT_QUANT_MODES == jpolicy.WEIGHT_QUANT_MODES
+    assert policy.WEIGHT_MATMUL_MODES == jpolicy.WEIGHT_MATMUL_MODES
+    assert policy.FABRIC_ROLES_MODES == jpolicy.FABRIC_ROLES_MODES
+
+
+def test_the_scan_covers_quantized_serving_and_the_fabric():
+    """The modules of the int8 matmul, the fabric, its observability
+    plane, the SLO alerts and the serving bridge are scanned too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    want = [port / "kernels" / "int8.py",
+            port / "inference" / "llm" / "fabric.py",
+            port / "inference" / "llm" / "quant.py",
+            port / "observability" / "fabricobs.py",
+            port / "observability" / "alerts.py",
+            port / "inference" / "serving.py"]
+    for path in want:
+        assert str(path.relative_to(ROOT)) in names, path
 
 
 def _run_smoke(cwd):

@@ -201,8 +201,9 @@ def test_later_slice_knobs_raise(knob):
 
 def test_later_slice_submit_args_and_cache_knobs_raise():
     """Priorities, deadlines, the swap tier and cold-prefix demotion are
-    ported (the JAX package's defaults included); the quantized
-    collectives and the int8 matmul still raise."""
+    ported (the JAX package's defaults included), and so are the int8
+    weight matmul and the narrow scale dtypes; the quantized collectives
+    still raise."""
     _, cache = _caches()
     sched = ContinuousBatchingScheduler(cache, SchedulerConfig(
         max_slots=4, max_seq_len=64))
@@ -215,6 +216,10 @@ def test_later_slice_submit_args_and_cache_knobs_raise():
     jcfg = JaxCacheConfig(num_layers=1, num_heads=1, head_dim=4)
     assert (cfg.swap_pages, cfg.demote_cold_prefix) == \
         (jcfg.swap_pages, jcfg.demote_cold_prefix)
-    for kw in (dict(coll_quant="int8"), dict(weight_matmul="int8")):
-        with pytest.raises(NotImplementedError, match="slice"):
-            CacheConfig(num_layers=1, num_heads=1, head_dim=4, **kw)
+    with pytest.raises(NotImplementedError, match="slice"):
+        CacheConfig(num_layers=1, num_heads=1, head_dim=4, coll_quant="int8")
+    for kw in (dict(weight_matmul="int8", weight_quant="int8"),
+               dict(kv_quant="int8", scale_dtype="bfloat16")):
+        cfg = CacheConfig(num_layers=1, num_heads=1, head_dim=4, **kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+    assert SchedulerConfig(weight_matmul="int8").weight_matmul == "int8"

@@ -225,10 +225,15 @@ def test_quant_config_validation():
         tquant.QuantConfig(kv="int4")
     with pytest.raises(ValueError):
         tquant.QuantConfig(weights="fp8")
-    for kw in (dict(coll="int8"), dict(weight_matmul="int8"),
-               dict(scale_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="slice"):
+        tquant.QuantConfig(coll="int8")
+    for kw in (dict(weight_matmul="int4"), dict(scale_dtype="float64")):
+        with pytest.raises(ValueError):
             tquant.QuantConfig(**kw)
+    for sd in ("float32", "float16", "bfloat16"):
+        assert tquant.QuantConfig(kv="int8", scale_dtype=sd).scale_dtype == sd
+    assert tquant.QuantConfig(weights="int8",
+                              weight_matmul="int8").weight_matmul == "int8"
 
 
 @pytest.mark.parametrize("kv_quant", ["off", "int8", "fp8"])
