@@ -101,6 +101,19 @@ before and read just after:
   run of the kernel route against the plain attention route; then the
   same widths and batch in float32 (no AMP, 2 steps per call), where the
   float32 flash kernels (3xTF32 forward, dK/dV and dQ) run at full width;
+- training as users configure it (``phase_train_dropout``, this
+  slice's main path): ``bench.py``'s configuration with GPTConfig's
+  default dropouts 0.1 / 0.1 through the dropout kernel (a threefry
+  hash per element, bit-equal to its plain version at the hidden and
+  attention-probability shapes, a broadcast mask and float16:
+  ``phase_dropout_kernel``), a linear warmup into a cosine decay and
+  global-norm clipping, every dropout launch counted and the flash
+  kernels idle; AMP O2 float16 with a ``GradScaler`` through the float16
+  flash kernels, skipped steps leaving the parameters bit-unchanged
+  (``phase_train_fp16``); the remat policies (``phase_remat``); Adam's
+  low-memory tiers at GPT-3 XL widths, 4 layers (``phase_adam_lowmem``);
+  ``generate`` on GPT-2-small, greedy against a teacher-forced forward
+  and sampled twice from one seed (``phase_generate``);
 - the Paddle-API core, the main path of the fifth slice: ``custom_op``
   programs on the card, the user kernel ``my_triple`` through
   ``cuda_op`` (the counterpart of ``pallas_op``) at [4, 8] and
@@ -169,14 +182,19 @@ from paddle_tpu_torch.inference.llm.scheduler import Overloaded
 from paddle_tpu_torch import observability as obs
 import paddle_tpu_torch as paddle
 import paddle_tpu_torch.nn.functional as PF
-from paddle_tpu_torch.amp import decorate
+from paddle_tpu_torch.amp import GradScaler, decorate
+from paddle_tpu_torch.core import random as trng
+from paddle_tpu_torch.core import threefry
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import attention as attn
+from paddle_tpu_torch.kernels import dropout as dk
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import int8 as i8
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm, Dropout
 from paddle_tpu_torch.optimizer import AdamW, Momentum
+from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
 from paddle_tpu_torch.text.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.utils import ShapeDtypeStruct, cuda_op, custom_op
 from paddle_tpu_torch.utils.custom_op import LAUNCHES as OP_LAUNCHES
@@ -414,6 +432,70 @@ FLASH_F64_OUTPUTS = (("flash_attention_fwd", ("o", "lse")),
 # than 1e-6 apart
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_CLOSE, TRAIN_MAX_FAR_SHARE = 1e-6, 1e-4
+# float16 flash kernels against their plain versions: both round p and
+# dS to float16 (a step of 2^-11 = 4.9e-4 relative; the kernel against
+# the running row max, the plain version against the final one) and the
+# result once more: outputs and gradients at 1e-2, no looser than bf16's
+# 2e-2; lse is float32 from the same float32 products: 2e-5
+FLASH_TOL[torch.float16] = {"o": 1e-2, "lse": 2e-5, "grad": 1e-2}
+FLASH_SOURCES_F16 = {
+    "flash_attention_fwd": _FLASH_CSRC + "flash_fwd_f16.cu",
+    "flash_attention_bwd_dkdv": _FLASH_CSRC + "flash_bwd_f16.cu",
+    "flash_attention_bwd_dq": _FLASH_CSRC + "flash_bwd_f16.cu"}
+
+# training as users configure it (this slice's main path): bench.py's
+# configuration with GPTConfig's default dropouts, AdamW under a linear
+# warmup into a cosine decay, global-norm clipping, AMP O2 bf16
+TRAIN_DROPOUT = 0.1
+TRAIN_WARMUP_STEPS, TRAIN_DECAY_STEPS, TRAIN_CLIP = 16, 1000, 1.0
+TRAIN_DROPOUT_CALLS = 2     # timed calls, after one warm call
+# the dropout kernel: bench.py's hidden dropout (bf16 [B, S, d]) and its
+# attention-probability dropout (float32 [B, H, S, S]), a broadcast mask
+# (dropout2d's: one draw per (sample, channel)) and float16
+DROPOUT_P = 0.1
+DROPOUT_HIDDEN = (16, 1024, 768)
+DROPOUT_ATTN = (16, 12, 1024, 1024)
+DROPOUT_AXIS = ((16, 12, 1024, 64), (16, 12, 1, 1))
+# the plain version holds ~a dozen int64 temporaries of its size: at the
+# attention shape (201M draws) it is compared over flat slices this long
+DROPOUT_PLAIN_SLICE = 16 << 20
+# the kept share of a case with at least this many draws within 1e-3 of
+# 1 - p (a million draws: a binomial standard deviation of 3e-4)
+DROPOUT_KEPT_TOL, DROPOUT_KEPT_MIN_DRAWS = 1e-3, 1 << 20
+DROPOUT_SOURCE = "paddle_tpu_torch/kernels/csrc/dropout.cu"
+DROPOUT_REPLACES = ("none (paddle_tpu/ops/nn_ops.py:273 dropout and "
+                    "paddle_tpu/kernels/attention.py:54: jax.random."
+                    "bernoulli and a jnp.where that XLA fuses)")
+# the card's peak rate of 32-bit integer and logic operations: its
+# instruction issue rate, one warp instruction (32 lanes) a clock on each
+# of an SM's four schedulers, x 132 SMs x 1.98 GHz (33.4 T/s; the INT32
+# units alone, 64 an SM, give half that, but adds also issue to the FMA
+# pipe as IMAD: the kernel ran above that half rate); the dropout
+# kernel's integer operations a draw, counted from csrc/dropout.cu's hash
+INT32_OPS_PER_S = 4 * 32 * 132 * 1.98e9
+DROPOUT_INT_OPS = 84
+# float16 O2 with a GradScaler: eager steps from a scale at which the
+# loss gradient overflows float16 (its largest entries are about scale /
+# 16384 tokens = 2^16 > 65504 as they are cast to float16 in the loss's
+# backward), halved at every overflow
+FP16_STEPS, FP16_INIT_SCALE = 16, 2.0 ** 30
+FP16_FINITE_TAIL = 3        # the last steps that must not overflow
+# the remat policies at bench.py's configuration: one warm and one timed
+# call each
+REMAT_POLICIES = (False, True, "dots", "names:qkv,mlp1", "dots+names:attn")
+# Adam's low-memory tiers at GPT-3 XL widths (GPTConfig.gpt3_1p3b) cut to
+# 4 layers, a batch of 2 x 2048 tokens, against the full tier
+ADAM_XL_CFG = dict(vocab_size=50304, hidden_size=2048, num_hidden_layers=4,
+                   num_attention_heads=32, intermediate_size=8192,
+                   max_position_embeddings=2048, hidden_dropout_prob=0.0,
+                   attention_probs_dropout_prob=0.0, loss_chunks=8)
+ADAM_XL_BATCH, ADAM_XL_SEQ, ADAM_XL_K = 2, 2048, 2
+ADAM_LOWMEM = dict(moment_dtype="bfloat16", factored_moment2=True,
+                   beta1=0.0, update_rms_clip=1.0)
+# generate: GPT-2-small at full width and depth, float32
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 64
+GEN_SAMPLING = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.8,
+                    seed=5)
 
 
 def log(msg: str) -> None:
@@ -3371,19 +3453,18 @@ def check_f64(worst, args, got, plain, shape) -> None:
 
 
 def phase_flash(device) -> dict:
-    """Each flash kernel against its plain version, float32 and bf16,
-    causal and not, at the training shape and a GPT-3 XL head layout,
+    """Each flash kernel against its plain version, float32, bf16 and
+    float16, causal and not, at the training shape and a GPT-3 XL head layout,
     plus Sq < Sk causal; every kernel run twice for identical bits; the
     float32 outputs and gradients of both also against float64
     (``check_f64``). Returns the worst error per kernel and dtype, and per
     kernel the worst float64 errors (kernel, plain) under ``(name,
     "float64")``."""
     worst: dict = {}
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
     cases = [(shape, dtype, causal) for shape in (FLASH_TRAIN, FLASH_XL)
-             for dtype in (torch.float32, torch.bfloat16)
-             for causal in (True, False)]
-    cases += [((4, 12, 512, 1024, 64), dtype, True)
-              for dtype in (torch.float32, torch.bfloat16)]
+             for dtype in dtypes for causal in (True, False)]
+    cases += [((4, 12, 512, 1024, 64), dtype, True) for dtype in dtypes]
     for seed, (shape, dtype, causal) in enumerate(cases):
         q, k, v, do = flash_inputs(shape, dtype, seed, device)
         scale = shape[-1] ** -0.5
@@ -3594,7 +3675,8 @@ def phase_train(device, profile: bool) -> dict:
         f"{launches} = {cfg_layers} layers x {steps} steps, no plain attention, no "
         "other attention kernel")
     return {"tokens_per_s": tokens / wall, "ms_per_step": ms_step,
-            "launches": launches}
+            "launches": launches, "peak_gib": peak / 2**30,
+            "peak_above_gib": (peak - base) / 2**30}
 
 
 def phase_train_f32(device) -> dict:
@@ -3688,9 +3770,11 @@ def flash_work(shape, dtype, causal=True):
 
 def flash_bound(nbytes, flops, dtype):
     """(ms, "bytes" or "operations"): the larger of the bytes over HBM
-    bandwidth and the operations over the tensor cores' rate, bf16 for
-    bf16 inputs, three TF32 products per float32 product for float32."""
-    t_ops = (flops / BF16_FLOPS_PER_S if dtype == torch.bfloat16
+    bandwidth and the operations over the tensor cores' rate, bf16's
+    (the same as float16's) for bf16 and float16 inputs, three TF32
+    products per float32 product for float32."""
+    t_ops = (flops / BF16_FLOPS_PER_S
+             if dtype in (torch.bfloat16, torch.float16)
              else 3 * flops / TF32_FLOPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -3798,6 +3882,20 @@ def flash_times(device, dtype, old_fwd=None) -> dict:
         f"{lib_bwd:.4f} ms ({(delta_ms + dkdv + dq) / lib_bwd:.2f}x; the "
         f"two kernels {(dkdv + dq) / lib_bwd:.2f}x)")
     return out
+
+
+def flash_rows_f16(device, launches: dict, errors: dict) -> list:
+    """The kernels line's rows of the float16 flash kernels: their times
+    at the training shape, their launches on the float16 O2 path and
+    their worst error against their plain versions."""
+    times = flash_times(device, torch.float16)
+    return [{"name": f"{name}_f16", "route": "cuda",
+             "source": FLASH_SOURCES_F16[name],
+             "replaces": FLASH_REPLACES[name],
+             "launches": launches.get(name, 0),
+             "max_abs_err": errors[(name, "float16")], **times[name],
+             "dtype": "float16", "shape": list(FLASH_TRAIN)}
+            for name in fa.KERNEL_NAMES]
 
 
 def flash_rows(device, launches: dict, errors: dict, launches_f32: dict,
@@ -4137,6 +4235,575 @@ def phase_resnet_train(device, profile: bool) -> dict:
             "peak_bytes": peak}
 
 
+# ------------------------------------- training as users configure it
+
+
+def dropout_cases():
+    """(label, shape, dtype, mask shape or None) of the dropout kernel's
+    checks: the main path's two shapes, a broadcast mask, float16."""
+    return (("hidden", DROPOUT_HIDDEN, torch.bfloat16, None),
+            ("attention", DROPOUT_ATTN, torch.float32, None),
+            ("axis", DROPOUT_AXIS[0], torch.bfloat16, DROPOUT_AXIS[1]),
+            ("float16", DROPOUT_HIDDEN, torch.float16, None))
+
+
+def _dropout_input(shape, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+
+def _dropout_slices(n: int):
+    """The flat ``(start, count)`` stretches the plain version is held to:
+    the whole tensor, or its first and last DROPOUT_PLAIN_SLICE
+    elements when it is larger."""
+    if n <= 2 * DROPOUT_PLAIN_SLICE:
+        return ((0, n),)
+    return ((0, DROPOUT_PLAIN_SLICE),
+            (n - DROPOUT_PLAIN_SLICE, DROPOUT_PLAIN_SLICE))
+
+
+def _held_to_plain(label, got, x, key, mask, upscale=True):
+    """``got`` (the kernel's output on x) equals the plain version's bits
+    over each of :func:`_dropout_slices` (the whole tensor with a mask)."""
+    if mask is not None:
+        want = dk.dropout_ref(x, key, DROPOUT_P, mask, upscale)
+        pairs = ((got, want),)
+    else:
+        flat, xf = got.reshape(-1), x.reshape(-1)
+        pairs = ((flat[a:a + n], dk.dropout_ref(xf[a:a + n], key, DROPOUT_P,
+                                                start=a))
+                 for a, n in _dropout_slices(x.numel()))
+    bits = torch.int16 if got.element_size() == 2 else torch.int32
+    for g, w in pairs:
+        if not torch.equal(g.view(bits), w.view(bits)):
+            bad = int((g.view(bits) != w.view(bits)).sum().item())
+            raise AssertionError(f"dropout kernel {label}: {bad} elements "
+                                 "differ from the plain version's bits")
+
+
+def phase_dropout_kernel(device) -> dict:
+    """The dropout kernel bit-equal to its plain version, forward and
+    backward (the same function of dy under the same key), at the main
+    path's shapes, a broadcast mask and float16; two runs bit-identical;
+    the kept share within DROPOUT_KEPT_TOL of 1 - p where there are
+    enough draws. Returns the worst error (0 when bit-equal)."""
+    for seed, (label, shape, dtype, mask) in enumerate(dropout_cases()):
+        x = _dropout_input(shape, dtype, 40 + seed, device)
+        key = threefry.prng_key(900 + seed)
+        y = dk.dropout_cuda(x, key, DROPOUT_P, mask)
+        torch.cuda.synchronize()
+        _held_to_plain(f"{label} forward", y, x, key, mask)
+        if not torch.equal(y, dk.dropout_cuda(x, key, DROPOUT_P, mask)):
+            raise AssertionError(f"dropout kernel {label}: two runs differ")
+        xg = x.clone().requires_grad_(True)
+        dy = _dropout_input(shape, dtype, 60 + seed, device)
+        dk.dropout(xg, key, DROPOUT_P, mask).backward(dy)
+        torch.cuda.synchronize()
+        _held_to_plain(f"{label} backward", xg.grad, dy, key, mask)
+        draws = math.prod(mask) if mask is not None else x.numel()
+        kept = None
+        if draws >= DROPOUT_KEPT_MIN_DRAWS:
+            kept = (dk.dropout_cuda(torch.ones_like(x), key, DROPOUT_P,
+                                    mask, upscale=False) != 0).float() \
+                .mean().item()
+            if abs(kept - (1 - DROPOUT_P)) > DROPOUT_KEPT_TOL:
+                raise AssertionError(f"dropout kernel {label}: kept share "
+                                     f"{kept:.5f}, want {1 - DROPOUT_P}")
+        whole = mask is not None or len(_dropout_slices(x.numel())) == 1
+        over = ("the whole tensor" if whole else
+                f"its first and last {DROPOUT_PLAIN_SLICE} elements")
+        share = (f"kept share {kept:.5f} of {draws} draws (1 - p "
+                 f"{1 - DROPOUT_P}, tol {DROPOUT_KEPT_TOL})"
+                 if kept is not None else
+                 f"{draws} draws (too few for the kept-share check)")
+        log(f"[dropout] {label} {list(shape)} {str(dtype).split('.')[-1]}"
+            f"{'' if mask is None else f' mask {list(mask)}'} p "
+            f"{DROPOUT_P}: forward and backward bit-equal to the plain "
+            f"version over {over}; a second run bit-identical; {share}")
+        del x, y, xg, dy
+        torch.cuda.empty_cache()
+    return {"max_abs_err": 0.0}
+
+
+def dropout_work(shape, dtype, mask=None):
+    """(bytes, integer operations) of one dropout call: x read once and
+    y written once; DROPOUT_INT_OPS a draw and an element."""
+    n = math.prod(shape)
+    it = torch.tensor([], dtype=dtype).element_size()
+    return 2 * n * it, DROPOUT_INT_OPS * n
+
+
+def dropout_bound(shape, dtype):
+    nbytes, ops = dropout_work(shape, dtype)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dropout_times(device) -> dict:
+    """The kernel, its plain version (reps 3: ~a hundred int64 passes)
+    and ``F.dropout`` (Philox bits, another function: for scale only,
+    never the library yardstick) at the main path's two shapes, beside
+    the bound."""
+    out = {}
+    for label, shape, dtype, _ in dropout_cases()[:2]:
+        x = _dropout_input(shape, dtype, 7, device)
+        key = threefry.prng_key(5)
+        bms, by = dropout_bound(shape, dtype)
+        out[label] = {
+            "ms": time_cuda(lambda: dk.dropout_cuda(x, key, DROPOUT_P)),
+            "plain_ms": time_cuda(lambda: dk.dropout_ref(x, key, DROPOUT_P),
+                                  reps=3, warmup=1),
+            "bound_ms": bms, "bound_by": by,
+            "torch_dropout_ms": time_cuda(lambda: F.dropout(x, DROPOUT_P)),
+            "shape": list(shape), "dtype": str(dtype).split(".")[-1]}
+        t = out[label]
+        log(f"[times] dropout {label} {list(shape)} {t['dtype']}: kernel "
+            f"{t['ms']:.4f} ms, bound {bms:.4f} ms ({by}; bytes "
+            f"{dropout_work(shape, dtype)[0] / HBM_BYTES_PER_S * 1e3:.4f}, "
+            f"int32 ops {dropout_work(shape, dtype)[1] / INT32_OPS_PER_S * 1e3:.4f}"
+            f" at {INT32_OPS_PER_S / 1e12:.1f} T/s), plain "
+            f"{t['plain_ms']:.4f} ms; F.dropout (Philox, for scale) "
+            f"{t['torch_dropout_ms']:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def dropout_row(times: dict, launches: int, err: float) -> dict:
+    """The kernels line's row of the dropout kernel: numbers at the
+    attention-probability shape, the hidden shape's beside them; no
+    PyTorch call computes this function (``F.dropout`` draws Philox
+    bits), so ``library_ms`` is null."""
+    att = times["attention"]
+    return {"name": dk.KERNEL_NAME, "route": "cuda", "source": DROPOUT_SOURCE,
+            "replaces": DROPOUT_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": att["ms"], "plain_ms": att["plain_ms"],
+            "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
+            "library_ms": None, "torch_dropout_ms": att["torch_dropout_ms"],
+            "shape": att["shape"], "dtype": att["dtype"],
+            "hidden": times["hidden"]}
+
+
+@contextlib.contextmanager
+def plain_dropout_refused():
+    """Inside the block the dropout kernel's plain version and the plain
+    threefry draws raise: a path that reaches one fails."""
+    saved = [(dk, "dropout_ref", dk.dropout_ref),
+             (threefry, "bernoulli", threefry.bernoulli)]
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, _stub(name))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_ids(device, shape, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, TRAIN_CFG["vocab_size"], shape, generator=g,
+                         device=device)
+
+
+def dropout_train_step(device, seed=0):
+    """bench.py's model with GPTConfig's default dropouts, AdamW under a
+    linear warmup into a cosine decay, global-norm clipping, AMP O2
+    bf16, TrainStep of TRAIN_K steps: (model, step, scheduler)."""
+    cfg = GPTConfig(**{**TRAIN_CFG, "hidden_dropout_prob": TRAIN_DROPOUT,
+                       "attention_probs_dropout_prob": TRAIN_DROPOUT})
+    model = GPTForCausalLM(cfg, device=device, seed=seed)
+    sched = LinearWarmup(CosineAnnealingDecay(TRAIN_LR, TRAIN_DECAY_STEPS),
+                         TRAIN_WARMUP_STEPS, 0.0, TRAIN_LR)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(TRAIN_CLIP))
+    model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+    return model, TrainStep(model, loss_fn, opt, steps_per_call=TRAIN_K), \
+        sched
+
+
+def _call(step, sched, ids):
+    out = step(ids, ids)
+    for _ in range(TRAIN_K):
+        sched.step()
+    return out
+
+
+def phase_train_dropout(device, base: dict, profile: bool = True) -> dict:
+    """This slice's main path: bench.py's configuration with dropout 0.1
+    / 0.1, the LR schedule, clipping and AMP O2 bf16, one warm call and
+    TRAIN_DROPOUT_CALLS timed calls. Every dropout launch is counted:
+    per step (1 + 2 x layers) hidden and layers attention dropouts
+    forward and as many backward; the flash kernels stay idle (dropout
+    keeps the attention on the plain route, as in the JAX package); the
+    plain dropout and threefry draws are refused. The losses are finite
+    and a second model from the same seeds repeats the first call's
+    losses bit for bit; ``eval()`` gives the dropout-free logits. Prints
+    ms/step and peak memory beside ``base`` (``phase_train``'s dropout-off
+    numbers) and the dropout kernel's share of device time."""
+    layers = TRAIN_CFG["num_hidden_layers"]
+    ids = train_ids(device, (TRAIN_K, TRAIN_BATCH, TRAIN_SEQ), 7)
+    model, step, sched = dropout_train_step(device)
+    with plain_dropout_refused():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        trng.default_generator.manual_seed(0)
+        dk.LAUNCHES.clear()
+        fa.LAUNCHES.clear()
+        t_warm = time.perf_counter()
+        losses = [_call(step, sched, ids).tolist()]
+        warm = time.perf_counter() - t_warm
+        t0 = time.perf_counter()
+        calls = [_call(step, sched, ids) for _ in range(TRAIN_DROPOUT_CALLS)]
+        losses += [c.tolist() for c in calls]
+        wall = time.perf_counter() - t0
+        launches, flash = dict(dk.LAUNCHES), dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if profile:
+            share = _dropout_share(step, sched, ids)
+        else:
+            share = None
+    steps = TRAIN_K * (1 + TRAIN_DROPOUT_CALLS)
+    per_step = (1 + 2 * layers) + layers
+    want = {dk.KERNEL_NAME: 2 * per_step * steps}
+    if launches != want or flash:
+        raise AssertionError(f"dropout training launches {launches}, flash "
+                             f"{flash}; expected {want} = 2 x ((1 + 2 x "
+                             f"{layers}) + {layers}) x {steps} steps, and no "
+                             "flash launch")
+    flat = [x for call in losses for x in call]
+    if not all(math.isfinite(x) for x in flat):
+        raise AssertionError(f"dropout training losses not finite: {flat}")
+    # eval: no key drawn, the logits of the same weights with every
+    # dropout probability set to 0 (in training mode)
+    x = ids[0][:2]
+    state = trng.default_generator.get_state()
+    model.eval()
+    with torch.no_grad(), plain_dropout_refused():
+        dk.LAUNCHES.clear()
+        logits_eval = model(x)
+        logits_free = _dropout_free_logits(model, x)
+        eval_launches = dict(dk.LAUNCHES)
+    if not torch.equal(logits_eval, logits_free) or eval_launches or \
+            not torch.equal(state, trng.default_generator.get_state()):
+        raise AssertionError("eval() did not give the dropout-free logits "
+                             "(or drew a key, or launched the kernel)")
+    del model, step, logits_eval, logits_free
+    torch.cuda.empty_cache()
+    # the same seeds again: the first call's losses bit for bit
+    model2, step2, sched2 = dropout_train_step(device)
+    trng.default_generator.manual_seed(0)
+    again = _call(step2, sched2, ids).tolist()
+    if again != losses[0]:
+        raise AssertionError(f"dropout training from one seed is not "
+                             f"repeatable: {losses[0]} then {again}")
+    del model2, step2
+    torch.cuda.empty_cache()
+    timed = TRAIN_K * TRAIN_DROPOUT_CALLS
+    ms_step = 1e3 * wall / timed
+    log(f"[train] dropout main path: bench.py config with dropout "
+        f"{TRAIN_DROPOUT} / {TRAIN_DROPOUT}, LinearWarmup({TRAIN_WARMUP_STEPS})"
+        f" into CosineAnnealingDecay({TRAIN_DECAY_STEPS}), "
+        f"ClipGradByGlobalNorm({TRAIN_CLIP}), AMP O2 bf16, {TRAIN_K} steps "
+        f"per call: warm call {warm:.3f}s; {TRAIN_DROPOUT_CALLS} timed calls "
+        f"{wall:.3f}s = {ms_step:.2f} ms/step (dropout off, phase_train: "
+        f"{base['ms_per_step']:.2f}), peak {peak / 2**30:.2f} GiB allocated "
+        f"(dropout off: {base['peak_gib']:.2f}), {(peak - before) / 2**30:.2f}"
+        f" GiB above the {before / 2**30:.2f} allocated before the first "
+        f"call (dropout off: {base['peak_above_gib']:.2f}); dropout kernel "
+        f"share of "
+        f"device time {'not measured' if share is None else f'{100 * share:.1f}%'}; "
+        f"dropout launches {launches} = 2 x {per_step} x {steps} steps, "
+        f"flash idle, plain dropout refused; losses all finite "
+        f"(first {flat[0]:.4f}, last {flat[-1]:.4f}); a second model from "
+        f"the same seeds repeats the first call's {TRAIN_K} losses bit for "
+        f"bit; eval() logits equal the dropout-free forward's, no key drawn")
+    return {"ms_per_step": ms_step, "peak_gib": peak / 2**30,
+            "peak_above_gib": (peak - before) / 2**30,
+            "launches": launches, "dropout_share": share}
+
+
+def _dropout_free_logits(model, x):
+    """The model's logits in training mode with every dropout
+    probability (the config's and each ``Dropout`` layer's) at 0."""
+    cfg = model.config
+    saved = (cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob)
+    layers = [(m, m.p) for m in model.modules() if isinstance(m, Dropout)]
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    for m, _ in layers:
+        m.p = 0.0
+    was = model.training
+    model.train()
+    try:
+        return model(x)
+    finally:
+        model.train(was)
+        cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob = saved
+        for m, p in layers:
+            m.p = p
+
+
+def _dropout_share(step, sched, ids):
+    """The dropout kernel's share of device time over one more training
+    call under ``torch.profiler`` (None where it records no device
+    time); prints the call's device time by operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _call(step, sched, ids).tolist()
+    log_device_profile(prof, "dropout training call",
+                       time.perf_counter() - t0, TRAIN_K, 10,
+                       ("the dropout kernel", ("dropout_kernel",)))
+    return _share(prof, ("dropout_kernel",))
+
+
+def phase_train_fp16(device) -> dict:
+    """bench.py's widths and depth under AMP O2 float16 (dropout 0),
+    eager steps of ``scaler.scale(loss).backward(); scaler.step(opt)``
+    from a loss scale at which the first steps overflow float16: a
+    skipped step leaves every parameter bit-unchanged, the scale follows
+    the found-inf sequence (halved at each overflow, kept otherwise),
+    the last FP16_FINITE_TAIL steps are taken, every loss is finite; the
+    float16 flash kernels launch once per layer per step with the plain
+    attention refused."""
+    layers = TRAIN_CFG["num_hidden_layers"]
+    model = train_model(device, layers)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    model, opt = decorate(model, opt, level="O2", dtype="float16")
+    scaler = GradScaler(init_loss_scaling=FP16_INIT_SCALE,
+                        decr_every_n_nan_or_inf=1)
+    ids = train_ids(device, (FP16_STEPS, TRAIN_BATCH, TRAIN_SEQ), 9)
+    params = list(model.parameters())
+    found_seq, scales, losses = [], [], []
+    with plain_attention_refused():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        for x in ids:
+            before = [p.detach().clone() for p in params]
+            scale = scaler._scale
+            loss = model.loss(x, x)
+            scaler.scale(loss).backward()
+            scaler.unscale_(opt)
+            found = scaler._found_inf
+            scaler.step(opt)
+            opt.clear_grad()
+            want = max(scale * 0.5, 1.0) if found else scale
+            if scaler._scale != want:
+                raise AssertionError(f"fp16: scale {scale} -> "
+                                     f"{scaler._scale} after found_inf "
+                                     f"{found}, want {want}")
+            if found and not all(torch.equal(a, p.detach())
+                                 for a, p in zip(before, params)):
+                raise AssertionError("fp16: a skipped step changed the "
+                                     "parameters")
+            found_seq.append(found)
+            scales.append(scaler._scale)
+            losses.append(loss.float().item())
+            del before
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    want = {n: layers * FP16_STEPS for n in fa.KERNEL_NAMES}
+    if launches != want:
+        raise AssertionError(f"fp16 flash launches {launches}, expected "
+                             f"{want} = layers x steps")
+    if not found_seq[0] or any(found_seq[-FP16_FINITE_TAIL:]):
+        raise AssertionError(f"fp16: found_inf sequence {found_seq}: the "
+                             "first step must overflow and the last "
+                             f"{FP16_FINITE_TAIL} must not")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"fp16 losses not finite: {losses}")
+    log(f"[train] float16 O2 path: bench.py widths ({layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}), AdamW, GradScaler from "
+        f"{FP16_INIT_SCALE:g} halving at each overflow, {FP16_STEPS} eager "
+        f"steps {1e3 * wall / FP16_STEPS:.2f} ms/step (each reads found_inf "
+        f"on the host), peak {peak / 2**30:.2f} GiB; found_inf "
+        f"{[int(f) for f in found_seq]}, scales {[f'{v:g}' for v in scales]}"
+        f"; {sum(found_seq)} skipped steps left every parameter "
+        f"bit-unchanged; losses {[round(v, 4) for v in losses]}, all finite;"
+        f" float16 flash launches {launches} = {layers} layers x "
+        f"{FP16_STEPS} steps, no plain attention")
+    return {"launches": launches, "ms_per_step": 1e3 * wall / FP16_STEPS,
+            "skipped": sum(found_seq)}
+
+
+def phase_remat(device) -> dict:
+    """bench.py's configuration (bf16 O2, no dropout) under each remat
+    policy: one warm and one timed call each from the same weights and
+    tokens; the losses within TRAIN_LOSS_RTOL of no remat's (reported
+    whether bit-equal), ms/step and peak memory per policy."""
+    ids = train_ids(device, (TRAIN_K, TRAIN_BATCH, TRAIN_SEQ), 7)
+    out = {}
+    for policy in REMAT_POLICIES:
+        cfg = GPTConfig(**{**TRAIN_CFG, "use_recompute": policy is True,
+                           "recompute_policy": policy if isinstance(
+                               policy, str) else None})
+        model = GPTForCausalLM(cfg, device=device, seed=0)
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+        model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+        step = TrainStep(model, loss_fn, opt, steps_per_call=TRAIN_K)
+        with plain_attention_refused():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            fa.LAUNCHES.clear()
+            losses = step(ids, ids).tolist()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += step(ids, ids).tolist()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = dict(fa.LAUNCHES)
+        out[str(policy)] = {"ms_per_step": 1e3 * wall / TRAIN_K,
+                            "peak_gib": (peak - before) / 2**30,
+                            "losses": losses, "launches": launches}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    base = out["False"]["losses"]
+    for name, r in out.items():
+        if not all(math.isfinite(v) for v in r["losses"]):
+            raise AssertionError(f"remat {name}: losses not finite")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], base))
+        r["max_rel_loss_diff"], r["bit_equal"] = rel, r["losses"] == base
+        if rel > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"remat {name}: losses {rel:.3e} from no "
+                                 f"remat's (tol {TRAIN_LOSS_RTOL})")
+        log(f"[remat] {name:>16}: {r['ms_per_step']:.2f} ms/step, peak "
+            f"{r['peak_gib']:.2f} GiB above the allocation before the "
+            f"calls; losses {'bit-equal to' if r['bit_equal'] else f'within {rel:.2e} of'} "
+            f"no remat's; flash launches {r['launches']}")
+    return out
+
+
+def adam_state_bytes(opt) -> int:
+    return sum(t.numel() * t.element_size()
+               for st in opt._accumulators.values() for t in st.values())
+
+
+def adam_state_formula(params, lowmem: bool) -> int:
+    """The optimizer-state bytes by formula, per parameter of n values:
+    its float32 master (4n) and two float32 beta powers (8), plus 4n + 4n
+    (moments) for the full tier; for the low-memory tier no first moment
+    and, for a parameter of two or more axes, float32 row and column
+    factors (4 x (prod(shape[:-1]) + shape[-1])), else a bf16 moment
+    (2n)."""
+    total = 0
+    for p in params:
+        n = p.numel()
+        total += 4 * n + 8
+        if not lowmem:
+            total += 8 * n
+        elif p.dim() >= 2:
+            total += 4 * (n // p.shape[-1] + p.shape[-1])
+        else:
+            total += 2 * n
+    return total
+
+
+def phase_adam_lowmem(device) -> dict:
+    """GPT-3 XL widths cut to four layers under AMP O2 bf16: AdamW's
+    full tier against its low-memory tier (bf16 moments, factored second
+    moment, no first moment, update RMS clip), one warm and one timed
+    TrainStep call each: the optimizer-state bytes equal the formula,
+    the losses are finite; ms/step and peak memory of each."""
+    ids = train_ids(device, (ADAM_XL_K, ADAM_XL_BATCH, ADAM_XL_SEQ), 13)
+    out = {}
+    for tier, kw in (("full", {}), ("lowmem", ADAM_LOWMEM)):
+        model = GPTForCausalLM(GPTConfig(**ADAM_XL_CFG), device=device,
+                               seed=0)
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                    **kw)
+        model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+        step = TrainStep(model, loss_fn, opt, steps_per_call=ADAM_XL_K)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        losses = step(ids, ids).tolist()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += step(ids, ids).tolist()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        got = adam_state_bytes(opt)
+        want = adam_state_formula(list(model.parameters()), tier == "lowmem")
+        if got != want:
+            raise AssertionError(f"adam {tier}: state {got} bytes, formula "
+                                 f"{want}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"adam {tier}: losses not finite {losses}")
+        out[tier] = {"state_bytes": got, "ms_per_step": 1e3 * wall / ADAM_XL_K,
+                     "peak_gib": peak / 2**30, "losses": losses}
+        log(f"[adam] GPT-3 XL widths x {ADAM_XL_CFG['num_hidden_layers']} "
+            f"layers, {ADAM_XL_BATCH} x {ADAM_XL_SEQ}, O2 bf16, {tier} tier "
+            f"{kw}: optimizer state {got} bytes (= the formula), "
+            f"{out[tier]['ms_per_step']:.2f} ms/step, peak "
+            f"{out[tier]['peak_gib']:.2f} GiB above the allocation before "
+            f"the calls (the bf16 model's), losses "
+            f"{[round(v, 4) for v in losses]}")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_generate(device) -> dict:
+    """GPT-2-small at full width and depth (float32, random weights from
+    a seed): ``generate`` of GEN_NEW tokens after a GEN_PROMPT-token
+    prompt for GEN_BATCH rows, greedy and then sampled (top-k, top-p,
+    temperature). Each greedy token is the argmax of a full
+    teacher-forced forward over the generated sequence, outside counted
+    near-ties (the two best logits closer than NEAR_TIE); the sampled run
+    repeats bit for bit from its seed. Reports ms/token."""
+    cfg = GPTConfig(**{**TRAIN_CFG, "loss_chunks": 1})
+    model = GPTForCausalLM(cfg, device=device, seed=0)
+    g = torch.Generator(device=device).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                           generator=g, device=device)
+    out, ms = {}, {}
+    for label, kw in (("greedy", {}), ("sampled", GEN_SAMPLING)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = model.generate(prompt, max_new_tokens=GEN_NEW, **kw)
+        torch.cuda.synchronize()
+        ms[label] = 1e3 * (time.perf_counter() - t0) / GEN_NEW
+        out[label] = toks
+    if out["greedy"].shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW):
+        raise AssertionError(f"generate shape {tuple(out['greedy'].shape)}")
+    model.eval()
+    with torch.no_grad():
+        logits = model(out["greedy"][:, :-1])[:, GEN_PROMPT - 1:].float()
+    top2 = torch.topk(logits, 2, dim=-1)[0]
+    gap = (top2[..., 0] - top2[..., 1])
+    picked = out["greedy"][:, GEN_PROMPT:]
+    best = logits.argmax(dim=-1)
+    differ = picked != best
+    ties = int((differ & (gap < NEAR_TIE)).sum().item())
+    bad = int((differ & (gap >= NEAR_TIE)).sum().item())
+    if bad:
+        raise AssertionError(f"generate: {bad} greedy tokens are not the "
+                             "teacher-forced argmax (no near-tie)")
+    again = model.generate(prompt, max_new_tokens=GEN_NEW, **GEN_SAMPLING)
+    if not torch.equal(again, out["sampled"]):
+        raise AssertionError("generate: a sampled run did not repeat from "
+                             "its seed")
+    near = int((gap < NEAR_TIE).sum().item())
+    log(f"[generate] GPT-2-small (12 layers, float32), batch {GEN_BATCH}, "
+        f"prompt {GEN_PROMPT}, {GEN_NEW} new tokens: greedy "
+        f"{ms['greedy']:.2f} ms/token, sampled {GEN_SAMPLING} "
+        f"{ms['sampled']:.2f} ms/token; every greedy token the "
+        f"teacher-forced argmax ({near} near-ties < {NEAR_TIE}, {ties} of "
+        f"them decided the other way); the sampled run repeated bit for "
+        "bit")
+    del model
+    torch.cuda.empty_cache()
+    return {"ms_per_token": ms, "ties": ties}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -4170,6 +4837,7 @@ def main() -> int:
     int8_times = phase_int8_matmul(device)
     per_tier_errors = phase_per_tier_kernels(device)
     flash_errors = phase_flash(device)
+    dropout_errors = phase_dropout_kernel(device)
     launches: dict = {}
 
     # the float path at GPT-2-small width, unsplit and split
@@ -4269,12 +4937,22 @@ def main() -> int:
     # float32, then bench.py's configuration
     phase_train_parity(device)
     torch.cuda.empty_cache()
-    launches.update(phase_train(device, "--profile" in sys.argv[1:])
-                    ["launches"])
+    train = phase_train(device, "--profile" in sys.argv[1:])
+    launches.update(train["launches"])
     torch.cuda.empty_cache()
     # the float32 kernels at full width: the training path without AMP
     launches_f32 = phase_train_f32(device)["launches"]
     torch.cuda.empty_cache()
+    # training as users configure it, this slice's main path: dropout
+    # through its kernel, an LR schedule and clipping; then float16 O2
+    # with a GradScaler, the remat policies, Adam's low-memory tiers and
+    # incremental decode
+    dropout_main = phase_train_dropout(device, train)
+    fp16 = phase_train_fp16(device)
+    torch.cuda.empty_cache()
+    phase_remat(device)
+    phase_adam_lowmem(device)
+    phase_generate(device)
 
     # the Paddle-API core, the main path of this slice: the custom ops
     # and the user kernel, then ResNet-50 through Layer, Momentum, AMP O2
@@ -4301,6 +4979,10 @@ def main() -> int:
         old_fwd = (old_fwd, _build.load_source(
             "flash_fwd_f32_old", old_text["flash_fwd_f32_old"]))
     rows += flash_rows(device, launches, flash_errors, launches_f32, old_fwd)
+    rows += flash_rows_f16(device, fp16["launches"], flash_errors)
+    rows.append(dropout_row(dropout_times(device),
+                            dropout_main["launches"][dk.KERNEL_NAME],
+                            dropout_errors["max_abs_err"]))
     rows.append(triple_row(core))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     # the card's name and power limit, exactly as nvidia-smi prints them

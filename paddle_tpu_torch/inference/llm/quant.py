@@ -197,7 +197,9 @@ def quantize_kv(x: torch.Tensor, mode: str, scale_dtype: str = "float32"
         scale = scale[..., 0]
     elif mode == "fp8":
         amax = xf.abs().amax(dim=-1)
-        scale = torch.clamp(amax / FP8_E4M3_MAX, min=SCALE_EPS)
+        # a tensor divisor: a true division on the card too
+        scale = torch.clamp(amax / torch.full_like(amax, FP8_E4M3_MAX),
+                            min=SCALE_EPS)
         q = (xf / scale[..., None]).to(torch.float8_e4m3fn)
     else:
         raise ValueError(f"quantize_kv with mode {mode!r}")

@@ -3,17 +3,37 @@
 Counterpart of ``paddle_tpu/jit/to_static.py::TrainStep``. The JAX step
 traces forward, backward and the optimizer update into one XLA program
 (a ``lax.scan`` of K steps with ``steps_per_call=K``); PyTorch runs
-eagerly, so here a call runs the K steps in order, each ``loss_fn``,
-``backward()``, ``optimizer.step()`` and ``clear_grad()``, and returns
-the K losses as one device tensor. Nothing in a call reads a device
-value on the host, so the host queues the K steps ahead of the device.
-``scaler`` (loss scaling) and shardings are not ported.
+eagerly, so here a call runs the K steps in order and returns the K
+losses as one device tensor. Nothing in a call reads a device value on
+the host, so the host queues the K steps ahead of the device.
+
+A call mirrors the JAX step's order:
+
+- one ``next_key()`` from the default threefry generator per call, with
+  or without dropout; K > 1 splits it into K step keys
+  (``split(key, K)``), and each step runs its loss under
+  ``trace_key_scope`` of its key, so dropout draws the JAX step's keys;
+- the learning rate is read once per call: the K steps share it;
+- each step: the loss; with an enabled ``scaler``, ``scaler.scale(loss)
+  .backward()`` and every gradient times ``1 / scale`` (in its dtype),
+  with no inf check and no change of the scale (the JAX branch as it
+  is: the check and the scale's update live in the eager
+  ``GradScaler.step``); else ``loss.backward()``; then ``grad_clip``,
+  the optimizer's update at the call's rate, and the gradients
+  cleared.
+
+Shardings are not ported; ``donate`` and ``compiler_options`` (XLA's)
+are taken for the JAX signature and have nothing to act on here.
 """
 from __future__ import annotations
 
+from collections import defaultdict
 from typing import Callable
 
 import torch
+
+from ..core import random as _rng
+from ..core import threefry
 
 __all__ = ["TrainStep"]
 
@@ -27,11 +47,9 @@ class TrainStep:
     the call returns the loss."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
-                 scaler=None, in_shardings=None, out_shardings=None,
-                 steps_per_call: int = 1):
-        if scaler is not None:
-            raise NotImplementedError("GradScaler is not ported (queued with "
-                                      "fp16)")
+                 scaler=None, donate=True, in_shardings=None,
+                 out_shardings=None, steps_per_call: int = 1,
+                 compiler_options=None):
         if in_shardings is not None or out_shardings is not None:
             raise NotImplementedError("sharded train steps are not ported")
         self.steps_per_call = int(steps_per_call)
@@ -40,23 +58,53 @@ class TrainStep:
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.scaler = scaler
 
-    def _step(self, args, kwargs):
-        loss = self.loss_fn(self.model, *args, **kwargs)
-        loss.backward()
-        self.optimizer.step()
-        self.optimizer.clear_grad()
+    def _backward(self, loss) -> None:
+        scaler = self.scaler
+        if scaler is None or not scaler._enable:
+            loss.backward()
+            return
+        scaler.scale(loss).backward()
+        inv = 1.0 / scaler._scale
+        by_dtype = defaultdict(list)
+        for p in self.optimizer._params:
+            if p.grad is not None:
+                by_dtype[p.grad.dtype].append(p.grad)
+        for dtype, grads in by_dtype.items():
+            torch._foreach_mul_(grads, torch.tensor(inv, dtype=dtype).to(
+                grads[0].device))
+
+    def _step(self, key, lr, args, kwargs):
+        opt = self.optimizer
+        with _rng.trace_key_scope(key):
+            loss = self.loss_fn(self.model, *args, **kwargs)
+            self._backward(loss)
+        with torch.no_grad():
+            params_grads = [(p, p.grad) for p in opt._params
+                            if p.grad is not None]
+            if opt._grad_clip is not None:
+                params_grads = opt._grad_clip(params_grads)
+            opt._apply(params_grads, lr)
+        opt.clear_grad()
         return loss.detach()
 
     def __call__(self, *args, **kwargs):
         K = self.steps_per_call
+        key = _rng.default_generator.next_key()
+        lr = self.optimizer.get_lr()
         if K == 1:
-            return self._step(args, kwargs)
+            loss = self._step(key, lr, args, kwargs)
+            self.optimizer._global_step += 1
+            return loss
 
         def at(x, i):
             return x[i] if isinstance(x, torch.Tensor) else x
 
-        return torch.stack([
-            self._step([at(a, i) for a in args],
+        keys = threefry.split(key, K)
+        losses = torch.stack([
+            self._step(keys[i], lr, [at(a, i) for a in args],
                        {n: at(a, i) for n, a in kwargs.items()})
             for i in range(K)])
+        self.optimizer._global_step += K
+        return losses

@@ -34,8 +34,9 @@ KERNELS = ("ragged_attention", "ragged_attention_int8",
            "ragged_attention_fp8", "ragged_attention_int8_f16",
            "ragged_attention_int8_bf16", "ragged_attention_fp8_f16",
            "ragged_attention_fp8_bf16", "int8_matmul", "flash_fwd_f32",
-           "flash_fwd_bf16", "flash_bwd_bf16", "flash_bwd_f32",
-           "paged_attention", "mixed_attention")
+           "flash_fwd_bf16", "flash_bwd_bf16", "flash_fwd_f16",
+           "flash_bwd_f16", "flash_bwd_f32", "paged_attention",
+           "mixed_attention", "dropout")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,7 +17,12 @@ Here every flash-eligible shape (no mask, no dropout, head_dim 64 or
 causal or not: the hand-written kernels on the card, their plain
 versions on the CPU. Other shapes keep the JAX order: chunked where it
 applies, else :func:`sdpa_reference`. A failed kernel raises; nothing
-falls back.
+falls back. Attention-probability dropout (``dropout_p > 0``) keeps the
+attention off the flash and chunked routes, as in the JAX package:
+``sdpa_array`` draws one key from the threefry generator (unless given
+one) and ``sdpa_reference`` drops float32 probabilities through the
+dropout kernel (``kernels/dropout.py``), dividing the kept ones by ``1 -
+p`` before the product with v.
 """
 from __future__ import annotations
 
@@ -26,19 +31,22 @@ from typing import Optional
 
 import torch
 
+from ..core import random as _rng
+from .dropout import dropout as _dropout
 from .flash_attention import NEG_INF, _causal_mask, flash_attention_bshd
 
 __all__ = ["sdpa_reference", "causal_sdpa_chunked", "sdpa_array"]
 
 
 def sdpa_reference(q, k, v, mask=None, is_causal: bool = False,
-                   dropout_p: float = 0.0, sm_scale: Optional[float] = None):
+                   dropout_p: float = 0.0, key=None,
+                   sm_scale: Optional[float] = None):
     """Plain softmax attention with float32 scores. A query row whose
     scores are all masked (causal with ``Sq > Sk``) outputs zeros. A
-    boolean ``mask`` keeps True entries; a float mask is added."""
-    if dropout_p > 0.0:
-        raise NotImplementedError("attention dropout needs the port's "
-                                  "threefry stream (queued)")
+    boolean ``mask`` keeps True entries; a float mask is added. With
+    ``dropout_p > 0`` and a ``key`` the probabilities are dropped
+    (``bernoulli(key, 1 - p, [B, H, Sq, Sk])``, kept ones divided by ``1
+    - p``) before the product with v."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
@@ -54,6 +62,8 @@ def sdpa_reference(q, k, v, mask=None, is_causal: bool = False,
     probs = torch.softmax(logits, dim=-1)
     fully_masked = logits.amax(dim=-1, keepdim=True) <= -1e29
     probs = probs.masked_fill(fully_masked, 0.0)
+    if dropout_p > 0.0 and key is not None:
+        probs = _dropout(probs, key, dropout_p)
     out = torch.matmul(probs.to(vt.dtype).float(), vt.float())
     return out.transpose(1, 2).to(q.dtype)
 
@@ -117,20 +127,19 @@ def _flash_eligible(q, k, mask, dropout_p: float) -> bool:
 
 def sdpa_array(q, k, v, mask=None, is_causal: bool = False,
                dropout_p: float = 0.0, sm_scale: Optional[float] = None,
-               tier: str = "auto"):
+               key=None, tier: str = "auto"):
     """The attention dispatcher (see the module docstring). ``tier``
     reaches the flash route only: ``"ref"`` runs the flash kernels'
     plain versions on any device, ``"kernel"`` insists on the kernels."""
-    if dropout_p > 0.0:
-        raise NotImplementedError("attention dropout needs the port's "
-                                  "threefry stream (queued)")
     if _flash_eligible(q, k, mask, dropout_p):
         return flash_attention_bshd(q, k, v, causal=is_causal,
                                     sm_scale=sm_scale, tier=tier)
     S = q.shape[1]
     chunk = _causal_chunk_for(S)
-    if (is_causal and mask is None and S == k.shape[1] and S % chunk == 0
-            and S >= 2 * chunk):
+    if (is_causal and mask is None and dropout_p == 0.0 and S == k.shape[1]
+            and S % chunk == 0 and S >= 2 * chunk):
         return causal_sdpa_chunked(q, k, v, sm_scale=sm_scale, chunk=chunk)
+    if dropout_p > 0.0 and key is None:
+        key = _rng.next_key()
     return sdpa_reference(q, k, v, mask=mask, is_causal=is_causal,
-                          sm_scale=sm_scale)
+                          dropout_p=dropout_p, key=key, sm_scale=sm_scale)

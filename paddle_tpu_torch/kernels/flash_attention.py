@@ -16,10 +16,14 @@ Two tiers, one function each way:
   :func:`flash_bwd_dq_cuda`. float32 (on the TF32 tensor cores in
   3xTF32, float32-accurate products whatever PyTorch's TF32 flags say:
   ``csrc/flash_fwd_f32.cu`` forward, ``csrc/flash_bwd_f32.cu`` dK/dV
-  and dQ, both on ``csrc/flash_f32_tiles.cuh`` and ``csrc/tf32x3.cuh``) or
-  bf16 (tensor cores, float32 sums: ``csrc/flash_fwd_bf16.cu`` forward,
-  ``csrc/flash_bwd_bf16.cu`` dK/dV and dQ), head_dim 64 or 128, CUDA
-  tensors only; anything else raises.
+  and dQ, both on ``csrc/flash_f32_tiles.cuh`` and ``csrc/tf32x3.cuh``),
+  bf16 or float16 (tensor cores, float32 sums: one source each way,
+  ``csrc/flash_fwd_16.cuh`` forward and ``csrc/flash_bwd_16.cuh`` dK/dV
+  and dQ, built once per type as ``flash_{fwd,bwd}_{bf16,f16}.cu``),
+  head_dim 64 or 128, CUDA tensors only; anything else raises. float16
+  has no wider exponent to spare: under a loss scale ``dS`` and the
+  gradients may reach inf where the JAX kernel's do, and ``GradScaler``
+  skips such a step.
 - their plain PyTorch versions :func:`flash_fwd_ref`,
   :func:`flash_bwd_dkdv_ref`, :func:`flash_bwd_dq_ref` (and
   :func:`flash_bwd_ref` for the whole backward): what the CPU runs and
@@ -56,12 +60,16 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
                 "flash_attention_bwd_dq")
 
 _HEAD_DIMS = (64, 128)
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 # the library (csrc/<name>.cu) that holds each C entry
 _LIBRARY = {"flash_fwd_f32": "flash_fwd_f32",
             "flash_fwd_bf16": "flash_fwd_bf16",
+            "flash_fwd_f16": "flash_fwd_f16",
             "flash_bwd_dkdv_bf16": "flash_bwd_bf16",
             "flash_bwd_dq_bf16": "flash_bwd_bf16",
+            "flash_bwd_dkdv_f16": "flash_bwd_f16",
+            "flash_bwd_dq_f16": "flash_bwd_f16",
             "flash_bwd_dkdv_f32": "flash_bwd_f32",
             "flash_bwd_dq_f32": "flash_bwd_f32"}
 _TIERS = ("auto", "kernel", "ref")

@@ -53,13 +53,17 @@ def quantize_absmax(x: torch.Tensor, axis: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(q int8, scale float32)``. ``axis`` picks per-channel
     scales, kept as a size-1 axis so dequantization is a broadcast
-    multiply; ``None`` takes one scale for the whole tensor (0-d)."""
+    multiply; ``None`` takes one scale for the whole tensor (0-d). The
+    scale is a true division ``amax / 127`` (by a tensor: PyTorch
+    applies a Python-scalar divisor of a CUDA tensor as a multiply by
+    its reciprocal, an ulp away from JAX's division)."""
     xf = x.to(torch.float32)
     if axis is None:
         amax = xf.abs().amax()
     else:
         amax = xf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp(amax / INT8_QMAX, min=SCALE_EPS)
+    scale = torch.clamp(amax / torch.full_like(amax, INT8_QMAX),
+                        min=SCALE_EPS)
     q = torch.clamp(torch.round(xf / scale), -INT8_QMAX, INT8_QMAX)
     return q.to(torch.int8), scale
 

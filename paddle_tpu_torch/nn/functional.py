@@ -1,7 +1,15 @@
 """Functional ops of the port's layers, with Paddle's arguments and
 semantics: counterparts of ``paddle_tpu/ops/nn_ops.py``'s ``linear``,
-``layer_norm``, ``gelu``, ``relu``, ``conv2d``, ``max_pool2d``,
+``layer_norm``, ``gelu``, ``relu``, ``softmax``, ``dropout``,
+``dropout2d``, ``dropout3d``, ``alpha_dropout``,
+``scaled_dot_product_attention``, ``conv2d``, ``max_pool2d``,
 ``adaptive_avg_pool2d``, ``batch_norm`` and ``cross_entropy``.
+
+The ops that the JAX dispatcher casts under ``amp.auto_cast`` ask
+``amp_cast`` under the JAX op's name before they run (see
+``amp/auto_cast.py``). Dropout draws its key from the threefry
+generator (``core/random.py``) and runs the dropout kernel on the card
+(``kernels/dropout.py``); no key is drawn where nothing is dropped.
 
 Only the NCHW layout is ported; the channel-last forms raise. The
 convolutions and pools are PyTorch's (cuDNN on the card), as the JAX
@@ -13,7 +21,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["linear", "layer_norm", "gelu", "relu", "conv2d", "max_pool2d",
+from ..amp.auto_cast import amp_cast
+from ..core import random as _rng
+from ..kernels import dropout as _dropout
+
+__all__ = ["linear", "layer_norm", "gelu", "relu", "softmax", "dropout",
+           "dropout2d", "dropout3d", "alpha_dropout",
+           "scaled_dot_product_attention", "conv2d", "max_pool2d",
            "adaptive_avg_pool2d", "batch_norm", "cross_entropy"]
 
 
@@ -22,6 +36,8 @@ def linear(x, weight, bias=None, name=None):
     as one GEMM on the weight's transposed view (no copy) with the bias
     added in the GEMM's epilogue: in bf16 the sum rounds once, where the
     JAX form rounds the product and then the sum."""
+    x, weight, bias = amp_cast("linear" if bias is not None
+                               else "linear_nobias", x, weight, bias)
     return F.linear(x, weight.t(), bias)
 
 
@@ -31,6 +47,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
     (mean, population variance, ``rsqrt(var + eps)``, then ``* weight +
     bias`` where given, each reshaped to ``normalized_shape``), cast back
     to x's dtype: the JAX package's ``layer_norm``."""
+    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
     shape = ((int(normalized_shape),) if isinstance(normalized_shape, int)
              else tuple(int(n) for n in normalized_shape))
     w, b = (None if t is None else t.float().reshape(shape)
@@ -41,11 +58,98 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
 def gelu(x, approximate: bool = False, name=None):
     """GELU; ``approximate=True`` is the tanh form (``jax.nn.gelu``'s
     default, which the GPT model uses)."""
+    x, = amp_cast("gelu", x)
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def relu(x, name=None):
     return F.relu(x)
+
+
+def softmax(x, axis: int = -1, dtype=None, name=None):
+    """Softmax over ``axis`` (``jax.nn.softmax``), in x's dtype."""
+    x, = amp_cast("softmax", x)
+    if dtype is not None:
+        x = x.to(dtype)
+    return torch.softmax(x, dim=axis)
+
+
+def dropout(x, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train", name=None):
+    """Paddle's dropout (``paddle_tpu/ops/nn_ops.py:273``). Not training
+    or ``p == 0``: x as it is (``downscale_in_infer`` at inference: ``x
+    * (1 - p)`` with ``1 - p`` in x's dtype), no key drawn; ``p == 1``:
+    zeros, cut from the graph as the JAX ``zeros_like``. Else one key from the threefry generator and the mask
+    ``bernoulli(key, 1 - p, mask_shape)``, one draw per element or,
+    with ``axis``, per index of those axes (the others broadcast);
+    ``upscale_in_train`` divides the kept values by ``1 - p``."""
+    x, = amp_cast("dropout", x)
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"mode {mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * torch.tensor(1.0 - p, dtype=x.dtype)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    key = _rng.next_key()
+    mask_shape = None
+    if axis is not None:
+        axes = {a % x.dim() for a in ([axis] if isinstance(axis, int)
+                                      else axis)}
+        mask_shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
+    return _dropout.dropout(x, key, p, mask_shape,
+                            upscale=mode == "upscale_in_train")
+
+
+def dropout2d(x, p: float = 0.5, training: bool = True,
+              data_format: str = "NCHW", name=None):
+    """One draw per (sample, channel), broadcast over H and W."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p, axis=axis, training=training)
+
+
+def dropout3d(x, p: float = 0.5, training: bool = True,
+              data_format: str = "NCDHW", name=None):
+    """One draw per (sample, channel), broadcast over D, H and W."""
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p, axis=axis, training=training)
+
+
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+
+
+def alpha_dropout(x, p: float = 0.5, training: bool = True, name=None):
+    """Alpha dropout (SELU networks): dropped values take ``-alpha *
+    scale``, then ``a * x + b`` keeps the mean and variance, each step
+    in x's dtype as the JAX package's. The keep mask is the dropout
+    kernel's (``downscale_in_infer`` on ones) on the card."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    key = _rng.next_key()
+    keep = _dropout.dropout(torch.ones_like(x), key, p,
+                            upscale=False) != 0
+    a = 1.0 / ((1.0 - p) * (1.0 + p * alpha_p ** 2)) ** 0.5
+    b = -a * alpha_p * p
+    c = lambda v: torch.tensor(v, dtype=x.dtype)   # noqa: E731
+    return torch.where(keep, x, c(alpha_p).to(x.device)) * c(a) + c(b)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p: float = 0.0,
+                                 is_causal: bool = False,
+                                 training: bool = True, name=None,
+                                 tier: str = "auto"):
+    """Attention on ``[B, S, H, D]`` through ``kernels.attention``'s
+    dispatcher, with attention-probability dropout only in training
+    (the JAX ``sdpa`` op). ``tier`` reaches the flash route only."""
+    from ..kernels.attention import sdpa_array
+
+    q, k, v, m = amp_cast("sdpa", query, key, value, attn_mask)
+    return sdpa_array(q, k, v, mask=m, is_causal=is_causal,
+                      dropout_p=dropout_p if training else 0.0, tier=tier)
 
 
 def _pair(v):
@@ -198,6 +302,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
             or label.ndim != 1 or axis not in (-1, 1)):
         raise NotImplementedError("cross_entropy: only the mean over hard "
                                   "labels [N] of input [N, C] is ported")
+    input, = amp_cast("cross_entropy", input)
     losses = F.cross_entropy(input, label.long(), ignore_index=ignore_index,
                              reduction="none")
     count = (label != ignore_index).sum().clamp(min=1)

@@ -1,5 +1,6 @@
-"""``Linear``, ``Embedding``, ``Flatten`` and ``Sequential`` (counterpart
-of ``paddle_tpu/nn/layer/common.py``).
+"""``Linear``, ``Embedding``, ``Dropout``, ``Dropout2D``, ``Dropout3D``,
+``AlphaDropout``, ``Flatten`` and ``Sequential`` (counterpart of
+``paddle_tpu/nn/layer/common.py``).
 
 ``Linear`` keeps Paddle's ``[in, out]`` weight. The layers take an extra
 ``device`` (default: the current device), which the GPT model passes;
@@ -13,11 +14,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..functional import linear
+from ...amp.auto_cast import amp_cast
+from ..functional import (alpha_dropout, dropout, dropout2d, dropout3d,
+                          linear)
 from ..initializer import XavierNormal
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Flatten", "Sequential"]
+__all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
+           "AlphaDropout", "Flatten", "Sequential"]
 
 
 def _xavier_normal_(weight, generator):
@@ -82,11 +86,61 @@ class Embedding(Layer):
         self._zero_padding_row()
 
     def forward(self, x):
-        out = F.embedding(x, self.weight)
+        weight, = amp_cast("embedding" if self._padding_idx is None
+                           else "embedding_pad", self.weight)
+        out = F.embedding(x, weight)
         if self._padding_idx is None:
             return out
         return torch.where((x == self._padding_idx)[..., None],
                            out.new_zeros(()), out)
+
+
+class Dropout(Layer):
+    """``F.dropout`` with the layer's ``training`` flag."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return dropout(x, self.p, axis=self.axis, training=self.training,
+                       mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return dropout2d(x, self.p, training=self.training,
+                         data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return dropout3d(x, self.p, training=self.training,
+                         data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return alpha_dropout(x, self.p, training=self.training)
 
 
 class Flatten(Layer):

@@ -19,9 +19,17 @@ bf16 first; PyTorch computes those products in float32 and rounds once,
 so that path (not used by ``amp.decorate``) may differ in the last bf16
 bit.
 
-Not ported (each raises ``NotImplementedError``): learning-rate
-schedulers, gradient clipping, ``moment_dtype``, ``factored_moment2``,
-``update_rms_clip``.
+The learning rate may be an ``LRScheduler`` (``optimizer/lr.py``), read
+once per ``step`` (``TrainStep`` reads it once per call); ``grad_clip``
+(``nn/clip.py``) scales the gradients before the update. Adam's
+low-memory tiers follow the JAX rule: ``moment_dtype`` stores the
+moments rounded to that dtype while the arithmetic runs in the
+gradient's dtype; ``beta1=0`` keeps no first moment; with
+``factored_moment2`` a parameter of two or more axes keeps float32 row
+and column means of ``g^2`` in place of its second moment and divides by
+their rank-1 reconstruction (floored at 1e-30), updated one parameter
+at a time; ``update_rms_clip`` scales each parameter's update by ``1 /
+max(1, RMS(u) / d)``.
 """
 from __future__ import annotations
 
@@ -29,11 +37,18 @@ from typing import Dict, List
 
 import torch
 
+from .lr import LRScheduler
+
 __all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported (queued)")
+
+def _true_div(num: float, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` by a true division (a Python numerator over a
+    tensor is otherwise a multiply by the tensor's reciprocal)."""
+    return torch.div(torch.full_like(den, num), den)
 
 
 class Optimizer:
@@ -41,10 +56,6 @@ class Optimizer:
                  weight_decay=None, grad_clip=None, multi_precision=False):
         if parameters is None:
             raise ValueError("parameters must be provided")
-        if grad_clip is not None:
-            _not_ported("grad_clip")
-        if not isinstance(learning_rate, (int, float)):
-            _not_ported("an LRScheduler learning rate")
         params = list(parameters)
         # Paddle parameters carry a name; here (name, parameter) pairs,
         # as Module.named_parameters() gives them, name them
@@ -52,7 +63,9 @@ class Optimizer:
                        (x for x in params if isinstance(x, tuple))}
         self._parameter_list = [x[1] if isinstance(x, tuple) else x
                                 for x in params]
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = (learning_rate if isinstance(
+            learning_rate, LRScheduler) else float(learning_rate))
+        self._grad_clip = grad_clip
         self._weight_decay = float(weight_decay or 0.0)
         self._multi_precision = bool(multi_precision)
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
@@ -62,10 +75,17 @@ class Optimizer:
         self._global_step = 0
 
     def get_lr(self) -> float:
-        return self._learning_rate
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
+        return float(self._learning_rate)
 
     def set_lr(self, value) -> None:
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler) -> None:
+        self._learning_rate = scheduler
 
     @property
     def _params(self) -> List[torch.Tensor]:
@@ -103,23 +123,37 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        """Clip the gradients (``grad_clip``), read the learning rate,
+        update every parameter that has a gradient."""
         self._global_step += 1
-        lr = self.get_lr()
+        params_grads = [(p, p.grad) for p in self._params
+                        if p.grad is not None]
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        self._apply(params_grads, self.get_lr())
+
+    @torch.no_grad()
+    def _apply(self, params_grads, lr: float) -> None:
+        """The update of each ``(param, grad)`` at ``lr``, in groups of
+        parameters that share their step count, master copy, dtype,
+        device, decay and accumulators (one ``_foreach_*`` chain each)."""
         groups: Dict[tuple, list] = {}
-        for p in self._params:
-            if p.grad is None:
+        for p, g in params_grads:
+            if g is None:
                 continue
             st = self._state_for(p)
             key = (self._steps.get(id(p), 0), "master_weight" in st,
-                   p.dtype, p.device, self._wd_for(p))
-            groups.setdefault(key, []).append((p, st))
+                   p.dtype, p.device, self._wd_for(p),
+                   tuple((k, v.dtype) for k, v in sorted(st.items())))
+            groups.setdefault(key, []).append((p, g, st))
             self._steps[id(p)] = key[0] + 1
-        for (_, master, _, _, wd), items in groups.items():
-            params = [st["master_weight"] if master else p for p, st in items]
-            grads = [p.grad.to(q.dtype) for (p, _), q in zip(items, params)]
-            self._update(params, grads, [st for _, st in items], lr, wd)
+        for (_, master, _, _, wd, _), items in groups.items():
+            params = [st["master_weight"] if master else p
+                      for p, _, st in items]
+            grads = [g.to(q.dtype) for (_, g, _), q in zip(items, params)]
+            self._update(params, grads, [st for *_, st in items], lr, wd)
             if master:
-                torch._foreach_copy_([p for p, _ in items], params)
+                torch._foreach_copy_([p for p, *_ in items], params)
 
     def _update(self, params, grads, states, lr, wd) -> None:
         raise NotImplementedError
@@ -163,42 +197,82 @@ class Adam(Optimizer):
                  factored_moment2=False, update_rms_clip=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision)
-        if moment_dtype is not None:
-            _not_ported("moment_dtype (low-memory moments)")
-        if factored_moment2:
-            _not_ported("factored_moment2")
-        if update_rms_clip is not None:
-            _not_ported("update_rms_clip")
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
         self._decoupled_wd = False      # Adam: L2 folded into the grad
+        if moment_dtype is not None and not isinstance(moment_dtype,
+                                                       torch.dtype):
+            moment_dtype = _DTYPES[str(moment_dtype)]
+        self._moment_dtype = moment_dtype
+        self._factored_moment2 = bool(factored_moment2)
+        self._update_rms_clip = (float(update_rms_clip)
+                                 if update_rms_clip is not None else None)
+
+    def _factored(self, p) -> bool:
+        return self._factored_moment2 and p.dim() >= 2
 
     def _init_state(self, p):
+        md = self._moment_dtype or p.dtype
         one = torch.ones((), dtype=torch.float32, device=p.device)
-        return {"beta1_pow": one, "beta2_pow": one,
-                "moment1": torch.zeros_like(p), "moment2": torch.zeros_like(p)}
+        st = {"beta1_pow": one, "beta2_pow": one}
+        if self._beta1 != 0.0:
+            st["moment1"] = torch.zeros(p.shape, dtype=md, device=p.device)
+        if self._factored(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            st["moment2_row"] = torch.zeros(p.shape[:-1], **f32)
+            st["moment2_col"] = torch.zeros(p.shape[-1:], **f32)
+        else:
+            st["moment2"] = torch.zeros(p.shape, dtype=md, device=p.device)
+        return st
+
+    @staticmethod
+    def _moments(states, name, dtype):
+        """The group's stored moments ``name`` and working copies in
+        ``dtype`` (the same tensors when the dtypes agree)."""
+        stored = [st[name] for st in states]
+        if stored[0].dtype == dtype:
+            return stored, stored
+        return stored, [m.to(dtype) for m in stored]
 
     def _update(self, params, grads, states, lr, wd):
         """The JAX ``Adam._rule`` in place over one group (equal step
-        counts, so equal ``beta*_pow``)."""
+        counts, so equal ``beta*_pow``; equal accumulators)."""
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         dtype = params[0].dtype
+        gdt = grads[0].dtype
         if wd and not self._decoupled_wd:
             grads = torch._foreach_add(grads, params, alpha=wd)
         b1p = states[0]["beta1_pow"] * b1
         b2p = states[0]["beta2_pow"] * b2
-        m = [st["moment1"] for st in states]
-        v = [st["moment2"] for st in states]
-        torch._foreach_mul_(m, b1)
-        torch._foreach_add_(m, grads, alpha=1 - b1)
-        torch._foreach_mul_(v, b2)
-        torch._foreach_add_(v, torch._foreach_mul(grads, grads), alpha=1 - b2)
-        u = torch._foreach_div(m, (1 - b1p).to(dtype))
-        denom = torch._foreach_div(v, (1 - b2p).to(dtype))
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
+        if "moment1" in states[0]:
+            stored, m = self._moments(states, "moment1", gdt)
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, grads, alpha=1 - b1)
+            if m is not stored:
+                torch._foreach_copy_(stored, m)
+            u = torch._foreach_div(m, (1 - b1p).to(dtype))
+        else:
+            u = [g.clone() for g in grads]
+        if "moment2" in states[0]:
+            stored, v = self._moments(states, "moment2", gdt)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_add_(v, torch._foreach_mul(grads, grads),
+                                alpha=1 - b2)
+            if v is not stored:
+                torch._foreach_copy_(stored, v)
+            denom = torch._foreach_div(v, (1 - b2p).to(dtype))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+        else:
+            denom = [self._factored_denom(g, st, b2, b2p, eps, dtype)
+                     for g, st in zip(grads, states)]
         torch._foreach_div_(u, denom)
+        if self._update_rms_clip is not None:
+            d = self._update_rms_clip
+            for x in u:
+                rms = torch.sqrt(torch.mean(torch.square(x.float())))
+                x.mul_(_true_div(d, torch.clamp(rms, min=d)).to(x.dtype))
         decay = (torch._foreach_mul(params, lr * wd)
                  if wd and self._decoupled_wd else None)
         torch._foreach_add_(params, u, alpha=-lr)
@@ -206,6 +280,19 @@ class Adam(Optimizer):
             torch._foreach_sub_(params, decay)
         for st in states:
             st["beta1_pow"], st["beta2_pow"] = b1p, b2p
+
+    @staticmethod
+    def _factored_denom(g, st, b2, b2p, eps, dtype):
+        """Update one parameter's row and column factors of ``g^2`` in
+        place and return ``sqrt(outer(vr, vc) / mean(vr)) + eps`` from
+        their bias-corrected values, in the parameter's dtype."""
+        g2 = (g * g).float()
+        row, col = st["moment2_row"], st["moment2_col"]
+        row.mul_(b2).add_(g2.mean(dim=-1) * (1 - b2))
+        col.mul_(b2).add_(g2.mean(dim=tuple(range(g.dim() - 1))) * (1 - b2))
+        vr, vc = row / (1 - b2p), col / (1 - b2p)
+        scale = torch.clamp(vr.mean(), min=1e-30)
+        return (torch.sqrt(vr[..., None] * vc / scale) + eps).to(dtype)
 
 
 class AdamW(Adam):

@@ -7,11 +7,20 @@ logits and the streamed (chunked) LM loss. Attention goes through
 ``sdpa_array``, which sends every flash-eligible shape to the
 hand-written flash kernels on the card.
 
+Dropout (``hidden_dropout_prob`` after the embeddings and each residual
+branch, ``attention_probs_dropout_prob`` on the attention probabilities)
+draws from the threefry generator and runs the dropout kernel on the
+card; in training it keeps the model off the fused stack, as in the JAX
+package (``_can_fuse``). ``use_recompute`` replays the forward's dropout
+keys in its recompute. Incremental decode: ``caches`` (per-layer ``(k,
+v)`` concatenated, or ``(kbuf, vbuf, length)`` static buffers with a
+write cursor) and ``generate`` (greedy or top-k / top-p sampling keyed
+as the JAX ``_scan_generate_core``; here an eager loop of one-token
+steps over the static buffers).
+
 Not ported (each raises ``NotImplementedError``): tensor parallelism
 (``use_mp``), sequence parallelism other than ``sp_mode`` ``"hint"`` /
-``None`` / ``"none"`` (which have no effect on one device), dropout in
-training, the selective recompute policies, and the incremental-decode
-paths (``caches``, the static KV cache, ``generate``).
+``None`` / ``"none"`` (which have no effect on one device).
 """
 from __future__ import annotations
 
@@ -20,13 +29,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from ..amp.auto_cast import amp_cast, autocast_suspended
+from ..core import threefry
 from ..device import resolve_device
-from ..kernels.attention import sdpa_array
-from ..kernels.fused_transformer import fused_block_stack_flat
-from ..nn import Embedding, LayerNorm, Linear
-from ..nn.functional import cross_entropy, gelu
+from ..kernels.fused_transformer import checkpoint_keys, fused_block_stack_flat
+from ..nn import Dropout, Embedding, LayerNorm, Linear
+from ..nn.functional import (cross_entropy, gelu,
+                             scaled_dot_product_attention, softmax)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock",
            "GPTEmbeddings", "GPTModel", "GPTForCausalLM",
@@ -76,12 +86,6 @@ class GPTConfig:
                          max_position_embeddings=128)
 
 
-def _no_cache(cache):
-    if cache is not None:
-        raise NotImplementedError("the incremental-decode cache paths of the "
-                                  "GPT model are not ported (queued)")
-
-
 class GPTAttention(torch.nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
@@ -90,15 +94,55 @@ class GPTAttention(torch.nn.Module):
         self.qkv = Linear(cfg.hidden_size, 3 * cfg.hidden_size, device=device)
         self.out_proj = Linear(cfg.hidden_size, cfg.hidden_size,
                                device=device)
+        self.dropout_p = cfg.attention_probs_dropout_prob
         self.attn_tier = cfg.attn_tier
 
+    @staticmethod
+    def _static_cache_attention(q, k, v, cache):
+        """The preallocated KV cache: ``cache = (kbuf, vbuf, length)``,
+        buffers ``[B, L, H, D]`` and ``length`` the tokens written
+        before this call. Writes k and v at the cursor (in the buffers'
+        dtype), attends query i to keys ``j <= length + i`` (the rest
+        masked with float32's lowest value) and returns ``(out, (kbuf,
+        vbuf, length + S))``; the buffers are written in place."""
+        kbuf, vbuf, length = cache
+        n = int(length)
+        S = q.shape[1]
+        with torch.no_grad():
+            kbuf[:, n:n + S] = k.to(kbuf.dtype)
+            vbuf[:, n:n + S] = v.to(vbuf.dtype)
+            D = q.shape[-1]
+            scale = torch.tensor(1.0 / np.sqrt(D), dtype=q.dtype)
+            qt = q.transpose(1, 2) * scale.to(q.device)
+            kt = kbuf.transpose(1, 2).to(q.dtype)
+            vt = vbuf.transpose(1, 2).to(q.dtype)
+            logits = torch.matmul(qt.float(), kt.float().transpose(-1, -2))
+            L = kbuf.shape[1]
+            j = torch.arange(L, device=q.device)[None, :]
+            i = torch.arange(S, device=q.device)[:, None]
+            logits = logits.masked_fill(~(j <= n + i),
+                                        torch.finfo(torch.float32).min)
+            probs = torch.softmax(logits, dim=-1)
+            out = torch.matmul(probs.to(vt.dtype), vt)
+        return out.transpose(1, 2).to(q.dtype), (kbuf, vbuf, n + S)
+
     def forward(self, x, cache=None):
-        _no_cache(cache)
         B, S, H = x.shape
         qkv = self.qkv(x).reshape(B, S, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(dim=2)
-        out = sdpa_array(q, k, v, is_causal=True, tier=self.attn_tier)
-        return self.out_proj(out.reshape(B, S, H))
+        if cache is not None and len(cache) == 3:
+            out, new_cache = self._static_cache_attention(q, k, v, cache)
+            return self.out_proj(out.reshape(B, S, H)), new_cache
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+        out = scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=self.dropout_p,
+            training=self.training, tier=self.attn_tier)
+        out = self.out_proj(out.reshape(B, S, H))
+        if cache is not None:
+            return out, (k, v)
+        return out
 
 
 class GPTMLP(torch.nn.Module):
@@ -120,16 +164,21 @@ class GPTBlock(torch.nn.Module):
         self.attn = GPTAttention(cfg, device)
         self.ln_2 = LayerNorm(cfg.hidden_size, device=device)
         self.mlp = GPTMLP(cfg, device)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
         self._use_recompute = cfg.use_recompute
 
     def _body(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        x = x + self.dropout(self.attn(self.ln_1(x)))
+        return x + self.dropout(self.mlp(self.ln_2(x)))
 
     def forward(self, x, cache=None):
-        _no_cache(cache)
+        if cache is not None:           # incremental decode
+            a, new_cache = self.attn(self.ln_1(x), cache=cache)
+            x = x + self.dropout(a)
+            x = x + self.dropout(self.mlp(self.ln_2(x)))
+            return x, new_cache
         if self._use_recompute and self.training:
-            return checkpoint(self._body, x, use_reentrant=False)
+            return checkpoint_keys(self._body, x)
         return self._body(x)
 
 
@@ -140,10 +189,13 @@ class GPTEmbeddings(torch.nn.Module):
                                          device=device)
         self.position_embeddings = Embedding(cfg.max_position_embeddings,
                                              cfg.hidden_size, device=device)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
-    def forward(self, input_ids):
-        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        return self.word_embeddings(input_ids) + self.position_embeddings(pos)
+    def forward(self, input_ids, position_offset=0):
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device) \
+            + position_offset
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        return self.dropout(x)
 
 
 # block params in the order the fused stack reads them
@@ -162,27 +214,43 @@ class GPTModel(torch.nn.Module):
                                       for _ in range(cfg.num_hidden_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, device=device)
 
+    def _can_fuse(self) -> bool:
+        """The fused stack runs when the blocks are plain layers: no
+        cache and dropout off (p == 0 or eval), as the JAX package's."""
+        cfg = self.config
+        if not cfg.fused_stack or len(self.h) == 0:
+            return False
+        return not (self.training and (cfg.hidden_dropout_prob > 0.0 or
+                                       cfg.attention_probs_dropout_prob
+                                       > 0.0))
+
     def _fused_forward(self, x):
+        """The stack as the JAX package's one ``fused_block_stack`` op:
+        under ``amp.auto_cast`` its inputs take the op's cast (gray under
+        O1: none) and nothing inside casts."""
         cfg = self.config
         flat = [b.get_parameter(name) for b in self.h for name in _BLOCK_PARAMS]
-        return fused_block_stack_flat(
-            x, *flat, num_layers=len(self.h),
-            num_heads=cfg.num_attention_heads, causal=True,
-            epsilon=self.h[0].ln_1._epsilon,
-            remat=cfg.recompute_policy or cfg.use_recompute,
-            attn_tier=cfg.attn_tier)
+        x, *flat = amp_cast("fused_block_stack", x, *flat)
+        with autocast_suspended():
+            return fused_block_stack_flat(
+                x, *flat, num_layers=len(self.h),
+                num_heads=cfg.num_attention_heads, causal=True,
+                epsilon=self.h[0].ln_1._epsilon,
+                remat=cfg.recompute_policy or cfg.use_recompute,
+                attn_tier=cfg.attn_tier)
 
-    def forward(self, input_ids, caches=None):
-        _no_cache(caches)
-        cfg = self.config
-        if self.training and (cfg.hidden_dropout_prob > 0.0
-                              or cfg.attention_probs_dropout_prob > 0.0):
-            raise NotImplementedError(
-                "dropout in training needs the port's threefry stream "
-                "(queued); set hidden_dropout_prob and "
-                "attention_probs_dropout_prob to 0 or call eval()")
-        x = self.embeddings(input_ids)
-        if cfg.fused_stack and len(self.h) > 0:
+    def forward(self, input_ids, caches=None, position_offset=0):
+        x = self.embeddings(input_ids, position_offset=position_offset)
+        if caches is not None:          # incremental decode
+            if len(caches) != len(self.h):
+                raise ValueError(f"got {len(caches)} caches for "
+                                 f"{len(self.h)} layers")
+            new_caches = []
+            for block, cache in zip(self.h, caches):
+                x, nc = block(x, cache=cache)
+                new_caches.append(nc)
+            return self.ln_f(x), new_caches
+        if self._can_fuse():
             return self.ln_f(self._fused_forward(x))
         for block in self.h:
             x = block(x)
@@ -220,12 +288,150 @@ class GPTForCausalLM(torch.nn.Module):
     def _logits(self, h):
         if self.lm_head is not None:
             return self.lm_head(h)
-        return torch.matmul(h, self.gpt.embeddings.word_embeddings.weight.t())
+        h, w = amp_cast("matmul", h,
+                        self.gpt.embeddings.word_embeddings.weight)
+        return torch.matmul(h, w.t())
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError("GPTForCausalLM.generate is not ported "
-                                  "(queued with the incremental-decode "
-                                  "paths)")
+    def _decode_core(self, input_ids, caches, position_offset):
+        """One decode step: the stack over ``input_ids`` against the
+        static caches; the last position's logits and the new caches."""
+        h, new_caches = self.gpt(input_ids, caches=caches,
+                                 position_offset=position_offset)
+        return self._logits(h[:, -1:, :]), new_caches
+
+    @staticmethod
+    def _pick_device(logits, do_sample, top_k, top_p, temperature, key):
+        """The next token of each row of ``logits [B, V]`` on the device
+        (the JAX ``_pick_jnp``): argmax, or temperature, top-k and top-p
+        masking and ``categorical`` under ``key`` (noise over the whole
+        ``[B, V]``)."""
+        lf = logits.float()
+        if not do_sample:
+            return torch.argmax(lf, dim=-1).to(torch.int32)
+        lf = torch.div(lf, torch.full_like(lf, max(float(temperature),
+                                                   1e-6)))
+        V = lf.shape[-1]
+        k = min(int(top_k), V) if top_k else 0
+        neg_inf = torch.tensor(float("-inf"), device=lf.device)
+        if k and k > 0:
+            kth = torch.topk(lf, k, dim=-1)[0][..., -1:]
+            lf = torch.where(lf < kth, neg_inf, lf)
+        if top_p < 1.0:
+            sorted_l = torch.sort(lf, dim=-1, descending=True)[0]
+            probs = softmax(sorted_l, axis=-1)
+            csum = torch.cumsum(probs, dim=-1)
+            keep_sorted = csum - probs < top_p    # the top one always kept
+            cutoff = keep_sorted.sum(dim=-1, keepdim=True)
+            kth = torch.gather(sorted_l, -1, cutoff - 1)
+            lf = torch.where(lf < kth, neg_inf, lf)
+        return threefry.categorical(threefry.as_key(key, lf.device),
+                                    lf).to(torch.int32)
+
+    @torch.no_grad()
+    def _generate_core(self, input_ids, key, *, max_new_tokens, do_sample,
+                       top_k, top_p, temperature, eos_token_id, final_len):
+        """Prefill, then one-token steps over static ``[B, final_len, H,
+        D]`` float32 caches: at step t the key is split (``key, sub =
+        split(key)``), the token picked with ``sub`` from the last
+        logits, and (but for the last) fed back at position t. Returns
+        the new tokens ``[B, max_new_tokens]`` (int32)."""
+        cfg = self.config
+        B = input_ids.shape[0]
+        nh = cfg.num_attention_heads
+        hd = cfg.hidden_size // nh
+        dev = input_ids.device
+        caches = [(torch.zeros(B, final_len, nh, hd, device=dev),
+                   torch.zeros(B, final_len, nh, hd, device=dev), 0)
+                  for _ in range(cfg.num_hidden_layers)]
+        logits, caches = self._decode_core(input_ids, caches, 0)
+        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        P = input_ids.shape[1]
+        toks = []
+        for t in range(P, P + max_new_tokens):
+            key, sub = threefry.split(key)
+            nxt = self._pick_device(logits[:, 0, :], do_sample, top_k, top_p,
+                                    temperature, sub)
+            if eos_token_id is not None:
+                nxt = torch.where(finished, torch.full_like(
+                    nxt, eos_token_id), nxt)
+                finished = finished | (nxt == eos_token_id)
+            toks.append(nxt)
+            if t + 1 < P + max_new_tokens:
+                logits, caches = self._decode_core(nxt[:, None].long(),
+                                                   caches, t)
+        return torch.stack(toks, dim=1)
+
+    def generate(self, input_ids, max_new_tokens=20, max_length=None,
+                 do_sample=False, top_k=0, top_p=1.0, temperature=1.0,
+                 eos_token_id=None, seed=None):
+        """Autoregressive decode with preallocated KV caches (the JAX
+        ``generate``): greedy by default, top-k / top-p with
+        ``do_sample=True``, keyed from ``PRNGKey(seed)`` (a random seed
+        drawn with numpy when None). Returns the prompt and the new
+        tokens, ``[B, P + T]`` int64 on the prompt's device; with
+        ``eos_token_id`` every row emits eos after its first one, and
+        the tokens end once every row has emitted it."""
+        cfg = self.config
+        if max_length is not None:
+            max_new_tokens = max_length - input_ids.shape[1]
+            if max_new_tokens <= 0:
+                raise ValueError(
+                    f"max_length={max_length} <= prompt length "
+                    f"{input_ids.shape[1]}")
+        final_len = input_ids.shape[1] + max_new_tokens
+        if final_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"generation would reach position {final_len} but "
+                f"max_position_embeddings={cfg.max_position_embeddings} "
+                "(position lookups would silently clamp)")
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        was_training = self.training
+        self.eval()
+        try:
+            new = self._generate_core(
+                input_ids.long(), threefry.prng_key(seed),
+                max_new_tokens=max_new_tokens, do_sample=do_sample,
+                top_k=top_k, top_p=top_p, temperature=temperature,
+                eos_token_id=eos_token_id, final_len=final_len)
+        finally:
+            if was_training:
+                self.train()
+        tokens = torch.cat([input_ids.long(), new.long()], dim=1)
+        if eos_token_id is not None:
+            # cut once every row has emitted eos (the early break of a
+            # host loop, applied after the fact, as the JAX package does)
+            P = input_ids.shape[1]
+            hit = (tokens[:, P:] == eos_token_id).cpu().numpy()
+            if hit.any(axis=1).all():
+                cut = int(hit.argmax(axis=1).max()) + 1
+                tokens = tokens[:, :P + cut]
+        return tokens
+
+    @staticmethod
+    def _pick(logits, do_sample, top_k, top_p, temperature, rng):
+        """The host twin of :meth:`_pick_device` on numpy ``logits [B,
+        V]`` with a numpy ``rng`` (the JAX package's ``_pick``)."""
+        if not do_sample:
+            return logits.argmax(-1).astype(np.int64)
+        logits = logits / max(temperature, 1e-6)
+        top_k = min(top_k, logits.shape[-1]) if top_k else 0
+        if top_k and top_k > 0:
+            kth = np.partition(logits, -top_k, axis=-1)[:, -top_k][:, None]
+            logits = np.where(logits < kth, -np.inf, logits)
+        probs = np.exp(logits - logits.max(-1, keepdims=True))
+        probs /= probs.sum(-1, keepdims=True)
+        if top_p < 1.0:
+            order = np.argsort(-probs, axis=-1)
+            sorted_p = np.take_along_axis(probs, order, axis=-1)
+            csum = np.cumsum(sorted_p, axis=-1)
+            keep_sorted = csum - sorted_p < top_p  # always keep the top one
+            keep = np.zeros_like(probs, bool)
+            np.put_along_axis(keep, order, keep_sorted, axis=-1)
+            probs = np.where(keep, probs, 0.0)
+            probs /= probs.sum(-1, keepdims=True)
+        return np.stack([rng.choice(probs.shape[-1], p=probs[b])
+                         for b in range(probs.shape[0])]).astype(np.int64)
 
     def loss(self, input_ids, labels):
         chunks = int(self.config.loss_chunks)

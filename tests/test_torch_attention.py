@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 
@@ -125,6 +126,21 @@ def test_dispatcher_routes_and_values(monkeypatch, shape, route):
 
 
 def test_dispatcher_refuses_dropout():
-    q = torch.zeros(1, 64, 2, 64)
-    with pytest.raises(NotImplementedError):
-        attn.sdpa_array(q, q, q, dropout_p=0.1)
+    """Attention dropout is ported: the dispatcher keeps a dropout call
+    off the flash and chunked routes (the plain reference takes it, as
+    in the JAX package) and draws the probabilities' mask from the key."""
+    from paddle_tpu_torch.core import threefry
+
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, 2, 64))
+                                .astype(np.float32)) for _ in range(3))
+    key = threefry.prng_key(9)
+    got = attn.sdpa_array(q, k, v, is_causal=True, dropout_p=0.1, key=key)
+    want = jattn.sdpa_array(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                            is_causal=True, dropout_p=0.1,
+                            key=jax.random.PRNGKey(9))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=DISPATCH_TOL, atol=DISPATCH_TOL)
+    plain = attn.sdpa_reference(q, k, v, is_causal=True, dropout_p=0.1,
+                                key=key)
+    assert torch.equal(got, plain)

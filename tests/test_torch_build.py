@@ -34,8 +34,9 @@ def test_the_port_libraries_and_their_headers():
     ragged libraries' tensor-core tile uses the same helpers, and the
     decode kernel and the ragged libraries' one-query rows share the page
     walk (the mixed kernel takes its launch helpers); the narrow-scale
-    ragged libraries include the ragged header like the others, and the
-    int8 matmul includes no header."""
+    ragged libraries include the ragged header like the others, the
+    int8 matmul and the dropout kernel include no header, and the bf16
+    and float16 flash libraries build the same 16-bit sources."""
     assert {"flash_fwd_f32", "flash_bwd_f32", "paged_attention",
             "mixed_attention"} <= set(_build.KERNELS)
     assert "flash_attention" not in _build.KERNELS
@@ -46,8 +47,14 @@ def test_the_port_libraries_and_their_headers():
     cp_async = _build.CSRC / "cp_async.cuh"
     tf32x3 = _build.CSRC / "tf32x3.cuh"
     tiles = _build.CSRC / "flash_f32_tiles.cuh"
+    fwd16 = _build.CSRC / "flash_fwd_16.cuh"
+    bwd16 = _build.CSRC / "flash_bwd_16.cuh"
+    elem16 = _build.CSRC / "flash_elem16.cuh"
     want = {"flash_fwd_f32": [tiles, cp_async, tf32x3],
-            "flash_fwd_bf16": [cp_async], "flash_bwd_bf16": [cp_async],
+            "flash_fwd_bf16": [fwd16, cp_async, elem16],
+            "flash_fwd_f16": [fwd16, cp_async, elem16],
+            "flash_bwd_bf16": [bwd16, cp_async, elem16],
+            "flash_bwd_f16": [bwd16, cp_async, elem16], "dropout": [],
             "flash_bwd_f32": [tiles, cp_async, tf32x3],
             "paged_attention": [walk, cp_async],
             "mixed_attention": [walk, cp_async],

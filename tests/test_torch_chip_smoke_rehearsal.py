@@ -848,3 +848,213 @@ def test_fabric_phase_fails_a_planted_token(plain_kernels, cpu_card,
     monkeypatch.setattr(cs, "run_fabric", planted)
     with pytest.raises(AssertionError, match="killed vs unkilled"):
         cs.phase_fabric(model)
+
+
+# ------------------------------------- training as users configure it
+
+
+NARROW_TRAIN = {"vocab_size": 512, "hidden_size": 128,
+                "num_hidden_layers": 2, "num_attention_heads": 2,
+                "intermediate_size": 256, "max_position_embeddings": 128,
+                "loss_chunks": 2}
+
+
+@pytest.fixture
+def training_on_cpu(monkeypatch):
+    """The training phases at a CPU size (bench.py's configuration cut
+    to d 128, 2 layers, 2 x 128 tokens, 2 steps a call): the flash and
+    dropout kernel wrappers run their plain versions and count a launch
+    (the phases refuse the plain functions reached any other way), and
+    the card's memory counters, caches and synchronize are no-ops."""
+    fa, dk, tf = cs.fa, cs.dk, cs.threefry
+    monkeypatch.setattr(fa, "LAUNCHES", collections.Counter())
+    for kind, name in zip(("fwd", "bwd_dkdv", "bwd_dq"), fa.KERNEL_NAMES):
+        def run(*args, _ref=getattr(fa, f"flash_{kind}_ref"), _name=name):
+            fa.LAUNCHES[_name] += 1
+            return _ref(*args)
+        monkeypatch.setattr(fa, f"flash_{kind}_cuda", run)
+    monkeypatch.setattr(fa, "_use_kernel", lambda tier, q: tier != "ref")
+    ref, bern = dk.dropout_ref, tf.bernoulli
+
+    def kernel(x, key, p, mask_shape=None, upscale=True):
+        saved = (dk.dropout_ref, tf.bernoulli)
+        dk.dropout_ref, tf.bernoulli = ref, bern
+        try:
+            out = ref(x, key, p, mask_shape, upscale)
+        finally:
+            dk.dropout_ref, tf.bernoulli = saved
+        dk.LAUNCHES[dk.KERNEL_NAME] += 1
+        return out
+
+    monkeypatch.setattr(dk, "dropout_cuda", kernel)
+    monkeypatch.setattr(dk, "_apply", lambda x, *a: dk.dropout_cuda(x, *a))
+    monkeypatch.setattr(cs, "TRAIN_CFG", {**cs.TRAIN_CFG, **NARROW_TRAIN})
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 128)
+    monkeypatch.setattr(cs, "TRAIN_K", 2)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    saved = dk.LAUNCHES.copy()
+    yield kernel
+    dk.LAUNCHES.clear()
+    dk.LAUNCHES.update(saved)
+
+
+def _small_dropout_shapes(monkeypatch):
+    monkeypatch.setattr(cs, "DROPOUT_HIDDEN", (2, 64, 48))
+    monkeypatch.setattr(cs, "DROPOUT_ATTN", (2, 3, 64, 64))
+    monkeypatch.setattr(cs, "DROPOUT_AXIS", ((2, 3, 16, 8), (2, 3, 1, 1)))
+    monkeypatch.setattr(cs, "DROPOUT_PLAIN_SLICE", 4096)
+    monkeypatch.setattr(cs, "DROPOUT_KEPT_MIN_DRAWS", 20000)
+    monkeypatch.setattr(cs, "DROPOUT_KEPT_TOL", 1e-2)
+
+
+def test_dropout_kernel_phase(training_on_cpu, monkeypatch):
+    """The phase at small shapes (the attention case compared over its
+    first and last slices, as at full size), the stand-in kernel being
+    the plain version: it passes, and counts one launch a forward."""
+    _small_dropout_shapes(monkeypatch)
+    assert cs._dropout_slices(2 * 3 * 64 * 64) == ((0, 4096),
+                                                    (24576 - 4096, 4096))
+    got = cs.phase_dropout_kernel(CPU)
+    assert got == {"max_abs_err": 0.0}
+
+
+def test_dropout_kernel_phase_fails_a_planted_bit(training_on_cpu,
+                                                  monkeypatch):
+    _small_dropout_shapes(monkeypatch)
+    kernel = training_on_cpu
+
+    def wrong(x, key, p, mask_shape=None, upscale=True):
+        out = kernel(x, key, p, mask_shape, upscale).clone()
+        flat = out.view(-1)
+        flat[7] = -flat[7] if flat[7] != 0 else 1.0
+        return out
+
+    monkeypatch.setattr(cs.dk, "dropout_cuda", wrong)
+    with pytest.raises(AssertionError, match="differ from the plain"):
+        cs.phase_dropout_kernel(CPU)
+
+
+def test_dropout_times_and_row(training_on_cpu, monkeypatch):
+    _small_dropout_shapes(monkeypatch)
+    monkeypatch.setattr(cs, "time_cuda", _once)
+    times = cs.dropout_times(CPU)
+    row = cs.dropout_row(times, 74, 0.0)
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in row, key
+    assert row["library_ms"] is None and row["launches"] == 74
+    root = cs.os.path.dirname(cs.os.path.abspath(cs.__file__))
+    assert cs.os.path.exists(cs.os.path.join(root, row["source"]))
+    n = 2 * 3 * 64 * 64
+    t_bytes = 2 * n * 4 / cs.HBM_BYTES_PER_S
+    t_ops = cs.DROPOUT_INT_OPS * n / cs.INT32_OPS_PER_S
+    assert row["bound_ms"] == pytest.approx(1e3 * max(t_bytes, t_ops))
+    assert row["bound_by"] == ("operations" if t_ops > t_bytes else "bytes")
+    assert row["hidden"]["dtype"] == "bfloat16"
+
+
+def test_train_dropout_phase(training_on_cpu):
+    """The main path at a CPU size: every dropout launch counted
+    (forward and backward, (1 + 2 L) hidden and L attention a step), the
+    flash stand-ins idle, the plain versions reached only through the
+    kernel's stand-in, the second model repeats the first call, eval
+    gives the dropout-free logits."""
+    base = {"ms_per_step": 1.0, "peak_gib": 0.0, "peak_above_gib": 0.0}
+    got = cs.phase_train_dropout(CPU, base, profile=False)
+    steps = cs.TRAIN_K * (1 + cs.TRAIN_DROPOUT_CALLS)
+    assert got["launches"] == {cs.dk.KERNEL_NAME: 2 * (1 + 2 * 2 + 2)
+                               * steps}
+    assert cs.dk.dropout_ref.__name__ == "dropout_ref"      # restored
+
+
+def test_train_fp16_phase(training_on_cpu, monkeypatch):
+    # 256 tokens: the loss gradient's largest entries scale / 256 overflow
+    monkeypatch.setattr(cs, "FP16_INIT_SCALE", 2.0 ** 28)
+    monkeypatch.setattr(cs, "FP16_STEPS", 14)
+    got = cs.phase_train_fp16(CPU)
+    assert got["launches"] == {n: 2 * 14 for n in cs.fa.KERNEL_NAMES}
+    assert got["skipped"] >= 1
+
+
+def test_train_fp16_phase_fails_a_changed_parameter(training_on_cpu,
+                                                    monkeypatch):
+    """A scaler that moves a parameter on a skipped step fails the
+    phase."""
+    monkeypatch.setattr(cs, "FP16_INIT_SCALE", 2.0 ** 28)
+    monkeypatch.setattr(cs, "FP16_STEPS", 4)
+
+    class Leaky(cs.GradScaler):
+        def step(self, optimizer):
+            if self._found_inf:
+                with torch.no_grad():
+                    optimizer._parameter_list[0].view(-1)[0] += 1.0
+            super().step(optimizer)
+
+    monkeypatch.setattr(cs, "GradScaler", Leaky)
+    with pytest.raises(AssertionError, match="skipped step changed"):
+        cs.phase_train_fp16(CPU)
+
+
+def test_remat_phase(training_on_cpu):
+    got = cs.phase_remat(CPU)
+    assert set(got) == {str(p) for p in cs.REMAT_POLICIES}
+    for r in got.values():
+        assert r["max_rel_loss_diff"] <= cs.TRAIN_LOSS_RTOL
+    # full remat recomputes the attention forward in the backward
+    flash_fwd = cs.fa.KERNEL_NAMES[0]
+    assert got["True"]["launches"][flash_fwd] > got["False"]["launches"][
+        flash_fwd]
+
+
+def test_adam_lowmem_phase(training_on_cpu, monkeypatch):
+    monkeypatch.setattr(cs, "ADAM_XL_CFG", {
+        **cs.ADAM_XL_CFG, "vocab_size": 512, "hidden_size": 64,
+        "num_hidden_layers": 2, "num_attention_heads": 1,
+        "intermediate_size": 256, "max_position_embeddings": 128,
+        "loss_chunks": 2})
+    monkeypatch.setattr(cs, "ADAM_XL_SEQ", 128)
+    got = cs.phase_adam_lowmem(CPU)
+    assert got["lowmem"]["state_bytes"] < got["full"]["state_bytes"] / 2
+
+
+def test_generate_phase(training_on_cpu, monkeypatch):
+    monkeypatch.setattr(cs, "GEN_BATCH", 2)
+    monkeypatch.setattr(cs, "GEN_PROMPT", 16)
+    monkeypatch.setattr(cs, "GEN_NEW", 8)
+    got = cs.phase_generate(CPU)
+    assert set(got["ms_per_token"]) == {"greedy", "sampled"}
+
+
+def test_flash_rows_f16(monkeypatch):
+    """The float16 flash rows at a small shape: every key of the
+    contract, float16 sources in the repository, the bound at the
+    16-bit tensor-core rate."""
+    fa = cs.fa
+    monkeypatch.setattr(cs, "time_cuda", _once)
+    monkeypatch.setattr(cs, "FLASH_TRAIN", (1, 2, 96, 96, 64))
+    for name in ("fwd", "bwd_dkdv", "bwd_dq"):
+        monkeypatch.setattr(fa, f"flash_{name}_cuda",
+                            getattr(fa, f"flash_{name}_ref"))
+    monkeypatch.setattr(cs.F, "scaled_dot_product_attention",
+                        lambda q, k, v, is_causal: fa.flash_fwd_ref(
+                            q, k, v, q.shape[-1] ** -0.5, is_causal)[0])
+    errors = {(n, "float16"): 1e-3 for n in fa.KERNEL_NAMES}
+    rows = cs.flash_rows_f16(CPU, {n: 144 for n in fa.KERNEL_NAMES}, errors)
+    root = cs.os.path.dirname(cs.os.path.abspath(cs.__file__))
+    for row, name in zip(rows, fa.KERNEL_NAMES):
+        assert row["name"] == f"{name}_f16" and row["launches"] == 144
+        assert row["source"].endswith("_f16.cu")
+        assert cs.os.path.exists(cs.os.path.join(root, row["source"]))
+        assert row["dtype"] == "float16" and row["max_abs_err"] == 1e-3
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "replaces"):
+            assert key in row
+    nbytes, flops = cs.flash_work((1, 2, 96, 96, 64), torch.float16)[
+        fa.KERNEL_NAMES[0]]
+    assert cs.flash_bound(nbytes, flops, torch.float16) == cs.flash_bound(
+        nbytes, flops, torch.bfloat16)

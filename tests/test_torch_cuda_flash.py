@@ -18,8 +18,11 @@ held to their float64 version at the same 1e-4); bf16 outputs and gradients at 2
 (both sides round p and dS to
 bf16, a step of 3.9e-3 relative, the kernel against a running max and
 the plain version against the row's final max), bf16 ``lse`` at 2e-5
-(it is formed in float32 from the same float32 products). Two runs of a
-kernel give identical bits (no atomics).
+(it is formed in float32 from the same float32 products); float16 (the
+bf16 kernels' source built for ``.f16`` operands) at 1e-2, no looser
+than bf16 (a step of 4.9e-4 relative, the same two rounding points), its
+``lse`` at 2e-5. Two runs of a kernel give identical bits (no atomics).
+The float16 tests select with ``-k f16``.
 """
 import pytest
 
@@ -399,7 +402,8 @@ def test_kernels_refuse_what_they_do_not_take(device):
     q = torch.zeros(1, 2, 128, 32, device=device)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd_cuda(q, q, q, 1.0, True)
-    h = torch.zeros(1, 2, 128, 64, device=device, dtype=torch.float16)
+    # float16 is taken now (the third dtype); float64 is still refused
+    h = torch.zeros(1, 2, 128, 64, device=device, dtype=torch.float64)
     with pytest.raises(ValueError):
         fa.flash_fwd_cuda(h, h, h, 1.0, True)
     q = torch.zeros(1, 2, 128, 64, device=device)
@@ -432,3 +436,88 @@ def test_gpt_train_step_on_card(device):
     assert torch.isfinite(losses["auto"]).all()
     torch.testing.assert_close(losses["auto"], losses["ref"], rtol=1e-4,
                                atol=0)
+
+
+F16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", CASES)
+def test_f16_kernels_match_plain_versions(device, B, H, Sq, Sk, D, causal):
+    """The float16 forward, dK/dV and dQ kernels against their plain
+    versions (float16 rounding points), bit-identical reruns."""
+    q, k, v, do = _inputs(device, B, H, Sq, Sk, D, torch.float16,
+                          seed=Sq + D + 1)
+    scale = D ** -0.5
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    assert o.dtype == torch.float16
+    torch.testing.assert_close(o.float(), ro.float(), rtol=F16_TOL,
+                               atol=F16_TOL)
+    torch.testing.assert_close(lse, rlse, rtol=LSE_TOL, atol=LSE_TOL)
+    delta = fa.bwd_delta(o, do)
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    rdk, rdv = fa.flash_bwd_dkdv_ref(q, k, v, do, lse, delta, scale, causal)
+    rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal)
+    for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        assert got.dtype == torch.float16
+        torch.testing.assert_close(got.float(), want.float(), rtol=F16_TOL,
+                                   atol=F16_TOL, msg=name)
+    assert all(fa.LAUNCHES[n] == before.get(n, 0) + 1
+               for n in fa.KERNEL_NAMES)
+    again = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    assert torch.equal(fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale,
+                                            causal), dq)
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal", [(63, 63, 64, True),
+                                            (200, 1000, 64, False),
+                                            (1000, 65, 128, True)])
+def test_f16_partial_tiles_match_plain_versions(device, Sq, Sk, D, causal):
+    q, k, v, do = _inputs(device, 1, 2, Sq, Sk, D, torch.float16, seed=Sq)
+    o = fa.flash_attention_bhsd(q, k, v, causal=causal, block_q=Sq,
+                                block_k=Sk)
+    ro, _ = fa.flash_fwd_ref(q, k, v, D ** -0.5, causal)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=F16_TOL,
+                               atol=F16_TOL)
+
+
+def test_f16_gpt_scaler_steps_on_card(device):
+    """A small GPT in AMP O2 float16 with a GradScaler whose first scale
+    overflows: each float16 flash kernel launches once per layer per
+    step, the overflowed steps leave the parameters bit-unchanged and
+    halve the scale, later losses are finite."""
+    from paddle_tpu_torch.amp import GradScaler, decorate
+
+    cfg = dict(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+               num_attention_heads=4, intermediate_size=512,
+               max_position_embeddings=256, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(GPTConfig(**cfg), device=device)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    model, opt = decorate(model, opt, level="O2", dtype="float16")
+    scaler = GradScaler(init_loss_scaling=2.0 ** 40,
+                        decr_every_n_nan_or_inf=1)
+    ids = torch.randint(0, 512, (6, 4, 256), device=device,
+                        generator=torch.Generator(device=device).manual_seed(2))
+    fa.LAUNCHES.clear()
+    skipped, losses = 0, []
+    for x in ids:
+        before = [p.detach().clone() for p in model.parameters()]
+        loss = model.loss(x, x)
+        scaler.scale(loss).backward()
+        scaler.unscale_(opt)
+        found = scaler._found_inf
+        scaler.step(opt)
+        opt.clear_grad()
+        if found:
+            skipped += 1
+            assert all(torch.equal(a, p) for a, p in
+                       zip(before, model.parameters()))
+        losses.append(loss.float().item())
+    assert skipped >= 1 and scaler._scale < 2.0 ** 40
+    assert all(map(lambda v: v == v and abs(v) < 1e4, losses[-2:]))
+    assert dict(fa.LAUNCHES) == {n: 2 * 6 for n in fa.KERNEL_NAMES}

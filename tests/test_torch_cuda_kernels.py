@@ -221,32 +221,35 @@ def test_decode_kernel_bits_did_not_move(device):
 # sha256 of the ragged kernels' output bytes on decode-only rows (every row
 # one query: the one-query walk alone), by (page type, geometry, split), as
 # the build of ragged_attention.cuh with its own copy of the walk gave them:
-# the walk moved to paged_walk.cuh without moving a bit
+# the walk moved to paged_walk.cuh without moving a bit. The int8 and fp8
+# entries were taken again, with every kernel source unchanged, when the
+# KV quantizer's scales became true divisions (amax / 127, amax / 448):
+# they quantize these inputs
 RAGGED_DECODE_BITS = {
     "f32 gpt2 0":
         "7d7ea99bfd27bb17ec81ed018934de33582552f2b64a6d4d02a2a5457db6e2fd",
     "f32 gpt2 16":
         "5bdedd66717194bdc20f3add8115edd93ace9021cced26db67d9c5fbad5ad4f0",
     "int8 gpt2 0":
-        "525e710e044a4d2044c8289bec4b06053a7d8c438ec36d44589995631d6d0230",
+        "748b663d2de24078900d16ff1dd99d39184b5194bbb29c5f491a5fe1e5d94f01",
     "int8 gpt2 16":
-        "a02d8da299f2d0911b9cbaaf078c1ae2cc56b5096496a8f4898b41a66698a328",
+        "855c4caf2f68df9b57925771a36e3c12e04cc1cfab7fb04b9d4f28c1d1da7a5a",
     "fp8 gpt2 0":
-        "69b2a549e47e5c58498d3af49272a975d4ad5bb4e974a955df64a98ae2ea87e8",
+        "c789cac71ed26ce31bc1a1aa01c35d643449634feb1e3b4eef21fed76316e3b9",
     "fp8 gpt2 16":
-        "307068415a24ab4395313db86a5619a6d43e7eccb245d15983d6ff6921b09de1",
+        "958688e1d3d33810d1739614077a01a4bdd020b0c78d3e83a8ab54cf803e1500",
     "f32 d40 0":
         "16b465bc7137b9eb793862031b15873611255c3e9328af3d09df69cff8ed76fa",
     "f32 d40 16":
         "571f5539aa633756bfe31d269a8a41548b597d84ed3d8c3dd0ae00802f84954e",
     "int8 d40 0":
-        "6b814fb3769c2dabc9d29a6e918b58e7f7e68c20f8a702f3ed5196f676955516",
+        "cd3ebc9f7e8c5a83267a235fdc4828b06acc5bae07ac12074e872a41982d6829",
     "int8 d40 16":
-        "2585a837a8c1c8035a1e89a91b1266eff3c8bdefc6513db7b12f62aba9266ed4",
+        "e496ce65822ce134719be6d399b80972fdc5a2221748c757edbb440638130241",
     "fp8 d40 0":
-        "bddcdfd1ae0502203036e7ad19ae1fe066884e113ecbe44370d64f5439c4904a",
+        "e7b367c3b0d0c153d12e87234dc23d3cfb0c43df14e325528084f7a9ea56de14",
     "fp8 d40 16":
-        "98c935ff6c1ce3da77ebf226acbb3f385a40bae8c7c2a7192343bd2eb775a558",
+        "c6c827a2a0ff76b190bb0748ae28fd13c69c8c3a59fe8714dac4b09da0d1b12d",
 }
 RAGGED_BITS_GEOMETRIES = {"gpt2": (12, 64, 16, 64), "d40": (3, 40, 8, 24)}
 
@@ -286,6 +289,39 @@ def ragged_decode_digests(device):
                 torch.cuda.synchronize()
                 out[f"{mode} {geometry} {split}"] = _digest(got)
     return out
+
+
+def _inexact_amax_rows(qmax: float, n: int = 64, D: int = 16):
+    """``n`` rows of D float32 values whose absmax ``a`` has
+    ``float32(a) * float32(1 / qmax) != float32(a) / float32(qmax)``
+    (numpy picks them), and the float32 quotients numpy gives."""
+    rng = np.random.default_rng(int(qmax))
+    inv = np.float32(1.0) / np.float32(qmax)
+    cand = (rng.uniform(0.5, 8.0, 200_000)).astype(np.float32)
+    bad = cand[cand * inv != cand / np.float32(qmax)][:n]
+    assert len(bad) == n, "numpy found too few inexact amax values"
+    rows = rng.uniform(-0.5, 0.5, (n, D)).astype(np.float32) * bad[:, None]
+    rows[:, 3] = -bad                  # the absmax of each row, negative
+    return rows, (bad / np.float32(qmax)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode,qmax", [("int8", 127.0), ("fp8", 448.0)])
+def test_quantize_scales_divide_exactly(device, mode, qmax):
+    """The KV quantizer's scales on the card equal numpy's float32
+    ``amax / qmax`` bit for bit, on rows where a multiply by the
+    reciprocal (PyTorch's way with a Python-scalar divisor) lands an ulp
+    away; for int8 also ``quantize_absmax`` directly."""
+    from paddle_tpu_torch.kernels.int8 import quantize_absmax
+
+    rows, want = _inexact_amax_rows(qmax)
+    x = torch.from_numpy(rows).to(device)
+    _, scales = quantize_kv(x[:, None, :], mode)
+    got = scales[:, 0].cpu().numpy()
+    assert got.view(np.uint32).tolist() == want.view(np.uint32).tolist()
+    if mode == "int8":
+        _, s = quantize_absmax(x, axis=-1)
+        assert s[:, 0].cpu().numpy().view(np.uint32).tolist() == \
+            want.view(np.uint32).tolist()
 
 
 def test_ragged_decode_bits_did_not_move(device):
@@ -856,3 +892,74 @@ def test_fabric_kill_releases_the_replica(device):
     fab.run()
     assert [fab.output_of(r) for r in rids] == want
     assert fab.pool_restored()
+
+
+# ------------------------------------------------------------- dropout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,mask_shape", [
+    ((4, 33, 65), None),                 # not a multiple of the vector
+    ((16, 128, 768), None),
+    ((2, 3, 8, 8), (2, 3, 1, 1)),        # dropout2d's broadcast mask
+    ((2, 3, 2, 4, 4), (2, 3, 1, 1, 1)),  # dropout3d's
+    ((5, 7, 9), (1, 7, 1))])
+@pytest.mark.parametrize("upscale", [True, False])
+def test_dropout_kernel_is_its_plain_version(device, dtype, shape,
+                                             mask_shape, upscale):
+    """The dropout kernel gives its plain version's bits (threefry on
+    int64 tensors) on the same key, forward and backward, and the
+    kernel's wrapper counts one launch a call."""
+    from paddle_tpu_torch.core import threefry
+    from paddle_tpu_torch.kernels import dropout as dk
+
+    g = torch.Generator(device=device).manual_seed(len(shape))
+    x = torch.randn(*shape, generator=g, device=device).to(dtype)
+    key = threefry.prng_key(1234 + len(shape))
+    before = dk.LAUNCHES[dk.KERNEL_NAME]
+    got = dk.dropout_cuda(x, key, 0.1, mask_shape, upscale)
+    assert dk.LAUNCHES[dk.KERNEL_NAME] == before + 1
+    want = dk.dropout_ref(x, key, 0.1, mask_shape, upscale)
+    assert got.dtype == dtype
+    bits = torch.int16 if dtype != torch.float32 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    xr = x.clone().requires_grad_(True)
+    y = dk.dropout(xr, key, 0.1, mask_shape, upscale)
+    dy = torch.randn(*shape, generator=g, device=device).to(dtype)
+    y.backward(dy)
+    assert torch.equal(xr.grad, dk.dropout_ref(dy, key, 0.1, mask_shape,
+                                               upscale))
+
+
+def test_dropout_kernel_flat_slice_of_the_attention_shape(device):
+    """At the attention-probability shape of bench.py's GPT, a stretch
+    of flat indices past 2^27 against the plain version's slice, two
+    runs with identical bits, and the kept share within 1e-3 of 1 - p."""
+    from paddle_tpu_torch.core import threefry
+    from paddle_tpu_torch.kernels import dropout as dk
+
+    x = torch.rand(16, 12, 1024, 1024, device=device)
+    key = threefry.prng_key(77)
+    y = dk.dropout_cuda(x, key, 0.1)
+    assert torch.equal(y, dk.dropout_cuda(x, key, 0.1))
+    start, count = 150_000_000, 4_000_000
+    part = dk.dropout_ref(x.view(-1)[start:start + count], key, 0.1,
+                          start=start)
+    assert torch.equal(y.view(-1)[start:start + count], part)
+    kept = (y != 0).float().mean().item()
+    assert abs(kept - 0.9) < 1e-3
+
+
+def test_dropout_kernel_refuses_what_it_does_not_take(device):
+    from paddle_tpu_torch.core import threefry
+    from paddle_tpu_torch.kernels import dropout as dk
+
+    key = threefry.prng_key(0)
+    with pytest.raises(ValueError):
+        dk.dropout_cuda(torch.zeros(4, device=device, dtype=torch.float64),
+                        key, 0.5)
+    with pytest.raises(ValueError):
+        dk.dropout_cuda(torch.zeros(4, 4, device=device).t(), key, 0.5)
+    with pytest.raises(ValueError):
+        dk.dropout_cuda(torch.zeros(4, device=device), key, 1.0)

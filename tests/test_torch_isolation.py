@@ -16,7 +16,8 @@
   recorder, export, tracing, chrome trace, step profiler, ledger,
   watchdog; faults, journal, brownout), and the int8 matmul, the
   serving fabric, its observability plane, the SLO alerts and the
-  serving bridge;
+  serving bridge, and the training slice's threefry core, random state,
+  dropout, clips, schedulers, scaler and autocast;
 - ``chip_smoke.py`` exits non-zero and prints no result line without a
   CUDA device, and when it stands alone in a directory.
 """
@@ -68,6 +69,19 @@ def test_the_scan_covers_observability_and_robustness():
         + [llm / f"{m}.py" for m in ("faults", "journal", "brownout")])
     for path in want:
         assert str(path.relative_to(ROOT)) in names, path
+
+
+def test_the_scan_covers_the_training_slice():
+    """The modules of training as users configure it: the threefry core
+    and random state, the dropout kernel's wrapper, the clips, the
+    schedulers, the scaler and autocast."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    for rel in ("core/threefry.py", "core/random.py", "kernels/dropout.py",
+                "nn/clip.py", "optimizer/lr.py", "amp/grad_scaler.py",
+                "amp/auto_cast.py", "jit/to_static.py", "text/gpt.py",
+                "inference/llm/threefry.py"):
+        assert str((port / rel).relative_to(ROOT)) in names, rel
 
 
 def test_importing_the_port_loads_no_jax():

@@ -118,13 +118,21 @@ def test_optimizer_steps_match_jax(opt_name, dtype, multi_precision, decay):
 
 
 def test_unported_optimizer_options_raise():
+    """Every option this test once refused is ported now (clips, the
+    low-memory tiers, schedulers); what still raises is ``set_lr`` over
+    a scheduler, as in the JAX package."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for kw in (dict(grad_clip=object()), dict(moment_dtype="bfloat16"),
-               dict(factored_moment2=True), dict(update_rms_clip=1.0)):
-        with pytest.raises(NotImplementedError):
-            AdamW(parameters=p, **kw)
-    with pytest.raises(NotImplementedError):
-        AdamW(learning_rate=object(), parameters=p)
+    for kw in (dict(grad_clip=ClipGradByGlobalNorm(1.0)),
+               dict(moment_dtype="bfloat16"), dict(factored_moment2=True),
+               dict(update_rms_clip=1.0)):
+        AdamW(parameters=p, **kw)
+    opt = AdamW(learning_rate=StepDecay(0.1, 2), parameters=p)
+    assert opt.get_lr() == 0.1
+    with pytest.raises(RuntimeError):
+        opt.set_lr(0.5)
 
 
 def _models(seed=5, **extra):
@@ -194,9 +202,14 @@ def test_train_step_amp_o2_matches_jax():
 
 
 def test_train_step_takes_k_inputs_and_refuses_scaler():
+    """A scaler is ported now (``TrainStep`` takes a ``GradScaler``);
+    sharded steps and ``steps_per_call < 1`` are still refused."""
+    from paddle_tpu_torch.amp import GradScaler
+
     tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**SMALL), device="cpu")
     opt = AdamW(parameters=tm.parameters())
+    TrainStep(tm, lambda n, x, y: n.loss(x, y), opt, scaler=GradScaler())
     with pytest.raises(NotImplementedError):
-        TrainStep(tm, lambda n, x, y: n.loss(x, y), opt, scaler=object())
+        TrainStep(tm, lambda n, x, y: n.loss(x, y), opt, in_shardings=[])
     with pytest.raises(ValueError):
         TrainStep(tm, lambda n, x, y: n.loss(x, y), opt, steps_per_call=0)
