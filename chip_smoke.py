@@ -122,7 +122,22 @@ before and read just after:
   float64 through two free-running steps (gradients and updates); and
   ``perf/resnet_bench.py``'s configuration with no cut (resnet50,
   batch 256 x 224^2, Momentum under AMP O2 bf16, ``TrainStep``)
-  through ``nn.Layer``, cuDNN convolutions and BatchNorm.
+  through ``nn.Layer``, cuDNN convolutions and BatchNorm;
+- the compile and export paths on ``bench.py``'s GPT (bf16 O2 weights):
+  ``jit.to_static`` in eval at 16 x 1024 (a warm-up, a capture into a
+  CUDA graph, replays; logits bit-equal to eager, the flash forward
+  launched a layer a replay), a dy2static tensor ``if`` captured and a
+  tensor ``while`` reported eager with its reason (``phase_to_static``);
+  ``jit.save`` / ``jit.load`` through ``torch.export`` with a symbolic
+  batch, logits at batch 4 and 16 and one backward through the loaded
+  layer (``phase_jit_save_load``); the GPT as a static program trained 3
+  steps through the ``Executor`` against eager ``TrainStep``
+  (``phase_static_train``); a ``cpp_extension`` op and a plugin kernel
+  built here on CUDA tensors against the CPU, each eager inside
+  ``to_static`` (``phase_extensions``). Kernel launch counts are Python
+  counters and a graph replay runs no Python: a captured signature counts
+  its kernels once at capture and adds what the capture counted at every
+  replay.
 
 It checks that each path went through its kernels and no other, holds
 the float32 flash kernels' outputs (o and lse, the gradients) and their
@@ -150,6 +165,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -4804,6 +4820,387 @@ def phase_generate(device) -> dict:
     return {"ms_per_token": ms, "ties": ties}
 
 
+
+# ---------------------------------------------------------------------------
+# the compile and export paths (the sixteenth slice): jit.to_static as CUDA
+# graphs, jit.save / jit.load through torch.export, a static program through
+# the Executor, host C++ extensions and kernel plugins. Kernel launch counts
+# are Python counters: a graph replay runs no Python, so a captured
+# signature counts its kernels once at capture and adds what the capture
+# counted at every replay (StaticFunction's rule).
+
+TO_STATIC_REPLAYS = 5
+TO_STATIC_EAGER_CALLS = 3
+# the loaded layer's logits and a static program's losses against the
+# eager model's: the same kernels in the same order, so bit-equality is
+# expected; bf16 O2 logits are held to the flash bf16 tolerance where it
+# is not (the exported graph may order a bias add or a cast differently)
+LOADED_LOGITS_TOL = 2e-2
+# the loaded layer's gradients (bf16 parameters, one backward at batch 4)
+# against the eager model's, relative to each gradient's largest entry
+LOADED_GRAD_RTOL = 2e-2
+LOADED_BATCHES = (4, 16)
+STATIC_STEPS = 3
+EXT_SHAPE = (4096, 4096)
+EXT_CPP = r"""
+#include <cstdint>
+extern "C" void scale_shift(const float* in, float* out,
+                            const int64_t* shape, int64_t ndim) {
+    int64_t n = 1;
+    for (int64_t i = 0; i < ndim; ++i) n *= shape[i];
+    for (int64_t i = 0; i < n; ++i) out[i] = in[i] * 2.0f + 1.0f;
+}
+"""
+EXT_PLUGIN = r"""
+#include "plugin_abi.h"
+#include <string.h>
+static int64_t numel_of(const PT_TensorView* t) {
+  int64_t n = 1;
+  for (int d = 0; d < t->ndim; ++d) n *= t->shape[d];
+  return n;
+}
+static double attr_d(const PT_AttrValue* attrs, int32_t n, const char* name,
+                     double dflt) {
+  for (int32_t i = 0; i < n; ++i)
+    if (strcmp(attrs[i].name, name) == 0)
+      return attrs[i].kind == 1 ? (double)attrs[i].i : attrs[i].d;
+  return dflt;
+}
+static int32_t same_infer(const PT_TensorView* in, int32_t n_in,
+                          const PT_AttrValue* attrs, int32_t n_attrs,
+                          int64_t* out_shapes, int32_t* out_ndims,
+                          int32_t* out_dtypes) {
+  out_ndims[0] = in[0].ndim;
+  for (int d = 0; d < in[0].ndim; ++d) out_shapes[d] = in[0].shape[d];
+  out_dtypes[0] = in[0].dtype;
+  return 0;
+}
+static int32_t axpb_fn(const PT_TensorView* in, int32_t n_in,
+                       const PT_AttrValue* attrs, int32_t n_attrs,
+                       void** out, int32_t n_out) {
+  const float* x = (const float*)in[0].data;
+  float* o = (float*)out[0];
+  float a = (float)attr_d(attrs, n_attrs, "a", 1.0);
+  float b = (float)attr_d(attrs, n_attrs, "b", 0.0);
+  int64_t n = numel_of(&in[0]);
+  for (int64_t i = 0; i < n; ++i) o[i] = a * x[i] + b;
+  return 0;
+}
+static const PT_KernelDescV2 kDescs[] = {
+    {"axpb", 1, 1, same_infer, axpb_fn, 0},
+};
+static const PT_KernelRegistryV2 kReg = {PT_PLUGIN_ABI_VERSION_V2, 1, kDescs};
+const PT_KernelRegistryV2* PT_GetKernelRegistryV2(void) { return &kReg; }
+"""
+
+
+def bench_eval_model(device, seed=0):
+    """bench.py's GPT (TRAIN_CFG) cast to bf16 as phase_train's O2
+    ``decorate`` casts it, in eval mode."""
+    model = decorate(train_model(device, TRAIN_CFG["num_hidden_layers"],
+                                 seed=seed), level="O2", dtype="bfloat16")
+    return model.eval()
+
+
+def eval_ids(device, batch, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, TRAIN_CFG["vocab_size"], (batch, TRAIN_SEQ),
+                         generator=g, device=device)
+
+
+def _wall_ms(fn, n: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def _captured_here(report, device) -> bool:
+    """Captured on the card; on the CPU (a rehearsal) a signature runs
+    eagerly and says so."""
+    if device.type == "cuda":
+        return report["captured"]
+    return not report["captured"] and report["reason"] == "runs on the CPU"
+
+
+def _reason_word(device, word: str) -> str:
+    return word if device.type == "cuda" else "CPU"
+
+
+def _pick(x):
+    if x.sum() > 0:
+        y = x * 2.0
+    else:
+        y = x - 1.0
+    return y
+
+
+def _grow(x):
+    s = x.sum()
+    n = x.new_zeros(())
+    while s < 100.0:
+        s = s * 2.0
+        n = n + 1
+    return s, n
+
+
+def dy2static_on_card(device) -> dict:
+    """A tensor ``if`` (the select path: captured) and a tensor ``while``
+    (a host read each iteration: reported eager, with its reason), each
+    equal to plain Python on the same values."""
+    sf, sg = paddle.jit.to_static(_pick), paddle.jit.to_static(_grow)
+    for v in (1.5, -1.0, 0.25, -3.0):
+        x = torch.full((8,), v, device=device)
+        if not torch.equal(sf(x), _pick(x)):
+            raise AssertionError(f"to_static tensor if at {v}")
+        s, n = sg(x.abs())
+        ws, wn = _grow(x.abs())
+        if not (torch.equal(s, ws) and torch.equal(n, wn)):
+            raise AssertionError(f"to_static tensor while at {v}")
+    rep_if = list(sf.capture_report().values())
+    rep_while = list(sg.capture_report().values())
+    if len(rep_if) != 1 or not _captured_here(rep_if[0], device):
+        raise AssertionError(f"the tensor-if signature was not captured: "
+                             f"{rep_if}")
+    if len(rep_while) != 1 or rep_while[0]["captured"] or \
+            _reason_word(device, "while") not in (rep_while[0]["reason"]
+                                                  or ""):
+        raise AssertionError(f"the tensor-while signature is not reported "
+                             f"eager with its reason: {rep_while}")
+    log(f"[to_static] dy2static on the card: tensor if captured "
+        f"({rep_if[0]['replays']} replays, equal to Python); tensor while "
+        f"eager: {rep_while[0]['reason']!r} (equal to Python)")
+    return {"if": rep_if[0], "while": rep_while[0]}
+
+
+def phase_to_static(device) -> dict:
+    """``jit.to_static`` of bench.py's GPT in eval (bf16 as phase_train's
+    O2), 16 x 1024 ids: one warm call (eager), one capture, then
+    TO_STATIC_REPLAYS replays. Every call's logits equal the eager
+    model's; the signature is captured and each replay counts the flash
+    forward once per layer. The plain attention functions are refused."""
+    layers = TRAIN_CFG["num_hidden_layers"]
+    model = bench_eval_model(device)
+    ids = eval_ids(device, TRAIN_BATCH, 9)
+    with plain_attention_refused(), torch.no_grad():
+        want = model(ids)
+        eager_ms = _wall_ms(lambda: model(ids), TO_STATIC_EAGER_CALLS)
+        paddle.jit.to_static(model)
+        fa.LAUNCHES.clear()
+        outs = [model(ids), model(ids)]           # warm-up, capture
+        at_capture = dict(fa.LAUNCHES)
+        outs += [model(ids) for _ in range(TO_STATIC_REPLAYS)]
+        torch.cuda.synchronize()
+        per_replay = {k: (v - at_capture.get(k, 0)) / TO_STATIC_REPLAYS
+                      for k, v in fa.LAUNCHES.items()}
+        replay_ms = _wall_ms(lambda: model(ids), TO_STATIC_REPLAYS)
+    report = list(model.forward.capture_report().values())
+    if len(report) != 1 or not _captured_here(report[0], device):
+        raise AssertionError(f"the GPT eval signature was not captured: "
+                             f"{report}")
+    # through the capturing call: the warm-up's launches, the capture's,
+    # and the replay that gives that call its logits (on the CPU, where a
+    # rehearsal runs, both calls run eagerly)
+    calls = 3 if device.type == "cuda" else 2
+    want_launch = {fa.KERNEL_NAMES[0]: float(layers)}
+    if per_replay != want_launch or at_capture != {
+            fa.KERNEL_NAMES[0]: calls * layers}:
+        raise AssertionError(f"to_static launches: {at_capture} through the "
+                             f"capture, {per_replay} a replay; expected "
+                             f"{calls * layers} and {want_launch}")
+    diffs = [(o.float() - want.float()).abs().max().item() for o in outs]
+    bit_equal = all(torch.equal(o, want) for o in outs)
+    if not bit_equal and max(diffs) > LOADED_LOGITS_TOL:
+        raise AssertionError(f"to_static logits differ from eager: max abs "
+                             f"diff {max(diffs)}")
+    log(f"[to_static] bench.py's GPT (12 layers, bf16 O2 weights, eval) at "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: captured, {report[0]['replays']} "
+        f"replays; logits {'bit-equal to' if bit_equal else 'within '}"
+        f"{'' if bit_equal else f'{max(diffs):.3e} of'} the eager model's "
+        f"in all {len(outs)} calls; flash forward {per_replay} a replay "
+        f"(counted once at capture, added at each replay); eager "
+        f"{eager_ms:.3f} ms/call, replay {replay_ms:.3f} ms/call (wall, "
+        f"synchronized) on {card_identity()}")
+    card = dy2static_on_card(device)
+    return {"eager_ms": eager_ms, "replay_ms": replay_ms,
+            "bit_equal": bit_equal, "max_diff": max(diffs), **card}
+
+
+def _ce(logits, ids):
+    return PF.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                            ids.reshape(-1))
+
+
+def phase_jit_save_load(device) -> dict:
+    """``jit.save`` of bench.py's GPT (bf16 O2 weights, eval) with
+    ``InputSpec([None, 1024], "int64")``, ``jit.load`` on the card,
+    logits at batch 4 and 16 against the model's, one backward through
+    the loaded layer against the model's (the dK/dV and dQ kernels must
+    launch), every parameter name the model's."""
+    model = bench_eval_model(device)
+    ids = eval_ids(device, max(LOADED_BATCHES), 11)
+    with tempfile.TemporaryDirectory() as d, plain_attention_refused():
+        t0 = time.perf_counter()
+        paddle.jit.save(model, os.path.join(d, "gpt"),
+                        input_spec=[paddle.static.InputSpec(
+                            [None, TRAIN_SEQ], "int64")])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = paddle.jit.load(os.path.join(d, "gpt"))
+        load_s = time.perf_counter() - t0
+        if list(loaded.state_dict()) != [n for n, _ in
+                                         model.named_parameters()]:
+            raise AssertionError("the loaded layer's parameter names differ "
+                                 "from the model's")
+        fa.LAUNCHES.clear()
+        diffs = {}
+        with torch.no_grad():
+            for b in LOADED_BATCHES:
+                got, want = loaded(ids[:b]), model(ids[:b])
+                diffs[b] = (got.float() - want.float()).abs().max().item()
+        fwd_launches = dict(fa.LAUNCHES)
+        b = LOADED_BATCHES[0]
+        fa.LAUNCHES.clear()
+        _ce(loaded(ids[:b]), ids[:b]).backward()
+        bwd_launches = dict(fa.LAUNCHES)
+        _ce(model(ids[:b]), ids[:b]).backward()
+        torch.cuda.synchronize()
+    layers = TRAIN_CFG["num_hidden_layers"]
+    if any(v > LOADED_LOGITS_TOL for v in diffs.values()):
+        raise AssertionError(f"loaded logits differ: {diffs}")
+    if fwd_launches != {fa.KERNEL_NAMES[0]: 2 * layers * len(
+            LOADED_BATCHES)} or bwd_launches != {n: layers
+                                                 for n in fa.KERNEL_NAMES}:
+        raise AssertionError(f"loaded-layer launches: forward "
+                             f"{fwd_launches}, backward {bwd_launches}")
+    worst = 0.0
+    for (name, p), q in zip(model.named_parameters(), loaded.parameters()):
+        scale = p.grad.float().abs().max().item() or 1.0
+        worst = max(worst, (q.grad.float() - p.grad.float()).abs().max()
+                    .item() / scale)
+    if worst > LOADED_GRAD_RTOL:
+        raise AssertionError(f"loaded-layer gradients differ: {worst} of "
+                             f"the largest entry")
+    log(f"[jit.save/load] bench.py's GPT (bf16 O2 weights, eval): export "
+        f"{export_s:.2f}s, load {load_s:.2f}s; logits max abs diff "
+        f"{diffs} against the model (tol {LOADED_LOGITS_TOL}); a backward "
+        f"through the loaded layer at batch {b}: launches {bwd_launches}, "
+        f"gradients within {worst:.3e} of each gradient's largest entry "
+        f"(tol {LOADED_GRAD_RTOL}); {len(loaded.state_dict())} parameters "
+        "under the model's names")
+    return {"export_s": export_s, "load_s": load_s, "logits": diffs,
+            "grad_rel": worst}
+
+
+def phase_static_train(device) -> dict:
+    """A static program of bench.py's GPT: ``static.data("ids", [None,
+    1024], "int64")``, the loss, ``AdamW.minimize``, under AMP O2 bf16
+    as phase_train; ``exe.run(startup)`` then STATIC_STEPS ``exe.run``
+    steps on 16 x 1024 ids, losses against the port's eager
+    ``TrainStep`` from the same parameters and ids (rtol
+    TRAIN_LOSS_RTOL). The three flash kernels launch once per layer per
+    step."""
+    layers = TRAIN_CFG["num_hidden_layers"]
+    g = torch.Generator(device=device).manual_seed(10)
+    ids = torch.randint(0, TRAIN_CFG["vocab_size"],
+                        (STATIC_STEPS, TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                        device=device)
+
+    def built():
+        model = train_model(device, layers)
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+        return decorate(model, opt, level="O2", dtype="bfloat16")
+
+    model, opt = built()
+    step = TrainStep(model, loss_fn, opt)
+    with plain_attention_refused():
+        eager = [step(x, x).item() for x in ids]
+    del model, opt, step
+    torch.cuda.empty_cache()
+    main, startup = paddle.static.Program(), paddle.static.Program()
+    t0 = time.perf_counter()
+    with paddle.static.program_guard(main, startup):
+        model, opt = built()
+        x = paddle.static.data("ids", [None, TRAIN_SEQ], "int64")
+        loss = model.loss(x, x)
+        opt.minimize(loss)
+    record_s = time.perf_counter() - t0
+    exe = paddle.static.Executor()
+    exe.run(startup)
+    losses, walls = [], []
+    with plain_attention_refused():
+        fa.LAUNCHES.clear()
+        for x_step in ids:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed={"ids": x_step},
+                                        fetch_list=[loss])[0]))
+            walls.append(time.perf_counter() - t0)
+        launches = dict(fa.LAUNCHES)
+    if launches != {n: layers * STATIC_STEPS for n in fa.KERNEL_NAMES}:
+        raise AssertionError(f"static program launches {launches}")
+    torch.testing.assert_close(torch.tensor(losses), torch.tensor(eager),
+                               rtol=TRAIN_LOSS_RTOL, atol=0)
+    ms = 1e3 * statistics.median(walls[1:])
+    log(f"[static] bench.py's GPT as a static program (AMP O2 bf16, "
+        f"{len(main.ops)} records, recorded in {record_s:.2f}s): losses "
+        f"{losses} against eager TrainStep {eager} (rtol {TRAIN_LOSS_RTOL}; "
+        f"bit-equal: {losses == eager}); flash launches {launches}; "
+        f"{ms:.2f} ms/step (median of steps 2-{STATIC_STEPS}, a loss read "
+        f"on the host each step)")
+    return {"losses": losses, "eager": eager, "ms_per_step": ms,
+            "records": len(main.ops)}
+
+
+def phase_extensions(device) -> dict:
+    """A ``cpp_extension`` op and an ABI v2 plugin kernel built here with
+    g++, each on CUDA tensors bit-equal to the same op on the CPU (host
+    ops: the inputs go to the host and back), and each reported eager
+    inside ``to_static`` (a host read cannot be captured)."""
+    from paddle_tpu_torch.utils import cpp_extension, load_kernel_plugin, \
+        plugin_abi_header
+
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "ops.cc")
+        with open(src, "w") as f:
+            f.write(EXT_CPP)
+        mod = cpp_extension.load("smoke_ops", [src], build_directory=d)
+        psrc = os.path.join(d, "plugin.c")
+        with open(psrc, "w") as f:
+            f.write(EXT_PLUGIN)
+        so = os.path.join(d, "plugin.so")
+        subprocess.run(["g++", "-x", "c", "-shared", "-fPIC", "-O2",
+                        f"-I{os.path.dirname(plugin_abi_header())}", psrc,
+                        "-o", so], check=True, capture_output=True)
+        plug = load_kernel_plugin(so)
+        g = torch.Generator(device=device).manual_seed(12)
+        x = torch.randn(EXT_SHAPE, generator=g, device=device)
+        ops = {"cpp::scale_shift": mod.scale_shift,
+               "plugin::axpb": lambda t: plug.axpb(t, a=3.0, b=-1.0)}
+        reports = {}
+        for name, op in ops.items():
+            got, want = op(x), op(x.cpu())
+            if got.device != x.device or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{name} on the card differs from the "
+                                     "CPU")
+            sf = paddle.jit.to_static(lambda t, _op=op: _op(t) + 1.0)
+            for _ in range(3):
+                if not torch.equal(sf(x).cpu(), want + 1.0):
+                    raise AssertionError(f"{name} inside to_static")
+            rep = list(sf.capture_report().values())
+            if rep[0]["captured"] or _reason_word(device, "host") not in (
+                    rep[0]["reason"] or ""):
+                raise AssertionError(f"{name} inside to_static is not "
+                                     f"reported eager: {rep}")
+            reports[name] = rep[0]["reason"]
+    log(f"[extensions] {list(ops)} at {list(EXT_SHAPE)} float32 on CUDA "
+        f"tensors: bit-equal to the CPU; inside to_static each runs "
+        f"eagerly: {reports}")
+    return reports
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -4963,6 +5360,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_resnet_train(device, "--profile" in sys.argv[1:])
     torch.cuda.empty_cache()
+
+    # the compile and export paths, this slice's main path: to_static as
+    # CUDA graphs, jit.save / load through torch.export, a static program
+    # through the Executor, host C++ extensions and kernel plugins
+    phase_to_static(device)
+    torch.cuda.empty_cache()
+    phase_jit_save_load(device)
+    torch.cuda.empty_cache()
+    phase_static_train(device)
+    torch.cuda.empty_cache()
+    phase_extensions(device)
 
     if old_ragged is not None:
         old_ragged = (old_ragged, {

@@ -5,8 +5,11 @@ The JAX package stays the reference. The port has the Paddle-API core
 math, reduction and shape ops, ``Tensor`` with ``stop_gradient`` /
 ``backward()`` / ``.grad`` over torch's autograd, ``seed``,
 ``set_device``, ``nn.Layer`` and the layers of the GPT and ResNet
-families, ``optimizer``, ``amp``, ``jit.TrainStep``, ``autograd.PyLayer``
-and ``utils.custom_op`` / ``cuda_op``), serves the decoder-only LM
+families, ``optimizer``, ``amp``, ``jit.TrainStep``, ``autograd.PyLayer``,
+``utils.custom_op`` / ``cuda_op``, ``utils.cpp_extension`` and kernel
+plugins), compiles and exports programs (``jit.to_static`` as CUDA
+graphs, ``jit.save`` / ``load`` through ``torch.export``, the
+``static`` program recorder and its ``Executor``), serves the decoder-only LM
 through the JAX engine's entry points (``inference.llm``) and trains the
 GPT family (``text.gpt``) on an NVIDIA GPU, with the TPU's Pallas
 kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
@@ -14,7 +17,7 @@ kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
 to the card unless ``set_device("cpu")`` (or a ``place``) asks for the
 host.
 """
-from . import amp, autograd, jit, nn, optimizer, utils, vision
+from . import amp, autograd, jit, nn, optimizer, static, utils, vision
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                             set_grad_enabled)
 from .core.device import device_count, get_device, set_device
@@ -27,6 +30,8 @@ from .device import resolve_device
 from .nn import Parameter
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops
+from .static import (disable_static, enable_static, in_dynamic_mode,
+                     in_static_mode)
 
 __all__ = ["resolve_device", "Tensor", "Parameter", "set_device",
            "get_device", "device_count", "seed", "get_rng_state",
@@ -35,4 +40,5 @@ __all__ = ["resolve_device", "Tensor", "Parameter", "set_device",
            "set_default_dtype", "bool_", "uint8", "int8", "int16", "int32",
            "int64", "float16", "bfloat16", "float32", "float64", "complex64",
            "complex128", "amp", "autograd", "jit", "nn", "optimizer",
-           "utils", "vision", *_ops]
+           "static", "utils", "vision", "enable_static", "disable_static",
+           "in_dynamic_mode", "in_static_mode", *_ops]

@@ -6,6 +6,13 @@ with ``list_ops``. The JAX registry's ``apply`` traces each op's vjp
 onto its tape; here an op *is* its plain function on torch tensors, and
 torch differentiates it as it runs. A non-differentiable op runs under
 ``no_grad``, so its outputs stop the gradient as the JAX op's do.
+
+:func:`recordable` marks a function that the static recorder
+(``paddle_tpu_torch.static``) must record as one op, with its output
+shapes from an ``infer`` function, rather than trace through: a
+``torch.autograd.Function`` with its own backward, or a kernel that
+reads raw pointers. Called on concrete tensors it is the function
+itself.
 """
 from __future__ import annotations
 
@@ -16,7 +23,8 @@ import torch
 
 from .tensor import to_tensor_arg
 
-__all__ = ["Op", "register_op", "get_op", "list_ops", "defop"]
+__all__ = ["Op", "register_op", "get_op", "list_ops", "defop",
+           "recordable", "set_recorder", "is_symbolic"]
 
 _REGISTRY: Dict[str, "Op"] = {}
 
@@ -69,6 +77,39 @@ def defop(name: str, differentiable: bool = True):
             return op(*(to_tensor_arg(a) for a in args), **kwargs)
 
         wrapper.op = op
+        return wrapper
+
+    return deco
+
+
+# the static recorder's hook, ``(name, fn, args, kwargs, infer) -> out``
+# (set by ``paddle_tpu_torch.static.program`` when it is imported)
+_RECORDER: List[Callable] = []
+
+
+def set_recorder(hook: Callable) -> None:
+    _RECORDER[:] = [hook]
+
+
+def is_symbolic(x) -> bool:
+    """A static-graph ``Variable`` (a tensor the recorder tracks)."""
+    return getattr(type(x), "_symbolic", False)
+
+
+def recordable(name: str, infer: Callable):
+    """Decorator: on symbolic inputs, record ``fn`` as the one op
+    ``name`` whose outputs ``infer(*args, **kwargs)`` shapes (on fake
+    tensors); otherwise call ``fn``."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if _RECORDER and (any(is_symbolic(a) for a in args)
+                              or any(is_symbolic(a)
+                                     for a in kwargs.values())):
+                return _RECORDER[0](name, fn, args, kwargs, infer)
+            return fn(*args, **kwargs)
+
         return wrapper
 
     return deco

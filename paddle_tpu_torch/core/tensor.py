@@ -71,7 +71,12 @@ class Tensor(torch.Tensor):
 
 def as_tensor(t: torch.Tensor, stop_gradient: bool = True) -> Tensor:
     """``t`` (a torch tensor that tracks no gradient) as a leaf ``Tensor``
-    sharing its storage."""
+    sharing its storage. Under ``torch.export`` (which traces plain
+    tensors) and for a tensor of another subclass (a fake tensor) it is
+    ``t`` as it is."""
+    if torch.compiler.is_exporting() or (
+            type(t) is not torch.Tensor and not isinstance(t, Tensor)):
+        return t
     out = t.as_subclass(Tensor)
     if not stop_gradient:
         out.requires_grad_(True)
@@ -101,6 +106,8 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> Tensor:
         if dtype is None and arr.dtype == np.float64:
             dtype = _dt.get_default_dtype()
         t = from_numpy(arr).to(device=dev, dtype=dtype)
+    if torch.compiler.is_exporting():
+        return t                # a constant of the exported program
     return as_tensor(t.as_subclass(torch.Tensor), stop_gradient)
 
 

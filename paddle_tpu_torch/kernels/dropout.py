@@ -34,6 +34,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..core import threefry
+from ..core.dispatch import recordable
 
 __all__ = ["KERNEL_NAME", "LAUNCHES", "dropout", "dropout_ref",
            "dropout_cuda", "mask_geometry"]
@@ -176,11 +177,14 @@ class _Dropout(torch.autograd.Function):
         return _apply(dy, *ctx.args), None, None, None, None
 
 
+@recordable("dropout", lambda x, *args, **kwargs: torch.empty_like(x))
 def dropout(x: torch.Tensor, key, p: float,
             mask_shape: Optional[Sequence[int]] = None,
             upscale: bool = True) -> torch.Tensor:
     """Differentiable dropout of ``x`` under ``key`` (a ``[2]`` key,
-    see ``core/threefry.py``) with ``0 < p < 1``."""
+    see ``core/threefry.py``) with ``0 < p < 1``. A static program
+    records it as the one op ``dropout`` (its key drawn at recording,
+    as the JAX package's recorded dropout bakes its key)."""
     key = threefry.as_key(key)
     if mask_shape is not None and math.prod(mask_shape) == x.numel():
         mask_shape = None

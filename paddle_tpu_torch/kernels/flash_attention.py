@@ -32,10 +32,16 @@ Two tiers, one function each way:
   to the dtype of q or k, float32 sums) over the whole row at once.
 
 :func:`flash_attention_bhsd` / :func:`flash_attention_bshd` are the
-public entries: one ``torch.autograd.Function`` (the role of the JAX
-``custom_vjp``) whose ``tier="auto"`` launches the kernels for CUDA
-tensors and takes the plain versions for CPU tensors, never falling
-back from one to the other.
+public entries. They call the ``torch.library`` op
+``paddle_tpu_torch::flash_fwd`` (:func:`flash_fwd_op`), whose registered
+autograd (the role of the JAX ``custom_vjp``) forms ``delta`` and calls
+``paddle_tpu_torch::flash_bwd_dkdv`` and ``::flash_bwd_dq``. Under
+``tier="auto"`` each op launches its kernel for CUDA tensors and takes
+the plain version for CPU tensors, never falling back from one to the
+other; ``"ref"`` takes the plain versions on any device and ``"kernel"``
+insists on the kernels. Each op has a fake implementation, so
+``torch.export`` and the static recorder trace through it on tensors
+that hold no data.
 """
 from __future__ import annotations
 
@@ -49,7 +55,8 @@ import torch
 __all__ = ["NEG_INF", "LAUNCHES", "KERNEL_NAMES", "flash_fwd_ref",
            "flash_bwd_dkdv_ref", "flash_bwd_dq_ref", "flash_bwd_ref",
            "flash_fwd_cuda", "flash_bwd_dkdv_cuda", "flash_bwd_dq_cuda",
-           "bwd_delta", "flash_attention_bhsd", "flash_attention_bshd"]
+           "bwd_delta", "flash_fwd_op", "flash_bwd_dkdv_op",
+           "flash_bwd_dq_op", "flash_attention_bhsd", "flash_attention_bshd"]
 
 NEG_INF = -1e30
 
@@ -297,33 +304,88 @@ def _use_kernel(tier: str, q) -> bool:
     return tier == "kernel" or (tier == "auto" and q.is_cuda)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward saves ``(q, k, v, o, lse)``; backward forms ``delta`` and
-    runs the dK/dV and dQ kernels (or their plain versions)."""
+# The three kernels as ``torch.library`` ops (namespace
+# ``paddle_tpu_torch``), the one route of every flash call: eager
+# training, ``generate``, ``jit.to_static`` (inside a CUDA graph), a
+# ``jit.load``-ed layer and a static program. Each op picks its tier from
+# the tensors it is given at run time (``_use_kernel``), so a program
+# exported or recorded on one device runs the kernels on the card and
+# the plain versions on the CPU. Each has a fake implementation that
+# gives the shapes (``torch.export``, the static recorder's shape
+# inference), and the forward carries the backward through
+# ``register_autograd``.
 
-    @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal, tier):
-        if _use_kernel(tier, q):
-            o, lse = flash_fwd_cuda(q, k, v, sm_scale, causal)
-        else:
-            o, lse = flash_fwd_ref(q, k, v, sm_scale, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.sm_scale, ctx.causal, ctx.tier = sm_scale, causal, tier
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        scale, causal = ctx.sm_scale, ctx.causal
-        if not _use_kernel(ctx.tier, q):
-            dq, dk, dv = flash_bwd_ref(q, k, v, o, lse, do, scale, causal)
-            return dq, dk, dv, None, None, None
-        if do.stride(-1) != 1:        # e.g. the expanded grad of a sum()
-            do = do.contiguous()
-        delta = bwd_delta(o, do)
-        dk, dv = flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, scale, causal)
-        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
-        return dq, dk, dv, None, None, None
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 sm_scale: float, causal: bool, tier: str
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)``: the forward kernel for CUDA tensors under ``tier``
+    ``"auto"`` or ``"kernel"``, else its plain version."""
+    if _use_kernel(tier, q):
+        return flash_fwd_cuda(q, k, v, sm_scale, causal)
+    return flash_fwd_ref(q, k, v, sm_scale, causal)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, sm_scale, causal, tier):
+    return _empty_like_layout(q), q.new_empty(
+        tuple(q.shape[:3]) + (1,), dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd_dkdv", mutates_args=())
+def flash_bwd_dkdv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, sm_scale: float, causal: bool,
+                      tier: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)``: the dK/dV kernel or its plain version."""
+    if _use_kernel(tier, q):
+        return flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, sm_scale, causal)
+    return flash_bwd_dkdv_ref(q, k, v, do, lse, delta, sm_scale, causal)
+
+
+@flash_bwd_dkdv_op.register_fake
+def _(q, k, v, do, lse, delta, sm_scale, causal, tier):
+    return _empty_like_layout(k), _empty_like_layout(v)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd_dq", mutates_args=())
+def flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                    sm_scale: float, causal: bool, tier: str) -> torch.Tensor:
+    """``dq``: the dQ kernel or its plain version."""
+    if _use_kernel(tier, q):
+        return flash_bwd_dq_cuda(q, k, v, do, lse, delta, sm_scale, causal)
+    return flash_bwd_dq_ref(q, k, v, do, lse, delta, sm_scale, causal)
+
+
+@flash_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, sm_scale, causal, tier):
+    return _empty_like_layout(q)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, sm_scale, causal, tier = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.sm_scale, ctx.causal, ctx.tier = sm_scale, causal, tier
+    ctx.mark_non_differentiable(lse)
+
+
+def _fwd_backward(ctx, do, _dlse):
+    """``delta = rowsum(dO * O)``, then the dK/dV and dQ ops."""
+    q, k, v, o, lse = ctx.saved_tensors
+    if do.stride(-1) != 1:        # e.g. the expanded grad of a sum()
+        do = do.contiguous()
+    delta = bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, ctx.sm_scale, ctx.causal, ctx.tier)
+    dk, dv = flash_bwd_dkdv_op(*args)
+    dq = flash_bwd_dq_op(*args)
+    return dq, dk, dv, None, None, None
+
+
+torch.library.register_autograd("paddle_tpu_torch::flash_fwd", _fwd_backward,
+                                setup_context=_fwd_setup)
 
 
 def flash_attention_bhsd(q, k, v, causal: bool = False,
@@ -338,8 +400,9 @@ def flash_attention_bhsd(q, k, v, causal: bool = False,
     _check_divisible(Sq, Sk, min(int(block_q), Sq), min(int(block_k), Sk))
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, float(sm_scale), bool(causal),
-                                 tier)
+    if tier not in _TIERS:
+        raise ValueError(f"tier={tier!r} not in {_TIERS}")
+    return flash_fwd_op(q, k, v, float(sm_scale), bool(causal), tier)[0]
 
 
 def flash_attention_bshd(q, k, v, causal: bool = False,

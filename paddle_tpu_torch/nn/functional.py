@@ -81,7 +81,8 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     * (1 - p)`` with ``1 - p`` in x's dtype), no key drawn; ``p == 1``:
     zeros, cut from the graph as the JAX ``zeros_like``. Else one key from the threefry generator and the mask
     ``bernoulli(key, 1 - p, mask_shape)``, one draw per element or,
-    with ``axis``, per index of those axes (the others broadcast);
+    with ``axis``, per index of those axes (the others broadcast; a
+    negative axis names none, as in the JAX package);
     ``upscale_in_train`` divides the kept values by ``1 - p``."""
     x, = amp_cast("dropout", x)
     if mode not in ("upscale_in_train", "downscale_in_infer"):
@@ -95,8 +96,9 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     key = _rng.next_key()
     mask_shape = None
     if axis is not None:
-        axes = {a % x.dim() for a in ([axis] if isinstance(axis, int)
-                                      else axis)}
+        # the raw axes, as the JAX package keeps them: a negative or
+        # out-of-range axis matches no dimension (one draw in all)
+        axes = [axis] if isinstance(axis, int) else list(axis)
         mask_shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
     return _dropout.dropout(x, key, p, mask_shape,
                             upscale=mode == "upscale_in_train")

@@ -36,7 +36,19 @@ class Parameter(Tensor, torch.nn.Parameter):
             data = torch.empty(0)
         with torch._C.DisableTorchFunctionSubclass():
             plain = data.detach()
-        return torch.Tensor._make_subclass(cls, plain, requires_grad)
+        param = torch.Tensor._make_subclass(cls, plain, requires_grad)
+        if _PARAMETER_HOOK:
+            _PARAMETER_HOOK[0](param)
+        return param
+
+
+# called with every new Parameter (the static recorder registers the
+# parameters made in static mode with the startup program)
+_PARAMETER_HOOK: list = []
+
+
+def set_parameter_hook(hook) -> None:
+    _PARAMETER_HOOK[:] = [hook]
 
 
 class Layer(torch.nn.Module):

@@ -54,9 +54,8 @@ def _true_div(num: float, den: torch.Tensor) -> torch.Tensor:
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False):
-        if parameters is None:
-            raise ValueError("parameters must be provided")
-        params = list(parameters)
+        # None: a static program's minimize() fills the list
+        params = list(parameters) if parameters is not None else []
         # Paddle parameters carry a name; here (name, parameter) pairs,
         # as Module.named_parameters() gives them, name them
         self._names = {id(p): n for n, p in
@@ -120,6 +119,22 @@ class Optimizer:
     def clear_grad(self) -> None:
         for p in self._parameter_list:
             p.grad = None
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()``, ``step()``, ``clear_grad()``; on a static
+        ``Variable`` loss, register the update with its program (the
+        Executor applies it after each run's backward)."""
+        from ..core.dispatch import is_symbolic
+
+        if is_symbolic(loss):
+            from ..static.backward import static_minimize
+
+            return static_minimize(self, loss, parameters)
+        loss.backward()
+        self.step()
+        self.clear_grad()
+        return None, None
 
     @torch.no_grad()
     def step(self) -> None:

@@ -24,6 +24,7 @@ Not ported (each raises ``NotImplementedError``): tensor parallelism
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -32,6 +33,7 @@ import torch
 
 from ..amp.auto_cast import amp_cast, autocast_suspended
 from ..core import threefry
+from ..core.dispatch import recordable
 from ..device import resolve_device
 from ..kernels.fused_transformer import checkpoint_keys, fused_block_stack_flat
 from ..nn import Dropout, Embedding, LayerNorm, Linear
@@ -229,7 +231,10 @@ class GPTModel(torch.nn.Module):
         under ``amp.auto_cast`` its inputs take the op's cast (gray under
         O1: none) and nothing inside casts."""
         cfg = self.config
-        flat = [b.get_parameter(name) for b in self.h for name in _BLOCK_PARAMS]
+        # attribute paths, not get_parameter: under jit.save's export the
+        # parameters are plain tensors put in place of the Parameters
+        flat = [functools.reduce(getattr, name.split("."), b)
+                for b in self.h for name in _BLOCK_PARAMS]
         x, *flat = amp_cast("fused_block_stack", x, *flat)
         with autocast_suspended():
             return fused_block_stack_flat(
@@ -454,8 +459,8 @@ class GPTForCausalLM(torch.nn.Module):
             wm = self.lm_head.weight                               # [H, V]
         else:
             wm = self.gpt.embeddings.word_embeddings.weight.t()    # [H, V]
-        return _ChunkedSoftmaxCE.apply(h.reshape(n, H), wm,
-                                       labels.reshape(n), chunks)
+        return _chunked_softmax_ce(h.reshape(n, H), wm, labels.reshape(n),
+                                   chunks)
 
 
 def _mm_f32(a, b):
@@ -523,6 +528,14 @@ class _ChunkedSoftmaxCE(torch.autograd.Function):
             dh[c] = torch.matmul(dl, wm.t()).to(hc.dtype)
             dw += _mm_f32(hc[c].t(), dl)
         return dh.reshape(chunks * rows, H), dw.to(wm.dtype), None, None
+
+
+# a static program records the streamed loss as one op (its backward is
+# the Function's own)
+_chunked_softmax_ce = recordable(
+    "chunked_softmax_ce",
+    lambda h, wm, y, chunks: h.new_empty((), dtype=torch.float32))(
+        _ChunkedSoftmaxCE.apply)
 
 
 def gpt_params_from_jax(arrays: Dict[str, np.ndarray], model: GPTForCausalLM

@@ -68,7 +68,13 @@ launch bookkeeping and their checks are exercised before a chip run:
   op (reference counted as a launch) at small shapes, the ResNet
   parity phase (CPU against CPU) and the ResNet training phase with
   its hook-off steps, on resnet18 at 64 x 64, batch 2; ``torch.mul``
-  and the plain version agree with my_triple's reference.
+  and the plain version agree with my_triple's reference;
+- the compile and export phases at the training rehearsal's size:
+  ``to_static`` (each CPU call eager and reported so, logits equal to
+  eager, one flash launch a layer a call), ``jit.save`` / ``load``
+  (bit-equal logits at two batches and gradients), the static program
+  (losses bit-equal to eager ``TrainStep``) and the host extensions
+  (built with g++).
 
 Nothing here measures the card: times printed by the phases under this
 rehearsal are host times of the plain versions.
@@ -1058,3 +1064,60 @@ def test_flash_rows_f16(monkeypatch):
         fa.KERNEL_NAMES[0]]
     assert cs.flash_bound(nbytes, flops, torch.float16) == cs.flash_bound(
         nbytes, flops, torch.bfloat16)
+
+
+@pytest.fixture
+def compile_on_cpu(training_on_cpu, monkeypatch):
+    """The compile and export phases at the training rehearsal's size
+    (d 128, 2 layers, 2 x 128 tokens), on the CPU device, with the card's
+    name stood in: ``to_static`` runs every signature eagerly there and
+    says so, which the phases accept on the CPU only."""
+    saved = tdevice._CURRENT[0]
+    paddle.set_device("cpu")
+    monkeypatch.setattr(cs, "card_identity", lambda: "CPU rehearsal")
+    monkeypatch.setattr(cs, "TO_STATIC_REPLAYS", 2)
+    monkeypatch.setattr(cs, "TO_STATIC_EAGER_CALLS", 1)
+    monkeypatch.setattr(cs, "LOADED_BATCHES", (2, 3))
+    monkeypatch.setattr(cs, "STATIC_STEPS", 2)
+    monkeypatch.setattr(cs, "EXT_SHAPE", (64, 32))
+    yield
+    tdevice._CURRENT[0] = saved
+
+
+def test_to_static_phase(compile_on_cpu):
+    """The to_static phase's CPU part: logits equal to the eager
+    model's in every call, one flash forward a layer a call (each CPU
+    call runs eagerly), the tensor if and while equal to Python and
+    reported eager with the CPU's reason."""
+    got = cs.phase_to_static(CPU)
+    assert got["bit_equal"]
+    assert got["if"]["reason"] == got["while"]["reason"] == "runs on the CPU"
+
+
+def test_jit_save_load_phase(compile_on_cpu):
+    """jit.save / jit.load of the narrow GPT (bf16 weights): logits at
+    two batches bit-equal, the backward's launches and gradients, the
+    model's parameter names."""
+    got = cs.phase_jit_save_load(CPU)
+    assert set(got["logits"]) == {2, 3}
+    assert max(got["logits"].values()) == 0.0 and got["grad_rel"] == 0.0
+
+
+def test_static_train_phase(compile_on_cpu):
+    """The static program of the narrow GPT under O2 bf16: losses
+    bit-equal to the eager TrainStep, the three flash stand-ins once a
+    layer a step."""
+    got = cs.phase_static_train(CPU)
+    assert got["losses"] == got["eager"]
+    assert got["records"] > 0
+
+
+def test_extensions_phase(compile_on_cpu):
+    """The cpp_extension op and the plugin kernel built with g++ (the
+    test skips without it), each equal on its device and on the CPU."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host extension and the plugin")
+    got = cs.phase_extensions(CPU)
+    assert set(got) == {"cpp::scale_shift", "plugin::axpb"}

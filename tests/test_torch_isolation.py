@@ -197,3 +197,27 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_the_scan_covers_the_compile_and_export_slice():
+    """dy2static, to_static / save / load, the static recorder and its
+    Executor, backward, nn and io, the host C++ extensions and the
+    plugin loader are scanned too; the plugin ABI header is the port's
+    own copy (byte-equal to the JAX package's, so a plugin built against
+    either loads in both)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    for rel in ("jit/dy2static/__init__.py", "jit/to_static.py",
+                "jit/__init__.py", "static/__init__.py", "static/program.py",
+                "static/executor.py", "static/backward.py", "static/nn.py",
+                "static/io.py", "utils/cpp_extension.py", "utils/plugin.py",
+                "kernels/flash_attention.py", "chip_tools/train_ab.py"):
+        path = port / rel if not rel.startswith("chip_tools") else ROOT / rel
+        assert str(path.relative_to(ROOT)) in names, rel
+    header = port / "utils" / "csrc" / "plugin_abi.h"
+    assert header.read_bytes() == (
+        ROOT / "paddle_tpu" / "core" / "native" / "csrc" /
+        "plugin_abi.h").read_bytes()
+    # the JAX header path is nowhere in the port
+    for path in PORT_FILES:
+        assert "core/native/csrc" not in path.read_text(), path
