@@ -134,7 +134,21 @@ before and read just after:
   steps through the ``Executor`` against eager ``TrainStep``
   (``phase_static_train``); a ``cpp_extension`` op and a plugin kernel
   built here on CUDA tensors against the CPU, each eager inside
-  ``to_static`` (``phase_extensions``). Kernel launch counts are Python
+  ``to_static`` (``phase_extensions``);
+- the high-level training path: ResNet-50 at ``perf/resnet_bench.py``'s
+  configuration through ``paddle.Model(...).prepare(Momentum,
+  CrossEntropyLoss, Accuracy(topk=(1, 5)), jit=True).fit`` over
+  ``FakeData`` (bfloat16, ``num_workers=0``), its samples/s beside the
+  ResNet phase's ``TrainStep``, the loader's wait, one batch's copy and
+  the device's busy share, ``evaluate`` and ``predict``, ``summary`` /
+  ``flops`` equal to the JAX package's, a ``Model.save`` / ``load`` with
+  bit-equal logits (``phase_hapi_resnet``); the DataLoader's worker ring
+  with ``spawn`` workers, the verify recipe's LeNet and ResNet-50's input
+  at batch 64, batches equal to ``num_workers=0``'s
+  (``phase_hapi_workers``); the sequence ops on CUDA tensors against the
+  CPU, EMA and ``static.save`` / ``load`` on a static program
+  (``phase_static_extras``). None of them launches a port kernel. Kernel
+  launch counts are Python
   counters and a graph replay runs no Python: a captured signature counts
   its kernels once at capture and adds what the capture counted at every
   replay.
@@ -5201,6 +5215,474 @@ def phase_extensions(device) -> dict:
     return reports
 
 
+# ResNet-50's counts at RESNET_COUNT_SIZE as the JAX package reports
+# them (tests/test_torch_hapi.py computes them on the CPU and checks this
+# pin): paddle.summary's totals and the sha256 of its printed table, and
+# paddle.flops (one multiply-add counted as one)
+RESNET_COUNT_SIZE = (1, 3, 224, 224)
+RESNET50_COUNTS = {
+    "total_params": 25557032, "trainable_params": 25557032,
+    "flops": 4111412224,
+    "summary_sha256": "4c6abc7e947e35106e351c9acdf2bf877b4001ce2c73c71a35ea7e0270a4bf6a",
+}
+
+
+# the high-level training path (phase_hapi_resnet): HAPI_WARMUP
+# warm-up and HAPI_STEPS timed fit steps over FakeData at
+# perf/resnet_bench.py's configuration, then evaluate and predict over
+# HAPI_EVAL_BATCHES batches each
+HAPI_WARMUP, HAPI_STEPS, HAPI_EVAL_BATCHES, HAPI_PROFILE_STEPS = 2, 3, 2, 2
+# the worker ring (phase_hapi_workers): the verify recipe's LeNet over
+# FakeData((1, 28, 28)) and ResNet-50 at batch 64 x 3 x 224^2 float32
+# (38.5 MB, under the 64 MiB ring), spawn workers (CUDA is initialized)
+LENET_BATCH, LENET_WORKERS, LENET_BATCHES = 64, 2, 32
+WORKER_BATCH, WORKER_WORKERS, WORKER_BATCHES = 64, 4, 16
+# the static tail (phase_static_extras): sequence ops at [B, T, D] with
+# lengths, the EMA decay and steps
+SEQ_SHAPE, SEQ_FILTERS = (64, 128, 256), 128
+SEQ_TOL = 1e-5          # float32 CUDA against the CPU (exp, sums, GEMM)
+EMA_DECAY, EMA_STEPS = 0.9, 3
+
+
+def kernel_counts():
+    """Every port kernel's launch counters, to hold a path to launching
+    none of them."""
+    return (dict(pa.LAUNCHES), dict(fa.LAUNCHES), dict(OP_LAUNCHES),
+            dict(dk.LAUNCHES))
+
+
+def _printed(fn, *args):
+    """What ``fn(*args)`` prints, and what it returns."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return buf.getvalue(), out
+
+
+def check_resnet_counts(device) -> dict:
+    """``paddle.summary`` and ``paddle.flops`` of a float32 ResNet-50 at
+    RESNET_COUNT_SIZE on the card: the totals, the printed table's sha256
+    and the FLOPs must equal what the JAX package reports
+    (RESNET50_COUNTS)."""
+    import hashlib
+
+    from paddle_tpu_torch.vision.models import resnet as vresnet
+
+    net = vresnet.resnet50(num_classes=1000)
+    text, info = _printed(paddle.summary, net, RESNET_COUNT_SIZE)
+    got = {**info, "flops": paddle.flops(net, list(RESNET_COUNT_SIZE)),
+           "summary_sha256": hashlib.sha256(text.encode()).hexdigest()}
+    if got != RESNET50_COUNTS:
+        raise AssertionError(f"ResNet-50 summary/flops {got} differ from "
+                             f"the JAX package's {RESNET50_COUNTS}")
+    return got
+
+
+class StepTimer(paddle.callbacks.Callback):
+    """Host times of a ``fit``: when each step began and ended (the step
+    ends with the loss read on the host, so the device has finished it),
+    and how long each step waited on the loader before it began."""
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self.begin, self.end, self.wait = [], [], []
+        self._last = time.perf_counter()
+
+    def on_train_batch_begin(self, step, logs=None):
+        now = time.perf_counter()
+        self.begin.append(now)
+        self.wait.append(now - self._last)
+
+    def on_train_batch_end(self, step, logs=None):
+        self._last = time.perf_counter()
+        self.end.append(self._last)
+
+
+def hapi_data(n_batches, batch, dtype="bfloat16"):
+    return paddle.vision.datasets.FakeData(
+        num_samples=n_batches * batch, image_shape=(3, RESNET_SIZE,
+                                                    RESNET_SIZE),
+        num_classes=RESNET_CLASSES, dtype=dtype)
+
+
+def hapi_model(device):
+    """ResNet-50 as perf/resnet_bench.py configures it, prepared for
+    ``fit``: Momentum, AMP O2 bf16, CrossEntropyLoss, Accuracy top-1/5,
+    ``jit=True`` (the port's ``TrainStep``)."""
+    net = resnet50(num_classes=RESNET_CLASSES)
+    opt = Momentum(RESNET_LR, RESNET_MOMENTUM, parameters=net.parameters())
+    net, opt = decorate(net, opt, level="O2", dtype="bfloat16")
+    return paddle.Model(net).prepare(
+        opt, paddle.nn.CrossEntropyLoss(),
+        paddle.metric.Accuracy(topk=(1, 5)), jit=True)
+
+
+def phase_hapi_resnet(device, base: dict) -> dict:
+    """The high-level training path at full width: ResNet-50 through
+    ``paddle.Model(...).prepare(..., jit=True).fit`` over ``FakeData``
+    (bfloat16, [N, 1] int64 labels, ``num_workers=0``: the loader's thread
+    prefetch), HAPI_WARMUP warm-up steps then HAPI_STEPS timed ones;
+    samples/s beside ``phase_resnet_train``'s (``base``), the seconds a
+    step waited on the loader, one batch's host-to-device copy and the
+    device's busy share (``torch.profiler`` over HAPI_PROFILE_STEPS more
+    steps); ``evaluate`` and ``predict(stack_outputs=True)`` over
+    HAPI_EVAL_BATCHES batches; summary and flops against the JAX
+    package's; a ``Model.save`` / ``load`` round trip with bit-equal
+    logits. No port kernel launches."""
+    paddle.seed(0)
+    paddle.set_device(device)
+    before = kernel_counts()
+    counts = check_resnet_counts(device)
+    model = hapi_model(device)
+    B = RESNET_BATCH
+    fit = dict(batch_size=B, shuffle=False, num_workers=0, verbose=0)
+    warm = StepTimer()
+    t0 = time.perf_counter()
+    model.fit(hapi_data(HAPI_WARMUP, B), callbacks=[warm], **fit)
+    warm_s = time.perf_counter() - t0
+    timer = StepTimer()
+    t0 = time.perf_counter()
+    hist = model.fit(hapi_data(HAPI_STEPS, B), callbacks=[timer], **fit)
+    wall = time.perf_counter() - t0
+    losses = hist["loss"]
+    if len(losses) != HAPI_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"fit losses {losses}")
+    wait = sum(timer.wait)
+    step_s = [e - b for b, e in zip(timer.begin, timer.end)]
+    # the device's busy time a step, from the profiler over
+    # HAPI_PROFILE_STEPS more steps, as a share of the timed loop's wall
+    # per step (the profiler's own teardown would inflate its window)
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        model.fit(hapi_data(HAPI_PROFILE_STEPS, B), **fit)
+        torch.cuda.synchronize()
+    busy = _device_busy(prof) / 1e3 / HAPI_PROFILE_STEPS
+    busy_share = busy / (wall / HAPI_STEPS) if busy > 0 else None
+    # one batch's host-to-device copy (pageable, as the loader's)
+    host = np.stack([hapi_data(1, B)[i][0] for i in range(B)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = paddle.to_tensor(host)
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    # evaluate and predict over HAPI_EVAL_BATCHES batches each
+    res = model.evaluate(hapi_data(HAPI_EVAL_BATCHES, B), batch_size=B,
+                         verbose=0)
+    if not (math.isfinite(res["loss"]) and len(res["acc"]) == 2
+            and all(0.0 <= a <= 1.0 for a in res["acc"])):
+        raise AssertionError(f"evaluate gave {res}")
+    pred = model.predict(hapi_data(HAPI_EVAL_BATCHES, B), batch_size=B,
+                         stack_outputs=True)[0]
+    if (tuple(pred.shape) != (HAPI_EVAL_BATCHES * B, RESNET_CLASSES)
+            or not bool(torch.isfinite(pred).all())):
+        raise AssertionError(f"predict gave {tuple(pred.shape)}, finite "
+                             f"{bool(torch.isfinite(pred).all())}")
+    # Model.save / load into a fresh network: bit-equal logits
+    saved_flags = paddle.get_flags("FLAGS_cudnn_deterministic")
+    paddle.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            model.save(os.path.join(d, "resnet50"))
+            fresh = hapi_model(device)
+            fresh.load(os.path.join(d, "resnet50"))
+        with torch.no_grad():
+            model.network.eval()
+            fresh.network.eval()
+            a, b = model.network(x), fresh.network(x)
+        if a.dtype != torch.bfloat16 or not torch.equal(a, b):
+            raise AssertionError("Model.save / load changed the logits")
+    finally:
+        paddle.set_flags(saved_flags)
+    del fresh, a, b
+    if kernel_counts() != before:
+        raise AssertionError("the hapi path launched a port kernel")
+    sps = B * HAPI_STEPS / wall
+    out = {"samples_per_s": sps, "train_step_samples_per_s":
+           base["samples_per_s"], "loader_wait_s": wait / HAPI_STEPS,
+           "loader_share": wait / wall, "step_s": statistics.median(step_s),
+           "h2d_ms": 1e3 * h2d, "busy_ms": 1e3 * busy,
+           "busy_share": busy_share,
+           "warm_s": warm_s, "losses": losses, "eval": res, **counts}
+    log(f"[hapi] ResNet-50 through Model.fit (perf/resnet_bench.py config, "
+        f"FakeData bf16 {B} x 3 x {RESNET_SIZE}^2, num_workers=0, jit=True): "
+        f"{HAPI_WARMUP} warm-up steps {warm_s:.3f}s; {HAPI_STEPS} timed "
+        f"steps {wall:.3f}s = {sps:.1f} samples/s against TrainStep's "
+        f"{base['samples_per_s']:.1f} samples/s in this run; loader wait "
+        f"{wait / HAPI_STEPS:.3f}s/step = {100 * wait / wall:.1f}% of the "
+        f"loop; step (TrainStep + loss read) median "
+        f"{1e3 * statistics.median(step_s):.1f} ms; one batch's "
+        f"host-to-device copy {1e3 * h2d:.1f} ms "
+        f"({host.nbytes / 2**20:.1f} MiB pageable); device busy "
+        + (f"{1e3 * busy:.1f} ms a step (profiler, {HAPI_PROFILE_STEPS} "
+           f"steps) = {100 * busy_share:.1f}% of the timed loop's "
+           f"{1e3 * wall / HAPI_STEPS:.1f} ms a step"
+           if busy_share is not None else "not measured (the profiler "
+           "recorded no device time)")
+        + "; losses "
+        f"{[round(v, 4) for v in losses]}; evaluate {res}; predict "
+        f"{tuple(pred.shape)} finite; summary/flops = JAX's "
+        f"({counts['total_params']} params, {counts['flops']} FLOPs); "
+        f"save/load logits bit-equal; no port kernel launched")
+    return out
+
+
+def _loader_batches(loader, expect_ring: bool):
+    """Every batch of ``loader``, the seconds to its first batch (the
+    workers' start) and its samples/s from the first batch to the last;
+    with ``expect_ring`` fails unless the worker ring's iterator serves
+    it."""
+    from paddle_tpu_torch.io import dataloader as dl
+
+    t0 = time.perf_counter()
+    it = iter(loader)
+    if expect_ring and not isinstance(it, dl._MultiprocessIterator):
+        raise AssertionError(f"the loader fell back to {type(it).__name__}"
+                             " (the native ring is unavailable)")
+    batches, stamps = [], []
+    for b in it:
+        batches.append(b)
+        stamps.append(time.perf_counter())
+    n = sum(int(b[0].shape[0]) for b in batches[1:])
+    return batches, stamps[0] - t0, n / (stamps[-1] - stamps[0])
+
+
+def _same_batches(label, got, want) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} batches, not "
+                             f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for a, b in zip(g, w):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"{label}: batch {i} differs from "
+                                     "num_workers=0's")
+
+
+def phase_hapi_workers(device) -> dict:
+    """The DataLoader's worker ring with CUDA live (``spawn`` workers,
+    which never touch the card; ``fork`` where the device is the CPU, as
+    the loader picks): the verify recipe (LeNet over
+    FakeData((1, 28, 28)), batch LENET_BATCH, LENET_WORKERS workers, then
+    ``Model.fit`` through the same loader) and ResNet-50's input at batch
+    WORKER_BATCH x 3 x 224^2 float32 with WORKER_WORKERS workers (then a
+    float32 ResNet-50 ``fit`` through it). Each loader's batches equal
+    ``num_workers=0``'s in order and bits; the workers' start, then
+    samples/s of each loader and each fit from the first batch on."""
+    from paddle_tpu_torch.core import native
+    from paddle_tpu_torch.io import DataLoader, dataloader as dl
+    from paddle_tpu_torch.vision.models import LeNet
+
+    paddle.seed(0)
+    paddle.set_device(device)
+    if not native.available():
+        raise AssertionError("the native queue tier did not build (g++)")
+    want_start = "spawn" if device.type == "cuda" else "fork"
+    if dl._default_start_method() != want_start:
+        raise AssertionError(f"workers start with "
+                             f"{dl._default_start_method()}, not {want_start}"
+                             f" (CUDA initialized: "
+                             f"{torch.cuda.is_initialized()})")
+    before = kernel_counts()
+    out = {}
+    cases = (("lenet", (1, 28, 28), 10, LENET_BATCH, LENET_WORKERS,
+              LENET_BATCHES),
+             ("resnet50", (3, RESNET_SIZE, RESNET_SIZE), RESNET_CLASSES,
+              WORKER_BATCH, WORKER_WORKERS, WORKER_BATCHES))
+    for name, shape, classes, batch, workers, n in cases:
+        ds = paddle.vision.datasets.FakeData(
+            num_samples=n * batch, image_shape=shape, num_classes=classes)
+        ring = DataLoader(ds, batch_size=batch, num_workers=workers)
+        got, start, sps = _loader_batches(ring, expect_ring=True)
+        want, _, sps0 = _loader_batches(
+            DataLoader(ds, batch_size=batch, num_workers=0), False)
+        _same_batches(name, got, want)
+        if got[0][0].device.type != device.type:
+            raise AssertionError(f"{name}: batches on {got[0][0].device}")
+        del got, want
+        if name == "lenet":
+            net = LeNet(num_classes=classes)
+        else:
+            net = resnet50(num_classes=classes)
+        model = paddle.Model(net).prepare(
+            Momentum(0.01, 0.9, parameters=net.parameters()),
+            paddle.nn.CrossEntropyLoss(), jit=True)
+        timer = StepTimer()
+        hist = model.fit(ring, verbose=0, callbacks=[timer])
+        if len(hist["loss"]) != n or not all(map(math.isfinite,
+                                                 hist["loss"])):
+            raise AssertionError(f"{name}: fit losses {hist['loss']}")
+        fit_sps = (n - 1) * batch / (timer.end[-1] - timer.end[0])
+        out[name] = {"loader_samples_per_s": sps,
+                     "inline_samples_per_s": sps0, "start_s": start,
+                     "fit_samples_per_s": fit_sps,
+                     "fit_wait_s": sum(timer.wait[1:]) / (n - 1),
+                     "batch_mib": batch * int(np.prod(shape)) * 4 / 2**20}
+        log(f"[workers] {name}: FakeData {list(shape)} float32, batch "
+            f"{batch} ({out[name]['batch_mib']:.1f} MiB), {workers} "
+            f"{want_start} workers over the 64 MiB ring: {n} batches equal "
+            f"num_workers=0's in order and bits; {start:.2f}s to the first "
+            f"batch (the workers' start), then {sps:.1f} samples/s "
+            f"({sps0:.1f} with num_workers=0); Model.fit through the ring "
+            f"{fit_sps:.1f} samples/s after its first step, waiting "
+            f"{1e3 * out[name]['fit_wait_s']:.1f} ms a step on the loader; "
+            f"losses finite")
+        del model, net
+        torch.cuda.empty_cache()
+    if kernel_counts() != before:
+        raise AssertionError("the worker path launched a port kernel")
+    return out
+
+
+def _seq_inputs(device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    B, T, D = SEQ_SHAPE
+    x = torch.randn(B, T, D, generator=g)
+    n = torch.randint(1, T + 1, (B,), generator=g)
+    w = torch.randn(3 * D, SEQ_FILTERS, generator=g) / D ** 0.5
+    ids = torch.randint(0, 1000, (B, T), generator=g)
+    return {k: v.to(device) for k, v in
+            (("x", x), ("n", n), ("w", w), ("ids", ids))}
+
+
+SEQ_CASES = {
+    "softmax": lambda s, a: s.sequence_softmax(a["x"][..., 0], a["n"]),
+    "pool_average": lambda s, a: s.sequence_pool(a["x"], "average",
+                                                 length=a["n"]),
+    "pool_max": lambda s, a: s.sequence_pool(a["x"], "max", length=a["n"]),
+    "last_step": lambda s, a: s.sequence_last_step(a["x"], a["n"]),
+    "reverse": lambda s, a: s.sequence_reverse(a["x"], a["n"]),
+    "concat": lambda s, a: s.sequence_concat([a["x"], a["x"] * 2],
+                                             [a["n"], a["n"]]),
+    "expand_as": lambda s, a: s.sequence_expand_as(a["x"][:8], a["x"]),
+    "unpad_pad": lambda s, a: s.sequence_pad(
+        s.sequence_unpad(a["x"], a["n"]), 0.0, length=a["n"]),
+    "slice": lambda s, a: s.sequence_slice(a["x"], a["n"] // 4,
+                                           a["n"] // 2),
+    "scatter": lambda s, a: s.sequence_scatter(
+        a["x"][0], a["n"] % SEQ_SHAPE[1], a["x"][1, :SEQ_SHAPE[0]]),
+    "enumerate": lambda s, a: s.sequence_enumerate(a["ids"], 4),
+    "conv": lambda s, a: s.sequence_conv(a["x"], SEQ_FILTERS, 3,
+                                         weight=a["w"], length=a["n"],
+                                         act="relu"),
+}
+
+
+def _held(label, got, want, tol) -> float:
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    err = 0.0
+    for g, w in zip(got, want):
+        g = g.cpu()
+        if g.is_floating_point():
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol,
+                                       msg=lambda m: f"{label}: {m}")
+            err = max(err, float((g - w).abs().max()))
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{label}: differs from the CPU")
+    return err
+
+
+def phase_static_extras(device) -> dict:
+    """The static tail on the card: the sequence ops on CUDA tensors
+    (SEQ_SHAPE with lengths) against the same ops on the CPU (float
+    results within SEQ_TOL, integer ones equal), and recorded into a
+    static program replayed by the Executor; ``ExponentialMovingAverage``
+    over a small static program (fc, Adam) trained EMA_STEPS steps,
+    ``apply`` equal to the bias-corrected shadows and ``restore``
+    bit-equal; ``static.save`` / ``load`` and ``serialize_persistables``
+    round trips bit-equal."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static import sequence as seq
+
+    paddle.set_device(device)
+    before = kernel_counts()
+    args = _seq_inputs(device)
+    host = {k: v.cpu() for k, v in args.items()}
+    errs = {name: _held(name, fn(seq, args), fn(seq, host), SEQ_TOL)
+            for name, fn in SEQ_CASES.items()}
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        xv = static.data("x", [None] + list(SEQ_SHAPE[1:]), "float32")
+        nv = static.data("n", [None], "int64")
+        pooled = seq.sequence_pool(seq.sequence_reverse(xv, nv), "sqrt",
+                                   length=nv)
+    got = static.Executor().run(main, feed={"x": args["x"], "n": args["n"]},
+                                fetch_list=[pooled], return_numpy=False)[0]
+    want = seq.sequence_pool(seq.sequence_reverse(args["x"], args["n"]),
+                             "sqrt", length=args["n"])
+    if not torch.equal(got, want):
+        raise AssertionError("recorded sequence ops differ from eager")
+    # EMA over a small static program trained on the card
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = static.data("x", [None, 32], "float32")
+        loss = (static.nn.fc(static.nn.fc(x, 64, activation="relu"), 8)
+                ** 2).mean()
+        paddle.optimizer.Adam(0.05).minimize(loss)
+    exe = static.Executor()
+    exe.run(startup)
+    ema = static.ExponentialMovingAverage(EMA_DECAY)
+    params = main.all_parameters()
+    if not all(p.device.type == device.type for p in params):
+        raise AssertionError("the static program's parameters are not on "
+                             "the card")
+    g = torch.Generator(device=device).manual_seed(3)
+    shadows = None
+    with static.program_guard(main, startup):
+        for _ in range(EMA_STEPS):
+            exe.run(main, feed={"x": torch.randn(16, 32, generator=g,
+                                                  device=device)},
+                    fetch_list=[loss])
+            ema.update()
+            cur = [p.detach().float().clone() for p in params]
+            shadows = cur if shadows is None else [
+                EMA_DECAY * s + (1 - EMA_DECAY) * c
+                for s, c in zip(shadows, cur)]
+    trained = [p.detach().clone() for p in params]
+    corr = torch.tensor(1 - EMA_DECAY ** EMA_STEPS, device=device)
+    with ema.apply():
+        for p, s in zip(params, shadows):
+            if not torch.equal(p, torch.div(s, corr).to(p.dtype)):
+                raise AssertionError("EMA apply is not the bias-corrected "
+                                     "shadow")
+    if not all(torch.equal(p, t) for p, t in zip(params, trained)):
+        raise AssertionError("EMA restore did not put the parameters back")
+    # save / load and the persistables round trip, bit-equal
+    blob = static.serialize_persistables(program=main)
+    with tempfile.TemporaryDirectory() as d:
+        static.save(main, os.path.join(d, "prog"))
+        with torch.no_grad():
+            for p in params:
+                p.zero_()
+        static.load(main, os.path.join(d, "prog"))
+        loaded = all(torch.equal(p, t) for p, t in zip(params, trained))
+        with torch.no_grad():
+            for p in params:
+                p.add_(1.0)
+        static.deserialize_persistables(main, blob)
+        restored = all(torch.equal(p, t) for p, t in zip(params, trained))
+    if not (loaded and restored):
+        raise AssertionError(f"static save/load bit-equal {loaded}, "
+                             f"persistables {restored}")
+    ops = static.deserialize_program(static.serialize_program(
+        program=main))["op_names"]
+    if kernel_counts() != before:
+        raise AssertionError("the static tail launched a port kernel")
+    log(f"[static-extras] sequence ops at {list(SEQ_SHAPE)} on CUDA "
+        f"tensors against the CPU (max abs err by op "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }, tol "
+        f"{SEQ_TOL}; integer results equal), recorded reverse + sqrt pool "
+        f"replayed bit-equal to eager; EMA({EMA_DECAY}) over a static "
+        f"program ({len(params)} parameters, {EMA_STEPS} Adam steps on "
+        f"the card): apply = bias-corrected shadows, restore bit-equal; "
+        f"static.save/load and serialize_persistables bit-equal; "
+        f"{len(ops)} recorded ops")
+    return {"errors": errs, "ops": len(ops)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -5358,7 +5840,7 @@ def main() -> int:
     core = phase_custom_ops(device)
     phase_resnet_parity(device)
     torch.cuda.empty_cache()
-    phase_resnet_train(device, "--profile" in sys.argv[1:])
+    resnet = phase_resnet_train(device, "--profile" in sys.argv[1:])
     torch.cuda.empty_cache()
 
     # the compile and export paths, this slice's main path: to_static as
@@ -5371,6 +5853,15 @@ def main() -> int:
     phase_static_train(device)
     torch.cuda.empty_cache()
     phase_extensions(device)
+
+    # the high-level training path, this slice's main path: ResNet-50
+    # through Model.fit / evaluate / predict over FakeData, the
+    # DataLoader's worker ring, then the static tail
+    phase_hapi_resnet(device, resnet)
+    torch.cuda.empty_cache()
+    phase_hapi_workers(device)
+    torch.cuda.empty_cache()
+    phase_static_extras(device)
 
     if old_ragged is not None:
         old_ragged = (old_ragged, {

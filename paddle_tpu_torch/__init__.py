@@ -9,7 +9,12 @@ families, ``optimizer``, ``amp``, ``jit.TrainStep``, ``autograd.PyLayer``,
 ``utils.custom_op`` / ``cuda_op``, ``utils.cpp_extension`` and kernel
 plugins), compiles and exports programs (``jit.to_static`` as CUDA
 graphs, ``jit.save`` / ``load`` through ``torch.export``, the
-``static`` program recorder and its ``Executor``), serves the decoder-only LM
+``static`` program recorder and its ``Executor``, ``static.sequence_*``
+and the static tail), trains through the high-level API (``io.DataLoader``
+with its worker ring, ``vision.datasets`` / ``transforms``, the loss
+layers, ``metric``, ``Model(...).fit`` / ``evaluate`` / ``predict`` with
+``callbacks``, ``summary``, ``flops``, ``save`` / ``load``), serves the
+decoder-only LM
 through the JAX engine's entry points (``inference.llm``) and trains the
 GPT family (``text.gpt``) on an NVIDIA GPU, with the TPU's Pallas
 kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
@@ -17,7 +22,8 @@ kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
 to the card unless ``set_device("cpu")`` (or a ``place``) asks for the
 host.
 """
-from . import amp, autograd, jit, nn, optimizer, static, utils, vision
+from . import (amp, autograd, callbacks, framework, hapi, io, jit, metric,
+               nn, optimizer, static, utils, vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                             set_grad_enabled)
 from .core.device import device_count, get_device, set_device
@@ -27,6 +33,8 @@ from .core.dtypes import (bfloat16, bool_, complex64, complex128, float16,
 from .core.random import get_rng_state, seed, set_rng_state
 from .core.tensor import Tensor
 from .device import resolve_device
+from .framework import get_flags, load, save, set_flags
+from .hapi import Model, flops, summary
 from .nn import Parameter
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops
@@ -41,4 +49,6 @@ __all__ = ["resolve_device", "Tensor", "Parameter", "set_device",
            "int64", "float16", "bfloat16", "float32", "float64", "complex64",
            "complex128", "amp", "autograd", "jit", "nn", "optimizer",
            "static", "utils", "vision", "enable_static", "disable_static",
+           "callbacks", "framework", "hapi", "io", "metric", "Model",
+           "summary", "flops", "save", "load", "get_flags", "set_flags",
            "in_dynamic_mode", "in_static_mode", *_ops]

@@ -5,7 +5,10 @@ name (``register_op``, ``defop``), looked up with ``get_op`` and listed
 with ``list_ops``. The JAX registry's ``apply`` traces each op's vjp
 onto its tape; here an op *is* its plain function on torch tensors, and
 torch differentiates it as it runs. A non-differentiable op runs under
-``no_grad``, so its outputs stop the gradient as the JAX op's do.
+``no_grad``, so its outputs stop the gradient as the JAX op's do. With
+``FLAGS_check_nan_inf`` set, every op checks its floating outputs (the
+JAX dispatcher's ``_maybe_check_nan_inf``; the ``Tensor`` hook checks
+every torch call on a ``Tensor`` too).
 
 :func:`recordable` marks a function that the static recorder
 (``paddle_tpu_torch.static``) must record as one op, with its output
@@ -21,7 +24,7 @@ from typing import Callable, Dict, List
 
 import torch
 
-from .tensor import to_tensor_arg
+from .tensor import CHECK_NAN_INF, check_finite, to_tensor_arg
 
 __all__ = ["Op", "register_op", "get_op", "list_ops", "defop",
            "recordable", "set_recorder", "is_symbolic"]
@@ -39,9 +42,13 @@ class Op:
 
     def __call__(self, *args, **kwargs):
         if self.differentiable:
-            return self.fn(*args, **kwargs)
-        with torch.no_grad():
-            return self.fn(*args, **kwargs)
+            out = self.fn(*args, **kwargs)
+        else:
+            with torch.no_grad():
+                out = self.fn(*args, **kwargs)
+        if CHECK_NAN_INF[0]:
+            check_finite(self.name, out)
+        return out
 
     def __repr__(self):
         return f"Op<{self.name}>"

@@ -14,7 +14,8 @@ import torch
 __all__ = ["bool_", "uint8", "int8", "int16", "int32", "int64", "float16",
            "bfloat16", "float32", "float64", "complex64", "complex128",
            "convert_dtype", "dtype_name", "is_floating_point", "is_complex",
-           "is_integer", "get_default_dtype", "set_default_dtype"]
+           "is_integer", "get_default_dtype", "set_default_dtype",
+           "BFLOAT16_NP", "bfloat16_bits", "is_bfloat16_np"]
 
 bool_ = torch.bool
 uint8 = torch.uint8
@@ -87,3 +88,27 @@ def set_default_dtype(dtype) -> None:
     if not is_floating_point(d):
         raise TypeError(f"default dtype must be floating point, got {d}")
     _DEFAULT_DTYPE[0] = d
+
+
+# bfloat16 on the host without ``ml_dtypes``: a numpy array of this
+# structured dtype holds each value's 16 bits in a field named
+# ``bfloat16``. ``np.stack``, pickling and the worker ring keep the bits,
+# and ``core.tensor.from_numpy`` turns it into a torch bfloat16 tensor.
+BFLOAT16_NP = np.dtype([("bfloat16", "<u2")])
+
+
+def bfloat16_bits(arr: np.ndarray) -> np.ndarray:
+    """``arr`` rounded to bfloat16 (nearest, ties to even; a NaN stays a
+    quiet NaN), as an array of :data:`BFLOAT16_NP`: the bits that
+    ``ml_dtypes``' ``astype(bfloat16)`` gives."""
+    bits = np.ascontiguousarray(arr, np.float32).view(np.uint32)
+    rounded = (bits + (0x7FFF + ((bits >> 16) & 1))) >> 16
+    nan = np.isnan(arr)
+    out = np.where(nan, (bits >> 16) | 0x40, rounded).astype(np.uint16)
+    return out.view(BFLOAT16_NP).reshape(np.shape(arr))
+
+
+def is_bfloat16_np(arr) -> bool:
+    """A numpy bfloat16 array: :data:`BFLOAT16_NP` or ``ml_dtypes``'."""
+    return isinstance(arr, np.ndarray) and (
+        arr.dtype == BFLOAT16_NP or arr.dtype.name == "bfloat16")

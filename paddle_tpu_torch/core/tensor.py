@@ -26,7 +26,38 @@ import torch
 from . import dtypes as _dt
 from .device import to_torch_device
 
-__all__ = ["Tensor", "to_tensor", "to_tensor_arg", "as_tensor", "from_numpy"]
+__all__ = ["Tensor", "to_tensor", "to_tensor_arg", "as_tensor", "from_numpy",
+           "to_numpy",
+           "CHECK_NAN_INF", "check_finite"]
+
+# ``FLAGS_check_nan_inf`` (``framework/flags.py`` sets it): every torch
+# function or method given a ``Tensor``, and every registered op, checks
+# its floating outputs
+CHECK_NAN_INF = [False]
+
+
+def check_finite(name: str, out) -> None:
+    """Raise ``FloatingPointError`` when a floating tensor in ``out`` holds
+    a NaN or an infinity (one host read per tensor). Outputs that hold no
+    data are skipped: fake and symbolic tensors, and anything made while
+    ``torch.export`` traces or a CUDA graph captures (the JAX check is
+    eager only too)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if torch.compiler.is_compiling() or (
+            torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        return
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    with torch._C.DisableTorchFunctionSubclass():
+        for o in outs:
+            if (not isinstance(o, torch.Tensor) or isinstance(o, FakeTensor)
+                    or getattr(type(o), "_symbolic", False)
+                    or not (o.is_floating_point() or o.is_complex())):
+                continue
+            if not bool(torch.isfinite(o).all()):
+                raise FloatingPointError(
+                    f"op {name!r} produced nan/inf (FLAGS_check_nan_inf)")
 
 
 def _wrap(out):
@@ -42,6 +73,8 @@ class Tensor(torch.Tensor):
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         with torch._C.DisableTorchFunctionSubclass():
             out = func(*args, **(kwargs or {}))
+        if CHECK_NAN_INF[0]:
+            check_finite(getattr(func, "__name__", str(func)), out)
         return _wrap(out)
 
     @property
@@ -56,17 +89,33 @@ class Tensor(torch.Tensor):
     def place(self) -> torch.device:
         return self.device
 
+    @property
+    def name(self):
+        """Paddle's tensor name: None until one is set (torch's own
+        ``name`` is read-only)."""
+        return self.__dict__.get("_paddle_name")
+
+    @name.setter
+    def name(self, value) -> None:
+        self.__dict__["_paddle_name"] = value
+
     def numpy(self) -> np.ndarray:
-        t = self.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return torch.Tensor.numpy(t.cpu())
+        return to_numpy(self)
 
     def astype(self, dtype) -> "Tensor":
         return self.to(_dt.convert_dtype(dtype))
 
     def clear_grad(self) -> None:
         self.grad = None
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Any torch tensor's values as numpy, from any device; bfloat16
+    comes back as float32 (numpy has no bfloat16)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return torch.Tensor.numpy(t.cpu().as_subclass(torch.Tensor))
 
 
 def as_tensor(t: torch.Tensor, stop_gradient: bool = True) -> Tensor:
@@ -84,10 +133,11 @@ def as_tensor(t: torch.Tensor, stop_gradient: bool = True) -> Tensor:
 
 
 def from_numpy(arr: np.ndarray) -> torch.Tensor:
-    """A torch copy of a numpy array, numpy's ``bfloat16`` extension
-    type (what the JAX package's bfloat16 arrays become) included."""
+    """A torch copy of a numpy array, bfloat16 included: numpy's
+    ``bfloat16`` extension type (what the JAX package's bfloat16 arrays
+    become) and the port's ``dtypes.BFLOAT16_NP``."""
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":
+    if _dt.is_bfloat16_np(arr):
         return torch.from_numpy(arr.view(np.uint16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(np.array(arr))

@@ -3,7 +3,11 @@ semantics: counterparts of ``paddle_tpu/ops/nn_ops.py``'s ``linear``,
 ``layer_norm``, ``gelu``, ``relu``, ``softmax``, ``dropout``,
 ``dropout2d``, ``dropout3d``, ``alpha_dropout``,
 ``scaled_dot_product_attention``, ``conv2d``, ``max_pool2d``,
-``adaptive_avg_pool2d``, ``batch_norm`` and ``cross_entropy``.
+``adaptive_avg_pool2d`` and ``batch_norm``, and the loss family of
+``nn_ops.py:897-1118``: ``cross_entropy``, ``softmax_with_cross_entropy``,
+``nll_loss``, ``mse_loss``, ``l1_loss``, ``smooth_l1_loss``,
+``binary_cross_entropy``, ``binary_cross_entropy_with_logits``,
+``kl_div`` and ``margin_ranking_loss``.
 
 The ops that the JAX dispatcher casts under ``amp.auto_cast`` ask
 ``amp_cast`` under the JAX op's name before they run (see
@@ -28,7 +32,11 @@ from ..kernels import dropout as _dropout
 __all__ = ["linear", "layer_norm", "gelu", "relu", "softmax", "dropout",
            "dropout2d", "dropout3d", "alpha_dropout",
            "scaled_dot_product_attention", "conv2d", "max_pool2d",
-           "adaptive_avg_pool2d", "batch_norm", "cross_entropy"]
+           "adaptive_avg_pool2d", "batch_norm", "cross_entropy",
+           "softmax_with_cross_entropy", "nll_loss", "mse_loss", "l1_loss",
+           "smooth_l1_loss", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "kl_div",
+           "margin_ranking_loss"]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -291,21 +299,165 @@ def _batch_norm_one_value(x, running_mean, running_var, weight, bias,
     return out.to(x.dtype)
 
 
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def _pick(logp, label, axis, ignore_index):
+    """``(picked, valid, safe)``: the log-probability at each row's label
+    along ``axis`` (0 where the label is ``ignore_index``), the mask of
+    labels kept and the labels with the ignored ones set to 0. The JAX
+    ``take_along_axis`` of ``label[..., None]``, broadcast alike."""
+    valid = label != ignore_index
+    safe = torch.where(valid, label, torch.zeros_like(label))
+    picked = torch.take_along_dim(logp, safe[..., None], dim=axis)[..., 0]
+    return picked, valid, safe
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
-    """Softmax cross-entropy of ``input [N, C]`` against integer labels
-    ``[N]``, averaged over the rows whose label is not ``ignore_index``
-    (0 when every row is ignored, where ``F.cross_entropy`` would give
-    NaN). Only this path is ported: other reductions and label shapes,
-    class weights, soft labels and smoothing raise."""
-    if (weight is not None or soft_label or not use_softmax
-            or label_smoothing or reduction != "mean" or input.ndim != 2
-            or label.ndim != 1 or axis not in (-1, 1)):
-        raise NotImplementedError("cross_entropy: only the mean over hard "
-                                  "labels [N] of input [N, C] is ported")
-    input, = amp_cast("cross_entropy", input)
-    losses = F.cross_entropy(input, label.long(), ignore_index=ignore_index,
-                             reduction="none")
-    count = (label != ignore_index).sum().clamp(min=1)
-    return losses.sum() / count.to(losses.dtype)
+    """Paddle's cross-entropy (``paddle_tpu/ops/nn_ops.py:897``): the
+    log-softmax over ``axis`` (``use_softmax=False``: the log of the
+    input clipped to ``[1e-10, 1]``) against soft labels (smoothed
+    toward ``1 / C``, times the class weights) or hard labels (``[N]`` or
+    ``[N, 1]``; ``label_smoothing`` mixes in the mean log-probability;
+    rows labelled ``ignore_index`` count 0). ``mean`` over hard labels
+    divides by the rows kept (at least 1), or with ``weight`` by their
+    weights' sum (at least 1e-9); ``sum`` and ``none`` as named."""
+    input, label, weight = amp_cast("cross_entropy", input, label, weight)
+    if use_softmax:
+        logp = torch.log_softmax(input, dim=axis)
+    else:
+        logp = torch.log(torch.clamp(input, 1e-10, 1.0))
+    n = input.shape[axis]
+    if soft_label:
+        tgt = label
+        if label_smoothing > 0:
+            tgt = tgt * (1 - label_smoothing) + label_smoothing / n
+        if weight is not None:
+            tgt = tgt * weight
+        loss = -torch.sum(tgt * logp, dim=axis)
+        return _reduce(loss, reduction)
+    if label.ndim == logp.ndim:
+        label = label.squeeze(axis)
+    picked, valid, safe = _pick(logp, label.long(), axis, ignore_index)
+    if label_smoothing > 0:
+        smooth = torch.mean(logp, dim=axis)
+        picked = (1 - label_smoothing) * picked + label_smoothing * smooth
+    loss = -torch.where(valid, picked, torch.zeros_like(picked))
+    if weight is not None:
+        wv = weight[safe] * valid.to(input.dtype)
+        loss = loss * wv
+        if reduction == "mean":
+            return loss.sum() / torch.clamp(wv.sum(), min=1e-9)
+    if reduction == "mean":
+        return loss.sum() / torch.clamp(valid.to(loss.dtype).sum(), min=1.0)
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """The unreduced cross-entropy with ``axis`` kept (size 1), and the
+    softmax with ``return_softmax``."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis).unsqueeze(axis)
+    if return_softmax:
+        return loss, softmax(logits, axis=axis)
+    return loss
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,  # noqa: A002
+             reduction="mean", name=None):
+    """The negative log-likelihood of log-probabilities ``input`` at
+    integer labels along the last axis, weighted and ignored as
+    :func:`cross_entropy`'s hard labels."""
+    input, weight = amp_cast("nll_loss", input, weight)
+    picked, valid, safe = _pick(input, label.long(), -1, ignore_index)
+    loss = -torch.where(valid, picked, torch.zeros_like(picked))
+    if weight is not None:
+        wv = weight[safe] * valid.to(input.dtype)
+        loss = loss * wv
+        if reduction == "mean":
+            return loss.sum() / torch.clamp(wv.sum(), min=1e-9)
+    if reduction == "mean":
+        return loss.sum() / torch.clamp(valid.to(input.dtype).sum(),
+                                        min=1.0)
+    return _reduce(loss, reduction)
+
+
+def mse_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    input, label = amp_cast("mse_loss", input, label)
+    return _reduce(torch.square(input - label), reduction)
+
+
+def l1_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    input, label = amp_cast("l1_loss", input, label)
+    return _reduce(torch.abs(input - label), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0,  # noqa: A002
+                   name=None):
+    """``0.5 d^2 / delta`` where ``|d| < delta``, else ``|d| - delta / 2``."""
+    input, label = amp_cast("smooth_l1_loss", input, label)
+    d = torch.abs(input - label)
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None,  # noqa: A002
+                         reduction="mean", name=None):
+    """``-(y log p + (1 - y) log(1 - p))`` with both logs' arguments
+    clipped to ``[1e-12, 1]``, times ``weight``."""
+    input, label, weight = amp_cast("bce_loss", input, label, weight)
+    eps = 1e-12
+    loss = -(label * torch.log(torch.clamp(input, eps, 1.0))
+             + (1 - label) * torch.log(torch.clamp(1 - input, eps, 1.0)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    """The JAX package's stable form: ``max(x, 0) - x y + log1p(exp(-|x|))``,
+    or with ``pos_weight`` ``(1 - y) x + ((pw - 1) y + 1) (max(-x, 0) +
+    log1p(exp(-|x|)))``; times ``weight``."""
+    x, y, weight, pos_weight = amp_cast("bce_logits_loss", logit, label,
+                                        weight, pos_weight)
+    tail = torch.log1p(torch.exp(-torch.abs(x)))
+    if pos_weight is not None:
+        log_w = (pos_weight - 1) * y + 1
+        loss = (1 - y) * x + log_w * (torch.clamp(-x, min=0) + tail)
+    else:
+        loss = torch.clamp(x, min=0) - x * y + tail
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean", name=None):  # noqa: A002
+    """``y (log y - x)`` where ``y > 0``, else 0; ``batchmean`` divides
+    the sum by the batch size."""
+    input, label = amp_cast("kl_div", input, label)
+    loss = torch.where(label > 0, label * (torch.log(label) - input),
+                       torch.zeros_like(input))
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0,  # noqa: A002
+                        reduction="mean", name=None):
+    """``max(0, -y (a - b) + margin)``."""
+    input, other, label = amp_cast("margin_ranking_loss", input, other,
+                                   label)
+    loss = torch.clamp(-label * (input - other) + margin, min=0.0)
+    return _reduce(loss, reduction)

@@ -89,6 +89,12 @@ class Layer(torch.nn.Module):
             if m is not self or include_self:
                 yield name, m
 
+    def register_forward_post_hook(self, hook):
+        """``hook(layer, inputs, output)`` after each forward (a result
+        other than None replaces the output); returns a handle whose
+        ``remove()`` takes it off."""
+        return self.register_forward_hook(hook)
+
     def clear_gradients(self) -> None:
         for p in self.parameters():
             p.grad = None

@@ -37,6 +37,7 @@ from typing import Dict, List
 
 import torch
 
+from ..core.tensor import from_numpy
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
@@ -119,6 +120,40 @@ class Optimizer:
     def clear_grad(self) -> None:
         for p in self._parameter_list:
             p.grad = None
+
+    def _key(self, i: int, p) -> str:
+        return self._names.get(id(p)) or f"param_{i}"
+
+    def state_dict(self) -> Dict:
+        """The JAX ``Optimizer.state_dict``'s layout: each parameter's
+        accumulators as ``"<name>.<accumulator>"`` (``param_<i>`` for a
+        parameter given without a name), ``global_step`` and the
+        scheduler's state under ``LR_Scheduler``."""
+        sd = {}
+        for i, p in enumerate(self._parameter_list):
+            for k, v in self._accumulators.get(id(p), {}).items():
+                sd[f"{self._key(i, p)}.{k}"] = v
+        sd["global_step"] = self._global_step
+        if isinstance(self._learning_rate, LRScheduler):
+            sd["LR_Scheduler"] = self._learning_rate.state_dict()
+        return sd
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict) -> None:
+        for i, p in enumerate(self._parameter_list):
+            st = self._state_for(p)
+            for k, v in st.items():
+                full = f"{self._key(i, p)}.{k}"
+                if full in state_dict:
+                    src = state_dict[full]
+                    if not isinstance(src, torch.Tensor):
+                        src = from_numpy(src)
+                    v.copy_(src.to(v.device, v.dtype))
+        if "global_step" in state_dict:
+            self._global_step = int(state_dict["global_step"])
+        if "LR_Scheduler" in state_dict and isinstance(self._learning_rate,
+                                                      LRScheduler):
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):

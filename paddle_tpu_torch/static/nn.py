@@ -496,3 +496,11 @@ def multi_box_head(*args, **kwargs):
     raise NotImplementedError("static.nn.multi_box_head needs "
                               "vision.ops.prior_box, which is not ported "
                               "yet")
+
+
+from .sequence import (  # noqa: F401,E402
+    sequence_concat, sequence_conv, sequence_enumerate, sequence_expand,
+    sequence_expand_as, sequence_first_step, sequence_last_step,
+    sequence_pad, sequence_pool, sequence_reshape, sequence_reverse,
+    sequence_scatter, sequence_slice, sequence_softmax, sequence_unpad,
+)

@@ -692,8 +692,10 @@ def _record(func, args, kwargs, name=None, infer=None):
     fkwargs = _map(lambda x: _to_fake(prog, x), kwargs)
     shape_fn = infer if infer is not None else func
     try:
+        # the recorder stays out of the inference: a function recorded
+        # whole may call factories of symbolic sizes on the fakes
         with torch._C.DisableTorchFunctionSubclass(), prog._fake_mode, \
-                torch.no_grad():
+                torch.no_grad(), replaying():
             out = shape_fn(*fargs, **fkwargs)
     except Exception as e:  # noqa: BLE001 — re-raised with the op's name
         raise RuntimeError(

@@ -1,4 +1,5 @@
-"""``paddle.vision`` of the port: the ResNet family so far."""
-from . import models
+"""``paddle.vision`` of the port: the ResNet family and LeNet, the
+datasets (local files and ``FakeData``) and the numpy transforms."""
+from . import datasets, models, transforms
 
-__all__ = ["models"]
+__all__ = ["datasets", "models", "transforms"]

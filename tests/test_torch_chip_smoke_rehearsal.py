@@ -74,7 +74,14 @@ launch bookkeeping and their checks are exercised before a chip run:
   eager, one flash launch a layer a call), ``jit.save`` / ``load``
   (bit-equal logits at two batches and gradients), the static program
   (losses bit-equal to eager ``TrainStep``) and the host extensions
-  (built with g++).
+  (built with g++);
+- the high-level training phases: ``Model.fit`` / ``evaluate`` /
+  ``predict`` over bf16 ``FakeData`` on resnet18 at 64 x 64, batch 2
+  (ResNet-50's summary and flops at 224 x 224 against the pinned JAX
+  counts, which a changed pin fails), the worker ring with ``fork``
+  workers (the loader's choice without CUDA; batches equal
+  ``num_workers=0``'s, a loader that falls back to the thread prefetch
+  fails), and the static tail (sequence ops, EMA, static save/load).
 
 Nothing here measures the card: times printed by the phases under this
 rehearsal are host times of the plain versions.
@@ -1121,3 +1128,69 @@ def test_extensions_phase(compile_on_cpu):
         pytest.skip("no g++ to build the host extension and the plugin")
     got = cs.phase_extensions(CPU)
     assert set(got) == {"cpp::scale_shift", "plugin::axpb"}
+
+
+@pytest.fixture
+def hapi_on_cpu(core_on_cpu, cpu_card, monkeypatch):
+    """The high-level training phases at CPU sizes: resnet18 at 64 x 64,
+    batch 2 for the hapi path (the ResNet-50 counts check runs at its
+    real size: one forward at batch 1), two batches of 8 through the
+    LeNet ring and of 2 through the ResNet one (``fork`` workers, the
+    loader's choice without CUDA), the sequence ops at [4, 16, 8]."""
+    for name, value in (("LENET_BATCH", 8), ("LENET_BATCHES", 2),
+                        ("WORKER_BATCH", 2), ("WORKER_BATCHES", 2),
+                        ("WORKER_WORKERS", 2), ("SEQ_SHAPE", (4, 16, 8)),
+                        ("SEQ_FILTERS", 8), ("HAPI_PROFILE_STEPS", 1)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.delenv("PADDLE_TPU_WORKER_START", raising=False)
+
+
+def test_hapi_resnet_phase(hapi_on_cpu):
+    """Model.fit / evaluate / predict over FakeData bf16 with TrainStep,
+    the step timer's waits, summary/flops equal to the pinned JAX counts,
+    save/load bit-equal, no port kernel launched."""
+    got = cs.phase_hapi_resnet(CPU, {"samples_per_s": 1.0})
+    assert len(got["losses"]) == cs.HAPI_STEPS
+    assert got["samples_per_s"] > 0 and 0 < got["loader_share"] < 1
+    assert got["busy_share"] is None          # the stand-in profiler
+    assert got["flops"] == cs.RESNET50_COUNTS["flops"]
+    assert len(got["eval"]["acc"]) == 2
+
+
+def test_hapi_resnet_phase_fails_wrong_counts(hapi_on_cpu, monkeypatch):
+    monkeypatch.setattr(cs, "RESNET50_COUNTS", {**cs.RESNET50_COUNTS,
+                                                "flops": 1})
+    with pytest.raises(AssertionError, match="summary/flops"):
+        cs.check_resnet_counts(CPU)
+
+
+def test_hapi_workers_phase(hapi_on_cpu):
+    """The ring serves both loaders (batches equal num_workers=0's) and
+    Model.fit runs through it."""
+    got = cs.phase_hapi_workers(CPU)
+    assert set(got) == {"lenet", "resnet50"}
+    for row in got.values():
+        assert row["loader_samples_per_s"] > 0
+        assert row["fit_samples_per_s"] > 0
+
+
+def test_hapi_workers_phase_refuses_the_thread_fallback(hapi_on_cpu,
+                                                        monkeypatch):
+    """The loader without the native tier (the phase's own check of the
+    tier passes, the DataLoader's finds none) falls back to the thread
+    prefetch, which the phase refuses."""
+    import itertools
+
+    from paddle_tpu_torch.core import native
+
+    answers = itertools.chain([True], itertools.repeat(False))
+    monkeypatch.setattr(native, "available", lambda: next(answers))
+    with pytest.raises(AssertionError, match="fell back"):
+        cs.phase_hapi_workers(CPU)
+
+
+def test_static_extras_phase(hapi_on_cpu):
+    got = cs.phase_static_extras(CPU)
+    assert set(got["errors"]) == set(cs.SEQ_CASES)
+    assert max(got["errors"].values()) == 0.0      # the CPU against itself
+    assert got["ops"] > 0

@@ -221,3 +221,71 @@ def test_the_scan_covers_the_compile_and_export_slice():
     # the JAX header path is nowhere in the port
     for path in PORT_FILES:
         assert "core/native/csrc" not in path.read_text(), path
+
+
+def test_the_scan_covers_the_high_level_training_slice():
+    """``paddle.save`` / ``load`` and the flags, the loss layers, the
+    metrics, the native queue tier, the DataLoader, the datasets and
+    transforms, LeNet, hapi and its callbacks, and the static tail are
+    scanned too; the native queue tier's C++ source is the port's own,
+    under ``paddle_tpu_torch/``."""
+    from paddle_tpu_torch.core import native
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    for rel in ("framework/__init__.py", "framework/io.py",
+                "framework/flags.py", "nn/layer/loss.py",
+                "metric/__init__.py", "core/native/__init__.py",
+                "core/native/queues.py", "io/__init__.py",
+                "io/dataloader.py", "vision/datasets/__init__.py",
+                "vision/transforms/__init__.py", "vision/models/lenet.py",
+                "hapi/__init__.py", "hapi/model.py", "hapi/callbacks.py",
+                "callbacks.py", "static/sequence.py", "static/extras.py"):
+        assert str((port / rel).relative_to(ROOT)) in names, rel
+    src = Path(native.source_path()).resolve()
+    assert src.is_file() and port.resolve() in src.parents, src
+    text = src.read_text()
+    assert "shr_push" in text and "pts_" not in text and "pha_" not in text
+
+
+def test_the_high_level_surface_loads_no_jax(tmp_path):
+    """In a fresh interpreter: ``import paddle_tpu_torch as paddle`` and
+    the high-level path on the CPU (FakeData in bfloat16 and float32
+    through the DataLoader, inline and over two ``fork`` workers; LeNet
+    through ``Model.fit`` / ``evaluate`` / ``predict``; ``summary``,
+    ``flops``, ``save`` / ``load``; a sequence op and an EMA) leave
+    ``jax``, ``paddle_tpu`` and ``ml_dtypes`` out of ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device('cpu')\n"
+        "from paddle_tpu_torch.vision.models import LeNet\n"
+        "ds = paddle.vision.datasets.FakeData(num_samples=8, dtype='bfloat16')\n"
+        "x, y = next(iter(paddle.io.DataLoader(ds, batch_size=4)))\n"
+        "assert str(x.dtype) == 'torch.bfloat16' and y.shape == (4, 1)\n"
+        "ds = paddle.vision.datasets.FakeData(num_samples=8)\n"
+        "b = list(paddle.io.DataLoader(ds, batch_size=4, num_workers=2))\n"
+        "assert len(b) == 2\n"
+        "net = LeNet()\n"
+        "m = paddle.Model(net).prepare(paddle.optimizer.Adam(\n"
+        "    1e-3, parameters=net.parameters()), paddle.nn.CrossEntropyLoss(),\n"
+        "    paddle.metric.Accuracy(), jit=True)\n"
+        "m.fit(ds, batch_size=4, verbose=0)\n"
+        "m.evaluate(ds, batch_size=4, verbose=0)\n"
+        "m.predict(ds, batch_size=4, stack_outputs=True)\n"
+        "paddle.flops(net, [1, 1, 28, 28])\n"
+        f"m.save({str(tmp_path / 'lenet')!r})\n"
+        f"m.load({str(tmp_path / 'lenet')!r})\n"
+        "paddle.static.sequence_pool(paddle.rand([2, 3]), 'max',\n"
+        "                            length=paddle.to_tensor([1, 3]))\n"
+        "ema = paddle.static.ExponentialMovingAverage(0.9)\n"
+        "ema.update(net.parameters())\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'))\n"
+        "print(bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
