@@ -147,7 +147,24 @@ before and read just after:
   at batch 64, batches equal to ``num_workers=0``'s
   (``phase_hapi_workers``); the sequence ops on CUDA tensors against the
   CPU, EMA and ``static.save`` / ``load`` on a static program
-  (``phase_static_extras``). None of them launches a port kernel. Kernel
+  (``phase_static_extras``). None of them launches a port kernel;
+- the op surface and the sequence layers: every ported public op of
+  ``OP_SWEEP`` on CUDA against the CPU from the same seeded inputs
+  (float32 within 1e-5, integers and booleans equal, every result on
+  the card; ``paddle.linalg.matmul_int8`` through the int8 kernels, bit-
+  equal to their plain versions; decompositions by reconstruction;
+  random draws repeated under ``paddle.seed``: ``phase_op_surface``);
+  Transformer-base (``nn.Transformer()``'s defaults, a shared 37000-token
+  embedding, label smoothing, Adam under the Noam schedule) trained
+  eagerly in float32 on 64 x (64 + 64) tokens through the dropout
+  kernel, its first loss against the CPU's and a seeded rerun bit-equal,
+  the padding mask against unpadded sources (``phase_transformer_train``);
+  greedy incremental decoding through ``MultiHeadAttention.Cache``, 64
+  sources x 64 tokens, every attention on the float32 flash forward
+  kernel (774 launches) against the plain route and the full decoder
+  (``phase_transformer_decode``); the Zaremba-large LSTM LM trained with
+  SGD and clipping, then beam search over its cell equal to the CPU's
+  (``phase_lstm_lm``). Kernel
   launch counts are Python
   counters and a graph replay runs no Python: a captured signature counts
   its kernels once at capture and adds what the capture counted at every
@@ -181,6 +198,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import torch
@@ -3929,12 +3947,15 @@ def flash_rows_f16(device, launches: dict, errors: dict) -> list:
 
 
 def flash_rows(device, launches: dict, errors: dict, launches_f32: dict,
-               old_fwd=None):
+               old_fwd=None, decode_launches=None):
     """The kernels line's rows for the flash kernels: numbers at the
     main path's dtype (bf16), float32's beside them (their launches from
     the float32 training path; each kernel's worst errors against
     float64, kernel and plain version; with ``old_fwd``, ``(source path,
-    library)``, an earlier float32 forward timed beside it)."""
+    library)``, an earlier float32 forward timed beside it). With
+    ``decode_launches`` (the Transformer decode path's float32
+    non-causal forward launches) the forward's row adds them to its
+    count and times the decode path's shapes beside it."""
     times = {dt: flash_times(device, dt, old_fwd)
              for dt in (torch.bfloat16, torch.float32)}
     rows = []
@@ -3954,6 +3975,10 @@ def flash_rows(device, launches: dict, errors: dict, launches_f32: dict,
                      "dtype": "bfloat16", "shape": list(FLASH_TRAIN),
                      "max_abs_err_f32": errors[(name, "float32")],
                      "f32": times[torch.float32][name]})
+        if name == "flash_attention_fwd" and decode_launches is not None:
+            rows[-1]["launches"] += decode_launches
+            rows[-1]["launches_decode"] = decode_launches
+            rows[-1]["decode"] = flash_decode_times(device)
     return rows
 
 
@@ -4292,15 +4317,15 @@ def _dropout_slices(n: int):
             (n - DROPOUT_PLAIN_SLICE, DROPOUT_PLAIN_SLICE))
 
 
-def _held_to_plain(label, got, x, key, mask, upscale=True):
+def _held_to_plain(label, got, x, key, mask, upscale=True, p=DROPOUT_P):
     """``got`` (the kernel's output on x) equals the plain version's bits
     over each of :func:`_dropout_slices` (the whole tensor with a mask)."""
     if mask is not None:
-        want = dk.dropout_ref(x, key, DROPOUT_P, mask, upscale)
+        want = dk.dropout_ref(x, key, p, mask, upscale)
         pairs = ((got, want),)
     else:
         flat, xf = got.reshape(-1), x.reshape(-1)
-        pairs = ((flat[a:a + n], dk.dropout_ref(xf[a:a + n], key, DROPOUT_P,
+        pairs = ((flat[a:a + n], dk.dropout_ref(xf[a:a + n], key, p,
                                                 start=a))
                  for a, n in _dropout_slices(x.numel()))
     bits = torch.int16 if got.element_size() == 2 else torch.int32
@@ -4353,6 +4378,27 @@ def phase_dropout_kernel(device) -> dict:
         del x, y, xg, dy
         torch.cuda.empty_cache()
     return {"max_abs_err": 0.0}
+
+
+def dropout_at_path_shapes(device, cases, seed=70) -> None:
+    """The dropout kernel, forward and backward, bit-equal to its plain
+    version at a path's own float32 shapes and rates (``cases``: label,
+    shape, p), before the path runs."""
+    for i, (label, shape, p) in enumerate(cases):
+        x = _dropout_input(shape, torch.float32, seed + i, device)
+        key = threefry.prng_key(seed + 100 + i)
+        y = dk.dropout_cuda(x, key, p)
+        torch.cuda.synchronize()
+        _held_to_plain(f"{label} forward", y, x, key, None, p=p)
+        xg = x.clone().requires_grad_(True)
+        dy = _dropout_input(shape, torch.float32, seed + 50 + i, device)
+        dk.dropout(xg, key, p).backward(dy)
+        torch.cuda.synchronize()
+        _held_to_plain(f"{label} backward", xg.grad, dy, key, None, p=p)
+    shapes = ", ".join(f"{label} {list(shape)} p {p}"
+                       for label, shape, p in cases)
+    log(f"[dropout] {shapes} float32: forward and backward bit-equal to "
+        "the plain version")
 
 
 def dropout_work(shape, dtype, mask=None):
@@ -5683,6 +5729,1197 @@ def phase_static_extras(device) -> dict:
     return {"errors": errs, "ops": len(ops)}
 
 
+# ------------------------------------------- the sequence layers and ops
+
+
+# Transformer-base (Vaswani et al. 2017, Table 3: nn.Transformer()'s own
+# defaults) with a 37000-token shared embedding, tied to the output
+# projection; PaddleNLP's WMT per-card batch of 4096 target tokens
+NMT_CFG = dict(vocab=37000, d_model=512, nhead=8, layers=6, ff=2048,
+               dropout=0.1)
+NMT_BATCH, NMT_SRC, NMT_TGT = 64, 64, 64
+NMT_BOS, NMT_PAD = 1, 0
+NMT_SMOOTH = 0.1
+NMT_ADAM = dict(beta1=0.9, beta2=0.997, epsilon=1e-9)
+NMT_NOAM = dict(d_model=512, warmup_steps=4000, learning_rate=2.0)
+NMT_WARM, NMT_STEPS, NMT_REPEAT = 2, 10, 3
+NMT_LOSS_RTOL = 1e-4         # the card's first loss against the CPU's
+NMT_LOGIT_TOL = 1e-5         # the first step's logits, card against CPU
+# the first step's gradients, each tensor's RMS error over its CPU RMS:
+# ReLUs whose input rounds to the other side of 0 on the other device
+# move them (up to 1.26e-3 measured on the H100)
+NMT_GRAD_RTOL = 1e-2
+NMT_PAD_LEN = 48             # real source length under the padding mask
+NMT_PAD_TOL = 1e-5           # padded (mask) against unpadded, eval
+NMT_DECODE_STEPS = 64
+NMT_DECODE_TOL = 1e-4        # flash kernel decode against the plain route
+NMT_TOP_OPS = 12
+# the LSTM language model at Zaremba et al. 2014's "large" configuration
+# (arXiv:1409.2329): 2 x 1500 LSTM, embedding 1500, dropout 0.65 on the
+# input, between the layers and on the output, uniform +-0.04 weights,
+# batch 20 x 35 steps, SGD at lr 1 with the global norm clipped to 10
+LSTM_CFG = dict(vocab=10000, hidden=1500, layers=2, dropout=0.65,
+                init=0.04)
+LSTM_BATCH, LSTM_BPTT, LSTM_LR, LSTM_CLIP = 20, 35, 1.0, 10.0
+LSTM_WARM, LSTM_STEPS, LSTM_REPEAT = 1, 10, 3
+LSTM_LOSS_RTOL = 1e-4
+LSTM_LOGIT_TOL = 1e-5        # the first step's logits and states
+LSTM_GRAD_RTOL = 1e-4        # its gradients and SGD update (RMS, as NMT's)
+# the first training step's gradients and update, card against CPU
+# (first_step_errors): each tensor's RMS error over its CPU RMS or the
+# floor; Adam's first update over the step's lr, where the gradient is
+# at least FIRST_STEP_ADAM_FLOOR (100 x Transformer-base's eps)
+FIRST_STEP_GRAD_FLOOR = 1e-6
+FIRST_STEP_ADAM_FLOOR = 1e-7
+FIRST_STEP_ADAM_TOL = 1e-2
+BEAM_SIZE, BEAM_STEPS, BEAM_START, BEAM_END = 4, 12, 1, 2
+# the op sweep: every ported public op on CUDA against the CPU
+SWEEP_TOL = 1e-5             # float32 (rtol and atol)
+SWEEP_LINALG_TOL = 1e-4      # decompositions' reconstructions
+
+
+def sinusoid(max_len: int, d_model: int) -> np.ndarray:
+    """Vaswani et al.'s positions: sin on the even features, cos on the
+    odd ones, of ``pos / 10000^(2i / d)``; float32 ``[max_len, d]``."""
+    pos = np.arange(max_len)[:, None]
+    i = np.arange(d_model // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d_model)
+    out = np.zeros((max_len, d_model), np.float32)
+    out[:, 0::2], out[:, 1::2] = np.sin(ang), np.cos(ang)
+    return out
+
+
+def make_nmt(pd, vocab, d_model, nhead, layers, ff, dropout, max_len=256):
+    """A Transformer translation model written with the Paddle API of
+    ``pd`` (the port, or the JAX package in the CPU tests): a shared
+    embedding scaled by ``sqrt(d_model)`` plus sinusoidal positions and
+    dropout, ``nn.Transformer``, and logits through the embedding
+    (``matmul(..., transpose_y=True)``)."""
+    nn = pd.nn
+
+    class NMT(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab, d_model)
+            self.transformer = nn.Transformer(d_model, nhead, layers, layers,
+                                              ff, dropout)
+            self.drop = nn.Dropout(dropout)
+            self.register_buffer("pos", pd.to_tensor(
+                sinusoid(max_len, d_model)), persistable=False)
+            self.scale = float(d_model) ** 0.5
+
+        def embed_at(self, ids, start=0):
+            pos = self.pos[start:start + ids.shape[1]]
+            return self.drop(self.embed(ids) * self.scale + pos)
+
+        def encode(self, src, src_mask=None):
+            return self.transformer.encoder(self.embed_at(src), src_mask)
+
+        def logits(self, h):
+            return pd.matmul(h, self.embed.weight, transpose_y=True)
+
+        def forward(self, src, tgt_in, src_mask=None, tgt_mask=None):
+            memory = self.encode(src, src_mask)
+            h = self.transformer.decoder(self.embed_at(tgt_in), memory,
+                                         tgt_mask, src_mask)
+            return self.logits(h)
+
+    return NMT()
+
+
+def nmt_xent(pd, logits, tgt_out, vocab):
+    """Label-smoothed cross-entropy: ``label_smooth(one_hot(...))`` into
+    ``cross_entropy(soft_label=True)``, as Paddle's WMT recipe writes it."""
+    F = pd.nn.functional
+    soft = F.label_smooth(F.one_hot(tgt_out, vocab), epsilon=NMT_SMOOTH)
+    return F.cross_entropy(logits, soft, soft_label=True)
+
+
+def nmt_loss(pd, model, src, tgt_in, tgt_out, vocab, src_mask=None,
+             tgt_mask=None):
+    return nmt_xent(pd, model(src, tgt_in, src_mask, tgt_mask), tgt_out,
+                    vocab)
+
+
+def nmt_batch(pd, vocab, batch, src_len, tgt_len, seed):
+    """(src, tgt_in, tgt_out) ids from a numpy seed on ``pd``'s current
+    device: ids in ``[3, vocab)``, the target after a BOS token."""
+    r = np.random.RandomState(seed)
+    src = r.randint(3, vocab, (batch, src_len)).astype("int64")
+    tgt = r.randint(3, vocab, (batch, tgt_len + 1)).astype("int64")
+    tgt[:, 0] = NMT_BOS
+    return (pd.to_tensor(src), pd.to_tensor(tgt[:, :-1]),
+            pd.to_tensor(tgt[:, 1:]))
+
+
+def nmt_decode(pd, model, src, steps, src_mask=None, forced=None):
+    """Greedy incremental decode through ``MultiHeadAttention.Cache``:
+    encode once, then one token a step (``forced``, ``[B, steps]`` ids,
+    feeds those instead of the argmax: teacher forcing). Returns (tokens
+    ``[B, steps]``, per-step logits ``[steps, B, V]``), in eval mode."""
+    memory = model.encode(src, src_mask)
+    cache = model.transformer.decoder.gen_cache(memory)
+    tok = pd.full([src.shape[0], 1], NMT_BOS, dtype="int64")
+    toks, logits = [], []
+    for t in range(steps):
+        h, cache = model.transformer.decoder(model.embed_at(tok, t), memory,
+                                             None, src_mask, cache)
+        step = model.logits(h)[:, -1]
+        logits.append(step)
+        nxt = pd.argmax(step, axis=-1, keepdim=True)
+        toks.append(nxt)
+        tok = nxt if forced is None else forced[:, t:t + 1]
+    return pd.concat(toks, axis=1), pd.stack(logits)
+
+
+def make_lstm_lm(pd, vocab, hidden, layers, dropout, init):
+    """The Zaremba LSTM language model with the Paddle API of ``pd``:
+    embedding, dropout, ``nn.LSTM`` (dropout between the layers),
+    dropout, a linear projection; every weight ``Uniform(-init,
+    init)``."""
+    nn = pd.nn
+    attr = lambda: nn.ParamAttr(  # noqa: E731
+        initializer=nn.initializer.Uniform(-init, init))
+
+    class LM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab, hidden, weight_attr=attr())
+            self.drop = nn.Dropout(dropout)
+            self.lstm = nn.LSTM(hidden, hidden, layers, dropout=dropout,
+                                weight_ih_attr=attr(),
+                                weight_hh_attr=attr(),
+                                bias_ih_attr=attr(), bias_hh_attr=attr())
+            self.out = nn.Linear(hidden, vocab, weight_attr=attr(),
+                                 bias_attr=attr())
+
+        def forward(self, ids, states=None):
+            y, states = self.lstm(self.drop(self.embed(ids)), states)
+            return self.out(self.drop(y)), states
+
+    return LM()
+
+
+def lstm_xent(pd, logits, y):
+    return pd.nn.functional.cross_entropy(
+        logits.reshape([-1, logits.shape[-1]]), y.reshape([-1]))
+
+
+def lstm_loss(pd, lm, x, y, states=None):
+    logits, states = lm(x, states)
+    return lstm_xent(pd, logits, y), states
+
+
+def lstm_batches(pd, n, seed):
+    """``n`` (x, y) batches of LSTM_BATCH x LSTM_BPTT ids, y the next
+    word (a random stream cut into contiguous windows)."""
+    r = np.random.RandomState(seed)
+    stream = r.randint(0, LSTM_CFG["vocab"],
+                       (LSTM_BATCH, n * LSTM_BPTT + 1)).astype("int64")
+    return [(pd.to_tensor(stream[:, i * LSTM_BPTT:(i + 1) * LSTM_BPTT]),
+             pd.to_tensor(stream[:, i * LSTM_BPTT + 1:
+                                 (i + 1) * LSTM_BPTT + 1]))
+            for i in range(n)]
+
+
+def beam_decode(pd, lm, steps=BEAM_STEPS, batch=1):
+    """``BeamSearchDecoder(beam_size=BEAM_SIZE)`` over the first LSTM
+    layer's cell (the LM's embedding in, its projection out) through
+    ``dynamic_decode``: ``(ids [B, T, beam], scores)`` as numpy."""
+    nn = pd.nn
+    cell = lm.lstm._rnn_layers[0].cell
+    dec = nn.BeamSearchDecoder(cell, BEAM_START, BEAM_END, BEAM_SIZE,
+                               embedding_fn=lm.embed, output_fn=lm.out)
+    inits = cell.get_initial_states(pd.zeros([batch, LSTM_CFG["hidden"]]))
+    ids, scores = nn.dynamic_decode(dec, inits, max_step_num=steps)
+    return np.asarray(ids.numpy()), np.asarray(scores.numpy())
+
+
+def _seed_threefry(seed):
+    trng.default_generator.manual_seed(seed)
+
+
+def _peak_gib():
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _profiled_step(step_fn, label, top):
+    """One step under ``torch.profiler`` (the top device ops printed):
+    the device ms it recorded, or None when the profiler saw no device
+    time. The step's wall time under the profiler includes the
+    profiler's own start-up, so a busy share is taken against the
+    unprofiled steps' ms/step by the caller."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    log_device_profile(prof, label, time.perf_counter() - t0, 1, top)
+    return _device_busy(prof) or None
+
+
+def _host(t):
+    return t.detach().to("cpu", copy=True)
+
+
+def _record_grads(model, record, **outputs):
+    """Into ``record``, after a step's backward: the step's ``outputs``
+    and every gradient by name, copied to the host (the card's peak
+    memory stays the path's own). Returns the parameters before the
+    update, for :func:`_record_update`."""
+    record.update({k: _host(v) for k, v in outputs.items()})
+    named = dict(model.named_parameters())
+    record["grads"] = {n: _host(p.grad) for n, p in named.items()}
+    return {n: _host(p) for n, p in named.items()}
+
+
+def _record_update(model, record, before):
+    """The update (exact: new minus old parameter) and the float32 step
+    of each new parameter, by name, on the host."""
+    record["update"], record["spacing"] = {}, {}
+    for n, p in model.named_parameters():
+        new = _host(p)
+        record["update"][n] = new - before[n]
+        a = new.abs()
+        record["spacing"][n] = torch.nextafter(a, torch.full_like(
+            a, math.inf)) - a
+
+
+def _rms(x):
+    return x.double().square().mean().sqrt().item()
+
+
+def first_step_errors(got, want, outputs, adam_lr=None) -> dict:
+    """The card's first training step (``got``, from ``_record_*``)
+    against the CPU's (``want``): the worst abs error of each of
+    ``outputs``; each gradient's RMS error over its CPU RMS (or
+    FIRST_STEP_GRAD_FLOOR, where a gradient is 0 but for rounding, as an
+    attention key bias's is), the worst tensor named; a max error would
+    read the ReLUs whose input rounds to the other side of 0 on the
+    other device, which move one token's share of a row. The update is
+    held past one float32 step of the new parameter (the update lands
+    rounded to the parameter's grid): an SGD update as its gradient;
+    Adam's first (``adam_lr``), ``-lr g / (|g| + eps)``, about ``-lr
+    sign(g)``, by its worst error over ``adam_lr``, on the elements whose
+    CPU gradient is at least FIRST_STEP_ADAM_FLOOR and over 4 times its
+    distance from the card's (where the two signs agree with a margin;
+    elsewhere rounding picks the sign). Also the card's global gradient
+    norm."""
+    def worst(errs):
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    def rel(diff, w):
+        return _rms(diff) / max(_rms(w), FIRST_STEP_GRAD_FLOOR)
+
+    def beyond_step(n):
+        return ((got["update"][n] - want["update"][n]).abs()
+                - want["spacing"][n]).clamp_min(0)
+
+    out = {k: (got[k] - want[k]).abs().max().item() for k in outputs}
+    out["grads"], out["grads_at"] = worst(
+        {n: rel(got["grads"][n] - w, w) for n, w in want["grads"].items()})
+    if adam_lr is None:
+        out["update"], out["update_at"] = worst(
+            {n: rel(beyond_step(n), w) for n, w in want["update"].items()})
+    else:
+        errs, covered, total = {}, 0, 0
+        for n, g in want["grads"].items():
+            sure = (g.abs() >= FIRST_STEP_ADAM_FLOOR) & (
+                g.abs() > 4 * (got["grads"][n] - g).abs())
+            covered, total = covered + int(sure.sum()), total + sure.numel()
+            if sure.any():
+                errs[n] = beyond_step(n)[sure].max().item() / adam_lr
+        out["update"], out["update_at"] = worst(errs)
+        out["update_covered"] = covered / total
+    out["grad_norm"] = math.sqrt(sum(float((g.float() ** 2).sum())
+                                     for g in got["grads"].values()))
+    return out
+
+
+def _check_first_step(label, errs, outputs, output_tol, grad_tol,
+                      update_tol):
+    tols = {k: output_tol for k in outputs}
+    tols.update(grads=grad_tol, update=update_tol)
+    bad = {k: (errs[k], errs.get(f"{k}_at")) for k, tol in tols.items()
+           if not errs[k] <= tol}
+    if bad:
+        raise AssertionError(f"{label} first step on the card vs the CPU: "
+                             f"{bad} over {tols}")
+
+
+def nmt_train_run(model, src, tgt_in, tgt_out, tgt_mask, steps, seed,
+                  timed_from=None, first=None):
+    """``steps`` eager steps (``loss.backward(); opt.step();
+    opt.clear_grad()``) of ``model`` under Adam with the Noam schedule,
+    the threefry stream seeded with ``seed``; with ``first`` (a dict),
+    the first step's logits, gradients, lr and update are recorded in
+    it. Returns (losses on the host, ms per step of the steps from
+    ``timed_from`` on, the step function)."""
+    sched = paddle.optimizer.lr.NoamDecay(**NMT_NOAM)
+    opt = paddle.optimizer.Adam(learning_rate=sched,
+                                parameters=model.parameters(), **NMT_ADAM)
+    _seed_threefry(seed)
+    vocab = NMT_CFG["vocab"]
+
+    def step(record=None):
+        logits = model(src, tgt_in, None, tgt_mask)
+        loss = nmt_xent(paddle, logits, tgt_out, vocab)
+        loss.backward()
+        if record is not None:
+            before = _record_grads(model, record, logits=logits)
+            record["lr"] = opt.get_lr()
+        opt.step()
+        if record is not None:
+            _record_update(model, record, before)
+        opt.clear_grad()
+        sched.step()
+        return loss.detach()
+
+    losses, t0 = [], None
+    for i in range(steps):
+        if i == timed_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(first if i == 0 else None))
+    torch.cuda.synchronize()
+    ms = (None if t0 is None else
+          (time.perf_counter() - t0) * 1e3 / (steps - timed_from))
+    return [float(x) for x in losses], ms, step
+
+
+def phase_transformer_train(device) -> dict:
+    """This slice's main path: Transformer-base trained eagerly, float32
+    with TF32 off, 64 pairs of 64 + 64 tokens, Adam under the Noam
+    schedule. NMT_WARM warm-up and NMT_STEPS timed steps, then one
+    profiled step: ms/step, target tokens/s, peak memory, the device's
+    busy share and top ops. Checks: first, the dropout kernel bit-equal
+    to its plain version at the path's three shapes; the first step
+    against the same model's CPU step (same weights, same threefry
+    dropout bits): its logits within NMT_LOGIT_TOL, its loss within
+    NMT_LOSS_RTOL, its gradients within NMT_GRAD_RTOL and its Adam update
+    within FIRST_STEP_ADAM_TOL, as :func:`first_step_errors` measures
+    them; a second run from the same weights and seed repeats the first
+    NMT_REPEAT losses bit for bit; the attention dropout keeps the
+    attention off the flash kernels while the dropout kernel runs; and
+    in eval, sources padded from NMT_PAD_LEN to NMT_SRC under a ``[B,
+    1, 1, S]`` additive mask give the unpadded run's encoder output and
+    logits at the real positions within NMT_PAD_TOL."""
+    cfg = NMT_CFG
+    dropout_at_path_shapes(device, (
+        ("Transformer-base attention", (NMT_BATCH, cfg["nhead"], NMT_TGT,
+                                        NMT_SRC), cfg["dropout"]),
+        ("Transformer-base hidden", (NMT_BATCH, NMT_TGT, cfg["d_model"]),
+         cfg["dropout"]),
+        ("Transformer-base feed-forward", (NMT_BATCH, NMT_TGT, cfg["ff"]),
+         cfg["dropout"])))
+    paddle.set_device(device)
+    paddle.seed(0)
+    model = make_nmt(paddle, **cfg)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    src, tgt_in, tgt_out = nmt_batch(paddle, cfg["vocab"], NMT_BATCH,
+                                     NMT_SRC, NMT_TGT, seed=1)
+    causal = paddle.nn.Transformer.generate_square_subsequent_mask(NMT_TGT)
+
+    # the CPU's first step: the same weights, batch and dropout key
+    paddle.set_device("cpu")
+    cpu_model = make_nmt(paddle, **cfg)
+    cpu_model.set_state_dict({k: v.cpu() for k, v in start.items()})
+    want = {}
+    t0 = time.perf_counter()
+    cpu_loss = nmt_train_run(cpu_model, src.cpu(), tgt_in.cpu(),
+                             tgt_out.cpu(), causal.cpu(), 1, 7,
+                             first=want)[0][0]
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    paddle.set_device(device)
+
+    torch.cuda.reset_peak_memory_stats()
+    dk.LAUNCHES.clear()
+    fa.LAUNCHES.clear()
+    got = {}
+    with plain_dropout_refused():
+        losses, ms, step = nmt_train_run(model, src, tgt_in, tgt_out,
+                                         causal, NMT_WARM + NMT_STEPS, 7,
+                                         timed_from=NMT_WARM, first=got)
+        device_ms = _profiled_step(step, "Transformer-base train step",
+                                   NMT_TOP_OPS)
+    launches = {"dropout": dk.LAUNCHES[dk.KERNEL_NAME],
+                "flash": sum(fa.LAUNCHES.values())}
+    peak = _peak_gib()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"Transformer-base losses {losses}")
+    errs = first_step_errors(got, want, ("logits",), adam_lr=want["lr"])
+    del got, want
+    _check_first_step("Transformer-base", errs, ("logits",), NMT_LOGIT_TOL,
+                      NMT_GRAD_RTOL, FIRST_STEP_ADAM_TOL)
+    errs["loss"] = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    if errs["loss"] > NMT_LOSS_RTOL:
+        raise AssertionError(f"Transformer-base first loss {losses[0]} vs "
+                             f"the CPU's {cpu_loss} (rel {errs['loss']:.2e})")
+    if launches["flash"] or not launches["dropout"]:
+        raise AssertionError(f"Transformer-base launches {launches}: the "
+                             "attention dropout keeps the flash kernels "
+                             "idle and the dropout kernel must run")
+    # a second run from the same weights and seed
+    again = make_nmt(paddle, **cfg)
+    again.set_state_dict(start)
+    repeat, _, _ = nmt_train_run(again, src, tgt_in, tgt_out, causal,
+                                 NMT_REPEAT, 7)
+    if repeat != losses[:NMT_REPEAT]:
+        raise AssertionError(f"Transformer-base rerun {repeat} vs "
+                             f"{losses[:NMT_REPEAT]}")
+    del again
+    pad_err = nmt_padding_check(model)
+    busy = None if device_ms is None else device_ms / ms
+    tokens = NMT_BATCH * NMT_TGT
+    out = {"ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "peak_gib": peak, "device_ms": device_ms, "busy_share": busy,
+           "losses": losses, "cpu_loss": cpu_loss, "loss_rel": errs["loss"],
+           "first_step": errs, "launches": launches, "pad_err": pad_err,
+           "params": n_params}
+    log(f"[nmt] Transformer-base ({n_params / 1e6:.2f} M parameters), "
+        f"float32 TF32 off, {NMT_BATCH} x {NMT_SRC}+{NMT_TGT} tokens, eager "
+        f"Adam + Noam: {ms:.2f} ms/step, {out['tokens_per_s']:.0f} target "
+        f"tokens/s over {NMT_STEPS} steps after {NMT_WARM} warm-up, peak "
+        f"{peak:.2f} GiB, device busy "
+        f"{'not measured' if busy is None else f'{device_ms:.2f} ms'} a "
+        f"step (profiled), "
+        f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} of "
+        f"the timed ms/step; losses {[round(x, 5) for x in losses]}; first "
+        f"step vs the CPU's (CPU step {cpu_s:.1f}s): logits max err "
+        f"{errs['logits']:.2e} (tol {NMT_LOGIT_TOL}), loss {cpu_loss:.6f} "
+        f"rel {errs['loss']:.2e} (tol {NMT_LOSS_RTOL}), gradients RMS rel "
+        f"{errs['grads']:.2e} (tol {NMT_GRAD_RTOL}), Adam update "
+        f"{errs['update']:.2e} of lr (tol {FIRST_STEP_ADAM_TOL}, over "
+        f"{100 * errs['update_covered']:.2f}% of the elements: |g| >= "
+        f"{FIRST_STEP_ADAM_FLOOR}), grad norm {errs['grad_norm']:.4g}; rerun "
+        f"bit-equal over {NMT_REPEAT} steps; launches {launches}; padding "
+        f"mask max err {pad_err:.2e} (tol {NMT_PAD_TOL}) "
+        f"[{card_identity()}]")
+    return out
+
+
+def nmt_padding_check(model) -> float:
+    """Eval: sources of NMT_PAD_LEN real tokens padded to NMT_SRC under an
+    additive ``[B, 1, 1, S]`` mask (-1e9 on the pads) against the same
+    sources unpadded; the encoder output and the logits (the mask also
+    the cross-attention's) at the real positions. Returns the worst
+    error; fails over NMT_PAD_TOL."""
+    model.eval()
+    try:
+        src, tgt_in, _ = nmt_batch(paddle, NMT_CFG["vocab"], NMT_BATCH,
+                                   NMT_PAD_LEN, NMT_TGT, seed=2)
+        padded = paddle.concat([src, paddle.full(
+            [NMT_BATCH, NMT_SRC - NMT_PAD_LEN], NMT_PAD, dtype="int64")],
+            axis=1)
+        mask = paddle.where(padded == NMT_PAD, paddle.full(
+            padded.shape, -1e9), paddle.zeros(padded.shape))
+        mask = mask.reshape([NMT_BATCH, 1, 1, NMT_SRC])
+        causal = paddle.nn.Transformer.generate_square_subsequent_mask(
+            NMT_TGT)
+        with torch.no_grad():
+            mem_p = model.encode(padded, mask)[:, :NMT_PAD_LEN]
+            mem_u = model.encode(src)
+            out_p = model(padded, tgt_in, mask, causal)
+            out_u = model(src, tgt_in, None, causal)
+        err = max((mem_p - mem_u).abs().max().item(),
+                  (out_p - out_u).abs().max().item())
+    finally:
+        model.train()
+    if not err <= NMT_PAD_TOL:
+        raise AssertionError(f"padding mask: max err {err:.3e} over "
+                             f"{NMT_PAD_TOL}")
+    return err
+
+
+def _plain_flash():
+    """Inside the block the flash ops run their plain versions on the
+    card (the route a CPU tensor takes)."""
+    @contextlib.contextmanager
+    def block():
+        saved = fa._use_kernel
+        fa._use_kernel = lambda tier, q: False
+        try:
+            yield
+        finally:
+            fa._use_kernel = saved
+    return block()
+
+
+def phase_transformer_decode(device, model=None) -> dict:
+    """Transformer-base in eval: encode NMT_BATCH sources once, then
+    decode NMT_DECODE_STEPS tokens greedily and incrementally through
+    ``MultiHeadAttention.Cache``. No mask and no dropout: the encoder's
+    self-attention, the cached self-attention (one query) and the
+    cross-attention all take the float32 flash forward kernel, one
+    launch each: layers x (1 + 2 x steps). Checks: the same decode on
+    the plain route, fed the kernel route's tokens, gives per-step
+    logits within NMT_DECODE_TOL and the same argmax outside counted
+    near-ties (NEAR_TIE); the whole decoder over the kernel route's
+    tokens under ``generate_square_subsequent_mask`` (one pass, the
+    plain route: a mask) gives the same logits within NMT_DECODE_TOL."""
+    paddle.set_device(device)
+    if model is None:
+        paddle.seed(0)
+        model = make_nmt(paddle, **NMT_CFG)
+    model.eval()
+    src, _, _ = nmt_batch(paddle, NMT_CFG["vocab"], NMT_BATCH, NMT_SRC, 1,
+                          seed=3)
+    layers, steps = NMT_CFG["layers"], NMT_DECODE_STEPS
+    with torch.no_grad():
+        nmt_decode(paddle, model, src, 2)             # warm-up
+        torch.cuda.synchronize()
+        fa.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        toks, logits = nmt_decode(paddle, model, src, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.LAUNCHES["flash_attention_fwd"]
+        with _plain_flash():
+            fa.LAUNCHES.clear()
+            p_toks, p_logits = nmt_decode(paddle, model, src, steps,
+                                          forced=toks)
+            plain_launches = sum(fa.LAUNCHES.values())
+        inp = paddle.concat([paddle.full([NMT_BATCH, 1], NMT_BOS,
+                                         dtype="int64"), toks[:, :-1]],
+                            axis=1)
+        causal = paddle.nn.Transformer.generate_square_subsequent_mask(
+            steps)
+        full = model(src, inp, None, causal).transpose(0, 1)
+    model.train()
+    want = layers * (1 + 2 * steps)
+    if launches != want or plain_launches:
+        raise AssertionError(f"decode launches {launches} (want {want}), "
+                             f"plain route {plain_launches} (want 0)")
+    step_err = (logits - p_logits).abs().max().item()
+    full_err = (logits - full).abs().max().item()
+    differ = (p_toks != toks)
+    top2 = torch.topk(p_logits, 2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).transpose(0, 1)
+    ties = int((differ & (gap < NEAR_TIE)).sum())
+    far = int((differ & (gap >= NEAR_TIE)).sum())
+    if not (step_err <= NMT_DECODE_TOL and full_err <= NMT_DECODE_TOL):
+        raise AssertionError(f"decode logits: kernel vs plain {step_err:.2e},"
+                             f" vs the full decoder {full_err:.2e} (tol "
+                             f"{NMT_DECODE_TOL})")
+    if far:
+        raise AssertionError(f"decode: {far} tokens differ outside near-ties")
+    ms = wall * 1e3 / steps
+    out = {"ms_per_step": ms, "tokens_per_s": NMT_BATCH * steps / wall,
+           "launches": launches, "step_err": step_err, "full_err": full_err,
+           "near_ties": ties}
+    log(f"[nmt] Transformer-base greedy decode, {NMT_BATCH} sources x "
+        f"{steps} tokens through Cache: {ms:.3f} ms/step, "
+        f"{out['tokens_per_s']:.0f} tokens/s, {launches} float32 flash "
+        f"forward launches (= {layers} x (1 + 2 x {steps})); logits vs the "
+        f"plain route {step_err:.2e}, vs the full decoder {full_err:.2e} "
+        f"(tol {NMT_DECODE_TOL}); tokens differ at {ties} near-ties "
+        f"[{card_identity()}]")
+    return out
+
+
+def lstm_train_run(lm, batches, steps, seed, timed_from=None, first=None):
+    """``steps`` eager SGD steps with the global norm clipped, states
+    carried (detached) from batch to batch; with ``first`` (a dict), the
+    first step's logits, states, gradients and update are recorded in
+    it. Returns (losses, ms/step)."""
+    opt = paddle.optimizer.SGD(learning_rate=LSTM_LR,
+                               parameters=lm.parameters(),
+                               grad_clip=ClipGradByGlobalNorm(LSTM_CLIP))
+    _seed_threefry(seed)
+    states, losses, t0 = None, [], None
+    for i in range(steps):
+        if i == timed_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        x, y = batches[i % len(batches)]
+        logits, states = lm(x, states)
+        loss = lstm_xent(paddle, logits, y)
+        loss.backward()
+        record = first if i == 0 else None
+        if record is not None:
+            before = _record_grads(lm, record, logits=logits,
+                                   states=torch.stack(states))
+        opt.step()
+        if record is not None:
+            _record_update(lm, record, before)
+        opt.clear_grad()
+        states = tuple(s.detach() for s in states)
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    ms = (None if t0 is None else
+          (time.perf_counter() - t0) * 1e3 / (steps - timed_from))
+    return [float(x) for x in losses], ms
+
+
+def phase_lstm_lm(device) -> dict:
+    """The Zaremba-large LSTM LM trained eagerly on the card (float32,
+    the port's LSTM loop, the dropout kernel): LSTM_WARM warm-up and
+    LSTM_STEPS timed steps; ms/step, words/s, peak memory. Checks: first,
+    the dropout kernel bit-equal to its plain version at the path's
+    shape and rate; the first step against the CPU's (same weights and
+    dropout bits): logits and final states within LSTM_LOGIT_TOL, loss
+    within LSTM_LOSS_RTOL, gradients and the clipped SGD update within
+    LSTM_GRAD_RTOL (:func:`first_step_errors`); a second seeded run
+    bit-equal over LSTM_REPEAT steps, and beam search at batch 1 over the
+    trained first-layer cell equal to the same search on the CPU."""
+    dropout_at_path_shapes(device, (
+        ("LSTM LM", (LSTM_BATCH, LSTM_BPTT, LSTM_CFG["hidden"]),
+         LSTM_CFG["dropout"]),))
+    paddle.set_device(device)
+    paddle.seed(0)
+    lm = make_lstm_lm(paddle, **LSTM_CFG)
+    start = {k: v.detach().clone() for k, v in lm.state_dict().items()}
+    batches = lstm_batches(paddle, LSTM_WARM + LSTM_STEPS, seed=4)
+    paddle.set_device("cpu")
+    cpu_lm = make_lstm_lm(paddle, **LSTM_CFG)
+    cpu_lm.set_state_dict({k: v.cpu() for k, v in start.items()})
+    want = {}
+    cpu_loss = lstm_train_run(cpu_lm, [tuple(t.cpu() for t in batches[0])],
+                              1, 9, first=want)[0][0]
+    paddle.set_device(device)
+    torch.cuda.reset_peak_memory_stats()
+    dk.LAUNCHES.clear()
+    got = {}
+    with plain_dropout_refused():
+        losses, ms = lstm_train_run(lm, batches, LSTM_WARM + LSTM_STEPS, 9,
+                                    timed_from=LSTM_WARM, first=got)
+    dropout_launches = dk.LAUNCHES[dk.KERNEL_NAME]
+    peak = _peak_gib()
+    errs = first_step_errors(got, want, ("logits", "states"))
+    # how far the LSTM moves the first logits from the projection's
+    # bias: what the logits check can see of the LSTM
+    signal = (got["logits"] - start["out.bias"].cpu()).abs().max().item()
+    del got, want
+    _check_first_step("LSTM LM", errs, ("logits", "states"), LSTM_LOGIT_TOL,
+                      LSTM_GRAD_RTOL, LSTM_GRAD_RTOL)
+    errs["loss"] = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    if not all(math.isfinite(x) for x in losses) or \
+            errs["loss"] > LSTM_LOSS_RTOL:
+        raise AssertionError(f"LSTM LM losses {losses}, first vs the CPU's "
+                             f"{cpu_loss} (rel {errs['loss']:.2e})")
+    if not dropout_launches:
+        raise AssertionError("the LSTM LM ran no dropout kernel")
+    again = make_lstm_lm(paddle, **LSTM_CFG)
+    again.set_state_dict(start)
+    repeat, _ = lstm_train_run(again, batches, LSTM_REPEAT, 9)
+    if repeat != losses[:LSTM_REPEAT]:
+        raise AssertionError(f"LSTM LM rerun {repeat} vs "
+                             f"{losses[:LSTM_REPEAT]}")
+    del again
+    lm.eval()
+    with torch.no_grad():
+        ids, scores = beam_decode(paddle, lm)
+        cpu_lm.set_state_dict({k: v.cpu() for k, v in
+                               lm.state_dict().items()})
+        cpu_lm.eval()
+        paddle.set_device("cpu")
+        try:
+            cpu_ids, cpu_scores = beam_decode(paddle, cpu_lm)
+        finally:
+            paddle.set_device(device)
+    if not np.array_equal(ids, cpu_ids):
+        raise AssertionError(f"beam search ids differ from the CPU's:\n{ids}"
+                             f"\n{cpu_ids}")
+    words = LSTM_BATCH * LSTM_BPTT
+    out = {"ms_per_step": ms, "words_per_s": words / ms * 1e3,
+           "peak_gib": peak, "losses": losses, "cpu_loss": cpu_loss,
+           "loss_rel": errs["loss"], "first_step": errs,
+           "lstm_signal": signal, "dropout_launches": dropout_launches,
+           "beam_ids": ids.tolist(),
+           "beam_score_err": float(np.abs(scores - cpu_scores).max())}
+    log(f"[lstm] Zaremba-large LSTM LM ({LSTM_CFG['layers']} x "
+        f"{LSTM_CFG['hidden']}, vocab {LSTM_CFG['vocab']}, batch "
+        f"{LSTM_BATCH} x {LSTM_BPTT}), float32 eager SGD + clip: {ms:.2f} "
+        f"ms/step, {out['words_per_s']:.0f} words/s over {LSTM_STEPS} steps,"
+        f" peak {peak:.2f} GiB; losses {[round(x, 5) for x in losses]}; "
+        f"first step vs the CPU's: logits max err {errs['logits']:.2e} "
+        f"(the LSTM moves them up to {signal:.2e} from the bias), states "
+        f"{errs['states']:.2e} (tol {LSTM_LOGIT_TOL}), loss {cpu_loss:.6f} "
+        f"rel {errs['loss']:.2e}, gradients RMS rel {errs['grads']:.2e}, "
+        f"clipped SGD update rel {errs['update']:.2e} (tol "
+        f"{LSTM_GRAD_RTOL}; grad norm {errs['grad_norm']:.4g}, clip "
+        f"{LSTM_CLIP}); rerun bit-equal over {LSTM_REPEAT}; "
+        f"{dropout_launches} dropout launches; beam {BEAM_SIZE} ids equal to"
+        f" the CPU's (scores max diff {out['beam_score_err']:.2e}) "
+        f"[{card_identity()}]")
+    return out
+
+
+def op_inputs(seed):
+    """The op sweep's numpy inputs (float32, int32, bool), from a seed."""
+    r = np.random.RandomState(seed)
+    m = r.randn(4, 4).astype("float32")
+    return {
+        "f": r.randn(3, 4).astype("float32"),
+        "g": r.randn(3, 4).astype("float32"),
+        "p": (r.rand(3, 4) + 0.5).astype("float32"),
+        "u": (r.rand(3, 4) * 0.8 + 0.1).astype("float32"),
+        "i": r.randint(-5, 6, (3, 4)).astype("int32"),
+        "n": r.randint(1, 9, (3, 4)).astype("int32"),
+        "b": r.rand(3, 4) > 0.5,
+        "v": r.randn(4).astype("float32"),
+        "w": r.randn(4).astype("float32"),
+        "m": m + 4 * np.eye(4, dtype="float32"),
+        "spd": (m @ m.T + 4 * np.eye(4)).astype("float32"),
+        "t": r.randn(2, 3, 4).astype("float32"),
+        "idx": np.array([2, 0, 1], "int64"),
+        "s": np.sort(r.randn(6).astype("float32")),
+        "c3": r.randn(3, 3).astype("float32"),
+    }
+
+
+def _nan_rows(p, d):
+    return p.where(p.to_tensor(d["b"]), p.to_tensor(d["f"]),
+                   p.to_tensor(np.full((3, 4), np.nan, "float32")))
+
+
+def _i64(*rows):
+    return np.array(rows, "int64")
+
+
+# the op sweep, written against the Paddle API of ``p`` (the port on
+# either device here; the port and the JAX package in the CPU tests):
+# name -> the op on p and the numpy inputs of ``op_inputs``
+OP_SWEEP = {
+    # creation
+    "zeros_like": lambda p, d: p.zeros_like(d["f"]),
+    "ones_like": lambda p, d: p.ones_like(d["i"]),
+    "full_like": lambda p, d: p.full_like(d["f"], 2.5),
+    "empty": lambda p, d: p.empty([2, 3]),
+    "linspace": lambda p, d: p.linspace(-1.0, 3.0, 9),
+    "logspace": lambda p, d: p.logspace(0.0, 2.0, 5),
+    "eye": lambda p, d: p.eye(3, 4),
+    "diag_vec": lambda p, d: p.diag(d["v"], 1),
+    "diag_pad": lambda p, d: p.diag(d["v"], -1, padding_value=7.0),
+    "diag_mat": lambda p, d: p.diag(d["m"], 1),
+    "diagflat": lambda p, d: p.diagflat(d["f"]),
+    "tril": lambda p, d: p.tril(d["m"], -1),
+    "triu": lambda p, d: p.triu(d["m"], 1),
+    "meshgrid": lambda p, d: p.meshgrid(d["v"], d["w"][:3]),
+    "assign": lambda p, d: p.assign(d["f"]),
+    "clone": lambda p, d: p.clone(d["f"]),
+    "one_hot": lambda p, d: p.one_hot(p.to_tensor(d["idx"]), 4),
+    "tril_indices": lambda p, d: p.tril_indices(4, 5, 1),
+    "triu_indices": lambda p, d: p.triu_indices(4, 3, -1),
+    "complex_": lambda p, d: p.as_real(p.complex_(d["f"], d["g"])),
+    "as_tensor": lambda p, d: p.as_tensor(d["f"]),
+    # math: binary
+    "floor_divide": lambda p, d: p.floor_divide(d["i"], d["n"]),
+    "remainder": lambda p, d: p.remainder(d["f"], d["p"]),
+    "mod": lambda p, d: p.mod(d["i"], d["n"]),
+    "floor_mod": lambda p, d: p.floor_mod(d["f"], d["p"]),
+    "pow": lambda p, d: p.pow(d["p"], d["g"]),
+    "fmax": lambda p, d: p.fmax(d["f"], d["g"]),
+    "fmin": lambda p, d: p.fmin(d["f"], d["g"]),
+    "atan2": lambda p, d: p.atan2(d["f"], d["g"]),
+    "hypot": lambda p, d: p.hypot(d["f"], d["g"]),
+    "logaddexp": lambda p, d: p.logaddexp(d["f"], d["g"]),
+    "nextafter": lambda p, d: p.nextafter(d["f"], d["g"]),
+    "copysign": lambda p, d: p.copysign(d["f"], d["g"]),
+    "heaviside": lambda p, d: p.heaviside(d["f"], d["g"]),
+    "gcd": lambda p, d: p.gcd(d["i"], d["n"]),
+    "lcm": lambda p, d: p.lcm(d["i"], d["n"]),
+    "inner": lambda p, d: p.inner(d["f"], d["g"]),
+    "outer": lambda p, d: p.outer(d["v"], d["w"]),
+    "kron": lambda p, d: p.kron(d["c3"], d["f"]),
+    # math: unary
+    **{f"unary_{n}": (lambda n: lambda p, d: getattr(p, n)(d["f"]))(n)
+       for n in ("expm1", "square", "sign", "floor", "ceil", "round",
+                 "trunc", "frac", "sin", "cos", "tan", "atan", "sinh",
+                 "cosh", "asinh", "erf", "sigmoid", "neg", "deg2rad",
+                 "rad2deg", "i0", "angle", "conj", "real", "imag",
+                 "isnan", "isinf", "isfinite", "reciprocal")},
+    **{f"unary_pos_{n}": (lambda n: lambda p, d: getattr(p, n)(d["p"]))(n)
+       for n in ("log2", "log10", "log1p", "rsqrt", "lgamma", "digamma",
+                 "acosh")},
+    **{f"unary_unit_{n}": (lambda n: lambda p, d: getattr(p, n)(d["u"]))(n)
+       for n in ("asin", "acos", "atanh", "erfinv", "logit")},
+    "scale": lambda p, d: p.scale(d["f"], 2.0, 0.5),
+    "scale_before": lambda p, d: p.scale(d["f"], 2.0, 0.5, False),
+    "clip": lambda p, d: p.clip(d["f"], -0.5, 0.7),
+    "lerp": lambda p, d: p.lerp(d["f"], d["g"], 0.7),
+    "stanh": lambda p, d: p.stanh(d["f"]),
+    "mm": lambda p, d: p.mm(d["f"], d["m"]),
+    "bmm": lambda p, d: p.bmm(d["t"], p.transpose(p.to_tensor(d["t"]),
+                                                    [0, 2, 1])),
+    "dot": lambda p, d: p.dot(d["v"], d["w"]),
+    "addmm": lambda p, d: p.addmm(d["f"], d["f"], d["m"], 0.5, 2.0),
+    "cumsum": lambda p, d: p.cumsum(d["f"], 1),
+    "cumsum_flat": lambda p, d: p.cumsum(d["f"]),
+    "cumprod": lambda p, d: p.cumprod(d["p"], 0),
+    "cummax": lambda p, d: p.cummax(d["i"], 1),
+    "cummin": lambda p, d: p.cummin(d["i"], 0),
+    "logcumsumexp": lambda p, d: p.logcumsumexp(d["f"], 1),
+    "nan_to_num": lambda p, d: p.nan_to_num(p.log(p.to_tensor(d["f"]))),
+    "diff": lambda p, d: p.diff(d["f"], 1, -1),
+    "diff_prepend": lambda p, d: p.diff(d["f"], 2, 0, prepend=d["g"][:1]),
+    "trace": lambda p, d: p.trace(d["m"], 1),
+    "multiplex": lambda p, d: p.multiplex(
+        [p.to_tensor(d["f"]), p.to_tensor(d["g"])],
+        p.to_tensor(np.array([[1], [0], [1]], "int32"))),
+    # logic
+    **{f"cmp_{n}": (lambda n: lambda p, d: getattr(p, n)(d["f"], d["g"]))(n)
+       for n in ("equal", "not_equal", "greater_than", "greater_equal",
+                 "less_than", "less_equal")},
+    **{f"logic_{n}": (lambda n: lambda p, d: getattr(p, n)(d["b"],
+                                                          d["f"] > 0))(n)
+       for n in ("logical_and", "logical_or", "logical_xor")},
+    "logical_not": lambda p, d: p.logical_not(d["b"]),
+    **{f"bit_{n}": (lambda n: lambda p, d: getattr(p, n)(d["i"], d["n"]))(n)
+       for n in ("bitwise_and", "bitwise_or", "bitwise_xor")},
+    "bitwise_not": lambda p, d: p.bitwise_not(d["i"]),
+    "isclose": lambda p, d: p.isclose(d["f"], p.add(
+        p.to_tensor(d["f"]), p.to_tensor(d["g"] * 1e-6))),
+    "allclose": lambda p, d: p.allclose(d["f"], d["g"]),
+    "equal_all": lambda p, d: p.equal_all(d["f"], d["f"]),
+    "is_empty": lambda p, d: p.is_empty(d["f"]),
+    # reductions and search
+    "prod": lambda p, d: p.prod(d["p"], axis=[0, 1]),
+    "prod_axis": lambda p, d: p.prod(d["t"], axis=1, keepdim=True),
+    "amax": lambda p, d: p.amax(d["f"], axis=0),
+    "amin": lambda p, d: p.amin(d["t"], axis=[0, 2]),
+    "nansum": lambda p, d: p.nansum(_nan_rows(p, d), axis=1),
+    "nanmean": lambda p, d: p.nanmean(_nan_rows(p, d)),
+    "all": lambda p, d: p.all(d["b"], axis=1),
+    "any": lambda p, d: p.any(d["b"], axis=[0, 1]),
+    "logsumexp": lambda p, d: p.logsumexp(d["t"], axis=[1, 2]),
+    "std": lambda p, d: p.std(d["f"], axis=1),
+    "var": lambda p, d: p.var(d["t"], axis=[0, 2], unbiased=False,
+                              keepdim=True),
+    "median_even": lambda p, d: p.median(d["f"], axis=1),
+    "median_all": lambda p, d: p.median(d["t"]),
+    "median_odd": lambda p, d: p.median(d["f"], axis=0, keepdim=True),
+    "quantile": lambda p, d: p.quantile(d["f"], 0.3, axis=1),
+    "quantile_list": lambda p, d: p.quantile(d["t"], np.array([0.25, 0.75]),
+                                             axis=2),
+    "argmax": lambda p, d: p.argmax(d["f"], axis=1),
+    "argmax_flat": lambda p, d: p.argmax(d["f"]),
+    "argmin": lambda p, d: p.argmin(d["t"], axis=2, keepdim=True),
+    "topk": lambda p, d: p.topk(d["f"], 2, axis=1),
+    "topk_small": lambda p, d: p.topk(d["f"], 2, axis=0, largest=False),
+    "sort": lambda p, d: p.sort(d["i"], axis=1, descending=True),
+    "argsort": lambda p, d: p.argsort(d["i"], axis=1),
+    "argsort_desc": lambda p, d: p.argsort(d["i"], axis=0, descending=True),
+    "kthvalue": lambda p, d: p.kthvalue(d["i"], 2, axis=1),
+    "mode": lambda p, d: p.mode(d["n"], axis=1),
+    "count_nonzero": lambda p, d: p.count_nonzero(d["i"], axis=1),
+    # shape and indexing
+    "reshape_": lambda p, d: p.reshape_(p.to_tensor(d["f"]), [4, 3]),
+    "view": lambda p, d: p.view(d["f"], [2, 6]),
+    "t": lambda p, d: p.t(d["f"]),
+    "moveaxis": lambda p, d: p.moveaxis(d["t"], 0, 2),
+    "swapaxes": lambda p, d: p.swapaxes(d["t"], 0, 2),
+    "split": lambda p, d: p.split(d["t"], [1, -1], axis=2),
+    "split_n": lambda p, d: p.split(d["t"], 2, axis=2),
+    "chunk": lambda p, d: p.chunk(d["f"], 2, axis=1),
+    "unbind": lambda p, d: p.unbind(d["t"], 1),
+    "tile": lambda p, d: p.tile(d["f"], [2, 1]),
+    "broadcast_to": lambda p, d: p.broadcast_to(d["v"], [3, 4]),
+    "expand": lambda p, d: p.expand(d["v"], [2, -1]),
+    "expand_as": lambda p, d: p.expand_as(d["v"], d["f"]),
+    "broadcast_tensors": lambda p, d: p.broadcast_tensors(
+        [p.to_tensor(d["v"]), p.to_tensor(d["f"])]),
+    "flip": lambda p, d: p.flip(d["t"], [0, 2]),
+    "roll": lambda p, d: p.roll(d["f"], 1, 1),
+    "roll_flat": lambda p, d: p.roll(d["f"], -2),
+    "rot90": lambda p, d: p.rot90(d["f"], 1, [0, 1]),
+    "slice": lambda p, d: p.slice(d["t"], [1, 2], [0, 1], [2, 3]),
+    "strided_slice": lambda p, d: p.strided_slice(d["t"], [2], [0], [4],
+                                                  [2]),
+    "gather": lambda p, d: p.gather(d["f"], d["idx"], axis=0),
+    "gather_nd": lambda p, d: p.gather_nd(d["t"], _i64([0, 1], [1, 2])),
+    "take_along_axis": lambda p, d: p.take_along_axis(
+        d["f"], _i64([0, 3], [1, 1], [2, 0]), 1),
+    "put_along_axis": lambda p, d: p.put_along_axis(
+        d["f"], _i64([0], [3], [1]), 9.0, 1),
+    "put_along_axis_add": lambda p, d: p.put_along_axis(
+        d["f"], _i64([0, 2], [0, 2], [0, 2]), p.to_tensor(d["g"][:, :2]), 1,
+        "add"),
+    "scatter": lambda p, d: p.scatter(d["f"], d["idx"][:2], d["g"][:2]),
+    "scatter_add": lambda p, d: p.scatter(d["f"], _i64(1, 1), d["g"][:2],
+                                          overwrite=False),
+    "scatter_nd_add": lambda p, d: p.scatter_nd_add(
+        d["f"], _i64([0, 1], [0, 1], [2, 3]),
+        np.array([1.0, 2.0, 3.0], "float32")),
+    "scatter_nd": lambda p, d: p.scatter_nd(_i64([1], [3]), d["f"][:2],
+                                            [5, 4]),
+    "index_select": lambda p, d: p.index_select(d["f"], d["idx"][:2], 1),
+    "index_sample": lambda p, d: p.index_sample(d["f"], _i64(
+        [0, 1], [2, 2], [3, 0])),
+    "index_add": lambda p, d: p.index_add(d["f"], d["idx"][:2], 0,
+                                          d["g"][:2]),
+    "index_put": lambda p, d: p.ops.manipulation.index_put(
+        d["f"], [p.to_tensor(_i64(0, 2)), p.to_tensor(_i64(1, 3))],
+        np.array([5.0, 6.0], "float32")),
+    "where": lambda p, d: p.where(d["b"], d["f"], d["g"]),
+    "where_scalar": lambda p, d: p.where(d["b"], d["f"], 0.0),
+    "where_index": lambda p, d: p.where(d["b"]),
+    "masked_select": lambda p, d: p.masked_select(d["f"], d["b"]),
+    "masked_fill": lambda p, d: p.masked_fill(d["f"], d["b"], -1.0),
+    "nonzero": lambda p, d: p.nonzero(d["b"]),
+    "unique": lambda p, d: p.unique(d["i"], return_index=True,
+                                    return_counts=True),
+    "unique_consecutive": lambda p, d: p.unique_consecutive(
+        p.to_tensor(_i64(1, 1, 2, 2, 2, 3, 1)), return_counts=True),
+    "repeat_interleave": lambda p, d: p.repeat_interleave(d["f"], 2, 1),
+    "repeat_interleave_t": lambda p, d: p.repeat_interleave(
+        d["v"], p.to_tensor(_i64(1, 0, 2, 1))),
+    "pad_all": lambda p, d: p.pad(d["f"], [1, 0, 2, 1], value=3.0),
+    "pad_reflect": lambda p, d: p.pad(d["t"][None], [2, 1],
+                                      mode="reflect"),
+    "pad_replicate": lambda p, d: p.pad(d["t"][None], [1, 2, 2, 0],
+                                        mode="replicate"),
+    "pad_circular": lambda p, d: p.pad(d["t"][None], [3, 1],
+                                       mode="circular"),
+    "pad_nhwc": lambda p, d: p.pad(d["t"][None], [1, 1, 0, 2],
+                                   data_format="NHWC"),
+    "crop": lambda p, d: p.crop(d["t"], [1, -1, 2], [1, 0, 1]),
+    "shard_index": lambda p, d: p.shard_index(
+        p.to_tensor(_i64([1], [6], [12], [19])), 20, 2, 1),
+    "as_complex": lambda p, d: p.as_real(p.as_complex(d["t"][..., :2])),
+    "numel": lambda p, d: p.numel(d["t"]),
+    "shape": lambda p, d: p.shape(d["t"]),
+    # linear algebra
+    "einsum": lambda p, d: p.einsum("ij,jk->ik", d["f"], d["m"]),
+    "einsum3": lambda p, d: p.einsum("bi,ij,bj->b", d["f"], d["m"],
+                                     d["g"]),
+    "norm": lambda p, d: p.norm(d["f"]),
+    "norm_fro": lambda p, d: p.norm(d["t"], "fro", axis=[1, 2]),
+    "norm_1": lambda p, d: p.norm(d["f"], 1, axis=1),
+    "norm_inf": lambda p, d: p.norm(d["f"], float("inf"), axis=0),
+    "norm_3": lambda p, d: p.norm(d["f"], 3, axis=1, keepdim=True),
+    "dist": lambda p, d: p.dist(d["f"], d["g"], 2),
+    "cholesky": lambda p, d: p.cholesky(d["spd"]),
+    "cholesky_upper": lambda p, d: p.linalg.cholesky(d["spd"], upper=True),
+    "inverse": lambda p, d: p.inverse(d["m"]),
+    "matrix_rank": lambda p, d: p.matrix_rank(d["m"]),
+    "det": lambda p, d: p.det(d["m"]),
+    "slogdet": lambda p, d: p.slogdet(d["m"]),
+    "eigvalsh": lambda p, d: p.eigvalsh(d["spd"]),
+    "solve": lambda p, d: p.solve(d["m"], d["f"].T),
+    "triangular_solve": lambda p, d: p.linalg.triangular_solve(
+        p.triu(d["m"]), d["f"].T),
+    "triangular_solve_t": lambda p, d: p.linalg.triangular_solve(
+        p.tril(d["m"]), d["f"].T, upper=False, transpose=True),
+    "cholesky_solve": lambda p, d: p.linalg.cholesky_solve(
+        d["f"].T, p.cholesky(d["spd"])),
+    "lstsq": lambda p, d: p.lstsq(np.concatenate([d["m"], d["f"]]),
+                                  np.concatenate([d["v"], d["w"][:3]]))[:2],
+    "matrix_power": lambda p, d: p.matrix_power(d["m"], 3),
+    "pinv": lambda p, d: p.pinv(d["f"]),
+    "multi_dot": lambda p, d: p.multi_dot([p.to_tensor(d["f"]),
+                                           p.to_tensor(d["m"]),
+                                           p.to_tensor(d["m"])]),
+    "cross": lambda p, d: p.cross(d["c3"], d["f"][:, :3]),
+    "cov": lambda p, d: p.cov(d["f"]),
+    "corrcoef": lambda p, d: p.corrcoef(d["f"], rowvar=False),
+    "bincount": lambda p, d: p.bincount(p.to_tensor(d["n"].reshape(-1))),
+    "bincount_w": lambda p, d: p.bincount(p.to_tensor(d["n"].reshape(-1)),
+                                          weights=d["f"].reshape(-1),
+                                          minlength=12),
+    "histogram": lambda p, d: p.histogram(d["t"], bins=7),
+    "histogram_range": lambda p, d: p.histogram(d["f"], 5, -1, 1),
+    "histogram_int": lambda p, d: p.histogram(
+        p.to_tensor(d["i"].astype("int64")), 4),
+    "matmul_int8": lambda p, d: p.linalg.matmul_int8(
+        np.tile(d["f"], (1, 4)), np.tile(d["m"], (4, 1))),
+    "matmul_int8_codes": lambda p, d: p.linalg.matmul_int8(
+        p.to_tensor(np.tile(d["i"], (1, 4)).astype("int8")),
+        p.to_tensor(np.tile(d["n"].T, (4, 1)).astype("int8"))),
+    "cond": lambda p, d: p.linalg.cond(d["m"]),
+    "lu_unpack": lambda p, d: p.linalg.lu_unpack(*p.linalg.lu(d["m"])),
+    "lu": lambda p, d: p.linalg.lu(d["m"], get_infos=True),
+    # the extras tail
+    "add_n": lambda p, d: p.add_n([p.to_tensor(d["f"]),
+                                   p.to_tensor(d["g"]),
+                                   p.to_tensor(d["p"])]),
+    "bucketize": lambda p, d: p.bucketize(d["f"], d["s"], right=True),
+    "searchsorted": lambda p, d: p.searchsorted(d["s"], d["f"]),
+    "searchsorted_rows": lambda p, d: p.searchsorted(
+        np.sort(d["f"], axis=1), d["g"], out_int32=True),
+    "complex": lambda p, d: p.as_real(p.complex(d["f"], d["g"])),
+    "diagonal": lambda p, d: p.diagonal(d["t"], 1, 1, 2),
+    "frexp": lambda p, d: p.frexp(d["f"]),
+    "mv": lambda p, d: p.mv(d["f"], d["v"]),
+    "nanmedian": lambda p, d: p.nanmedian(_nan_rows(p, d), axis=1),
+    "nanquantile": lambda p, d: p.nanquantile(d["t"], 0.4, axis=2),
+    "renorm": lambda p, d: p.renorm(d["t"], 2, 0, 2.0),
+    "reverse": lambda p, d: p.reverse(d["f"], [1]),
+    "sgn": lambda p, d: p.sgn(d["f"]),
+    "take": lambda p, d: p.take(d["f"], p.to_tensor(_i64([0, -1], [5, 11]))),
+    "take_wrap": lambda p, d: p.take(d["f"], p.to_tensor(_i64(13, -15)),
+                                     mode="wrap"),
+    "tensordot": lambda p, d: p.tensordot(d["t"], d["m"], axes=1),
+    "tensordot_axes": lambda p, d: p.tensordot(d["t"], d["f"],
+                                               axes=([1, 2], [0, 1])),
+    "unstack": lambda p, d: p.unstack(d["t"], 2),
+    "vsplit": lambda p, d: p.vsplit(d["m"], 2),
+    "rank": lambda p, d: p.rank(d["t"]),
+    "tolist": lambda p, d: p.tolist(p.to_tensor(d["i"])),
+}
+# decompositions: the reconstruction of the input (from the inputs'
+# ``m``, or ``spd`` for the symmetric solver)
+OP_DECOMPOSITIONS = {
+    "qr": lambda p, a: p.matmul(*p.qr(a)),
+    "svd": lambda p, a: (lambda u, s, v: p.matmul(u * s[None], p.t(v)))(
+        *p.svd(a)),
+    "eigh": lambda p, a: (lambda w, v: p.matmul(v * w[None], p.t(v)))(
+        *p.eigh(a)),
+    "eig": lambda p, a: (lambda w, v: p.real(p.matmul(
+        v * w[None], p.inverse(v))))(*p.eig(a)),
+}
+# random draws: name -> (draw on p, dtype)
+OP_RANDOM = {
+    "uniform": (lambda p: p.uniform([4000], min=-2.0, max=3.0), "float32"),
+    "rand": (lambda p: p.rand([4000]), "float32"),
+    "randn": (lambda p: p.randn([4000]), "float32"),
+    "standard_normal": (lambda p: p.standard_normal([4000]), "float32"),
+    "normal": (lambda p: p.normal(1.0, 2.0, [4000]), "float32"),
+    "randint": (lambda p: p.randint(0, 10, [4000]), "int64"),
+    "randint_like": (lambda p: p.randint_like(p.zeros([4000], "int64"), 0,
+                                              4), "int64"),
+    "randperm": (lambda p: p.randperm(4000), "int64"),
+    "bernoulli": (lambda p: p.bernoulli(p.full([4000], 0.3)), "float32"),
+    "poisson": (lambda p: p.poisson(p.full([4000], 3.0)), "float32"),
+    "multinomial": (lambda p: p.multinomial(p.to_tensor(
+        np.array([0.1, 0.2, 0.7], "float32")), 2000, replacement=True),
+        "int64"),
+}
+
+
+def _leaves(x):
+    """The tensors (and other values) of a nested op result."""
+    if isinstance(x, (list, tuple)):
+        return [leaf for a in x for leaf in _leaves(a)]
+    return [x]
+
+
+def _as_np(x):
+    if isinstance(x, torch.Tensor):
+        return paddle.Tensor.numpy(x.as_subclass(paddle.Tensor))
+    return np.asarray(x)
+
+
+def phase_op_surface(device) -> dict:
+    """Every op of OP_SWEEP on the card and on the CPU from the same
+    seeded inputs: each CUDA result's tensors stay on the card (an op
+    that quietly moves to the host fails), float32 results agree within
+    SWEEP_TOL, integer and boolean ones exactly; ``matmul_int8`` launches
+    the int8 matmul kernel (and the row quantizer for float inputs) and
+    equals its plain version bit for bit. The decompositions reconstruct
+    their input within SWEEP_LINALG_TOL on the card; the random draws
+    have their dtype and shape on the card and repeat under
+    ``paddle.seed``."""
+    worst, counts = {}, collections.Counter()
+    card = torch.device(device).type
+    for name in sorted(OP_SWEEP):
+        d = op_inputs(zlib.crc32(name.encode()) % 1000)
+        pa.LAUNCHES.clear()
+        paddle.set_device(device)
+        got = _leaves(OP_SWEEP[name](paddle, d))
+        launched = dict(pa.LAUNCHES)
+        paddle.set_device("cpu")
+        want = _leaves(OP_SWEEP[name](paddle, d))
+        paddle.set_device(device)
+        if len(got) != len(want):
+            raise AssertionError(f"op sweep {name}: {len(got)} outputs on "
+                                 f"the card, {len(want)} on the CPU")
+        err = 0.0
+        for g, w in zip(got, want):
+            if isinstance(g, torch.Tensor) and g.device.type != card:
+                raise AssertionError(f"op sweep {name}: a result on "
+                                     f"{g.device}, not the card")
+            gn, wn = _as_np(g), _as_np(w)
+            if gn.shape != wn.shape or gn.dtype != wn.dtype:
+                raise AssertionError(f"op sweep {name}: {gn.dtype}"
+                                     f"{gn.shape} vs {wn.dtype}{wn.shape}")
+            exact = gn.dtype.kind in "biu" or name.startswith("matmul_int8")
+            if exact:
+                if not np.array_equal(gn, wn):
+                    raise AssertionError(f"op sweep {name}: not equal to "
+                                         f"the CPU's:\n{gn}\n{wn}")
+            else:
+                np.testing.assert_allclose(gn, wn, rtol=SWEEP_TOL,
+                                           atol=SWEEP_TOL, err_msg=name)
+                if gn.size:
+                    err = max(err, float(np.nanmax(np.abs(
+                        gn.astype(np.float64) - wn))))
+        if name.startswith("matmul_int8"):
+            want_k = {i8.INT8_MATMUL_KERNEL: 1}
+            if name == "matmul_int8":
+                want_k[i8.QUANTIZE_ROWS_KERNEL] = 2
+            if launched != want_k:
+                raise AssertionError(f"op sweep {name}: launches {launched}"
+                                     f", want {want_k}")
+            counts.update(launched)
+        worst[name] = err
+    recon = {}
+    d = op_inputs(3)
+    for name, fn in OP_DECOMPOSITIONS.items():
+        a = d["spd"] if name == "eigh" else d["m"]
+        out = _as_np(fn(paddle, paddle.to_tensor(a)))
+        recon[name] = float(np.abs(out - a).max())
+        if recon[name] > SWEEP_LINALG_TOL:
+            raise AssertionError(f"op sweep {name}: reconstruction err "
+                                 f"{recon[name]:.2e}")
+    for name, (fn, dtype) in OP_RANDOM.items():
+        paddle.seed(11)
+        a = fn(paddle)
+        paddle.seed(11)
+        b = fn(paddle)
+        if a.device.type != card or str(a.dtype).split(".")[-1] != dtype:
+            raise AssertionError(f"op sweep {name}: {a.dtype} on {a.device}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"op sweep {name}: not repeated under "
+                                 "paddle.seed")
+    log(f"[ops] {len(OP_SWEEP)} ops on CUDA against the CPU: worst float "
+        f"diff {max(worst.values()):.2e} ({max(worst, key=worst.get)}), tol "
+        f"{SWEEP_TOL}; integer and bool results equal; matmul_int8 "
+        f"launches {dict(counts)} and bit-equal to its plain version; "
+        f"reconstructions {recon}; {len(OP_RANDOM)} random ops on the card, "
+        "repeated under paddle.seed")
+    return {"ops": len(OP_SWEEP), "worst": worst, "recon": recon,
+            "int8_launches": dict(counts)}
+
+
+def flash_decode_times(device) -> dict:
+    """The float32 flash forward at the decode path's non-causal shapes
+    (Transformer-base heads, NMT_BATCH rows): one query against 64 keys
+    (the cross-attention and the last cached self-attention step) and 64
+    queries against 64 keys (the encoder): kernel, plain version, bound
+    (3xTF32 operations against the bytes) and SDPA, CUDA-event medians."""
+    out = {}
+    B, H, D = NMT_BATCH, NMT_CFG["nhead"], NMT_CFG["d_model"] // NMT_CFG[
+        "nhead"]
+    for label, sq in (("sq1", 1), ("sq64", NMT_SRC)):
+        shape = (B, H, sq, NMT_SRC, D)
+        q, k, v, _ = flash_inputs(shape, torch.float32, 5, device)
+        scale = D ** -0.5
+        nbytes, flops = flash_work(shape, torch.float32, causal=False)[
+            "flash_attention_fwd"]
+        bms, by = flash_bound(nbytes, flops, torch.float32)
+        out[label] = {
+            "shape": list(shape),
+            "ms": time_cuda(lambda: fa.flash_fwd_cuda(q, k, v, scale,
+                                                      False)),
+            "plain_ms": time_cuda(lambda: fa.flash_fwd_ref(q, k, v, scale,
+                                                           False), reps=5),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_cuda(lambda: F.scaled_dot_product_attention(
+                q, k, v))}
+        t = out[label]
+        log(f"[times] flash_attention_fwd float32 {list(shape)} non-causal "
+            f"(decode path): kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), sdpa "
+            f"{t['library_ms']:.4f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -5863,6 +7100,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_static_extras(device)
 
+    # the op surface and the sequence layers, this slice's main path:
+    # every ported op on the card against the CPU, Transformer-base
+    # trained (dropout kernel) and decoded through Cache (the float32
+    # flash forward), then the Zaremba-large LSTM LM with beam search
+    ops = phase_op_surface(device)
+    nmt = phase_transformer_train(device)
+    torch.cuda.empty_cache()
+    decode = phase_transformer_decode(device)
+    torch.cuda.empty_cache()
+    lstm = phase_lstm_lm(device)
+    torch.cuda.empty_cache()
+
     if old_ragged is not None:
         old_ragged = (old_ragged, {
             entry: _build.load_source(f"{lib}_old", old_text[f"{lib}_old"])
@@ -5877,12 +7126,16 @@ def main() -> int:
     if old_fwd is not None:
         old_fwd = (old_fwd, _build.load_source(
             "flash_fwd_f32_old", old_text["flash_fwd_f32_old"]))
-    rows += flash_rows(device, launches, flash_errors, launches_f32, old_fwd)
+    rows += flash_rows(device, launches, flash_errors, launches_f32, old_fwd,
+                       decode["launches"])
     rows += flash_rows_f16(device, fp16["launches"], flash_errors)
+    seq_dropout = nmt["launches"]["dropout"] + lstm["dropout_launches"]
     rows.append(dropout_row(dropout_times(device),
-                            dropout_main["launches"][dk.KERNEL_NAME],
-                            dropout_errors["max_abs_err"]))
+                            dropout_main["launches"][dk.KERNEL_NAME]
+                            + seq_dropout, dropout_errors["max_abs_err"]))
+    rows[-1]["launches_sequence"] = seq_dropout
     rows.append(triple_row(core))
+    log(f"[ops] int8 launches in the op sweep {ops['int8_launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     # the card's name and power limit, exactly as nvidia-smi prints them
     log(card_identity())

@@ -2,10 +2,12 @@
 
 The JAX package stays the reference. The port has the Paddle-API core
 (``import paddle_tpu_torch as paddle``: ``to_tensor``, the creation,
-math, reduction and shape ops, ``Tensor`` with ``stop_gradient`` /
+random, math, logic, reduction, search, shape, indexing and
+linear-algebra ops with ``paddle.linalg``, ``Tensor`` with ``stop_gradient`` /
 ``backward()`` / ``.grad`` over torch's autograd, ``seed``,
-``set_device``, ``nn.Layer`` and the layers of the GPT and ResNet
-families, ``optimizer``, ``amp``, ``jit.TrainStep``, ``autograd.PyLayer``,
+``set_device``, ``nn.Layer`` with Paddle's layer families (the
+Transformer, the recurrent layers, convolutions, norms, pools, losses)
+and ``nn.functional``, ``optimizer``, ``amp``, ``jit.TrainStep``, ``autograd.PyLayer``,
 ``utils.custom_op`` / ``cuda_op``, ``utils.cpp_extension`` and kernel
 plugins), compiles and exports programs (``jit.to_static`` as CUDA
 graphs, ``jit.save`` / ``load`` through ``torch.export``, the
@@ -22,8 +24,8 @@ kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
 to the card unless ``set_device("cpu")`` (or a ``place``) asks for the
 host.
 """
-from . import (amp, autograd, callbacks, framework, hapi, io, jit, metric,
-               nn, optimizer, static, utils, vision)
+from . import (amp, autograd, callbacks, framework, hapi, io, jit, linalg,
+               metric, nn, optimizer, static, utils, vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                             set_grad_enabled)
 from .core.device import device_count, get_device, set_device
@@ -35,13 +37,17 @@ from .core.tensor import Tensor
 from .device import resolve_device
 from .framework import get_flags, load, save, set_flags
 from .hapi import Model, flops, summary
-from .nn import Parameter
+from .nn import ParamAttr, Parameter
+from .nn.functional import log_softmax, softmax
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops
 from .static import (disable_static, enable_static, in_dynamic_mode,
                      in_static_mode)
 
-__all__ = ["resolve_device", "Tensor", "Parameter", "set_device",
+bool = bool_  # noqa: A001 - Paddle's dtype name
+
+__all__ = ["resolve_device", "Tensor", "Parameter", "ParamAttr", "bool",
+           "linalg", "log_softmax", "softmax", "set_device",
            "get_device", "device_count", "seed", "get_rng_state",
            "set_rng_state", "no_grad", "enable_grad", "set_grad_enabled",
            "is_grad_enabled", "grad", "get_default_dtype",

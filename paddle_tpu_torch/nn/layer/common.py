@@ -1,6 +1,7 @@
-"""``Linear``, ``Embedding``, ``Dropout``, ``Dropout2D``, ``Dropout3D``,
-``AlphaDropout``, ``Flatten`` and ``Sequential`` (counterpart of
-``paddle_tpu/nn/layer/common.py``).
+"""``Linear``, ``Embedding``, the dropouts, ``Flatten``, ``Identity``,
+the pads and upsamplers, ``PixelShuffle``, ``CosineSimilarity``,
+``Bilinear`` and the containers ``Sequential``, ``LayerList`` and
+``ParameterList`` (counterpart of ``paddle_tpu/nn/layer/common.py``).
 
 ``Linear`` keeps Paddle's ``[in, out]`` weight. The layers take an extra
 ``device`` (default: the current device), which the GPT model passes;
@@ -15,13 +16,17 @@ import torch
 import torch.nn.functional as F
 
 from ...amp.auto_cast import amp_cast
+from .. import functional as PF
 from ..functional import (alpha_dropout, dropout, dropout2d, dropout3d,
                           linear)
 from ..initializer import XavierNormal
 from .layers import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
-           "AlphaDropout", "Flatten", "Sequential"]
+           "AlphaDropout", "Flatten", "Sequential", "Identity", "Upsample",
+           "UpsamplingBilinear2D", "UpsamplingNearest2D", "Pad1D", "Pad2D",
+           "Pad3D", "ZeroPad2D", "PixelShuffle", "CosineSimilarity",
+           "Bilinear", "LayerList", "ParameterList"]
 
 
 def _xavier_normal_(weight, generator):
@@ -182,3 +187,164 @@ class Sequential(Layer):
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode, self.data_format = align_mode, data_format
+
+    def forward(self, x):
+        return PF.interpolate(x, self.size, self.scale_factor, self.mode,
+                              self.align_corners, self.align_mode,
+                              self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class Pad1D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__()
+        self.padding, self.mode = padding, mode
+        self.value, self.data_format = value, data_format
+
+    def forward(self, x):
+        return PF.pad(x, self.padding, self.mode, self.value,
+                      self.data_format)
+
+
+class Pad2D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return PF.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return PF.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Bilinear(Layer):
+    """``out[n, o] = x1[n] @ weight[o] @ x2[n] + bias``, weight
+    ``[out, in1, in2]`` Xavier-normal, bias ``[1, out]``."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr)
+        self.bias = (self.create_parameter([1, out_features], attr=bias_attr,
+                                           is_bias=True)
+                     if bias_attr is not False else None)
+
+    def forward(self, x1, x2):
+        out = torch.einsum("bi,oij,bj->bo", x1, self.weight, x2)
+        return out + self.bias if self.bias is not None else out
+
+
+class LayerList(Layer):
+    """Sublayers named ``"0"``, ``"1"`` ... in a list."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        for layer in sublayers or ():
+            self.append(layer)
+
+    def append(self, sublayer):
+        self.add_sublayer(str(len(self._modules)), sublayer)
+        return self
+
+    def insert(self, index, sublayer):
+        layers = list(self._modules.values())
+        layers.insert(index, sublayer)
+        self._modules.clear()
+        for i, layer in enumerate(layers):
+            self._modules[str(i)] = layer
+
+    def extend(self, sublayers):
+        for layer in sublayers:
+            self.append(layer)
+        return self
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return LayerList(list(self._modules.values())[idx])
+        return self._modules[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __setitem__(self, idx, layer):
+        self._modules[str(idx)] = layer
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class ParameterList(Layer):
+    def __init__(self, parameters=None):
+        super().__init__()
+        for p in parameters or ():
+            self.append(p)
+
+    def append(self, parameter):
+        self.register_parameter(str(len(self._parameters)), parameter)
+        return self
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())

@@ -7,7 +7,8 @@ they take any module: ``parameters()`` returns a list,
 ``create_parameter`` makes a :class:`Parameter` from an initializer,
 ``register_buffer(persistable=)``, ``set_state_dict`` loads Paddle's
 structured names (``layer1.0.bn1._mean``; ``state_dict`` is torch's,
-whose names are the same), ``to(dtype=)`` casts every floating
+whose names are the same; a tensor registered under two names, as a
+tied weight is, loads from either), ``to(dtype=)`` casts every floating
 parameter *and* buffer, as the JAX ``Layer.to`` does, and
 ``clear_gradients``.
 """
@@ -23,7 +24,8 @@ from ...core.device import to_torch_device
 from ...core.tensor import Tensor, from_numpy
 from ..initializer import Constant, XavierUniform
 
-__all__ = ["Parameter", "Layer", "layer_state_from_jax"]
+__all__ = ["Parameter", "Layer", "layer_state_from_jax", "create_parameter",
+           "functional_layer"]
 
 
 class Parameter(Tensor, torch.nn.Parameter):
@@ -40,6 +42,34 @@ class Parameter(Tensor, torch.nn.Parameter):
         if _PARAMETER_HOOK:
             _PARAMETER_HOOK[0](param)
         return param
+
+
+def create_parameter(shape, dtype=None, initializer=None, is_bias=False,
+                     trainable=True, name=None, default_initializer=None,
+                     device=None) -> Parameter:
+    """A free-standing parameter: ``initializer`` (else
+    ``default_initializer``, else zeros for a bias and Xavier-normal for
+    a weight) on ``device`` (default: the current device)."""
+    from ..initializer import XavierNormal
+
+    init = initializer or default_initializer
+    if init is None:
+        init = Constant(0.0) if is_bias else XavierNormal()
+    value = init([int(s) for s in shape],
+                 _dt.convert_dtype(dtype) or _dt.get_default_dtype(), device)
+    p = Parameter(value, requires_grad=trainable)
+    if name is not None:
+        p.name = name
+    return p
+
+
+def _groups(own) -> Dict[int, List[str]]:
+    """The names of each tensor of a ``state_dict(keep_vars=True)``,
+    grouped by the tensor (a shared one has several)."""
+    groups: Dict[int, List[str]] = {}
+    for k, t in own.items():
+        groups.setdefault(id(t), []).append(k)
+    return groups
 
 
 # called with every new Parameter (the static recorder registers the
@@ -117,8 +147,9 @@ class Layer(torch.nn.Module):
                        ) -> Tuple[List[str], List[str]]:
         """Copy ``state_dict`` (structured name -> tensor or array) into
         the layer's parameters and buffers, each keeping its own dtype
-        and device; returns ``(missing, unexpected)`` names. Raises on a
-        shape that differs."""
+        and device; returns ``(missing, unexpected)`` names: a tensor the
+        layer holds under several names (a tied weight) is missing only
+        when none of them is given. Raises on a shape that differs."""
         own = self.state_dict(keep_vars=True)
         unexpected = [k for k in state_dict if k not in own]
         for name, value in state_dict.items():
@@ -131,7 +162,9 @@ class Layer(torch.nn.Module):
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{tuple(target.shape)} vs {tuple(src.shape)}")
             target.copy_(src.to(device=target.device, dtype=target.dtype))
-        return [k for k in own if k not in state_dict], unexpected
+        missing = [k for names in _groups(own).values()
+                   if not any(n in state_dict for n in names) for k in names]
+        return missing, unexpected
 
 
 def layer_state_from_jax(arrays: Dict[str, np.ndarray], model: Layer
@@ -140,10 +173,35 @@ def layer_state_from_jax(arrays: Dict[str, np.ndarray], model: Layer
     and return it: ``arrays`` is the JAX model's ``state_dict()`` as
     numpy arrays (parameters and buffers, BatchNorm's ``_mean`` and
     ``_variance`` included) under the structured names both packages
-    share. Raises on a missing or extra name or a shape that differs."""
-    own = model.state_dict()
-    if set(arrays) != set(own):
-        raise KeyError(f"names differ: missing {sorted(set(own) - set(arrays))}"
-                       f", extra {sorted(set(arrays) - set(own))}")
-    model.set_state_dict(arrays)
+    share (the JAX ``state_dict`` names a shared tensor once, under its
+    first name). Raises on a missing or extra name or a shape that
+    differs."""
+    missing, extra = model.set_state_dict(arrays)
+    if missing or extra:
+        raise KeyError(f"names differ: missing {sorted(missing)}, extra "
+                       f"{sorted(extra)}")
     return model
+
+
+def functional_layer(name, fn, call=None, **defaults):
+    """A ``Layer`` class ``name`` over the functional ``fn``: it keeps
+    ``defaults`` (overridden in order or by keyword at construction)
+    and its forward is ``fn(*inputs, **values)``, or ``call(fn, inputs,
+    values)`` where the inputs map to ``fn`` otherwise."""
+    keys = list(defaults)
+
+    class _Layer(Layer):
+        def __init__(self, *args, name=None, **kwargs):
+            super().__init__()
+            self._values = {**defaults, **dict(zip(keys, args)), **kwargs}
+
+        def forward(self, *inputs):
+            if call is not None:
+                return call(fn, inputs, self._values)
+            return fn(*inputs, **self._values)
+
+        def extra_repr(self):
+            return ", ".join(f"{k}={v}" for k, v in self._values.items())
+
+    _Layer.__name__ = _Layer.__qualname__ = name
+    return _Layer

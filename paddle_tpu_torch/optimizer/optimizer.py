@@ -40,7 +40,7 @@ import torch
 from ..core.tensor import from_numpy
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -207,6 +207,25 @@ class Optimizer:
 
     def _update(self, params, grads, states, lr, wd) -> None:
         raise NotImplementedError
+
+
+class SGD(Optimizer):
+    """The JAX ``SGD._rule``: ``p - lr (g + wd p)`` (L2 folded into the
+    gradient), over float32 (or master) values."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+
+    def _init_state(self, p):
+        return {}
+
+    def _update(self, params, grads, states, lr, wd):
+        if wd:
+            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
 
 
 class Momentum(Optimizer):

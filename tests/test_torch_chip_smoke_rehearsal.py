@@ -1194,3 +1194,200 @@ def test_static_extras_phase(hapi_on_cpu):
     assert set(got["errors"]) == set(cs.SEQ_CASES)
     assert max(got["errors"].values()) == 0.0      # the CPU against itself
     assert got["ops"] > 0
+
+
+# ------------------------------------------- the sequence layers and ops
+
+SEQ_NMT = dict(vocab=97, d_model=64, nhead=1, layers=2, ff=128,
+               dropout=0.1)
+SEQ_LSTM = dict(vocab=50, hidden=16, layers=2, dropout=0.65, init=0.04)
+
+
+@pytest.fixture
+def seq_on_cpu(training_on_cpu, cpu_card, plain_kernels, monkeypatch):
+    """The sequence phases at CPU sizes: Transformer-base cut to d 64 (one
+    head of 64, so the flash route's eligibility holds), 2 + 2 layers, a
+    97-token vocabulary, 2 pairs of 8 + 8 tokens and 4 decode steps; the
+    LSTM LM at 2 x 16, 2 x 5 words; the flash and dropout wrappers are
+    their counting plain versions (``training_on_cpu``), the int8 ones
+    too (``plain_kernels``)."""
+    for name, value in (("NMT_CFG", SEQ_NMT), ("NMT_BATCH", 2),
+                        ("NMT_SRC", 8), ("NMT_TGT", 8), ("NMT_PAD_LEN", 5),
+                        ("NMT_WARM", 1), ("NMT_STEPS", 2),
+                        ("NMT_REPEAT", 2), ("NMT_DECODE_STEPS", 4),
+                        ("LSTM_CFG", SEQ_LSTM), ("LSTM_BATCH", 2),
+                        ("LSTM_BPTT", 5), ("LSTM_STEPS", 2),
+                        ("LSTM_REPEAT", 2), ("BEAM_STEPS", 3)):
+        monkeypatch.setattr(cs, name, value)
+    saved = tdevice._CURRENT[0]
+    yield
+    tdevice._CURRENT[0] = saved
+
+
+def _first_built(monkeypatch, name, plant):
+    """``cs.<name>`` (a model builder) with ``plant`` applied to the
+    first model it builds: the phase's card model, built before its CPU
+    twin."""
+    make, built = getattr(cs, name), []
+
+    def once(*args, **kw):
+        model = make(*args, **kw)
+        if not built:
+            plant(model)
+        built.append(model)
+        return model
+
+    monkeypatch.setattr(cs, name, once)
+
+
+def test_transformer_train_phase(seq_on_cpu):
+    """Eager Adam + Noam steps: finite losses, the first step's logits,
+    loss, gradients and update equal to the "CPU" step's, a rerun
+    bit-equal, dropout launches and no flash launch (attention dropout),
+    the padding mask within tolerance."""
+    got = cs.phase_transformer_train(CPU)
+    assert len(got["losses"]) == cs.NMT_WARM + cs.NMT_STEPS
+    assert got["loss_rel"] == 0.0                 # the CPU against itself
+    first = got["first_step"]
+    assert first["logits"] == first["grads"] == first["update"] == 0.0
+    assert 0.0 < first["update_covered"] <= 1.0
+    assert got["launches"]["flash"] == 0 and got["launches"]["dropout"] > 0
+    assert got["pad_err"] <= cs.NMT_PAD_TOL and got["busy_share"] is None
+
+
+class _OtherMask(torch.nn.Module):
+    """Dropout at the same rate under another key: the mask a port that
+    drew its keys in another order would give."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        cs.trng.next_key()
+        return paddle.nn.functional.dropout(x, self.p)
+
+
+def test_transformer_train_phase_fails_another_dropout_mask(seq_on_cpu,
+                                                            monkeypatch):
+    """The card's embedding dropout drawing another mask (same rate):
+    the first step's logits check fails."""
+    _first_built(monkeypatch, "make_nmt",
+                 lambda m: setattr(m, "drop", _OtherMask(SEQ_NMT["dropout"])))
+    with pytest.raises(AssertionError, match="Transformer-base first step"):
+        cs.phase_transformer_train(CPU)
+
+
+def test_transformer_train_phase_fails_a_wrong_gradient(seq_on_cpu,
+                                                        monkeypatch):
+    """A backward 5% off on the card (the forward right): the first
+    step's gradient check fails."""
+    def plant(model):
+        for p in model.parameters():
+            p.register_hook(lambda g: g * 1.05)
+
+    _first_built(monkeypatch, "make_nmt", plant)
+    with pytest.raises(AssertionError, match="'grads'"):
+        cs.phase_transformer_train(CPU)
+
+
+def test_transformer_train_phase_fails_a_planted_dropout_bit(seq_on_cpu,
+                                                             monkeypatch):
+    """The dropout stand-in one bit off: the path-shape check before the
+    path fails."""
+    kernel = cs.dk.dropout_cuda
+
+    def wrong(x, key, p, mask_shape=None, upscale=True):
+        out = kernel(x, key, p, mask_shape, upscale).clone()
+        out.view(-1)[3] += 1.0
+        return out
+
+    monkeypatch.setattr(cs.dk, "dropout_cuda", wrong)
+    with pytest.raises(AssertionError, match="differ from the plain"):
+        cs.phase_transformer_train(CPU)
+
+
+def test_transformer_decode_phase(seq_on_cpu):
+    """Greedy decode through Cache: layers x (1 + 2 x steps) flash
+    launches, logits equal to the plain route's and the full decoder's."""
+    got = cs.phase_transformer_decode(CPU)
+    assert got["launches"] == SEQ_NMT["layers"] * (
+        1 + 2 * cs.NMT_DECODE_STEPS)
+    assert got["step_err"] == 0.0 and got["full_err"] <= cs.NMT_DECODE_TOL
+
+
+def test_transformer_decode_phase_fails_a_planted_error(seq_on_cpu,
+                                                        monkeypatch):
+    """The flash stand-in off by 1e-3: the decode's logits check fails."""
+    run = cs.fa.flash_fwd_cuda
+
+    def off(*args):
+        o, lse = run(*args)
+        return o + 1e-3, lse
+
+    monkeypatch.setattr(cs.fa, "flash_fwd_cuda", off)
+    with pytest.raises(AssertionError, match="decode logits"):
+        cs.phase_transformer_decode(CPU)
+
+
+def test_transformer_decode_phase_fails_a_changed_launch_count(
+        seq_on_cpu, monkeypatch):
+    """One decode step without the cache's flash launch (the cached
+    self-attention routed elsewhere) changes the count: the phase fails."""
+    real = cs.attn._flash_eligible
+    monkeypatch.setattr(cs.attn, "_flash_eligible",
+                        lambda q, k, m, p: real(q, k, m, p)
+                        and q.shape[1] != 1)
+    with pytest.raises(AssertionError, match="decode launches"):
+        cs.phase_transformer_decode(CPU)
+
+
+def test_lstm_lm_phase(seq_on_cpu):
+    got = cs.phase_lstm_lm(CPU)
+    assert got["loss_rel"] == 0.0 and got["dropout_launches"] > 0
+    first = got["first_step"]
+    assert first["logits"] == first["states"] == 0.0
+    assert first["grads"] == first["update"] == 0.0
+    assert got["lstm_signal"] > 0.0
+    ids = np.asarray(got["beam_ids"])
+    assert ids.shape[0] == 1 and ids.shape[2] == cs.BEAM_SIZE
+
+
+def _zero_output(lstm):
+    """``lstm`` giving zeros for its output (its states kept)."""
+    forward = lstm.forward
+
+    def zeros(x, states=None):
+        y, states = forward(x, states)
+        return y * 0.0, states
+
+    lstm.forward = zeros
+
+
+def test_lstm_lm_phase_fails_a_zeroed_lstm(seq_on_cpu, monkeypatch):
+    """The card's LSTM giving zeros: the first step's logits check fails
+    (its loss alone sits near ln V either way)."""
+    _first_built(monkeypatch, "make_lstm_lm", lambda m: _zero_output(m.lstm))
+    with pytest.raises(AssertionError, match="LSTM LM first step"):
+        cs.phase_lstm_lm(CPU)
+
+
+def test_op_surface_phase(seq_on_cpu):
+    got = cs.phase_op_surface(CPU)
+    assert got["ops"] == len(cs.OP_SWEEP)
+    assert max(got["worst"].values()) == 0.0       # the CPU against itself
+    assert got["int8_launches"] == {i8.INT8_MATMUL_KERNEL: 2,
+                                    i8.QUANTIZE_ROWS_KERNEL: 2}
+
+
+def test_op_surface_phase_fails_an_op_that_leaves_the_device(seq_on_cpu,
+                                                             monkeypatch):
+    """An op whose result lands on another device than the one asked
+    for (here the meta device, standing in for the host) fails."""
+    flip = paddle.flip
+    monkeypatch.setattr(paddle, "flip",
+                        lambda *a, **k: flip(*a, **k).to("meta"))
+    with pytest.raises(AssertionError, match="not the card"):
+        cs.phase_op_surface(CPU)

@@ -289,3 +289,62 @@ def test_the_high_level_surface_loads_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_scan_covers_the_op_surface_and_sequence_slice():
+    """The op surface (creation, random, math, logic, reductions,
+    manipulation, linear algebra, extras), ``paddle.linalg``, the
+    functional tail, every layer family with the RNN and Transformer
+    stacks, and ``nn.utils`` are scanned too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    for rel in ("ops/creation.py", "ops/random_ops.py", "ops/math.py",
+                "ops/logic.py", "ops/reduction.py", "ops/manipulation.py",
+                "ops/linalg.py", "ops/extras.py", "linalg.py",
+                "nn/functional.py", "nn/utils.py", "nn/layer/activation.py",
+                "nn/layer/common.py", "nn/layer/conv.py",
+                "nn/layer/norm.py", "nn/layer/pooling.py",
+                "nn/layer/rnn.py", "nn/layer/transformer.py",
+                "nn/layer/extras.py", "optimizer/optimizer.py"):
+        assert str((port / rel).relative_to(ROOT)) in names, rel
+
+
+def test_the_sequence_layers_load_no_jax():
+    """In a fresh interpreter: ``nn.Transformer`` and ``nn.LSTM`` built
+    and run forward and backward on the CPU, an incremental decode step
+    through ``Cache``, beam search, and a few ops of the surface leave
+    ``jax`` and ``paddle_tpu`` out of ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device('cpu')\n"
+        "t = paddle.nn.Transformer(32, 2, 1, 1, 64)\n"
+        "src, tgt = paddle.rand([2, 5, 32]), paddle.rand([2, 4, 32])\n"
+        "mask = paddle.nn.Transformer.generate_square_subsequent_mask(4)\n"
+        "t(src, tgt, tgt_mask=mask).sum().backward()\n"
+        "t.eval()\n"
+        "mem = t.encoder(src)\n"
+        "cache = t.decoder.gen_cache(mem)\n"
+        "out, cache = t.decoder(tgt[:, :1], mem, None, None, cache)\n"
+        "lstm = paddle.nn.LSTM(8, 16, 2, direction='bidirect')\n"
+        "y, (h, c) = lstm(paddle.rand([3, 6, 8]))\n"
+        "y.sum().backward()\n"
+        "cell = paddle.nn.LSTMCell(8, 8)\n"
+        "dec = paddle.nn.BeamSearchDecoder(cell, 1, 2, 2,\n"
+        "    embedding_fn=paddle.nn.Embedding(10, 8),\n"
+        "    output_fn=paddle.nn.Linear(8, 10))\n"
+        "ids, _ = paddle.nn.dynamic_decode(\n"
+        "    dec, cell.get_initial_states(paddle.zeros([1, 8])), 3)\n"
+        "x = paddle.to_tensor(np.eye(3, dtype='float32') * 2)\n"
+        "paddle.linalg.svd(x); paddle.histogram(x, 4); paddle.median(x)\n"
+        "paddle.nn.functional.interpolate(paddle.rand([1, 2, 4, 4]), [6, 6],\n"
+        "                                 mode='bicubic')\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
