@@ -164,7 +164,19 @@ before and read just after:
   kernel (774 launches) against the plain route and the full decoder
   (``phase_transformer_decode``); the Zaremba-large LSTM LM trained with
   SGD and clipping, then beam search over its cell equal to the CPU's
-  (``phase_lstm_lm``). Kernel
+  (``phase_lstm_lm``);
+- the vision zoo, ``vision.ops``, the host-offload AdamW and the tensor
+  checker: MobileNetV3-Large on ``perf/resnet_bench.py``'s protocol
+  (batch 256 x 224^2, Momentum, AMP O2 bf16, ``TrainStep``), its first
+  float32 step against the CPU's and its classifier's dropout through
+  the kernel (``phase_vision_train``); the zoo's twelve canonical
+  factories, eval logits against the CPU and bf16 images/s
+  (``phase_vision_zoo``); every detection op at the published
+  detectors' sizes against the CPU, timed (``phase_detection_ops``);
+  ``HostOffloadAdamW`` on ``bench.py``'s GPT bit-equal to
+  ``AdamW(multi_precision=True)`` through the bf16 flash kernels
+  (``phase_offload``); ``amp.debugging`` and ``decorate(save_dtype=)``
+  (``phase_amp_debugging``). Kernel
   launch counts are Python
   counters and a graph replay runs no Python: a captured signature counts
   its kernels once at capture and adds what the capture counted at every
@@ -241,11 +253,13 @@ from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import int8 as i8
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm, Dropout
-from paddle_tpu_torch.optimizer import AdamW, Momentum
+from paddle_tpu_torch.optimizer import AdamW, HostOffloadAdamW, Momentum
 from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
 from paddle_tpu_torch.text.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.utils import ShapeDtypeStruct, cuda_op, custom_op
 from paddle_tpu_torch.utils.custom_op import LAUNCHES as OP_LAUNCHES
+from paddle_tpu_torch.vision import models as vmodels
+from paddle_tpu_torch.vision import ops as vops
 from paddle_tpu_torch.vision.models import resnet50
 
 # ~1 ms of device sleep (H100 SM clock up to 1.98 GHz) ahead of each
@@ -6920,6 +6934,837 @@ def flash_decode_times(device) -> dict:
     return out
 
 
+# ------------------------------------ the vision zoo, vision.ops, offload
+
+# MobileNetV3-Large trained on perf/resnet_bench.py:29-63's protocol, the
+# ResNet main path's configuration with the model swapped (1000 classes,
+# batch 256 x 3 x 224^2, Momentum(0.1, 0.9), AMP O2 bf16, TrainStep, 3
+# warm-up then 10 timed steps). Its first float32 step (TF32 off) is held
+# against the port's CPU step at batch 2 from the same weights and
+# dropout bits: logits within VISION_LOGIT_TOL, the loss within
+# VISION_LOSS_RTOL. A random MobileNetV3's gradients are ill-conditioned
+# in float32 itself (a channel of near-zero variance at batch 2 scales
+# rounding by 1/sqrt(eps) in its BatchNorm; the first probe saw a BN
+# bias 12.5 % RMS apart between the card and the CPU), so each gradient
+# and the Momentum update are held to the same step in float64 on the
+# CPU: the card's RMS error over its float64 RMS within
+# max(VISION_F64_RTOL, VISION_F64_FACTOR x the float32 CPU step's own)
+VISION_FIRST_BATCH = 2
+VISION_LOGIT_TOL = 1e-4
+VISION_LOSS_RTOL = 1e-4
+VISION_F64_RTOL, VISION_F64_FACTOR = 1e-4, 10.0
+# the classifier's Dropout(0.2): its input at the main path's batch
+VISION_DROPOUT = ((RESNET_BATCH, 1280), 0.2)
+# the zoo: every family's canonical factory at full width (1000
+# classes), eval logits on the card (float32, TF32 off) against the CPU at
+# batch 1 within ZOO_LOGIT_TOL of max |logit|; eval images/s at batch
+# ZOO_BATCH in AMP O2 bf16 over ZOO_REPS calls after ZOO_WARM
+ZOO = (("alexnet", {}, 224), ("vgg16", {"batch_norm": True}, 224),
+       ("squeezenet1_1", {}, 224), ("mobilenet_v1", {}, 224),
+       ("mobilenet_v2", {}, 224), ("mobilenet_v3_small", {}, 224),
+       ("shufflenet_v2_x1_0", {}, 224), ("densenet121", {}, 224),
+       ("googlenet", {}, 224), ("inception_v3", {}, 299),
+       ("resnext50_32x4d", {}, 224), ("wide_resnet50_2", {}, 224))
+ZOO_LOGIT_TOL = 1e-4
+ZOO_BATCH, ZOO_WARM, ZOO_REPS = 64, 2, 10
+# the detection ops at the published detectors' sizes, the card against
+# the port on the CPU: integers equal, floats within DET_TOL of the
+# reference's largest magnitude (-inf bins equal)
+DET_TOL = 1e-5
+# Faster R-CNN with FPN (arXiv:1612.03144): P2 of an 800 x 1333 image
+# (stride 4), 512 RoIs an image, 7 x 7 bins; every RoI's output and
+# the gradient over all of them timed on the card, and held against the
+# CPU over the first FPN_CPU_ROIS of each image's RoIs on both (each
+# RoI's bins are computed apart; the CPU's gather of all 1024 RoIs'
+# windows would lead the phase's time)
+FPN_SHAPE, FPN_ROIS, FPN_OUT, FPN_SCALE = (2, 256, 200, 336), 512, 7, 0.25
+FPN_IMAGE = (800, 1333)
+FPN_CPU_ROIS = 32
+# R-FCN (arXiv:1605.06409): k = 7, 81 COCO classes (with the background)
+# on a 600 x 1000 image at stride 16, 300 RoIs
+RFCN_K, RFCN_CLASSES, RFCN_ROIS, RFCN_SCALE = 7, 81, 300, 1.0 / 16
+RFCN_MAP, RFCN_IMAGE = (38, 63), (600, 1000)
+# DCNv2 (arXiv:1811.11168) on ResNet-50's c5 3 x 3 layer
+DCN_SHAPE, DCN_OUT = (2, 512, 25, 42), 512
+# YOLOv3-608 (arXiv:1804.02767): the three heads (grid, anchor mask,
+# stride), the paper's nine COCO anchors, 80 classes, 50 ground truths
+YOLO_BATCH, YOLO_CLASSES, YOLO_GT, YOLO_IMAGE = 8, 80, 50, 608
+YOLO_HEADS = ((19, (6, 7, 8), 32), (38, (3, 4, 5), 16), (76, (0, 1, 2), 8))
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+# an RPN with 15 anchors over stride-16 features of a 600 x 1000 image,
+# the JAX defaults (6000 before NMS, 1000 after)
+RPN_ANCHORS, RPN_STRIDE, RPN_IMAGE = 15, 16, (600, 1000)
+# SSD300 (arXiv:1512.02325): six maps (size, channels), their min / max
+# sizes and aspect ratios, 8732 priors, 21 VOC classes
+SSD_MAPS = ((38, 512), (19, 1024), (10, 512), (5, 256), (3, 256),
+            (1, 256))
+SSD_MIN = [30.0, 60.0, 111.0, 162.0, 213.0, 264.0]
+SSD_MAX = [60.0, 111.0, 162.0, 213.0, 264.0, 315.0]
+SSD_AR = [[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0], [2.0]]
+SSD_PRIORS, SSD_CLASSES, SSD_IMAGE = 8732, 21, 300
+NMS_BOXES, NMS_CLASSES = 1000, 80
+# HostOffloadAdamW on bench.py's GPT-2-small (the training path's
+# configuration, dropout off), eager backward() / step(): bit-equal to
+# AdamW(multi_precision=True) after OFFLOAD_STEPS steps; ms/step over
+# all but the first
+OFFLOAD_STEPS = 3
+
+
+def _first_output(y):
+    return y[0] if isinstance(y, (list, tuple)) else y
+
+
+def vision_first_step(model, x, y, record):
+    """One eager float32 Momentum step of ``model`` on ``(x, y)`` with
+    the threefry stream seeded, recording the logits, every gradient and
+    the update in ``record``; returns the loss."""
+    opt = Momentum(RESNET_LR, RESNET_MOMENTUM, parameters=model.parameters())
+    _seed_threefry(11)
+    logits = model(x)
+    loss = PF.cross_entropy(logits, y)
+    loss.backward()
+    before = _record_grads(model, record, logits=logits)
+    opt.step()
+    _record_update(model, record, before)
+    opt.clear_grad()
+    return loss.item()
+
+
+def f64_held(got, want, want64, key) -> dict:
+    """Each tensor of ``got[key]`` (the card's float32 step) against the
+    float64 CPU step ``want64[key]``: its RMS error over the float64 RMS
+    (or FIRST_STEP_GRAD_FLOOR) divided by its allowance, max(
+    VISION_F64_RTOL, VISION_F64_FACTOR x the float32 CPU step's own
+    error). Returns the worst ratio (pass at <= 1) under ``key``, its
+    tensor and both errors there."""
+    worst = (-1.0, None, 0.0, 0.0)
+    for n, w64 in want64[key].items():
+        w64 = w64.double()
+        scale = max(_rms(w64), FIRST_STEP_GRAD_FLOOR)
+        card = _rms(got[key][n].double() - w64) / scale
+        cpu = _rms(want[key][n].double() - w64) / scale
+        ratio = card / max(VISION_F64_RTOL, VISION_F64_FACTOR * cpu)
+        worst = max(worst, (ratio, n, card, cpu))
+    return {key: worst[0], f"{key}_at": worst[1], f"{key}_card": worst[2],
+            f"{key}_cpu32": worst[3]}
+
+
+def phase_vision_train(device) -> dict:
+    """MobileNetV3-Large on the ResNet main path's protocol (see
+    VISION_*): the first float32 step against the CPU's, the dropout
+    kernel bit-equal to its plain version at the classifier's [256,
+    1280] bf16, then the AMP O2 bf16 path with every dropout launch
+    counted (a forward and a backward launch a step; the plain dropout
+    refused). ms/step, samples/s, peak memory and the device's busy
+    share from one profiled step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.set_device(device)
+    paddle.seed(0)
+    card = vmodels.mobilenet_v3_large(num_classes=RESNET_CLASSES)
+    start = {k: v.detach().cpu() for k, v in card.state_dict().items()}
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand((VISION_FIRST_BATCH, 3, RESNET_SIZE, RESNET_SIZE),
+                   generator=g)
+    y = torch.randint(0, RESNET_CLASSES, (VISION_FIRST_BATCH,), generator=g)
+    paddle.set_device("cpu")
+    want, want64 = {}, {}
+    for record, dtype in ((want, "float32"), (want64, "float64")):
+        cpu = vmodels.mobilenet_v3_large(num_classes=RESNET_CLASSES)
+        cpu.set_state_dict(start)
+        cpu.to(dtype=dtype)
+        loss_cpu = vision_first_step(cpu, paddle.to_tensor(x, dtype=dtype),
+                                     paddle.to_tensor(y), record)
+        cpu_loss = loss_cpu if dtype == "float32" else cpu_loss
+    paddle.set_device(device)
+    got = {}
+    with plain_dropout_refused():
+        loss = vision_first_step(card, paddle.to_tensor(x, place=device),
+                                 paddle.to_tensor(y, place=device), got)
+    errs = {"logits": (got["logits"] - want["logits"]).abs().max().item(),
+            "loss": abs(loss - cpu_loss) / abs(cpu_loss)}
+    for key in ("grads", "update"):
+        errs.update(f64_held(got, want, want64, key))
+    del got, want, want64, card, cpu
+    bad = {k: errs[k] for k, tol in (("logits", VISION_LOGIT_TOL),
+                                     ("loss", VISION_LOSS_RTOL),
+                                     ("grads", 1.0), ("update", 1.0))
+           if not errs[k] <= tol}
+    if bad:
+        raise AssertionError(f"MobileNetV3-Large first step on the card vs "
+                             f"the CPU: {bad} ({errs})")
+    # the classifier's dropout at the main path's shape, in its dtype
+    shape, p = VISION_DROPOUT
+    xd = _dropout_input(shape, torch.bfloat16, 81, device)
+    key = threefry.prng_key(181)
+    _held_to_plain("MobileNetV3 classifier forward",
+                   dk.dropout_cuda(xd, key, p), xd, key, None, p=p)
+    xg = xd.clone().requires_grad_(True)
+    dy = _dropout_input(shape, torch.bfloat16, 82, device)
+    dk.dropout(xg, key, p).backward(dy)
+    _held_to_plain("MobileNetV3 classifier backward", xg.grad, dy, key, None,
+                   p=p)
+    del xd, xg, dy
+    # the main path
+    paddle.seed(0)
+    model = vmodels.mobilenet_v3_large(num_classes=RESNET_CLASSES)
+    opt = Momentum(RESNET_LR, RESNET_MOMENTUM, parameters=model.parameters())
+    model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, resnet_loss, opt)
+    xb = paddle.rand([RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE]).astype(
+        "bfloat16")
+    yb = paddle.randint(0, RESNET_CLASSES, [RESNET_BATCH])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dk.LAUNCHES.clear()
+    with plain_dropout_refused():
+        warm_losses, warm = timed_steps(step, xb, yb, RESNET_WARMUP)
+        losses, wall = timed_steps(step, xb, yb, RESNET_STEPS)
+    launches = dk.LAUNCHES[dk.KERNEL_NAME]
+    peak = _peak_gib()
+    steps = RESNET_WARMUP + RESNET_STEPS
+    if launches != 2 * steps:
+        raise AssertionError(f"MobileNetV3-Large dropout launches "
+                             f"{launches}, expected 2 x {steps} steps")
+    every = warm_losses + losses
+    if not all(math.isfinite(v) for v in every):
+        raise AssertionError(f"MobileNetV3-Large losses not all finite: "
+                             f"{every}")
+    ms = 1e3 * wall / RESNET_STEPS
+    busy = _profiled_step(lambda: step(xb, yb).item(),
+                          "MobileNetV3-Large training", 12)
+    out = {"ms_per_step": ms, "samples_per_s": RESNET_BATCH / ms * 1e3,
+           "peak_gib": peak, "dropout_launches": launches,
+           "busy_share": None if busy is None else busy / ms,
+           "first_step": errs, "losses": every}
+    log(f"[vision] MobileNetV3-Large main path (perf/resnet_bench.py's "
+        f"protocol: {RESNET_CLASSES} classes, batch {RESNET_BATCH} x 3 x "
+        f"{RESNET_SIZE}^2, Momentum({RESNET_LR}, {RESNET_MOMENTUM}), AMP O2 "
+        f"bf16, TrainStep): {RESNET_WARMUP} warm-up steps {warm:.3f}s; "
+        f"{RESNET_STEPS} timed steps {ms:.2f} ms/step = "
+        f"{out['samples_per_s']:.1f} samples/s; peak {peak:.2f} GiB; "
+        f"device busy {'not measured' if busy is None else f'{busy / ms:.1%}'}"
+        f" of a step (one profiled step); losses "
+        f"{[round(v, 4) for v in every]}; dropout launches {launches} "
+        f"(forward and backward, {steps} steps), the kernel bit-equal to "
+        f"its plain version at {list(shape)} bf16; first float32 step (TF32"
+        f" off, batch {VISION_FIRST_BATCH}) vs the CPU's: logits max err "
+        f"{errs['logits']:.2e} (tol {VISION_LOGIT_TOL}), loss rel "
+        f"{errs['loss']:.2e}; against the float64 CPU step the worst "
+        f"gradient {errs['grads_at']} RMS rel {errs['grads_card']:.2e} "
+        f"(the float32 CPU's {errs['grads_cpu32']:.2e}; "
+        f"{errs['grads']:.3f} of its allowance), the worst update "
+        f"{errs['update_at']} {errs['update_card']:.2e} (CPU "
+        f"{errs['update_cpu32']:.2e}; {errs['update']:.3f}) "
+        f"[{card_identity()}]")
+    return out
+
+
+def phase_vision_zoo(device) -> dict:
+    """Every ZOO factory at full width: seeded weights carried to a CPU
+    twin with ``layer_state_from_jax``, eval logits on the card (float32,
+    TF32 off) against the CPU's at batch 1; then eval images/s at batch
+    ZOO_BATCH in AMP O2 bf16."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for i, (name, kw, size) in enumerate(ZOO):
+        paddle.set_device(device)
+        paddle.seed(i)
+        card = getattr(vmodels, name)(**kw)
+        card.eval()
+        arrays = {k: v.detach().cpu().numpy()
+                  for k, v in card.state_dict().items()}
+        paddle.set_device("cpu")
+        cpu = vmodels.layer_state_from_jax(arrays,
+                                           getattr(vmodels, name)(**kw))
+        cpu.eval()
+        paddle.set_device(device)
+        x = torch.rand((1, 3, size, size),
+                       generator=torch.Generator().manual_seed(5 + i))
+        with torch.no_grad():
+            got = _first_output(card(paddle.to_tensor(x, place=device)))
+            want = _first_output(cpu(paddle.to_tensor(x, place="cpu")))
+        err = _rel_gap(got.detach().double().cpu(), want.detach().double())
+        del cpu, arrays
+        card = decorate(card, level="O2", dtype="bfloat16")
+        xb = paddle.rand([ZOO_BATCH, 3, size, size]).astype("bfloat16")
+        with torch.no_grad():
+            for _ in range(ZOO_WARM):
+                card(xb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ZOO_REPS):
+                y = _first_output(card(xb))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name} bf16 eval logits not finite")
+        out[name] = {"logit_err": err,
+                     "images_per_s": ZOO_BATCH * ZOO_REPS / wall,
+                     "ms": 1e3 * wall / ZOO_REPS}
+        log(f"[zoo] {name}{kw or ''} {size}^2: eval logits card vs CPU "
+            f"{err:.2e} of max |logit| (tol {ZOO_LOGIT_TOL}); bf16 O2 eval "
+            f"batch {ZOO_BATCH}: {out[name]['ms']:.2f} ms = "
+            f"{out[name]['images_per_s']:.0f} images/s")
+        del card, xb, y
+        torch.cuda.empty_cache()
+        if not err <= ZOO_LOGIT_TOL:
+            raise AssertionError(f"{name} eval logits on the card differ "
+                                 f"from the CPU's: {err:.3e}")
+    log(f"[zoo] {len(ZOO)} factories [{card_identity()}]")
+    return out
+
+
+def _det_close(label, got, want, errs, device) -> None:
+    """``got`` (the card's) against ``want`` (the CPU's): integers and
+    infinities equal, finite floats within DET_TOL of max |want|."""
+    if got.device.type != torch.device(device).type:
+        raise AssertionError(f"{label}: the result is on {got.device}, not "
+                             "the card")
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not got.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: integers differ")
+        errs[label] = 0.0
+        return
+    got, want = got.double(), want.double()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(
+            got[~fin], want[~fin]):
+        raise AssertionError(f"{label}: the non-finite entries differ")
+    err = 0.0
+    if fin.any():
+        err = ((got - want)[fin].abs().max()
+               / want[fin].abs().max().clamp(min=1e-30)).item()
+    errs[label] = err
+    if not err <= DET_TOL:
+        raise AssertionError(f"{label}: {err:.3e} of max |CPU| (tol "
+                             f"{DET_TOL})")
+
+
+def _boxes_in(n, image, lo, hi, g):
+    """``n`` [x1, y1, x2, y2] boxes of sides in [lo, hi) pixels inside
+    an ``image`` (h, w), float32."""
+    h, w = image
+    wh = lo + (hi - lo) * torch.rand((n, 2), generator=g)
+    wh = torch.minimum(wh, torch.tensor([w, h]))
+    xy = torch.rand((n, 2), generator=g) * (torch.tensor([w, h]) - wh)
+    return torch.cat([xy, xy + wh], 1)
+
+
+def _grads(fn, inputs, w, grad):
+    """The gradients of ``(fn(*inputs) * w).sum()`` (non-finite outputs
+    weighted 0) for the first ``grad`` inputs."""
+    leaves = [t.detach().clone().requires_grad_(i < grad)
+              for i, t in enumerate(inputs)]
+    out = fn(*leaves)
+    (torch.where(torch.isfinite(out), out, 0.0) * w).sum().backward()
+    return [t.grad for t in leaves[:grad]]
+
+
+def _det_pair(label, fn, inputs, device, errs, grad=0, seed=0):
+    """``fn`` on ``inputs`` on the card and on the CPU, compared; with
+    ``grad``, the gradients of a seeded weighting of the output for the
+    first ``grad`` inputs too."""
+    card_in = [t.to(device) for t in inputs]
+    got = fn(*card_in)
+    want = fn(*inputs)
+    for i, (a, b) in enumerate(zip(*(
+            (o if isinstance(o, (tuple, list)) else (o,))
+            for o in (got, want)))):
+        _det_close(f"{label}[{i}]" if isinstance(got, (tuple, list))
+                   else label, a, b, errs, device)
+    if grad:
+        w = torch.randn(want.shape, generator=torch.Generator().manual_seed(
+            seed))
+        for i, (a, b) in enumerate(zip(
+                _grads(fn, card_in, w.to(device), grad),
+                _grads(fn, inputs, w, grad))):
+            _det_close(f"{label} grad {i}", a, b, errs, device)
+    return got
+
+
+def _det_time(fn, inputs, device, backward=0):
+    """Device ms of ``fn`` on the card inputs, with ``backward`` its
+    backward to the first ``backward`` inputs too."""
+    leaves = [t.to(device).requires_grad_(i < backward)
+              for i, t in enumerate(inputs)]
+
+    def run():
+        out = fn(*leaves)
+        if backward:
+            torch.where(torch.isfinite(out), out, 0.0).sum().backward()
+    return time_cuda(run, reps=5, warmup=1)
+
+
+def _bound(nbytes, flops):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def phase_detection_ops(device) -> dict:
+    """The detection ops at the published detectors' sizes (see FPN_*,
+    RFCN_*, DCN_*, YOLO_*, RPN_*, SSD_*, NMS_*): every result on the card
+    against the port's CPU path, then each op timed; the device ops'
+    forward times beside a bound from their bytes (inputs read once,
+    outputs written once) and FLOPs."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.set_device(device)
+    g = torch.Generator().manual_seed(31)
+    errs, times = {}, {}
+
+    # Faster R-CNN + FPN: roi_align and roi_pool on P2
+    N, C, H, W = FPN_SHAPE
+    feat = torch.randn(FPN_SHAPE, generator=g)
+    rois = torch.cat([_boxes_in(FPN_ROIS, FPN_IMAGE, 16.0, 400.0, g)
+                      for _ in range(N)])
+    counts = torch.tensor([FPN_ROIS] * N, dtype=torch.int32)
+    sub = torch.cat([rois[i * FPN_ROIS:i * FPN_ROIS + FPN_CPU_ROIS]
+                     for i in range(N)])
+    sub_counts = torch.tensor([FPN_CPU_ROIS] * N, dtype=torch.int32)
+
+    def align(x, b, n=counts):
+        return vops.roi_align(x, b, n, FPN_OUT, FPN_SCALE)
+
+    def pool(x, b, n=counts):
+        return vops.roi_pool(x, b, n, FPN_OUT, FPN_SCALE)
+
+    for label, fn in (("roi_align", align), ("roi_pool", pool)):
+        _det_pair(label, lambda x, b, f=fn: f(x, b, sub_counts),
+                  [feat, sub], device, errs, grad=1, seed=1)
+        out = fn(feat.to(device), rois.to(device))
+        if tuple(out.shape) != (N * FPN_ROIS, C, FPN_OUT, FPN_OUT):
+            raise AssertionError(f"{label} shape {tuple(out.shape)}")
+        times[label] = {"ms": _det_time(fn, [feat, rois], device),
+                        "fwd_bwd_ms": _det_time(fn, [feat, rois], device,
+                                                backward=1)}
+    r = (rois * FPN_SCALE)
+    cells = float(((r[:, 2] - r[:, 0]).round() + 1).clamp(min=1).mul(
+        ((r[:, 3] - r[:, 1]).round() + 1).clamp(min=1)).sum())
+    io_bytes = 4 * (feat.numel() + N * FPN_ROIS * C * FPN_OUT ** 2)
+    times["roi_align"]["bound_ms"], times["roi_align"]["bound_by"] = _bound(
+        io_bytes, 10 * N * FPN_ROIS * C * FPN_OUT ** 2 * 4)
+    times["roi_pool"]["bound_ms"], times["roi_pool"]["bound_by"] = _bound(
+        io_bytes, cells * C)
+
+    # R-FCN: psroi_pool
+    c_in = RFCN_K * RFCN_K * RFCN_CLASSES
+    ps_x = torch.randn((1, c_in, *RFCN_MAP), generator=g)
+    ps_rois = _boxes_in(RFCN_ROIS, RFCN_IMAGE, 32.0, 500.0, g)
+    ps_n = torch.tensor([RFCN_ROIS], dtype=torch.int32)
+
+    def ps(x, b):
+        return vops.psroi_pool(x, b, ps_n, RFCN_K, RFCN_SCALE)
+
+    _det_pair("psroi_pool", ps, [ps_x, ps_rois], device, errs)
+    times["psroi_pool"] = {"ms": _det_time(ps, [ps_x, ps_rois], device)}
+    times["psroi_pool"]["bound_ms"], times["psroi_pool"]["bound_by"] = \
+        _bound(4 * (ps_x.numel() + RFCN_ROIS * RFCN_CLASSES * RFCN_K ** 2),
+               ps_x.numel())
+
+    # DCNv2: deform_conv2d with its mask, forward and backward
+    N2, C2, H2, W2 = DCN_SHAPE
+    dcn = [torch.randn(DCN_SHAPE, generator=g),
+           2.0 * torch.randn((N2, 18, H2, W2), generator=g),
+           torch.randn((DCN_OUT, C2, 3, 3), generator=g) / math.sqrt(9 * C2),
+           torch.rand((N2, 9, H2, W2), generator=g),
+           torch.randn((DCN_OUT,), generator=g)]
+
+    def deform(x, off, w, m, b):
+        return vops.deform_conv2d(x, off, w, b, padding=1, mask=m)
+
+    _det_pair("deform_conv2d", deform, dcn, device, errs, grad=5, seed=2)
+    times["deform_conv2d"] = {
+        "ms": _det_time(deform, dcn, device),
+        "fwd_bwd_ms": _det_time(deform, dcn, device, backward=5)}
+    times["deform_conv2d"]["bound_ms"], times["deform_conv2d"][
+        "bound_by"] = _bound(
+        4 * (sum(t.numel() for t in dcn) + N2 * DCN_OUT * H2 * W2),
+        2 * N2 * DCN_OUT * H2 * W2 * C2 * 9 + 10 * N2 * C2 * H2 * W2 * 9)
+
+    # YOLOv3-608: yolo_box and yolo_loss on each head
+    img = torch.full((YOLO_BATCH, 2), YOLO_IMAGE, dtype=torch.int32)
+    gt = torch.cat([torch.rand((YOLO_BATCH, YOLO_GT, 2), generator=g),
+                    0.02 + 0.5 * torch.rand((YOLO_BATCH, YOLO_GT, 2),
+                                            generator=g)], -1)
+    label = torch.randint(0, YOLO_CLASSES, (YOLO_BATCH, YOLO_GT),
+                          generator=g)
+    yolo_ms = {"yolo_box": 0.0, "yolo_loss": 0.0, "yolo_loss_fwd_bwd": 0.0}
+    for grid, mask, stride in YOLO_HEADS:
+        head = torch.randn((YOLO_BATCH, 3 * (5 + YOLO_CLASSES), grid, grid),
+                           generator=g)
+        anchors = [YOLO_ANCHORS[k] for i in mask for k in (2 * i, 2 * i + 1)]
+
+        def box(x, im, a=anchors, s=stride):
+            return vops.yolo_box(x, im, a, YOLO_CLASSES, 0.005, s)
+
+        def loss(x, b, lab, m=mask, s=stride):
+            return vops.yolo_loss(x, b, lab, YOLO_ANCHORS, list(m),
+                                  YOLO_CLASSES, 0.7, s)
+
+        _det_pair(f"yolo_box {grid}^2", box, [head, img], device, errs)
+        _det_pair(f"yolo_loss {grid}^2", loss, [head, gt, label], device,
+                  errs, grad=1, seed=3)
+        yolo_ms["yolo_box"] += _det_time(box, [head, img], device)
+        yolo_ms["yolo_loss"] += _det_time(loss, [head, gt, label], device)
+        yolo_ms["yolo_loss_fwd_bwd"] += _det_time(loss, [head, gt, label],
+                                                  device, backward=1)
+    cells = sum(YOLO_BATCH * 3 * grid * grid for grid, _, _ in YOLO_HEADS)
+    head_bytes = 4 * cells * (5 + YOLO_CLASSES)
+    times["yolo_box"] = {"ms": yolo_ms["yolo_box"]}
+    times["yolo_box"]["bound_ms"], times["yolo_box"]["bound_by"] = _bound(
+        head_bytes + 4 * cells * (4 + YOLO_CLASSES), 20 * cells * YOLO_CLASSES)
+    times["yolo_loss"] = {"ms": yolo_ms["yolo_loss"],
+                          "fwd_bwd_ms": yolo_ms["yolo_loss_fwd_bwd"]}
+    times["yolo_loss"]["bound_ms"], times["yolo_loss"]["bound_by"] = _bound(
+        head_bytes, 10 * cells * (5 + YOLO_CLASSES))
+
+    # RPN proposals (host)
+    fh, fw = (math.ceil(s / RPN_STRIDE) for s in RPN_IMAGE)
+    sc = torch.rand((1, RPN_ANCHORS, fh, fw), generator=g)
+    deltas = 0.2 * torch.randn((1, 4 * RPN_ANCHORS, fh, fw), generator=g)
+    ys, xs = torch.meshgrid(torch.arange(fh) * RPN_STRIDE + 8.0,
+                            torch.arange(fw) * RPN_STRIDE + 8.0,
+                            indexing="ij")
+    sizes = torch.tensor([32.0, 64.0, 128.0, 256.0, 512.0])
+    ratios = torch.tensor([0.5, 1.0, 2.0])
+    aw = (sizes[:, None] / ratios.sqrt()).reshape(-1)
+    ah = (sizes[:, None] * ratios.sqrt()).reshape(-1)
+    anchors = torch.stack([xs[..., None] - aw / 2, ys[..., None] - ah / 2,
+                           xs[..., None] + aw / 2, ys[..., None] + ah / 2],
+                          -1)
+    var = torch.ones_like(anchors)
+    im = torch.tensor([list(RPN_IMAGE)], dtype=torch.float32)
+
+    def proposals(s, d, i, a, v):
+        return vops.generate_proposals(s, d, i, a, v, return_rois_num=True)
+
+    rpn = _det_pair("generate_proposals", proposals,
+                    [sc, deltas, im, anchors, var], device, errs)
+    t0 = time.perf_counter()
+    proposals(*(t.to(device) for t in (sc, deltas, im, anchors, var)))
+    times["generate_proposals"] = {"host_ms": 1e3 * (time.perf_counter()
+                                                     - t0)}
+
+    # SSD300: prior_box, box_coder, multi_box_head
+    image = torch.zeros((1, 3, SSD_IMAGE, SSD_IMAGE))
+    maps = [torch.randn((2, c, s, s), generator=g) for s, c in SSD_MAPS]
+    priors = []
+    for i, f in enumerate(maps):
+        pb = _det_pair(f"prior_box {SSD_MAPS[i][0]}^2", lambda x, im_, i=i:
+                       vops.prior_box(x, im_, [SSD_MIN[i]], [SSD_MAX[i]],
+                                      SSD_AR[i], flip=True, clip=True),
+                       [f, image], device, errs)
+        priors.append(pb)
+    prior = torch.cat([p[0].reshape(-1, 4) for p in priors])
+    pvar = torch.cat([p[1].reshape(-1, 4) for p in priors])
+    if prior.shape[0] != SSD_PRIORS:
+        raise AssertionError(f"SSD300 priors {prior.shape[0]}, expected "
+                             f"{SSD_PRIORS}")
+    targets = _boxes_in(YOLO_GT, (1.0, 1.0), 0.05, 0.6, g)
+    loc = 0.1 * torch.randn((2, SSD_PRIORS, 4), generator=g)
+    _det_pair("box_coder encode", lambda p, v, t: vops.box_coder(
+        p, v, t, "encode_center_size"), [prior.cpu(), pvar.cpu(), targets],
+        device, errs)
+    _det_pair("box_coder decode", lambda p, v, t: vops.box_coder(
+        p, v, t, "decode_center_size", axis=1), [prior.cpu(), pvar.cpu(),
+                                                 loc], device, errs)
+    times["box_coder"] = {"ms": _det_time(lambda p, v, t: vops.box_coder(
+        p, v, t, "decode_center_size", axis=1), [prior, pvar, loc], device)}
+    times["box_coder"]["bound_ms"], times["box_coder"]["bound_by"] = _bound(
+        4 * (2 * prior.numel() + 2 * loc.numel()), 20 * loc.numel())
+    heads = _multi_box_heads(maps, image, device)
+    for i, (a, b) in enumerate(zip(*heads)):
+        _det_close(f"multi_box_head[{i}]", a, b, errs, device)
+    if heads[0][2].shape[0] != SSD_PRIORS:
+        raise AssertionError("multi_box_head priors "
+                             f"{heads[0][2].shape[0]}")
+    t0 = time.perf_counter()
+    for i, f in enumerate(maps):
+        vops.prior_box(f.to(device), image.to(device), [SSD_MIN[i]],
+                       [SSD_MAX[i]], SSD_AR[i], flip=True, clip=True)
+    times["prior_box"] = {"host_ms": 1e3 * (time.perf_counter() - t0)}
+
+    # nms and matrix_nms on 1000 boxes of 80 categories
+    boxes = _boxes_in(NMS_BOXES, (600.0, 1000.0), 8.0, 300.0, g)
+    scores = torch.rand((NMS_BOXES,), generator=g)
+    cats = torch.randint(0, NMS_CLASSES, (NMS_BOXES,), generator=g)
+    _det_pair("nms", lambda b, s, c: vops.nms(b, 0.5, s, c), [boxes, scores,
+                                                             cats],
+              device, errs)
+    mscores = torch.rand((1, NMS_CLASSES, NMS_BOXES), generator=g)
+    _det_pair("matrix_nms", lambda b, s: vops.matrix_nms(
+        b, s, 0.5, 0.1, return_index=True), [boxes[None], mscores], device,
+        errs)
+    for name, fn, args in (
+            ("nms", lambda: vops.nms(boxes.to(device), 0.5,
+                                     scores.to(device), cats.to(device)), ()),
+            ("matrix_nms", lambda: vops.matrix_nms(
+                boxes[None].to(device), mscores.to(device), 0.5, 0.1), ())):
+        t0 = time.perf_counter()
+        fn(*args)
+        times[name] = {"host_ms": 1e3 * (time.perf_counter() - t0)}
+
+    # decode_jpeg, where PIL imports
+    jpeg = _jpeg_check(device)
+    out = {"errs": errs, "times": times, "jpeg": jpeg,
+           "proposals": int(rpn[0].shape[0])}
+    for name, t in times.items():
+        parts = [f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                 for k, v in t.items()]
+        log(f"[detect] {name}: " + ", ".join(parts))
+    log(f"[detect] card vs the CPU, worst of each check (tol {DET_TOL} of "
+        f"max |CPU|; integers exact): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+        + f"; RPN kept {out['proposals']} proposals; decode_jpeg: {jpeg} "
+        f"[{card_identity()}]")
+    return out
+
+
+def _multi_box_heads(maps, image, device):
+    """``static.nn.multi_box_head`` on SSD300's maps on the card and on
+    the CPU, the CPU's new parameters set to the card's (in creation
+    order, through the parameter hook)."""
+    from paddle_tpu_torch.nn.layer import layers as player
+
+    made = []
+    saved = list(player._PARAMETER_HOOK)
+    kw = dict(base_size=SSD_IMAGE, num_classes=SSD_CLASSES,
+              aspect_ratios=SSD_AR, min_sizes=SSD_MIN, max_sizes=SSD_MAX,
+              flip=True, clip=True)
+    try:
+        player._PARAMETER_HOOK[:] = [made.append]
+        paddle.set_device(device)
+        card = paddle.static.nn.multi_box_head(
+            [m.to(device) for m in maps], image.to(device), **kw)
+        source = iter(made)
+        player._PARAMETER_HOOK[:] = [
+            lambda p: p.data.copy_(next(source).detach().cpu())]
+        paddle.set_device("cpu")
+        cpu = paddle.static.nn.multi_box_head(maps, image, **kw)
+    finally:
+        player._PARAMETER_HOOK[:] = saved
+        paddle.set_device(device)
+    return card, cpu
+
+
+def _jpeg_check(device) -> str:
+    try:
+        from PIL import Image
+    except ImportError:
+        try:
+            vops.decode_jpeg(paddle.to_tensor(np.zeros(4, np.uint8),
+                                              place=device))
+        except RuntimeError as e:
+            if "needs PIL" in str(e):
+                return "PIL absent: raises RuntimeError('decode_jpeg needs PIL')"
+            raise
+        raise AssertionError("decode_jpeg without PIL did not raise")
+    import io
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.RandomState(6).randint(
+        0, 255, (64, 48, 3)).astype(np.uint8)).save(buf, format="JPEG")
+    raw = np.frombuffer(buf.getvalue(), np.uint8)
+    got = vops.decode_jpeg(paddle.to_tensor(raw, place=device))
+    want = vops.decode_jpeg(paddle.to_tensor(raw, place="cpu"))
+    if got.device.type != torch.device(device).type or not torch.equal(
+            got.cpu(), want):
+        raise AssertionError("decode_jpeg on the card differs from the CPU")
+    return f"PIL present: {tuple(got.shape)} uint8 on the card equal to the CPU's"
+
+
+def offload_run(device, offload: bool, ids) -> dict:
+    """OFFLOAD_STEPS eager steps (``loss.backward(); opt.step();
+    opt.clear_grad()``) of bench.py's GPT under AMP O2 bf16 with
+    ``HostOffloadAdamW`` or ``AdamW(multi_precision=True)``: the losses,
+    the parameters and the optimizer state (master weights, moments,
+    beta powers) after the last step (on the host), ms/step over all
+    but the first step, the optimizer step's ms, the peak device memory
+    and the flash launches."""
+    model = train_model(device, TRAIN_CFG["num_hidden_layers"])
+    cls = HostOffloadAdamW if offload else AdamW
+    kw = {} if offload else {"multi_precision": True}
+    opt = cls(learning_rate=TRAIN_LR, parameters=model.parameters(), **kw)
+    model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.clear()
+    losses, walls, step_ms = [], [], []
+    with plain_attention_refused():
+        for _ in range(OFFLOAD_STEPS):
+            t0 = time.perf_counter()
+            loss = model.loss(ids, ids)
+            loss.backward()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            opt.clear_grad()
+            losses.append(loss.item())
+            walls.append(time.perf_counter() - t0)
+    out = {"losses": losses, "peak_gib": _peak_gib(),
+           "ms_per_step": 1e3 * statistics.mean(walls[1:]),
+           "opt_step_ms": statistics.mean(step_ms[1:]),
+           "launches": dict(fa.LAUNCHES),
+           "params": {n: p.detach().cpu() for n, p in
+                      model.named_parameters()},
+           "state": {n: {k: v.detach().cpu() for k, v in (
+               opt._host if offload else opt._accumulators)[id(p)].items()}
+               for n, p in model.named_parameters()},
+           "copies": dict(opt.last_step) if offload else None}
+    del model, opt, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.2f} ms"
+
+
+def phase_offload(device) -> dict:
+    """``HostOffloadAdamW`` on bench.py's GPT-2-small (16 x 1024 tokens,
+    AMP O2 bf16, dropout off, the bf16 flash kernels): after
+    OFFLOAD_STEPS eager steps the losses, every parameter and every
+    master weight, moment and beta power bit-equal to the same loop with
+    ``AdamW(multi_precision=True)``; ms/step and
+    peak device memory of both, the host copies' bytes and the offload
+    step's device time."""
+    ids = train_ids(device, (TRAIN_BATCH, TRAIN_SEQ), 7)
+    ref = offload_run(device, False, ids)
+    off = offload_run(device, True, ids)
+    layers = TRAIN_CFG["num_hidden_layers"]
+    want = {n: layers * OFFLOAD_STEPS for n in fa.KERNEL_NAMES}
+    for label, run in (("AdamW", ref), ("HostOffloadAdamW", off)):
+        if run["launches"] != want:
+            raise AssertionError(f"offload phase, {label}: flash launches "
+                                 f"{run['launches']}, expected {want}")
+    if off["losses"] != ref["losses"]:
+        raise AssertionError(f"offload losses {off['losses']} vs AdamW's "
+                             f"{ref['losses']}")
+    differ = [n for n, p in off["params"].items()
+              if not torch.equal(p, ref["params"][n])]
+    differ += [f"{n}.{k}" for n, st in off["state"].items()
+               for k, v in st.items()
+               if not torch.equal(v, ref["state"][n][k])]
+    if differ:
+        raise AssertionError(f"offload parameters or state differ from "
+                             f"AdamW's: {differ[:5]} ({len(differ)} "
+                             "tensors)")
+    c = off["copies"]
+    n_params = sum(p.numel() for p in off["params"].values())
+    out = {"ms_per_step": off["ms_per_step"],
+           "ms_per_step_adamw": ref["ms_per_step"],
+           "opt_step_ms": off["opt_step_ms"],
+           "opt_step_ms_adamw": ref["opt_step_ms"],
+           "peak_gib": off["peak_gib"], "peak_gib_adamw": ref["peak_gib"],
+           "copies": c, "params": n_params, "losses": off["losses"]}
+    log(f"[offload] bench.py GPT-2-small ({n_params} parameters), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, AMP O2 bf16, eager, "
+        f"{OFFLOAD_STEPS} steps: HostOffloadAdamW bit-equal to "
+        f"AdamW(multi_precision=True) (losses {off['losses']}, every "
+        f"parameter and optimizer state tensor); ms/step {off['ms_per_step']:.2f} vs "
+        f"{ref['ms_per_step']:.2f}; optimizer step {off['opt_step_ms']:.2f} "
+        f"vs {ref['opt_step_ms']:.2f} ms; peak device "
+        f"{off['peak_gib']:.2f} vs {ref['peak_gib']:.2f} GiB (saved "
+        f"{ref['peak_gib'] - off['peak_gib']:.2f} GiB); host copies a step "
+        f"{c['h2d_bytes'] / 1e9:.3f} GB each way, the side stream's device "
+        f"time {_ms(c['device_ms'])}; flash launches {off['launches']} "
+        f"[{card_identity()}]")
+    return out
+
+
+def phase_amp_debugging(device) -> dict:
+    """``amp.debugging`` on the card: ``check_numerics`` counts planted
+    NaNs, infinities and zeros of a CUDA tensor (equal to the CPU's);
+    under ``enable_tensor_checker`` an eager step and a ``to_static``
+    function raise at a NaN (the function reported eager for the
+    checker); after ``disable_tensor_checker`` the function is captured
+    and replays; ``decorate(save_dtype="float32")``'s state dict of a
+    bf16 model reads back into a float32 model on the CPU."""
+    from paddle_tpu_torch.amp import debugging as dbg
+
+    paddle.set_device(device)
+    a = torch.randn(1 << 20, generator=torch.Generator().manual_seed(8))
+    a[::997] = float("nan")
+    a[5::1999] = float("inf")
+    a[7::2999] = -float("inf")
+    a[11::3001] = 0.0
+    got = [int(v) for v in dbg.check_numerics(
+        paddle.to_tensor(a, place=device),
+        debug_mode=dbg.DebugMode.CHECK_NAN_INF)]
+    want = [int(v) for v in dbg.check_numerics(
+        a, debug_mode=dbg.DebugMode.CHECK_NAN_INF)]
+    if got != want or got[0] == 0 or got[1] == 0:
+        raise AssertionError(f"check_numerics on the card {got}, CPU {want}")
+    try:
+        dbg.check_numerics(paddle.to_tensor(a, place=device))
+        raise AssertionError("check_numerics did not abort")
+    except FloatingPointError:
+        pass
+    net = paddle.nn.Linear(64, 64)
+    bad = paddle.ones([8, 64])
+    bad[0, 3] = float("nan")
+    fn = paddle.jit.to_static(lambda x: paddle.log(x) * 2.0)
+    good, neg = paddle.ones([1024]), -paddle.ones([1024])
+    raised = []
+    dbg.enable_tensor_checker()
+    try:
+        for label, call in (("eager step", lambda: net(bad).sum().backward()),
+                            ("to_static first call", lambda: fn(neg)),
+                            ("to_static second call", lambda: fn(neg))):
+            try:
+                call()
+            except FloatingPointError:
+                raised.append(label)
+        checking = next(iter(fn.capture_report().values()))
+    finally:
+        dbg.disable_tensor_checker()
+    if len(raised) != 3 or checking["captured"] or \
+            "FLAGS_check_nan_inf" not in (checking["reason"] or ""):
+        raise AssertionError(f"tensor checker: raised at {raised}, report "
+                             f"{checking}")
+    y = fn(neg)
+    after = next(iter(fn.capture_report().values()))
+    on_card = torch.device(device).type == "cuda"      # the CPU runs eagerly
+    if not (after["captured"] == on_card
+            and after["replays"] >= int(on_card)
+            and bool(torch.isnan(y).all())):
+        raise AssertionError(f"after disable_tensor_checker: {after}")
+    model = paddle.nn.Sequential(paddle.nn.Linear(16, 8),
+                                 paddle.nn.BatchNorm1D(8))
+    decorate(model, level="O2", dtype="bfloat16", save_dtype="float32")
+    sd = model.state_dict()
+    if {str(v.dtype) for v in sd.values()
+            if v.is_floating_point()} != {"torch.float32"}:
+        raise AssertionError(f"save_dtype state dict dtypes "
+                             f"{ {k: v.dtype for k, v in sd.items()} }")
+    paddle.set_device("cpu")
+    try:
+        back = paddle.nn.Sequential(paddle.nn.Linear(16, 8),
+                                    paddle.nn.BatchNorm1D(8))
+        back.set_state_dict({k: v.cpu() for k, v in sd.items()})
+    finally:
+        paddle.set_device(device)
+    own = model.state_dict(keep_vars=True)
+    for k, v in back.state_dict().items():
+        if not torch.equal(v, own[k].detach().to(v.dtype).cpu()):
+            raise AssertionError(f"save_dtype round trip differs at {k}")
+    log(f"[debugging] check_numerics on the card {got} (nan, inf, zero) = "
+        f"the CPU's; the tensor checker raised at {raised}, to_static "
+        f"reported eager ({checking['reason'][:40]}...); after disable "
+        f"captured with {after['replays']} replay(s); decorate(save_dtype="
+        f"'float32') of a bf16 model read back on the CPU")
+    return {"counts": got, "raised": raised}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -7112,6 +7957,21 @@ def main() -> int:
     lstm = phase_lstm_lm(device)
     torch.cuda.empty_cache()
 
+    # the vision zoo, vision.ops, the host-offload AdamW and
+    # amp.debugging, this slice's main paths: MobileNetV3-Large trained
+    # (the dropout kernel), the zoo's inference, the detection ops at the
+    # published detectors' sizes, offloaded GPT-2-small training (the
+    # bf16 flash kernels) and the tensor checker
+    vision = phase_vision_train(device)
+    torch.cuda.empty_cache()
+    phase_vision_zoo(device)
+    torch.cuda.empty_cache()
+    phase_detection_ops(device)
+    torch.cuda.empty_cache()
+    phase_offload(device)
+    torch.cuda.empty_cache()
+    phase_amp_debugging(device)
+
     if old_ragged is not None:
         old_ragged = (old_ragged, {
             entry: _build.load_source(f"{lib}_old", old_text[f"{lib}_old"])
@@ -7132,8 +7992,10 @@ def main() -> int:
     seq_dropout = nmt["launches"]["dropout"] + lstm["dropout_launches"]
     rows.append(dropout_row(dropout_times(device),
                             dropout_main["launches"][dk.KERNEL_NAME]
-                            + seq_dropout, dropout_errors["max_abs_err"]))
+                            + seq_dropout + vision["dropout_launches"],
+                            dropout_errors["max_abs_err"]))
     rows[-1]["launches_sequence"] = seq_dropout
+    rows[-1]["launches_vision"] = vision["dropout_launches"]
     rows.append(triple_row(core))
     log(f"[ops] int8 launches in the op sweep {ops['int8_launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")

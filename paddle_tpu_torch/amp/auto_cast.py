@@ -153,9 +153,9 @@ def decorate(models, optimizers=None, level: str = "O2",
     parameter and buffer of ``models`` to ``dtype`` in place (the
     parameter objects stay, so optimizers built on them keep them) and,
     unless ``master_weight=False``, sets ``multi_precision`` on
-    ``optimizers``. Returns ``models`` (and ``optimizers``) as given."""
-    if save_dtype is not None:
-        raise NotImplementedError("save_dtype is not ported")
+    ``optimizers``; ``save_dtype`` makes each model's ``state_dict`` give
+    its floating tensors in that dtype (``_save_dtype``, as the JAX
+    package sets it). Returns ``models`` (and ``optimizers``) as given."""
     if level not in ("O0", "O1", "O2"):
         raise ValueError("level must be O0/O1/O2")
     if dtype not in _DTYPES:
@@ -165,6 +165,9 @@ def decorate(models, optimizers=None, level: str = "O2",
     if level == "O2":
         for m in model_list:
             m.to(dtype=_DTYPES[dtype])
+    if save_dtype is not None:
+        for m in model_list:
+            m._save_dtype = save_dtype
     if optimizers is None:
         return models
     opt_list = list(optimizers) if isinstance(optimizers, (list, tuple)) \

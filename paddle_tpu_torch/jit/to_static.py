@@ -30,7 +30,12 @@ graph, the serving engine's idiom:
   op: dy2static refuses these inside a capture) or fails in CUDA (a host
   read such as ``.item()``), or that takes a CPU tensor, draws a key or
   is called on the CPU, runs eagerly on every call; the partial graph is
-  dropped, and :meth:`StaticFunction.capture_report` says why.
+  dropped, and :meth:`StaticFunction.capture_report` says why;
+- while ``FLAGS_check_nan_inf`` is on (``amp.debugging``'s tensor
+  checker), every signature runs eagerly, so each op's outputs are
+  checked and a NaN raises as the JAX function does under
+  ``jax_debug_nans``; the report gives that as the reason, and a
+  signature captures or replays again once the flag is off.
 
 Kernel launch counters are Python: a replay runs no Python. A captured
 signature counts its kernels once at capture and, at every replay, adds
@@ -84,7 +89,7 @@ from torch.utils import _pytree as pytree
 
 from ..core import random as _rng
 from ..core import threefry
-from ..core.tensor import as_tensor, to_tensor_arg
+from ..core.tensor import CHECK_NAN_INF, as_tensor, to_tensor_arg
 from . import dy2static as _d2s
 
 __all__ = ["StaticFunction", "to_static", "not_to_static", "TrainStep",
@@ -134,6 +139,12 @@ class _Graph:
         for c, d in zip(_counters(), self.held):
             for k, v in d.items():
                 c[k] = c.get(k, 0) + v
+
+
+# capture_report()'s reason while FLAGS_check_nan_inf is on
+_CHECKING = ("FLAGS_check_nan_inf is on (the tensor checker): every op's "
+             "outputs are checked on the host, which a graph's replay "
+             "cannot do")
 
 
 class _Signature:
@@ -228,7 +239,7 @@ class StaticFunction:
                 "runs on the CPU" if "cuda" not in devices else
                 "takes a CPU tensor: its ops would run at capture, not at "
                 "replay")
-        if sig.calls == 1 or sig.reason is not None:
+        if sig.calls == 1 or sig.reason is not None or CHECK_NAN_INF[0]:
             return self._run(flat, spec, key)
         ptrs = tuple(t.data_ptr() for t in state)
         if sig.graph is not None and sig.graph.ptrs != ptrs:
@@ -288,9 +299,11 @@ class StaticFunction:
         """Per signature: ``captured`` (a graph replays it), ``reason``
         (why it runs eagerly, or None), ``calls``, ``captures`` and
         ``replays``."""
-        return {s.label: {"captured": s.graph is not None,
-                          "reason": s.reason, "calls": s.calls,
-                          "captures": s.captures, "replays": s.replays}
+        checking = CHECK_NAN_INF[0]
+        return {s.label: {"captured": s.graph is not None and not checking,
+                          "reason": _CHECKING if checking else s.reason,
+                          "calls": s.calls, "captures": s.captures,
+                          "replays": s.replays}
                 for s in self._signatures.values()}
 
 

@@ -8,8 +8,9 @@ they take any module: ``parameters()`` returns a list,
 ``register_buffer(persistable=)``, ``set_state_dict`` loads Paddle's
 structured names (``layer1.0.bn1._mean``; ``state_dict`` is torch's,
 whose names are the same; a tensor registered under two names, as a
-tied weight is, loads from either), ``to(dtype=)`` casts every floating
-parameter *and* buffer, as the JAX ``Layer.to`` does, and
+tied weight is, loads from either; after ``amp.decorate(save_dtype=)``
+``state_dict`` casts its floating tensors), ``to(dtype=)`` casts every
+floating parameter *and* buffer, as the JAX ``Layer.to`` does, and
 ``clear_gradients``.
 """
 from __future__ import annotations
@@ -141,6 +142,22 @@ class Layer(torch.nn.Module):
         if dtype is not None:
             kwargs["dtype"] = _dt.convert_dtype(dtype)
         return super().to(**kwargs) if kwargs else self
+
+    def state_dict(self, *args, prefix="", keep_vars=False, **kwargs):
+        """torch's ``state_dict``; after ``amp.decorate(save_dtype=...)``
+        (``_save_dtype``) every floating tensor of this layer comes as a
+        copy in that dtype, as the JAX ``Layer.state_dict`` gives it (not
+        with ``keep_vars=True``, which returns the tensors themselves)."""
+        sd = super().state_dict(*args, prefix=prefix, keep_vars=keep_vars,
+                                **kwargs)
+        save_dtype = getattr(self, "_save_dtype", None)
+        if save_dtype is None or keep_vars:
+            return sd
+        dtype = _dt.convert_dtype(save_dtype)
+        for k, v in sd.items():
+            if k.startswith(prefix) and v.is_floating_point():
+                sd[k] = v.detach().to(dtype)
+        return sd
 
     @torch.no_grad()
     def set_state_dict(self, state_dict, use_structured_name=True

@@ -9,10 +9,9 @@ with a concrete predicate is plain Python; with a traced one (a static
 CUDA-graph capture) ``cond`` and ``switch_case`` run every branch and
 select leaf-wise with ``torch.where`` (dy2static's ``_select``), and
 ``while_loop`` goes through ``torch._higher_order_ops.while_loop`` under
-export and cannot be captured or recorded. The JAX package's sequence
-ops (``static/sequence.py``) are not ported yet;
-``sparse_embedding`` (the parameter-server table), ``deform_conv2d``
-and ``multi_box_head`` (``vision.ops``) raise until their modules are.
+export and cannot be captured or recorded. ``deform_conv2d`` and
+``multi_box_head`` are built on ``vision.ops``; ``sparse_embedding``
+(the parameter-server table) raises until ``distributed`` is ported.
 """
 from __future__ import annotations
 
@@ -305,8 +304,21 @@ def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
 def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1,
                   padding=0, dilation=1, groups=1, deformable_groups=1,
                   im2col_step=1, param_attr=None, bias_attr=None, name=None):
-    raise NotImplementedError("static.nn.deform_conv2d needs vision.ops, "
-                              "which is not ported yet")
+    """Deformable convolution with a new weight ``[num_filters, C /
+    groups, kh, kw]`` (Xavier-normal, the JAX free ``create_parameter``'s
+    rule) and bias (zeros; none with ``bias_attr=False``), through
+    ``vision.ops.deform_conv2d`` (``mask`` None: v1)."""
+    from ..nn.layer.layers import create_parameter
+    from ..vision.ops import deform_conv2d as _dc
+
+    ks = filter_size if isinstance(filter_size, (list, tuple)) \
+        else (filter_size,) * 2
+    w = create_parameter([num_filters, x.shape[1] // groups, *ks])
+    b = None if bias_attr is False else create_parameter(
+        [num_filters], is_bias=True)
+    return _dc(x, offset, w, bias=b, stride=stride, padding=padding,
+               dilation=dilation, deformable_groups=deformable_groups,
+               groups=groups, mask=mask)
 
 
 def data_norm(input, act=None, epsilon=1e-5, param_attr=None,  # noqa: A002
@@ -492,10 +504,60 @@ def static_rnn_run(step_fn, inputs, init_states):
     return torch.stack(outs, dim=1)
 
 
-def multi_box_head(*args, **kwargs):
-    raise NotImplementedError("static.nn.multi_box_head needs "
-                              "vision.ops.prior_box, which is not ported "
-                              "yet")
+def multi_box_head(inputs, image, base_size, num_classes, aspect_ratios,
+                   min_ratio=None, max_ratio=None, min_sizes=None,
+                   max_sizes=None, steps=None, step_w=None, step_h=None,
+                   offset=0.5, variance=(0.1, 0.1, 0.2, 0.2), flip=True,
+                   clip=False, kernel_size=1, pad=0, stride=1, name=None,
+                   min_max_aspect_ratios_order=False):
+    """SSD detection head (reference ``static/nn/multi_box_head``): each
+    feature map's prior boxes (``vision.ops.prior_box``) and its location
+    and class convolutions (new bias-free weights, Xavier-normal),
+    concatenated across the maps. Without ``min_sizes`` the sizes are
+    interpolated between ``min_ratio`` and ``max_ratio`` percent of
+    ``base_size``, as the reference does. Returns (mbox_loc ``[N, P,
+    4]``, mbox_conf ``[N, P, classes]``, boxes ``[P, 4]``, variances).
+    ``steps``, ``step_w`` and ``step_h`` are accepted and unused, as in
+    the JAX package."""
+    from ..nn.layer.layers import create_parameter
+    from ..ops import concat, reshape, transpose
+    from ..vision.ops import prior_box as _prior_box
+
+    n_maps = len(inputs)
+    if min_sizes is None:
+        min_sizes, max_sizes = [], []
+        step = int(np.floor((max_ratio - min_ratio) / (n_maps - 2)))
+        for r in range(min_ratio, max_ratio + 1, step):
+            min_sizes.append(base_size * r / 100.0)
+            max_sizes.append(base_size * (r + step) / 100.0)
+        min_sizes = [base_size * 0.1] + min_sizes
+        max_sizes = [base_size * 0.2] + max_sizes
+
+    locs, confs, boxes_all, vars_all = [], [], [], []
+    for i, feat in enumerate(inputs):
+        mn = min_sizes[i] if isinstance(min_sizes[i], (list, tuple)) \
+            else [min_sizes[i]]
+        mx = (max_sizes[i] if isinstance(max_sizes[i], (list, tuple))
+              else [max_sizes[i]]) if max_sizes else None
+        boxes, variances = _prior_box(
+            feat, image, min_sizes=mn, max_sizes=mx,
+            aspect_ratios=aspect_ratios[i], variance=list(variance),
+            flip=flip, clip=clip, offset=offset)
+        nb = int(np.prod(boxes.shape[:-1]) // (feat.shape[2] * feat.shape[3]))
+        c_in = feat.shape[1]
+        w_loc = create_parameter([nb * 4, c_in, kernel_size, kernel_size])
+        loc = transpose(F.conv2d(feat, w_loc, stride=stride, padding=pad),
+                        [0, 2, 3, 1])
+        locs.append(reshape(loc, [loc.shape[0], -1, 4]))
+        w_conf = create_parameter(
+            [nb * num_classes, c_in, kernel_size, kernel_size])
+        conf = transpose(F.conv2d(feat, w_conf, stride=stride, padding=pad),
+                         [0, 2, 3, 1])
+        confs.append(reshape(conf, [conf.shape[0], -1, num_classes]))
+        boxes_all.append(reshape(boxes, [-1, 4]))
+        vars_all.append(reshape(variances, [-1, 4]))
+    return (concat(locs, axis=1), concat(confs, axis=1),
+            concat(boxes_all, axis=0), concat(vars_all, axis=0))
 
 
 from .sequence import (  # noqa: F401,E402

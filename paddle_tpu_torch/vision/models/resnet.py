@@ -1,8 +1,9 @@
 """The ResNet family (counterpart of
 ``paddle_tpu/vision/models/resnet.py``): the same module tree and
 structured names (``layer1.0.conv1.weight``, ``layer1.0.bn1._mean``,
-``fc.weight [2048, classes]`` ...), NCHW, Paddle's initializers from the
-port's generator. Weights pass from the JAX model with
+``fc.weight [2048, classes]`` ...), NCHW, the wide and ResNeXt
+factories (``width`` and ``groups`` of the bottleneck's 3 x 3),
+Paddle's initializers from the port's generator. Weights pass from the JAX model with
 :func:`~paddle_tpu_torch.nn.layer_state_from_jax`. The convolutions and
 BatchNorm run on cuDNN on the card: no TPU kernel of the JAX package
 computes them.
@@ -12,7 +13,10 @@ from __future__ import annotations
 from ... import nn
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
-           "resnet34", "resnet50", "resnet101", "resnet152"]
+           "resnet34", "resnet50", "resnet101", "resnet152",
+           "wide_resnet50_2", "wide_resnet101_2", "resnext50_32x4d",
+           "resnext101_32x4d", "resnext50_64x4d", "resnext101_64x4d",
+           "resnext152_32x4d", "resnext152_64x4d"]
 
 
 class BasicBlock(nn.Layer):
@@ -159,3 +163,41 @@ def resnet101(pretrained=False, **kwargs):
 
 def resnet152(pretrained=False, **kwargs):
     return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, width=128, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, width=128, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext101_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext50_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, groups=64, width=4,
+                   **kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, groups=64, width=4,
+                   **kwargs)
+
+
+def resnext152_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext152_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, groups=64, width=4,
+                   **kwargs)

@@ -81,7 +81,13 @@ launch bookkeeping and their checks are exercised before a chip run:
   counts, which a changed pin fails), the worker ring with ``fork``
   workers (the loader's choice without CUDA; batches equal
   ``num_workers=0``'s, a loader that falls back to the thread prefetch
-  fails), and the static tail (sequence ops, EMA, static save/load).
+  fails), and the static tail (sequence ops, EMA, static save/load);
+- the vision and offload phases at CPU sizes: MobileNetV3-Large's first
+  step against itself and its dropout launches (a gradient 5% off
+  fails), two zoo factories, every detection op (SSD300's own maps,
+  8732 priors; roi_align 1e-4 off on the card fails), the offload
+  optimizer bit-equal to AdamW (a learning rate a few ulps off fails)
+  and the tensor checker's raises.
 
 Nothing here measures the card: times printed by the phases under this
 rehearsal are host times of the plain versions.
@@ -1391,3 +1397,128 @@ def test_op_surface_phase_fails_an_op_that_leaves_the_device(seq_on_cpu,
                         lambda *a, **k: flip(*a, **k).to("meta"))
     with pytest.raises(AssertionError, match="not the card"):
         cs.phase_op_surface(CPU)
+
+
+# ------------------------------------ the vision zoo, vision.ops, offload
+
+@pytest.fixture
+def vision_on_cpu(training_on_cpu, cpu_card, monkeypatch):
+    """The vision, detection, offload and debugging phases at CPU sizes:
+    MobileNetV3-Large at batch 4 x 64^2 (2 + 2 steps), two zoo factories
+    at 64^2 (batch 2, one timed call), every detection op on small maps
+    (SSD300's own maps and priors kept), GPT at the training rehearsal's
+    size; device times from one host call each."""
+    for name, value in (
+            ("RESNET_BATCH", 4), ("RESNET_SIZE", 64), ("RESNET_WARMUP", 2),
+            ("RESNET_STEPS", 2), ("VISION_DROPOUT", ((4, 1280), 0.2)),
+            ("ZOO", (("squeezenet1_1", {}, 64), ("googlenet", {}, 64))),
+            ("ZOO_BATCH", 2), ("ZOO_WARM", 1), ("ZOO_REPS", 1),
+            ("FPN_SHAPE", (2, 8, 20, 34)), ("FPN_ROIS", 12),
+            ("FPN_IMAGE", (80, 136)), ("FPN_CPU_ROIS", 4),
+            ("RFCN_CLASSES", 3), ("RFCN_ROIS", 10), ("RFCN_MAP", (10, 16)),
+            ("RFCN_IMAGE", (160, 256)),
+            ("DCN_SHAPE", (2, 8, 6, 7)), ("DCN_OUT", 8),
+            ("YOLO_BATCH", 2), ("YOLO_CLASSES", 4), ("YOLO_GT", 6),
+            ("YOLO_HEADS", ((4, (6, 7, 8), 32), (8, (0, 1, 2), 16))),
+            ("RPN_IMAGE", (96, 160)), ("NMS_BOXES", 60), ("NMS_CLASSES", 5)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "time_cuda", lambda fn, reps=20, warmup=3:
+                        _once(fn, reps, warmup))
+    saved = tdevice._CURRENT[0]
+    yield
+    tdevice._CURRENT[0] = saved
+
+
+def test_vision_train_phase(vision_on_cpu):
+    """MobileNetV3-Large: the first step against itself (errors 0), the
+    dropout stand-in held to the plain version, two launches a step."""
+    got = cs.phase_vision_train(CPU)
+    first = got["first_step"]
+    assert first["logits"] == first["loss"] == 0.0
+    # the "card" step is the float32 CPU step itself: its error against
+    # float64 is the CPU's own
+    assert first["grads_card"] == first["grads_cpu32"] > 0.0
+    assert 0.0 < first["grads"] <= 1.0 and 0.0 < first["update"] <= 1.0
+    assert got["dropout_launches"] == 2 * (cs.RESNET_WARMUP + cs.RESNET_STEPS)
+    assert all(np.isfinite(got["losses"])) and got["busy_share"] is None
+
+
+def test_vision_train_phase_fails_a_wrong_gradient(vision_on_cpu,
+                                                   monkeypatch):
+    """The card's backward 5% off: the first step's gradient check
+    fails."""
+    make = cs.vmodels.mobilenet_v3_large
+    built = []
+
+    def once(*args, **kw):
+        model = make(*args, **kw)
+        if not built:
+            for p in model.parameters():
+                p.register_hook(lambda g: g * 1.05)
+        built.append(model)
+        return model
+
+    monkeypatch.setattr(cs.vmodels, "mobilenet_v3_large", once)
+    with pytest.raises(AssertionError, match="'grads': "):
+        cs.phase_vision_train(CPU)
+
+
+def test_vision_zoo_phase(vision_on_cpu):
+    got = cs.phase_vision_zoo(CPU)
+    assert set(got) == {"squeezenet1_1", "googlenet"}
+    assert all(v["logit_err"] == 0.0 and v["images_per_s"] > 0
+               for v in got.values())
+
+
+def test_detection_ops_phase(vision_on_cpu):
+    """Every op on the "card" (the CPU) against the CPU: all equal, a
+    time for each, SSD300's 8732 priors through multi_box_head."""
+    got = cs.phase_detection_ops(CPU)
+    assert max(got["errs"].values()) == 0.0
+    for name in ("roi_align", "roi_pool", "psroi_pool", "deform_conv2d",
+                 "yolo_box", "yolo_loss", "box_coder"):
+        assert got["times"][name]["bound_ms"] > 0, name
+    for name in ("generate_proposals", "prior_box", "nms", "matrix_nms"):
+        assert got["times"][name]["host_ms"] > 0, name
+    assert any(k.startswith("multi_box_head") for k in got["errs"])
+    assert "decode_jpeg" not in got["errs"] and got["jpeg"].startswith("PIL")
+
+
+def test_detection_ops_phase_fails_a_planted_error(vision_on_cpu,
+                                                   monkeypatch):
+    """roi_align 1e-4 off on the first (card) call only: the comparison
+    fails."""
+    real, calls = cs.vops.roi_align, []
+
+    def off(*args, **kw):
+        calls.append(1)
+        out = real(*args, **kw)
+        return out + 1e-4 if len(calls) == 1 else out
+
+    monkeypatch.setattr(cs.vops, "roi_align", off)
+    with pytest.raises(AssertionError, match="roi_align"):
+        cs.phase_detection_ops(CPU)
+
+
+def test_offload_phase(vision_on_cpu):
+    got = cs.phase_offload(CPU)
+    assert got["copies"]["h2d_bytes"] == got["copies"]["d2h_bytes"] > 0
+    assert got["copies"]["device_ms"] is None            # no side stream
+    assert all(np.isfinite(got["losses"]))
+
+
+def test_offload_phase_fails_a_changed_update(vision_on_cpu, monkeypatch):
+    """The offload optimizer's learning rate 2^-20 relative off (a few
+    float32 ulps): the bit-equality with AdamW fails."""
+    lr = cs.HostOffloadAdamW.get_lr
+    monkeypatch.setattr(cs.HostOffloadAdamW, "get_lr",
+                        lambda self: lr(self) * (1 + 2 ** -20))
+    with pytest.raises(AssertionError, match="offload"):
+        cs.phase_offload(CPU)
+
+
+def test_amp_debugging_phase(vision_on_cpu):
+    got = cs.phase_amp_debugging(CPU)
+    assert got["raised"] == ["eager step", "to_static first call",
+                             "to_static second call"]
+    assert got["counts"][0] > 0 and got["counts"][1] > 0

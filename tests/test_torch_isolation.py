@@ -12,7 +12,9 @@
   step profiler's sample share, the brownout depth, the journal's,
   the weight-matmul, fabric and SLO knobs included), and its swap-tier
   defaults the JAX cache module's;
-- the scan covers the observability and robustness modules (metrics,
+- the scan covers the vision zoo, ``vision.ops``, the offload optimizer
+  and ``amp.debugging`` (the fresh interpreter uses each), and the
+  observability and robustness modules (metrics,
   recorder, export, tracing, chrome trace, step profiler, ledger,
   watchdog; faults, journal, brownout), and the int8 matmul, the
   serving fabric, its observability plane, the SLO alerts and the
@@ -84,6 +86,20 @@ def test_the_scan_covers_the_training_slice():
         assert str((port / rel).relative_to(ROOT)) in names, rel
 
 
+def test_the_scan_covers_the_vision_slice():
+    """The vision zoo and detection ops, the offload optimizer, the
+    tensor checker and the static helpers built on ``vision.ops``."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    models = ("alexnet", "vgg", "squeezenet", "mobilenetv1", "mobilenetv2",
+              "mobilenetv3", "shufflenetv2", "densenet", "googlenet",
+              "inceptionv3", "resnet")
+    for rel in (["vision/ops.py", "optimizer/offload.py",
+                 "amp/debugging.py", "static/nn.py"]
+                + [f"vision/models/{m}.py" for m in models]):
+        assert str((port / rel).relative_to(ROOT)) in names, rel
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -100,6 +116,15 @@ def test_importing_the_port_loads_no_jax():
         "    paddle.utils.ShapeDtypeStruct(x.shape, x.dtype),\n"
         "    reference=lambda x: x * 3.0)\n"
         "assert op(x.detach()).tolist() == [[3.0, 6.0]]\n"
+        "b = paddle.to_tensor([[0.0, 0.0, 2.0, 2.0], [0.1, 0.1, 2.0, 2.0]])\n"
+        "keep = paddle.vision.ops.nms(b, 0.5, paddle.to_tensor([0.9, 0.8]))\n"
+        "assert keep.tolist() == [0]\n"
+        "m = paddle.vision.models.mobilenet_v3_small(scale=0.25,\n"
+        "                                            num_classes=4)\n"
+        "o = paddle.optimizer.HostOffloadAdamW(parameters=m.parameters())\n"
+        "paddle.sum(m(paddle.rand([2, 3, 32, 32]))).backward()\n"
+        "o.step()\n"
+        "assert int(paddle.amp.debugging.check_numerics(x)[0]) == 0\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(len([n for n in sys.modules if n.startswith('paddle_tpu_torch')]))\n"
