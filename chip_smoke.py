@@ -176,7 +176,23 @@ before and read just after:
   ``HostOffloadAdamW`` on ``bench.py``'s GPT bit-equal to
   ``AdamW(multi_precision=True)`` through the bf16 flash kernels
   (``phase_offload``); ``amp.debugging`` and ``decorate(save_dtype=)``
-  (``phase_amp_debugging``). Kernel
+  (``phase_amp_debugging``);
+- BERT, ``incubate`` and ``geometric``: BERT-base fine-tuned on the
+  BERT paper's GLUE recipe (32 x 128 under a padding mask, AdamW under a
+  warmup into a linear decay, clipping, AMP O2 bf16, ``TrainStep``), its
+  first float32 AdamW and Lamb steps against the CPU's float32 and
+  float64 steps, every dropout launch counted (the attention
+  probabilities and the hidden states through the kernel), then Lamb,
+  and LookAhead with ModelAverage (``phase_bert_finetune``); BERT-base
+  inference at 64 x 512 in bf16 through the non-causal bf16 flash
+  forward (``phase_bert_infer``); ``incubate.nn``'s fused encoder layers
+  against the unfused ones at BERT-base widths and
+  ``FusedMultiTransformer`` at GPT-3 XL widths in bf16 against float32
+  (``phase_fused_layers``); every ``geometric`` op at ogbn-arxiv's size
+  against the CPU and GraphSAGE's two-hop sampling
+  (``phase_geometric``); Jacobian / Hessian, ASP over BERT-base,
+  ``train_epoch_range``, ``reduce_tensor`` of CUDA tensors and
+  ``viterbi_decode`` (``phase_incubate_misc``). Kernel
   launch counts are Python
   counters and a graph replay runs no Python: a captured signature counts
   its kernels once at capture and adds what the capture counted at every
@@ -253,8 +269,18 @@ from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import int8 as i8
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm, Dropout
-from paddle_tpu_torch.optimizer import AdamW, HostOffloadAdamW, Momentum
-from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
+from paddle_tpu_torch import geometric, incubate
+from paddle_tpu_torch.incubate.nn import (FusedBiasDropoutResidualLayerNorm,
+                                          FusedMultiTransformer,
+                                          FusedTransformerEncoderLayer)
+from paddle_tpu_torch.incubate.optimizer import LookAhead, ModelAverage
+from paddle_tpu_torch.optimizer import (AdamW, HostOffloadAdamW, Lamb,
+                                        Momentum)
+from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay, LinearWarmup,
+                                           PolynomialDecay)
+from paddle_tpu_torch.text.bert import (BertConfig,
+                                        BertForSequenceClassification,
+                                        BertModel)
 from paddle_tpu_torch.text.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.utils import ShapeDtypeStruct, cuda_op, custom_op
 from paddle_tpu_torch.utils.custom_op import LAUNCHES as OP_LAUNCHES
@@ -4396,23 +4422,25 @@ def phase_dropout_kernel(device) -> dict:
 
 def dropout_at_path_shapes(device, cases, seed=70) -> None:
     """The dropout kernel, forward and backward, bit-equal to its plain
-    version at a path's own float32 shapes and rates (``cases``: label,
-    shape, p), before the path runs."""
-    for i, (label, shape, p) in enumerate(cases):
-        x = _dropout_input(shape, torch.float32, seed + i, device)
+    version at a path's own shapes and rates (``cases``: label, shape, p
+    and optionally the dtype, float32 by default), before the path
+    runs."""
+    cases = [(*case, torch.float32)[:4] for case in cases]
+    for i, (label, shape, p, dtype) in enumerate(cases):
+        x = _dropout_input(shape, dtype, seed + i, device)
         key = threefry.prng_key(seed + 100 + i)
         y = dk.dropout_cuda(x, key, p)
         torch.cuda.synchronize()
         _held_to_plain(f"{label} forward", y, x, key, None, p=p)
         xg = x.clone().requires_grad_(True)
-        dy = _dropout_input(shape, torch.float32, seed + 50 + i, device)
+        dy = _dropout_input(shape, dtype, seed + 50 + i, device)
         dk.dropout(xg, key, p).backward(dy)
         torch.cuda.synchronize()
         _held_to_plain(f"{label} backward", xg.grad, dy, key, None, p=p)
-    shapes = ", ".join(f"{label} {list(shape)} p {p}"
-                       for label, shape, p in cases)
-    log(f"[dropout] {shapes} float32: forward and backward bit-equal to "
-        "the plain version")
+    shapes = ", ".join(f"{label} {list(shape)} {str(dtype)[6:]} p {p}"
+                       for label, shape, p, dtype in cases)
+    log(f"[dropout] {shapes}: forward and backward bit-equal to the plain "
+        "version")
 
 
 def dropout_work(shape, dtype, mask=None):
@@ -7765,6 +7793,897 @@ def phase_amp_debugging(device) -> dict:
     return {"counts": got, "raised": raised}
 
 
+
+# ------------------------------------------ BERT, incubate and geometric
+
+# BERT-base fine-tuning on the BERT paper's GLUE recipe (arXiv:1810.04805
+# section 4.1 and A.3): batch 32 of 128 tokens (each row's length drawn
+# from BERT_MIN_LEN..128, a padding keep-mask, two token-type segments),
+# the default dropouts 0.1 / 0.1, AdamW(2e-5, weight decay 0.01 but on
+# biases and LayerNorms) under a linear warmup over the first 10 % of
+# BERT_SCHED_STEPS into a linear decay, global-norm clipping at 1.0, AMP
+# O2 bf16 through amp.decorate and TrainStep; BERT_WARMUP warm-up and
+# BERT_STEPS timed steps. The mask and the attention dropout keep the
+# attention on the plain float32 route, whose probabilities [32, 12,
+# 128, 128] go through the dropout kernel, as the hidden states [32,
+# 128, 768] bf16 do (each dropout a forward and a backward launch).
+BERT_BATCH, BERT_SEQ, BERT_MIN_LEN = 32, 128, 32
+BERT_LR, BERT_WD, BERT_CLIP = 2e-5, 0.01, 1.0
+BERT_WARMUP, BERT_STEPS, BERT_SCHED_STEPS = 3, 10, 100
+# then the same model: BERT_EXTRA_STEPS steps of Lamb (arXiv:1904.00962,
+# its BERT rate 1e-3, weight decay 0.01 but on biases and LayerNorms),
+# and BERT_LOOKAHEAD_K steps of LookAhead(AdamW, k) with ModelAverage
+# (k steps: the slow weights seed at the k-th)
+BERT_LAMB_LR, BERT_EXTRA_STEPS, BERT_LOOKAHEAD_K = 1e-3, 3, 5
+# the first float32 step (TF32 off, eval: no dropout) at batch 2 from the
+# same weights, AdamW and Lamb, against the CPU's float32 step (logits
+# and loss within BERT_LOGIT_TOL) and float64 step (gradients, as
+# VISION_F64_*). The update is held to the port's optimizer run in
+# float64 on the CPU on the card's own gradients: past one float32 step
+# of the new parameter, within BERT_UPDATE_TOL of lr. (Against the
+# float64 step's update it would read the gradients' rounding through
+# Adam's g / (|g| + eps), about -lr sign(g), and through Lamb's trust
+# ratio, whose norm takes every element: the first probe saw Lamb's
+# embedding update 1.3e-3 apart where the CPU float32 step was 1.7e-6.)
+BERT_FIRST_BATCH, BERT_LOGIT_TOL, BERT_UPDATE_TOL = 2, 1e-4, 1e-3
+# BERT-base inference at its longest context: BertModel in eval, bf16,
+# 64 x 512, no mask (the bf16 flash forward, non-causal, at [64, 512, 12,
+# 64]); the pooled output at batch 1 in float32 against the CPU's
+BERT_INFER, BERT_INFER_REPS, BERT_POOLED_TOL = (64, 512), 3, 1e-4
+# incubate.nn at published widths: BERT-base's 12 post-LN layers (768,
+# 12 heads, 3072, exact GELU) fused against nn.TransformerEncoderLayer
+# with the same weights, dropouts 0, float32 at [32, 128] within
+# FUSED_TOL; FusedMultiTransformer at the repo's GPT-3 XL widths
+# (GPT3_XL: 2048, 32 heads, 8192, 24 layers), bf16, batch 8 x 1024
+# against the same weights in float32 through the flash kernels' plain
+# versions: the RMS error within FMT_TOL (the bf16 flash check's
+# tolerance) of the output's RMS. Elementwise at that tolerance it fails
+# (the first probe: the worst element at 3.4x it): the residual stream
+# is rounded to bf16 at each of the 48 adds, as in the JAX package
+FUSED_SHAPE, FUSED_TOL = (32, 128), 1e-5
+FMT_SHAPE, FMT_TOL, FMT_REPS = (8, 1024), 2e-2, 3
+# message passing at ogbn-arxiv's size (arXiv:2005.00687: 169,343 nodes,
+# 1,166,243 edges, 128 features), a random graph from a seed; sums
+# within GEO_RTOL (of the largest |value|) of the CPU, max / min and
+# integers exact; GraphSAGE's fanouts (arXiv:1706.02216) from GEO_SEEDS
+# seed nodes through graph_khop_sampler
+ARXIV = (169343, 1166243, 128)
+GEO_RTOL, GEO_FANOUTS, GEO_SEEDS, GEO_REPS = 1e-5, (25, 10), 1024, 5
+# the rest: ASP's mask_1d over BERT-base's Linear weights then ASP_STEPS
+# decorated AdamW steps at ASP_BATCH; mask_2d_greedy on one 768 x 768
+# weight; Viterbi with CoNLL-2003 NER's 9 BIO tags (+ BOS and EOS), 64 x
+# 128, lengths 16..128
+ASP_STEPS, ASP_BATCH = 3, (8, 128)
+VITERBI = (64, 128, 9 + 2, 16)
+INC_TOL = 1e-5
+# incubate.autograd through attention at a flash shape (B, S, H, D); the
+# float32 flash kernels' gradient tolerance, of the largest entry
+INC_ATTN, INC_ATTN_TOL = (1, 128, 2, 64), 1e-4
+
+
+def bert_batch(batch, seq, seed, device):
+    """Random ids (0 past each row's length, BERT's [PAD]), two token
+    types split at half each row's length, the ``[B, 1, 1, S]`` keep
+    mask and binary labels."""
+    vocab = BertConfig.base().vocab_size
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(min(BERT_MIN_LEN, seq), seq + 1, (batch,),
+                         generator=g)
+    pos = torch.arange(seq)
+    real = pos[None, :] < lens[:, None]
+    ids = torch.where(real, torch.randint(1, vocab, (batch, seq),
+                                          generator=g), 0)
+    types = ((pos[None, :] >= (lens // 2)[:, None]) & real).long()
+    labels = torch.randint(0, 2, (batch,), generator=g)
+    return [t.to(device) for t in (ids, types, real[:, None, None, :],
+                                   labels)]
+
+
+def bert_loss(net, ids, types, mask, labels):
+    return PF.cross_entropy(net(ids, types, mask), labels)
+
+
+def _bert_decays(name: str) -> bool:
+    """Weight decay on all but biases and LayerNorms."""
+    return not (name.endswith("bias") or "norm" in name)
+
+
+def bert_optimizer(kind, model, lr):
+    clip = ClipGradByGlobalNorm(BERT_CLIP)
+    if kind == "AdamW":
+        return AdamW(learning_rate=lr, weight_decay=BERT_WD,
+                     apply_decay_param_fun=_bert_decays, grad_clip=clip,
+                     parameters=list(model.named_parameters()))
+    skip = {id(p) for n, p in model.named_parameters()
+            if not _bert_decays(n)}
+    return Lamb(learning_rate=lr, lamb_weight_decay=BERT_WD,
+                exclude_from_weight_decay_fn=lambda p: id(p) in skip,
+                grad_clip=clip, parameters=model.parameters())
+
+
+def bert_first_step(model, batch, kind, record):
+    """One eager step in eval (no dropout) at a constant rate, recording
+    the logits, every gradient and the update; returns the loss."""
+    model.eval()
+    opt = bert_optimizer(kind, model, BERT_LR if kind == "AdamW"
+                         else BERT_LAMB_LR)
+    ids, types, mask, labels = batch
+    logits = model(ids, types, mask)
+    loss = PF.cross_entropy(logits, labels)
+    loss.backward()
+    before = _record_grads(model, record, logits=logits)
+    opt.step()
+    _record_update(model, record, before)
+    opt.clear_grad()
+    return loss.item()
+
+
+def _replayed_update(kind, start, record):
+    """The update of the port's optimizer ``kind`` run in float64 on the
+    CPU from the weights ``start`` and the gradients ``record["grads"]``
+    (the card's), with the rate and clipping of the card's step."""
+    paddle.set_device("cpu")
+    model = BertForSequenceClassification(BertConfig.base())
+    model.set_state_dict(start)
+    model.to(dtype="float64")
+    for n, p in model.named_parameters():
+        p.grad = record["grads"][n].double()
+    opt = bert_optimizer(kind, model, BERT_LR if kind == "AdamW"
+                         else BERT_LAMB_LR)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt.step()
+    return {n: p.detach() - before[n] for n, p in model.named_parameters()}
+
+
+def _update_err(got, replay, lr):
+    """The worst excess of the card's update over the float64 replay on
+    the same gradients, past one float32 step of the new parameter, over
+    ``lr``; and the tensor it is in."""
+    errs = {n: ((got["update"][n].double() - u).abs()
+                - got["spacing"][n].double()).clamp_min(0).max().item() / lr
+            for n, u in replay.items()}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+def bert_first_steps(device, start) -> dict:
+    """The first float32 step of the card against the CPU's float32 and
+    float64 steps from the weights ``start``, for AdamW and Lamb."""
+    errs = {}
+    batch = bert_batch(BERT_FIRST_BATCH, BERT_SEQ, 5, "cpu")
+    for kind in ("AdamW", "Lamb"):
+        records = []
+        for dev, dtype in ((device, "float32"), ("cpu", "float32"),
+                           ("cpu", "float64")):
+            paddle.set_device(dev)
+            model = BertForSequenceClassification(BertConfig.base())
+            model.set_state_dict(start)
+            model.to(dtype=dtype)
+            records.append({})
+            records[-1]["loss"] = bert_first_step(
+                model, [t.to(dev) for t in batch], kind, records[-1])
+            del model
+        paddle.set_device(device)
+        got, want, want64 = records
+        e = {"logits": (got["logits"] - want["logits"]).abs().max().item(),
+             "loss": abs(got["loss"] - want["loss"]) / abs(want["loss"])}
+        e.update(f64_held(got, want, want64, "grads"))
+        lr = BERT_LR if kind == "AdamW" else BERT_LAMB_LR
+        e["update"], e["update_at"] = _update_err(
+            got, _replayed_update(kind, start, got), lr)
+        paddle.set_device(device)
+        bad = {k: e[k] for k, tol in (("logits", BERT_LOGIT_TOL),
+                                      ("loss", BERT_LOGIT_TOL),
+                                      ("grads", 1.0),
+                                      ("update", BERT_UPDATE_TOL))
+               if not e[k] <= tol}
+        if bad:
+            raise AssertionError(f"BERT-base first {kind} step on the card "
+                                 f"vs the CPU: {bad} ({e})")
+        errs[kind] = e
+        del records, got, want, want64
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _bert_eager_steps(model, opt, batch, n, after=None):
+    losses = []
+    for _ in range(n):
+        loss = bert_loss(model, *batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if after is not None:
+            after()
+        losses.append(loss.item())
+    return losses
+
+
+def phase_bert_finetune(device) -> dict:
+    """This slice's main path (see BERT_*): the first float32 AdamW and
+    Lamb steps against the CPU's, the dropout kernel bit-equal to its
+    plain version at the path's two shapes, then the AMP O2 bf16 recipe
+    through TrainStep with every dropout launch counted (no flash launch:
+    the mask keeps attention on the plain route), ms/step, samples/s,
+    peak memory and the device's busy share; then Lamb, and LookAhead
+    with ModelAverage (``apply()`` / ``restore()`` leave the parameters
+    bit-equal)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.set_device(device)
+    paddle.seed(0)
+    model = BertForSequenceClassification(BertConfig.base())
+    start = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    first = bert_first_steps(device, start)
+    cfg = BertConfig.base()
+    dropout_at_path_shapes(device, (
+        ("BERT attention probabilities", (BERT_BATCH,
+         cfg.num_attention_heads, BERT_SEQ, BERT_SEQ), DROPOUT_P),
+        ("BERT hidden states", (BERT_BATCH, BERT_SEQ, cfg.hidden_size),
+         DROPOUT_P, torch.bfloat16)), seed=310)
+    # the main path, from the same weights
+    model.set_state_dict(start)
+    model.train()
+    sched = LinearWarmup(PolynomialDecay(BERT_LR, BERT_SCHED_STEPS,
+                                         end_lr=0.0),
+                         BERT_SCHED_STEPS // 10, 0.0, BERT_LR)
+    opt = bert_optimizer("AdamW", model, sched)
+    model, opt = decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, bert_loss, opt)
+    batch = bert_batch(BERT_BATCH, BERT_SEQ, 6, device)
+    _seed_threefry(12)
+    per_step = 2 * (2 + 4 * cfg.num_hidden_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dk.LAUNCHES.clear()
+    fa.LAUNCHES.clear()
+    losses = []
+    with plain_dropout_refused():
+        for i in range(BERT_WARMUP + BERT_STEPS):
+            if i == BERT_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(step(*batch))
+            sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dk.LAUNCHES[dk.KERNEL_NAME]
+        steps = BERT_WARMUP + BERT_STEPS
+        if launches != per_step * steps or fa.LAUNCHES:
+            raise AssertionError(
+                f"BERT fine-tuning: dropout launches {launches}, expected "
+                f"{per_step} x {steps} steps; flash launches "
+                f"{dict(fa.LAUNCHES)}, expected none")
+        peak = _peak_gib()
+        ms = 1e3 * wall / BERT_STEPS
+        busy = _profiled_step(lambda: step(*batch).item(),
+                              "BERT-base fine-tuning", 12)
+        losses = [float(v) for v in losses]
+        # Lamb, then LookAhead(AdamW) with ModelAverage, eagerly
+        lamb = bert_optimizer("Lamb", model, BERT_LAMB_LR)
+        lamb._multi_precision = True
+        losses += _bert_eager_steps(model, lamb, batch, BERT_EXTRA_STEPS)
+        del lamb
+        inner = bert_optimizer("AdamW", model, BERT_LR)
+        inner._multi_precision = True
+        look = LookAhead(inner, alpha=0.5, k=BERT_LOOKAHEAD_K)
+        avg = ModelAverage(parameters=model.parameters(),
+                           max_average_window=BERT_LOOKAHEAD_K)
+        losses += _bert_eager_steps(model, look, batch, BERT_LOOKAHEAD_K,
+                               avg.step)
+    if len(look._slow) != len(list(model.parameters())):
+        raise AssertionError("LookAhead did not seed its slow weights at "
+                             f"step {BERT_LOOKAHEAD_K}")
+    before = [p.detach().clone() for p in model.parameters()]
+    avg.apply()
+    moved = sum(not torch.equal(p, b) for p, b in zip(model.parameters(),
+                                                       before))
+    avg.restore()
+    if moved == 0 or not all(torch.equal(p, b) for p, b in
+                             zip(model.parameters(), before)):
+        raise AssertionError(f"ModelAverage: apply moved {moved} tensors; "
+                             "restore must give the parameters back bit "
+                             "for bit")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"BERT fine-tuning losses not all finite: "
+                             f"{losses}")
+    out = {"ms_per_step": ms, "samples_per_s": BERT_BATCH / ms * 1e3,
+           "peak_gib": peak, "dropout_launches": launches,
+           "busy_share": None if busy is None else busy / ms,
+           "first_step": first, "losses": losses}
+    a, l = first["AdamW"], first["Lamb"]
+    log(f"[bert] BERT-base fine-tuning (GLUE recipe: batch {BERT_BATCH} x "
+        f"{BERT_SEQ}, lengths {BERT_MIN_LEN}..{BERT_SEQ} under a padding "
+        f"mask, two segments, dropouts 0.1 / 0.1, AdamW({BERT_LR}, wd "
+        f"{BERT_WD}) under LinearWarmup into PolynomialDecay, clip "
+        f"{BERT_CLIP}, AMP O2 bf16, TrainStep): {BERT_STEPS} timed steps "
+        f"{ms:.2f} ms/step = {out['samples_per_s']:.1f} samples/s; peak "
+        f"{peak:.2f} GiB; device busy "
+        f"{'not measured' if busy is None else f'{busy / ms:.1%}'} of a "
+        f"step (one profiled step); dropout launches {launches} ({per_step}"
+        f" a step), the kernel bit-equal to its plain version at "
+        f"{[BERT_BATCH, cfg.num_attention_heads, BERT_SEQ, BERT_SEQ]} "
+        f"float32 and {[BERT_BATCH, BERT_SEQ, cfg.hidden_size]} bf16; then "
+        f"{BERT_EXTRA_STEPS}"
+        f" Lamb and {BERT_LOOKAHEAD_K} LookAhead(AdamW, k="
+        f"{BERT_LOOKAHEAD_K}) + ModelAverage steps (apply / restore bit-"
+        f"exact); losses {[round(v, 4) for v in losses]}; first float32 "
+        f"step (TF32 off, batch {BERT_FIRST_BATCH}) vs the CPU: AdamW "
+        f"logits {a['logits']:.2e}, worst gradient {a['grads_at']} "
+        f"{a['grads_card']:.2e} (CPU float32 {a['grads_cpu32']:.2e}; "
+        f"{a['grads']:.3f} of its allowance), update vs the float64 "
+        f"replay on the card's gradients {a['update']:.2e} of lr "
+        f"({a['update_at']}); Lamb logits {l['logits']:.2e}, gradients "
+        f"{l['grads']:.3f}, update {l['update']:.2e} of lr "
+        f"({l['update_at']}) [{card_identity()}]")
+    del model, opt, step, batch, look, inner, avg, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bert_infer(device) -> dict:
+    """BERT-base inference at 512 tokens (see BERT_INFER): the bf16 flash
+    forward non-causal at that shape against its plain version; the
+    pooled output at batch 1 in float32 against the CPU's; the bf16
+    model's sequences/s with a flash launch a layer a forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S = BERT_INFER
+    cfg = BertConfig.base()
+    H, D = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
+    q, k, v, _ = flash_inputs((B, H, S, S, D), torch.bfloat16, 330, device)
+    o, lse = fa.flash_fwd_cuda(q, k, v, D ** -0.5, False)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, D ** -0.5, False)
+    tol = FLASH_TOL[torch.bfloat16]
+    flash_err = max((o.float() - ro.float()).abs().max().item(),
+                    (lse - rlse).abs().max().item())
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol["o"],
+                               atol=tol["o"], msg="BERT flash forward o")
+    torch.testing.assert_close(lse, rlse, rtol=tol["lse"], atol=tol["lse"],
+                               msg="BERT flash forward lse")
+    del q, k, v, o, lse, ro, rlse
+    paddle.set_device(device)
+    paddle.seed(1)
+    model = BertModel(cfg).eval()
+    ids = bert_batch(B, S, 7, device)[0].clamp_min(1)   # no padding
+    with torch.no_grad():
+        pooled = model(ids[:1])[1]
+        paddle.set_device("cpu")
+        cpu = BertModel(cfg).eval()
+        cpu.set_state_dict({n: t.cpu() for n, t in
+                            model.state_dict().items()})
+        want = cpu(ids[:1].cpu())[1]
+        paddle.set_device(device)
+        pooled_err = (pooled.cpu() - want).abs().max().item()
+        del cpu
+        if not pooled_err <= BERT_POOLED_TOL:
+            raise AssertionError(f"BERT-base pooled output at batch 1, the "
+                                 f"card vs the CPU: {pooled_err:.3e}")
+        model.to(dtype="bfloat16")
+        fa.LAUNCHES.clear()
+        with plain_attention_refused():
+            seq, pooled = model(ids)
+            torch.cuda.synchronize()
+            ms = _wall_ms(lambda: model(ids), BERT_INFER_REPS)
+    launches = dict(fa.LAUNCHES)
+    want_launches = cfg.num_hidden_layers * (1 + BERT_INFER_REPS)
+    if launches != {"flash_attention_fwd": want_launches}:
+        raise AssertionError(f"BERT inference flash launches {launches}, "
+                             f"expected {want_launches} forwards")
+    if not bool(torch.isfinite(seq).all()):
+        raise AssertionError("BERT inference output not finite")
+    out = {"ms": ms, "sequences_per_s": B / ms * 1e3,
+           "launches": want_launches, "flash_err": flash_err,
+           "pooled_err": pooled_err}
+    log(f"[bert] BERT-base inference, bf16, {B} x {S}, no mask: {ms:.2f} ms "
+        f"a forward = {out['sequences_per_s']:.1f} sequences/s; the bf16 "
+        f"flash forward non-causal at [{B}, {S}, {H}, {D}] vs its plain "
+        f"version {flash_err:.3e} (tol {tol['o']}); pooled output at batch "
+        f"1 float32 vs the CPU {pooled_err:.2e} (tol {BERT_POOLED_TOL}); "
+        f"flash launches {want_launches} [{card_identity()}]")
+    del model, ids, seq, pooled
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fused_from_unfused(fused, layer):
+    """Carry an ``nn.TransformerEncoderLayer``'s weights into a
+    ``FusedTransformerEncoderLayer`` (q, k, v packed on the output
+    axis)."""
+    a, f = layer.self_attn, fused.fused_attn
+    with torch.no_grad():
+        f.qkv_weight.copy_(torch.cat([a.q_proj.weight, a.k_proj.weight,
+                                      a.v_proj.weight], dim=1))
+        f.qkv_bias.copy_(torch.cat([a.q_proj.bias, a.k_proj.bias,
+                                    a.v_proj.bias]))
+        for dst, src in ((f.linear_weight, a.out_proj.weight),
+                         (f.linear_bias, a.out_proj.bias),
+                         (f.ln_scale, layer.norm1.weight),
+                         (f.ln_bias, layer.norm1.bias),
+                         (fused.ffn.linear1_weight, layer.linear1.weight),
+                         (fused.ffn.linear1_bias, layer.linear1.bias),
+                         (fused.ffn.linear2_weight, layer.linear2.weight),
+                         (fused.ffn.linear2_bias, layer.linear2.bias),
+                         (fused.ffn.ln2_scale, layer.norm2.weight),
+                         (fused.ffn.ln2_bias, layer.norm2.bias)):
+            dst.copy_(src)
+
+
+def _fmt_init(model, seed):
+    """GPT-style weights for a FusedMultiTransformer: N(0, 0.02)
+    matrices, zero biases, unit LayerNorm scales, from ``seed``."""
+    g = torch.Generator(device=model.qkv_w.device).manual_seed(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("_w"):
+                p.normal_(0.0, 0.02, generator=g)
+
+
+def phase_fused_layers(device) -> dict:
+    """``incubate.nn`` at published widths (see FUSED_* and FMT_*): 12
+    fused BERT-base encoder layers against the unfused stack, the fused
+    bias-dropout-residual LayerNorm against the CPU in training, and
+    FusedMultiTransformer at GPT-3 XL widths in bf16 against float32
+    through the plain flash versions; ms per forward and tokens/s."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.set_device(device)
+    paddle.seed(2)
+    cfg = BertConfig.base()
+    E, H, F_, L = (cfg.hidden_size, cfg.num_attention_heads,
+                   cfg.intermediate_size, cfg.num_hidden_layers)
+    B, S = FUSED_SHAPE
+    unfused = [paddle.nn.TransformerEncoderLayer(E, H, F_, dropout=0.0,
+                                                 activation="gelu").eval()
+               for _ in range(L)]
+    fused = [FusedTransformerEncoderLayer(E, H, F_, dropout_rate=0.0,
+                                          activation="gelu").eval()
+             for _ in range(L)]
+    for f, u in zip(fused, unfused):
+        _fused_from_unfused(f, u)
+    x = paddle.randn([B, S, E])
+    with torch.no_grad():
+        a = b = x
+        for f, u in zip(fused, unfused):
+            a, b = f(a), u(b)
+        stack_err = (a - b).abs().max().item()
+    if not stack_err <= FUSED_TOL:
+        raise AssertionError(f"fused BERT-base stack vs unfused: "
+                             f"{stack_err:.3e} (tol {FUSED_TOL})")
+    del fused, unfused, a, b
+    # the bias-dropout-residual LayerNorm in training: the card's dropout
+    # kernel and the CPU's plain version draw the same bits
+    ln = FusedBiasDropoutResidualLayerNorm(E, dropout_rate=DROPOUT_P)
+    with torch.no_grad():
+        ln.linear_bias.normal_()
+    r = paddle.randn([B, S, E])
+    _seed_threefry(21)
+    got = ln(x, r)
+    paddle.set_device("cpu")
+    ln_cpu = FusedBiasDropoutResidualLayerNorm(E, dropout_rate=DROPOUT_P)
+    ln_cpu.set_state_dict({n: t.cpu() for n, t in ln.state_dict().items()})
+    _seed_threefry(21)
+    want = ln_cpu(x.cpu(), r.cpu())
+    paddle.set_device(device)
+    ln_err = (got.detach().cpu() - want).abs().max().item()
+    if not ln_err <= FUSED_TOL:
+        raise AssertionError(f"FusedBiasDropoutResidualLayerNorm card vs "
+                             f"CPU: {ln_err:.3e}")
+    del ln, ln_cpu, r, got, want, x
+    # FusedMultiTransformer at GPT-3 XL widths: first its bf16 causal
+    # flash forward at the path's shape against its plain version
+    spec = GPT3_XL
+    D = spec.d_model // spec.num_heads
+    q, k, v, _ = flash_inputs((FMT_SHAPE[0], spec.num_heads, FMT_SHAPE[1],
+                               FMT_SHAPE[1], D), torch.bfloat16, 331, device)
+    o, lse = fa.flash_fwd_cuda(q, k, v, D ** -0.5, True)
+    ro, rlse = fa.flash_fwd_ref(q, k, v, D ** -0.5, True)
+    tol = FLASH_TOL[torch.bfloat16]
+    flash_err = max((o.float() - ro.float()).abs().max().item(),
+                    (lse - rlse).abs().max().item())
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol["o"],
+                               atol=tol["o"],
+                               msg="FusedMultiTransformer flash forward o")
+    torch.testing.assert_close(lse, rlse, rtol=tol["lse"], atol=tol["lse"],
+                               msg="FusedMultiTransformer flash forward lse")
+    del q, k, v, o, lse, ro, rlse
+    fmt = FusedMultiTransformer(spec.d_model, spec.num_heads,
+                                4 * spec.d_model,
+                                num_layers=spec.num_layers)
+    _fmt_init(fmt, 22)
+    xb = paddle.randn([*FMT_SHAPE, spec.d_model])
+    with torch.no_grad():
+        with _plain_flash():
+            want = fmt(xb)                      # float32, plain flash
+        fmt.to(dtype="bfloat16")
+        xh = xb.to(torch.bfloat16)
+        fa.LAUNCHES.clear()
+        with plain_attention_refused():
+            got = fmt(xh)
+            torch.cuda.synchronize()
+            ms = _wall_ms(lambda: fmt(xh), FMT_REPS)
+        launches = dict(fa.LAUNCHES)
+    # the bf16 stack's RMS error over the float32 output's RMS (each of
+    # its 48 residual adds rounds the stream to bf16); the worst element
+    # over rtol = atol = FMT_TOL of that scale, logged
+    scale = want.square().mean().sqrt()
+    fmt_rms = ((got.float() - want).square().mean().sqrt() / scale).item()
+    fmt_err = ((got.float() - want).abs() / (FMT_TOL * (
+        scale + want.abs()))).max().item()
+    want_launches = spec.num_layers * (1 + FMT_REPS)
+    if launches != {"flash_attention_fwd": want_launches}:
+        raise AssertionError(f"FusedMultiTransformer flash launches "
+                             f"{launches}, expected {want_launches}")
+    if not fmt_rms <= FMT_TOL:
+        raise AssertionError(f"FusedMultiTransformer bf16 vs float32: RMS "
+                             f"error {fmt_rms:.3e} of the output's RMS (tol "
+                             f"{FMT_TOL}); the worst element {fmt_err:.3f} "
+                             f"of rtol = atol = {FMT_TOL}")
+    tokens = FMT_SHAPE[0] * FMT_SHAPE[1]
+    out = {"stack_err": stack_err, "ln_err": ln_err, "fmt_err": fmt_err,
+           "fmt_rms": fmt_rms, "flash_err": flash_err, "ms": ms,
+           "tokens_per_s": tokens / ms * 1e3, "launches": want_launches}
+    log(f"[fused] 12 FusedTransformerEncoderLayer(768, 12, 3072, gelu) vs "
+        f"nn.TransformerEncoderLayer, float32 [{B}, {S}]: {stack_err:.2e} "
+        f"(tol {FUSED_TOL}); FusedBiasDropoutResidualLayerNorm [{B}, {S}, "
+        f"{E}] p {DROPOUT_P} training, card vs CPU {ln_err:.2e}; "
+        f"FusedMultiTransformer({spec.d_model}, {spec.num_heads}, "
+        f"{4 * spec.d_model}, {spec.num_layers} layers) bf16 "
+        f"{FMT_SHAPE[0]} x {FMT_SHAPE[1]}: {ms:.2f} ms a forward = "
+        f"{out['tokens_per_s']:.0f} tokens/s, vs float32 through the plain "
+        f"flash: RMS error {fmt_rms:.2e} of the output's RMS, the worst "
+        f"element {fmt_err:.3f} of rtol = atol = {FMT_TOL}; its bf16 "
+        f"flash forward causal at [{FMT_SHAPE[0]}, {FMT_SHAPE[1]}, "
+        f"{spec.num_heads}, {D}] vs its plain version {flash_err:.3e} (tol "
+        f"{tol['o']}); flash launches {want_launches} [{card_identity()}]")
+    del fmt, xb, xh, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _geo_held(label, got, want, exact, errs):
+    got = got.detach().cpu()
+    if exact:
+        err = 0.0 if torch.equal(got, want) else math.inf
+    else:
+        err = ((got.double() - want.double()).abs().max()
+               / want.double().abs().max().clamp_min(1e-30)).item()
+    errs[label] = err
+    if not err <= (0.0 if exact else GEO_RTOL):
+        raise AssertionError(f"geometric {label}: card vs CPU {err:.3e}")
+
+
+def _geo_ops(x, y, src, dst, seg, w):
+    """Every message op's output and gradients of ``sum(out * w)``,
+    each a (label, tensor, exact) triple."""
+    out = []
+    for red in ("sum", "mean", "max", "min"):
+        xg = x.detach().clone().requires_grad_(True)
+        o = geometric.send_u_recv(xg, src, dst, red)
+        (o * w).sum().backward()
+        exact = red in ("max", "min")
+        out += [(f"send_u_recv {red}", o, exact),
+                (f"send_u_recv {red} grad", xg.grad, False)]
+    out.append(("send_ue_recv mul sum", geometric.send_ue_recv(
+        x, y, src, dst, "mul", "sum"), False))
+    out.append(("send_uv add", geometric.send_uv(x, x, src, dst, "add"),
+                False))
+    for red in ("sum", "mean", "max", "min"):
+        out.append((f"segment_{red}", getattr(geometric, f"segment_{red}")(
+            x, seg), red in ("max", "min")))
+    out.append(("send_u_recv int32 sum", geometric.send_u_recv(
+        (x * 100).int(), src, dst, "sum"), True))
+    return out
+
+
+def _csc(src, dst, n):
+    """(row, colptr, eids) of the graph's in-edges in CSC order, ``eids``
+    each entry's index in (src, dst)."""
+    order = torch.argsort(dst, stable=True)
+    colptr = torch.zeros(n + 1, dtype=torch.int64, device=src.device)
+    colptr[1:] = torch.cumsum(torch.bincount(dst, minlength=n), 0)
+    return src[order], colptr, order
+
+
+def phase_geometric(device) -> dict:
+    """Message passing at ogbn-arxiv's size (see ARXIV): every op
+    forward (and send_u_recv backward) on the card against the CPU, each
+    timed; GraphSAGE's two-hop sampling from GEO_SEEDS nodes through
+    graph_khop_sampler, its properties checked, timed on the host."""
+    n, e, f = ARXIV
+    g = torch.Generator(device=device).manual_seed(40)
+    src = torch.randint(0, n, (e,), generator=g, device=device)
+    dst = torch.randint(0, n, (e,), generator=g, device=device)
+    x = torch.randn(n, f, generator=g, device=device)
+    y = torch.randn(e, f, generator=g, device=device)
+    w = torch.randn(n, f, generator=g, device=device)
+    seg = torch.sort(torch.randint(0, n // 8, (n,), generator=g,
+                                   device=device))[0]
+    cpu = {k: v.cpu() for k, v in dict(x=x, y=y, src=src, dst=dst, seg=seg,
+                                       w=w).items()}
+    errs, times = {}, {}
+    card = _geo_ops(x, y, src, dst, seg, w)
+    want = _geo_ops(**cpu)
+    for (label, got, exact), (_, ref, _) in zip(card, want):
+        _geo_held(label, got, ref, exact, errs)
+    del card, want, cpu
+    for red in ("sum", "max"):
+        times[f"send_u_recv {red}"] = time_cuda(
+            lambda: geometric.send_u_recv(x, src, dst, red), GEO_REPS, 1)
+    times["send_ue_recv mul sum"] = time_cuda(
+        lambda: geometric.send_ue_recv(x, y, src, dst, "mul", "sum"),
+        GEO_REPS, 1)
+    times["segment_sum"] = time_cuda(lambda: geometric.segment_sum(x, seg),
+                                     GEO_REPS, 1)
+    # the gather-reduce's least bytes: x's rows read once per edge, the
+    # indices, the output written once
+    nbytes = e * f * 4 + 2 * e * 8 + n * f * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # two-hop sampling
+    row, colptr, eids = _csc(src, dst, n)
+    deg = (colptr[1:] - colptr[:-1]).cpu()
+    seeds = torch.randperm(n, generator=torch.Generator().manual_seed(41))[
+        :GEO_SEEDS].to(device)
+    t0 = time.perf_counter()
+    frontier, hops = seeds, []
+    for k in GEO_FANOUTS:
+        nbr, cnt, got_eids = geometric.sample_neighbors(
+            row, colptr, frontier, sample_size=k, eids=eids,
+            return_eids=True)
+        if not all(t.device == src.device for t in (nbr, cnt, got_eids)):
+            raise AssertionError("sample_neighbors left its result on the "
+                                 "host")
+        hops.append((k, frontier.cpu(), nbr.cpu(), cnt.cpu().long(),
+                     got_eids.cpu()))
+        frontier = nbr
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    src_h, dst_h = src.cpu(), dst.cpu()
+    for k, nodes, nbr, cnt, got_eids in hops:
+        if not torch.equal(cnt, torch.clamp(deg[nodes], max=k)):
+            raise AssertionError("sample_neighbors counts differ from "
+                                 "min(degree, fanout)")
+        slot = torch.repeat_interleave(torch.arange(len(nodes)), cnt)
+        if not (torch.equal(src_h[got_eids], nbr)
+                and torch.equal(dst_h[got_eids], nodes[slot])):
+            raise AssertionError("sample_neighbors drew an edge that does "
+                                 "not exist")
+        key = slot * e + got_eids
+        if torch.unique(key).numel() != key.numel():
+            raise AssertionError("sample_neighbors drew an edge twice for "
+                                 "one node")
+    t0 = time.perf_counter()
+    r_src, r_dst, nodes = incubate.graph_khop_sampler(row, colptr, seeds,
+                                                      list(GEO_FANOUTS))
+    khop_ms = 1e3 * (time.perf_counter() - t0)
+    if not (r_src.device == nodes.device == src.device):
+        raise AssertionError("graph_khop_sampler left its result on the "
+                             "host")
+    pair = nodes[r_src] * n + nodes[r_dst]
+    edge = src * n + dst
+    found = torch.isin(pair, edge)
+    if not bool(found.all()):
+        raise AssertionError(f"graph_khop_sampler: {int((~found).sum())} "
+                             "sampled edges are not in the graph")
+    out = {"errs": errs, "times": times, "bound_ms": bound_ms,
+           "sample_ms": sample_ms, "khop_ms": khop_ms,
+           "sampled_edges": r_src.numel(), "nodes": nodes.numel()}
+    log(f"[geometric] ogbn-arxiv size ({n} nodes, {e} edges, {f} features)"
+        f": every op vs the CPU (sums within {GEO_RTOL} of max |value|, "
+        f"max / min / int32 exact; worst "
+        f"{max(v for v in errs.values()):.2e}); ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" (send_u_recv's byte bound {bound_ms:.3f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); GraphSAGE fanouts "
+        f"{list(GEO_FANOUTS)} from {GEO_SEEDS} seeds: sample_neighbors "
+        f"{sample_ms:.1f} ms on the host (counts min(degree, fanout), "
+        f"edges real and distinct), graph_khop_sampler {khop_ms:.1f} ms, "
+        f"{out['sampled_edges']} edges over {out['nodes']} nodes "
+        f"[{card_identity()}]")
+    del x, y, w, src, dst, seg, row, colptr
+    torch.cuda.empty_cache()
+    return out
+
+
+_REDUCE_CHILD = """
+import hashlib, pickle, sys
+import torch
+t = pickle.loads(sys.stdin.buffer.read())
+raw = t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+print(t.device.type, str(t.dtype), hashlib.sha256(raw).hexdigest())
+"""
+
+
+def _sha256(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def phase_incubate_misc(device) -> dict:
+    """The rest of ``incubate`` on the card: Jacobian and Hessian of a
+    small MLP against the CPU; ASP over BERT-base's Linear weights (the
+    host mask timed) and decorated AdamW steps keeping the pattern;
+    ``train_epoch_range`` saved, killed and restored; ``reduce_tensor``
+    of CUDA tensors through a child interpreter; ``viterbi_decode`` at
+    CoNLL-2003's tags against the CPU."""
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate import autograd as iag
+    from paddle_tpu_torch.incubate.checkpoint import train_epoch_range
+    from paddle_tpu_torch.incubate.multiprocessing import (
+        tensor_shm_unlink_all)
+    from paddle_tpu_torch.text.datasets import viterbi_decode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    g = torch.Generator().manual_seed(50)
+    w1, w2 = torch.randn(6, 16, generator=g), torch.randn(16, 3, generator=g)
+    xs = torch.randn(4, 6, generator=g)
+
+    def mlp(x):
+        return torch.tanh(torch.tanh(x @ w1.to(x.device)) @ w2.to(x.device))
+
+    jac, hes = [], []
+    for dev in (device, "cpu"):
+        jac.append(iag.Jacobian(mlp, xs.to(dev)).as_tensors().cpu())
+        hes.append(iag.Hessian(lambda x: mlp(x).sum(),
+                               xs.to(dev)).as_tensor().cpu())
+    out["jacobian_err"] = (jac[0] - jac[1]).abs().max().item()
+    out["hessian_err"] = (hes[0] - hes[1]).abs().max().item()
+    if not max(out["jacobian_err"], out["hessian_err"]) <= INC_TOL or \
+            list(jac[0].shape) != [4, 3, 4, 6]:
+        raise AssertionError(f"Jacobian / Hessian card vs CPU: {out}")
+    # attention at a flash shape through the transforms (q = k = v = 4
+    # values times a fixed projection): vjp and Jacobian run the float32
+    # flash kernels both ways, Hessian the forward kernel and the flash
+    # op's differentiable backward; each against the CPU
+    Ba, Sa, Ha, Da = INC_ATTN
+    proj = torch.randn(4, Ba * Sa * Ha * Da, generator=g) / 8
+    wa = torch.randn(Ba, Sa, Ha, Da, generator=g)
+    xa = torch.randn(4, generator=g)
+
+    def attn_fn(x):
+        q = (x @ proj.to(x.device)).reshape(Ba, Sa, Ha, Da)
+        return (PF.scaled_dot_product_attention(q, q, q, training=False)
+                * wa.to(x.device)).sum()
+
+    res, launches = [], []
+    for dev in (device, "cpu"):
+        fa.LAUNCHES.clear()
+        xd = xa.to(dev)
+        res.append([iag.vjp(attn_fn, xd)[1][0].cpu(),
+                    iag.Jacobian(attn_fn, xd).as_tensors().cpu(),
+                    iag.Hessian(attn_fn, xd).as_tensor().cpu()])
+        launches.append(dict(fa.LAUNCHES))
+    out["attn_launches"] = launches[0]
+    out["attn_errs"] = [((a - b).abs().max() / b.abs().max()).item()
+                        for a, b in zip(*res)]
+    want_launches = {"flash_attention_fwd": 3,
+                     "flash_attention_bwd_dkdv": 2, "flash_attention_bwd_dq": 2}
+    if out["attn_launches"] != want_launches or not \
+            max(out["attn_errs"]) <= INC_ATTN_TOL:
+        raise AssertionError(
+            f"vjp / Jacobian / Hessian through attention, card vs CPU: "
+            f"{out['attn_errs']} (tol {INC_ATTN_TOL}), flash launches "
+            f"{out['attn_launches']}, want {want_launches}")
+    # ASP over BERT-base's Linear weights
+    paddle.set_device(device)
+    paddle.seed(3)
+    model = BertForSequenceClassification(BertConfig.base())
+    t0 = time.perf_counter()
+    masks = asp.prune_model(model, mask_algo="mask_1d")
+    out["mask_1d_s"] = time.perf_counter() - t0
+    weights = asp.ASPHelper.prunable_params(model)
+    opt = asp.decorate(AdamW(1e-4, parameters=model.parameters()))
+    batch = bert_batch(*ASP_BATCH, 8, device)
+    _bert_eager_steps(model, opt, batch, ASP_STEPS)
+    for w_ in weights:
+        mask = w_._asp_mask
+        if not (mask.device == w_.device and bool((w_[mask == 0] == 0).all())
+                and asp.check_mask_1d(w_.detach().t())):
+            raise AssertionError("ASP: a pruned weight moved off its 2:4 "
+                                 "pattern after decorated steps")
+    w768 = weights[0]
+    t0 = time.perf_counter()
+    mask2 = asp.get_mask_2d_greedy(w768.detach().t())
+    out["mask_2d_greedy_s"] = time.perf_counter() - t0
+    if not (mask2.device == w768.device
+            and asp.check_mask_2d(w768.detach().t() * mask2)):
+        raise AssertionError("mask_2d_greedy's mask fails its check")
+    out["asp_weights"] = len(masks)
+    out["asp_elements"] = sum(m.size for m in masks.values())
+    del model, opt, weights, w768
+    # train_epoch_range: save after each epoch, kill in the third, restore
+    saved_env = os.environ.get("PADDLE_CHECKPOINT_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["PADDLE_CHECKPOINT_DIR"] = tmp
+        try:
+            net = paddle.nn.Linear(64, 64)
+            net_opt = AdamW(1e-3, parameters=net.parameters())
+            xb = paddle.randn([8, 64])
+            for epoch in train_epoch_range(4, model=net, optimizer=net_opt,
+                                           name="smoke"):
+                net(xb).square().mean().backward()
+                net_opt.step()
+                net_opt.clear_grad()
+                if epoch == 1:
+                    kept = {k: v.detach().clone()
+                            for k, v in net.state_dict().items()}
+                if epoch == 2:
+                    break
+            fresh = paddle.nn.Linear(64, 64)
+            fresh_opt = AdamW(1e-3, parameters=fresh.parameters())
+            resumed = train_epoch_range(4, name="smoke").attach(fresh,
+                                                                fresh_opt)
+            epochs = []
+            for epoch in resumed:
+                if not epochs and not all(
+                        torch.equal(v, kept[k]) and v.device == xb.device
+                        for k, v in fresh.state_dict().items()):
+                    raise AssertionError("train_epoch_range restored other "
+                                         "weights than epoch 1 saved")
+                epochs.append(epoch)
+            if epochs != [2, 3] or fresh_opt._global_step != 2:
+                raise AssertionError(f"train_epoch_range resumed at "
+                                     f"{epochs}")
+        finally:
+            if saved_env is None:
+                os.environ.pop("PADDLE_CHECKPOINT_DIR", None)
+            else:
+                os.environ["PADDLE_CHECKPOINT_DIR"] = saved_env
+    # reduce_tensor of CUDA tensors into a child interpreter
+    from multiprocessing.reduction import ForkingPickler
+
+    shared = []
+    try:
+        for dtype in ("float32", "bfloat16"):
+            t = paddle.randn([1024, 256]).astype(dtype)
+            got = subprocess.run(
+                [sys.executable, "-c", _REDUCE_CHILD],
+                input=bytes(ForkingPickler.dumps(t)), capture_output=True,
+                timeout=300, check=True).stdout.decode().split()
+            want = [t.device.type, str(t.dtype), _sha256(t)]
+            if got != want:
+                raise AssertionError(f"reduce_tensor {dtype}: the child saw "
+                                     f"{got}, want {want}")
+            shared.append(dtype)
+    finally:
+        tensor_shm_unlink_all()
+    # Viterbi at CoNLL-2003's tags
+    B, T, N, lo = VITERBI
+    gv = torch.Generator().manual_seed(51)
+    pot = torch.randn(B, T, N, generator=gv)
+    trans = torch.randn(N, N, generator=gv)
+    lens = torch.randint(lo, T + 1, (B,), generator=gv)
+    s_card, p_card = viterbi_decode(pot.to(device), trans.to(device),
+                                    lens.to(device))
+    s_cpu, p_cpu = viterbi_decode(pot, trans, lens)
+    out["viterbi_score_err"] = (s_card.cpu() - s_cpu).abs().max().item()
+    if not (torch.equal(p_card.cpu(), p_cpu)
+            and p_card.device.type == torch.device(device).type
+            and out["viterbi_score_err"] <= INC_TOL):
+        raise AssertionError(f"viterbi_decode card vs CPU: paths equal "
+                             f"{torch.equal(p_card.cpu(), p_cpu)}, scores "
+                             f"{out['viterbi_score_err']:.2e}")
+    out["viterbi_ms"] = _wall_ms(lambda: viterbi_decode(
+        pot.to(device), trans.to(device), lens.to(device)), 3)
+    log(f"[incubate] Jacobian [4, 3, 4, 6] and Hessian of an MLP, card vs "
+        f"CPU {out['jacobian_err']:.1e} / {out['hessian_err']:.1e}; vjp, "
+        f"Jacobian and Hessian through float32 attention at {list(INC_ATTN)},"
+        f" card vs CPU " + " / ".join(f"{e:.1e}" for e in out["attn_errs"])
+        + f" of the largest (tol {INC_ATTN_TOL}), flash launches "
+        f"{out['attn_launches']}; ASP "
+        f"mask_1d over BERT-base's {out['asp_weights']} Linear weights "
+        f"({out['asp_elements']} elements) {out['mask_1d_s']:.2f} s on the "
+        f"host, {ASP_STEPS} decorated AdamW steps keep 2:4; mask_2d_greedy "
+        f"on one 768 x 768 weight {out['mask_2d_greedy_s']:.2f} s; "
+        f"train_epoch_range killed in epoch 2 and resumed at 2 with epoch "
+        f"1's weights; reduce_tensor of CUDA {shared} tensors through a "
+        f"child interpreter; viterbi_decode {B} x {T}, {N} tags (CoNLL-2003"
+        f"'s 9 + BOS / EOS), lengths {lo}..{T}: paths equal to the CPU's, "
+        f"scores {out['viterbi_score_err']:.1e}, {out['viterbi_ms']:.2f} ms "
+        f"[{card_identity()}]")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -7972,6 +8891,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_amp_debugging(device)
 
+    # BERT, incubate and geometric, this slice's main paths: BERT-base
+    # fine-tuned on the GLUE recipe (the dropout kernel on the attention
+    # probabilities and hidden states) and run at 512 tokens (the bf16
+    # flash forward, non-causal), the fused layers at BERT-base and GPT-3
+    # XL widths, message passing at ogbn-arxiv's size, and the rest
+    bert = phase_bert_finetune(device)
+    torch.cuda.empty_cache()
+    bert_infer = phase_bert_infer(device)
+    fused = phase_fused_layers(device)
+    phase_geometric(device)
+    misc = phase_incubate_misc(device)
+
     if old_ragged is not None:
         old_ragged = (old_ragged, {
             entry: _build.load_source(f"{lib}_old", old_text[f"{lib}_old"])
@@ -7988,14 +8919,28 @@ def main() -> int:
             "flash_fwd_f32_old", old_text["flash_fwd_f32_old"]))
     rows += flash_rows(device, launches, flash_errors, launches_f32, old_fwd,
                        decode["launches"])
+    # this slice's bf16 flash forwards: BERT inference (non-causal) and
+    # FusedMultiTransformer (causal)
+    fwd = next(r for r in rows if r["name"] == "flash_attention_fwd")
+    fwd["launches"] += bert_infer["launches"] + fused["launches"]
+    fwd["launches_bert_infer"] = bert_infer["launches"]
+    fwd["launches_fused_multi_transformer"] = fused["launches"]
+    # and incubate.autograd's transforms through float32 attention
+    for row in rows:
+        extra = misc["attn_launches"].get(row["name"], 0)
+        if extra:
+            row["launches"] += extra
+            row["launches_incubate_autograd"] = extra
     rows += flash_rows_f16(device, fp16["launches"], flash_errors)
     seq_dropout = nmt["launches"]["dropout"] + lstm["dropout_launches"]
     rows.append(dropout_row(dropout_times(device),
                             dropout_main["launches"][dk.KERNEL_NAME]
-                            + seq_dropout + vision["dropout_launches"],
+                            + seq_dropout + vision["dropout_launches"]
+                            + bert["dropout_launches"],
                             dropout_errors["max_abs_err"]))
     rows[-1]["launches_sequence"] = seq_dropout
     rows[-1]["launches_vision"] = vision["dropout_launches"]
+    rows[-1]["launches_bert"] = bert["dropout_launches"]
     rows.append(triple_row(core))
     log(f"[ops] int8 launches in the op sweep {ops['int8_launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")

@@ -15,8 +15,11 @@ graphs, ``jit.save`` / ``load`` through ``torch.export``, the
 and the static tail), trains through the high-level API (``io.DataLoader``
 with its worker ring, ``vision.datasets`` / ``transforms``, the loss
 layers, ``metric``, ``Model(...).fit`` / ``evaluate`` / ``predict`` with
-``callbacks``, ``summary``, ``flops``, ``save`` / ``load``), serves the
-decoder-only LM
+``callbacks``, ``summary``, ``flops``, ``save`` / ``load``), has BERT
+(``text.bert``), the text datasets, ``incubate`` (the fused layers,
+``LookAhead`` / ``ModelAverage``, ASP, functional autodiff, auto
+checkpoints, shared-memory tensor passing), ``geometric`` and
+``regularizer``, serves the decoder-only LM
 through the JAX engine's entry points (``inference.llm``) and trains the
 GPT family (``text.gpt``) on an NVIDIA GPU, with the TPU's Pallas
 kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
@@ -24,8 +27,9 @@ kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
 to the card unless ``set_device("cpu")`` (or a ``place``) asks for the
 host.
 """
-from . import (amp, autograd, callbacks, framework, hapi, io, jit, linalg,
-               metric, nn, optimizer, static, utils, vision)
+from . import (amp, autograd, callbacks, framework, geometric, hapi,
+               incubate, io, jit, linalg, metric, nn, optimizer, regularizer,
+               static, text, utils, vision)
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                             set_grad_enabled)
 from .core.device import device_count, get_device, set_device
@@ -57,4 +61,5 @@ __all__ = ["resolve_device", "Tensor", "Parameter", "ParamAttr", "bool",
            "static", "utils", "vision", "enable_static", "disable_static",
            "callbacks", "framework", "hapi", "io", "metric", "Model",
            "summary", "flops", "save", "load", "get_flags", "set_flags",
-           "in_dynamic_mode", "in_static_mode", *_ops]
+           "in_dynamic_mode", "in_static_mode", "geometric", "incubate",
+           "regularizer", "text", *_ops]

@@ -112,3 +112,9 @@ def is_bfloat16_np(arr) -> bool:
     """A numpy bfloat16 array: :data:`BFLOAT16_NP` or ``ml_dtypes``'."""
     return isinstance(arr, np.ndarray) and (
         arr.dtype == BFLOAT16_NP or arr.dtype.name == "bfloat16")
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is when it is float64 (the float32
+    arithmetic of the 16-bit paths, without rounding a float64 input)."""
+    return t if t.dtype == torch.float64 else t.float()

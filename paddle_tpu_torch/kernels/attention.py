@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..core import random as _rng
+from ..core.dtypes import at_least_f32
 from .dropout import dropout as _dropout
 from .flash_attention import NEG_INF, _causal_mask, flash_attention_bshd
 
@@ -41,7 +42,8 @@ __all__ = ["sdpa_reference", "causal_sdpa_chunked", "sdpa_array"]
 def sdpa_reference(q, k, v, mask=None, is_causal: bool = False,
                    dropout_p: float = 0.0, key=None,
                    sm_scale: Optional[float] = None):
-    """Plain softmax attention with float32 scores. A query row whose
+    """Plain softmax attention with float32 scores (float64 for float64
+    inputs). A query row whose
     scores are all masked (causal with ``Sq > Sk``) outputs zeros. A
     boolean ``mask`` keeps True entries; a float mask is added. With
     ``dropout_p > 0`` and a ``key`` the probabilities are dropped
@@ -51,7 +53,8 @@ def sdpa_reference(q, k, v, mask=None, is_causal: bool = False,
     Sk = k.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    logits = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(at_least_f32(qt),
+                          at_least_f32(kt).transpose(-1, -2)) * scale
     if is_causal:
         logits = logits.masked_fill(~_causal_mask(Sq, Sk, q.device), NEG_INF)
     if mask is not None:
@@ -64,7 +67,7 @@ def sdpa_reference(q, k, v, mask=None, is_causal: bool = False,
     probs = probs.masked_fill(fully_masked, 0.0)
     if dropout_p > 0.0 and key is not None:
         probs = _dropout(probs, key, dropout_p)
-    out = torch.matmul(probs.to(vt.dtype).float(), vt.float())
+    out = torch.matmul(at_least_f32(probs.to(vt.dtype)), at_least_f32(vt))
     return out.transpose(1, 2).to(q.dtype)
 
 

@@ -165,7 +165,9 @@ def _apply(x, key, p, mask_shape, upscale):
 class _Dropout(torch.autograd.Function):
     """Forward and backward are the same function under the same key (the
     JAX vjp of ``where(keep, x / c, 0)`` is ``where(keep, dy, 0) / c``);
-    only the key is kept."""
+    only the key is kept. The backward applies this Function again, so
+    it is differentiable to any order (``incubate.autograd``'s
+    ``jvp`` / ``Hessian`` differentiate a backward)."""
 
     @staticmethod
     def forward(ctx, x, key, p, mask_shape, upscale):
@@ -174,7 +176,7 @@ class _Dropout(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return _apply(dy, *ctx.args), None, None, None, None
+        return _Dropout.apply(dy, *ctx.args), None, None, None, None
 
 
 @recordable("dropout", lambda x, *args, **kwargs: torch.empty_like(x))

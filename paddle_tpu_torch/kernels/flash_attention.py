@@ -373,8 +373,13 @@ def _fwd_setup(ctx, inputs, output):
 
 
 def _fwd_backward(ctx, do, _dlse):
-    """``delta = rowsum(dO * O)``, then the dK/dV and dQ ops."""
+    """``delta = rowsum(dO * O)``, then the dK/dV and dQ ops. A caller
+    that differentiates the backward (``create_graph=True``, so grad
+    mode is on here) gets it as a graph of PyTorch ops instead: the
+    kernels' backward ops have no derivative of their own."""
     q, k, v, o, lse = ctx.saved_tensors
+    if torch.is_grad_enabled():
+        return _differentiable_backward(ctx, q, k, v, do)
     if do.stride(-1) != 1:        # e.g. the expanded grad of a sum()
         do = do.contiguous()
     delta = bwd_delta(o, do)
@@ -382,6 +387,18 @@ def _fwd_backward(ctx, do, _dlse):
     dk, dv = flash_bwd_dkdv_op(*args)
     dq = flash_bwd_dq_op(*args)
     return dq, dk, dv, None, None, None
+
+
+def _differentiable_backward(ctx, q, k, v, do):
+    """``(dq, dk, dv)`` of the plain forward recomputed from the saved
+    inputs, with its graph kept, so it is differentiable to any order
+    in q, k, v and dO (``incubate.autograd``'s ``jvp`` and ``Hessian``).
+    The forward and every first-order backward stay on the kernels."""
+    ins = [t if t.requires_grad else t.detach().requires_grad_()
+           for t in (q, k, v)]
+    o, _ = flash_fwd_ref(*ins, ctx.sm_scale, ctx.causal)
+    return (*torch.autograd.grad(o, ins, do, create_graph=True),
+            None, None, None)
 
 
 torch.library.register_autograd("paddle_tpu_torch::flash_fwd", _fwd_backward,

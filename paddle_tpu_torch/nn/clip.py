@@ -2,7 +2,8 @@
 
 The clips take and return ``(param, grad)`` lists, as the optimizers
 apply them before their update. Norms are float32 sums of squares of
-the gradients cast to float32; a clip factor ``min(clip_norm /
+the gradients cast to float32 (float64 where a gradient is float64); a
+clip factor ``min(clip_norm /
 max(norm, 1e-12), 1)`` multiplies each gradient in its own dtype. The
 global norm stays one device value: no host read per parameter or per
 step.
@@ -19,9 +20,11 @@ __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
 
 
 def _sq_norms(grads: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Each gradient's float32 sum of squares, one multi-tensor pass."""
-    return [n * n for n in torch._foreach_norm(grads, 2,
-                                               dtype=torch.float32)]
+    """Each gradient's float32 sum of squares (float64 where a gradient
+    is float64), one multi-tensor pass."""
+    wide = torch.float64 if any(g.dtype == torch.float64 for g in grads) \
+        else torch.float32
+    return [n * n for n in torch._foreach_norm(grads, 2, dtype=wide)]
 
 
 def _factor(norm: torch.Tensor, clip_norm: float) -> torch.Tensor:

@@ -1031,15 +1031,17 @@ def _batch_norm_one_value(x, running_mean, running_var, weight, bias,
 def layer_norm(x, normalized_shape, weight=None, bias=None,
                epsilon: float = 1e-5, name=None):
     """LayerNorm over the last ``len(normalized_shape)`` axes in float32
-    (mean, population variance, ``rsqrt(var + eps)``, then ``* weight +
-    bias`` where given, each reshaped to ``normalized_shape``), cast back
-    to x's dtype: the JAX package's ``layer_norm``."""
+    (float64 for a float64 x; mean, population variance, ``rsqrt(var +
+    eps)``, then ``* weight + bias`` where given, each reshaped to
+    ``normalized_shape``), cast back to x's dtype: the JAX package's
+    ``layer_norm``."""
     x, weight, bias = amp_cast("layer_norm", x, weight, bias)
     shape = ((int(normalized_shape),) if isinstance(normalized_shape, int)
              else tuple(int(n) for n in normalized_shape))
-    w, b = (None if t is None else t.float().reshape(shape)
+    xf = _dt.at_least_f32(x)
+    w, b = (None if t is None else t.to(xf.dtype).reshape(shape)
             for t in (weight, bias))
-    return F.layer_norm(x.float(), shape, w, b, epsilon).to(x.dtype)
+    return F.layer_norm(xf, shape, w, b, epsilon).to(x.dtype)
 
 
 def _normalized(xf, axes, eps):

@@ -1,5 +1,6 @@
-"""Optimizers: ``Momentum``, ``Adam`` and ``AdamW`` with the JAX package's
-update rules.
+"""Optimizers: ``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``Adagrad``,
+``Adadelta``, ``Adamax``, ``RMSProp``, ``Lamb`` and ``Lars`` with the
+JAX package's update rules.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``. The rule is the
 JAX ``Adam._rule``, not ``torch.optim.AdamW``'s (which orders its
@@ -30,6 +31,15 @@ and column means of ``g^2`` in place of its second moment and divides by
 their rank-1 reconstruction (floored at 1e-30), updated one parameter
 at a time; ``update_rms_clip`` scales each parameter's update by ``1 /
 max(1, RMS(u) / d)``.
+
+The constructors take the JAX package's arguments in its order. As
+there, ``parameters`` may be a list of parameter groups (dicts whose
+``"params"`` are flattened; their other keys are ignored),
+``weight_decay`` a number or a regularizer object (``L2Decay(c)`` /
+``L1Decay(c)``: its coefficient, decaying as L2 in every rule), and
+``name``, Adam's ``lazy_mode`` / ``use_multi_tensor`` and AdamW's
+``lr_ratio`` are accepted and change nothing. ``Lamb`` and ``Lars``
+take per-parameter float32 norms (one reduction a parameter).
 """
 from __future__ import annotations
 
@@ -40,7 +50,8 @@ import torch
 from ..core.tensor import from_numpy
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "Adadelta", "Adamax", "RMSProp", "Lamb", "Lars"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -52,11 +63,39 @@ def _true_div(num: float, den: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.full_like(den, num), den)
 
 
+def _l2(params, grads, wd):
+    """``g + wd p`` (the product rounded before the sum, as in JAX), or
+    the gradients as they are when ``wd`` is 0."""
+    if not wd:
+        return grads
+    return torch._foreach_add(grads, torch._foreach_mul(params, wd))
+
+
+def _float_norms(xs) -> torch.Tensor:
+    """Each tensor's L2 norm over its float32 values, stacked."""
+    return torch.stack(torch._foreach_norm(
+        [x if x.dtype == torch.float32 else x.float() for x in xs]))
+
+
+def _wd_value(weight_decay) -> float:
+    """The JAX ``Optimizer._wd_value``: None is 0, a regularizer object
+    gives its ``_coeff``, anything else goes through ``float``."""
+    if weight_decay is None:
+        return 0.0
+    if hasattr(weight_decay, "_coeff"):
+        return float(weight_decay._coeff)
+    return float(weight_decay)
+
+
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=False):
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
         # None: a static program's minimize() fills the list
         params = list(parameters) if parameters is not None else []
+        if params and isinstance(params[0], dict):
+            # parameter groups: their "params" in order, other keys ignored
+            params = [x for group in params for x in group["params"]]
         # Paddle parameters carry a name; here (name, parameter) pairs,
         # as Module.named_parameters() gives them, name them
         self._names = {id(p): n for n, p in
@@ -66,7 +105,7 @@ class Optimizer:
         self._learning_rate = (learning_rate if isinstance(
             learning_rate, LRScheduler) else float(learning_rate))
         self._grad_clip = grad_clip
-        self._weight_decay = float(weight_decay or 0.0)
+        self._weight_decay = _wd_value(weight_decay)
         self._multi_precision = bool(multi_precision)
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
         # steps taken per parameter (a parameter without a grad skips a
@@ -217,14 +256,13 @@ class SGD(Optimizer):
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision=multi_precision)
 
     def _init_state(self, p):
         return {}
 
     def _update(self, params, grads, states, lr, wd):
-        if wd:
-            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        grads = _l2(params, grads, wd)
         torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
 
 
@@ -238,7 +276,7 @@ class Momentum(Optimizer):
                  use_nesterov=False, weight_decay=None, grad_clip=None,
                  multi_precision=False, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision=multi_precision)
         self._momentum = momentum
         self._nesterov = use_nesterov
 
@@ -247,8 +285,7 @@ class Momentum(Optimizer):
 
     def _update(self, params, grads, states, lr, wd):
         mu = self._momentum
-        if wd:
-            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        grads = _l2(params, grads, wd)
         v = [st["velocity"] for st in states]
         torch._foreach_mul_(v, mu)
         torch._foreach_add_(v, grads)
@@ -262,10 +299,11 @@ class Momentum(Optimizer):
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False, moment_dtype=None,
-                 factored_moment2=False, update_rms_clip=None):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, moment_dtype=None,
+                 factored_moment2=False, update_rms_clip=None, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         multi_precision)
+                         multi_precision=multi_precision)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -283,8 +321,8 @@ class Adam(Optimizer):
 
     def _init_state(self, p):
         md = self._moment_dtype or p.dtype
-        one = torch.ones((), dtype=torch.float32, device=p.device)
-        st = {"beta1_pow": one, "beta2_pow": one}
+        st = {k: torch.ones((), dtype=torch.float32, device=p.device)
+              for k in ("beta1_pow", "beta2_pow")}
         if self._beta1 != 0.0:
             st["moment1"] = torch.zeros(p.shape, dtype=md, device=p.device)
         if self._factored(p):
@@ -367,12 +405,15 @@ class Adam(Optimizer):
 class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False, moment_dtype=None,
-                 factored_moment2=False, update_rms_clip=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, moment_dtype=None,
+                 factored_moment2=False, update_rms_clip=None, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip, multi_precision,
-                         moment_dtype, factored_moment2, update_rms_clip)
+                         weight_decay, grad_clip,
+                         multi_precision=multi_precision,
+                         moment_dtype=moment_dtype,
+                         factored_moment2=factored_moment2,
+                         update_rms_clip=update_rms_clip)
         self._decoupled_wd = True
         self._apply_decay_param_fun = apply_decay_param_fun
 
@@ -383,3 +424,233 @@ class AdamW(Adam):
         if fun is not None and not fun(self._names.get(id(p), "")):
             return 0.0
         return self._weight_decay
+
+
+def _decay(xs, factor: float, add) -> None:
+    """``x = factor x + add`` in place over the lists (``add`` already
+    holds its own factor)."""
+    torch._foreach_mul_(xs, factor)
+    torch._foreach_add_(xs, add)
+
+
+def _sqrt_plus(xs, eps: float, inside: bool):
+    """``sqrt(x + eps)`` (``inside``) or ``sqrt(x) + eps``, new lists."""
+    if inside:
+        out = torch._foreach_add(xs, eps)
+        torch._foreach_sqrt_(out)
+        return out
+    out = torch._foreach_sqrt(xs)
+    torch._foreach_add_(out, eps)
+    return out
+
+
+class Adagrad(Optimizer):
+    """The JAX ``Adagrad._rule``: ``m += g^2``, ``p - lr g / (sqrt(m) +
+    eps)``, decay folded into the gradient."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._init_val = initial_accumulator_value
+
+    def _init_state(self, p):
+        return {"moment": torch.full_like(p, self._init_val)}
+
+    def _update(self, params, grads, states, lr, wd):
+        grads = _l2(params, grads, wd)
+        m = [st["moment"] for st in states]
+        torch._foreach_add_(m, torch._foreach_mul(grads, grads))
+        step = torch._foreach_mul(grads, lr)
+        torch._foreach_div_(step, _sqrt_plus(m, self._epsilon, False))
+        torch._foreach_sub_(params, step)
+
+
+class Adadelta(Optimizer):
+    """The JAX ``Adadelta._rule``: running means of ``g^2`` and of the
+    squared update, ``u = g sqrt(E[u^2] + eps) / sqrt(E[g^2] + eps)``
+    (the old ``E[u^2]``), ``p - lr u``."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _init_state(self, p):
+        return {"avg_sq_grad": torch.zeros_like(p),
+                "avg_sq_update": torch.zeros_like(p)}
+
+    def _update(self, params, grads, states, lr, wd):
+        rho, eps = self._rho, self._epsilon
+        grads = _l2(params, grads, wd)
+        asg = [st["avg_sq_grad"] for st in states]
+        asu = [st["avg_sq_update"] for st in states]
+        _decay(asg, rho, torch._foreach_mul(
+            torch._foreach_mul(grads, 1 - rho), grads))
+        update = torch._foreach_mul(grads, _sqrt_plus(asu, eps, True))
+        torch._foreach_div_(update, _sqrt_plus(asg, eps, True))
+        _decay(asu, rho, torch._foreach_mul(
+            torch._foreach_mul(update, 1 - rho), update))
+        torch._foreach_sub_(params, torch._foreach_mul(update, lr))
+
+
+class Adamax(Optimizer):
+    """The JAX ``Adamax._rule``: ``m = b1 m + (1 - b1) g``, ``u =
+    max(b2 u, |g|)``, ``p - (lr / (1 - b1^t)) m / (u + eps)``, the
+    bias-corrected rate a true division cast to the parameter's
+    dtype."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_state(self, p):
+        return {"moment": torch.zeros_like(p),
+                "inf_norm": torch.zeros_like(p),
+                "beta1_pow": torch.ones((), dtype=torch.float32,
+                                        device=p.device)}
+
+    def _update(self, params, grads, states, lr, wd):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        grads = _l2(params, grads, wd)
+        m = [st["moment"] for st in states]
+        u = [st["inf_norm"] for st in states]
+        _decay(m, b1, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(u, b2)
+        torch._foreach_maximum_(u, torch._foreach_abs(grads))
+        b1p = states[0]["beta1_pow"] * b1
+        step = torch._foreach_mul(m, _true_div(lr, 1 - b1p).to(
+            params[0].dtype))
+        torch._foreach_div_(step, torch._foreach_add(u, eps))
+        torch._foreach_sub_(params, step)
+        for st in states:
+            st["beta1_pow"] = b1p
+
+
+class RMSProp(Optimizer):
+    """The JAX ``RMSProp._rule``: ``E[g^2] = rho E[g^2] + (1 - rho)
+    g^2``, with ``centered`` less ``E[g]^2``; ``mom = momentum mom + lr g
+    / sqrt(. + eps)``; ``p - mom``."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _init_state(self, p):
+        st = {"mean_square": torch.zeros_like(p),
+              "momentum": torch.zeros_like(p)}
+        if self._centered:
+            st["mean_grad"] = torch.zeros_like(p)
+        return st
+
+    def _update(self, params, grads, states, lr, wd):
+        rho, eps = self._rho, self._epsilon
+        grads = _l2(params, grads, wd)
+        ms = [st["mean_square"] for st in states]
+        _decay(ms, rho, torch._foreach_mul(
+            torch._foreach_mul(grads, 1 - rho), grads))
+        inner = ms
+        if self._centered:
+            mg = [st["mean_grad"] for st in states]
+            _decay(mg, rho, torch._foreach_mul(grads, 1 - rho))
+            inner = torch._foreach_sub(ms, torch._foreach_mul(mg, mg))
+        step = torch._foreach_mul(grads, lr)
+        torch._foreach_div_(step, _sqrt_plus(inner, eps, True))
+        mom = [st["momentum"] for st in states]
+        _decay(mom, self._momentum, step)
+        torch._foreach_sub_(params, mom)
+
+
+class Lamb(Optimizer):
+    """The JAX ``Lamb._rule`` (arXiv:1904.00962): Adam's moments with
+    bias corrections cast to the parameter's dtype, ``r = mhat /
+    (sqrt(vhat) + eps) + wd p``, and the trust ratio ``|p| / |r|`` of
+    float32 norms (1 where either is 0): ``p - (lr trust) r``.
+    ``exclude_from_weight_decay_fn(p)`` (given the parameter) true: no
+    decay for ``p``."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip, multi_precision=multi_precision)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _init_state(self, p):
+        st = {k: torch.ones((), dtype=torch.float32, device=p.device)
+              for k in ("beta1_pow", "beta2_pow")}
+        return {"moment1": torch.zeros_like(p), "moment2": torch.zeros_like(p),
+                **st}
+
+    def _wd_for(self, p) -> float:
+        if self._exclude_fn is not None and self._exclude_fn(p):
+            return 0.0
+        return self._weight_decay
+
+    def _update(self, params, grads, states, lr, wd):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        dtype = params[0].dtype
+        b1p = states[0]["beta1_pow"] * b1
+        b2p = states[0]["beta2_pow"] * b2
+        m = [st["moment1"] for st in states]
+        v = [st["moment2"] for st in states]
+        _decay(m, b1, torch._foreach_mul(grads, 1 - b1))
+        _decay(v, b2, torch._foreach_mul(
+            torch._foreach_mul(grads, 1 - b2), grads))
+        r = torch._foreach_div(m, (1 - b1p).to(dtype))
+        vhat = torch._foreach_div(v, (1 - b2p).to(dtype))
+        torch._foreach_div_(r, _sqrt_plus(vhat, eps, False))
+        torch._foreach_add_(r, torch._foreach_mul(params, wd))
+        w, rn = _float_norms(params), _float_norms(r)
+        trust = torch.where((w > 0) & (rn > 0), w / rn,
+                            torch.ones_like(w)).to(dtype) * lr
+        for p, x, t in zip(params, r, trust):
+            p.sub_(x.mul_(t))
+        for st in states:
+            st["beta1_pow"], st["beta2_pow"] = b1p, b2p
+
+
+class Lars(Momentum):
+    """The JAX ``Lars._rule``: the local rate ``coeff |p| / (|g| + wd
+    |p| + eps)`` of float32 norms (1 where either is 0), ``v = momentum
+    v + (local lr) (g + wd p)``, ``p - v``. A parameter whose name
+    (given in a ``(name, parameter)`` pair) contains a string of
+    ``exclude_from_weight_decay`` takes no decay."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay=None, epsilon=1e-9,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, momentum, parameters, False,
+                         lars_weight_decay, grad_clip, multi_precision, name)
+        self._lars_coeff = lars_coeff
+        self._lars_eps = epsilon
+        self._exclude_names = list(exclude_from_weight_decay or [])
+
+    def _wd_for(self, p) -> float:
+        name = self._names.get(id(p), "")
+        if any(s in name for s in self._exclude_names):
+            return 0.0
+        return self._weight_decay
+
+    def _update(self, params, grads, states, lr, wd):
+        w, g = _float_norms(params), _float_norms(grads)
+        local = torch.where((w > 0) & (g > 0), self._lars_coeff * w / (
+            g + wd * w + self._lars_eps), torch.ones_like(w)).to(
+                params[0].dtype) * lr
+        step = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        v = [st["velocity"] for st in states]
+        torch._foreach_mul_(v, self._momentum)
+        for x, s, t in zip(v, step, local):
+            x.add_(s.mul_(t))
+        torch._foreach_sub_(params, v)

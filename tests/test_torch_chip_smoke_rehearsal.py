@@ -87,7 +87,17 @@ launch bookkeeping and their checks are exercised before a chip run:
   fails), two zoo factories, every detection op (SSD300's own maps,
   8732 priors; roi_align 1e-4 off on the card fails), the offload
   optimizer bit-equal to AdamW (a learning rate a few ulps off fails)
-  and the tensor checker's raises.
+  and the tensor checker's raises;
+- the BERT, incubate and geometric phases at CPU sizes (BERT at d 128,
+  2 layers, 2 heads of 64, vocab 512; GPT-3 XL's stack cut to the same
+  heads, 2 layers, 2 x 128 tokens; an ogbn-arxiv-shaped graph of 600
+  nodes and 4000 edges): BERT fine-tuning's first AdamW and Lamb steps
+  against themselves (a gradient 5% off fails), its dropout launches
+  counted (100 a step at BERT-base's depth, 20 at 2 layers), Lamb and
+  LookAhead with ModelAverage (restore bit-exact); BERT inference with
+  a flash launch a layer a forward; the fused layers against the
+  unfused; every geometric op and the two-hop sampler's properties; the
+  incubate tail (ASP, checkpoint, reduce_tensor, Viterbi).
 
 Nothing here measures the card: times printed by the phases under this
 rehearsal are host times of the plain versions.
@@ -1522,3 +1532,96 @@ def test_amp_debugging_phase(vision_on_cpu):
     assert got["raised"] == ["eager step", "to_static first call",
                              "to_static second call"]
     assert got["counts"][0] > 0 and got["counts"][1] > 0
+
+
+@pytest.fixture
+def bert_on_cpu(vision_on_cpu, monkeypatch):
+    """The BERT, incubate and geometric phases at CPU sizes: BERT's base
+    config cut to d 128 (two heads of 64: the flash route's head size),
+    2 layers and a 512-token vocabulary; 4 x 32 fine-tuning rows (1 + 2
+    steps, 1 Lamb and 2 LookAhead steps), inference at 2 x 128; the
+    GPT-3 XL stack at the same heads, 2 layers, 2 x 128; a 600-node
+    graph."""
+    small = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, intermediate_size=256,
+                 max_position_embeddings=128)
+
+    class SmallBert(cs.BertConfig):
+        @staticmethod
+        def base():
+            return cs.BertConfig(**small)
+
+    monkeypatch.setattr(cs, "BertConfig", SmallBert)
+    monkeypatch.setattr(cs, "GPT3_XL", ModelSpec(
+        vocab=512, d_model=128, num_layers=2, num_heads=2, head_dim=64,
+        max_seq_len=128))
+    for name, value in (
+            ("BERT_BATCH", 4), ("BERT_SEQ", 32), ("BERT_MIN_LEN", 8),
+            ("BERT_WARMUP", 1), ("BERT_STEPS", 2), ("BERT_EXTRA_STEPS", 1),
+            ("BERT_LOOKAHEAD_K", 2), ("BERT_INFER", (2, 128)),
+            ("BERT_INFER_REPS", 1), ("FUSED_SHAPE", (2, 32)),
+            ("FMT_SHAPE", (2, 128)), ("FMT_REPS", 1),
+            ("ARXIV", (600, 4000, 8)), ("GEO_SEEDS", 16),
+            ("GEO_FANOUTS", (5, 3)), ("GEO_REPS", 1),
+            ("ASP_BATCH", (2, 32)), ("VITERBI", (4, 16, 11, 4))):
+        monkeypatch.setattr(cs, name, value)
+
+
+def test_bert_finetune_phase(bert_on_cpu):
+    got = cs.phase_bert_finetune(CPU)
+    for kind in ("AdamW", "Lamb"):
+        first = got["first_step"][kind]
+        assert first["logits"] == first["loss"] == 0.0
+        assert 0.0 < first["grads"] <= 1.0
+        assert first["update"] <= cs.BERT_UPDATE_TOL
+    assert got["dropout_launches"] == 2 * (2 + 4 * 2) * 3
+    assert all(np.isfinite(got["losses"])) and len(got["losses"]) == 6
+
+
+def test_bert_finetune_phase_fails_a_wrong_gradient(bert_on_cpu,
+                                                    monkeypatch):
+    """The "card" model's backward 5% off in the first AdamW step (the
+    second model built, after the main path's): the first step's
+    gradient check fails."""
+    make, built = cs.BertForSequenceClassification, []
+
+    def once(*args, **kw):
+        model = make(*args, **kw)
+        if len(built) == 1:
+            for p in model.parameters():
+                p.register_hook(lambda g: g * 1.05)
+        built.append(model)
+        return model
+
+    monkeypatch.setattr(cs, "BertForSequenceClassification", once)
+    with pytest.raises(AssertionError, match="'grads': "):
+        cs.phase_bert_finetune(CPU)
+
+
+def test_bert_infer_phase(bert_on_cpu):
+    got = cs.phase_bert_infer(CPU)
+    assert got["launches"] == 2 * 2 and got["flash_err"] == 0.0
+    assert got["pooled_err"] == 0.0 and got["sequences_per_s"] > 0
+
+
+def test_fused_layers_phase(bert_on_cpu):
+    got = cs.phase_fused_layers(CPU)
+    assert got["stack_err"] <= cs.FUSED_TOL and got["ln_err"] == 0.0
+    assert 0.0 < got["fmt_rms"] <= cs.FMT_TOL and got["launches"] == 2 * 2
+    assert got["flash_err"] == 0.0
+
+
+def test_geometric_phase(bert_on_cpu):
+    got = cs.phase_geometric(CPU)
+    assert max(got["errs"].values()) == 0.0 and len(got["errs"]) == 15
+    assert got["sampled_edges"] > 0 and got["nodes"] >= cs.GEO_SEEDS
+
+
+def test_incubate_misc_phase(bert_on_cpu):
+    got = cs.phase_incubate_misc(CPU)
+    assert got["jacobian_err"] == got["hessian_err"] == 0.0
+    assert got["attn_errs"] == [0.0, 0.0, 0.0]
+    assert got["attn_launches"] == {"flash_attention_fwd": 3,
+                                    "flash_attention_bwd_dkdv": 2,
+                                    "flash_attention_bwd_dq": 2}
+    assert got["viterbi_score_err"] == 0.0 and got["asp_weights"] > 0

@@ -373,3 +373,51 @@ def test_the_sequence_layers_load_no_jax():
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_scan_covers_the_bert_incubate_slice():
+    """BERT, the text datasets, ``incubate`` (its fused layers, optimizer
+    wrappers, ASP, autodiff, checkpoint and shared-memory tensors),
+    ``geometric`` and ``regularizer`` are scanned; in a fresh interpreter
+    a tiny BERT step, a fused layer, a LookAhead step, an ASP mask, a
+    Jacobian, a message pass and a Viterbi decode leave ``jax`` and
+    ``paddle_tpu`` out of ``sys.modules``."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    for rel in ("text/bert.py", "text/datasets.py", "regularizer.py",
+                "geometric/__init__.py", "incubate/__init__.py",
+                "incubate/nn/functional.py", "incubate/nn/layer.py",
+                "incubate/optimizer/__init__.py", "incubate/asp/__init__.py",
+                "incubate/autograd/__init__.py", "incubate/checkpoint.py",
+                "incubate/multiprocessing/reductions.py",
+                "incubate/distributed/__init__.py"):
+        assert str((port / rel).relative_to(ROOT)) in names, rel
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch as paddle\n"
+        "import paddle_tpu_torch.incubate.multiprocessing\n"
+        "from paddle_tpu_torch import incubate, geometric, text\n"
+        "paddle.set_device('cpu')\n"
+        "m = text.BertForSequenceClassification(text.BertConfig.tiny())\n"
+        "opt = incubate.LookAhead(paddle.optimizer.Lamb(\n"
+        "    parameters=m.parameters(),\n"
+        "    grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0)), k=1)\n"
+        "ids = paddle.randint(0, 256, [2, 8])\n"
+        "m(ids).sum().backward(); opt.step()\n"
+        "incubate.nn.FusedMultiTransformer(64, 4, 128, num_layers=1)(\n"
+        "    paddle.rand([1, 8, 64]))\n"
+        "incubate.asp.prune_model(m)\n"
+        "incubate.autograd.Jacobian(lambda x: x * x, paddle.rand([3]))\n"
+        "geometric.send_u_recv(paddle.rand([4, 2]), paddle.to_tensor(\n"
+        "    [0, 1, 2]), paddle.to_tensor([1, 1, 3]), 'max')\n"
+        "text.viterbi_decode(paddle.rand([1, 4, 5]), paddle.rand([5, 5]),\n"
+        "                    paddle.to_tensor([4]))\n"
+        "paddle.regularizer.L1Decay(0.1)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

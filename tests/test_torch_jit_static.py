@@ -58,6 +58,23 @@ def _cpu():
     tdevice._CURRENT[0] = saved
 
 
+@pytest.fixture(autouse=True)
+def _no_hybrid_group():
+    """The JAX GPT's forward reads the JAX package's global hybrid group:
+    one left with a sequence-parallel degree above 1 (by an earlier test
+    in the same process, as ``tests/test_hybrid_flagship.py``'s last
+    ``sep_degree=2`` test leaves it) turns off its fused block stack, and
+    the unfused path cannot be exported with a symbolic batch dimension
+    (``int()`` of it in ``reshape``). Each test here runs without one and
+    puts the group back after."""
+    from paddle_tpu.distributed import topology
+
+    saved = topology.get_hybrid_communicate_group()
+    topology.set_hybrid_communicate_group(None)
+    yield
+    topology.set_hybrid_communicate_group(saved)
+
+
 def _mlps():
     jpaddle.seed(11)
     jm = jnn.Sequential(jnn.Linear(8, 16), jnn.ReLU(), jnn.Linear(16, 4))

@@ -203,7 +203,7 @@ def test_multinomial_without_replacement_and_seeded_uniform():
 # the JAX package's public names the port does not have yet, with the
 # ROADMAP item that ports each; everything else must be present
 LATER = {
-    "A.10.7": {
+    "A.10.7b": {
         # compat.py
         "CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "DataParallel",
         "LazyGuard", "NPUPlace", "Place", "TPUPlace", "batch", "check_shape",
@@ -213,9 +213,9 @@ LATER = {
         "set_printoptions",
         # sparse, the long-tail modules
         "sparse_coo_tensor", "sparse_csr_tensor", "audio", "compat",
-        "cost_model", "distribution", "fft", "geometric", "hub", "incubate",
-        "onnx", "profiler", "quantization", "reader", "regularizer",
-        "signal", "sparse", "strings", "sysconfig"},
+        "cost_model", "distribution", "fft", "hub", "onnx", "profiler",
+        "quantization", "reader", "signal", "sparse", "strings",
+        "sysconfig"},
     "A.11": {"distributed"},
 }
 # the JAX modules' own imports and helpers, which are not Paddle's API
