@@ -192,7 +192,19 @@ before and read just after:
   against the CPU and GraphSAGE's two-hop sampling
   (``phase_geometric``); Jacobian / Hessian, ASP over BERT-base,
   ``train_epoch_range``, ``reduce_tensor`` of CUDA tensors and
-  ``viterbi_decode`` (``phase_incubate_misc``). Kernel
+  ``viterbi_decode`` (``phase_incubate_misc``);
+- Paddle's idioms and audio: ``run_check``; BERT-base built under
+  ``set_device(CUDAPlace(0))`` and ``set_global_initializer(
+  TruncatedNormal(0, 0.02))`` (every Linear / Embedding weight's bounds
+  and std checked on the card), re-initialized through ``model.apply``
+  and ``set_value`` as PaddleNLP does, its first steps against the
+  CPU's, then a float32 hand loop with ``clear_gradients`` held to
+  ``TrainStep`` on the same dropout keys and timed with
+  ``paddle.device.cuda.Event`` (``phase_paddle_idiom``); the PANNs
+  log-mel front end and MFCCs on 64 ESC-50-length clips against the
+  CPU in float64, every ``paddle.fft`` function against the CPU and the
+  STFT round trip (``phase_audio``); and the op sweep also runs every
+  Paddle ``Tensor`` method (``METHOD_SWEEP``). Kernel
   launch counts are Python
   counters and a graph replay runs no Python: a captured signature counts
   its kernels once at capture and adds what the capture counted at every
@@ -6833,6 +6845,112 @@ OP_RANDOM = {
         "int64"),
 }
 
+# Paddle's own Tensor methods (``paddle_tpu_torch.core.tensor.
+# PADDLE_METHODS`` but ``tpu``, which phase_op_surface checks lands on
+# the card): name -> the method on a tensor of p and the inputs of
+# ``op_inputs``; an in-place method's result is the tensor itself
+
+
+def _m(p, a, **kw):
+    return p.to_tensor(a, **kw)
+
+
+def _in_place(method, *args, key="f", **kw):
+    def run(p, d):
+        x = _m(p, d[key])
+        out = getattr(x, method)(*[
+            _m(p, d[a]) if isinstance(a, str) else
+            _m(p, a) if isinstance(a, np.ndarray) else a for a in args], **kw)
+        if out is not x:
+            raise AssertionError(f"{method} returned another tensor")
+        return x
+    return run
+
+
+def _grad_cleared(method, **kw):
+    def run(p, d):
+        x = _m(p, d["f"], stop_gradient=False)
+        (x * x).sum().backward()
+        getattr(x, method)(**kw)
+        return [] if x.grad is None else x.grad
+    return run
+
+
+def _lu_product(p, d):
+    lu, piv = p.linalg.lu(_m(p, d["m"]))
+    P, L, U = lu.lu_unpack(piv)
+    return p.matmul(P, p.matmul(L, U))
+
+
+_IDX_ND = _i64([0, 1], [2, 3], [1, 0])
+_IDX_ROW = _i64([0, 2], [1, 1], [3, 0])
+METHOD_SWEEP = {
+    "cast": lambda p, d: _m(p, d["f"]).cast("int32"),
+    "scale": lambda p, d: _m(p, d["f"]).scale(2.0, bias=1.0),
+    "scale_": _in_place("scale_", 2.0, bias=0.5, bias_after_scale=False),
+    "reshape_": _in_place("reshape_", [4, 3]),
+    "flatten_": _in_place("flatten_", key="t"),
+    "set_value": _in_place("set_value", "g"),
+    "clear_gradient": _grad_cleared("clear_gradient", set_to_zero=True),
+    "zero_grad": _grad_cleared("zero_grad"),
+    "gather_nd": lambda p, d: _m(p, d["f"]).gather_nd(_m(p, _IDX_ND)),
+    "scatter_nd": lambda p, d: _m(p, _IDX_ND[:, :1]).scatter_nd(
+        _m(p, d["g"]), [4, 4]),
+    "scatter_nd_add": lambda p, d: _m(p, d["m"]).scatter_nd_add(
+        _m(p, _IDX_ND), _m(p, d["v"][:3])),
+    "take_along_axis": lambda p, d: _m(p, d["f"]).take_along_axis(
+        _m(p, _IDX_ROW), 1),
+    "put_along_axis": lambda p, d: _m(p, d["f"]).put_along_axis(
+        _m(p, _IDX_ROW), 9.0, 1),
+    "put_along_axis_": _in_place("put_along_axis_", _IDX_ROW, 7.0, 1),
+    "index_sample": lambda p, d: _m(p, d["f"]).index_sample(
+        _m(p, _IDX_ROW)),
+    "concat": lambda p, d: _m(p, d["f"]).concat(axis=0),
+    "stack": lambda p, d: _m(p, d["f"]).stack(axis=1),
+    "unstack": lambda p, d: _m(p, d["f"]).unstack(axis=1),
+    "slice": lambda p, d: _m(p, d["f"]).slice([0, 1], [1, 0], [3, 2]),
+    "strided_slice": lambda p, d: _m(p, d["f"]).strided_slice(
+        [1], [0], [4], [2]),
+    "pad": lambda p, d: _m(p, d["f"]).pad([1, 0, 0, 2], value=0.5),
+    "reverse": lambda p, d: _m(p, d["f"]).reverse([0]),
+    "mod": lambda p, d: _m(p, d["f"]).mod(_m(p, d["p"])),
+    "floor_mod": lambda p, d: _m(p, d["f"]).floor_mod(_m(p, d["p"])),
+    "floor_mod_": _in_place("floor_mod_", "p"),
+    "tensordot": lambda p, d: _m(p, d["f"]).tensordot(_m(p, d["m"]),
+                                                     axes=1),
+    "multi_dot": lambda p, d: _m(p, np.stack([d["m"], d["m"].T, d["m"]])
+                                 / 4).multi_dot(),
+    "greater_than": lambda p, d: _m(p, d["f"]).greater_than(_m(p, d["g"])),
+    "less_than": lambda p, d: _m(p, d["f"]).less_than(_m(p, d["g"])),
+    "equal_all": lambda p, d: _m(p, d["f"]).equal_all(_m(p, d["f"])),
+    "is_empty": lambda p, d: _m(p, d["f"]).is_empty(),
+    "is_integer": lambda p, d: [_m(p, d["f"]).is_integer(),
+                                _m(p, d["i"]).is_integer()],
+    "is_tensor": lambda p, d: _m(p, d["f"]).is_tensor(),
+    "rank": lambda p, d: _m(p, d["t"]).rank(),
+    "numel_t": lambda p, d: _m(p, d["t"]).numel_t(),
+    "increment": lambda p, d: _m(p, d["v"][:1]).increment(2.0),
+    "bucketize": lambda p, d: _m(p, d["f"]).bucketize(_m(p, d["s"])),
+    "stanh": lambda p, d: _m(p, d["f"]).stanh(),
+    "cond": lambda p, d: _m(p, d["spd"]).cond(),
+    "eigvals": lambda p, d: p.sort(p.real(_m(p, d["spd"]).eigvals())),
+    "eigvalsh": lambda p, d: _m(p, d["spd"]).eigvalsh(),
+    "lu_unpack": _lu_product,
+    "multiplex": lambda p, d: _m(p, d["t"][:, :, :2]).multiplex(
+        _m(p, np.array([[1], [0], [1]], "int32"))),
+    "shard_index": lambda p, d: _m(p, _i64([1], [6], [11], [4])).shard_index(
+        12, 3, 1),
+    "add_n": lambda p, d: _m(p, d["f"]).add_n(),
+    "as_complex": lambda p, d: _m(p, d["t"][0, :, :2]).as_complex(),
+    "as_real": lambda p, d: _m(p, d["t"][0, :, :2]).as_complex().as_real(),
+    "broadcast_shape": lambda p, d: _m(p, np.array([2, 1])).broadcast_shape(
+        [1, 3]),
+    "broadcast_tensors": lambda p, d: _m(p, d["f"]).broadcast_tensors(),
+    "create_parameter": lambda p, d: list(_m(p, np.array([2, 3]))
+                                          .create_parameter("float32").shape),
+    "create_tensor": lambda p, d: _m(p, d["i"]).create_tensor(),
+}
+
 
 def _leaves(x):
     """The tensors (and other values) of a nested op result."""
@@ -6848,25 +6966,30 @@ def _as_np(x):
 
 
 def phase_op_surface(device) -> dict:
-    """Every op of OP_SWEEP on the card and on the CPU from the same
-    seeded inputs: each CUDA result's tensors stay on the card (an op
-    that quietly moves to the host fails), float32 results agree within
-    SWEEP_TOL, integer and boolean ones exactly; ``matmul_int8`` launches
-    the int8 matmul kernel (and the row quantizer for float inputs) and
-    equals its plain version bit for bit. The decompositions reconstruct
+    """Every op of OP_SWEEP and every Paddle Tensor method of
+    METHOD_SWEEP on the card and on the CPU from the same seeded inputs
+    (``tpu()`` moves a CPU tensor onto the card): each CUDA result's
+    tensors stay on the card (an op that quietly moves to the host
+    fails), float32 results agree within SWEEP_TOL, integer and boolean
+    ones exactly; ``matmul_int8`` launches the int8 matmul kernel (and
+    the row quantizer for float inputs) and equals its plain version bit
+    for bit. The decompositions reconstruct
     their input within SWEEP_LINALG_TOL on the card; the random draws
     have their dtype and shape on the card and repeat under
     ``paddle.seed``."""
     worst, counts = {}, collections.Counter()
     card = torch.device(device).type
-    for name in sorted(OP_SWEEP):
-        d = op_inputs(zlib.crc32(name.encode()) % 1000)
+    sweep = [(name, name, OP_SWEEP[name]) for name in sorted(OP_SWEEP)] + [
+        (f"Tensor.{name}", name, METHOD_SWEEP[name])
+        for name in sorted(METHOD_SWEEP)]
+    for name, seed_name, op in sweep:
+        d = op_inputs(zlib.crc32(seed_name.encode()) % 1000)
         pa.LAUNCHES.clear()
         paddle.set_device(device)
-        got = _leaves(OP_SWEEP[name](paddle, d))
+        got = _leaves(op(paddle, d))
         launched = dict(pa.LAUNCHES)
         paddle.set_device("cpu")
-        want = _leaves(OP_SWEEP[name](paddle, d))
+        want = _leaves(op(paddle, d))
         paddle.set_device(device)
         if len(got) != len(want):
             raise AssertionError(f"op sweep {name}: {len(got)} outputs on "
@@ -6889,8 +7012,8 @@ def phase_op_surface(device) -> dict:
                 np.testing.assert_allclose(gn, wn, rtol=SWEEP_TOL,
                                            atol=SWEEP_TOL, err_msg=name)
                 if gn.size:
-                    err = max(err, float(np.nanmax(np.abs(
-                        gn.astype(np.float64) - wn))))
+                    err = max(err, float(np.nanmax(np.abs(gn.astype(
+                        np.result_type(gn.dtype, np.float64)) - wn))))
         if name.startswith("matmul_int8"):
             want_k = {i8.INT8_MATMUL_KERNEL: 1}
             if name == "matmul_int8":
@@ -6900,6 +7023,10 @@ def phase_op_surface(device) -> dict:
                                      f", want {want_k}")
             counts.update(launched)
         worst[name] = err
+    moved = paddle.to_tensor(op_inputs(0)["f"], place="cpu").tpu()
+    if moved.device.type != card or not isinstance(moved, paddle.Tensor):
+        raise AssertionError(f"Tensor.tpu() gave a {type(moved).__name__} "
+                             f"on {moved.device}, not the card")
     recon = {}
     d = op_inputs(3)
     for name, fn in OP_DECOMPOSITIONS.items():
@@ -6919,14 +7046,16 @@ def phase_op_surface(device) -> dict:
         if not torch.equal(a, b):
             raise AssertionError(f"op sweep {name}: not repeated under "
                                  "paddle.seed")
-    log(f"[ops] {len(OP_SWEEP)} ops on CUDA against the CPU: worst float "
+    log(f"[ops] {len(OP_SWEEP)} ops and {len(METHOD_SWEEP)} Paddle Tensor "
+        "methods (tpu() lands on the card) on CUDA against the CPU: worst "
+        "float "
         f"diff {max(worst.values()):.2e} ({max(worst, key=worst.get)}), tol "
         f"{SWEEP_TOL}; integer and bool results equal; matmul_int8 "
         f"launches {dict(counts)} and bit-equal to its plain version; "
         f"reconstructions {recon}; {len(OP_RANDOM)} random ops on the card, "
         "repeated under paddle.seed")
-    return {"ops": len(OP_SWEEP), "worst": worst, "recon": recon,
-            "int8_launches": dict(counts)}
+    return {"ops": len(OP_SWEEP), "methods": len(METHOD_SWEEP),
+            "worst": worst, "recon": recon, "int8_launches": dict(counts)}
 
 
 def flash_decode_times(device) -> dict:
@@ -8684,6 +8813,403 @@ def phase_incubate_misc(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the Paddle idiom: BERT-base built and trained the way PaddleNLP scripts
+# write it. The card picked with ``paddle.set_device(paddle.CUDAPlace(0))``;
+# the model built under ``set_global_initializer(TruncatedNormal(0, 0.02))``
+# (every Linear and Embedding weight in [-0.04, 0.04] with the std of a
+# normal truncated at 2 std, 0.02 x 0.8796, within IDIOM_STD_TOL: each
+# weight of at least IDIOM_STD_MIN entries, whose sample std is good to
+# 0.25 %, and all of them together); then the LayerNorms back at weight 1
+# and bias 0 (the global initializer drew their scales too, Paddle's
+# rule; a PaddleNLP model, built without one, starts there) and PaddleNLP's
+# ``BertPretrainedModel.init_weights`` through ``model.apply``
+# (``weight.set_value(paddle.normal(0, 0.02, shape))``); that start's first
+# steps against the CPU (``bert_first_steps``); the dropout kernel held to
+# its plain version at the loop's two float32 shapes; then IDIOM_STEPS
+# steps of a hand loop (forward, ``loss.backward()``, ``opt.step()``,
+# ``opt.clear_gradients()``, the loss read with ``loss.cast("float32")
+# .item()``) in float32, TF32 off, with BERT_* batches, alternately
+# dropping and zero-filling the gradients (checked after each step,
+# outside its timed span); its losses against TrainStep's from the same
+# start, batches and dropout keys within IDIOM_LOSS_RTOL; each step timed
+# with a pair of ``paddle.device.cuda.Event`` and the loop's peak read with
+# ``paddle.device.cuda.max_memory_allocated()``, each against torch's own
+# (each pair of events recorded just outside torch's pair: the sums within
+# IDIOM_TIMER_MS ms or IDIOM_TIMER_SHARE of torch's, whichever is larger)
+IDIOM_STEPS, IDIOM_INIT_STD, TRUNC_NORMAL_STD = 10, 0.02, 0.8796
+IDIOM_STD_TOL, IDIOM_STD_MIN, IDIOM_LOSS_RTOL = 0.03, 1 << 16, 1e-4
+IDIOM_TIMER_MS, IDIOM_TIMER_SHARE = 0.1, 1e-3
+
+
+def init_weights(layer) -> None:
+    """PaddleNLP's ``BertPretrainedModel.init_weights``."""
+    if isinstance(layer, (paddle.nn.Linear, paddle.nn.Embedding)):
+        layer.weight.set_value(paddle.normal(
+            mean=0.0, std=IDIOM_INIT_STD, shape=layer.weight.shape))
+
+
+def _init_stats(model, device) -> dict:
+    """Each Linear and Embedding weight's bounds and std, on ``device``;
+    raises outside [-2, 2] x 0.02 or off the truncated normal's std."""
+    want = IDIOM_INIT_STD * TRUNC_NORMAL_STD
+    sq, n, worst, at = 0.0, 0, 0.0, None
+    for name, layer in model.named_sublayers():
+        if not isinstance(layer, (paddle.nn.Linear, paddle.nn.Embedding)):
+            continue
+        w = layer.weight.detach()
+        if w.device.type != torch.device(device).type:
+            raise AssertionError(f"{name}.weight on {w.device}")
+        big = w.abs().max().item()
+        if big > 2 * IDIOM_INIT_STD:
+            raise AssertionError(f"{name}.weight reaches {big:.4f}, past "
+                                 f"2 x {IDIOM_INIT_STD}")
+        w64 = w.double()
+        sq, n = sq + (w64 * w64).sum().item(), n + w.numel()
+        if w.numel() >= IDIOM_STD_MIN:
+            off = abs(w64.std().item() / want - 1)
+            if off > IDIOM_STD_TOL:
+                raise AssertionError(f"{name}.weight std off by {off:.2%}")
+            worst, at = max((worst, at), (off, name))
+    pooled = math.sqrt(sq / n) / want - 1
+    if abs(pooled) > IDIOM_STD_TOL:
+        raise AssertionError(f"Linear and Embedding weights: std off by "
+                             f"{pooled:.2%}")
+    return {"worst_std_off": worst, "worst_at": at, "pooled_std_off": pooled,
+            "entries": n}
+
+
+def _gradients_cleared(model, set_to_zero: bool) -> None:
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not set_to_zero:
+        if grads:
+            raise AssertionError(f"clear_gradients() left {len(grads)} "
+                                 "gradients")
+        return
+    if len(grads) != len(list(model.parameters())):
+        raise AssertionError("clear_gradients(set_to_zero=True) dropped "
+                             "gradients")
+    left = torch.stack(torch._foreach_norm(grads)).max().item()
+    if left != 0.0:
+        raise AssertionError(f"clear_gradients(set_to_zero=True) left a "
+                             f"gradient of norm {left}")
+
+
+def phase_paddle_idiom(device) -> dict:
+    """This slice's main path (see IDIOM_*): Paddle's own idioms on
+    BERT-base, the dropout kernel counted in the hand loop and in its
+    TrainStep twin."""
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    place = paddle.CUDAPlace(device.index or 0) if device.type == "cuda" \
+        else paddle.CPUPlace()
+    paddle.set_device(place)
+    checked = paddle.utils.run_check()
+    want = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    if checked != want:
+        raise AssertionError(f"run_check ran on {checked!r}, not {want!r}")
+    init = paddle.nn.initializer
+    init.set_global_initializer(init.TruncatedNormal(0.0, IDIOM_INIT_STD))
+    try:
+        paddle.seed(21)
+        model = BertForSequenceClassification(BertConfig.base())
+    finally:
+        init.set_global_initializer(None)
+    stats = _init_stats(model, device)
+    for layer in model.sublayers():
+        if isinstance(layer, paddle.nn.LayerNorm):
+            layer.weight.set_value(paddle.ones(layer.weight.shape))
+            layer.bias.set_value(paddle.zeros(layer.bias.shape))
+    paddle.seed(22)
+    model.apply(init_weights)
+    # a copy (on the CPU, ``.cpu()`` would alias the training weights)
+    start = {k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()}
+    first = bert_first_steps(device, start)
+    paddle.set_device(place)
+    cfg = BertConfig.base()
+    per_step = 2 * (2 + 4 * cfg.num_hidden_layers)
+    dropout_at_path_shapes(device, (
+        ("idiom BERT attention probabilities", (BERT_BATCH,
+         cfg.num_attention_heads, BERT_SEQ, BERT_SEQ), DROPOUT_P),
+        ("idiom BERT hidden states", (BERT_BATCH, BERT_SEQ,
+                                      cfg.hidden_size), DROPOUT_P)),
+        seed=330)
+    batches = [bert_batch(BERT_BATCH, BERT_SEQ, 40 + i, device)
+               for i in range(IDIOM_STEPS)]
+    model.set_state_dict(start)
+    model.train()
+    opt = bert_optimizer("AdamW", model, BERT_LR)
+    keys, losses, spans = [], [], []
+    dk.LAUNCHES.clear()
+    fa.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _seed_threefry(23)
+    with plain_dropout_refused(), trng.record_keys(keys):
+        for i, (ids, types, mask, labels) in enumerate(batches):
+            # (paddle's start, torch's start, torch's end, paddle's end)
+            span = (paddle.device.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True),
+                    paddle.device.cuda.Event(enable_timing=True))
+            span[0].record()
+            span[1].record()
+            logits = model(ids, types, mask)
+            loss = PF.cross_entropy(logits, labels)
+            loss.backward()
+            opt.step()
+            opt.clear_gradients(set_to_zero=i % 2 == 1)
+            losses.append(loss.cast("float32").item())
+            span[2].record()
+            span[3].record()
+            spans.append(span)
+            _gradients_cleared(model, i % 2 == 1)
+        spans[-1][3].synchronize()
+    loop_ms = sum(a.elapsed_time(d) for a, _, _, d in spans)
+    torch_ms = sum(b.elapsed_time(c) for _, b, c, _ in spans)
+    peak = paddle.device.cuda.max_memory_allocated()
+    torch_peak = torch.cuda.max_memory_allocated()
+    hand_launches = dk.LAUNCHES[dk.KERNEL_NAME]
+    if abs(loop_ms - torch_ms) > max(IDIOM_TIMER_MS,
+                                     IDIOM_TIMER_SHARE * torch_ms):
+        raise AssertionError(f"paddle.device.cuda.Event timed the loop "
+                             f"{loop_ms:.3f} ms, torch's events {torch_ms:.3f}"
+                             " ms")
+    if peak != torch_peak:
+        raise AssertionError(f"paddle.device.cuda.max_memory_allocated() "
+                             f"{peak}, torch's {torch_peak}")
+    # TrainStep from the same start and batches, on the same dropout keys
+    model.set_state_dict(start)
+    step = TrainStep(model, bert_loss, bert_optimizer("AdamW", model,
+                                                      BERT_LR))
+    dk.LAUNCHES.clear()
+    with plain_dropout_refused(), trng.replay_keys(keys):
+        step_losses = [float(step(*b)) for b in batches]
+    step_launches = dk.LAUNCHES[dk.KERNEL_NAME]
+    want_launches = per_step * IDIOM_STEPS
+    if hand_launches != want_launches or step_launches != want_launches \
+            or fa.LAUNCHES:
+        raise AssertionError(
+            f"Paddle idiom: dropout launches {hand_launches} (hand loop), "
+            f"{step_launches} (TrainStep), expected {want_launches}; flash "
+            f"launches {dict(fa.LAUNCHES)}, expected none")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, step_losses))
+    if not rel <= IDIOM_LOSS_RTOL or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"hand loop losses {losses} vs TrainStep's "
+                             f"{step_losses}: worst {rel:.2e} relative")
+    ms = loop_ms / IDIOM_STEPS
+    a = first["AdamW"]
+    out = {"ms_per_step": ms, "samples_per_s": BERT_BATCH / ms * 1e3,
+           "peak_gib": peak / 2 ** 30, "loss_rel": rel, "losses": losses,
+           "dropout_launches": hand_launches + step_launches,
+           "timer_ms": (loop_ms, torch_ms), "init": stats, "first": first}
+    log(f"[idiom] BERT-base the PaddleNLP way: set_device(CUDAPlace(0)), "
+        f"run_check on {checked}; under set_global_initializer("
+        f"TruncatedNormal(0, {IDIOM_INIT_STD})) every Linear / Embedding "
+        f"weight in +-{2 * IDIOM_INIT_STD}, std off by at most "
+        f"{stats['worst_std_off']:.2%} ({stats['worst_at']}), "
+        f"{stats['pooled_std_off']:+.2%} over all {stats['entries']} "
+        f"entries (tol {IDIOM_STD_TOL:.0%}); model.apply(init_weights) "
+        f"(set_value of paddle.normal); first float32 steps vs the CPU: "
+        f"AdamW logits {a['logits']:.2e}, gradients {a['grads']:.3f} of "
+        f"their allowance, update {a['update']:.2e} of lr; Lamb gradients "
+        f"{first['Lamb']['grads']:.3f}; hand loop of {IDIOM_STEPS} float32 "
+        f"steps at {BERT_BATCH} x {BERT_SEQ} (clear_gradients alternately "
+        f"dropping and zero-filling, checked after each): {ms:.2f} ms/step "
+        f"= {out['samples_per_s']:.1f} samples/s by paddle.device.cuda."
+        f"Event ({torch_ms:.3f} ms by torch's events for {loop_ms:.3f}), "
+        f"peak {peak / 2 ** 30:.2f} GiB (equal to torch's); losses "
+        f"{[round(v, 4) for v in losses]} vs TrainStep's on the same "
+        f"dropout keys: worst {rel:.2e} relative (tol {IDIOM_LOSS_RTOL}); "
+        f"dropout launches {hand_launches} + {step_launches} ({per_step} a "
+        f"step) [{card_identity()}]")
+    del model, opt, step, batches, start
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the PANNs audio-tagging front end (PaddleSpeech examples/esc50/cls0/conf/
+# panns.yaml): sr 32000, n_fft 1024, hop 320, win 1024, hann, f_min 50,
+# f_max 14000, 64 mels, on AUDIO_CLIPS ESC-50-length clips (5 s) made from
+# the seed. LogMelSpectrogram and MFCC(n_mfcc=AUDIO_MFCC) on the card
+# against the port's CPU float64 run: the mel power within AUDIO_MEL_TOL of
+# each clip's largest value, the log-mel within AUDIO_DB_TOL dB wherever
+# the float64 power exceeds AUDIO_DB_FLOOR of the clip's largest, the MFCCs
+# within AUDIO_DB_TOL x sqrt(n_mels) (the orthonormal DCT's rows have unit
+# norm) on the frames all of whose bins pass that floor. Every paddle.fft
+# function on the card against the CPU within AUDIO_FFT_TOL of the largest
+# magnitude; signal.istft(stft(x)) back to x within AUDIO_ISTFT_TOL. The
+# front end's ms a batch (CUDA events, median of AUDIO_REPS) beside its
+# byte bound: the clips read once and the log-mel written once at
+# HBM_BYTES_PER_S
+AUDIO_PANNS = dict(sr=32000, n_fft=1024, hop_length=320, win_length=1024,
+                   window="hann", f_min=50.0, f_max=14000.0, n_mels=64)
+AUDIO_CLIPS, AUDIO_SECONDS, AUDIO_MFCC = 64, 5, 40
+AUDIO_MEL_TOL, AUDIO_DB_TOL, AUDIO_DB_FLOOR = 1e-5, 1e-3, 1e-8
+AUDIO_FFT_TOL, AUDIO_ISTFT_TOL, AUDIO_REPS = 1e-5, 1e-5, 10
+AUDIO_FFT_SHAPE = (8, 64, 128)
+
+
+def audio_clips(seed) -> np.ndarray:
+    """AUDIO_CLIPS clips of AUDIO_SECONDS at the PANNs rate: a few tones
+    with an envelope over noise, float32."""
+    r = np.random.default_rng(seed)
+    n = int(AUDIO_PANNS["sr"] * AUDIO_SECONDS)
+    t = np.arange(n) / AUDIO_PANNS["sr"]
+    f0 = r.uniform(100.0, 4000.0, (AUDIO_CLIPS, 3, 1))
+    tones = (np.sin(2 * np.pi * f0 * t) * r.uniform(0.05, 0.3, f0.shape)
+             ).sum(1)
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * r.uniform(0.2, 2.0,
+                                                   (AUDIO_CLIPS, 1)) * t)
+    noise = 0.02 * r.standard_normal((AUDIO_CLIPS, n))
+    return (tones * env + noise).astype("float32")
+
+
+FFT_SWEEP = {
+    "fft": ("c", {"n": 100, "axis": 1}), "ifft": ("c", {"norm": "ortho"}),
+    "rfft": ("r", {"axis": 0}), "irfft": ("c", {"n": 200}),
+    "hfft": ("c", {"norm": "forward"}), "ihfft": ("r", {}),
+    "fft2": ("c", {}), "ifft2": ("c", {"axes": (0, 2)}),
+    "rfft2": ("r", {"s": (32, 64)}), "irfft2": ("c", {}),
+    "hfft2": ("c", {}), "ihfft2": ("r", {}),
+    "fftn": ("c", {}), "ifftn": ("c", {"axes": [1, 2], "norm": "ortho"}),
+    "rfftn": ("r", {}), "irfftn": ("c", {"s": (8, 64, 120)}),
+    "hfftn": ("c", {"axes": (1, 2)}), "ihfftn": ("r", {}),
+    "fftshift": ("r", {"axes": [1]}), "ifftshift": ("r", {}),
+    "fftfreq": (None, {"n": 1000, "d": 0.5}),
+    "rfftfreq": (None, {"n": 1000, "d": 1 / 32000}),
+}
+
+
+def _fft_sweep(device) -> dict:
+    """Each paddle.fft function on ``device`` against the CPU (float32,
+    the same inputs): the worst error over the largest magnitude."""
+    r = np.random.default_rng(7)
+    real = r.standard_normal(AUDIO_FFT_SHAPE).astype("float32")
+    cplx = (r.standard_normal(AUDIO_FFT_SHAPE) + 1j * r.standard_normal(
+        AUDIO_FFT_SHAPE)).astype("complex64")
+    errs = {}
+    for name, (kind, kw) in FFT_SWEEP.items():
+        fn = getattr(paddle.fft, name)
+        outs = []
+        for dev in (device, "cpu"):
+            paddle.set_device(dev)
+            out = fn(**kw) if kind is None else fn(paddle.to_tensor(
+                real if kind == "r" else cplx), **kw)
+            if torch.device(dev).type != out.device.type:
+                raise AssertionError(f"fft.{name}: a result on "
+                                     f"{out.device}, not {dev}")
+            outs.append(out.detach().cpu().resolve_conj().numpy())
+        got, want = outs
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"fft.{name}: {got.dtype}{got.shape} vs "
+                                 f"{want.dtype}{want.shape}")
+        errs[name] = float(np.abs(got.astype(np.complex128) - want).max()
+                           / np.abs(want).max())
+        if not errs[name] <= AUDIO_FFT_TOL:
+            raise AssertionError(f"fft.{name} on the card vs the CPU: "
+                                 f"{errs[name]:.2e} of the largest magnitude")
+    paddle.set_device(device)
+    return errs
+
+
+def phase_audio(device) -> dict:
+    """This slice's main path (see AUDIO_*): the PANNs log-mel front end
+    and MFCCs, the fft functions and the STFT round trip on the card."""
+    from paddle_tpu_torch import audio, signal
+
+    device = torch.device(device)
+    clips = audio_clips(31)
+    runs = {}
+    for dev, dtype in ((device, "float32"), ("cpu", "float64")):
+        paddle.set_device(dev)
+        logmel = audio.LogMelSpectrogram(**AUDIO_PANNS, dtype=dtype)
+        mfcc = audio.MFCC(n_mfcc=AUDIO_MFCC, **AUDIO_PANNS, dtype=dtype)
+        x = paddle.to_tensor(clips, dtype=dtype)
+        with torch.no_grad():
+            mel = logmel._mel(x)
+            runs[dev] = [mel, logmel(x), mfcc(x)]
+        if dev == device:
+            front = (logmel, x)
+    paddle.set_device(device)
+    got = [t.detach().cpu().double() for t in runs[device]]
+    want = [t.detach() for t in runs["cpu"]]
+    for g, w, name in zip(got, want, ("mel", "log-mel", "MFCC")):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: {list(g.shape)} vs "
+                                 f"{list(w.shape)}, or not finite")
+    peak_mel = want[0].amax(dim=(1, 2), keepdim=True)
+    mel_err = ((got[0] - want[0]).abs() / peak_mel).max().item()
+    kept = want[0] > AUDIO_DB_FLOOR * peak_mel
+    db_err = (got[1] - want[1]).abs()[kept].max().item()
+    frames_kept = kept.all(dim=1)                  # (clips, frames)
+    mfcc_err = (got[2] - want[2]).abs().amax(dim=1)[frames_kept].max().item()
+    mfcc_tol = AUDIO_DB_TOL * math.sqrt(AUDIO_PANNS["n_mels"])
+    if not (mel_err <= AUDIO_MEL_TOL and db_err <= AUDIO_DB_TOL
+            and mfcc_err <= mfcc_tol):
+        raise AssertionError(
+            f"PANNs front end on the card vs the CPU float64: mel "
+            f"{mel_err:.2e} of each clip's peak (tol {AUDIO_MEL_TOL}), "
+            f"log-mel {db_err:.2e} dB (tol {AUDIO_DB_TOL}), MFCC "
+            f"{mfcc_err:.2e} (tol {mfcc_tol:.2e})")
+    del runs, got, want
+    fft_errs = _fft_sweep(device)
+    x = front[1]
+    win = audio.functional.get_window("hann", AUDIO_PANNS["n_fft"])
+    spec = signal.stft(x, AUDIO_PANNS["n_fft"], AUDIO_PANNS["hop_length"],
+                       window=win)
+    back = signal.istft(spec, AUDIO_PANNS["n_fft"],
+                        AUDIO_PANNS["hop_length"], window=win,
+                        length=x.shape[-1])
+    rt_err = (back - x).abs().max().item()
+    if spec.device.type != device.type or not rt_err <= AUDIO_ISTFT_TOL:
+        raise AssertionError(f"istft(stft(x)) on {spec.device}: {rt_err:.2e}"
+                             f" from x (tol {AUDIO_ISTFT_TOL})")
+    del spec, back
+    logmel = front[0]
+    with torch.no_grad():
+        for _ in range(2):
+            logmel(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(AUDIO_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = logmel(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            del out
+    ms = statistics.median(times)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    nbytes = x.numel() * 4 + AUDIO_CLIPS * AUDIO_PANNS["n_mels"] * (
+        x.shape[-1] // AUDIO_PANNS["hop_length"] + 1) * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"ms": ms, "clips_per_s": AUDIO_CLIPS / ms * 1e3,
+           "peak_gib": peak, "bound_ms": bound, "mel_err": mel_err,
+           "db_err": db_err, "mfcc_err": mfcc_err, "fft_errs": fft_errs,
+           "istft_err": rt_err}
+    worst = max(fft_errs, key=fft_errs.get)
+    log(f"[audio] PANNs log-mel front end (sr 32000, n_fft 1024, hop 320, "
+        f"hann, 50-14000 Hz, 64 mels) on {AUDIO_CLIPS} x {AUDIO_SECONDS} s "
+        f"clips: {ms:.3f} ms a batch (median of {AUDIO_REPS}) = "
+        f"{out['clips_per_s']:.1f} clips/s, peak {peak:.3f} GiB above the "
+        f"inputs; byte bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {ms / bound:.0f}x); vs the CPU "
+        f"float64: mel {mel_err:.2e} of each clip's peak, log-mel "
+        f"{db_err:.2e} dB, MFCC({AUDIO_MFCC}) {mfcc_err:.2e}; "
+        f"{len(fft_errs)} paddle.fft functions on the card within "
+        f"{fft_errs[worst]:.2e} ({worst}) of the largest magnitude; "
+        f"istft(stft(x)) {rt_err:.2e} from x [{card_identity()}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -8902,6 +9428,16 @@ def main() -> int:
     fused = phase_fused_layers(device)
     phase_geometric(device)
     misc = phase_incubate_misc(device)
+    torch.cuda.empty_cache()
+
+    # Paddle's own idioms and the audio front end, this slice's main
+    # paths: BERT-base built, re-initialized and trained as PaddleNLP
+    # scripts write it (the dropout kernel), and the PANNs log-mel front
+    # end with paddle.fft and the STFT round trip
+    idiom = phase_paddle_idiom(device)
+    torch.cuda.empty_cache()
+    phase_audio(device)
+    torch.cuda.empty_cache()
 
     if old_ragged is not None:
         old_ragged = (old_ragged, {
@@ -8936,11 +9472,13 @@ def main() -> int:
     rows.append(dropout_row(dropout_times(device),
                             dropout_main["launches"][dk.KERNEL_NAME]
                             + seq_dropout + vision["dropout_launches"]
-                            + bert["dropout_launches"],
+                            + bert["dropout_launches"]
+                            + idiom["dropout_launches"],
                             dropout_errors["max_abs_err"]))
     rows[-1]["launches_sequence"] = seq_dropout
     rows[-1]["launches_vision"] = vision["dropout_launches"]
     rows[-1]["launches_bert"] = bert["dropout_launches"]
+    rows[-1]["launches_paddle_idiom"] = idiom["dropout_launches"]
     rows.append(triple_row(core))
     log(f"[ops] int8 launches in the op sweep {ops['int8_launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")

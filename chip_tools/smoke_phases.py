@@ -2,10 +2,10 @@
 
 From the repository root, on a machine with one GPU::
 
-    PYTHONPATH=. python3 chip_tools/smoke_phases.py phase_bert_infer ...
+    PYTHONPATH=. python3 chip_tools/smoke_phases.py phase_audio ...
 
 It builds every kernel (``phase_build``, one nvcc per source), then runs
-each named phase (default: the BERT, fused-layer, geometric and incubate
+each named phase (default: the op sweep, the Paddle-idiom and the audio
 phases) with ``torch.device("cuda")``. A failing phase prints its
 traceback and the next one runs; the exit code is 1 if any failed.
 """
@@ -15,8 +15,7 @@ import traceback
 
 import torch
 
-DEFAULT = ("phase_bert_finetune", "phase_bert_infer", "phase_fused_layers",
-           "phase_geometric", "phase_incubate_misc")
+DEFAULT = ("phase_op_surface", "phase_paddle_idiom", "phase_audio")
 
 
 def main() -> int:

@@ -19,7 +19,10 @@ layers, ``metric``, ``Model(...).fit`` / ``evaluate`` / ``predict`` with
 (``text.bert``), the text datasets, ``incubate`` (the fused layers,
 ``LookAhead`` / ``ModelAverage``, ASP, functional autodiff, auto
 checkpoints, shared-memory tensor passing), ``geometric`` and
-``regularizer``, serves the decoder-only LM
+``regularizer``, Paddle's initializers, ``device`` (streams, events,
+the allocator's counters), the places and the rest of ``compat``,
+``fft`` / ``signal`` / ``audio``, ``hub``, ``reader``, ``strings`` and
+``sysconfig``, serves the decoder-only LM
 through the JAX engine's entry points (``inference.llm``) and trains the
 GPT family (``text.gpt``) on an NVIDIA GPU, with the TPU's Pallas
 kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
@@ -27,9 +30,16 @@ kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
 to the card unless ``set_device("cpu")`` (or a ``place``) asks for the
 host.
 """
-from . import (amp, autograd, callbacks, framework, geometric, hapi,
-               incubate, io, jit, linalg, metric, nn, optimizer, regularizer,
-               static, text, utils, vision)
+from . import (amp, audio, autograd, callbacks, device, fft, framework,
+               geometric, hapi, hub, incubate, inference, io, jit, linalg,
+               metric, nn, observability, optimizer, reader, regularizer,
+               signal, static, strings, sysconfig, text, utils, vision)
+from .compat import (CPUPlace, CUDAPinnedPlace, CUDAPlace, DataParallel,
+                     LazyGuard, NPUPlace, Place, TPUPlace, batch,
+                     check_shape, create_parameter, disable_signal_handler,
+                     dtype, get_cuda_rng_state, iinfo, is_compiled_with_tpu,
+                     is_complex, is_floating_point, is_integer,
+                     set_cuda_rng_state, set_printoptions)
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                             set_grad_enabled)
 from .core.device import device_count, get_device, set_device
@@ -49,6 +59,7 @@ from .static import (disable_static, enable_static, in_dynamic_mode,
                      in_static_mode)
 
 bool = bool_  # noqa: A001 - Paddle's dtype name
+__version__ = "0.1.0"
 
 __all__ = ["resolve_device", "Tensor", "Parameter", "ParamAttr", "bool",
            "linalg", "log_softmax", "softmax", "set_device",
@@ -62,4 +73,11 @@ __all__ = ["resolve_device", "Tensor", "Parameter", "ParamAttr", "bool",
            "callbacks", "framework", "hapi", "io", "metric", "Model",
            "summary", "flops", "save", "load", "get_flags", "set_flags",
            "in_dynamic_mode", "in_static_mode", "geometric", "incubate",
-           "regularizer", "text", *_ops]
+           "regularizer", "text", "audio", "device", "fft", "hub",
+           "inference", "observability", "reader", "signal", "strings",
+           "sysconfig", "CPUPlace", "CUDAPinnedPlace", "CUDAPlace",
+           "DataParallel", "LazyGuard", "NPUPlace", "Place", "TPUPlace",
+           "batch", "check_shape", "create_parameter",
+           "disable_signal_handler", "dtype", "get_cuda_rng_state", "iinfo",
+           "is_compiled_with_tpu", "is_complex", "is_floating_point",
+           "is_integer", "set_cuda_rng_state", "set_printoptions", *_ops]

@@ -6,7 +6,9 @@ Counterpart of ``paddle_tpu/autograd/__init__.py``. ``PyLayer`` is a
 has torch's ``save_for_backward`` and ``saved_tensors`` and Paddle's
 ``saved_tensor``, which reads both as Paddle's method
 (``ctx.saved_tensor()``) and as the JAX package's property
-(``ctx.saved_tensor``).
+(``ctx.saved_tensor``). ``saved_tensors_hooks`` is torch's: the pack
+and unpack hooks run on every tensor autograd saves inside it (the JAX
+package's is a no-op scope, its tape saving no tensors through hooks).
 """
 from __future__ import annotations
 
@@ -15,7 +17,10 @@ from torch.autograd.function import FunctionMeta
 
 from ..core.autograd import backward, grad, no_grad
 
-__all__ = ["backward", "grad", "no_grad", "PyLayer", "PyLayerContext"]
+__all__ = ["backward", "grad", "no_grad", "PyLayer", "PyLayerContext",
+           "PyLayerMeta", "saved_tensors_hooks"]
+
+saved_tensors_hooks = torch.autograd.graph.saved_tensors_hooks
 
 
 class _Saved(list):
@@ -31,7 +36,7 @@ class PyLayerContext:
         return _Saved(self.saved_tensors)
 
 
-class _PyLayerMeta(FunctionMeta):
+class PyLayerMeta(FunctionMeta):
     def __init__(cls, name, bases, attrs):
         super().__init__(name, bases, attrs)
         # the class of the ctx objects torch hands to forward/backward
@@ -39,5 +44,5 @@ class _PyLayerMeta(FunctionMeta):
                                  (PyLayerContext, cls._backward_cls), {})
 
 
-class PyLayer(torch.autograd.Function, metaclass=_PyLayerMeta):
+class PyLayer(torch.autograd.Function, metaclass=PyLayerMeta):
     """A custom autograd function with Paddle's name."""

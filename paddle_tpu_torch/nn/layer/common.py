@@ -66,10 +66,11 @@ class Embedding(Layer):
     Xavier-normal. With ``padding_idx`` k (negative: counted from the
     end), row k starts at zero and the ids k look up exact zeros
     whatever the table holds, with no gradient to row k: the JAX
-    package's ``jnp.where`` over the lookup."""
+    package's ``jnp.where`` over the lookup. ``sparse`` is accepted and
+    ignored, as in the JAX package (the gradient is dense)."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 weight_attr=None, name=None, device=None):
+                 sparse=False, weight_attr=None, name=None, device=None):
         super().__init__()
         if padding_idx is not None and padding_idx < 0:
             padding_idx += num_embeddings

@@ -5,13 +5,14 @@
 ``TrainStep``, ``amp.decorate`` and optimizers take a ``Layer`` model as
 they take any module: ``parameters()`` returns a list,
 ``create_parameter`` makes a :class:`Parameter` from an initializer,
-``register_buffer(persistable=)``, ``set_state_dict`` loads Paddle's
-structured names (``layer1.0.bn1._mean``; ``state_dict`` is torch's,
-whose names are the same; a tensor registered under two names, as a
-tied weight is, loads from either; after ``amp.decorate(save_dtype=)``
-``state_dict`` casts its floating tensors), ``to(dtype=)`` casts every
-floating parameter *and* buffer, as the JAX ``Layer.to`` does, and
-``clear_gradients``.
+``register_buffer(persistable=)``, ``set_state_dict`` (``load_dict``)
+loads Paddle's structured names (``layer1.0.bn1._mean``; ``state_dict``
+is torch's, whose names are the same; a tensor registered under two
+names, as a tied weight is, loads from either; after
+``amp.decorate(save_dtype=)`` ``state_dict`` casts its floating
+tensors), ``to(dtype=)`` (``astype``) casts every floating parameter
+*and* buffer, as the JAX ``Layer.to`` does, and ``clear_gradients``,
+``add_parameter``, ``sublayers`` and ``full_name``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 from ...core import dtypes as _dt
 from ...core.device import to_torch_device
 from ...core.tensor import Tensor, from_numpy
-from ..initializer import Constant, XavierUniform
+from ..initializer import (Constant, XavierNormal, XavierUniform,
+                           global_initializer)
 
 __all__ = ["Parameter", "Layer", "layer_state_from_jax", "create_parameter",
            "functional_layer"]
@@ -49,11 +51,10 @@ def create_parameter(shape, dtype=None, initializer=None, is_bias=False,
                      trainable=True, name=None, default_initializer=None,
                      device=None) -> Parameter:
     """A free-standing parameter: ``initializer`` (else
-    ``default_initializer``, else zeros for a bias and Xavier-normal for
-    a weight) on ``device`` (default: the current device)."""
-    from ..initializer import XavierNormal
-
-    init = initializer or default_initializer
+    ``default_initializer``, else the one ``set_global_initializer``
+    set, else zeros for a bias and Xavier-normal for a weight) on
+    ``device`` (default: the current device)."""
+    init = initializer or default_initializer or global_initializer(is_bias)
     if init is None:
         init = Constant(0.0) if is_bias else XavierNormal()
     value = init([int(s) for s in shape],
@@ -86,17 +87,22 @@ class Layer(torch.nn.Module):
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
         self._dtype = _dt.convert_dtype(dtype)
+        self._full_name = name_scope or type(self).__name__.lower()
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None, device=None) -> Parameter:
         """A new parameter of ``shape`` on ``device`` (default: the
         current device), filled by ``attr.initializer``, else
+        the one ``set_global_initializer`` set, else
         ``default_initializer``, else zeros for a bias and Xavier-uniform
-        for a weight (the JAX ``Layer.create_parameter``'s rule)."""
-        init, trainable = default_initializer, True
+        for a weight. The global initializer ranks below ``attr``'s and
+        above the layer's default, as in Paddle (the JAX
+        ``Layer.create_parameter`` does not read it)."""
+        init, trainable = None, True
         if attr is not None and attr is not False:
-            init = getattr(attr, "initializer", None) or init
+            init = getattr(attr, "initializer", None)
             trainable = getattr(attr, "trainable", True)
+        init = init or global_initializer(is_bias) or default_initializer
         if init is None:
             init = Constant(0.0) if is_bias else XavierUniform()
         value = init(shape, _dt.convert_dtype(dtype) or self._dtype, device)
@@ -114,6 +120,23 @@ class Layer(torch.nn.Module):
     def add_sublayer(self, name, sublayer):
         self.add_module(name, sublayer)
         return sublayer
+
+    def add_parameter(self, name, parameter):
+        self.register_parameter(name, parameter)
+        return parameter
+
+    def sublayers(self, include_self=False) -> List["Layer"]:
+        """Every layer below this one, depth first (and this one first
+        with ``include_self``)."""
+        return [m for _, m in self.named_sublayers(include_self=include_self)]
+
+    def full_name(self) -> str:
+        """The name scope given at construction, else the class name in
+        lower case (the JAX package's scheme)."""
+        return self.__dict__.get("_full_name") or type(self).__name__.lower()
+
+    def astype(self, dtype):
+        return self.to(dtype=dtype)
 
     def named_sublayers(self, prefix="", include_self=False):
         for name, m in self.named_modules(prefix=prefix):
@@ -182,6 +205,8 @@ class Layer(torch.nn.Module):
         missing = [k for names in _groups(own).values()
                    if not any(n in state_dict for n in names) for k in names]
         return missing, unexpected
+
+    load_dict = set_state_dict
 
 
 def layer_state_from_jax(arrays: Dict[str, np.ndarray], model: Layer

@@ -192,7 +192,10 @@ def as_tensor(data, dtype=None, place=None):
 
 
 def create_tensor(dtype="float32", name=None, persistable=False):
-    """A zero scalar of ``dtype``, to be assigned later."""
+    """A zero scalar of ``dtype`` (a tensor: its dtype), to be assigned
+    later."""
+    if isinstance(dtype, torch.Tensor):
+        dtype = dtype.dtype
     t = to_tensor(torch.zeros((), dtype=_dt.convert_dtype(dtype)),
                   place=to_torch_device(None))
     if name:

@@ -156,9 +156,16 @@ class Optimizer:
     def _wd_for(self, p) -> float:
         return self._weight_decay
 
-    def clear_grad(self) -> None:
+    def clear_grad(self, set_to_zero: bool = False) -> None:
+        """Drop every parameter's gradient, or with ``set_to_zero``
+        replace it by zeros."""
         for p in self._parameter_list:
-            p.grad = None
+            if set_to_zero and p.grad is not None:
+                p.grad = torch.zeros_like(p.grad)
+            else:
+                p.grad = None
+
+    clear_gradients = clear_grad
 
     def _key(self, i: int, p) -> str:
         return self._names.get(id(p)) or f"param_{i}"

@@ -421,3 +421,50 @@ def test_the_scan_covers_the_bert_incubate_slice():
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_scan_covers_the_initializer_device_and_audio_slice(tmp_path):
+    """The initializers, ``device/``, ``compat``, ``fft``, ``signal``,
+    ``audio/``, ``hub``, ``reader``, ``strings`` and ``sysconfig`` are
+    scanned; in a fresh interpreter the Paddle idioms of this slice (a
+    place, a global initializer, ``set_value``, ``clear_gradients``,
+    the log-mel front end, an FFT, a WAV round trip, a local hub) leave
+    ``jax`` and ``paddle_tpu`` out of ``sys.modules``."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    for rel in ("nn/initializer.py", "device/__init__.py", "compat.py",
+                "fft.py", "signal.py", "audio/__init__.py",
+                "audio/functional.py", "audio/features.py",
+                "audio/backends.py", "audio/datasets.py", "hub.py",
+                "reader.py", "strings.py", "sysconfig.py",
+                "autograd/__init__.py", "utils/__init__.py"):
+        assert str((port / rel).relative_to(ROOT)) in names, rel
+    (tmp_path / "hubconf.py").write_text("def one():\n    return 1\n")
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device(paddle.CPUPlace())\n"
+        "init = paddle.nn.initializer\n"
+        "init.set_global_initializer(init.TruncatedNormal(0.0, 0.02))\n"
+        "m = paddle.nn.Sequential(paddle.nn.Linear(4, 4))\n"
+        "init.set_global_initializer(None)\n"
+        "m[0].weight.set_value(paddle.normal(0.0, 0.02, [4, 4]))\n"
+        "opt = paddle.optimizer.AdamW(parameters=m.parameters())\n"
+        "m(paddle.rand([2, 4])).sum().backward(); opt.step()\n"
+        "opt.clear_gradients()\n"
+        "x = paddle.rand([1, 4000])\n"
+        "paddle.audio.MFCC(sr=16000, n_fft=256, n_mels=20)(x)\n"
+        "paddle.fft.rfft(x).cast('complex64')\n"
+        f"path = {str(tmp_path / 'a.wav')!r}\n"
+        "paddle.audio.save(path, x, 16000); paddle.audio.load(path)\n"
+        f"assert paddle.hub.load({str(tmp_path)!r}, 'one') == 1\n"
+        "paddle.device.cuda.memory_allocated()\n"
+        "list(paddle.batch(lambda: iter(range(3)), 2)())\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -13,8 +13,10 @@ and phases differently), random draws by shape, dtype, range, moments
 and reproducibility under ``paddle.seed`` (the port draws from torch
 generators, the JAX package from threefry keys). A last test lists the
 JAX package's public names the port still lacks at the top level, in
-``paddle.nn``, ``paddle.nn.functional`` and ``paddle.linalg``, each
-with the ROADMAP item that ports it.
+``paddle.nn``, ``paddle.nn.functional``, ``paddle.nn.initializer``,
+``paddle.linalg``, ``fft``, ``signal``, ``audio``, ``device``,
+``utils``, ``autograd`` and the small modules (``SCANNED``), each with
+the ROADMAP item that ports it.
 """
 import importlib.util
 import re
@@ -204,24 +206,24 @@ def test_multinomial_without_replacement_and_seeded_uniform():
 # ROADMAP item that ports each; everything else must be present
 LATER = {
     "A.10.7b": {
-        # compat.py
-        "CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "DataParallel",
-        "LazyGuard", "NPUPlace", "Place", "TPUPlace", "batch", "check_shape",
-        "create_parameter", "disable_signal_handler", "dtype",
-        "get_cuda_rng_state", "iinfo", "is_compiled_with_tpu", "is_complex",
-        "is_floating_point", "is_integer", "set_cuda_rng_state",
-        "set_printoptions",
-        # sparse, the long-tail modules
-        "sparse_coo_tensor", "sparse_csr_tensor", "audio", "compat",
-        "cost_model", "distribution", "fft", "hub", "onnx", "profiler",
-        "quantization", "reader", "signal", "sparse", "strings",
-        "sysconfig"},
+        # part 2: sparse and the long-tail modules
+        "sparse_coo_tensor", "sparse_csr_tensor", "cost_model",
+        "distribution", "onnx", "profiler", "quantization", "sparse"},
     "A.11": {"distributed"},
 }
-# the JAX modules' own imports and helpers, which are not Paddle's API
+# the JAX modules' own imports and helpers, which are not Paddle's API:
+# JAX's device handle (``jax_device``), the Pallas custom op (the port's
+# is ``cuda_op``), the JAX tape's backward entry (``run_backward``) and
+# two imports the port's copies do not need (``struct``, ``List``)
 NOT_API = {"annotations", "apply", "defop", "make_op", "register_op",
            "to_tensor_arg", "jax", "jnp", "np", "Tensor", "creation", "logic",
-           "manipulation", "math", "nn_ops", "random_ops", "reduction"}
+           "manipulation", "math", "nn_ops", "random_ops", "reduction",
+           "jax_device", "pallas_op", "run_backward", "struct", "List"}
+# every namespace scanned, as (JAX module, port module) names
+SCANNED = ["", "nn", "nn.functional", "nn.initializer", "linalg", "fft",
+           "signal", "audio", "audio.functional", "audio.features",
+           "audio.backends", "audio.datasets", "device", "utils", "autograd",
+           "compat", "reader", "strings", "sysconfig", "hub"]
 
 
 def _public(mod):
@@ -234,10 +236,12 @@ def test_public_names_cover_the_jax_package():
     for item in LATER:
         assert re.search(rf"\*\*{re.escape(item)}\*\*", roadmap) or \
             item in roadmap, item
-    pairs = [(jp, tp), (jp.nn, tp.nn),
-             (jp.nn.functional, tp.nn.functional), (jlinalg, tp.linalg)]
     missing = set()
-    for j, t in pairs:
+    for name in SCANNED:
+        j = jlinalg if name == "linalg" else importlib.import_module(
+            ".".join(filter(None, ["paddle_tpu", name])))
+        t = importlib.import_module(".".join(filter(None, [
+            "paddle_tpu_torch", name])))
         missing |= _public(j) - _public(t)
     missing -= NOT_API
     # a subpackage the port has counts, imported at the top level or not
