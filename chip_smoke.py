@@ -204,7 +204,24 @@ before and read just after:
   log-mel front end and MFCCs on 64 ESC-50-length clips against the
   CPU in float64, every ``paddle.fft`` function against the CPU and the
   STFT round trip (``phase_audio``); and the op sweep also runs every
-  Paddle ``Tensor`` method (``METHOD_SWEEP``). Kernel
+  Paddle ``Tensor`` method (``METHOD_SWEEP``);
+- the long tail: ``bench.py``'s GPT trained under ``paddle.profiler``
+  (a schedule of one closed, one ready and two recorded steps, each in
+  a ``RecordEvent``; the exported host and device traces parsed, the
+  flash kernels found in the device trace, ``summary()`` and
+  ``benchmark()`` checked) and its static program through
+  ``cost_model.CostModel`` (``phase_profiler_cost``); ResNet-50 through
+  QAT (its first step against the CPU, then ``perf/resnet_bench.py``'s
+  batch in float32), ``QAT.convert``, PTQ and ``convert_int8`` through
+  the int8 kernels (logits against the CPU's int8 run;
+  ``phase_quantization``); OGB's arxiv GCN at ogbn-arxiv's size on a CSR
+  adjacency (its first step against the CPU, the dropout kernel) and
+  SECOND's first sparse stage on KITTI's voxel grid, each conv held to
+  float64 neighbour sums (``phase_sparse``); PyTorch's VAE example and
+  every distribution, KL pair and transform at 2^20 float64 elements
+  against the CPU, the threefry draws equal (``phase_distribution``);
+  LeNet exported to ONNX from the card and evaluated in numpy, resnet50
+  refused (``phase_onnx``). Kernel
   launch counts are Python
   counters and a graph replay runs no Python: a captured signature counts
   its kernels once at capture and adds what the capture counted at every
@@ -269,6 +286,7 @@ from paddle_tpu_torch.inference.llm.journal import RequestJournal
 from paddle_tpu_torch.inference.llm.scheduler import Overloaded
 from paddle_tpu_torch import observability as obs
 import paddle_tpu_torch as paddle
+from chip_tools import onnx_eval
 import paddle_tpu_torch.nn.functional as PF
 from paddle_tpu_torch.amp import GradScaler, decorate
 from paddle_tpu_torch.core import random as trng
@@ -5208,6 +5226,26 @@ def phase_jit_save_load(device) -> dict:
             "grad_rel": worst}
 
 
+def amp_gpt(device, layers):
+    """bench.py's GPT at ``layers`` layers and AdamW, under AMP O2 bf16."""
+    model = train_model(device, layers)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    return decorate(model, opt, level="O2", dtype="bfloat16")
+
+
+def static_gpt_program(device, layers):
+    """``amp_gpt`` recorded as a static program: ``static.data("ids",
+    [None, TRAIN_SEQ], "int64")``, the loss and ``AdamW.minimize``.
+    Returns ``(main, startup, loss)``."""
+    main, startup = paddle.static.Program(), paddle.static.Program()
+    with paddle.static.program_guard(main, startup):
+        model, opt = amp_gpt(device, layers)
+        x = paddle.static.data("ids", [None, TRAIN_SEQ], "int64")
+        loss = model.loss(x, x)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
 def phase_static_train(device) -> dict:
     """A static program of bench.py's GPT: ``static.data("ids", [None,
     1024], "int64")``, the loss, ``AdamW.minimize``, under AMP O2 bf16
@@ -5221,25 +5259,14 @@ def phase_static_train(device) -> dict:
     ids = torch.randint(0, TRAIN_CFG["vocab_size"],
                         (STATIC_STEPS, TRAIN_BATCH, TRAIN_SEQ), generator=g,
                         device=device)
-
-    def built():
-        model = train_model(device, layers)
-        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
-        return decorate(model, opt, level="O2", dtype="bfloat16")
-
-    model, opt = built()
+    model, opt = amp_gpt(device, layers)
     step = TrainStep(model, loss_fn, opt)
     with plain_attention_refused():
         eager = [step(x, x).item() for x in ids]
     del model, opt, step
     torch.cuda.empty_cache()
-    main, startup = paddle.static.Program(), paddle.static.Program()
     t0 = time.perf_counter()
-    with paddle.static.program_guard(main, startup):
-        model, opt = built()
-        x = paddle.static.data("ids", [None, TRAIN_SEQ], "int64")
-        loss = model.loss(x, x)
-        opt.minimize(loss)
+    main, startup, loss = static_gpt_program(device, layers)
     record_s = time.perf_counter() - t0
     exe = paddle.static.Executor()
     exe.run(startup)
@@ -9210,6 +9237,1414 @@ def phase_audio(device) -> dict:
     return out
 
 
+# ------------------------------------ the long tail: profiler, cost model,
+# quantization, sparse, distribution, onnx (this slice)
+
+# the profiler on bench.py's GPT (TRAIN_CFG, AMP O2 bf16, AdamW, one step
+# a TrainStep call): PROF_STEPS steps under PROF_SCHEDULE (one closed, one
+# ready, two recorded), the host's benchmark() rate against the CUDA
+# events' over the same steps within PROF_IPS_RTOL; then CostModel over
+# the static program of the same GPT, COST_REPEAT replays a record
+PROF_STEPS = 6
+PROF_SCHEDULE = dict(closed=1, ready=1, record=2, repeat=1)
+PROF_IPS_RTOL = 0.05
+COST_REPEAT, COST_TOP = 3, 10
+# traces and exports go to a temporary directory under this gitignored one
+SCRATCH_DIR = "profiler_log"
+# each flash kernel's __global__ symbol (csrc/flash_fwd_16.cuh,
+# csrc/flash_bwd_16.cuh), as the device trace names it
+FLASH_SYMBOLS = dict(zip(fa.KERNEL_NAMES, (
+    re.compile(r"(?<![A-Za-z0-9_])fwd_kernel<"),
+    re.compile(r"(?<![A-Za-z0-9_])bwd_dkdv_kernel<"),
+    re.compile(r"(?<![A-Za-z0-9_])bwd_dq_kernel<"))))
+
+
+def trace_kernel_counts(path) -> dict:
+    """Launches of each flash kernel in a torch.profiler Chrome trace
+    (its ``kernel`` events, matched by ``__global__`` symbol), and the
+    trace's kernel events in all."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    counts = {n: sum(1 for k in kernels if rx.search(k))
+              for n, rx in FLASH_SYMBOLS.items()}
+    counts["all_kernels"] = len(kernels)
+    return counts
+
+
+def summary_calls(summary: str) -> dict:
+    """Event name -> calls, from ``Profiler.summary()``'s rows."""
+    calls = {}
+    for line in summary.splitlines()[2:]:
+        parts = line.split()
+        if len(parts) == 6 and parts[1].isdigit():
+            calls[parts[0]] = int(parts[1])
+    return calls
+
+
+def _scratch():
+    os.makedirs(SCRATCH_DIR, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=SCRATCH_DIR)
+
+
+def phase_profiler_cost(device) -> dict:
+    """``paddle.profiler`` around bench.py's GPT training, then
+    ``paddle.cost_model`` on its static program.
+
+    A ``TrainStep`` of one step (after one warm step) runs PROF_STEPS
+    times under ``Profiler(scheduler=make_scheduler(**PROF_SCHEDULE),
+    on_trace_ready=export_chrome_tracing(dir))``, each step inside
+    ``RecordEvent("train_step")`` and its loss read on the host, then
+    ``prof.step(num_samples=tokens)``. Checks: both exported traces
+    parse; the device trace holds each flash kernel's symbol layers x
+    recorded steps times; ``summary()`` and the host trace count
+    ``train_step`` once per recorded step; ``benchmark().ips`` is the
+    CUDA events' tokens/s over the same steps within PROF_IPS_RTOL;
+    ``pd_training_steps_total`` is PROF_STEPS; the flash kernels launched
+    layers x steps, no plain attention. ms/step with the profiler
+    recording against the steps it was closed prices the tracing.
+    Then ``CostModel().profile_measure`` on ``static_gpt_program`` with
+    TRAIN_BATCH x TRAIN_SEQ ids: a time for every record, the costliest
+    COST_TOP, their sum and the program's time; the flash launches of
+    the replays (forward only, no grad) and the program runs."""
+    layers = TRAIN_CFG["num_hidden_layers"]
+    prof_mod = paddle.profiler
+    model, opt = amp_gpt(device, layers)
+    step = TrainStep(model, loss_fn, opt)
+    g = torch.Generator(device=device).manual_seed(12)
+    ids = torch.randint(0, TRAIN_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device=device)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    sched = prof_mod.make_scheduler(**PROF_SCHEDULE)
+    recording = (prof_mod.ProfilerState.RECORD,
+                 prof_mod.ProfilerState.RECORD_AND_RETURN)
+    recorded = [i for i in range(PROF_STEPS) if sched(i) in recording]
+    reg, saved_reg = obs.Registry(), obs.default_registry()
+    obs.set_default_registry(reg)
+    try:
+        with plain_attention_refused(), _scratch() as trace_dir:
+            step(ids, ids).item()                       # warm
+            fa.LAUNCHES.clear()
+            handler = prof_mod.export_chrome_tracing(trace_dir, "gpt")
+            prof = prof_mod.Profiler(scheduler=sched, on_trace_ready=handler)
+            prof_mod.benchmark().reset()
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(PROF_STEPS + 1)]
+            spans = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     for _ in range(PROF_STEPS)]
+            losses = []
+            prof.start()
+            marks[0].record()
+            for i in range(PROF_STEPS):
+                spans[i][0].record()
+                with prof_mod.RecordEvent("train_step"):
+                    loss = step(ids, ids)
+                spans[i][1].record()
+                losses.append(loss.item())
+                marks[i + 1].record()
+                prof.step(num_samples=tokens)
+            prof.stop()
+            torch.cuda.synchronize()
+            launches = dict(fa.LAUNCHES)
+            ips = prof_mod.benchmark().ips
+            steps_total = obs.training_metrics(reg)["steps"].value
+            calls = summary_calls(prof.summary())
+            with open(handler.last_path) as f:
+                host = json.load(f)["traceEvents"]
+            kernels = trace_kernel_counts(handler.last_device_path)
+            trace_mb = os.path.getsize(handler.last_device_path) / 2 ** 20
+            captures = handler._count
+    finally:
+        obs.set_default_registry(saved_reg)
+    event_ips = tokens * PROF_STEPS / (marks[0].elapsed_time(marks[-1]) / 1e3)
+    step_ms = [a.elapsed_time(b) for a, b in spans]
+    ms_rec = statistics.median(step_ms[i] for i in recorded)
+    ms_closed = statistics.median(step_ms[i] for i in range(PROF_STEPS)
+                                  if i not in recorded)
+    host_steps = sum(1 for e in host if e.get("name") == "train_step")
+    want = {n: layers * PROF_STEPS for n in fa.KERNEL_NAMES}
+    want_trace = {n: layers * len(recorded) for n in fa.KERNEL_NAMES}
+    got_trace = {n: kernels[n] for n in fa.KERNEL_NAMES}
+    out = {"ms_recording": ms_rec, "ms_closed": ms_closed,
+           "ips": ips, "event_ips": event_ips, "launches": launches,
+           "trace_kernels": got_trace}
+    log(f"[profiler] bench.py's GPT ({layers} layers, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, AMP O2 bf16, AdamW), {PROF_STEPS} steps under "
+        f"make_scheduler({PROF_SCHEDULE}): recorded steps {recorded}, "
+        f"{captures} capture(s), device trace {trace_mb:.1f} MiB with "
+        f"{kernels['all_kernels']} kernel events, flash kernels in it "
+        f"{got_trace} (want {want_trace}); summary train_step calls "
+        f"{calls.get('train_step')}, host trace {host_steps}; "
+        f"benchmark().ips {ips:.1f} against {event_ips:.1f} tokens/s from "
+        f"CUDA events over the same steps ({abs(ips / event_ips - 1):.2%}, "
+        f"tol {PROF_IPS_RTOL:.0%}); pd_training_steps_total {steps_total}; "
+        f"ms/step recording {ms_rec:.2f} vs closed {ms_closed:.2f} "
+        f"(+{ms_rec / ms_closed - 1:.1%}); losses "
+        f"{[round(v, 4) for v in losses]}; flash launches {launches}")
+    if (launches != want or got_trace != want_trace
+            or calls.get("train_step") != len(recorded)
+            or host_steps != len(recorded) or captures != 1
+            or steps_total != PROF_STEPS
+            or abs(ips / event_ips - 1) > PROF_IPS_RTOL
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"[profiler] checks failed: {out}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    main, startup, _ = static_gpt_program(device, layers)
+    fa.LAUNCHES.clear()
+    with plain_attention_refused():
+        cm = paddle.cost_model.CostModel()
+        res = cm.profile_measure(main, startup, feed={"ids": ids},
+                                 repeat=COST_REPEAT)
+    cost_launches = dict(fa.LAUNCHES)
+    per = res["op_time_ms"]
+    runs = 1 + COST_REPEAT
+    want_cost = {n: layers * runs * (2 if n == fa.KERNEL_NAMES[0] else 1)
+                 for n in fa.KERNEL_NAMES}
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:COST_TOP]
+    total = sum(per.values())
+    log(f"[cost_model] static GPT program ({len(main.ops)} records), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} ids, {COST_REPEAT} replays a record: "
+        f"costliest {[(k, round(v, 4)) for k, v in top]} ms; records' sum "
+        f"{total:.2f} ms, program (Executor.run, forward + backward + "
+        f"AdamW) {res['program_time_ms']:.2f} ms; flash launches "
+        f"{cost_launches} (want {want_cost}: the replays' forwards and the "
+        f"runs') [{card_identity()}]")
+    if (len(per) != len(main.ops) or cost_launches != want_cost
+            or not all(math.isfinite(v) and v >= 0 for v in per.values())
+            or not res["program_time_ms"] > 0):
+        raise AssertionError("[cost_model] a record has no time, or the "
+                             "flash launches differ")
+    out.update({"records": len(per), "records_ms": total,
+                "program_ms": res["program_time_ms"],
+                "cost_launches": cost_launches,
+                "row_launches": {n: launches[n] + cost_launches[n]
+                                 for n in fa.KERNEL_NAMES}})
+    del main, startup, cm
+    torch.cuda.empty_cache()
+    return out
+
+
+# quantization: ResNet-50 on perf/resnet_bench.py's shapes (RESNET_*) in
+# float32 with TF32 off: QAT (a FakeQuanterWithAbsMaxObserver on every
+# Conv2D's and the Linear's input and weight) for RESNET_WARMUP +
+# RESNET_STEPS TrainStep steps at QAT_BATCH, then PTQ (AbsMaxObserver)
+# calibrated on PTQ_CALIB batches of QUANT_EVAL, and convert_int8 through
+# the int8 kernels. The first QAT step at RESNET_PARITY_BATCH against the
+# port's CPU runs in float64: a code x / s within rounding of .5 rounds
+# either way between two runs, a flipped code moves its activation by a
+# whole quantization step, and the next layers carry that on, so in
+# float32 (runs that agree to ~1e-6) the flips compound through 53
+# layers (measured on the card: 22 % of the codes flipped, the logits
+# 15 % of max apart). In float64 at most QAT_FLIP_SHARE of the codes may
+# flip, the logits, the loss, each quanter's scale and the BatchNorm
+# statistics within QAT_TOL of their largest value. The int8 model's
+# logits against the port's CPU convert_int8 on the same QUANT_EVAL
+# images within INT8_LOGIT_TOL of max |logit|, with its float layers
+# (BatchNorm, pools, the residual sums) in float64: each int8 layer
+# quantizes float32 values to codes and sums them exactly, so the two
+# runs agree while the same float32 values reach every layer; in float32
+# the BatchNorms' rounding moves a per-tensor scale by an ulp, codes
+# flip, and the flips compound through 53 layers (1.2e-3 of max |logit|
+# measured on the card)
+QAT_BATCH = RESNET_BATCH
+QAT_FLIP_SHARE, QAT_TOL = 1e-6, 1e-6
+# Where the float32 cascade starts (``qat_flip_trace``): the first QAT
+# forward in float32 on the card and on the CPU, each fake-quanter's
+# codes (from its output) and the values x / s it rounds (from its input
+# and scale). A quanter whose x / s are the same bits on both (every
+# weight quanter and the stem's input) flips no code. Elsewhere a code
+# flips only where a rounding boundary lies between the two x / s, so
+# with boundaries spread evenly the expected flips are the sum of
+# min(|gap|, 1); each quanter's flips stay within QAT_TIE_SLACK times
+# that plus QAT_TIE_FLOOR. Up to the first quanter that flips, the x / s
+# of the two runs agree within QAT_F32_GAP of the 127-code range, as two
+# float32 runs of the same layers do
+QAT_TIE_SLACK, QAT_TIE_FLOOR, QAT_F32_GAP = 2.0, 5, 1e-5
+QUANT_EVAL, PTQ_CALIB = 64, 8
+INT8_LOGIT_TOL = 1e-5
+QUANT_REPS = 5
+# ResNet-50's layers the QAT config swaps: 53 convolutions and the Linear
+RESNET_CONVS = 53
+
+
+def _quanters(model):
+    q = paddle.quantization
+    return [(n, m) for n, m in model.named_sublayers()
+            if isinstance(m, q.FakeQuanterWithAbsMaxObserver)]
+
+
+def _code_tap(model, store, compare=None):
+    """Forward hooks on every fake-quanter: its codes ``round(x / s)``
+    (int8, on the host) appended to ``store``, or, with ``compare``,
+    counted against the codes stored by a run before: returns the hook
+    handles and a ``[flipped, total]`` counter."""
+    counts = [0, 0]
+
+    def hook(layer, inputs, output):
+        s = torch.clamp(layer._scale, min=1e-9)
+        s = s / torch.full_like(s, 127.0)
+        codes = torch.clamp(torch.round(inputs[0].detach() / s), -127,
+                            127).to(torch.int8).cpu()
+        if compare is None:
+            store.append(codes)
+        else:
+            other = compare[len(store)]
+            store.append(None)
+            counts[0] += int((codes != other).sum())
+            counts[1] += codes.numel()
+
+    return [m.register_forward_hook(hook) for _, m in _quanters(model)], \
+        counts
+
+
+def _qat_config():
+    q = paddle.quantization
+    return q.QuantConfig(activation=q.FakeQuanterWithAbsMaxObserver(),
+                         weight=q.FakeQuanterWithAbsMaxObserver())
+
+
+def _resnet_twins(device, ref_device):
+    """resnet50 on ``device`` and on ``ref_device`` with the same weights,
+    and RESNET_PARITY_BATCH inputs and labels on the host."""
+    paddle.seed(0)
+    nets = []
+    for dev in (device, ref_device):
+        paddle.set_device(dev)
+        nets.append(resnet50(num_classes=RESNET_CLASSES))
+    paddle.set_device(device)
+    nets[1].set_state_dict(nets[0].state_dict())
+    g = torch.Generator().manual_seed(31)
+    x = torch.rand((RESNET_PARITY_BATCH, 3, RESNET_SIZE, RESNET_SIZE),
+                   generator=g)
+    y = torch.randint(0, RESNET_CLASSES, (RESNET_PARITY_BATCH,), generator=g)
+    return nets, x, y
+
+
+def _rounded_tap(model, store):
+    """Forward hooks on every fake-quanter appending, in call order, its
+    name, the values it rounds ``x / s`` and its codes
+    ``round(output / s)`` (on the host) to ``store``."""
+    def hook(layer, inputs, output, name):
+        s = torch.clamp(layer._scale, min=1e-9)
+        s = s / torch.full_like(s, 127.0)
+        store.append((name, (inputs[0].detach() / s).cpu(),
+                      torch.round(output.detach() / s).to(torch.int8).cpu()))
+
+    return [m.register_forward_hook(
+        lambda layer, i, o, name=n: hook(layer, i, o, name))
+        for n, m in _quanters(model)]
+
+
+def qat_flip_trace(device, ref_device=torch.device("cpu")) -> dict:
+    """The first QAT forward (train mode) of resnet50 in float32 on the
+    card and on the port's CPU, the same weights and
+    RESNET_PARITY_BATCH inputs: each fake-quanter's flipped codes against
+    the ties its x / s gap makes expected (see QAT_TIE_SLACK)."""
+    nets, x, _ = _resnet_twins(device, ref_device)
+    runs = []
+    for net in nets:
+        net = paddle.quantization.QAT(_qat_config()).quantize(
+            net, inplace=True)
+        store = []
+        hooks = _rounded_tap(net, store)
+        p0 = net.parameters()[0]
+        with torch.no_grad():
+            net(x.to(p0.device))
+        for h in hooks:
+            h.remove()
+        runs.append(store)
+    rows, first, bad = [], None, []
+    for (name, a, ca), (other, b, cb) in zip(*runs):
+        if name != other:
+            raise AssertionError(f"[quant] the two runs called {name} and "
+                                 f"{other} in the same place")
+        gap = (a.double() - b.double()).abs()
+        flips = int((ca != cb).sum())
+        expected = gap.clamp(max=1.0).sum().item()
+        row = {"name": name, "flips": flips, "codes": ca.numel(),
+               "expected": expected, "gap": gap.max().item() / 127.0}
+        rows.append(row)
+        if expected == 0.0 and flips:
+            bad.append(f"{name}: {flips} flips from the same x / s")
+        elif flips > QAT_TIE_SLACK * expected + QAT_TIE_FLOOR:
+            bad.append(f"{name}: {flips} flips, {expected:.2f} expected")
+        if first is None and (flips or row["gap"] > QAT_F32_GAP):
+            first = row
+            if row["gap"] > QAT_F32_GAP:
+                bad.append(f"{name}: x / s {row['gap']:.2e} of the range "
+                           f"apart before any flip (tol {QAT_F32_GAP})")
+    del runs
+    total = sum(r["flips"] for r in rows)
+    codes = sum(r["codes"] for r in rows)
+    same = sum(1 for r in rows if r["expected"] == 0.0)
+    out = {"quanters": len(rows), "flips": total, "codes": codes,
+           "same_inputs": same, "first": first,
+           "per_quanter": [r["flips"] for r in rows]}
+    where = ("no quanter flips" if first is None else
+             f"the first flip at {first['name']} ({rows.index(first) + 1} of "
+             f"{len(rows)} in call order): {first['flips']} of "
+             f"{first['codes']} codes, {first['expected']:.3f} expected from "
+             f"its x / s gap, the gap {first['gap']:.2e} of the range (tol "
+             f"{QAT_F32_GAP})")
+    log(f"[quant] QAT float32 flip trace, resnet50 batch "
+        f"{RESNET_PARITY_BATCH} x {RESNET_SIZE}^2, {device} vs "
+        f"{ref_device}, first forward: {where}; {same} quanters round the "
+        f"same x / s bits on both; {total} of {codes} codes flipped "
+        f"({total / codes:.2e}); each quanter within {QAT_TIE_SLACK} x "
+        f"expected + {QAT_TIE_FLOOR}: {not bad}; flips by quanter in call "
+        f"order {out['per_quanter']}")
+    if bad:
+        raise AssertionError(f"[quant] the float32 QAT flips do not start "
+                             f"from ties: {bad}")
+    return out
+
+
+def qat_parity(device, ref_device=torch.device("cpu")) -> dict:
+    """The first QAT step on the card against the port's CPU: resnet50,
+    the same weights and RESNET_PARITY_BATCH inputs, one eager Momentum
+    step each; logits, loss, scales, running statistics and the share of
+    flipped codes."""
+    nets, x, y = _resnet_twins(device, ref_device)
+    qat = paddle.quantization.QAT(_qat_config())
+    card, cpu = (qat.quantize(n, inplace=True).to(dtype="float64")
+                 for n in nets)
+    codes = []
+    hooks, _ = _code_tap(card, codes)
+    (lg, lcard, _, sc), = _eager_steps(
+        card, Momentum(RESNET_LR, RESNET_MOMENTUM,
+                       parameters=card.parameters()), [x], [y])
+    for h in hooks:
+        h.remove()
+    hooks, flips = _code_tap(cpu, [], compare=codes)
+    (lc, lcpu, _, sr), = _eager_steps(
+        cpu, Momentum(RESNET_LR, RESNET_MOMENTUM,
+                      parameters=cpu.parameters()), [x], [y])
+    for h in hooks:
+        h.remove()
+    scales = [k for k in sr if k.endswith("._scale")]
+    out = {"logits": _rel_gap(lg, lc), "loss": abs(lcard - lcpu) / abs(lcpu),
+           "scales": max(((sc[k] - sr[k]).abs() / sr[k].abs()).item()
+                         for k in scales),
+           "stats": max(_rel_gap(sc[k], sr[k]) for k in sr if _is_stat(k)),
+           "flips": flips[0], "codes": flips[1],
+           "quanters": len(scales)}
+    log(f"[quant] QAT parity, resnet50 float64, batch "
+        f"{RESNET_PARITY_BATCH} x {RESNET_SIZE}^2, {device} vs {ref_device},"
+        f" first Momentum step: logits gap {out['logits']:.3e} of max "
+        f"|logit|, loss gap {out['loss']:.3e}, {out['quanters']} quanter "
+        f"scales within {out['scales']:.3e}, BN stats {out['stats']:.3e} "
+        f"(tol {QAT_TOL}); {out['flips']} of {out['codes']} fake-quant "
+        f"codes flipped ({out['flips'] / out['codes']:.2e}, tol "
+        f"{QAT_FLIP_SHARE})")
+    if not (max(out[k] for k in ("logits", "loss", "scales", "stats"))
+            <= QAT_TOL
+            and out["flips"] <= QAT_FLIP_SHARE * out["codes"]
+            and out["quanters"] == 2 * (RESNET_CONVS + 1)):
+        raise AssertionError(f"[quant] QAT on the card drifted from the "
+                             f"CPU: {out}")
+    return out
+
+
+def _int8_layers(model):
+    q = sys.modules["paddle_tpu_torch.quantization"]
+    return [m for m in model.sublayers()
+            if isinstance(m, (q._Int8Conv2DLayer, q._Int8LinearLayer))]
+
+
+def int8_conv_work(shapes) -> dict:
+    """The least time of the int8 conv route over the convolutions'
+    ``(input shape, output shape, K)``: each input read once and each
+    output written once in float32 with the weight codes, against 2 M N
+    K int8 operations, per convolution."""
+    total, by_bytes = 0.0, 0
+    for (n, c, h, w), (_, o, ho, wo), k in shapes:
+        nbytes = 4 * (n * c * h * w + n * o * ho * wo) + o * k
+        ops = 2 * n * ho * wo * o * k
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        total += max(t_b, t_o)
+        by_bytes += t_b >= t_o
+    return {"bound_ms": total * 1e3, "convs": len(shapes),
+            "bound_by": "bytes" if 2 * by_bytes >= len(shapes)
+            else "operations"}
+
+
+def phase_quantization(device) -> dict:
+    """ResNet-50 through QAT, then PTQ and the int8 tier.
+
+    - ``qat_parity``: the first QAT step against the CPU;
+    - ``qat_flip_trace``: where the float32 codes of the two first
+      forwards begin to differ, held to the ties their gaps explain;
+    - QAT training: ``QAT(QuantConfig(activation=FakeQuanter...,
+      weight=FakeQuanter...)).quantize(resnet50)`` (53 Conv2D and the
+      Linear swapped), Momentum, ``TrainStep``, RESNET_WARMUP then
+      RESNET_STEPS timed steps at QAT_BATCH x 3 x 224^2 float32: ms/step,
+      samples/s, peak memory;
+    - ``QAT.convert`` (scales frozen, eval); a float resnet50 with the
+      trained weights; PTQ with ``AbsMaxObserver`` calibrated on
+      PTQ_CALIB batches of QUANT_EVAL, ``convert``; ``convert_int8`` of
+      the float model (every conv through im2col and the int8 matmul
+      kernel, the Linear through the row quantizer and the int8 matmul);
+    - on QUANT_EVAL images: the int8 logits against the port's CPU
+      ``convert_int8`` (INT8_LOGIT_TOL), top-1 agreement of the int8,
+      PTQ and QAT models with the float one, each model's eval ms a
+      batch, the int8 launches of one forward, and the int8 conv route's
+      ms (each conv alone) against its bound."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = paddle.quantization
+    out = {"parity": qat_parity(device)}
+    torch.cuda.empty_cache()
+    out["f32_trace"] = qat_flip_trace(device)
+    torch.cuda.empty_cache()
+    paddle.set_device(device)
+    paddle.seed(1)
+    float_net = resnet50(num_classes=RESNET_CLASSES)
+    qmodel = q.QAT(_qat_config()).quantize(float_net)
+    swapped = [type(m).__name__ for m in qmodel.sublayers()]
+    if (swapped.count("QuantedConv2D"), swapped.count("QuantedLinear")) != (
+            RESNET_CONVS, 1):
+        raise AssertionError(f"[quant] QAT swapped {swapped.count('QuantedConv2D')} "
+                             f"convs and {swapped.count('QuantedLinear')} "
+                             "linears")
+    opt = Momentum(RESNET_LR, RESNET_MOMENTUM, parameters=qmodel.parameters())
+    step = TrainStep(qmodel, resnet_loss, opt)
+    x = paddle.rand([QAT_BATCH, 3, RESNET_SIZE, RESNET_SIZE])
+    y = paddle.randint(0, RESNET_CLASSES, [QAT_BATCH])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm_losses, warm = timed_steps(step, x, y, RESNET_WARMUP)
+    losses, wall = timed_steps(step, x, y, RESNET_STEPS)
+    peak = _peak_gib()
+    every = warm_losses + losses
+    if not all(math.isfinite(v) for v in every):
+        raise AssertionError(f"[quant] QAT losses not all finite: {every}")
+    out.update({"qat_ms": 1e3 * wall / RESNET_STEPS,
+                "qat_samples_s": QAT_BATCH * RESNET_STEPS / wall,
+                "qat_peak_gib": peak})
+    log(f"[quant] QAT training: resnet50, {RESNET_CONVS} Conv2D + 1 Linear "
+        f"fake-quantized (input and weight), batch {QAT_BATCH} x 3 x "
+        f"{RESNET_SIZE}^2 float32, TF32 off, Momentum({RESNET_LR}, "
+        f"{RESNET_MOMENTUM}), TrainStep: {RESNET_WARMUP} warm steps "
+        f"{warm:.2f}s, {RESNET_STEPS} timed {out['qat_ms']:.2f} ms/step, "
+        f"{out['qat_samples_s']:.1f} samples/s, peak {peak:.2f} GiB; losses "
+        f"{[round(v, 4) for v in every]}")
+    del opt, step, x, y
+    torch.cuda.empty_cache()
+
+    qeval = q.QAT(_qat_config()).convert(qmodel)
+    trained = {k: v for k, v in qmodel.state_dict().items()
+               if k in float_net.state_dict()}
+    missing, _ = float_net.set_state_dict(trained)
+    if missing:
+        raise AssertionError(f"[quant] the float model lacks {missing}")
+    float_net.eval()
+    del qmodel
+    g = torch.Generator(device=device).manual_seed(32)
+    images = torch.rand((PTQ_CALIB + 1, QUANT_EVAL, 3, RESNET_SIZE,
+                         RESNET_SIZE), generator=g, device=device)
+    evalx = images[-1]
+    ptq = q.PTQ(q.QuantConfig(activation=q.AbsMaxObserver(),
+                              weight=q.AbsMaxObserver()))
+    observed = ptq.quantize(float_net)
+    with torch.no_grad():
+        for batch in images[:-1]:
+            observed(batch)
+    ptq_net = ptq.convert(observed)
+    int8_net = q.PTQ(q.QuantConfig()).convert_int8(float_net)
+    int8_layers = _int8_layers(int8_net)
+    shapes = []
+
+    def shape_of(layer, inputs, output):
+        if isinstance(layer, sys.modules[
+                "paddle_tpu_torch.quantization"]._Int8Conv2DLayer):
+            shapes.append((tuple(inputs[0].shape), tuple(output.shape),
+                           layer._w_qt.shape[-1]))
+
+    hooks = [m.register_forward_hook(shape_of) for m in int8_layers]
+    with torch.no_grad():
+        logits = {"float": float_net(evalx), "qat": qeval(evalx),
+                  "ptq": ptq_net(evalx)}
+        before = dict(pa.LAUNCHES)
+        logits["int8"] = int8_net(evalx)
+        torch.cuda.synchronize()
+        launches = {k: pa.LAUNCHES.get(k, 0) - before.get(k, 0)
+                    for k in (i8.INT8_MATMUL_KERNEL, i8.QUANTIZE_ROWS_KERNEL)}
+    for h in hooks:
+        h.remove()
+    # the same int8 model against the port's CPU convert_int8, the float
+    # layers in float64 (see INT8_LOGIT_TOL)
+    f64 = []
+    for dev in (device, torch.device("cpu")):
+        paddle.set_device(dev)
+        net = resnet50(num_classes=RESNET_CLASSES)
+        net.set_state_dict({k: v.to(dev) for k, v in
+                            float_net.state_dict().items()})
+        net.eval()
+        f64.append(q.PTQ(q.QuantConfig()).convert_int8(
+            net.to(dtype="float64")))
+    paddle.set_device(device)
+    with torch.no_grad():
+        got64 = f64[0](evalx.double()).cpu()
+        want = f64[1](evalx.cpu().double())
+    int8_gap = _rel_gap(got64, want)
+    del f64, got64
+    top1 = {k: logits[k].argmax(-1) for k in logits}
+    agree = {k: float((top1[k] == top1["float"]).float().mean())
+             for k in ("qat", "ptq", "int8")}
+    with torch.no_grad():
+        ms = {k: time_cuda(lambda net=net: net(evalx), QUANT_REPS, 1)
+              for k, net in (("float", float_net), ("qat", qeval),
+                             ("ptq", ptq_net), ("int8", int8_net))}
+        convs = [m for m in int8_layers if isinstance(
+            m, sys.modules["paddle_tpu_torch.quantization"]._Int8Conv2DLayer)]
+        conv_inputs = []
+        taps = [m.register_forward_pre_hook(
+            lambda m, a: conv_inputs.append(a[0])) for m in convs]
+        int8_net(evalx)
+        for h in taps:
+            h.remove()
+        conv_ms = sum(time_cuda(lambda m=m, a=a: m(a), QUANT_REPS, 1)
+                      for m, a in zip(convs, conv_inputs))
+        del conv_inputs
+    work = int8_conv_work(shapes)
+    n_convs = sum(1 for m in int8_layers if m.__class__.__name__ ==
+                  "_Int8Conv2DLayer")
+    want_launches = {i8.INT8_MATMUL_KERNEL: n_convs + 1,
+                     i8.QUANTIZE_ROWS_KERNEL: 1}
+    out.update({"int8_gap": int8_gap, "agree": agree, "ms": ms,
+                "launches": launches, "conv_ms": conv_ms, **work})
+    log(f"[quant] PTQ ({PTQ_CALIB} calibration batches of {QUANT_EVAL}) "
+        f"and convert_int8 ({n_convs} convs through im2col into the int8 "
+        f"matmul, the Linear through quantize_rows): int8 logits against "
+        f"the CPU's convert_int8 (float layers in float64) {int8_gap:.3e} "
+        f"of max |logit| (tol {INT8_LOGIT_TOL}); top-1 agreement with float on {QUANT_EVAL} "
+        f"images {agree}; eval ms a batch of {QUANT_EVAL} "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+        + f"; the int8 conv route {conv_ms:.2f} ms over {work['convs']} "
+        f"convs against its bound {work['bound_ms']:.3f} ms "
+        f"({work['bound_by']}, {conv_ms / work['bound_ms']:.1f}x); "
+        f"launches of one int8 forward {launches} (want {want_launches}) "
+        f"[{card_identity()}]")
+    if (int8_gap > INT8_LOGIT_TOL or launches != want_launches
+            or n_convs != RESNET_CONVS
+            or not all(torch.isfinite(v).all() for v in logits.values())):
+        raise AssertionError(f"[quant] the int8 tier failed its checks: "
+                             f"{out}")
+    del float_net, qeval, ptq_net, int8_net, observed, images, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+# sparse: OGB's ogbn-arxiv GCN baseline (examples/nodeproppred/arxiv/
+# gnn.py: 3 GCNConv layers, hidden 256, BatchNorm, ReLU, dropout 0.5,
+# Adam 0.01, full batch) on a seeded random graph of ARXIV's size made
+# symmetric with self-loops, D^-1/2 (A + I) D^-1/2 as a CSR tensor;
+# the labelled share is OGB's train split (90,941 of 169,343). GCN_STEPS
+# float32 steps with dropout (the dropout kernel, held bit-equal to its
+# plain version at the steps' shape and rate first), timed. The first step
+# is held to the port's CPU in float64 and without dropout (the kernel
+# takes 16- and 32-bit floats): loss and every gradient within GCN_TOL of
+# the tensor's largest magnitude. In float32 a weight or BatchNorm
+# gradient element is a sum over 169,343 nodes whose terms cancel, and
+# the card's and the CPU's sums of it differ by up to 4.5e-5 of the
+# tensor's largest (measured on the card with both runs on the same
+# dropout keys and ReLU masks)
+GCN_CLASSES, GCN_HIDDEN, GCN_LAYERS, GCN_DROPOUT = 40, 256, 3, 0.5
+GCN_LR, GCN_STEPS, GCN_TRAIN, GCN_TOL = 0.01, 10, 90941, 1e-5
+# a gradient whose largest magnitude is below this share of the model's
+# largest is 0 but for rounding (the biases of the two GCNConv layers
+# BatchNorm follows: the normalisation removes their mean), and its error
+# is held against the model's largest gradient instead
+GRAD_FLOOR_SHARE = 1e-3
+GCN_REPS = 5
+# SDDMM and the CSR softmax at the graph's pattern over GCN_CLASSES
+# features, card against CPU within GCN_TOL
+# SECOND's first sparse stage (Yan et al., Sensors 2018) on KITTI's voxel
+# grid (0.05 x 0.05 x 0.1 m over [0, 70.4] x [-40, 40] x [-3, 1] m:
+# D, H, W = 41, 1600, 1408), SECOND_VOXELS active voxels of 4 features
+# placed from the seed on surfaces, as a LiDAR scan's are
+# (``lidar_voxels``); SubmConv3D(4, 16) -> BatchNorm -> ReLU ->
+# SubmConv3D(16, 16) -> Conv3D(16, 32, stride 2, padding 1), forward and
+# backward; each conv's values at SECOND_SAMPLES active output sites
+# against a float64 sum over the site's active neighbours from its
+# sparse input, within SECOND_TOL of the layer's largest value (float32
+# cuDNN sums of up to 27 x 16 products). So that the sums test the 26
+# off-centre taps, the input's sites have at least SECOND_MIN_NEIGHBOURS
+# active off-centre neighbours on average, and at least
+# SECOND_MIN_COVERED of each conv's sampled sites have one
+SECOND_GRID = (41, 1600, 1408)
+SECOND_VOXELS, SECOND_SAMPLES, SECOND_TOL = 16000, 1000, 1e-5
+SECOND_MIN_NEIGHBOURS, SECOND_MIN_COVERED = 2.0, 0.9
+# the scan's surfaces: the ground plane at depth index 12 (KITTI's sensor
+# 1.73 m above it: (-1.73 + 3) / 0.1 = 12.7), a band of it ahead of the
+# sensor, and the two faces that car-sized boxes (1.5 x 1.6 x 4 m: 15 x
+# 32 x 80 voxels) turn to it; half the voxels each, every candidate site
+# of a surface active with probability SECOND_DENSITY
+SECOND_GROUND_Z, SECOND_CAR, SECOND_DENSITY = 12, (15, 32, 80), 0.5
+
+
+def arxiv_graph(n, e, seed):
+    """A seeded random graph of ``n`` nodes and ``e`` edges, made
+    symmetric with self-loops (duplicates merged), as the CSR arrays of
+    D^-1/2 (A + I) D^-1/2: ``(crows, cols, values)``."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, n, e)
+    loops = np.arange(n)
+    flat = np.unique(np.concatenate([src, dst, loops]) * n
+                     + np.concatenate([dst, src, loops]))
+    rows, cols = np.divmod(flat, n)
+    deg = np.bincount(rows, minlength=n).astype(np.float64)
+    dinv = deg ** -0.5
+    vals = (dinv[rows] * dinv[cols]).astype(np.float32)
+    crows = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    return crows.astype(np.int64), cols.astype(np.int64), vals
+
+
+class GCN(paddle.nn.Layer):
+    """OGB's arxiv GCN: GCNConv (X W, then A_hat (X W) + b) x 3 with
+    BatchNorm, ReLU and dropout between, log-softmax out."""
+
+    def __init__(self, in_ch, hidden, out_ch, layers, dropout):
+        super().__init__()
+        dims = [in_ch] + [hidden] * (layers - 1) + [out_ch]
+        self.lins = paddle.nn.LayerList([
+            paddle.nn.Linear(a, b, bias_attr=False)
+            for a, b in zip(dims[:-1], dims[1:])])
+        self.biases = paddle.nn.ParameterList([
+            self.create_parameter([b], is_bias=True) for b in dims[1:]])
+        self.bns = paddle.nn.LayerList([paddle.nn.BatchNorm1D(hidden)
+                                        for _ in range(layers - 1)])
+        self.relus = paddle.nn.LayerList([paddle.nn.ReLU()
+                                          for _ in range(layers - 1)])
+        self.dropout = dropout
+
+    def forward(self, x, adj):
+        for i, lin in enumerate(self.lins):
+            x = paddle.sparse.matmul(adj, lin(x)) + self.biases[i]
+            if i < len(self.bns):
+                x = self.relus[i](self.bns[i](x))
+                x = PF.dropout(x, self.dropout, training=self.training)
+        return PF.log_softmax(x, -1)
+
+
+def grad_gaps_floored(got, want) -> dict:
+    """Each gradient's largest error over its own largest magnitude, or
+    over the model's largest where its own is below GRAD_FLOOR_SHARE of
+    that (a gradient that is 0 but for rounding)."""
+    top = max(g.abs().max().item() for g in want.values())
+    gaps = {}
+    for k, g in want.items():
+        own = g.abs().max().item()
+        scale = own if own >= GRAD_FLOOR_SHARE * top else top
+        gaps[k] = (got[k] - g).abs().max().item() / scale
+    return gaps
+
+
+def _gcn_step(model, opt, x, adj, y, train_idx):
+    out = model(x, adj)
+    loss = PF.nll_loss(out[train_idx], y[train_idx])
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def gcn_parity(device, graph, feats, labels, train_idx, start) -> dict:
+    """The GCN's first step (forward, backward) in float64 and without
+    dropout on the card and on the CPU from the same ``start`` weights:
+    the loss's and the worst gradient's gaps."""
+    n = len(graph[0]) - 1
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        paddle.set_device(dev)
+        model = GCN(feats.shape[1], GCN_HIDDEN, GCN_CLASSES, GCN_LAYERS, 0.0)
+        model.set_state_dict(start)
+        model.to(dtype="float64")
+        adj = paddle.sparse_csr_tensor(graph[0], graph[1],
+                                       graph[2].astype(np.float64), [n, n])
+        out = model(paddle.to_tensor(feats, dtype="float64"), adj)
+        idx = paddle.to_tensor(train_idx)
+        loss = PF.nll_loss(out[idx], paddle.to_tensor(labels)[idx])
+        loss.backward()
+        runs.append((loss.item(), {k: p.grad.detach().cpu() for k, p in
+                                   model.named_parameters()}))
+    paddle.set_device(device)
+    (card_loss, card), (cpu_loss, cpu) = runs
+    gaps = grad_gaps_floored(card, cpu)
+    worst = max(gaps, key=gaps.get)
+    return {"loss_gap": abs(card_loss - cpu_loss) / abs(cpu_loss),
+            "grad_gap": gaps[worst], "worst": worst}
+
+
+def phase_gcn(device) -> dict:
+    """The GCN at ogbn-arxiv's size: the first step's loss and every
+    gradient against the port's CPU (``gcn_parity``); the dropout
+    kernel, forward and backward, bit-equal to its plain version at the
+    steps' ``[n, GCN_HIDDEN]`` float32 and GCN_DROPOUT; then GCN_STEPS
+    float32 steps with dropout, each timed by its own CUDA events; the
+    dropout kernel's launches; ``sparse.matmul``'s forward against its
+    byte bound and cuSPARSE; ``masked_matmul`` and the CSR ``softmax`` at
+    the graph's pattern against the CPU."""
+    n, e, f = ARXIV
+    crows, cols, vals = arxiv_graph(n, e, seed=50)
+    nnz = len(cols)
+    rng = np.random.default_rng(51)
+    feats = rng.standard_normal((n, f)).astype(np.float32)
+    labels = rng.integers(0, GCN_CLASSES, n)
+    train_idx = np.sort(rng.permutation(n)[:GCN_TRAIN])
+    paddle.set_device(device)
+    paddle.seed(52)
+    model = GCN(f, GCN_HIDDEN, GCN_CLASSES, GCN_LAYERS, GCN_DROPOUT)
+    start = {k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()}
+    parity = gcn_parity(device, (crows, cols, vals), feats, labels,
+                        train_idx, start)
+    if parity["loss_gap"] > GCN_TOL or parity["grad_gap"] > GCN_TOL:
+        raise AssertionError(f"[sparse] the GCN's first step drifted from "
+                             f"the CPU: {parity}")
+    adj = paddle.sparse_csr_tensor(crows, cols, vals, [n, n])
+    x, y = paddle.to_tensor(feats), paddle.to_tensor(labels)
+    idx = paddle.to_tensor(train_idx)
+    opt = paddle.optimizer.Adam(learning_rate=GCN_LR,
+                                parameters=model.parameters())
+    # the steps' dropout at their own shape and rate, before they run
+    dropout_at_path_shapes(device, (
+        ("arxiv GCN hidden", (n, GCN_HIDDEN), GCN_DROPOUT),), seed=530)
+    _seed_threefry(53)
+    spans, losses = [], []
+    before = dk.LAUNCHES[dk.KERNEL_NAME]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(GCN_STEPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        loss = _gcn_step(model, opt, x, adj, y, idx)
+        b.record()
+        spans.append((a, b))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    dropout_launches = dk.LAUNCHES[dk.KERNEL_NAME] - before
+    # the first step builds the caches and the optimizer's state
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in spans[1:])
+    peak = _peak_gib()
+    # sparse.matmul's forward against its byte bound and cuSPARSE
+    h = torch.randn(n, GCN_HIDDEN, device=device)
+    spmm_ms = time_cuda(lambda: paddle.sparse.matmul(adj, h), GCN_REPS, 1)
+    lib = torch.sparse_csr_tensor(*(t.detach().as_subclass(torch.Tensor)
+                                    for t in (adj.crows(), adj.cols(),
+                                              adj.values())), (n, n))
+    lib_ms = time_cuda(lambda: torch.sparse.mm(lib, h), GCN_REPS, 1)
+    spmm_err = _rel_gap(paddle.sparse.matmul(adj, h), torch.sparse.mm(lib, h))
+    nbytes = 2 * n * GCN_HIDDEN * 4 + (n + 1) * 8 + nnz * (8 + 4)
+    spmm_bound = nbytes / HBM_BYTES_PER_S * 1e3
+    message_gb = nnz * GCN_HIDDEN * 4 / 1e9
+    del h, lib
+    # SDDMM and the CSR softmax at the pattern, card against CPU
+    with torch.no_grad():
+        model.eval()
+        z = model(x, adj).float()
+    zc = z.cpu()
+    cpu = torch.device("cpu")
+    adj_cpu = paddle.sparse_csr_tensor(crows, cols, vals, [n, n], place=cpu)
+    scores = paddle.sparse.masked_matmul(z, z.t(), adj)
+    want = paddle.sparse.masked_matmul(zc, zc.t(), adj_cpu)
+    sddmm_err = _rel_gap(scores.values().cpu(), want.values())
+    # the softmax of the card's own scores on the CPU: the scores' float32
+    # gap (up to ~1e-4 after exp at their magnitude) is not the softmax's
+    soft = paddle.sparse.softmax(scores)
+    soft_want = paddle.sparse.softmax(paddle.sparse_csr_tensor(
+        crows, cols, scores.values().detach().cpu(), [n, n], place=cpu))
+    soft_err = _rel_gap(soft.values().cpu(), soft_want.values())
+    sddmm_ms = time_cuda(lambda: paddle.sparse.masked_matmul(z, z.t(), adj),
+                         GCN_REPS, 1)
+    soft_ms = time_cuda(lambda: paddle.sparse.softmax(scores), GCN_REPS, 1)
+    out = {**parity, "ms_per_step": step_ms, "dropout_launches": dropout_launches,
+           "spmm_ms": spmm_ms, "spmm_bound_ms": spmm_bound,
+           "cusparse_ms": lib_ms, "sddmm_err": sddmm_err,
+           "softmax_err": soft_err, "sddmm_ms": sddmm_ms,
+           "softmax_ms": soft_ms, "peak_gib": peak, "nnz": nnz}
+    log(f"[sparse] OGB arxiv GCN ({GCN_LAYERS} layers, hidden {GCN_HIDDEN}, "
+        f"BatchNorm, dropout {GCN_DROPOUT}, Adam {GCN_LR}) on a random graph "
+        f"of {n} nodes, {e} edges -> {nnz} nonzeros of D^-1/2 (A+I) "
+        f"D^-1/2 (CSR), {f} features, {GCN_CLASSES} classes: first step "
+        f"in float64 without dropout against the CPU: loss gap "
+        f"{parity['loss_gap']:.2e}, worst gradient {parity['worst']} "
+        f"{parity['grad_gap']:.2e} of its max (the model's where its own is "
+        f"below {GRAD_FLOOR_SHARE} of that; tol {GCN_TOL}); {GCN_STEPS} "
+        f"float32 steps with dropout {step_ms:.2f} ms/step (median of the "
+        f"last {GCN_STEPS - 1}), peak {peak:.2f} GiB, losses "
+        f"{[round(v, 4) for v in losses]}; dropout launches "
+        f"{dropout_launches}; sparse.matmul [{n}, {n}] x [{n}, {GCN_HIDDEN}]"
+        f" {spmm_ms:.3f} ms against its byte bound {spmm_bound:.3f} ms "
+        f"({spmm_ms / spmm_bound:.1f}x; the gathered messages are "
+        f"{message_gb:.2f} GB) and cuSPARSE {lib_ms:.3f} ms (agree "
+        f"{spmm_err:.1e}); masked_matmul over {GCN_CLASSES} features "
+        f"{sddmm_ms:.3f} ms (CPU gap {sddmm_err:.1e}), CSR softmax "
+        f"{soft_ms:.3f} ms (CPU gap {soft_err:.1e}) [{card_identity()}]")
+    if not (sddmm_err <= GCN_TOL and soft_err <= GCN_TOL
+            and spmm_err <= GCN_TOL
+            and dropout_launches == 2 * (GCN_LAYERS - 1) * GCN_STEPS
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"[sparse] the GCN failed its checks: {out}")
+    del model, opt, x, adj, z, scores, soft
+    torch.cuda.empty_cache()
+    return out
+
+
+def lidar_voxels(grid, n, seed):
+    """``n`` distinct active sites ``[3, n]`` (row-major order) of a
+    ``grid`` (D, H, W) where a LiDAR scan's voxels lie: ``n // 2`` on the
+    ground plane (depth SECOND_GROUND_Z) in a band ahead of the sensor
+    (W = 0, H centred), the rest on the faces that car-sized boxes
+    (SECOND_CAR, cut to a quarter of a small grid) on the ground turn to
+    the sensor; each from candidate sites of which SECOND_DENSITY are
+    taken, boxes added until there are enough."""
+    rng = np.random.default_rng(seed)
+    d, h, w = grid
+    z0 = min(SECOND_GROUND_Z, d - 2)
+    n_ground = n // 2
+    need = math.ceil(n_ground / SECOND_DENSITY)
+    band_h = min(h, 100)
+    band_w = min(w, math.ceil(need / band_h))
+    y0 = (h - band_h) // 2
+    ground = np.stack(np.meshgrid([z0], np.arange(y0, y0 + band_h),
+                                  np.arange(band_w), indexing="ij")
+                      ).reshape(3, -1)
+    pick = rng.choice(ground.shape[1], n_ground, replace=False)
+    chosen = [ground[:, pick]]
+    bz = min(SECOND_CAR[0], d - 1 - z0)
+    by, bx = min(SECOND_CAR[1], h // 4), min(SECOND_CAR[2], w // 4)
+    faces = np.zeros((3, 0), np.int64)
+    n_box = n - n_ground
+    while faces.shape[1] * SECOND_DENSITY < n_box:
+        ya = int(rng.integers(0, h - by))
+        xa = int(rng.integers(band_w, w - bx))
+        zs = np.arange(z0 + 1, z0 + 1 + bz)
+        # the face toward the sensor (W = xa) and the side nearer H's centre
+        ys = ya + by - 1 if ya + by / 2 < h / 2 else ya
+        front = np.stack(np.meshgrid(zs, np.arange(ya, ya + by), [xa],
+                                     indexing="ij")).reshape(3, -1)
+        side = np.stack(np.meshgrid(zs, [ys], np.arange(xa, xa + bx),
+                                    indexing="ij")).reshape(3, -1)
+        faces = np.unique(np.concatenate([faces, front, side], 1), axis=1)
+    pick = rng.choice(faces.shape[1], n_box, replace=False)
+    chosen.append(faces[:, pick])
+    flat = np.sort(np.ravel_multi_index(tuple(np.concatenate(chosen, 1)),
+                                        grid))
+    return np.stack(np.unravel_index(flat, grid)).astype(np.int64)
+
+
+def _voxel_ids(indices, grid, device):
+    """A dense int64 grid of each active site's index (-1 elsewhere)."""
+    ids = torch.full(grid, -1, dtype=torch.int64, device=device)
+    ids[tuple(indices[1:])] = torch.arange(indices.shape[1], device=device)
+    return ids
+
+
+def _neighbour_sums(x, w, b, sites, grid, stride, pad):
+    """float64 ``sum_k x[in(site, k)] @ w[k] + b`` at the output
+    ``sites [3, S]`` of a 3 x 3 x 3 conv over the sparse ``x``: only
+    active input sites count. Returns ``[S, out]`` and each site's count
+    of active inputs off the centre tap ``[S]``."""
+    idx = x.indices()
+    ids = _voxel_ids(idx, grid, x.values().device)
+    vals = x.values().detach().double()
+    wd = w.detach().double()
+    out = b.detach().double().expand(sites.shape[1], -1).clone()
+    off = torch.zeros(sites.shape[1], dtype=torch.int64, device=sites.device)
+    lim = torch.tensor(grid, device=sites.device)[:, None]
+    for kd in range(3):
+        for kh in range(3):
+            for kw in range(3):
+                k = torch.tensor([kd, kh, kw], device=sites.device)[:, None]
+                src = sites * stride - pad + k
+                ok = ((src >= 0) & (src < lim)).all(0)
+                nb = torch.full((sites.shape[1],), -1, dtype=torch.int64,
+                                device=sites.device)
+                s = src[:, ok]
+                nb[ok] = ids[s[0], s[1], s[2]]
+                hit = nb >= 0
+                out[hit] += vals[nb[hit]] @ wd[kd, kh, kw]
+                if (kd, kh, kw) != (1, 1, 1):
+                    off += hit
+    return out, off
+
+
+def _footprint(in_sites, grid, stride, pad):
+    """The output sites (row-major, unique) of a 3 x 3 x 3 conv whose
+    input is active at ``in_sites [3, N]`` (host numpy)."""
+    out_grid = [(g + 2 * pad - 3) // stride + 1 for g in grid]
+    found = []
+    for k in np.ndindex(3, 3, 3):
+        o = in_sites + pad - np.asarray(k)[:, None]
+        ok = ((o % stride) == 0).all(0)
+        o = o[:, ok] // stride
+        ok = ((o >= 0) & (o < np.asarray(out_grid)[:, None])).all(0)
+        found.append(np.ravel_multi_index(tuple(o[:, ok]), out_grid))
+    flat = np.unique(np.concatenate(found))
+    return np.stack(np.unravel_index(flat, out_grid)).astype(np.int64)
+
+
+def phase_second(device) -> dict:
+    """SECOND's first sparse stage at KITTI's voxel grid, forward and
+    backward once: every conv's values at SECOND_SAMPLES sampled active
+    sites against a float64 sum over each site's active neighbours (on
+    the card, from the layer's sparse input), the submanifold patterns
+    equal to their inputs', the strided conv's pattern equal to the
+    footprint of its input's coordinates; ms and peak memory against
+    the sparse work (the active site pairs a rulebook would multiply)."""
+    sp = paddle.sparse
+    # float32 sums: cuDNN's TF32 default rounds the inputs to 10 bits
+    # (3.5e-4 of the largest value against the float64 sums, measured)
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device(device)
+    paddle.seed(60)
+    d, hgt, wid = SECOND_GRID
+    rng = np.random.default_rng(61)
+    sites = lidar_voxels(SECOND_GRID, SECOND_VOXELS, seed=63)
+    idx = np.concatenate([np.zeros((1, SECOND_VOXELS), np.int64), sites])
+    feats = rng.standard_normal((SECOND_VOXELS, 4)).astype(np.float32)
+    layers = [sp.nn.SubmConv3D(4, 16, 3, padding=1), sp.nn.BatchNorm(16),
+              sp.nn.ReLU(), sp.nn.SubmConv3D(16, 16, 3, padding=1),
+              sp.nn.Conv3D(16, 32, 3, stride=2, padding=1)]
+    x = sp.sparse_coo_tensor(idx, feats, [1, d, hgt, wid, 4],
+                             stop_gradient=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t[0].record()
+    acts = [x]
+    for layer in layers:
+        acts.append(layer(acts[-1]))
+    t[1].record()
+    out = acts[-1]
+    w = torch.randn(out.values().shape, device=device)
+    (out.values() * w).sum().backward()
+    t[2].record()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    fwd_ms, bwd_ms = t[0].elapsed_time(t[1]), t[1].elapsed_time(t[2])
+    errs, covered = {}, {}
+    g = torch.Generator(device=device).manual_seed(62)
+    for name, i, stride in (("subm1", 0, 1), ("subm2", 3, 1),
+                            ("conv3", 4, 2)):
+        conv, src, res = layers[i], acts[i], acts[i + 1]
+        pick = torch.randperm(res.nnz(), generator=g, device=device)[
+            :SECOND_SAMPLES]
+        at = res.indices()[1:, pick]
+        want, off = _neighbour_sums(src, conv.weight, conv.bias, at,
+                                    tuple(src.shape[1:4]), stride, 1)
+        got = res.values()[pick].detach().double()
+        errs[name] = ((got - want).abs().max()
+                      / res.values().detach().abs().max().double()).item()
+        covered[name] = (off > 0).double().mean().item()
+    subm_ok = all(torch.equal(acts[i].indices(), acts[i + 1].indices())
+                  for i in (0, 3))
+    fp = _footprint(acts[4]._idx()[1:], SECOND_GRID[:], 2, 1)
+    conv_ok = np.array_equal(out._idx()[1:], fp) and bool(
+        (out._idx()[0] == 0).all())
+    # the sparse work: active (output, input) pairs of each conv
+    pairs = []
+    for i, stride in ((0, 1), (3, 1), (4, 2)):
+        src, res = acts[i], acts[i + 1]
+        ids = _voxel_ids(src.indices(), SECOND_GRID, device)
+        at = res.indices()[1:]
+        lim = torch.tensor(SECOND_GRID, device=device)[:, None]
+        cnt = 0
+        for k in np.ndindex(3, 3, 3):
+            s = at * stride - 1 + torch.tensor(k, device=device)[:, None]
+            ok = ((s >= 0) & (s < lim)).all(0)
+            cnt += int((ids[s[0][ok], s[1][ok], s[2][ok]] >= 0).sum())
+        pairs.append(cnt)
+        del ids
+    # the first conv's pairs: each site with itself and its neighbours
+    neighbours = pairs[0] / SECOND_VOXELS - 1
+    chans = ((4, 16), (16, 16), (16, 32))
+    sparse_flop = sum(2 * p * a * b for p, (a, b) in zip(pairs, chans))
+    sites_in = d * hgt * wid
+    out_sites = math.prod((s + 2 - 3) // 2 + 1 for s in SECOND_GRID)
+    dense_flop = 2 * 27 * (sites_in * 4 * 16 + sites_in * 16 * 16
+                           + out_sites * 16 * 32)
+    res = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "peak_gib": peak,
+           "errs": errs, "covered": covered, "neighbours": neighbours,
+           "pairs": pairs, "sparse_flop": sparse_flop,
+           "dense_flop": dense_flop, "out_nnz": out.nnz()}
+    log(f"[sparse] SECOND's first stage on KITTI's grid {list(SECOND_GRID)} "
+        f"({sites_in} sites), {SECOND_VOXELS} active voxels x 4 on the "
+        f"ground and car faces, {neighbours:.2f} active off-centre "
+        f"neighbours a voxel (min {SECOND_MIN_NEIGHBOURS}): subm "
+        f"patterns kept {subm_ok}, the strided conv's {out.nnz()} sites "
+        f"equal to its input's footprint {conv_ok}; values at "
+        f"{SECOND_SAMPLES} sampled sites against float64 neighbour sums "
+        f"{ {k: f'{v:.1e}' for k, v in errs.items()} } (tol {SECOND_TOL}), "
+        f"share of those sites with an active off-centre neighbour "
+        f"{ {k: round(v, 4) for k, v in covered.items()} } (min "
+        f"{SECOND_MIN_COVERED}); "
+        f"forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, peak "
+        f"{peak:.2f} GiB above the start; dense route "
+        f"{dense_flop / 1e12:.2f} TFLOP forward against the rulebook's "
+        f"{sparse_flop / 1e9:.3f} GFLOP ({pairs} active pairs), "
+        f"{dense_flop / sparse_flop:.0f}x [{card_identity()}]")
+    if not (subm_ok and conv_ok and max(errs.values()) <= SECOND_TOL
+            and neighbours >= SECOND_MIN_NEIGHBOURS
+            and min(covered.values()) >= SECOND_MIN_COVERED
+            and bool(torch.isfinite(x.grad).all())):
+        raise AssertionError(f"[sparse] SECOND's stage failed: {res}")
+    del acts, out, x, layers, w
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sparse(device) -> dict:
+    """The GCN at ogbn-arxiv's size, then SECOND's first sparse stage."""
+    return {"gcn": phase_gcn(device), "second": phase_second(device)}
+
+
+# distribution: PyTorch's VAE example (examples/vae/main.py: 784 -> 400 ->
+# 20, batch 128, Adam 1e-3) on inputs in [0, 1] from the seed, written
+# with Normal.rsample, kl_divergence(Normal, Normal(0, 1)) and
+# Bernoulli.log_prob; VAE_STEPS steps, the first held to the port's CPU
+# (the same weights and threefry keys) within VAE_TOL of each tensor's
+# largest magnitude; then every distribution, KL pair and transform on
+# the card at DIST_N elements against the CPU in float64 within DIST_TOL
+# of each result's largest magnitude (the same formulas; CUDA's and the
+# host's libm differ in the last places, most in lgamma and digamma);
+# threefry draws on the card equal to the CPU's on the same key (the
+# uniform, Bernoulli, categorical and multinomial draws bit for bit, the
+# normal, Laplace, Gumbel and exponential ones within DRAW_RTOL: CUDA's
+# float32 erfinv / log against the host's); gamma draws by their moments
+# over DIST_N draws (the sample mean within 5 standard errors)
+VAE_DIMS, VAE_BATCH, VAE_LR, VAE_STEPS, VAE_TOL = (784, 400, 20), 128, \
+    1e-3, 10, 1e-5
+DIST_N, DIST_TOL, DRAW_RTOL = 1 << 20, 1e-10, 1e-5
+
+
+class VAE(paddle.nn.Layer):
+    def __init__(self, d_in, hidden, latent):
+        super().__init__()
+        self.fc1 = paddle.nn.Linear(d_in, hidden)
+        self.fc21 = paddle.nn.Linear(hidden, latent)
+        self.fc22 = paddle.nn.Linear(hidden, latent)
+        self.fc3 = paddle.nn.Linear(latent, hidden)
+        self.fc4 = paddle.nn.Linear(hidden, d_in)
+
+    def forward(self, x):
+        h1 = PF.relu(self.fc1(x))
+        mu, logvar = self.fc21(h1), self.fc22(h1)
+        q = paddle.distribution.Normal(mu, paddle.exp(0.5 * logvar))
+        z = q.rsample()
+        recon = PF.sigmoid(self.fc4(PF.relu(self.fc3(z))))
+        return recon, q
+
+
+def vae_loss(model, x):
+    dist = paddle.distribution
+    recon, q = model(x)
+    prior = dist.Normal(paddle.zeros_like(q.loc), paddle.ones_like(q.scale))
+    nll = -dist.Bernoulli(recon).log_prob(x).sum()
+    return nll + dist.kl_divergence(q, prior).sum()
+
+
+def phase_vae(device) -> dict:
+    rng = np.random.default_rng(70)
+    data = rng.random((VAE_STEPS, VAE_BATCH, VAE_DIMS[0])).astype(np.float32)
+    runs = []                      # the card's run, then the CPU's
+    for dev in (device, torch.device("cpu")):
+        paddle.set_device(dev)
+        paddle.seed(71)
+        model = VAE(*VAE_DIMS)
+        if runs:
+            model.set_state_dict(start)
+        else:
+            start = {k: v.detach().to("cpu", copy=True)
+                     for k, v in model.state_dict().items()}
+        opt = paddle.optimizer.Adam(learning_rate=VAE_LR,
+                                    parameters=model.parameters())
+        _seed_threefry(72)
+        loss = vae_loss(model, paddle.to_tensor(data[0]))
+        loss.backward()
+        runs.append({"model": model, "opt": opt, "loss": loss.item(),
+                     "grads": {n: p.grad.detach().to("cpu", copy=True)
+                               for n, p in model.named_parameters()}})
+        opt.step()
+        opt.clear_grad()
+    paddle.set_device(device)
+    card, cpu = runs
+    loss_gap = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_gap = max(grad_gaps_floored(card["grads"], cpu["grads"]).values())
+    model, opt = card["model"], card["opt"]
+    losses = [card["loss"]]
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for batch in data[1:]:
+        loss = vae_loss(model, paddle.to_tensor(batch))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss)
+    t1.record()
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    ms = t0.elapsed_time(t1) / (VAE_STEPS - 1)
+    log(f"[distribution] PyTorch's VAE ({VAE_DIMS[0]} -> {VAE_DIMS[1]} -> "
+        f"{VAE_DIMS[2]}, batch {VAE_BATCH}, Adam {VAE_LR}; Normal.rsample, "
+        f"kl_divergence, Bernoulli.log_prob): first step loss gap "
+        f"{loss_gap:.2e}, worst gradient {grad_gap:.2e} of its max (tol "
+        f"{VAE_TOL}); {ms:.3f} ms/step over {VAE_STEPS - 1} steps; losses "
+        f"{[round(v, 2) for v in losses]}")
+    if not (loss_gap <= VAE_TOL and grad_gap <= VAE_TOL
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError("[distribution] the VAE failed its checks")
+    return {"loss_gap": loss_gap, "grad_gap": grad_gap, "ms_per_step": ms}
+
+
+def _dist_cases(T, rng):
+    """(label, distribution, value) over DIST_N float64 elements, the
+    parameters made by ``T`` (a tensor on one device) from ``rng``."""
+    n = DIST_N
+    D = paddle.distribution
+
+    def u(lo, hi, shape=(n,)):
+        return T(rng.uniform(lo, hi, shape))
+
+    loc, scale = u(-2, 2), u(0.3, 2.5)
+    k = 4
+    probs = rng.uniform(0.05, 1.0, (n // k, k))
+    probs /= probs.sum(-1, keepdims=True)
+    counts = rng.multinomial(10, [0.25] * k, n // k).astype(np.float64)
+    return [
+        ("Normal", D.Normal(loc, scale), u(-5, 5)),
+        ("LogNormal", D.LogNormal(loc, scale), u(0.05, 8)),
+        ("Uniform", D.Uniform(loc, loc + scale), loc + u(0, 1) * scale),
+        ("Laplace", D.Laplace(loc, scale), u(-5, 5)),
+        ("Gumbel", D.Gumbel(loc, scale), u(-3, 6)),
+        ("Beta", D.Beta(u(0.5, 4), u(0.5, 4)), u(0.02, 0.98)),
+        ("Dirichlet", D.Dirichlet(T(rng.uniform(0.5, 3, (n // k, k)))),
+         T(probs)),
+        ("Exponential", D.Exponential(scale), u(0, 6)),
+        ("Categorical", D.Categorical(T(np.log(probs))),
+         T(rng.integers(0, k, n // k))),
+        ("Multinomial", D.Multinomial(10, T(probs)), T(counts)),
+        ("Bernoulli", D.Bernoulli(u(0.02, 0.98)),
+         T(rng.integers(0, 2, n).astype(np.float64))),
+        ("Independent", D.Independent(D.Normal(
+            loc.reshape(-1, 8), scale.reshape(-1, 8)), 1),
+         u(-5, 5).reshape(-1, 8)),
+        ("Transformed", D.TransformedDistribution(
+            D.Normal(loc, scale), [D.ExpTransform(),
+                                   D.AffineTransform(0.5, 2.0)]),
+         u(0.6, 9)),
+    ]
+
+
+def _dist_results(T, seed):
+    """Every distribution's log_prob, entropy, cdf / icdf where defined,
+    mean and variance; every registered KL pair; every transform's
+    forward, inverse and log-det: name -> tensor."""
+    D = paddle.distribution
+    kl_mod = sys.modules["paddle_tpu_torch.distribution.kl"]
+    rng = np.random.default_rng(seed)
+    out = {}
+    cases = _dist_cases(T, rng)
+    for label, d, v in cases:
+        out[f"{label}.log_prob"] = d.log_prob(v)
+        if label != "Transformed":
+            out[f"{label}.entropy"] = d.entropy()
+        for attr in ("mean", "variance"):
+            if label not in ("Transformed", "Categorical"):
+                out[f"{label}.{attr}"] = getattr(d, attr)
+        if hasattr(d, "cdf"):
+            out[f"{label}.cdf"] = d.cdf(v)
+        if hasattr(d, "icdf"):
+            out[f"{label}.icdf"] = d.icdf(T(rng.uniform(0.01, 0.99,
+                                                        DIST_N)))
+    by = {label: d for label, d, _ in cases}
+    pairs = {}
+    for label, d, _ in cases:
+        if label == "Transformed":
+            continue
+        other = _dist_cases(T, np.random.default_rng(seed + 1))
+        twin = {lb: dd for lb, dd, _ in other}[label]
+        if label == "Uniform":       # q must cover p
+            twin = D.Uniform(d.low - 0.5, d.high + 0.5)
+        pairs[label] = (d, twin)
+    for label, (p, q) in pairs.items():
+        if (type(p), type(q)) in kl_mod._REGISTRY:
+            out[f"kl.{label}"] = D.kl_divergence(p, q)
+    out["kl.ExponentialFamily"] = kl_mod._kl_expfamily_expfamily(
+        *pairs["Normal"])
+    out["Normal.entropy_bregman"] = by["Normal"]._entropy_bregman()
+    x = T(rng.uniform(-2, 2, DIST_N))
+    xp = T(rng.uniform(0.1, 3, DIST_N))
+    m = x.reshape(-1, 4)
+    tr = {"Abs": (D.AbsTransform(), x), "Affine": (D.AffineTransform(
+        T(rng.uniform(-1, 1, DIST_N)), T(rng.uniform(0.5, 2, DIST_N))), x),
+        "Exp": (D.ExpTransform(), x), "Power": (D.PowerTransform(2.5), xp),
+        "Sigmoid": (D.SigmoidTransform(), x),
+        "Tanh": (D.TanhTransform(), x * 0.9),
+        "Softmax": (D.SoftmaxTransform(), m),
+        "StickBreaking": (D.StickBreakingTransform(), m),
+        "Reshape": (D.ReshapeTransform([4], [2, 2]), m),
+        "Independent": (D.IndependentTransform(D.ExpTransform(), 1), m),
+        "Chain": (D.ChainTransform([D.ExpTransform(),
+                                    D.AffineTransform(0.5, 2.0)]), x),
+        "Stack": (D.StackTransform([D.ExpTransform(), D.TanhTransform()],
+                                   axis=1), x.reshape(-1, 2))}
+    for label, (t, xv) in tr.items():
+        y = t.forward(xv)
+        out[f"T.{label}.forward"] = y
+        out[f"T.{label}.inverse"] = t.inverse(y)
+        if label != "Softmax":     # not injective: no log-det
+            out[f"T.{label}.log_det"] = t.forward_log_det_jacobian(xv)
+    return out, len(tr), sum(1 for k in out if k.startswith("kl."))
+
+
+def _draws(device, seed):
+    """Threefry draws of each distribution from one key on ``device``."""
+    D = paddle.distribution
+
+    def T(a):
+        return paddle.to_tensor(np.asarray(a, np.float32), place=device)
+
+    logits = np.log(np.array([0.1, 0.2, 0.3, 0.4], np.float32))
+    n = DIST_N
+    out = {}
+    for label, make in (
+            ("Normal", lambda: D.Normal(T(1.0), T(2.0))),
+            ("Uniform", lambda: D.Uniform(T(-1.0), T(3.0))),
+            ("Laplace", lambda: D.Laplace(T(0.5), T(1.5))),
+            ("Gumbel", lambda: D.Gumbel(T(0.5), T(1.5))),
+            ("Exponential", lambda: D.Exponential(T(2.0))),
+            ("Bernoulli", lambda: D.Bernoulli(T(0.3))),
+            ("Categorical", lambda: D.Categorical(T(logits))),
+            ("Multinomial", lambda: D.Multinomial(10, T(np.exp(logits))))):
+        _seed_threefry(seed)
+        shape = [n // 16] if label == "Multinomial" else [n]
+        out[label] = make().sample(shape).cpu()
+    return out
+
+
+def phase_distribution(device) -> dict:
+    """The VAE, then the sweep: every result on the card against the CPU
+    in float64, the threefry draws equal, the gamma draws' moments."""
+    vae = phase_vae(device)
+    results, draws = [], []        # the card's, then the CPU's
+    for dev in (device, torch.device("cpu")):
+        paddle.set_device(dev)     # the constants of the cases go there
+        got, n_tr, n_kl = _dist_results(
+            lambda a, dev=dev: paddle.to_tensor(
+                a, dtype="float64" if np.asarray(a).dtype.kind == "f"
+                else None, place=dev), seed=73)
+        results.append(got)
+        draws.append(_draws(dev, 74))
+    paddle.set_device(device)
+    card, cpu = results
+    errs = {k: _rel_gap(card[k].detach().cpu().double(),
+                        cpu[k].detach().double()) for k in cpu}
+    worst = max(errs, key=errs.get)
+    top = sorted(errs, key=errs.get, reverse=True)[:3]
+    exact = ("Uniform", "Bernoulli", "Categorical", "Multinomial")
+    draw_errs = {}
+    for k, want in draws[1].items():
+        got = draws[0][k]
+        if k in exact:
+            draw_errs[k] = 0.0 if torch.equal(got, want) else float("inf")
+        else:
+            draw_errs[k] = ((got - want).abs() / want.abs().clamp(
+                min=1.0)).max().item()
+    paddle.seed(75)
+    D = paddle.distribution
+    a, b = 2.0, 3.0
+    beta = D.Beta(paddle.to_tensor(np.float32(a)),
+                  paddle.to_tensor(np.float32(b))).sample([DIST_N])
+    conc = np.array([1.0, 2.0, 3.0], np.float32)
+    dirichlet = D.Dirichlet(paddle.to_tensor(conc)).sample([DIST_N // 4])
+    mean_b, var_b = a / (a + b), a * b / ((a + b) ** 2 * (a + b + 1))
+    z_beta = abs(beta.mean().item() - mean_b) / math.sqrt(var_b / DIST_N)
+    cm = conc / conc.sum()
+    cv = cm * (1 - cm) / (conc.sum() + 1)
+    z_dir = (np.abs(dirichlet.mean(0).cpu().numpy() - cm)
+             / np.sqrt(cv / (DIST_N // 4))).max()
+    out = {"vae": vae, "worst": (worst, errs[worst]), "draws": draw_errs,
+           "z_beta": z_beta, "z_dirichlet": float(z_dir),
+           "results": len(errs), "transforms": n_tr, "kl_pairs": n_kl}
+    log(f"[distribution] sweep at {DIST_N} float64 elements, card against "
+        f"CPU: {len(errs)} results ({n_kl} KL pairs, {n_tr} transforms' "
+        f"forward, inverse and log-det), largest gaps "
+        f"{[(k, f'{errs[k]:.2e}') for k in top]} of each result's max (tol "
+        f"{DIST_TOL}); threefry draws card vs CPU "
+        f"{ {k: f'{v:.1e}' for k, v in draw_errs.items()} } (exact: "
+        f"{list(exact)}; the rest within {DRAW_RTOL}); gamma draws: Beta"
+        f"({a}, {b}) mean {z_beta:.2f} standard errors off, Dirichlet"
+        f"({conc.tolist()}) {z_dir:.2f} [{card_identity()}]")
+    if not (errs[worst] <= DIST_TOL
+            and all(v <= DRAW_RTOL for v in draw_errs.values())
+            and z_beta < 5 and z_dir < 5):
+        raise AssertionError(f"[distribution] the sweep failed: {out}")
+    return out
+
+
+# onnx: LeNet (the JAX exporter's model size) exported with its weights on
+# the card and its file run through the numpy evaluator
+# (``chip_tools/onnx_eval.py``) against the card's logits within ONNX_TOL
+# (float64 sums in the evaluator's convolutions, cuDNN's float32 on the
+# card);
+# resnet50 refused with the op named (average pooling, as the JAX exporter
+# refuses it); an export after the refusal works
+ONNX_BATCH, ONNX_TOL = 8, 1e-5
+
+
+def phase_onnx(device) -> dict:
+    paddle.set_device(device)
+    paddle.seed(80)
+    net = vmodels.LeNet()
+    net.eval()
+    x = torch.rand((ONNX_BATCH, 1, 28, 28),
+                   generator=torch.Generator().manual_seed(81))
+    with torch.no_grad():
+        want = net(x.to(device)).cpu()
+    spec = [((ONNX_BATCH, 1, 28, 28), "float32")]
+    with _scratch() as d:
+        t0 = time.perf_counter()
+        path = paddle.onnx.export(net, os.path.join(d, "lenet"),
+                                  input_spec=spec)
+        export_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            blob = f.read()
+        (got,) = onnx_eval.run(blob, [x.numpy()])
+        err = _rel_gap(torch.from_numpy(got), want)
+        big = resnet50(num_classes=RESNET_CLASSES)
+        big.eval()
+        try:
+            paddle.onnx.export(big, os.path.join(d, "resnet50"),
+                               input_spec=[((1, 3, RESNET_SIZE, RESNET_SIZE),
+                                            "float32")])
+            refused = None
+        except NotImplementedError as e:
+            refused = str(e)
+        again = paddle.onnx.export(net, os.path.join(d, "lenet2"),
+                                   input_spec=spec)
+        with open(again, "rb") as f:
+            same = f.read() == blob
+    log(f"[onnx] LeNet with its weights on the card exported in "
+        f"{export_s:.2f}s ({len(blob)} bytes, ONNX-13): its file in the "
+        f"numpy evaluator against the card's logits {err:.2e} of max "
+        f"|logit| (tol {ONNX_TOL}); resnet50 refused: {refused!r}; the "
+        f"next export works and writes the same bytes: {same}")
+    if err > ONNX_TOL or refused is None or \
+            "adaptive_avg_pool2d" not in refused or not same:
+        raise AssertionError("[onnx] the export checks failed")
+    del big
+    torch.cuda.empty_cache()
+    return {"err": err, "refused": refused, "bytes": len(blob)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -9219,6 +10654,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
+    last = [t_start]
+
+    def mark(label):
+        now = time.perf_counter()
+        log(f"[time] {label}: {now - last[0]:.1f}s (at {now - t_start:.1f}s)")
+        last[0] = now
     old_fwd, old_ragged, old_decode, old_text = None, None, None, {}
     argv = sys.argv[1:]
     for path in (argv[i + 1] for i, a in enumerate(argv[:-1])
@@ -9244,6 +10685,7 @@ def main() -> int:
     per_tier_errors = phase_per_tier_kernels(device)
     flash_errors = phase_flash(device)
     dropout_errors = phase_dropout_kernel(device)
+    mark("the build and the kernel checks")
     launches: dict = {}
 
     # the float path at GPT-2-small width, unsplit and split
@@ -9276,6 +10718,7 @@ def main() -> int:
     phase_faults_journal(gpt2)
     del gpt2
     torch.cuda.empty_cache()
+    mark("GPT-2-small serving")
 
     # the main path: GPT-3 XL widths, full depth, int8 KV + int8 weights
     xl = TorchLM(GPT3_XL, init_lm_params(GPT3_XL, seed=0, device=device),
@@ -9301,24 +10744,29 @@ def main() -> int:
     log(f"[engine] GPT-3 XL int8 ms/step: split {SPLIT} {ms_split:.2f}, "
         f"unsplit {ms_unsplit:.2f} (warm split run vs the unsplit run "
         "that followed it)")
+    mark("GPT-3 XL int8: the quantized step and the two engine runs")
     # this slice's main path: the same traffic through the async
     # pipeline at depths 0, 1 and 2, CUDA graphs off and on
     batches = [requests_long(s, GPT3_XL.vocab) for s in (11, 13, 17)]
     phase_async_serving(xl, batches)
+    mark("GPT-3 XL int8: async depths and graphs")
     # this slice's main path: the same engine at depth 1 with graphs,
     # observability on and off
     phase_observability(xl, batches)
+    mark("GPT-3 XL int8: observability")
     # quantized serving, the rest: bfloat16 scale pools on the main path,
     # the int8 weight matmul off and on, then the replicated fabric
     launches.update(phase_narrow_serving(xl, reqs, outs[SPLIT])["launches"])
     wm = phase_weight_matmul(xl, batches)["launches"]
     launches.update({k: wm[k] for k in (i8.INT8_MATMUL_KERNEL,
                                         i8.QUANTIZE_ROWS_KERNEL)})
+    mark("GPT-3 XL int8: narrow scales and the int8 weight matmul")
     phase_fabric(xl)
     if "--profile" in sys.argv[1:]:
         phase_profile(xl, reqs)
     del xl
     torch.cuda.empty_cache()
+    mark("GPT-3 XL int8: the fabric")
 
     # fp8 pages on the engine path: GPT-3 XL widths, four layers
     xl4 = TorchLM(GPT3_XL_4L, init_lm_params(GPT3_XL_4L, seed=1,
@@ -9338,6 +10786,7 @@ def main() -> int:
     log_split_agreement("GPT-3 XL fp8", reqs, outs)
     del xl4
     torch.cuda.empty_cache()
+    mark("GPT-3 XL fp8 serving")
 
     # training, the main path of this slice: parity at 2 layers in
     # float32, then bench.py's configuration
@@ -9359,6 +10808,7 @@ def main() -> int:
     phase_remat(device)
     phase_adam_lowmem(device)
     phase_generate(device)
+    mark("GPT training")
 
     # the Paddle-API core, the main path of this slice: the custom ops
     # and the user kernel, then ResNet-50 through Layer, Momentum, AMP O2
@@ -9369,6 +10819,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     resnet = phase_resnet_train(device, "--profile" in sys.argv[1:])
     torch.cuda.empty_cache()
+    mark("the core and ResNet-50")
 
     # the compile and export paths, this slice's main path: to_static as
     # CUDA graphs, jit.save / load through torch.export, a static program
@@ -9380,6 +10831,7 @@ def main() -> int:
     phase_static_train(device)
     torch.cuda.empty_cache()
     phase_extensions(device)
+    mark("compile and export")
 
     # the high-level training path, this slice's main path: ResNet-50
     # through Model.fit / evaluate / predict over FakeData, the
@@ -9389,6 +10841,7 @@ def main() -> int:
     phase_hapi_workers(device)
     torch.cuda.empty_cache()
     phase_static_extras(device)
+    mark("the high-level API")
 
     # the op surface and the sequence layers, this slice's main path:
     # every ported op on the card against the CPU, Transformer-base
@@ -9401,6 +10854,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lstm = phase_lstm_lm(device)
     torch.cuda.empty_cache()
+    mark("the op surface and the sequence models")
 
     # the vision zoo, vision.ops, the host-offload AdamW and
     # amp.debugging, this slice's main paths: MobileNetV3-Large trained
@@ -9416,6 +10870,7 @@ def main() -> int:
     phase_offload(device)
     torch.cuda.empty_cache()
     phase_amp_debugging(device)
+    mark("vision, offload and amp.debugging")
 
     # BERT, incubate and geometric, this slice's main paths: BERT-base
     # fine-tuned on the GLUE recipe (the dropout kernel on the attention
@@ -9429,6 +10884,7 @@ def main() -> int:
     phase_geometric(device)
     misc = phase_incubate_misc(device)
     torch.cuda.empty_cache()
+    mark("BERT, incubate and geometric")
 
     # Paddle's own idioms and the audio front end, this slice's main
     # paths: BERT-base built, re-initialized and trained as PaddleNLP
@@ -9438,6 +10894,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_audio(device)
     torch.cuda.empty_cache()
+    mark("the idiom and audio phases")
+
+    # the long tail, this slice's main paths: bench.py's GPT trained
+    # under paddle.profiler and its static program through the cost
+    # model (the bf16 flash kernels), ResNet-50 through QAT, PTQ and the
+    # int8 tier (the int8 kernels), an ogbn-arxiv GCN (the dropout
+    # kernel) and SECOND's first sparse stage, a VAE and the
+    # distribution sweep, and ONNX export
+    prof_cost = phase_profiler_cost(device)
+    mark("phase_profiler_cost")
+    quant = phase_quantization(device)
+    mark("phase_quantization")
+    sparse = phase_sparse(device)
+    mark("phase_sparse")
+    phase_distribution(device)
+    mark("phase_distribution")
+    phase_onnx(device)
+    mark("phase_onnx")
 
     if old_ragged is not None:
         old_ragged = (old_ragged, {
@@ -9445,7 +10919,11 @@ def main() -> int:
             for lib, entry, _ in pa._LIBS.values()})
     rows = phase_times(device, launches, errors, old_ragged)
     rows += narrow_rows(device, launches, narrow_errors)
-    rows += int8_rows(int8_times, launches)
+    quant_launches = quant["launches"]
+    rows += int8_rows(int8_times, {
+        k: launches.get(k, 0) + quant_launches[k] for k in quant_launches})
+    for row in rows[-2:]:
+        row["launches_quantization"] = quant_launches[row["name"]]
     if old_decode is not None:
         old_decode = (old_decode, _build.load_source(
             "paged_attention_old", old_text["paged_attention_old"]))
@@ -9461,6 +10939,12 @@ def main() -> int:
     fwd["launches"] += bert_infer["launches"] + fused["launches"]
     fwd["launches_bert_infer"] = bert_infer["launches"]
     fwd["launches_fused_multi_transformer"] = fused["launches"]
+    # and this slice's profiled GPT steps and cost-model replays (bf16)
+    for row in rows:
+        extra = prof_cost["row_launches"].get(row["name"], 0)
+        if extra:
+            row["launches"] += extra
+            row["launches_profiler_cost"] = extra
     # and incubate.autograd's transforms through float32 attention
     for row in rows:
         extra = misc["attn_launches"].get(row["name"], 0)
@@ -9473,12 +10957,14 @@ def main() -> int:
                             dropout_main["launches"][dk.KERNEL_NAME]
                             + seq_dropout + vision["dropout_launches"]
                             + bert["dropout_launches"]
-                            + idiom["dropout_launches"],
+                            + idiom["dropout_launches"]
+                            + sparse["gcn"]["dropout_launches"],
                             dropout_errors["max_abs_err"]))
     rows[-1]["launches_sequence"] = seq_dropout
     rows[-1]["launches_vision"] = vision["dropout_launches"]
     rows[-1]["launches_bert"] = bert["dropout_launches"]
     rows[-1]["launches_paddle_idiom"] = idiom["dropout_launches"]
+    rows[-1]["launches_gcn"] = sparse["gcn"]["dropout_launches"]
     rows.append(triple_row(core))
     log(f"[ops] int8 launches in the op sweep {ops['int8_launches']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")

@@ -5,8 +5,9 @@ From the repository root, on a machine with one GPU::
     PYTHONPATH=. python3 chip_tools/smoke_phases.py phase_audio ...
 
 It builds every kernel (``phase_build``, one nvcc per source), then runs
-each named phase (default: the op sweep, the Paddle-idiom and the audio
-phases) with ``torch.device("cuda")``. A failing phase prints its
+each named phase (default: the long tail's profiler / cost-model,
+quantization, sparse, distribution and ONNX phases) with
+``torch.device("cuda")``. A failing phase prints its
 traceback and the next one runs; the exit code is 1 if any failed.
 """
 import sys
@@ -15,7 +16,8 @@ import traceback
 
 import torch
 
-DEFAULT = ("phase_op_surface", "phase_paddle_idiom", "phase_audio")
+DEFAULT = ("phase_profiler_cost", "phase_quantization", "phase_sparse",
+           "phase_distribution", "phase_onnx")
 
 
 def main() -> int:

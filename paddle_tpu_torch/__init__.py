@@ -22,7 +22,10 @@ checkpoints, shared-memory tensor passing), ``geometric`` and
 ``regularizer``, Paddle's initializers, ``device`` (streams, events,
 the allocator's counters), the places and the rest of ``compat``,
 ``fft`` / ``signal`` / ``audio``, ``hub``, ``reader``, ``strings`` and
-``sysconfig``, serves the decoder-only LM
+``sysconfig``, ``sparse`` (COO / CSR tensors, their ops and layers),
+``distribution``, ``quantization`` (QAT, PTQ, int8 conversion on the
+int8 kernels), ``profiler`` over ``torch.profiler``, ``cost_model`` and
+``onnx`` export, serves the decoder-only LM
 through the JAX engine's entry points (``inference.llm``) and trains the
 GPT family (``text.gpt``) on an NVIDIA GPU, with the TPU's Pallas
 kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
@@ -30,10 +33,12 @@ kernels rewritten by hand for Hopper (``kernels/csrc``). It imports
 to the card unless ``set_device("cpu")`` (or a ``place``) asks for the
 host.
 """
-from . import (amp, audio, autograd, callbacks, device, fft, framework,
-               geometric, hapi, hub, incubate, inference, io, jit, linalg,
-               metric, nn, observability, optimizer, reader, regularizer,
-               signal, static, strings, sysconfig, text, utils, vision)
+from . import (amp, audio, autograd, callbacks, cost_model, device,
+               distribution, fft, framework, geometric, hapi, hub, incubate,
+               inference, io, jit, linalg, metric, nn, observability, onnx,
+               optimizer, profiler, quantization, reader, regularizer,
+               signal, sparse, static, strings, sysconfig, text, utils,
+               vision)
 from .compat import (CPUPlace, CUDAPinnedPlace, CUDAPlace, DataParallel,
                      LazyGuard, NPUPlace, Place, TPUPlace, batch,
                      check_shape, create_parameter, disable_signal_handler,
@@ -55,6 +60,7 @@ from .nn import ParamAttr, Parameter
 from .nn.functional import log_softmax, softmax
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops
+from .sparse import sparse_coo_tensor, sparse_csr_tensor
 from .static import (disable_static, enable_static, in_dynamic_mode,
                      in_static_mode)
 
@@ -80,4 +86,6 @@ __all__ = ["resolve_device", "Tensor", "Parameter", "ParamAttr", "bool",
            "batch", "check_shape", "create_parameter",
            "disable_signal_handler", "dtype", "get_cuda_rng_state", "iinfo",
            "is_compiled_with_tpu", "is_complex", "is_floating_point",
-           "is_integer", "set_cuda_rng_state", "set_printoptions", *_ops]
+           "is_integer", "set_cuda_rng_state", "set_printoptions",
+           "cost_model", "distribution", "onnx", "profiler", "quantization",
+           "sparse", "sparse_coo_tensor", "sparse_csr_tensor", *_ops]

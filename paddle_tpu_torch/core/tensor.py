@@ -26,6 +26,8 @@ axes (the top-level functions in ``ops`` take Paddle's arguments).
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -133,6 +135,23 @@ class Tensor(torch.Tensor):
             else from_numpy(np.asarray(value))
         self.copy_(src.reshape(self.shape).to(self.dtype))
         return self
+
+    def __deepcopy__(self, memo):
+        """A copy with storage of its own, as torch's default makes one
+        (torch's refuses a subclass whose ops return the subclass):
+        values, ``requires_grad``, the gradient and the attributes."""
+        if isinstance(self, torch.nn.Parameter):
+            return torch.nn.Parameter.__deepcopy__(self, memo)
+        if id(self) in memo:
+            return memo[id(self)]
+        with torch.no_grad():
+            out = torch.Tensor.clone(self).as_subclass(type(self))
+        out.requires_grad_(self.requires_grad)
+        memo[id(self)] = out
+        if self.grad is not None:
+            out.grad = copy.deepcopy(self.grad, memo)
+        out.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return out
 
     def tpu(self) -> "Tensor":
         """This tensor on the card: in the JAX package ``tpu()`` and

@@ -32,7 +32,9 @@ its own copy; it reads nothing of the JAX package):
 - :mod:`.alerts` — multi-window SLO burn-rate alerting over the exact
   digest windows, feeding the fabric router and the brownout ladder.
 
-The training and native-host metric families are not ported yet.
+``training_metrics`` holds the training-step families that
+``profiler.benchmark()`` feeds. The native-host family is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -67,7 +69,7 @@ __all__ = [
     "enable", "disable", "enabled", "log_buckets",
     "to_prometheus_text", "to_json", "write_prometheus",
     "start_metrics_server", "span", "instrument_jit", "jit_signature",
-    "serving_metrics", "ledger_metrics",
+    "serving_metrics", "ledger_metrics", "training_metrics",
     "Event", "FlightRecorder", "default_recorder", "set_default_recorder",
     "to_chrome_trace", "write_chrome_trace", "host_events_to_events",
     "merge_device_trace", "merge_traces", "write_merged_trace",
@@ -444,4 +446,21 @@ def fabric_metrics(registry: Optional[Registry] = None) -> dict:
             "wall time of one journal replay migrating a live request "
             "onto a surviving replica after a kill/drain",
             buckets=log_buckets(1e-6, 10.0, 2.0)),
+    }
+
+
+def training_metrics(registry: Optional[Registry] = None) -> dict:
+    """Training-step families fed by ``profiler.benchmark()``."""
+    r = registry or default_registry()
+    return {
+        "steps": r.counter("pd_training_steps_total",
+                           "optimizer steps recorded by the profiler "
+                           "benchmark"),
+        "samples": r.counter("pd_training_samples_total",
+                             "samples recorded by the profiler benchmark"),
+        "ips": r.gauge("pd_training_ips",
+                       "profiler benchmark throughput "
+                       "(samples/s, or steps/s when no sample counts)"),
+        "step_latency": r.histogram("pd_training_step_seconds",
+                                    "wall time between profiler steps"),
     }

@@ -466,3 +466,78 @@ def audio_on_cpu(cpu_card, monkeypatch):
     saved = tdevice._CURRENT[0]
     yield
     tdevice._CURRENT[0] = saved
+
+
+# ---------- the long tail: profiler, cost model, quantization, sparse,
+# ---------- distribution, onnx
+
+class _HostEvent:
+    """A stand-in for ``torch.cuda.Event`` on the CPU that times the
+    host: ``record()`` reads ``perf_counter``."""
+
+    def __init__(self, **kw):
+        self.t = None
+
+    def record(self):
+        import time
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return 1e3 * (other.t - self.t)
+
+    def synchronize(self):
+        pass
+
+
+@pytest.fixture
+def long_tail_on_cpu(training_on_cpu, plain_kernels, monkeypatch, tmp_path):
+    """The long tail's phases at CPU sizes: bench.py's GPT cut to 2
+    layers of d 64 (one head of 64) at 2 x 128 tokens; resnet18 at 64^2,
+    batch 2 (its 20 convolutions); a 2,000-node graph of 8,000 edges and
+    16 features; SECOND's stage on a 41 x 64 x 64 grid of 300 voxels;
+    the VAE at 32 -> 16 -> 8, batch 16; the distribution sweep at 4,096
+    elements. The flash, dropout and int8 wrappers are their counting
+    plain versions; CUDA events time the host; the device trace's flash
+    kernels are the flash launches made while the profiler records."""
+    fa = cs.fa
+    recorded = collections.Counter()
+    for kind, name in zip(("fwd", "bwd_dkdv", "bwd_dq"), fa.KERNEL_NAMES):
+        counted = getattr(fa, f"flash_{kind}_cuda")
+
+        def run(*args, _run=counted, _name=name):
+            if sys.modules["paddle_tpu_torch.profiler"]._collecting:
+                recorded[_name] += 1
+            return _run(*args)
+        monkeypatch.setattr(fa, f"flash_{kind}_cuda", run)
+
+    def kernel_counts(path):
+        out = dict(recorded)
+        recorded.clear()
+        out["all_kernels"] = sum(out.values())
+        return out
+
+    monkeypatch.setattr(cs, "trace_kernel_counts", kernel_counts)
+    monkeypatch.setattr(cs, "TRAIN_CFG", {
+        **cs.TRAIN_CFG, "hidden_size": 64, "num_attention_heads": 1,
+        "intermediate_size": 128})
+    monkeypatch.setattr(cs, "card_identity", lambda: "CPU rehearsal")
+    monkeypatch.setattr(cs, "resnet50", resnet18)
+    monkeypatch.setattr(cs, "time_cuda", lambda fn, reps=20, warmup=3:
+                        _once(fn, reps, warmup))
+    monkeypatch.setattr(cs, "SCRATCH_DIR", str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    for name, value in (
+            ("RESNET_SIZE", 64), ("QAT_BATCH", 2), ("RESNET_PARITY_BATCH", 2),
+            ("RESNET_WARMUP", 1), ("RESNET_STEPS", 2), ("RESNET_CONVS", 20),
+            ("QUANT_EVAL", 2), ("PTQ_CALIB", 2), ("QUANT_REPS", 1),
+            ("ARXIV", (2000, 8000, 16)), ("GCN_TRAIN", 1000),
+            ("GCN_HIDDEN", 32), ("GCN_STEPS", 3), ("GCN_REPS", 1),
+            ("SECOND_GRID", (41, 64, 64)), ("SECOND_VOXELS", 300),
+            ("SECOND_SAMPLES", 50), ("VAE_DIMS", (32, 16, 8)),
+            ("VAE_BATCH", 16), ("VAE_STEPS", 3), ("DIST_N", 4096),
+            ("ONNX_BATCH", 2), ("COST_REPEAT", 1)):
+        monkeypatch.setattr(cs, name, value)
+    saved = tdevice._CURRENT[0]
+    paddle.set_device("cpu")
+    yield
+    tdevice._CURRENT[0] = saved

@@ -468,3 +468,64 @@ def test_the_scan_covers_the_initializer_device_and_audio_slice(tmp_path):
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+LONG_TAIL = ("sparse/__init__.py", "sparse/nn.py", "distribution/__init__.py",
+             "distribution/distribution.py", "distribution/continuous.py",
+             "distribution/discrete.py", "distribution/transform.py",
+             "distribution/transformed_distribution.py", "distribution/kl.py",
+             "quantization/__init__.py", "profiler/__init__.py",
+             "onnx/__init__.py", "onnx/_export.py", "onnx/_proto.py",
+             "cost_model/__init__.py")
+
+
+def test_the_scan_covers_the_long_tail_slice():
+    """``sparse``, ``distribution``, ``quantization``, ``profiler``,
+    ``onnx`` (with its own copy of the protobuf encoder) and
+    ``cost_model`` are scanned too."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = ROOT / "paddle_tpu_torch"
+    for rel in LONG_TAIL:
+        assert str((port / rel).relative_to(ROOT)) in names, rel
+
+
+def test_using_the_long_tail_loads_no_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device('cpu')\n"
+        "a = paddle.sparse_csr_tensor([0, 1, 2], [1, 0], [2.0, 3.0], [2, 2])\n"
+        "y = paddle.sparse.matmul(a, paddle.ones([2, 3]))\n"
+        "assert y.numpy().tolist() == [[2.0] * 3, [3.0] * 3]\n"
+        "d = paddle.distribution\n"
+        "kl = d.kl_divergence(d.Normal(0.0, 1.0), d.Normal(1.0, 2.0))\n"
+        "assert float(kl) > 0\n"
+        "q = paddle.quantization\n"
+        "net = paddle.nn.Sequential(paddle.nn.Linear(4, 3))\n"
+        "qn = q.QAT(q.QuantConfig(q.FakeQuanterWithAbsMaxObserver(),\n"
+        "    q.FakeQuanterWithAbsMaxObserver())).quantize(net)\n"
+        "qn(paddle.ones([2, 4]))\n"
+        "i8 = q.PTQ(q.QuantConfig()).convert_int8(net)\n"
+        "i8(paddle.ones([2, 4]))\n"
+        "prof = paddle.profiler.Profiler(timer_only=True)\n"
+        "prof.start()\n"
+        "with paddle.profiler.RecordEvent('step'):\n"
+        "    pass\n"
+        "prof.step()\n"
+        "prof.stop()\n"
+        "path = paddle.onnx.export(net, sys.argv[1],\n"
+        "                          input_spec=[((2, 4), 'float32')])\n"
+        "from chip_tools import onnx_eval\n"
+        "out, = onnx_eval.run(open(path, 'rb').read(),\n"
+        "                     [np.ones((2, 4), 'float32')])\n"
+        "assert out.shape == (2, 3)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "print(bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "m")],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
